@@ -1,0 +1,170 @@
+"""``compile_program`` — the single entry point of the compilation pipeline.
+
+frontend → IR → graph → backend: the FV3 dycore and the tests funnel
+through here; no module outside this package touches a lowering directly.
+
+This slice compiles at ``opt_level=0``: every stencil node lowers 1:1 to
+one runner.  The compiled callable threads only *live* fields between
+runners: inputs a node consumes before any node writes them are
+auto-allocated when missing, and transient containers leave the
+environment after their last reader.
+
+Two backends are registered here:
+
+ * ``"torch"`` — the plain lowering (:mod:`.lowering_torch`) on any device;
+ * ``"cuda"`` — the hand-written kernels (:mod:`.cuda`), which take the
+   plain lowering for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Callable, Mapping
+
+import torch
+
+from ..stencil.domain import DomainSpec
+from ..stencil.ir import Stencil
+from .base import Backend, Runner, get_backend, register_backend, resolve_device
+from .cuda import CudaStencil
+from .lowering_torch import compile_torch
+
+if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a circular import
+    from ..graph import StencilProgram
+
+
+class TorchBackend(Backend):
+    """The plain PyTorch lowering: the oracle, on whatever device the
+    fields lie on."""
+
+    name = "torch"
+
+    def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
+                        dtype=torch.float32) -> Runner:
+        return compile_torch(stencil, dom, dtype=dtype)
+
+
+class CudaBackend(Backend):
+    """The hand-written Hopper kernels (K1–K3), one launch per PARALLEL
+    statement and per solver computation."""
+
+    name = "cuda"
+
+    def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
+                        dtype=torch.float32) -> Runner:
+        return CudaStencil(stencil, dom, dtype=dtype)
+
+
+register_backend(TorchBackend())
+register_backend(CudaBackend())
+
+
+def compile_stencil(stencil: Stencil, dom: DomainSpec, *,
+                    backend: "str | Backend" = "cuda",
+                    dtype=torch.float32) -> Runner:
+    """Compile one stencil through a registered backend."""
+    return get_backend(backend).compile_stencil(stencil, dom, dtype=dtype)
+
+
+def _liveness(program: "StencilProgram", runners) -> tuple[list, list]:
+    """Static dataflow facts for the run loop.
+
+    ``inputs``: program fields some node consumes before any node writes
+    them — the only fields the runner must materialize.
+
+    ``drop_after[i]``: transient fields whose last use is node ``i`` — they
+    leave the environment immediately, so their memory returns to the
+    allocator as soon as no later node needs it.
+    """
+    inputs: list[str] = []
+    written: set[str] = set()
+    last_use: dict[str, int] = {}
+    for i, (n, _) in enumerate(runners):
+        for f in n.stencil.fields:
+            if f not in written and f not in inputs:
+                inputs.append(f)
+            last_use[f] = i
+        written |= set(n.writes())
+    drop_after: list[list[str]] = [[] for _ in runners]
+    for f, i in last_use.items():
+        decl = program.fields.get(f)
+        if decl is not None and decl.transient:
+            drop_after[i].append(f)
+    return inputs, drop_after
+
+
+def compile_program(program: "StencilProgram",
+                    backend: "str | Backend" = "cuda", *,
+                    opt_level: int = 0,
+                    n_members: int | None = None,
+                    verify: str | None = None,
+                    device: "torch.device | str | None" = None) -> Callable:
+    """Compile a whole :class:`StencilProgram` into one callable
+    ``fn(fields: dict, params: dict) -> dict`` (live fields threaded).
+
+    ``device`` is where the program runs and where missing inputs are
+    allocated: ``None`` means the CUDA card, and raises ``RuntimeError``
+    when there is none; the CPU takes ``device="cpu"``.  Supplied fields
+    must lie on that device.
+
+    Only ``opt_level=0`` exists in this slice of the port: the optimizer
+    (opt 1–4), the ensemble member axis (``n_members``) and the static
+    verifier (``verify="full"``) raise ``NotImplementedError``.
+
+    The returned callable exposes ``n_kernels`` (number of compiled
+    runners), ``program`` (the graph lowered), ``input_fields``,
+    ``transient_inputs`` and ``device``.
+    """
+    if opt_level != 0:
+        raise NotImplementedError(
+            f"opt_level={opt_level}: only opt level 0 is ported")
+    if n_members:
+        raise NotImplementedError("the ensemble member axis is not ported")
+    if verify not in (None, "off", "passes"):
+        raise NotImplementedError(f"verify={verify!r} is not ported")
+    dev = resolve_device(device)
+    be = get_backend(backend)
+    runners = []
+    for s in program.states:
+        for n in s.nodes:
+            runners.append((n, compile_stencil(
+                n.stencil, program.node_dom(n), backend=be)))
+
+    fields_decl = program.fields
+    dom = program.dom
+    inputs, drop_after = _liveness(program, runners)
+
+    def run(fields: Mapping[str, torch.Tensor],
+            params: Mapping[str, float] | None = None) -> dict:
+        params = dict(params or {})
+        env = dict(fields)
+        lead: tuple = ()
+        for name, x in env.items():
+            if x.device != dev:
+                raise ValueError(f"field {name!r} lies on {x.device}, the "
+                                 f"program runs on {dev}")
+            lead = tuple(x.shape[:-3])
+        for name in inputs:
+            if name not in env:
+                # consumed before any write and not supplied — the backend
+                # owns allocation, never the user (paper §IV-A)
+                decl = fields_decl[name]
+                env[name] = torch.zeros(
+                    lead + dom.padded_shape(decl.interface),
+                    dtype=decl.dtype, device=dev)
+        for i, (n, r) in enumerate(runners):
+            ins = {f: env[f] for f in n.stencil.fields}
+            ps = {p: params[p] for p in n.stencil.params}
+            env.update(r(ins, ps))
+            for f in drop_after[i]:
+                env.pop(f, None)
+        return env
+
+    run.n_kernels = len(runners)
+    run.program = program
+    run.device = dev
+    run.backend = be.name
+    run.input_fields = tuple(inputs)
+    run.transient_inputs = tuple(
+        f for f in inputs
+        if f in fields_decl and fields_decl[f].transient)
+    return run

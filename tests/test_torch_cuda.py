@@ -1,0 +1,288 @@
+"""What the CUDA stencil kernels are fed, checked on the CPU, and the kernels
+themselves on a card.
+
+The kernels interpret a postfix program per statement (``cuda.py`` encodes
+it).  ``_StreamEvaluator`` below is a small torch interpreter of exactly
+that encoding — records, opcodes, edge-clamped K loads, the marching level
+search — written from the kernels' source, not from the IR.  Run over every
+statement of ``fv3/stencils.py``, it must reproduce the kernels' plain
+version (``CudaStencil.plain``, the plain lowering): that holds the
+encoder's output to the IR's meaning without a card.
+
+Tests marked ``cuda`` need a card and skip without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.backend import cuda as C
+from repro_torch.core.stencil import (Assign, Computation, DomainSpec,
+                                      FieldAccess, Interval, Stencil)
+from repro_torch.core.stencil import ir
+from repro_torch.fv3 import dyncore as TD
+from repro_torch.fv3 import state as TSt
+from repro_torch.fv3 import stencils as TS
+
+NAMES = sorted(k for k, v in vars(TS).items() if isinstance(v, Stencil))
+DOM = DomainSpec(ni=6, nj=5, nk=4, halo=3, extend=(1, 1))
+UNARY = {v: k for k, v in C.UNARY_OPS.items()}
+BINARY = {v: k for k, v in C.BINARY_OPS.items()}
+
+
+def _inputs(st, dom, seed, lead=(2,)):
+    rng = np.random.default_rng(seed)
+    ranges = {"aa": (-0.5, 0.5), "cc": (-0.5, 0.5), "bb": (2.0, 3.0),
+              "cx": (-0.9, 0.9), "cy": (-0.9, 0.9)}
+    out = {}
+    for f in st.fields:
+        lo, hi = ranges.get(f, (0.5, 1.5))
+        a = rng.uniform(lo, hi, lead + dom.padded_shape(st.is_interface(f)))
+        if st.name == "remap_interp" and f in ("pe", "pe_ref", "fm"):
+            a = np.cumsum(a, axis=-3)
+        out[f] = torch.from_numpy(a.astype(np.float32))
+    params = {p: float(rng.uniform(0.5, 1.5)) for p in st.params}
+    return out, params
+
+
+class _StreamEvaluator:
+    """Vectorised torch reading of the kernels' instruction stream."""
+
+    def __init__(self, slots, params, consts):
+        self.slots = slots          # slot -> (T, K, Jp, Ip) tensor
+        self.params = params        # f32 values in parameter order
+        self.consts = torch.tensor(consts or [0.0], dtype=torch.float32)
+
+    def load(self, slot, ks, js, is_):
+        arr = self.slots[slot]
+        return arr[:, ks.clamp(0, arr.shape[-3] - 1), js, is_]
+
+    def run(self, prog, pc, end, ks, js, is_):
+        stk, found = [], []
+        f32 = torch.float32
+        while pc < end:
+            op = prog[pc]
+            pc += 1
+            if op == C.OP_LOAD:
+                s, di, dj, dk = prog[pc:pc + 4]
+                pc += 4
+                stk.append(self.load(s, ks + dk, js + dj, is_ + di))
+            elif op == C.OP_CONST:
+                stk.append(self.consts[prog[pc]])
+                pc += 1
+            elif op == C.OP_PARAM:
+                stk.append(torch.tensor(self.params[prog[pc]], dtype=f32))
+                pc += 1
+            elif op == C.OP_FOUND:
+                stk.append(found[prog[pc]])
+                pc += 1
+            elif op == C.OP_SEARCH:
+                coord, lo, hi, nf = prog[pc:pc + 4]
+                pc += 4
+                target = stk.pop()
+                lvl = torch.full(target.shape, lo, dtype=torch.int64)
+                for layer in range(lo + 1, hi):
+                    c = self.load(coord, torch.tensor(layer), js, is_)
+                    lvl = torch.where(c <= target, layer, lvl)
+                found = []
+                for _ in range(nf):
+                    s, di, dj, dk = prog[pc:pc + 4]
+                    pc += 4
+                    arr = self.slots[s]
+                    win = arr[:, :, (js + dj)[0], (is_ + di)[0]]
+                    win = win.expand(lvl.shape[:1] + win.shape[1:2]
+                                     + lvl.shape[2:])
+                    idx = (lvl + dk).clamp(0, arr.shape[-3] - 1)
+                    found.append(torch.gather(win, 1, idx))
+            elif op in UNARY:
+                x = stk.pop()
+                stk.append({"neg": torch.neg, "sqrt": torch.sqrt,
+                            "abs": torch.abs, "exp": torch.exp,
+                            "log": torch.log, "sign": torch.sign,
+                            "floor": torch.floor}[UNARY[op]](x))
+            elif op == C.OP_WHERE:
+                b, a, c = stk.pop(), stk.pop(), stk.pop()
+                stk.append(torch.where(c != 0, a, b))
+            else:
+                b, a = stk.pop(), stk.pop()
+                if op in BINARY:
+                    r = {"+": a + b, "-": a - b, "*": a * b, "/": a / b,
+                         "<": a < b, "<=": a <= b, ">": a > b, ">=": a >= b,
+                         "==": a == b, "!=": a != b}[BINARY[op]]
+                else:
+                    r = {C.OP_MIN: torch.minimum, C.OP_MAX: torch.maximum,
+                         C.OP_POW: torch.pow}[op](a, b)
+                stk.append(r.to(f32))
+        assert len(stk) == 1
+        return stk[0]
+
+    def statement(self, prog, rec, ks):
+        tgt, klo, khi, j0, j1, i0, i1, b, e = rec
+        js = torch.arange(j0, j1)[None, :, None]
+        is_ = torch.arange(i0, i1)[None, None, :]
+        val = self.run(prog, b, e, ks[:, None, None], js, is_)
+        out = self.slots[tgt]
+        k0, k1 = int(ks[0]), int(ks[-1]) + 1
+        out[:, k0:k1, j0:j1, i0:i1] = val.expand(
+            out.shape[0], k1 - k0, j1 - j0, i1 - i0)
+
+    def launch(self, p):
+        n = p.prog[0]
+        recs = [p.prog[1 + C.REC_INTS * q: 1 + C.REC_INTS * (q + 1)]
+                for q in range(n)]
+        if p.kind == "horizontal":
+            (rec,) = recs
+            if rec[2] > rec[1] and rec[4] > rec[3] and rec[6] > rec[5]:
+                self.statement(p.prog, rec, torch.arange(rec[1], rec[2]))
+            return
+        for step in range(p.hi - p.lo):
+            k = p.lo + step if p.forward else p.hi - 1 - step
+            for rec in recs:
+                if rec[1] <= k < rec[2] and rec[4] > rec[3] and rec[6] > rec[5]:
+                    self.statement(p.prog, rec, torch.tensor([k]))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_instruction_stream_matches_plain_version(name):
+    run = C.CudaStencil(getattr(TS, name), DOM)
+    fields, params = _inputs(run.stencil, DOM, seed=NAMES.index(name))
+    want = run.plain(fields, params)
+    env = C.plain.prepare_env(run.stencil, DOM, fields, torch.float32)
+    ev = _StreamEvaluator([env[n] for n in run.slot_names],
+                          [float(params[p]) for p in run.stencil.params],
+                          [])
+    for p in run.programs:
+        ev.consts = torch.tensor(p.consts or [0.0], dtype=torch.float32)
+        ev.launch(p)
+    for w in run.written:
+        torch.testing.assert_close(env[w], want[w], rtol=1e-6, atol=1e-6,
+                                   msg=f"{name}.{w}")
+
+
+def test_launch_plan_of_the_fv3_stencils():
+    n = {name: len(C.CudaStencil(getattr(TS, name), DOM).programs)
+         for name in NAMES}
+    # one K1 launch per PARALLEL statement, one K2 per solver computation
+    assert n["fx_ppm"] == 7 and n["edge_flux"] == 3
+    assert n["riem_coeffs"] == 12 and n["tridiag_solve"] == 2
+    assert n["column_total"] == 2 and n["interface_interp"] == 1
+    kinds = {p.kind for p in C.CudaStencil(TS.tridiag_solve, DOM).programs}
+    assert kinds == {"column"}
+    (search,) = C.CudaStencil(TS.interface_interp, DOM).programs
+    assert search.kind == "horizontal" and search.has_search
+    assert max(p.stack for name in NAMES
+               for p in C.CudaStencil(getattr(TS, name), DOM).programs) \
+        <= C.STACK_MAX
+
+
+def test_fv3_solvers_have_independent_columns():
+    """No solver computation of fv3/stencils.py reads, at a horizontal
+    offset, a field it writes — the column kernel's precondition."""
+    solvers = [getattr(TS, n) for n in NAMES
+               if getattr(TS, n).is_vertical_solver()]
+    assert {s.name for s in solvers} >= {
+        "precompute_pe", "tridiag_solve", "lagrangian_pe", "column_total",
+        "reference_pe", "cumsum_mass"}
+    for st in solvers:
+        for comp in st.computations:
+            if comp.direction is ir.PARALLEL:
+                continue
+            written = set(comp.written())
+            for s in comp.statements:
+                for a in s.value.accesses():
+                    assert a.name not in written or a.offset[:2] == (0, 0)
+            C._check_column_hazard(comp)
+
+
+def _stencil(comps, fields, name="probe"):
+    return Stencil(name, tuple(comps), fields, fields[-1:])
+
+
+def test_encoder_refuses_races_deep_stacks_and_far_reads():
+    q = FieldAccess("q")
+    race = _stencil([Computation(ir.PARALLEL, (
+        Assign("out", FieldAccess("out", (1, 0, 0)) + q),))], ("q", "out"))
+    with pytest.raises(NotImplementedError, match="own target"):
+        C.encode_stencil(race, DOM)
+    col = _stencil([Computation(ir.FORWARD, (
+        Assign("out", FieldAccess("out", (1, 0, -1)) + q,
+               Interval((0, 1), (1, 0))),))], ("q", "out"))
+    with pytest.raises(NotImplementedError, match="horizontal"):
+        C.encode_stencil(col, DOM)
+    e = q
+    for _ in range(C.STACK_MAX):
+        e = q + e * q
+    deep = _stencil([Computation(ir.PARALLEL, (Assign("out", e),))],
+                    ("q", "out"))
+    with pytest.raises(ValueError, match="stack"):
+        C.encode_stencil(deep, DOM)
+    far = _stencil([Computation(ir.PARALLEL, (
+        Assign("out", FieldAccess("q", (DOM.halo, 0, 0))),))], ("q", "out"))
+    with pytest.raises(ValueError, match="outside the allocation"):
+        C.encode_stencil(far, DOM)
+
+
+def test_constants_fold_in_double_precision():
+    (p,) = C.CudaStencil(TS.al_x, DOM).programs
+    assert p.consts == [7.0 / 12.0, 1.0 / 12.0]
+    assert C.BINARY_OPS["/"] not in p.prog[1 + C.REC_INTS:]
+
+
+def test_wrapper_checks_its_inputs():
+    run = C.CudaStencil(TS.courant_x, DOM)
+    u = torch.zeros((2,) + DOM.padded_shape())
+    with pytest.raises(KeyError):
+        run({}, {"dtdx": 1.0})
+    with pytest.raises(TypeError):
+        run({"u": np.zeros(DOM.padded_shape()), "cx": u}, {"dtdx": 1.0})
+    with pytest.raises(ValueError, match="shape"):
+        run({"u": u[..., 1:], "cx": u}, {"dtdx": 1.0})
+    with pytest.raises(ValueError, match="no kernels"):
+        run({"u": u.to("meta"), "cx": u.to("meta")}, {"dtdx": 1.0})
+    with pytest.raises(TypeError, match="float32"):
+        C.CudaStencil(TS.courant_x, DOM, dtype=torch.float64)
+    out = run({"u": u + 1.0, "cx": u}, {"dtdx": 2.0})
+    assert torch.equal(out["cx"][..., 3:8, 3:9], torch.full((2, 4, 5, 6), 2.0))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_kernels_match_plain_version_on_card(card, name):
+    run = C.CudaStencil(getattr(TS, name), DOM)
+    fields, params = _inputs(run.stencil, DOM, seed=NAMES.index(name),
+                             lead=(6,))
+    fields = {k: v.to(card) for k, v in fields.items()}
+    before = dict(C.LAUNCHES)
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert sum(C.LAUNCHES.values()) > sum(before.values())
+    for w in run.written:
+        torch.testing.assert_close(got[w], want[w], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_step_on_card_matches_plain_step(card):
+    cfg = TD.FV3Config(npx=12, nk=5)
+    s0 = TSt.init_state(cfg, device=card)
+    C.reset_launches()
+    got = TD.make_step_sequential(cfg, device=card)(s0)
+    launched = dict(C.LAUNCHES)
+    want = TD.make_step_sequential(cfg, backend="torch", device=card)(s0)
+    assert min(launched.values()) > 0
+    h, n = cfg.halo, cfg.npx
+    for k in want:
+        err = (got[k] - want[k])[..., h:h + n, h:h + n].abs().max().item()
+        assert err < 1e-5, (k, err)
