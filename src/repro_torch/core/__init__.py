@@ -11,10 +11,12 @@ from .hardware import (  # noqa: F401
 from .graph import FieldDecl, Node, State, StencilProgram, rename_stencil  # noqa: F401
 from .backend import (  # noqa: F401
     Backend,
+    BatchSpec,
     available_backends,
     compile_program,
     compile_stencil,
     get_backend,
+    parse_batch,
     register_backend,
     resolve_device,
 )

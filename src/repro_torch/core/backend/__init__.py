@@ -16,5 +16,6 @@ from .base import (  # noqa: F401
     register_backend,
     resolve_device,
 )
+from .batching import BatchSpec, parse_batch  # noqa: F401
 from .cache import stencil_fingerprint  # noqa: F401
 from .compile import compile_program, compile_stencil  # noqa: F401

@@ -43,12 +43,18 @@ class Backend(abc.ABC):
 
     #: registry key, e.g. "torch" / "cuda"
     name: str = ""
+    #: this backend can place the member axis (and chunk loops) on its
+    #: launch grid; without one, every chunk loop is a loop of calls
+    member_grid: bool = False
 
     @abc.abstractmethod
     def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
-                        dtype=torch.float32) -> Runner:
+                        dtype=torch.float32, n_members: int | None = None,
+                        member_chunk: int = 1) -> Runner:
         """Lower one stencil into ``fn(fields, params) -> dict`` of the
-        written fields."""
+        written fields.  ``n_members=M``: fields carry a leading member
+        axis of extent M, run ``member_chunk`` members at a time on the
+        launch grid where the backend has one."""
 
     def __repr__(self):
         return f"<backend {self.name!r}>"

@@ -7,7 +7,8 @@ This slice compiles at ``opt_level=0``: every stencil node lowers 1:1 to
 one runner.  The compiled callable threads only *live* fields between
 runners: inputs a node consumes before any node writes them are
 auto-allocated when missing, and transient containers leave the
-environment after their last reader.
+environment after their last reader.  ``n_members`` threads an ensemble's
+member axis through the program (:mod:`.batching`).
 
 Two backends are registered here:
 
@@ -25,6 +26,7 @@ import torch
 from ..stencil.domain import DomainSpec
 from ..stencil.ir import Stencil
 from .base import Backend, Runner, get_backend, register_backend, resolve_device
+from .batching import AUTO, BatchSpec, pad_wrapped, parse_batch, scan_chunked
 from .cuda import CudaStencil
 from .lowering_torch import compile_torch
 
@@ -39,19 +41,26 @@ class TorchBackend(Backend):
     name = "torch"
 
     def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
-                        dtype=torch.float32) -> Runner:
+                        dtype=torch.float32, n_members: int | None = None,
+                        member_chunk: int = 1) -> Runner:
+        # leading dims ride through the plain lowering: a member axis is
+        # one more of them
         return compile_torch(stencil, dom, dtype=dtype)
 
 
 class CudaBackend(Backend):
     """The hand-written Hopper kernels (K1–K3), one launch per PARALLEL
-    statement and per solver computation."""
+    statement and per solver computation, with the member axis on the
+    launch grid (K5)."""
 
     name = "cuda"
+    member_grid = True
 
     def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
-                        dtype=torch.float32) -> Runner:
-        return CudaStencil(stencil, dom, dtype=dtype)
+                        dtype=torch.float32, n_members: int | None = None,
+                        member_chunk: int = 1) -> Runner:
+        return CudaStencil(stencil, dom, dtype=dtype, n_members=n_members,
+                           member_chunk=member_chunk)
 
 
 register_backend(TorchBackend())
@@ -60,9 +69,12 @@ register_backend(CudaBackend())
 
 def compile_stencil(stencil: Stencil, dom: DomainSpec, *,
                     backend: "str | Backend" = "cuda",
-                    dtype=torch.float32) -> Runner:
+                    dtype=torch.float32, n_members: int | None = None,
+                    member_chunk: int = 1) -> Runner:
     """Compile one stencil through a registered backend."""
-    return get_backend(backend).compile_stencil(stencil, dom, dtype=dtype)
+    return get_backend(backend).compile_stencil(
+        stencil, dom, dtype=dtype, n_members=n_members,
+        member_chunk=member_chunk)
 
 
 def _liveness(program: "StencilProgram", runners) -> tuple[list, list]:
@@ -96,6 +108,7 @@ def compile_program(program: "StencilProgram",
                     backend: "str | Backend" = "cuda", *,
                     opt_level: int = 0,
                     n_members: int | None = None,
+                    batch: "str | BatchSpec" = "vmap",
                     verify: str | None = None,
                     device: "torch.device | str | None" = None) -> Callable:
     """Compile a whole :class:`StencilProgram` into one callable
@@ -106,35 +119,83 @@ def compile_program(program: "StencilProgram",
     when there is none; the CPU takes ``device="cpu"``.  Supplied fields
     must lie on that device.
 
+    ``n_members=M`` gives every field a leading member axis of extent M,
+    lowered per ``batch`` (see :mod:`.batching`):
+
+      * ``"vmap"`` / ``"grid"`` — all M members in each launch (on the
+        ``"cuda"`` backend both put one thread per member and point on the
+        launch grid; the ``"torch"`` backend broadcasts over the axis);
+      * ``"vmap:C"`` / ``"grid:C"`` — a loop over ceil(M/C) chunks of C
+        members, one chunk's transients live at a time;
+      * ``"vmap:C,grid"`` — C-member chunks inside each launch, one thread
+        per chunk (falls back to the chunk loop on the ``"torch"``
+        backend, which has no launch grid).
+
+    M not divisible by C replicate-pads the last member to a whole chunk
+    and slices the pad off after — bit-identical for the real members.  A
+    field broadcast across members (an expanded tensor, member stride 0)
+    reaches the kernels without copies.  Malformed specs raise
+    ``ValueError``; ``"vmap:auto"`` needs the cost model, which comes with
+    the optimizer (ROADMAP item 6), and raises ``NotImplementedError``.
+
     Only ``opt_level=0`` exists in this slice of the port: the optimizer
-    (opt 1–4), the ensemble member axis (``n_members``) and the static
-    verifier (``verify="full"``) raise ``NotImplementedError``.
+    (opt 1–4) and the static verifier (``verify="full"``) raise
+    ``NotImplementedError``.
 
     The returned callable exposes ``n_kernels`` (number of compiled
-    runners), ``program`` (the graph lowered), ``input_fields``,
-    ``transient_inputs`` and ``device``.
+    runners, the same for every M and C), ``program`` (the graph lowered),
+    ``input_fields``, ``transient_inputs`` and ``device``, plus
+    ``n_members`` / ``batch`` / ``batch_spec`` / ``member_chunk`` /
+    ``n_chunks`` describing the member lowering.
     """
     if opt_level != 0:
         raise NotImplementedError(
             f"opt_level={opt_level}: only opt level 0 is ported")
-    if n_members:
-        raise NotImplementedError("the ensemble member axis is not ported")
     if verify not in (None, "off", "passes"):
         raise NotImplementedError(f"verify={verify!r} is not ported")
+    spec = parse_batch(batch)
+    if n_members and spec.chunk == AUTO:
+        raise NotImplementedError(
+            f"batch={spec.token!r} picks C through the cost model, which "
+            "comes with the optimizer (ROADMAP item 6)")
     dev = resolve_device(device)
     be = get_backend(backend)
+    # effective spec for this M: clamp C, take grid-loop chunks to the
+    # chunk loop on backends without a member grid, collapse single-chunk
+    # loops
+    eff = spec
+    if n_members and eff.chunk:
+        C = eff.chunk_for(n_members)
+        loop = eff.loop if be.member_grid else "scan"
+        if loop == "scan" and C >= n_members:
+            eff = BatchSpec(mode=eff.mode)
+        else:
+            eff = BatchSpec(mode=eff.mode, chunk=C, loop=loop)
+    chunk_scan = bool(n_members and eff.chunk and eff.loop == "scan")
+    chunk_grid = bool(n_members and eff.chunk and eff.loop == "grid")
+    Mp = eff.padded_members(n_members) if (chunk_scan or chunk_grid) else \
+        (n_members or 0)
+    # under loop="scan" each launch sees one C-member chunk; under
+    # loop="grid" the launches cover the padded axis, C members a thread
+    stencil_members, member_chunk = n_members, 1
+    if chunk_scan:
+        stencil_members = eff.chunk
+    elif chunk_grid:
+        stencil_members, member_chunk = Mp, eff.chunk
     runners = []
     for s in program.states:
         for n in s.nodes:
             runners.append((n, compile_stencil(
-                n.stencil, program.node_dom(n), backend=be)))
+                n.stencil, program.node_dom(n), backend=be,
+                n_members=stencil_members or None,
+                member_chunk=member_chunk)))
 
     fields_decl = program.fields
     dom = program.dom
     inputs, drop_after = _liveness(program, runners)
 
-    def run(fields: Mapping[str, torch.Tensor],
-            params: Mapping[str, float] | None = None) -> dict:
+    def _exec(fields: Mapping[str, torch.Tensor],
+              params: Mapping[str, float] | None = None) -> dict:
         params = dict(params or {})
         env = dict(fields)
         lead: tuple = ()
@@ -159,12 +220,22 @@ def compile_program(program: "StencilProgram",
                 env.pop(f, None)
         return env
 
-    run.n_kernels = len(runners)
-    run.program = program
-    run.device = dev
-    run.backend = be.name
-    run.input_fields = tuple(inputs)
-    run.transient_inputs = tuple(
+    fn: Callable = _exec
+    if chunk_scan:
+        fn = scan_chunked(_exec, n_members, eff.chunk)
+    elif chunk_grid and Mp != n_members:
+        fn = pad_wrapped(_exec, n_members, Mp)
+    fn.n_kernels = len(runners)
+    fn.program = program
+    fn.device = dev
+    fn.backend = be.name
+    fn.input_fields = tuple(inputs)
+    fn.transient_inputs = tuple(
         f for f in inputs
         if f in fields_decl and fields_decl[f].transient)
-    return run
+    fn.n_members = n_members
+    fn.batch = spec.token if n_members else None
+    fn.batch_spec = eff if n_members else None
+    fn.member_chunk = eff.chunk if (n_members and eff.chunk) else None
+    fn.n_chunks = Mp // eff.chunk if (chunk_scan or chunk_grid) else None
+    return fn

@@ -9,7 +9,11 @@ stencil of the opt-0 path; they port the reference's Pallas kernels
  * ``stencil_column_kernel`` (K2, ``_vertical_kernel``) — one FORWARD or
    BACKWARD computation, one thread per ``(tile, j, i)`` column marching K;
  * ``march_search`` (K3, ``_march_search``) — the ``index_search`` level
-   search, a device function both kernels call for the ``SEARCH`` op.
+   search, a device function both kernels call for the ``SEARCH`` op;
+ * their member axis (K5, ``_member_index_map``/``_member_specs``) — an
+   ensemble's members in one launch, one member (``"grid"``) or a chunk of
+   members (``"vmap:C,grid"``) per thread, with a per-slot member stride
+   that is 0 for a field broadcast across members.
 
 The kernels interpret the IR: this module encodes each statement into a
 postfix program of int32 ops with a float32 constant table (see the opcode
@@ -20,7 +24,8 @@ double precision at encode time, as the plain lowering computes them.
 
 The source builds at first use with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (loaded with :mod:`ctypes`), in
-``build/repro_torch/<hash of source and flags>/`` under the repository.
+``build/repro_torch/<hash of source and flags>/`` under the repository
+(:func:`build_library` builds any named source of ``csrc/`` that way).
 
 A wrapper takes the plain version (:mod:`.lowering_torch`) only for tensors
 on the CPU; for CUDA tensors it launches the kernels or raises.
@@ -88,6 +93,7 @@ class LaunchArgs(ctypes.Structure):
 
     _fields_ = [
         ("ptr", ctypes.c_void_p * MAX_SLOTS),
+        ("mstride", ctypes.c_longlong * MAX_SLOTS),
         ("kext", ctypes.c_int * MAX_SLOTS),
         ("params", ctypes.c_float * MAX_PARAMS),
         ("prog", ctypes.c_void_p),
@@ -108,13 +114,16 @@ class LaunchArgs(ctypes.Structure):
         ("lo", ctypes.c_int),
         ("hi", ctypes.c_int),
         ("forward", ctypes.c_int),
+        ("nmember", ctypes.c_int),
+        ("mchunk", ctypes.c_int),
     ]
 
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else ("search" counts
-#: the K1/K2 launches whose program runs the K3 level search)
-LAUNCHES = {"horizontal": 0, "column": 0, "search": 0}
+#: the K1/K2 launches whose program runs the K3 level search, "member" the
+#: K1/K2 launches over more than one member, which take the member axis, K5)
+LAUNCHES = {"horizontal": 0, "column": 0, "search": 0, "member": 0}
 
 
 def reset_launches() -> None:
@@ -443,8 +452,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 
-def source_path() -> Path:
-    return Path(__file__).resolve().parents[2] / "csrc" / "stencil_kernels.cu"
+def source_path(name: str = "stencil_kernels") -> Path:
+    return Path(__file__).resolve().parents[2] / "csrc" / f"{name}.cu"
 
 
 def build_root() -> Path:
@@ -462,24 +471,25 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found: the stencil kernels build with the CUDA "
-            "toolkit on the machine that has the card")
+            "nvcc not found: the kernels build with the CUDA toolkit on "
+            "the machine that has the card")
     return found
 
 
-def build_library() -> Path:
-    """Compile ``csrc/stencil_kernels.cu`` once per source/flag hash; the
-    ``nvcc`` output (``-Xptxas -v``: registers, spills) goes to
-    ``build.log`` beside the library."""
-    src = source_path()
+def build_library(name: str = "stencil_kernels") -> Path:
+    """Compile ``csrc/<name>.cu`` once per source/flag hash into its own
+    directory; the ``nvcc`` output (``-Xptxas -v``: registers, spills) goes
+    to ``build.log`` beside the library.  Builds of different sources may
+    run at the same time."""
+    src = source_path(name)
     key = hashlib.sha256(src.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_root() / key
-    lib = out_dir / "libstencil_kernels.so"
+    out_dir = build_root() / f"{name}-{key}"
+    lib = out_dir / f"lib{name}.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libstencil_kernels.{os.getpid()}.so"
+    tmp = out_dir / f"lib{name}.{os.getpid()}.so"
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True, timeout=900)
     (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
@@ -533,16 +543,43 @@ def load_library() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
+def _member_stride(name: str, x: torch.Tensor, members: bool) -> int:
+    """Elements between members of ``x`` (dim 0 when ``members``; 0 for a
+    field broadcast across members), after checking that the rest of ``x``
+    is contiguous, as the kernels index it."""
+    want = 1
+    for d in range(x.dim() - 1, 0 if members else -1, -1):
+        if x.shape[d] != 1 and x.stride(d) != want:
+            raise ValueError(
+                f"field {name!r} must be contiguous"
+                + (" within each member" if members else ""))
+        want *= x.shape[d]
+    return x.stride(0) if members and x.shape[0] > 1 else 0
+
+
 class CudaStencil:
     """One stencil compiled onto the kernels: ``fn(fields, params) -> dict``
     of the written fields.  Fields are f32 tensors ``(..., K, J, I)``; the
-    leading dims (the tile axis) become a launch-grid dimension."""
+    leading dims (the tile axis) become a launch-grid dimension.
+
+    With ``n_members=M`` the first dim is an ensemble's member axis, of
+    extent M (K5): members may lie at any stride, 0 for a field broadcast
+    across members, but each member's block must be contiguous.  Each
+    thread runs ``member_chunk`` members, which must divide M."""
 
     def __init__(self, stencil: Stencil, dom: DomainSpec, *,
-                 dtype=torch.float32):
+                 dtype=torch.float32, n_members: int | None = None,
+                 member_chunk: int = 1):
         if dtype != torch.float32:
             raise TypeError(f"the stencil kernels take float32, not {dtype}")
+        if n_members is not None and (member_chunk < 1
+                                      or n_members % member_chunk):
+            raise ValueError(f"member_chunk={member_chunk} must divide "
+                             f"n_members={n_members} (callers pad the "
+                             "member axis)")
         self.dom = dom
+        self.n_members = n_members
+        self.member_chunk = member_chunk
         # horizontal stencils get the Pallas kernel's offset-temp inlining;
         # solver stencils keep their temporaries in memory, as the
         # reference's vertical kernel does
@@ -575,6 +612,11 @@ class CudaStencil:
                 raise ValueError(f"{st.name}: field {f!r} has shape "
                                  f"{tuple(x.shape)}, expected (..., "
                                  f"{want[0]}, {want[1]}, {want[2]})")
+            if self.n_members is not None and (
+                    x.dim() < 4 or x.shape[0] != self.n_members):
+                raise ValueError(f"{st.name}: field {f!r} has shape "
+                                 f"{tuple(x.shape)}; its member axis (dim "
+                                 f"0) should hold {self.n_members} members")
             if lead is None:
                 lead, device = tuple(x.shape[:-3]), x.device
             elif tuple(x.shape[:-3]) != lead or x.device != device:
@@ -592,10 +634,9 @@ class CudaStencil:
             raise ValueError(f"{self.stencil.name}: no kernels for "
                              f"device {device}")
         for f in self.stencil.fields:
-            x = fields[f]
-            if x.dtype != torch.float32 or not x.is_contiguous():
+            if fields[f].dtype != torch.float32:
                 raise ValueError(f"{self.stencil.name}: field {f!r} must be "
-                                 "a contiguous float32 tensor")
+                                 "float32")
         params = dict(params or {})
         env = plain.prepare_env(self.stencil, self.dom, fields,
                                 torch.float32)
@@ -614,24 +655,37 @@ class CudaStencil:
             self._uploaded[device] = progs
         return progs
 
+    def launch_args(self, env: Mapping[str, torch.Tensor],
+                    params: Mapping[str, Any]) -> LaunchArgs:
+        """What every launch of the stencil shares: the field table (pointer,
+        member stride, K extent per slot), the parameters, and the member,
+        tile and plane extents of the grid."""
+        members = self.n_members is not None
+        tensors = [env[n] for n in self.slot_names]
+        some = tensors[0]
+        args = LaunchArgs()
+        for s, (name, x) in enumerate(zip(self.slot_names, tensors)):
+            args.ptr[s] = x.data_ptr()
+            args.mstride[s] = _member_stride(name, x, members)
+            args.kext[s] = x.shape[-3]
+        for i, p in enumerate(self.stencil.params):
+            args.params[i] = float(params[p])
+        args.n_slots = len(tensors)
+        args.n_params = len(self.stencil.params)
+        args.ntile = math.prod(some.shape[1 if members else 0:-3])
+        args.nmember = self.n_members or 1
+        args.mchunk = self.member_chunk
+        args.jp, args.ip = some.shape[-2], some.shape[-1]
+        return args
+
     def launch(self, env: Mapping[str, torch.Tensor],
                params: Mapping[str, Any], lib: ctypes.CDLL,
                stream: int) -> None:
         """Launch every program of the stencil, in order, on ``stream``."""
-        tensors = [env[n] for n in self.slot_names]
-        some = tensors[0]
-        args = LaunchArgs()
-        for s, x in enumerate(tensors):
-            args.ptr[s] = x.data_ptr()
-            args.kext[s] = x.shape[-3]
-        for p, i in zip(self.stencil.params, range(MAX_PARAMS)):
-            args.params[i] = float(params[p])
-        args.n_slots = len(tensors)
-        args.n_params = len(self.stencil.params)
-        args.ntile = math.prod(some.shape[:-3])
-        args.jp, args.ip = some.shape[-2], some.shape[-1]
+        args = self.launch_args(env, params)
+        device = env[self.slot_names[0]].device
         for p, (prog, consts) in zip(self.programs,
-                                     self._device_programs(some.device)):
+                                     self._device_programs(device)):
             if p.empty:
                 continue
             args.prog, args.consts = prog.data_ptr(), consts.data_ptr()
@@ -650,3 +704,5 @@ class CudaStencil:
             LAUNCHES[p.kind] += 1
             if p.has_search:
                 LAUNCHES["search"] += 1
+            if args.nmember > 1:  # the kernels' member axis ran
+                LAUNCHES["member"] += 1

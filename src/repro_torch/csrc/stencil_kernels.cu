@@ -8,11 +8,14 @@
 // parameters and the geometry of its iteration space.
 //
 // Three kernels replace the three Pallas kernels of the reference's opt-0
-// path (src/repro/core/backend/lowering_pallas.py):
+// path (src/repro/core/backend/lowering_pallas.py), and their member axis
+// replaces the reference's member grid axis:
 //
 //   stencil_parallel_kernel  <- _horizontal_kernel (:350)   K1
 //   stencil_column_kernel    <- _vertical_kernel   (:486)   K2
 //   march_search (device fn) <- _march_search      (:99)    K3
+//   nmember/mchunk/mstride   <- _member_index_map,          K5
+//                               _member_specs (:207-229)
 //
 // What bounds them on an H100, and what the design does about it:
 //
@@ -42,6 +45,22 @@
 //   loads the at_found values once at the end, which selects the same
 //   values as the reference's select-per-layer accumulation.  O(nk) loads
 //   per point; the column stays in L1/L2 for the neighbouring k threads.
+// * K5, the ensemble member axis.  Pallas puts members on the outermost
+//   sequential grid axis, one member (or one C-member chunk) per step.
+//   Here a launch covers nmember members: K1 runs one thread per (member
+//   chunk, tile, k, j, i) and K2 one per (member chunk, tile, j, i)
+//   column, and each thread loops over the mchunk members of its chunk
+//   (mchunk = 1 under "grid", C under "vmap:C,grid"); K2 runs the march
+//   again from lo for each member, so the carry resets per member.  A
+//   slot's member offset is m * mstride[slot] in 64 bits; mstride is 0 for
+//   a field broadcast across members (the metric terms), so an expanded
+//   tensor reaches the kernel without M copies.  The launch count of a
+//   step does not change with M.  The work per member is K1/K2's, so the
+//   bound and the cost scale with M; a chunk's members each decode the
+//   program again (sharing that decode is later work).  Both kernels are
+//   templated on kMembers: a launch over one member (the sequential step)
+//   takes the instance without the member offset and the chunk loop, so
+//   the member axis costs that path nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (plain C interface, ctypes).
@@ -79,6 +98,7 @@ enum {
 // (j/i bounds in padded coordinates, the write window cut to the region).
 struct LaunchArgs {
   float* ptr[MAX_SLOTS];
+  long long mstride[MAX_SLOTS];  // elements between members; 0: broadcast
   int kext[MAX_SLOTS];
   float params[MAX_PARAMS];
   const int* prog;
@@ -88,10 +108,12 @@ struct LaunchArgs {
   int klo, khi;            // K1: the statement's interval
   int j0, j1, i0, i1;      // K1: statement box; K2: write window
   int lo, hi, forward;     // K2: the march
+  int nmember, mchunk;     // K5: members, and members per thread
 };
 
 struct Shared {
   float* ptr[MAX_SLOTS];
+  long long mstride[MAX_SLOTS];
   int kext[MAX_SLOTS];
   float params[MAX_PARAMS];
   float consts[CONST_MAX];
@@ -107,20 +129,32 @@ __device__ __forceinline__ size_t offset(int t, int K, int k, int jp, int ip,
   return ((static_cast<size_t>(t) * K + k) * jp + j) * static_cast<size_t>(ip) + i;
 }
 
+// The element of (member m, tile t, k, j, i) in a slot.  Launches over one
+// member take kMembers = false and skip the member offset.
+template <bool kMembers>
+__device__ __forceinline__ float* at(const Shared& s, int slot, int m, int t,
+                                     int k, int jp, int ip, int j, int i) {
+  float* p = s.ptr[slot] + offset(t, s.kext[slot], k, jp, ip, j, i);
+  return kMembers ? p + m * s.mstride[slot] : p;
+}
+
 // K reads are edge-clamped into the field's extent, as the reference's
 // _k_align (K1) and dynamic_index_in_dim (K2) do.
-__device__ __forceinline__ float load(const Shared& s, int slot, int t, int k,
-                                      int jp, int ip, int j, int i) {
-  const int K = s.kext[slot];
-  return s.ptr[slot][offset(t, K, clampi(k, 0, K - 1), jp, ip, j, i)];
+template <bool kMembers>
+__device__ __forceinline__ float load(const Shared& s, int slot, int m, int t,
+                                      int k, int jp, int ip, int j, int i) {
+  return *at<kMembers>(s, slot, m, t, clampi(k, 0, s.kext[slot] - 1), jp, ip,
+                       j, i);
 }
 
 // K3: the level search of one point (replaces _march_search).
-__device__ int march_search(const Shared& s, int coord, int t, int jp, int ip,
-                            int j, int i, int lo, int hi, float target) {
+template <bool kMembers>
+__device__ int march_search(const Shared& s, int coord, int m, int t, int jp,
+                            int ip, int j, int i, int lo, int hi,
+                            float target) {
   int found = lo;
   for (int l = lo + 1; l < hi; ++l) {
-    if (load(s, coord, t, l, jp, ip, j, i) <= target) found = l;
+    if (load<kMembers>(s, coord, m, t, l, jp, ip, j, i) <= target) found = l;
   }
   return found;
 }
@@ -137,9 +171,10 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
-// Interpret ops [pc, end) at point (t, k, j, i); returns the value.
-__device__ float eval_program(const Shared& s, int pc, int end, int t, int k,
-                              int j, int i, int jp, int ip) {
+// Interpret ops [pc, end) at point (m, t, k, j, i); returns the value.
+template <bool kMembers>
+__device__ float eval_program(const Shared& s, int pc, int end, int m, int t,
+                              int k, int j, int i, int jp, int ip) {
   float stk[STACK_MAX];
   float found[FOUND_MAX];
   int sp = 0;
@@ -150,7 +185,8 @@ __device__ float eval_program(const Shared& s, int pc, int end, int t, int k,
         const int slot = s.prog[pc], di = s.prog[pc + 1];
         const int dj = s.prog[pc + 2], dk = s.prog[pc + 3];
         pc += 4;
-        stk[sp++] = load(s, slot, t, k + dk, jp, ip, j + dj, i + di);
+        stk[sp++] = load<kMembers>(s, slot, m, t, k + dk, jp, ip, j + dj,
+                                   i + di);
         break;
       }
       case OP_CONST: stk[sp++] = s.consts[s.prog[pc++]]; break;
@@ -161,12 +197,14 @@ __device__ float eval_program(const Shared& s, int pc, int end, int t, int k,
         const int hi = s.prog[pc + 2], nf = s.prog[pc + 3];
         pc += 4;
         const float target = stk[--sp];
-        const int lvl = march_search(s, coord, t, jp, ip, j, i, lo, hi, target);
+        const int lvl = march_search<kMembers>(s, coord, m, t, jp, ip, j, i,
+                                               lo, hi, target);
         for (int f = 0; f < nf; ++f) {
           const int slot = s.prog[pc], di = s.prog[pc + 1];
           const int dj = s.prog[pc + 2], dk = s.prog[pc + 3];
           pc += 4;
-          found[f] = load(s, slot, t, lvl + dk, jp, ip, j + dj, i + di);
+          found[f] = load<kMembers>(s, slot, m, t, lvl + dk, jp, ip, j + dj,
+                                    i + di);
         }
         break;
       }
@@ -215,6 +253,7 @@ __device__ void stage(Shared& s, const LaunchArgs& a) {
   for (int x = threadIdx.x; x < a.n_consts; x += blockDim.x) s.consts[x] = a.consts[x];
   for (int x = threadIdx.x; x < a.n_slots; x += blockDim.x) {
     s.ptr[x] = a.ptr[x];
+    s.mstride[x] = a.mstride[x];
     s.kext[x] = a.kext[x];
   }
   for (int x = threadIdx.x; x < a.n_params; x += blockDim.x) s.params[x] = a.params[x];
@@ -222,43 +261,58 @@ __device__ void stage(Shared& s, const LaunchArgs& a) {
 }
 
 // K1: one statement of a PARALLEL computation (replaces _horizontal_kernel).
+template <bool kMembers>
 __global__ void __launch_bounds__(BLOCK) stencil_parallel_kernel(LaunchArgs a) {
   __shared__ Shared s;
   stage(s, a);
   const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0, nk = a.khi - a.klo;
+  const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
   long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= a.ntile * nk * nj * ni) return;
+  if (g >= nchunk * a.ntile * nk * nj * ni) return;
   const int i = a.i0 + static_cast<int>(g % ni); g /= ni;
   const int j = a.j0 + static_cast<int>(g % nj); g /= nj;
-  const int k = a.klo + static_cast<int>(g % nk);
-  const int t = static_cast<int>(g / nk);
+  const int k = a.klo + static_cast<int>(g % nk); g /= nk;
+  const int t = kMembers ? static_cast<int>(g % a.ntile) : static_cast<int>(g);
+  const int chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
   const int* r = s.prog + 1;  // the single statement record
-  const float v = eval_program(s, r[7], r[8], t, k, j, i, a.jp, a.ip);
   const int tgt = r[0];
-  s.ptr[tgt][offset(t, s.kext[tgt], k, a.jp, a.ip, j, i)] = v;
+  const int mchunk = kMembers ? a.mchunk : 1;
+  for (int mm = 0; mm < mchunk; ++mm) {
+    const int m = chunk * mchunk + mm;
+    const float v =
+        eval_program<kMembers>(s, r[7], r[8], m, t, k, j, i, a.jp, a.ip);
+    *at<kMembers>(s, tgt, m, t, k, a.jp, a.ip, j, i) = v;
+  }
 }
 
 // K2: a FORWARD/BACKWARD computation, one column per thread (replaces
 // _vertical_kernel with the memory-backed carry).
+template <bool kMembers>
 __global__ void __launch_bounds__(BLOCK) stencil_column_kernel(LaunchArgs a) {
   __shared__ Shared s;
   stage(s, a);
   const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0;
+  const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
   long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= a.ntile * nj * ni) return;
+  if (g >= nchunk * a.ntile * nj * ni) return;
   const int i = a.i0 + static_cast<int>(g % ni); g /= ni;
-  const int j = a.j0 + static_cast<int>(g % nj);
-  const int t = static_cast<int>(g / nj);
+  const int j = a.j0 + static_cast<int>(g % nj); g /= nj;
+  const int t = kMembers ? static_cast<int>(g % a.ntile) : static_cast<int>(g);
+  const int chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
   const int n_stmts = s.prog[0];
-  for (int step = 0; step < a.hi - a.lo; ++step) {
-    const int k = a.forward ? a.lo + step : a.hi - 1 - step;
-    for (int q = 0; q < n_stmts; ++q) {
-      const int* r = s.prog + 1 + REC_INTS * q;
-      if (k < r[1] || k >= r[2]) continue;                 // interval
-      if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
-      const float v = eval_program(s, r[7], r[8], t, k, j, i, a.jp, a.ip);
-      const int tgt = r[0];
-      s.ptr[tgt][offset(t, s.kext[tgt], k, a.jp, a.ip, j, i)] = v;
+  const int mchunk = kMembers ? a.mchunk : 1;
+  for (int mm = 0; mm < mchunk; ++mm) {
+    const int m = chunk * mchunk + mm;
+    for (int step = 0; step < a.hi - a.lo; ++step) {
+      const int k = a.forward ? a.lo + step : a.hi - 1 - step;
+      for (int q = 0; q < n_stmts; ++q) {
+        const int* r = s.prog + 1 + REC_INTS * q;
+        if (k < r[1] || k >= r[2]) continue;                 // interval
+        if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
+        const float v =
+            eval_program<kMembers>(s, r[7], r[8], m, t, k, j, i, a.jp, a.ip);
+        *at<kMembers>(s, r[0], m, t, k, a.jp, a.ip, j, i) = v;
+      }
     }
   }
 }
@@ -279,19 +333,30 @@ int stencil_limits(int* out) {
   return 0;
 }
 
+static long long n_chunks(const LaunchArgs* a) {
+  return a->nmember / a->mchunk;
+}
+
+// A launch over more than one member takes the kernels' member axis (K5).
 int launch_stencil_parallel(const LaunchArgs* a, void* stream) {
-  const long long n = static_cast<long long>(a->ntile) * (a->khi - a->klo) *
+  const long long n = n_chunks(a) * a->ntile * (a->khi - a->klo) *
                       (a->j1 - a->j0) * (a->i1 - a->i0);
-  stencil_parallel_kernel<<<blocks_for(n), BLOCK, 0,
-                            static_cast<cudaStream_t>(stream)>>>(*a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->nmember > 1)
+    stencil_parallel_kernel<true><<<blocks_for(n), BLOCK, 0, st>>>(*a);
+  else
+    stencil_parallel_kernel<false><<<blocks_for(n), BLOCK, 0, st>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_stencil_column(const LaunchArgs* a, void* stream) {
-  const long long n = static_cast<long long>(a->ntile) * (a->j1 - a->j0) *
+  const long long n = n_chunks(a) * a->ntile * (a->j1 - a->j0) *
                       (a->i1 - a->i0);
-  stencil_column_kernel<<<blocks_for(n), BLOCK, 0,
-                          static_cast<cudaStream_t>(stream)>>>(*a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->nmember > 1)
+    stencil_column_kernel<true><<<blocks_for(n), BLOCK, 0, st>>>(*a);
+  else
+    stencil_column_kernel<false><<<blocks_for(n), BLOCK, 0, st>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""FV3-lite dynamical core step (paper Fig. 2 structure), sequential mode.
+"""FV3-lite dynamical core step (paper Fig. 2 structure), sequential and
+ensemble modes.
 
 Sub-stepping hierarchy, exactly the paper's:
   * remapping loop (``k_split``): tracer advection + vertical remap
@@ -6,12 +7,14 @@ Sub-stepping hierarchy, exactly the paper's:
                                   → d_sw-lite (FVT + Smagorinsky) → exchange
 
 The step runs on global ``(6, nk, npx+2h, npx+2h)`` tensors on one device
-with the reference halo exchange.  Four stencil programs (c_sw+riem, d_sw,
-tracer_2d, vertical_remap) compile through ``compile_program`` at opt level
-0; on the ``"cuda"`` backend every stencil runs on the hand-written Hopper
-kernels, which take the tile axis as a launch-grid dimension.  The
-reference's ``lax.scan`` sub-stepping is a Python loop here: PyTorch runs
-eagerly and each runner launches its own kernels.
+with the reference halo exchange; the ensemble step on ``(M, 6, nk, ...)``
+tensors, the member axis threaded through every program.  Four stencil
+programs (c_sw+riem, d_sw, tracer_2d, vertical_remap) compile through
+``compile_program`` at opt level 0; on the ``"cuda"`` backend every stencil
+runs on the hand-written Hopper kernels, which take the tile and member
+axes as launch-grid dimensions.  The reference's ``lax.scan`` sub-stepping
+is a Python loop here: PyTorch runs eagerly and each runner launches its
+own kernels.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import Callable
 import torch
 
 from ..core import StencilProgram, compile_program
-from ..core.backend import resolve_device
+from ..core.backend import BatchSpec, get_backend, parse_batch, resolve_device
+from ..core.backend.batching import scan_chunked
 from ..core.stencil import DomainSpec
 from . import stencils as S
 from .halo import exchange_reference
@@ -204,12 +208,15 @@ def _build_programs(cfg: FV3Config, dom: DomainSpec):
 
 
 def _make_programs(cfg: FV3Config, dom: DomainSpec, backend: str,
-                   opt_level: int, device: torch.device):
+                   opt_level: int, device: torch.device,
+                   n_members: int | None = None,
+                   batch: "str | BatchSpec" = "vmap"):
     """Build the four stencil programs (acoustic c_sw / d_sw, tracer
     transport, vertical remap) and compile each."""
     progs = _build_programs(cfg, dom)
     runners = tuple(
-        compile_program(p, backend, opt_level=opt_level, device=device)
+        compile_program(p, backend, opt_level=opt_level, device=device,
+                        n_members=n_members, batch=batch)
         for p in progs)
     return progs, runners
 
@@ -289,6 +296,45 @@ def _counting_runner(run, counters):
     return counting
 
 
+def _assemble_step(cfg: FV3Config, progs, runners, metrics, dev,
+                   backend: str, member_chunks: tuple[int, int] | None = None
+                   ) -> Callable:
+    """The step shared by the sequential and ensemble factories: the remap
+    loop over the compiled runners, with counters and the introspection
+    attributes.  Keeping it in one place keeps the ensemble step
+    bit-identical to the sequential one by construction.
+
+    ``member_chunks=(M, C)`` wraps the WHOLE step in a member chunk loop:
+    the runners (compiled C-wide) run every substep for one C-member chunk
+    before the next chunk starts, so only one chunk's transients and halo
+    working set are live at a time."""
+    params = default_params(cfg)
+    counters = {"acoustic_iterations": 0, "runner_dispatches": 0,
+                "step_calls": 0}
+    runners_c = tuple(_counting_runner(r, counters) for r in runners)
+    halo_fn = _reference_halo_fn(cfg)
+
+    def inner(state: dict, _params=None) -> dict:
+        st = dict(state)
+        for _ in range(cfg.k_split):
+            st = _remap_iteration(cfg, runners_c, params, halo_fn, st,
+                                  metrics, counters)
+        return st
+
+    run = scan_chunked(inner, *member_chunks) if member_chunks else inner
+
+    def step(state: dict) -> dict:
+        counters["step_calls"] += 1
+        return run(state)
+
+    step.counters = counters
+    step.n_kernels = sum(r.n_kernels for r in runners)
+    step.programs = progs
+    step.device = dev
+    step.backend = backend
+    return step
+
+
 def make_step_sequential(cfg: FV3Config, *, backend: str = "cuda",
                          opt_level: int = 0,
                          device: "torch.device | str | None" = None
@@ -309,25 +355,66 @@ def make_step_sequential(cfg: FV3Config, *, backend: str = "cuda",
     dev = resolve_device(device)
     dom = cfg.seq_dom()
     progs, runners = _make_programs(cfg, dom, backend, opt_level, dev)
-    params = default_params(cfg)
-    counters = {"acoustic_iterations": 0, "runner_dispatches": 0,
-                "step_calls": 0}
-    runners_c = tuple(_counting_runner(r, counters) for r in runners)
     # cosa/sina hoisted out of the loops: built once per step closure
     metrics = _metric_terms(cfg, (6,) + dom.padded_shape(), dev)
-    halo_fn = _reference_halo_fn(cfg)
+    return _assemble_step(cfg, progs, runners, metrics, dev, backend)
 
-    def step(state: dict) -> dict:
-        counters["step_calls"] += 1
-        st = dict(state)
-        for _ in range(cfg.k_split):
-            st = _remap_iteration(cfg, runners_c, params, halo_fn, st,
-                                  metrics, counters)
-        return st
 
-    step.counters = counters
-    step.n_kernels = sum(r.n_kernels for r in runners)
-    step.programs = progs
-    step.device = dev
-    step.backend = backend
+def make_step_ensemble(cfg: FV3Config, n_members: int, *,
+                       backend: str = "cuda", opt_level: int = 0,
+                       batch: "str | BatchSpec | None" = None,
+                       device: "torch.device | str | None" = None
+                       ) -> Callable:
+    """Ensemble physics step: M perturbed members on one device, state laid
+    out ``(M, 6, nk, npx+2h, npx+2h)`` (member outermost).
+
+    :func:`make_step_sequential`'s step with the member axis threaded
+    through every program (``compile_program(..., n_members=M,
+    batch=...)``) instead of a loop over members; the halo exchange runs
+    batched.  The result is bit-identical to M independent sequential
+    steps.  On the ``"cuda"`` backend the members go on the kernels' launch
+    grid, so a step makes the same launches as at M = 1.
+
+    ``batch`` defaults to ``"grid"`` on ``"cuda"`` and ``"vmap"`` on
+    ``"torch"``, and takes the chunk grammar of ``compile_program``.  A
+    chunked loop spec (``"vmap:C"``, ``"grid:C"``) lifts the chunk loop to
+    the *step*: the runners compile C-wide and the whole step — halo
+    exchanges, acoustic loop, remap — runs one chunk after another, so only
+    one C-member working set is live at a time.  ``"vmap:C,grid"`` keeps
+    the step M-wide and runs C-member chunks inside each launch.  The
+    metric terms are broadcast across members (member stride 0).
+
+    ``device`` as in :func:`make_step_sequential`.  The returned step
+    exposes ``n_members``, ``batch``, ``member_chunk``, ``n_chunks``,
+    ``n_kernels`` (the same for every M) and ``counters``.
+    """
+    if cfg.dtype != "float32":
+        raise NotImplementedError("the port steps float32 states only")
+    if batch is None:
+        batch = "grid" if backend == "cuda" else "vmap"
+    spec = parse_batch(batch)
+    member_chunks = None
+    prog_members, prog_batch = n_members, spec
+    if spec.chunk > 0:  # an explicit chunk width (auto raises below)
+        C = spec.chunk_for(n_members)
+        grid_loop = spec.loop == "grid" and get_backend(backend).member_grid
+        if C < n_members and not grid_loop:
+            # step-level chunk loop: compile everything C-wide
+            member_chunks = (n_members, C)
+            prog_members, prog_batch = C, BatchSpec(mode=spec.mode)
+    dev = resolve_device(device)
+    dom = cfg.seq_dom()
+    progs, runners = _make_programs(cfg, dom, backend, opt_level, dev,
+                                    n_members=prog_members, batch=prog_batch)
+    base = _metric_terms(cfg, (6,) + dom.padded_shape(), dev)
+    metrics = {k: v.expand((prog_members,) + tuple(v.shape))
+               for k, v in base.items()}
+    step = _assemble_step(cfg, progs, runners, metrics, dev, backend,
+                          member_chunks=member_chunks)
+    step.n_members = n_members
+    step.batch = spec.token
+    step.member_chunk = (member_chunks[1] if member_chunks
+                         else runners[0].member_chunk)
+    step.n_chunks = (-(-n_members // member_chunks[1]) if member_chunks
+                     else runners[0].n_chunks)
     return step

@@ -80,6 +80,44 @@ def init_state(cfg: FV3Config, seed: int = 0,
     return state_from_reference(init_state_numpy(cfg, seed), device)
 
 
+def ensemble_state_numpy(cfg: FV3Config, n_members: int, *,
+                         amplitude: float = 1e-3, seed: int = 0) -> dict:
+    """M perturbed ensemble members stacked on a leading axis, as numpy
+    arrays ``(M, 6, nk, npx+2h, npx+2h)`` per field — the reference's
+    ``ensemble_state``, draw for draw.
+
+    Member 0 is the unperturbed :func:`init_state_numpy`; members 1.. add
+    small random interior perturbations to ``pt`` and ``delp``
+    (``np.random.default_rng(seed + 1)``).  Halos stay zero — the first
+    step's exchange fills them, as in the single-member path."""
+    base = init_state_numpy(cfg, seed)
+    rng = np.random.default_rng(seed + 1)
+    N, h = cfg.npx, cfg.halo
+    out = {}
+    for k, v in base.items():
+        arr = np.repeat(v[None], n_members, axis=0)
+        if k in ("pt", "delp") and n_members > 1:
+            noise = rng.standard_normal(
+                (n_members - 1,) + arr.shape[1:]).astype(arr.dtype)
+            mask = np.zeros(arr.shape[1:], arr.dtype)
+            mask[:, :, h:h + N, h:h + N] = 1.0
+            arr[1:] += amplitude * noise * mask
+        out[k] = arr
+    return out
+
+
+def ensemble_state(cfg: FV3Config, n_members: int, *,
+                   amplitude: float = 1e-3, seed: int = 0,
+                   device: "torch.device | str | None" = None) -> dict:
+    """:func:`ensemble_state_numpy` on ``device`` (``None`` → the CUDA
+    card): the layout :func:`~repro_torch.fv3.dyncore.make_step_ensemble`
+    steps."""
+    dev = resolve_device(device)
+    return state_from_reference(
+        ensemble_state_numpy(cfg, n_members, amplitude=amplitude, seed=seed),
+        dev)
+
+
 def total_mass(state: Mapping[str, torch.Tensor], cfg: FV3Config) -> float:
     """Global integral of delp (unit cell area) — conserved by the FVT;
     summed in float64."""

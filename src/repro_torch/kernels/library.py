@@ -1,0 +1,52 @@
+"""The shared library of ``csrc/fv3_kernels.cu`` (K6 ``tridiag_kernel``, K7
+``fvt_flux_kernel``): built with ``nvcc`` at first use, like the stencil
+kernels, into its own directory under ``build/repro_torch/``, and bound
+with :mod:`ctypes`."""
+
+from __future__ import annotations
+
+import ctypes
+
+from ..core.backend.cuda import build_library
+
+#: launches of each kernel since the last :func:`reset_launches`; a wrapper
+#: adds one where it launches its kernel and nowhere else
+LAUNCHES = {"tridiag": 0, "fvt_flux": 0}
+
+_LIB: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def bind_library(path) -> ctypes.CDLL:
+    """Load a build of ``fv3_kernels.cu`` and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("launch_tridiag_f32", "launch_tridiag_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 6 + [i32, i64, ptr]
+        fn.restype = ctypes.c_int
+    lib.launch_fvt_flux.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.launch_fvt_flux.restype = ctypes.c_int
+    lib.fv3_error_string.argtypes = [ctypes.c_int]
+    lib.fv3_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the library."""
+    global _LIB
+    if _LIB is None:
+        _LIB = bind_library(build_library("fv3_kernels"))
+    return _LIB
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch was refused (the C function returns
+    ``cudaGetLastError()``)."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.fv3_error_string(rc).decode()}")

@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the standalone kernels — what the CUDA kernels
+are held against in the tests and in ``chip_smoke.py``, and what their
+wrappers run for tensors on the CPU.  Ported from the reference's
+``kernels/ref.py``."""
+
+from __future__ import annotations
+
+import torch
+
+
+def tridiag_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                d: torch.Tensor) -> torch.Tensor:
+    """Thomas algorithm over K for every (j, i) column of (K, J, I)
+    tensors: solves tridiag(a, b, c) x = d (``a[0]`` and ``c[-1]`` are not
+    read)."""
+    nk = a.shape[0]
+    cp = torch.empty_like(a)
+    x = torch.empty_like(a)
+    cp[0] = c[0] / b[0]
+    x[0] = d[0] / b[0]
+    for k in range(1, nk):
+        denom = b[k] - a[k] * cp[k - 1]
+        cp[k] = c[k] / denom
+        x[k] = (d[k] - a[k] * x[k - 1]) / denom
+    for k in range(nk - 2, -1, -1):
+        x[k] = x[k] - cp[k] * x[k + 1]
+    return x
+
+
+def fvt_flux_ref(q: torch.Tensor, cx: torch.Tensor, *,
+                 halo: int) -> torch.Tensor:
+    """The unfused ``al_x → fx_ppm`` chain on padded (K, J+2h, I+2h)
+    tensors: the upwind PPM flux ``cx * f`` on the interior i, 0 on the
+    halo i (every j row is computed)."""
+    h = halo
+    ni = q.shape[-1] - 2 * h
+
+    def sh(di):
+        return q[:, :, h + di:h + di + ni]
+
+    def al(di):
+        return (7.0 / 12.0) * (sh(di - 1) + sh(di)) \
+            - (1.0 / 12.0) * (sh(di - 2) + sh(di + 1))
+
+    al0, al1 = al(0), al(1)
+    q0, qm1 = sh(0), sh(-1)
+    bl = al0 - q0
+    br = al1 - q0
+    b0 = bl + br
+    blm1 = al(-1) - qm1
+    brm1 = al0 - qm1
+    b0m1 = blm1 + brm1
+    c = cx[:, :, h:h + ni]
+    f = torch.where(c > 0.0,
+                    qm1 + (1.0 - c) * (brm1 - c * b0m1),
+                    q0 - (1.0 + c) * (bl + c * b0))
+    f = torch.minimum(torch.maximum(f, torch.minimum(qm1, q0)),
+                      torch.maximum(qm1, q0))
+    out = torch.zeros_like(q)
+    out[:, :, h:h + ni] = c * f
+    return out

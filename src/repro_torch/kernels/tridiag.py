@@ -1,0 +1,51 @@
+"""K6: the batched Thomas (tridiagonal) solve on the card.
+
+Replaces the reference's Pallas kernel ``kernels/tridiag.py`` (``_kernel``,
+``tridiag_pallas``): ``tridiag_kernel`` in ``csrc/fv3_kernels.cu``, one
+thread per (j, i) column of (K, J, I) tensors, float32 or float64.  For
+tensors on the CPU the wrapper runs the plain version
+(:func:`..ref.tridiag_ref`); for CUDA tensors it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import library
+from .ref import tridiag_ref
+
+
+def tridiag(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            d: torch.Tensor) -> torch.Tensor:
+    """Solve tridiag(a, b, c) x = d for (K, J, I) tensors, batched over the
+    (j, i) columns."""
+    xs = (a, b, c, d)
+    if not all(isinstance(x, torch.Tensor) for x in xs):
+        raise TypeError("tridiag takes torch tensors")
+    if a.dim() != 3 or any(x.shape != a.shape for x in xs):
+        raise ValueError("tridiag takes four (K, J, I) tensors of one shape, "
+                         f"got {[tuple(x.shape) for x in xs]}")
+    if any(x.device != a.device or x.dtype != a.dtype for x in xs):
+        raise ValueError("tridiag's tensors disagree in device or dtype")
+    if a.device.type == "cpu":
+        return tridiag_ref(a, b, c, d)
+    if a.device.type != "cuda":
+        raise ValueError(f"tridiag: no kernel for device {a.device}")
+    if a.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"tridiag takes float32 or float64, not {a.dtype}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("tridiag takes contiguous tensors")
+    nk, nj, ni = a.shape
+    x = torch.empty_like(a)
+    cp = torch.empty_like(a)
+    lib = library.load_library()
+    fn = (lib.launch_tridiag_f32 if a.dtype == torch.float32
+          else lib.launch_tridiag_f64)
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                x.data_ptr(), cp.data_ptr(), nk, nj * ni,
+                torch.cuda.current_stream(a.device).cuda_stream)
+    library.check_launch(lib, rc, "tridiag")
+    library.LAUNCHES["tridiag"] += 1
+    return x

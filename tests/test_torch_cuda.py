@@ -7,7 +7,9 @@ that encoding — records, opcodes, edge-clamped K loads, the marching level
 search — written from the kernels' source, not from the IR.  Run over every
 statement of ``fv3/stencils.py``, it must reproduce the kernels' plain
 version (``CudaStencil.plain``, the plain lowering): that holds the
-encoder's output to the IR's meaning without a card.
+encoder's output to the IR's meaning without a card.  With a member axis,
+each slot is read through the member stride of the launch arguments, as
+the kernels index it, so a broadcast field (stride 0) is checked too.
 
 Tests marked ``cuda`` need a card and skip without one.
 """
@@ -23,6 +25,9 @@ from repro_torch.core.stencil import ir
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import state as TSt
 from repro_torch.fv3 import stencils as TS
+from repro_torch.kernels import library as KL
+from repro_torch.kernels import ops as KO
+from repro_torch.kernels import ref as KR
 
 NAMES = sorted(k for k, v in vars(TS).items() if isinstance(v, Stencil))
 DOM = DomainSpec(ni=6, nj=5, nk=4, halo=3, extend=(1, 1))
@@ -159,6 +164,65 @@ def test_instruction_stream_matches_plain_version(name):
                                    msg=f"{name}.{w}")
 
 
+def _member_view(x, args, s):
+    """Slot ``s`` as the kernels address it: member m at ``m * mstride``,
+    then a contiguous (tile, K, J, I) block."""
+    K, jp, ip = args.kext[s], args.jp, args.ip
+    return torch.as_strided(x, (args.nmember, args.ntile, K, jp, ip),
+                            (args.mstride[s], K * jp * ip, jp * ip, ip, 1),
+                            x.storage_offset())
+
+
+MEMBER_CASES = ["fx_ppm", "edge_flux", "tridiag_solve", "interface_interp"]
+
+
+@pytest.mark.parametrize("name", MEMBER_CASES)
+@pytest.mark.parametrize("mchunk", [1, 2])
+def test_instruction_stream_with_member_axis(name, mchunk):
+    M = 4
+    run = C.CudaStencil(getattr(TS, name), DOM, n_members=M,
+                        member_chunk=mchunk)
+    fields, params = _inputs(run.stencil, DOM, seed=MEMBER_CASES.index(name),
+                             lead=(M, 2))
+    bcast = next(f for f in run.stencil.fields if f not in run.written)
+    fields[bcast] = fields[bcast][:1].expand_as(fields[bcast])
+    want = run.plain(fields, params)
+    env = C.plain.prepare_env(run.stencil, DOM, fields, torch.float32)
+    args = run.launch_args(env, params)
+    assert (args.nmember, args.mchunk, args.ntile) == (M, mchunk, 2)
+    slot = run.slot_names.index(bcast)
+    assert args.mstride[slot] == 0
+    assert all(args.mstride[s] == env[n][0].numel()
+               for s, n in enumerate(run.slot_names) if s != slot)
+    views = [_member_view(env[n], args, s)
+             for s, n in enumerate(run.slot_names)]
+    pvals = [float(params[p]) for p in run.stencil.params]
+    for chunk in range(args.nmember // args.mchunk):
+        for mm in range(args.mchunk):
+            m = chunk * args.mchunk + mm
+            ev = _StreamEvaluator([v[m] for v in views], pvals, [])
+            for p in run.programs:
+                ev.consts = torch.tensor(p.consts or [0.0],
+                                         dtype=torch.float32)
+                ev.launch(p)
+    for w in run.written:
+        torch.testing.assert_close(env[w], want[w], rtol=1e-6, atol=1e-6,
+                                   msg=f"{name}.{w}")
+
+
+def test_member_axis_checks():
+    with pytest.raises(ValueError, match="divide"):
+        C.CudaStencil(TS.courant_x, DOM, n_members=3, member_chunk=2)
+    run = C.CudaStencil(TS.courant_x, DOM, n_members=3)
+    u = torch.zeros((2, 2) + DOM.padded_shape())
+    with pytest.raises(ValueError, match="member axis"):
+        run({"u": u, "cx": u}, {"dtdx": 1.0})
+    u = torch.zeros((3, 2) + DOM.padded_shape())
+    env = {"u": u.transpose(1, 2), "cx": u}
+    with pytest.raises(ValueError, match="contiguous within each member"):
+        run.launch_args(env, {"dtdx": 1.0})
+
+
 def test_launch_plan_of_the_fv3_stencils():
     n = {name: len(C.CudaStencil(getattr(TS, name), DOM).programs)
          for name in NAMES}
@@ -281,8 +345,99 @@ def test_step_on_card_matches_plain_step(card):
     got = TD.make_step_sequential(cfg, device=card)(s0)
     launched = dict(C.LAUNCHES)
     want = TD.make_step_sequential(cfg, backend="torch", device=card)(s0)
-    assert min(launched.values()) > 0
+    assert min(launched[k] for k in ("horizontal", "column", "search")) > 0
+    assert launched["member"] == 0  # one member: no member axis
     h, n = cfg.halo, cfg.npx
     for k in want:
         err = (got[k] - want[k])[..., h:h + n, h:h + n].abs().max().item()
         assert err < 1e-5, (k, err)
+
+
+def _broadcast_inputs(run, lead, device, seed):
+    """Inputs with a member axis, the first read-only field expanded across
+    members (member stride 0)."""
+    fields, params = _inputs(run.stencil, DOM, seed=seed, lead=lead)
+    bcast = next(f for f in run.stencil.fields if f not in run.written)
+    fields = {k: v.to(device) for k, v in fields.items()}
+    fields[bcast] = fields[bcast][:1].expand_as(fields[bcast])
+    return fields, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fx_ppm", "tridiag_solve",
+                                  "interface_interp"])
+@pytest.mark.parametrize("mchunk", [1, 2])
+def test_member_axis_matches_plain_version_on_card(card, name, mchunk):
+    M = 4
+    run = C.CudaStencil(getattr(TS, name), DOM, n_members=M,
+                        member_chunk=mchunk)
+    fields, params = _broadcast_inputs(run, (M, 6), card, seed=3)
+    before = C.LAUNCHES["member"]
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["member"] > before
+    for w in run.written:
+        torch.testing.assert_close(got[w], want[w], rtol=1e-6, atol=1e-6)
+        for m in range(M):  # each member as a single-member launch gives it
+            single = C.CudaStencil(getattr(TS, name), DOM)(
+                {k: v[m].contiguous() for k, v in fields.items()}, params)
+            assert torch.equal(got[w][m], single[w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tridiag_kernel_matches_plain_version_on_card(card, dtype):
+    rng = np.random.default_rng(0)
+    shape = (80, 24, 40)
+    a, b, c, d = (torch.from_numpy(rng.uniform(lo, hi, shape)).to(card, dtype)
+                  for lo, hi in ((0.1, 0.5), (2.0, 3.0), (0.1, 0.5), (-1, 1)))
+    KL.reset_launches()
+    x = KO.tridiag(a, b, c, d)
+    want = KR.tridiag_ref(a, b, c, d)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["tridiag"] == 1
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(x, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [3, 6])
+def test_fvt_flux_kernel_matches_plain_version_on_card(card, halo):
+    rng = np.random.default_rng(halo)
+    shape = (16, 20 + 2 * halo, 24 + 2 * halo)
+    q = torch.from_numpy(rng.uniform(1, 2, shape).astype(np.float32)).to(card)
+    cx = torch.from_numpy(rng.uniform(-0.9, 0.9, shape).astype(
+        np.float32)).to(card)
+    KL.reset_launches()
+    f = KO.fvt_flux(q, cx, halo=halo)
+    want = KR.fvt_flux_ref(q, cx, halo=halo)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["fvt_flux"] == 1
+    torch.testing.assert_close(f, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["grid", "vmap:2,grid", "vmap:2"])
+def test_ensemble_step_on_card_matches_member_loop(card, batch):
+    cfg = TD.FV3Config(npx=12, nk=5, n_split=1, k_split=1)
+    M = 3
+    ens0 = TSt.ensemble_state(cfg, M, device=card)
+    step_s = TD.make_step_sequential(cfg, device=card)
+    C.reset_launches()
+    step_s({k: v[0] for k, v in ens0.items()})
+    per_member = dict(C.LAUNCHES)
+    step_e = TD.make_step_ensemble(cfg, M, batch=batch, device=card)
+    C.reset_launches()
+    out = step_e(ens0)
+    launched = dict(C.LAUNCHES)
+    singles = [step_s({k: v[m] for k, v in ens0.items()}) for m in range(M)]
+    torch.cuda.synchronize()
+    n_calls = step_e.n_chunks if batch == "vmap:2" else 1
+    for k in ("horizontal", "column", "search"):
+        assert launched[k] == n_calls * per_member[k], (k, launched)
+    assert launched["member"] == launched["horizontal"] + launched["column"]
+    for k in out:
+        want = torch.stack([s[k] for s in singles])
+        assert torch.equal(out[k], want), k
+    assert (out["pt"][1] - out["pt"][0]).abs().max().item() > 0

@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_port_import_loads_no_jax():
     code = ("import sys, repro_torch.fv3.dyncore, repro_torch.fv3.state, "
-            "repro_torch.core.backend.cuda; "
+            "repro_torch.core.backend.cuda, "
+            "repro_torch.core.backend.batching, repro_torch.kernels.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -66,6 +67,10 @@ def test_entry_points_refuse_to_run_without_a_card(no_card):
         TD.make_step_sequential(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         TSt.init_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TD.make_step_ensemble(cfg, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSt.ensemble_state(cfg, 2)
     prog = TD.build_tracer_program(cfg, cfg.seq_dom())
     with pytest.raises(RuntimeError, match="CUDA"):
         compile_program(prog)
@@ -79,7 +84,8 @@ def test_compile_program_takes_opt_level_zero_only():
     p.declare("cx")
     p.add(TS.courant_x, {"u": "u", "cx": "cx"})
     p.propagate_extents()
-    for kw in ({"opt_level": 1}, {"opt_level": 3}, {"n_members": 2},
+    for kw in ({"opt_level": 1}, {"opt_level": 2}, {"opt_level": 3},
+               {"opt_level": 4}, {"n_members": 2, "batch": "vmap:auto"},
                {"verify": "full"}):
         with pytest.raises(NotImplementedError):
             compile_program(p, device="cpu", **kw)
@@ -88,6 +94,10 @@ def test_compile_program_takes_opt_level_zero_only():
     u = torch.ones(dom.padded_shape())
     out = run({"u": u}, {"dtdx": 0.5})
     assert torch.allclose(out["cx"][:, 2:6, 2:6], torch.full((3, 4, 4), 0.5))
+    ens = compile_program(p, device="cpu", n_members=2)
+    assert ens.n_kernels == 1 and ens.n_members == 2 and ens.batch == "vmap"
+    out = ens({"u": torch.stack([u, 2 * u])}, {"dtdx": 0.5})
+    assert torch.equal(out["cx"][1, :, 2:6, 2:6], torch.full((3, 4, 4), 1.0))
     with pytest.raises(ValueError, match="lies on"):
         compile_program(p, device="meta")({"u": u}, {"dtdx": 0.5})
 
