@@ -12,31 +12,50 @@
    ``tridiag_solve`` and ``column_total``, K3 on ``interface_interp``
    (monotone coordinates); K5, the member axis, on ``fx_ppm`` and
    ``tridiag_solve`` at 4 members under ``"grid"`` and ``"vmap:2,grid"``
-   with one input broadcast (member stride 0) — with the max error, its
-   tolerance, and both times (CUDA events after a warm-up).
+   with one input broadcast (member stride 0); K4, the K-blocked solver
+   kernel, on ``precompute_pe`` with ``block_k`` 8 and 16 (also against
+   K2, exactly) and at 4 members under ``"grid"`` and ``"vmap:2,grid"`` —
+   with the max error, its tolerance, and both times (CUDA events after a
+   warm-up).
 3. Standalone phase: ``repro_torch.kernels.ops`` at C192 L80 shapes — K6
    ``tridiag`` on the six tile interiors stacked along J (80, 1152, 192),
    f32 and one f64 check, timed beside ``torch.linalg.solve`` on the same
    systems as dense matrices; K7 ``fvt_flux`` on the six tiles' levels
    stacked along K (480, 204, 204), halo 6.
-4. Path phase: ``make_step_sequential(FV3Config(npx=192, nk=80))`` takes 3
-   steps on the card from ``init_state(cfg, seed=0)``; step 1 is held
-   against the plain ``"torch"`` backend on the card over the interior.
+4. Path phase: ``make_step_sequential(FV3Config(npx=192, nk=80),
+   opt_level=0)`` takes 3 steps on the card from ``init_state(cfg,
+   seed=0)``; step 1 is held against the plain ``"torch"`` backend on the
+   card over the interior.
    Prints the step time, the launches of each kernel per step, the peak
    device memory and the relative drift of the total mass, then traces one
    more step with ``torch.profiler`` (device time by kernel, and the idle
    share of the untraced step).
-5. Ensemble phase: ``make_step_ensemble`` at C192 L80 from
-   ``ensemble_state(cfg, M, seed=0)`` — M = 4 under ``"grid"`` (3 steps),
+5. Ensemble phase: ``make_step_ensemble(..., opt_level=0)`` at C192 L80
+   from ``ensemble_state(cfg, M, seed=0)`` — M = 4 under ``"grid"`` (3 steps),
    M = 6 under ``"vmap:4"`` (padded to 8, 2 chunks; 1 step), M = 4 under
    ``"vmap:2,grid"`` (1 step).  Step 1 must equal M single-member
    sequential steps on the member slices exactly, while the members
    differ; launches per step must be the sequential path's (twice them
    under ``"vmap:4"``).  Prints the step and per-member-step times and
    the peak device memory of each.
-6. Prints a ``kernels`` JSON line and, last, the ``ok`` JSON line.
+6. Opt phase: the four step programs at C192 L80 compiled on ``"cuda"`` at
+   opt 0-4 for the default (H100) preset, with the static verifier after
+   every pass: stencil nodes, rule counts, verifier violations and every
+   vertical solver's tuned schedule.
+7. Opt-3 phase: the reference's default path, ``make_step_sequential(cfg)``
+   (opt 3, the H100 preset), 3 steps: step 1 against the plain opt-3 step
+   (same programs, the whole-step bar) and against the plain opt-0 step of
+   the path phase (the reference's bar between optimized and unoptimized
+   steps), the step time, launches per step of K1-K4, peak memory, mass
+   drift and a traced step; then the same step under the
+   reference's TPU schedules, ``hardware="tpu-v5e"``, which puts d_sw's
+   ``precompute_pe`` on K4 at ``block_k`` 16 (8 launches a step): its
+   step 1 must equal the default step's exactly over the interior; then one
+   M = 4 ``"grid"`` ensemble step at opt 3 on ``"tpu-v5e"``, which must
+   equal 4 single opt-3 steps exactly (K4's carry reset per member).
+8. Prints a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
-Each path (the sequential step, the ensemble steps, the standalone ops) is
+Each path (the sequential steps, the ensemble steps, the standalone ops) is
 driven with the launch counts set to 0 just before it and read just after.
 
 Any failed check raises, and the script exits nonzero without the result
@@ -67,7 +86,14 @@ C192_L80 = {"npx": 192, "nk": 80}
 KERNEL_RTOL = KERNEL_ATOL = 1e-6  # kernel vs plain, per element
 F64_RTOL = F64_ATOL = 1e-12       # K6 in float64 vs plain
 STEP_ATOL = 1e-5                  # one step vs the plain step, interior
+# an optimized step vs the unoptimized one: the reference's own bar for
+# that comparison (tests/test_fv3.py:131, assert_allclose rtol = atol =
+# 5e-5) — its fusion moves the result by more than STEP_ATOL, and the port
+# moves it by as much (tests/test_torch_optimizer.py holds it to the
+# reference's optimized step at STEP_ATOL)
+OPT_RTOL = OPT_ATOL = 5e-5
 MASS_RTOL = 1e-5                  # relative drift of total mass, 3 steps
+OPT3_HARDWARE = "tpu-v5e"          # the reference's preset: K4 on the path
 SOURCE = "src/repro_torch/csrc/stencil_kernels.cu"
 FV3_SOURCE = "src/repro_torch/csrc/fv3_kernels.cu"
 PALLAS = "src/repro/core/backend/lowering_pallas.py"
@@ -113,7 +139,12 @@ def expr_ops(e, nk: int) -> int:
 def bound(run, fields) -> tuple[float, str]:
     """Least time for one call of a compiled stencil on this card: each
     input field read once and each output written once over the write
-    window, against the operations its statements do there."""
+    window, against the operations its statements do there.  A field the
+    stencil writes is an input too only where a read can see its value from
+    before the call (``prior_reads``): not ``pe`` of ``precompute_pe``,
+    written at every level before its marching-previous read."""
+    from repro_torch.core.backend import cuda as C
+
     st, dom = run.stencil, run.dom
     lead = 1
     for d in next(iter(fields.values())).shape[:-3]:
@@ -131,14 +162,17 @@ def bound(run, fields) -> tuple[float, str]:
         return n
 
     plane = (dom.nj + 2 * dom.extend[1]) * (dom.ni + 2 * dom.extend[0])
-    touched = set(st.read_fields()) | set(run.written)
+    written = set(run.written)
+    inputs = (set(st.read_fields()) - written) | C.prior_reads(st, dom.nk)
     nbytes = sum(4 * stored(f) * st.k_extent_of(f, dom.nk) * plane
-                 for f in touched)
+                 for f in inputs)
     nbytes += sum(4 * lead * st.k_extent_of(f, dom.nk) * plane
-                  for f in set(run.written) & set(st.read_fields()))
+                  for f in written)
     ops = 0
     for p in run.programs:
-        stmts = [p.ir] if p.kind == "horizontal" else p.ir.statements
+        stmts = ([p.ir] if p.kind == "horizontal" else
+                 [s for c in p.ir.computations for s in c.statements]
+                 if p.kind == "kblocked" else p.ir.statements)
         for s in stmts:
             klo, khi = s.interval.resolve(st.k_extent_of(s.target, dom.nk))
             ops += expr_ops(s.value, dom.nk) * lead * max(0, khi - klo) * plane
@@ -298,6 +332,83 @@ def member_phase(device) -> list:
     return rows
 
 
+def kblocked_phase(device) -> list:
+    """K4 on d_sw's ``precompute_pe`` at C192 L80 on six tiles, under the
+    K-blocked schedules the reference's TPU tuner gives it (``block_k``
+    16) and one shallower slab (8): against its plain version (the
+    whole-column march) and against K2 on the same inputs, which it must
+    equal exactly; then at 4 members under "grid" and "vmap:2,grid"."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backend import cuda as C
+    from repro_torch.core.stencil import Schedule
+    from repro_torch.fv3 import dyncore as D
+
+    cfg = D.FV3Config(**C192_L80)
+    dom = cfg.seq_dom()
+    params = D.default_params(cfg)
+    prog = D.build_dsw_program(cfg, dom)
+    node = next(n for n in prog.all_nodes() if n.base_name == "precompute_pe")
+    ndom = prog.node_dom(node)
+    ps = {p: params[p] for p in node.stencil.params}
+    rng = np.random.default_rng(4)
+    column = C.CudaStencil(node.stencil, ndom)
+    rows = []
+    for bk, M, mchunk in ((16, None, 1), (8, None, 1), (16, 4, 1),
+                          (16, 4, 2)):
+        sched = Schedule(block_k=bk, k_as_grid=False)
+        run = C.CudaStencil(node.stencil, ndom, schedule=sched, n_members=M,
+                            member_chunk=mchunk)
+        if [p.kind for p in run.programs] != ["kblocked"]:
+            raise RuntimeError(f"precompute_pe at block_k={bk} did not "
+                               "take the K-blocked kernel")
+        lead = (6,) if M is None else (M, 6)
+        fields = kernel_inputs(node.stencil, "precompute_pe", ndom, rng,
+                               device, lead=lead)
+        got = run(fields, ps)
+        want = run.plain(fields, ps)
+        if M is None:
+            k2 = column(fields, ps)
+        else:  # K2, one member at a time
+            k2 = {w: torch.stack([column({f: v[m] for f, v in
+                                          fields.items()}, ps)[w]
+                                  for m in range(M)]) for w in run.written}
+        torch.cuda.synchronize()
+        err = err_k2 = 0.0
+        for w in run.written:
+            if not torch.isfinite(got[w]).all():
+                raise RuntimeError(f"K4 precompute_pe: non-finite output {w}")
+            err = max(err, (got[w] - want[w]).abs().max().item())
+            err_k2 = max(err_k2, (got[w] - k2[w]).abs().max().item())
+            if not torch.allclose(got[w], want[w], rtol=KERNEL_RTOL,
+                                  atol=KERNEL_ATOL):
+                raise RuntimeError(f"K4 at block_k={bk}: {w} disagrees with "
+                                   f"the plain version (max abs {err:.3e})")
+        if err_k2 != 0.0:
+            raise RuntimeError(f"K4 at block_k={bk} differs from K2 by "
+                               f"{err_k2:.3e}")
+        del got, want, k2
+        ms = cuda_ms(lambda: run(fields, ps), 10)
+        k2_ms = cuda_ms(lambda: column(fields, ps), 10) if M is None else None
+        plain_ms = cuda_ms(lambda: run.plain(fields, ps), 2)
+        b_ms, b_by = bound(run, fields)
+        case = ("" if M is None else
+                f" M={M} batch={'grid' if mchunk == 1 else 'vmap:2,grid'}")
+        k2_txt = "" if k2_ms is None else f" K2_ms={k2_ms:.4f}"
+        print(f"[kernel] K4 precompute_pe block_k={bk}{case} launches/call="
+              f"{len(run.programs)} max_abs_err={err:.3e} tol=rtol "
+              f"{KERNEL_RTOL:g} + atol {KERNEL_ATOL:g}; vs K2 max abs "
+              f"{err_k2:.3e} (must be 0) ms={ms:.4f}{k2_txt} plain_ms="
+              f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        rows.append(dict(kernel="K4", stencil="precompute_pe", block_k=bk,
+                         members=M, err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        del fields
+        torch.cuda.empty_cache()
+    return rows
+
+
 def standalone_phase(device) -> dict:
     """K6 and K7 through ``repro_torch.kernels.ops`` at C192 L80 shapes:
     the op calls counted, then each kernel against its plain version, and
@@ -451,7 +562,7 @@ def path_phase(device) -> dict:
 
     cfg = D.FV3Config(**C192_L80)
     t0 = time.perf_counter()
-    step = D.make_step_sequential(cfg, device=device)
+    step = D.make_step_sequential(cfg, opt_level=0, device=device)
     s0 = S.init_state(cfg, seed=0, device=device)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -479,7 +590,8 @@ def path_phase(device) -> dict:
     if abs(drift) >= MASS_RTOL:
         raise RuntimeError(f"total mass drifted by {drift:.3e}")
     del st
-    plain_step = D.make_step_sequential(cfg, backend="torch", device=device)
+    plain_step = D.make_step_sequential(cfg, backend="torch", opt_level=0,
+                                        device=device)
     t = time.perf_counter()
     p1 = plain_step(s0)
     torch.cuda.synchronize()
@@ -502,9 +614,10 @@ def path_phase(device) -> dict:
           f"drift over 3 steps {drift:.3e} (tol {MASS_RTOL:g})", flush=True)
     if worst >= STEP_ATOL:
         raise RuntimeError(f"step 1 disagrees with the plain step: {errs}")
-    del p1, plain_step
+    del plain_step
     trace_step(step, s1, step_ms)
-    return {"launches": launches, "step_ms": step_ms}
+    return {"launches": launches, "step_ms": step_ms, "s0": s0,
+            "plain1": p1}
 
 
 ENSEMBLE_CASES = (  # members, batch, steps, launches per step / M=1's
@@ -525,7 +638,7 @@ def ensemble_phase(device, seq_launches: dict) -> dict:
     from repro_torch.fv3 import state as S
 
     cfg = D.FV3Config(**C192_L80)
-    seq = D.make_step_sequential(cfg, device=device)
+    seq = D.make_step_sequential(cfg, opt_level=0, device=device)
     seq_step = {k: v / 3 for k, v in seq_launches.items()}  # 3 steps
     out, ens = {}, None
     for M, batch, n_steps, factor in ENSEMBLE_CASES:
@@ -535,7 +648,8 @@ def ensemble_phase(device, seq_launches: dict) -> dict:
             ens = S.ensemble_state(cfg, M, seed=0, device=device)
             print(f"[ensemble] ensemble_state(C192 L80, M={M}) "
                   f"{time.perf_counter() - t:.2f} s", flush=True)
-        step = D.make_step_ensemble(cfg, M, batch=batch, device=device)
+        step = D.make_step_ensemble(cfg, M, batch=batch, opt_level=0,
+                                    device=device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         C.reset_launches()
@@ -552,7 +666,7 @@ def ensemble_phase(device, seq_launches: dict) -> dict:
         del st
         per_step = {k: v / n_steps for k, v in launches.items()}
         want = {k: factor * seq_step[k]
-                for k in ("horizontal", "column", "search")}
+                for k in ("horizontal", "column", "kblocked", "search")}
         want["member"] = want["horizontal"] + want["column"]
         diffs = dict.fromkeys(s1, 0.0)
         for m in range(M):
@@ -595,29 +709,256 @@ def ensemble_phase(device, seq_launches: dict) -> dict:
     return out
 
 
+def stream_work(fn, tiles: int = 6) -> dict:
+    """What one call of a compiled program asks of the kernels: launches by
+    kind, and the ops, field loads and stores the interpreter executes over
+    all points, from each launch's per-statement counts
+    (``Program.work``)."""
+    from repro_torch.core.backend import cuda as C
+
+    work = {"horizontal": 0, "column": 0, "kblocked": 0, "ops": 0,
+            "loads": 0, "stores": 0}
+    for node in fn.program.all_nodes():
+        run = C.CudaStencil(node.stencil, fn.program.node_dom(node),
+                            schedule=node.schedule)
+        for prog in run.programs:
+            if prog.empty:
+                continue
+            work[prog.kind] += 1
+            for pts, ops, loads in prog.work():
+                work["ops"] += ops * tiles * pts
+                work["loads"] += loads * tiles * pts
+                work["stores"] += tiles * pts
+    return work
+
+
+def opt_phase(device) -> None:
+    """The four step programs at C192 L80 through the optimizer at opt 0-4
+    for the default (H100) preset, verified after every pass, each compiled
+    onto the kernels; per level, what a step asks of the kernels (each
+    acoustic program runs n_split * k_split times a step, the others
+    k_split times)."""
+    from repro_torch.fv3 import dyncore as D
+    from repro_torch.core.backend import compile_program
+
+    cfg = D.FV3Config(**C192_L80)
+    calls = {"c_sw+riem": cfg.n_split * cfg.k_split,
+             "d_sw": cfg.n_split * cfg.k_split,
+             "tracer_2d": cfg.k_split, "vertical_remap": cfg.k_split}
+    for level in range(5):
+        total = 0
+        step_work: dict = {}
+        for prog in D._build_programs(cfg, cfg.seq_dom()):
+            t = time.perf_counter()
+            fn = compile_program(prog, "cuda", opt_level=level,
+                                 verify="passes", device=device)
+            secs = time.perf_counter() - t
+            rep = fn.opt_report
+            rules = dict(rep.rules) if rep else {}
+            viol = rep.total_verify_violations if rep else 0
+            scheds = [f"{n.label.split('#')[0][:48]}: "
+                      + (n.schedule.describe() if n.schedule else "untuned")
+                      for n in fn.program.all_nodes()
+                      if n.stencil.is_vertical_solver()]
+            total += fn.n_kernels
+            for k, v in stream_work(fn).items():
+                step_work[k] = step_work.get(k, 0) + calls[prog.name] * v
+            print(f"[opt] opt{level} {prog.name:14s} n_kernels="
+                  f"{fn.n_kernels:3d} verify_violations={viol} "
+                  f"compile {secs:.2f} s rules={rules}")
+            for line in scheds:
+                print(f"[opt]     solver {line}")
+        print(f"[opt] opt{level} step: {total} stencil nodes (hardware "
+              f"{fn.hardware}); per step: launches K1 "
+              f"{step_work['horizontal']} K2 {step_work['column']} K4 "
+              f"{step_work['kblocked']}; interpreted ops "
+              f"{step_work['ops'] / 1e9:.2f} G, loads "
+              f"{step_work['loads'] / 1e9:.2f} G, stores "
+              f"{step_work['stores'] / 1e9:.2f} G", flush=True)
+
+
+def opt3_phase(device, path: dict) -> dict:
+    """The reference's default path at C192 L80: the opt-3 step for the
+    H100 preset (3 steps), then for the reference's TPU preset, where K4
+    runs d_sw's ``precompute_pe``, then one M = 4 opt-3 ensemble step."""
+    import torch
+
+    from repro_torch.core.backend import cuda as C
+    from repro_torch.fv3 import dyncore as D
+    from repro_torch.fv3 import state as S
+
+    cfg = D.FV3Config(**C192_L80)
+    s0, p1 = path["s0"], path["plain1"]
+    m0 = S.total_mass(s0, cfg)
+    out = {}
+    s1_default = None
+    for hw in (None, OPT3_HARDWARE):
+        name = hw or "default (h100)"
+        t = time.perf_counter()
+        step = D.make_step_sequential(cfg, hardware=hw, device=device)
+        setup_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        C.reset_launches()
+        st, times, s1 = s0, [], None
+        for i in range(3):
+            t = time.perf_counter()
+            st = step(st)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                s1 = st
+        launches = dict(C.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v / 3 for k, v in launches.items()}
+        for k, v in st.items():
+            if not torch.isfinite(interior(v, cfg)).all():
+                raise RuntimeError(f"opt-3 {name}: {k} non-finite")
+        drift = (S.total_mass(st, cfg) - m0) / m0
+        del st
+        errs = {k: (interior(s1[k], cfg) - interior(p1[k], cfg)).abs().max()
+                .item() for k in s1}
+        step_ms = 1e3 * statistics.median(times[1:])
+        print(f"[opt3] hardware={name}: {step.n_kernels} stencil nodes, "
+              f"setup {setup_s:.2f} s; step ms "
+              f"{[round(1e3 * x, 3) for x in times]} -> median of steps 2-3 "
+              f"= {step_ms:.3f} ms", flush=True)
+        print(f"[opt3] hardware={name}: launches per step {per_step}; peak "
+              f"device memory {peak / 2**30:.3f} GiB; mass drift over 3 "
+              f"steps {drift:.3e} (tol {MASS_RTOL:g})")
+        close = all(torch.allclose(interior(s1[k], cfg),
+                                   interior(p1[k], cfg), rtol=OPT_RTOL,
+                                   atol=OPT_ATOL) for k in s1)
+        print(f"[opt3] hardware={name}: step 1 vs the plain opt-0 torch "
+              "step, interior max abs err per field: "
+              + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+              + f"; tol rtol {OPT_RTOL:g} + atol {OPT_ATOL:g}", flush=True)
+        if not close:
+            raise RuntimeError(f"opt-3 step ({name}) disagrees with the "
+                               f"plain opt-0 step: {errs}")
+        if abs(drift) >= MASS_RTOL:
+            raise RuntimeError(f"opt-3 step ({name}): mass drift {drift:.3e}")
+        need = ("horizontal", "column", "search")
+        if min(launches[k] for k in need) <= 0:
+            raise RuntimeError(f"opt-3 step ({name}): a kernel of the path "
+                               f"never launched: {launches}")
+        if hw is None:
+            s1_default = s1
+            if launches["kblocked"] != 0:
+                raise RuntimeError("the H100 preset K-blocked a solver")
+            # the same opt-3 programs on the plain lowering: the kernels'
+            # share of the difference above
+            plain3 = D.make_step_sequential(cfg, backend="torch",
+                                            device=device)
+            t = time.perf_counter()
+            q1 = plain3(s0)
+            torch.cuda.synchronize()
+            plain3_ms = 1e3 * (time.perf_counter() - t)
+            errs3 = {k: (interior(s1[k], cfg) - interior(q1[k], cfg)).abs()
+                     .max().item() for k in s1}
+            del q1, plain3
+            print(f"[opt3] hardware={name}: step 1 vs the plain opt-3 torch "
+                  f"step ({plain3_ms:.3f} ms), interior max abs err per "
+                  "field: " + ", ".join(f"{k}={v:.3e}"
+                                        for k, v in errs3.items())
+                  + f"; tol {STEP_ATOL:g}", flush=True)
+            if max(errs3.values()) >= STEP_ATOL:
+                raise RuntimeError(f"the opt-3 step disagrees with the plain "
+                                   f"opt-3 step: {errs3}")
+            trace_step(step, s1, step_ms)
+        else:
+            k4_per_step = cfg.n_split * cfg.k_split  # d_sw per substep
+            if per_step["kblocked"] != k4_per_step:
+                raise RuntimeError(f"K4 launched {per_step['kblocked']} "
+                                   f"times a step, expected {k4_per_step}")
+            diffs = {k: (interior(s1[k], cfg) - interior(s1_default[k], cfg))
+                     .abs().max().item() for k in s1}
+            whole = max((s1[k] - s1_default[k]).abs().max().item()
+                        for k in s1)
+            print(f"[opt3] hardware={name} vs default: step 1 interior max "
+                  "abs difference per field: "
+                  + ", ".join(f"{k}={v:.3e}" for k, v in diffs.items())
+                  + f" (must be 0); whole arrays {whole:.3e}", flush=True)
+            if any(v != 0.0 for v in diffs.values()):
+                raise RuntimeError(f"the opt-3 step on {hw} schedules differs "
+                                   f"from the default: {diffs}")
+        out[hw] = {"launches": launches, "step_ms": step_ms, "peak": peak}
+        del s1, step
+        torch.cuda.empty_cache()
+    del s1_default
+    # the member axis on the opt-3 path: K4's carry resets per member
+    M = 4
+    ens = S.ensemble_state(cfg, M, seed=0, device=device)
+    step_e = D.make_step_ensemble(cfg, M, batch="grid",
+                                  hardware=OPT3_HARDWARE, device=device)
+    seq = D.make_step_sequential(cfg, hardware=OPT3_HARDWARE, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_launches()
+    t = time.perf_counter()
+    e1 = step_e(ens)
+    torch.cuda.synchronize()
+    ens_ms = 1e3 * (time.perf_counter() - t)
+    launches = dict(C.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    diffs = dict.fromkeys(e1, 0.0)
+    for m in range(M):
+        single = seq({k: v[m] for k, v in ens.items()})
+        for k, v in single.items():
+            diffs[k] = max(diffs[k], (e1[k][m] - v).abs().max().item())
+        del single
+    spread = max((e1[k][1:] - e1[k][:1]).abs().max().item() for k in e1)
+    print(f"[opt3] ensemble M={M} batch=grid hardware={OPT3_HARDWARE}: "
+          f"{step_e.n_kernels} stencil nodes; step 1 {ens_ms:.3f} ms, "
+          f"{ens_ms / M:.3f} ms per member-step; launches {launches}; peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"[opt3] ensemble step 1 vs {M} single opt-3 steps, max abs "
+          "difference per field over whole arrays: "
+          + ", ".join(f"{k}={v:.3e}" for k, v in diffs.items())
+          + f"; largest difference between members {spread:.3e}", flush=True)
+    if any(v != 0.0 for v in diffs.values()) or spread <= 0.0:
+        raise RuntimeError(f"the opt-3 ensemble step differs from its single "
+                           f"steps: {diffs} (spread {spread:.3e})")
+    want_k4 = cfg.n_split * cfg.k_split
+    every = launches["horizontal"] + launches["column"] + launches["kblocked"]
+    if launches["kblocked"] != want_k4 or launches["member"] != every:
+        raise RuntimeError(f"opt-3 ensemble launches {launches}, expected "
+                           f"{want_k4} K4 launches and every launch over "
+                           "the member axis")
+    out["ensemble"] = {"launches": launches, "step_ms": ens_ms,
+                       "peak": peak}
+    return out
+
+
 def kernel_records(rows: list, members: list, standalone: dict, path: dict,
-                   ensemble: dict) -> list:
+                   ensemble: dict, opt3: dict) -> list:
     """One record per kernel for the ``kernels`` line: the launches of its
-    path (the sequential step for K1-K3, the 3 ensemble steps under "grid"
-    for K5, the op calls for K6/K7), the worst error of its checks, and the
-    times and bound of its first case (fx_ppm, tridiag_solve,
-    interface_interp; fx_ppm under "grid" for K5)."""
+    path (the opt-0 sequential step for K1-K3, the 3 opt-3 steps on the TPU
+    preset's schedules for K4, the op calls for K6/K7; for K5 the member
+    launches of the 3 opt-0 ensemble steps under "grid" plus those of the
+    opt-3 M = 4 ensemble step, K4's 8 among them, each counted from zero
+    just before its run), the worst error of its checks, and the times and
+    bound of its first case (fx_ppm, tridiag_solve, interface_interp;
+    fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4)."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
-                "K3": f"{PALLAS}:99", "K5": f"{PALLAS}:207",
+                "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
+                "K5": f"{PALLAS}:207",
                 "K6": "src/repro/kernels/tridiag.py:22",
                 "K7": "src/repro/kernels/fvt_flux.py:21"}
     names = {"K1": "stencil_parallel_kernel", "K2": "stencil_column_kernel",
-             "K3": "march_search",
-             "K5": "member axis of stencil_parallel_kernel and "
-                   "stencil_column_kernel",
+             "K3": "march_search", "K4": "stencil_kblocked_kernel",
+             "K5": "member axis of stencil_parallel_kernel, "
+                   "stencil_column_kernel and stencil_kblocked_kernel",
              "K6": "tridiag_kernel", "K7": "fvt_flux_kernel"}
     counts = {"K1": "horizontal", "K2": "column", "K3": "search"}
     kernels = []
-    for k in ("K1", "K2", "K3", "K5"):
+    for k in ("K1", "K2", "K3", "K4", "K5"):
         mine = [r for r in rows + members if r["kernel"] == k]
         head = mine[0]
-        launches = (ensemble[(4, "grid")]["launches"]["member"] if k == "K5"
-                    else path["launches"][counts[k]])
+        launches = (ensemble[(4, "grid")]["launches"]["member"]
+                    + opt3["ensemble"]["launches"]["member"] if k == "K5"
+                    else opt3[OPT3_HARDWARE]["launches"]["kblocked"]
+                    if k == "K4" else path["launches"][counts[k]])
         kernels.append({
             "name": names[k], "route": "cuda", "source": SOURCE,
             "replaces": replaces[k], "launches": launches,
@@ -668,12 +1009,21 @@ def main() -> int:
                     or "spill" in line:
                 print(f"[build] {lib.stem}: {line.strip()}")
     device = torch.device("cuda")
+    # a fresh tuning cache: every run searches the schedules anew
+    from repro_torch.core.backend import TuningCache, set_default_cache
+
+    cache = ROOT / "build" / "repro_torch" / "chip_smoke_tuning.json"
+    cache.unlink(missing_ok=True)
+    set_default_cache(TuningCache(cache))
     rows = kernel_phase(device)
-    members = member_phase(device)
+    members = member_phase(device) + kblocked_phase(device)
     standalone = standalone_phase(device)
     path = path_phase(device)
     ensemble = ensemble_phase(device, path["launches"])
-    kernels = kernel_records(rows, members, standalone, path, ensemble)
+    opt_phase(device)
+    opt3 = opt3_phase(device, path)
+    del path["s0"], path["plain1"]
+    kernels = kernel_records(rows, members, standalone, path, ensemble, opt3)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 # The compilation pipeline of the port: Backend protocol + registry, the
-# plain PyTorch and CUDA lowerings behind it, and the compile_program entry
-# point.  This is the only package allowed to touch a lowering directly.
+# plain PyTorch and CUDA lowerings behind it, the persistent tuning cache
+# and the compile_program entry point.  This is the only package allowed to
+# touch a lowering directly.
 from ..hardware import (  # noqa: F401
     H100,
     Hardware,
@@ -17,5 +18,12 @@ from .base import (  # noqa: F401
     resolve_device,
 )
 from .batching import BatchSpec, parse_batch  # noqa: F401
-from .cache import stencil_fingerprint  # noqa: F401
+from .cache import (  # noqa: F401
+    COST_MODEL_VERSION,
+    TuningCache,
+    default_cache,
+    make_key,
+    set_default_cache,
+    stencil_fingerprint,
+)
 from .compile import compile_program, compile_stencil  # noqa: F401

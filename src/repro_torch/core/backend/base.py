@@ -1,10 +1,10 @@
 """Backend protocol + registry, and where the port's entry points run.
 
 A :class:`Backend` owns one lowering of the stencil IR.  Backends register
-by name;
-everything above this layer (graph compilation, the FV3 dycore) resolves
-backends through :func:`get_backend` and never imports a lowering module
-directly.
+by name; everything above this layer (graph compilation, autotuning, the FV3
+dycore) resolves backends through :func:`get_backend` and never imports a
+lowering module directly.  Hardware left unnamed is the ``"h100"`` preset
+(:func:`~repro_torch.core.hardware.resolve_hardware`).
 
 The port's entry points run on the card: :func:`resolve_device` turns
 ``device=None`` into ``cuda`` and refuses to carry on quietly when there is
@@ -14,12 +14,14 @@ no card.  Running on the CPU takes an explicit ``device="cpu"``.
 from __future__ import annotations
 
 import abc
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Iterator, Mapping
 
 import torch
 
+from ..hardware import Hardware, resolve_hardware
 from ..stencil.domain import DomainSpec
 from ..stencil.ir import Stencil
+from ..stencil.schedule import Schedule, feasible_schedules
 
 Runner = Callable[[Mapping[str, Any], Mapping[str, Any] | None], dict]
 
@@ -49,12 +51,22 @@ class Backend(abc.ABC):
 
     @abc.abstractmethod
     def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
+                        schedule: Schedule | None = None,
                         dtype=torch.float32, n_members: int | None = None,
                         member_chunk: int = 1) -> Runner:
         """Lower one stencil into ``fn(fields, params) -> dict`` of the
-        written fields.  ``n_members=M``: fields carry a leading member
-        axis of extent M, run ``member_chunk`` members at a time on the
-        launch grid where the backend has one."""
+        written fields.  ``schedule`` is the node's tuned schedule (the
+        backend reads what it honours of it).  ``n_members=M``: fields
+        carry a leading member axis of extent M, run ``member_chunk``
+        members at a time on the launch grid where the backend has one."""
+
+    # -- schedule policy (hardware-parameterized, overridable) ---------------
+    def feasible_schedules(self, stencil: Stencil, dom_shape,
+                           dtype_bytes: int = 4,
+                           hardware: Hardware | str | None = None,
+                           ) -> Iterator[Schedule]:
+        return feasible_schedules(stencil, dom_shape, dtype_bytes,
+                                  hw=resolve_hardware(hardware))
 
     def __repr__(self):
         return f"<backend {self.name!r}>"

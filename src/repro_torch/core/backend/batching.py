@@ -6,8 +6,8 @@ A :class:`BatchSpec` describes how M ensemble members run:
            leading batch dimension the plain lowering broadcasts over;
            "grid" → the member axis of the CUDA kernels' launch grid — on
            the card both launch one thread per member and point)
-    chunk  C, members per chunk (0 → unchunked, C = M; AUTO → a cost-model
-           pick, which needs the optimizer and is not ported)
+    chunk  C, members per chunk (0 → unchunked, C = M; AUTO → picked by the
+           cost model at compile time)
     loop   how chunks are sequenced ("scan" → a Python loop over ceil(M/C)
            chunks; "grid" → C-member chunks inside each kernel launch, one
            thread looping over the C members of its chunk — backends
@@ -21,7 +21,7 @@ Accepted spellings (:func:`parse_batch`):
     "vmap:C,scan"    same, explicit
     "vmap:C,grid"    C-member chunks inside each kernel launch
     "grid:C"         a loop over chunks of a C-member grid axis
-    "vmap:auto[,..]" C picked by the cost model (raises at compile time)
+    "vmap:auto[,..]" C picked by the cost model at compile time
 
 M not divisible by C is handled by *replicating the last member* up to the
 next multiple (never zeros — padded members flow through divisions) and

@@ -1,14 +1,21 @@
 """``compile_program`` — the single entry point of the compilation pipeline.
 
-frontend → IR → graph → backend: the FV3 dycore and the tests funnel
-through here; no module outside this package touches a lowering directly.
+frontend → IR → graph → **passes** → backend → schedule/tuning: the FV3
+dycore and the tests funnel through here; no module outside this package
+touches a lowering directly.
 
-This slice compiles at ``opt_level=0``: every stencil node lowers 1:1 to
-one runner.  The compiled callable threads only *live* fields between
-runners: inputs a node consumes before any node writes them are
-auto-allocated when missing, and transient containers leave the
-environment after their last reader.  ``n_members`` threads an ensemble's
-member axis through the program (:mod:`.batching`).
+``opt_level`` applies the automatic optimization ladder of
+:mod:`repro_torch.core.passes` to a clone of the program before lowering:
+pruning, strength reduction, cost-model-guided fusion and transfer-tuned
+schedule assignment (paper §VI), for the ``hardware`` preset (``"h100"``
+when none is named).  At ``opt_level=0`` every
+stencil node lowers 1:1 to one runner.  The compiled callable threads only
+*live* fields between runners: inputs a node consumes before any node
+writes them are auto-allocated when missing, and transient containers
+leave the environment after their last reader — after fusion most never
+exist as program fields at all, because fused nodes keep them as
+temporaries.  ``n_members`` threads an ensemble's member axis through the
+program (:mod:`.batching`).
 
 Two backends are registered here:
 
@@ -19,28 +26,33 @@ Two backends are registered here:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import TYPE_CHECKING, Callable, Mapping
 
 import torch
 
+from ..hardware import Hardware, resolve_hardware
 from ..stencil.domain import DomainSpec
 from ..stencil.ir import Stencil
+from ..stencil.schedule import Schedule
 from .base import Backend, Runner, get_backend, register_backend, resolve_device
 from .batching import AUTO, BatchSpec, pad_wrapped, parse_batch, scan_chunked
 from .cuda import CudaStencil
 from .lowering_torch import compile_torch
 
 if TYPE_CHECKING:  # pragma: no cover - typing only, avoids a circular import
-    from ..graph import StencilProgram
+    from ..graph import Node, StencilProgram
 
 
 class TorchBackend(Backend):
     """The plain PyTorch lowering: the oracle, on whatever device the
-    fields lie on."""
+    fields lie on.  Schedules are accepted and ignored (a solver always
+    marches whole columns)."""
 
     name = "torch"
 
     def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
+                        schedule: Schedule | None = None,
                         dtype=torch.float32, n_members: int | None = None,
                         member_chunk: int = 1) -> Runner:
         # leading dims ride through the plain lowering: a member axis is
@@ -49,18 +61,20 @@ class TorchBackend(Backend):
 
 
 class CudaBackend(Backend):
-    """The hand-written Hopper kernels (K1–K3), one launch per PARALLEL
-    statement and per solver computation, with the member axis on the
-    launch grid (K5)."""
+    """The hand-written Hopper kernels (K1–K4), one launch per PARALLEL
+    statement and per solver computation — or one K-blocked launch for a
+    single-direction solver under a K-blocked schedule — with the member
+    axis on the launch grid (K5)."""
 
     name = "cuda"
     member_grid = True
 
     def compile_stencil(self, stencil: Stencil, dom: DomainSpec, *,
+                        schedule: Schedule | None = None,
                         dtype=torch.float32, n_members: int | None = None,
                         member_chunk: int = 1) -> Runner:
-        return CudaStencil(stencil, dom, dtype=dtype, n_members=n_members,
-                           member_chunk=member_chunk)
+        return CudaStencil(stencil, dom, schedule=schedule, dtype=dtype,
+                           n_members=n_members, member_chunk=member_chunk)
 
 
 register_backend(TorchBackend())
@@ -69,12 +83,25 @@ register_backend(CudaBackend())
 
 def compile_stencil(stencil: Stencil, dom: DomainSpec, *,
                     backend: "str | Backend" = "cuda",
+                    schedule: Schedule | None = None,
                     dtype=torch.float32, n_members: int | None = None,
                     member_chunk: int = 1) -> Runner:
-    """Compile one stencil through a registered backend."""
+    """Compile one stencil through a registered backend, under
+    ``schedule`` where the backend reads one."""
     return get_backend(backend).compile_stencil(
-        stencil, dom, dtype=dtype, n_members=n_members,
+        stencil, dom, schedule=schedule, dtype=dtype, n_members=n_members,
         member_chunk=member_chunk)
+
+
+def _resolve_override(node: "Node", overrides) -> Schedule | None:
+    if not overrides:
+        return node.schedule
+    # per-instance label wins over per-motif base name
+    if node.label in overrides:
+        return overrides[node.label]
+    if node.base_name in overrides:
+        return overrides[node.base_name]
+    return node.schedule
 
 
 def _liveness(program: "StencilProgram", runners) -> tuple[list, list]:
@@ -106,6 +133,8 @@ def _liveness(program: "StencilProgram", runners) -> tuple[list, list]:
 
 def compile_program(program: "StencilProgram",
                     backend: "str | Backend" = "cuda", *,
+                    hardware: Hardware | str | None = None,
+                    schedule_overrides: Mapping[str, Schedule] | None = None,
                     opt_level: int = 0,
                     n_members: int | None = None,
                     batch: "str | BatchSpec" = "vmap",
@@ -113,6 +142,14 @@ def compile_program(program: "StencilProgram",
                     device: "torch.device | str | None" = None) -> Callable:
     """Compile a whole :class:`StencilProgram` into one callable
     ``fn(fields: dict, params: dict) -> dict`` (live fields threaded).
+
+    ``hardware`` is a descriptor or registered preset name (defaults to
+    ``"h100"``); the optimizer tunes for it.
+    ``schedule_overrides`` maps node labels (``"al_x#3"``) or motif base
+    names (``"al_x"``) to :class:`Schedule` objects, overriding any schedule
+    stored on the node.  ``opt_level`` (0–4) selects the automatic
+    optimization pipeline (:mod:`repro_torch.core.rewrite`) applied to a
+    *clone* of ``program`` — the caller's graph is never mutated.
 
     ``device`` is where the program runs and where missing inputs are
     allocated: ``None`` means the CUDA card, and raises ``RuntimeError``
@@ -134,32 +171,38 @@ def compile_program(program: "StencilProgram",
     M not divisible by C replicate-pads the last member to a whole chunk
     and slices the pad off after — bit-identical for the real members.  A
     field broadcast across members (an expanded tensor, member stride 0)
-    reaches the kernels without copies.  Malformed specs raise
-    ``ValueError``; ``"vmap:auto"`` needs the cost model, which comes with
-    the optimizer (ROADMAP item 6), and raises ``NotImplementedError``.
+    reaches the kernels without copies.  ``"vmap:auto"`` /
+    ``"vmap:auto,grid"`` pick C per program through the cost model
+    (:func:`~repro_torch.core.autotune.tune_program_chunk`).  Malformed
+    specs raise ``ValueError``.
 
-    Only ``opt_level=0`` exists in this slice of the port: the optimizer
-    (opt 1–4) and the static verifier (``verify="full"``) raise
-    ``NotImplementedError``.
+    ``verify`` selects the static verifier (:mod:`repro_torch.core.analysis`):
+    ``"off"`` skips it; ``"passes"`` runs it on the optimizer's input
+    program and after every pass (violations raise
+    :class:`~repro_torch.core.errors.VerificationError` attributed to the
+    responsible pass); ``"full"`` also verifies the program when no pass
+    runs (``opt_level=0``).  ``None`` resolves through ``$REPRO_VERIFY``,
+    then ``"passes"`` under pytest/CI and ``"off"`` elsewhere.
 
     The returned callable exposes ``n_kernels`` (number of compiled
-    runners, the same for every M and C), ``program`` (the graph lowered),
-    ``input_fields``, ``transient_inputs`` and ``device``, plus
-    ``n_members`` / ``batch`` / ``batch_spec`` / ``member_chunk`` /
-    ``n_chunks`` describing the member lowering.
+    runners, the same for every M and C), ``opt_report`` (the
+    :class:`~repro_torch.core.rewrite.PipelineReport`, ``None`` at level 0),
+    ``verify_mode``, ``program`` (the graph lowered), ``input_fields``,
+    ``transient_inputs`` (fields auto-allocated when the caller omits them
+    — empty of transients once fusion has localized them), ``hardware``,
+    ``backend`` and ``device``, plus ``n_members`` / ``batch`` /
+    ``batch_spec`` / ``member_chunk`` / ``n_chunks`` describing the member
+    lowering.
     """
-    if opt_level != 0:
-        raise NotImplementedError(
-            f"opt_level={opt_level}: only opt level 0 is ported")
-    if verify not in (None, "off", "passes"):
-        raise NotImplementedError(f"verify={verify!r} is not ported")
+    be = get_backend(backend)
+    hw = resolve_hardware(hardware)
     spec = parse_batch(batch)
     if n_members and spec.chunk == AUTO:
-        raise NotImplementedError(
-            f"batch={spec.token!r} picks C through the cost model, which "
-            "comes with the optimizer (ROADMAP item 6)")
+        from ..autotune import tune_program_chunk
+
+        spec = dataclasses.replace(spec, chunk=tune_program_chunk(
+            program, backend=be.name, hw=hw, n_members=n_members))
     dev = resolve_device(device)
-    be = get_backend(backend)
     # effective spec for this M: clamp C, take grid-loop chunks to the
     # chunk loop on backends without a member grid, collapse single-chunk
     # loops
@@ -177,6 +220,24 @@ def compile_program(program: "StencilProgram",
         (n_members or 0)
     # under loop="scan" each launch sees one C-member chunk; under
     # loop="grid" the launches cover the padded axis, C members a thread
+    from ..analysis.verifier import resolve_verify_mode
+
+    verify_mode = resolve_verify_mode(verify)
+    opt_report = None
+    if opt_level:
+        from ..passes import optimize_program
+
+        program, opt_report = optimize_program(
+            program, opt_level=opt_level, backend=be.name, hardware=hw,
+            n_members=n_members or 1,
+            member_chunk=eff.chunk if n_members else 0,
+            verify=verify_mode)
+    elif verify_mode == "full":
+        # no pass runs at level 0, but "full" still audits the program
+        # actually being lowered
+        from ..analysis import verify_program
+
+        verify_program(program, raise_on_violation=True)
     stencil_members, member_chunk = n_members, 1
     if chunk_scan:
         stencil_members = eff.chunk
@@ -187,6 +248,7 @@ def compile_program(program: "StencilProgram",
         for n in s.nodes:
             runners.append((n, compile_stencil(
                 n.stencil, program.node_dom(n), backend=be,
+                schedule=_resolve_override(n, schedule_overrides),
                 n_members=stencil_members or None,
                 member_chunk=member_chunk)))
 
@@ -226,9 +288,12 @@ def compile_program(program: "StencilProgram",
     elif chunk_grid and Mp != n_members:
         fn = pad_wrapped(_exec, n_members, Mp)
     fn.n_kernels = len(runners)
+    fn.opt_report = opt_report
+    fn.verify_mode = verify_mode
     fn.program = program
     fn.device = dev
     fn.backend = be.name
+    fn.hardware = hw.name
     fn.input_fields = tuple(inputs)
     fn.transient_inputs = tuple(
         f for f in inputs

@@ -1,8 +1,8 @@
 """The CUDA kernels of the stencil IR: encoder, build and wrappers.
 
-Three hand-written kernels in ``csrc/stencil_kernels.cu`` run every
-stencil of the opt-0 path; they port the reference's Pallas kernels
-(``src/repro/core/backend/lowering_pallas.py``):
+Four hand-written kernels in ``csrc/stencil_kernels.cu`` run every
+stencil of the path, fused or not, at every opt level; they port the
+reference's Pallas kernels (``src/repro/core/backend/lowering_pallas.py``):
 
  * ``stencil_parallel_kernel`` (K1, ``_horizontal_kernel``) — one PARALLEL
    statement, one thread per ``(tile, k, j, i)`` point of its write window;
@@ -10,6 +10,10 @@ stencil of the opt-0 path; they port the reference's Pallas kernels
    BACKWARD computation, one thread per ``(tile, j, i)`` column marching K;
  * ``march_search`` (K3, ``_march_search``) — the ``index_search`` level
    search, a device function both kernels call for the ``SEARCH`` op;
+ * ``stencil_kblocked_kernel`` (K4, ``_vertical_kernel_kblocked``) — a
+   single-direction solver under a K-blocked schedule: one thread per
+   column walking the ``nk / block_k`` slabs in marching order, each slab
+   staged in shared memory, the marching carry handed from slab to slab;
  * their member axis (K5, ``_member_index_map``/``_member_specs``) — an
    ensemble's members in one launch, one member (``"grid"``) or a chunk of
    members (``"vmap:C,grid"``) per thread, with a per-slot member stride
@@ -19,8 +23,17 @@ The kernels interpret the IR: this module encodes each statement into a
 postfix program of int32 ops with a float32 constant table (see the opcode
 table below, mirrored in the CUDA source), and the wrapper launches the
 kernels with the program, a field table (pointer and K extent per slot) and
-the scalar parameters.  Expressions built from constants only are folded in
-double precision at encode time, as the plain lowering computes them.
+the scalar parameters.  A fused node is one stencil of many computations:
+each PARALLEL statement is one K1 launch and each solver computation one
+K2 launch, in order, so launch order keeps it right.
+
+Of a node's schedule the backend honours ``block_k`` of a vertical solver:
+whenever ``kblocked_applies(stencil, schedule, nk)`` holds, as it does for
+the reference's ``compile_pallas``, the whole stencil is one K4 launch over
+slabs of ``block_k`` levels.  Tile sizes, ``k_as_grid``, the carry storage
+and the region strategy are not read (one thread per point or column).
+Expressions built from constants only are folded in double precision at
+encode time, as the plain lowering computes them.
 
 The source builds at first use with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (loaded with :mod:`ctypes`), in
@@ -66,11 +79,13 @@ from ..stencil.ir import (
     Where,
     expr_contains_level_search,
 )
+from ..stencil.schedule import (Schedule, kblocked_applies,
+                                solver_carried_fields, solver_k_blockable)
 from . import lowering_torch as plain
 
 # -- the kernels' ABI (keep in sync with csrc/stencil_kernels.cu) ------------
 
-MAX_SLOTS = 32
+MAX_SLOTS = 64
 MAX_PARAMS = 16
 PROG_MAX = 1024
 CONST_MAX = 256
@@ -95,6 +110,9 @@ class LaunchArgs(ctypes.Structure):
         ("ptr", ctypes.c_void_p * MAX_SLOTS),
         ("mstride", ctypes.c_longlong * MAX_SLOTS),
         ("kext", ctypes.c_int * MAX_SLOTS),
+        ("sidx", ctypes.c_int * MAX_SLOTS),
+        ("cidx", ctypes.c_int * MAX_SLOTS),
+        ("sload", ctypes.c_int * MAX_SLOTS),
         ("params", ctypes.c_float * MAX_PARAMS),
         ("prog", ctypes.c_void_p),
         ("consts", ctypes.c_void_p),
@@ -116,14 +134,20 @@ class LaunchArgs(ctypes.Structure):
         ("forward", ctypes.c_int),
         ("nmember", ctypes.c_int),
         ("mchunk", ctypes.c_int),
+        ("bk", ctypes.c_int),
+        ("n_staged", ctypes.c_int),
+        ("n_carried", ctypes.c_int),
+        ("nfield", ctypes.c_int),
     ]
 
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else ("search" counts
 #: the K1/K2 launches whose program runs the K3 level search, "member" the
-#: K1/K2 launches over more than one member, which take the member axis, K5)
-LAUNCHES = {"horizontal": 0, "column": 0, "search": 0, "member": 0}
+#: K1/K2/K4 launches over more than one member, which take the member axis,
+#: K5)
+LAUNCHES = {"horizontal": 0, "column": 0, "kblocked": 0, "search": 0,
+            "member": 0}
 
 
 def reset_launches() -> None:
@@ -212,11 +236,15 @@ def _check_parallel_hazard(st: Assign) -> None:
                 "it writes; one launch cannot order those reads")
 
 
-def _check_column_hazard(comp: Computation) -> None:
+def _check_column_hazard(comp: Computation | Stencil) -> None:
     """K2 threads own columns: a read, at a horizontal offset, of a field
-    the same computation writes would see a neighbour column mid-march."""
+    the same computation writes would see a neighbour column mid-march.
+    K4 interleaves all computations of a stencil per level, so there the
+    rule covers every field the stencil writes."""
     written = set(comp.written())
-    for st in comp.statements:
+    statements = (comp.statements if isinstance(comp, Computation)
+                  else [st for c in comp.computations for st in c.statements])
+    for st in statements:
         for e in _walk(st.value):
             if isinstance(e, FieldAccess):
                 name, di, dj = e.name, e.offset[0], e.offset[1]
@@ -241,8 +269,9 @@ class Program:
     """One launch: the statement records and ops, the constant table, and
     the IR it was encoded from (which the plain version runs)."""
 
-    kind: str                     # "horizontal" (K1) | "column" (K2)
-    ir: Assign | Computation
+    kind: str                     # "horizontal" (K1) | "column" (K2) |
+    #                               "kblocked" (K4)
+    ir: Assign | Computation | Stencil
     prog: list[int]
     consts: list[float]
     stack: int                    # deepest stack the ops reach
@@ -250,16 +279,109 @@ class Program:
     klo: int = 0                  # K1: interval and box
     khi: int = 0
     box: tuple[int, int, int, int] = (0, 0, 0, 0)
-    lo: int = 0                   # K2: march
+    lo: int = 0                   # K2, K4: march
     hi: int = 0
     forward: bool = True
+    block_k: int = 0              # K4: slab depth,
+    staged: tuple[int, ...] = ()  # the slots staged in shared memory,
+    loaded: tuple[int, ...] = ()  # those of them loaded from memory,
+    carried: tuple[int, ...] = ()  # the slots carried from slab to slab
 
     @property
     def empty(self) -> bool:
         j0, j1, i0, i1 = self.box
-        if self.kind == "column":
+        if self.kind in ("column", "kblocked"):
             return self.hi <= self.lo or j1 <= j0 or i1 <= i0
         return self.khi <= self.klo or j1 <= j0 or i1 <= i0
+
+    def work(self) -> list[tuple[int, int, int]]:
+        """Per statement record: the points it writes per tile (levels x
+        rows x columns of its box), and the ops and field loads the
+        interpreter executes at one point (a level search counts one load
+        per layer it marches and one per ``at_found`` read)."""
+        code = self.prog
+        out = []
+        for q in range(code[0]):
+            _, klo, khi, j0, j1, i0, i1, pc, end = \
+                code[1 + REC_INTS * q:1 + REC_INTS * (q + 1)]
+            ops = loads = 0
+            while pc < end:
+                op = code[pc]
+                pc += 1
+                ops += 1
+                if op == OP_LOAD:
+                    pc += 4
+                    loads += 1
+                elif op in (OP_CONST, OP_PARAM, OP_FOUND):
+                    pc += 1
+                elif op == OP_SEARCH:
+                    lo, hi, nf = code[pc + 1:pc + 4]
+                    pc += 4 + 4 * nf
+                    loads += max(0, hi - lo - 1) + nf
+            out.append((max(0, khi - klo) * max(0, j1 - j0)
+                        * max(0, i1 - i0), ops, loads))
+        return out
+
+
+def prior_reads(stencil: Stencil, nk: int, *,
+                interleaved: bool = False) -> set[str]:
+    """The fields ``stencil`` writes of which some read can see the value
+    from before the call: a read at a horizontal offset or by a level
+    search, or a read at a level that no earlier statement of the call has
+    written over the whole window (a write under a region covers nothing).
+
+    Statements run as the plain lowering orders them: each computation in
+    turn, a PARALLEL one statement by statement, a solver level by level in
+    its marching order, K reads edge-clamped.  With ``interleaved`` they run
+    as K4 runs them: every statement of every computation at each level, in
+    marching order over all ``nk`` levels, where a read before the first
+    level takes the zeroed carry, not memory."""
+    written = {w for w in stencil.written() if w in stencil.fields}
+    done: dict[str, set[int]] = {f: set() for f in written}
+    prior: set[str] = set()
+
+    def levels(st: Assign) -> range:
+        return range(*st.interval.resolve(
+            stencil.k_extent_of(st.target, nk)))
+
+    def run(st: Assign, ks) -> None:
+        for e in _walk(st.value):
+            if isinstance(e, FoundLevel) and e.name in written:
+                prior.add(e.name)
+            elif isinstance(e, LevelSearch) and e.coord in written:
+                prior.add(e.coord)
+            elif isinstance(e, FieldAccess) and e.name in written:
+                di, dj, dk = e.offset
+                kext = stencil.k_extent_of(e.name, nk)
+                if (di, dj) != (0, 0) or any(
+                        min(max(k + dk, 0), kext - 1) not in done[e.name]
+                        for k in ks
+                        if not interleaved or 0 <= k + dk < kext):
+                    prior.add(e.name)
+        if st.target in written and st.region is None:
+            done[st.target].update(ks)
+
+    def march(statements, forward: bool, lo: int, hi: int) -> None:
+        spans = [levels(st) for st in statements]
+        for k in (range(lo, hi) if forward else range(hi - 1, lo - 1, -1)):
+            for st, span in zip(statements, spans):
+                if k in span:
+                    run(st, (k,))
+
+    comps = stencil.computations
+    if interleaved:
+        march([st for c in comps for st in c.statements],
+              any(c.direction is Direction.FORWARD for c in comps), 0, nk)
+        return prior
+    for c in comps:
+        if c.direction is Direction.PARALLEL:
+            for st in c.statements:
+                run(st, levels(st))
+        else:
+            spans = [levels(st) for st in c.statements]
+            march(c.statements, c.direction is Direction.FORWARD,
+                  min(s.start for s in spans), max(s.stop for s in spans))
+    return prior
 
 
 def slot_names(stencil: Stencil) -> list[str]:
@@ -281,6 +403,7 @@ class Encoder:
         if len(stencil.params) > MAX_PARAMS:
             raise ValueError(f"{stencil.name}: more than {MAX_PARAMS} params")
         self.slots = {n: i for i, n in enumerate(names)}
+        self.temps = set(stencil.temporaries())
         self.params = {p: i for i, p in enumerate(stencil.params)}
         h = dom.halo
         self.jp, self.ip = dom.nj + 2 * h, dom.ni + 2 * h
@@ -334,6 +457,12 @@ class Encoder:
         elif isinstance(e, FieldAccess):
             di, dj, dk = e.offset
             self._check_reach(e.name, di, dj)
+            if (di, dj) != (0, 0) and e.name in self.temps:
+                raise NotImplementedError(
+                    f"{self.stencil.name}: temporary {e.name!r} is read at "
+                    f"horizontal offset {(di, dj)}, but a launch computes "
+                    "it on its own write window only and its definition "
+                    "cannot be inlined at that offset")
             self._ops += [OP_LOAD, self.slots[e.name], di, dj, dk]
             self._push()
         elif isinstance(e, FoundLevel):
@@ -372,6 +501,10 @@ class Encoder:
         self._ops += [OP_SEARCH, self.slots[e.coord], lo, hi, len(finds)]
         for fl in finds:
             self._check_reach(fl.name, fl.di, fl.dj)
+            if (fl.di, fl.dj) != (0, 0) and fl.name in self.temps:
+                raise NotImplementedError(
+                    f"{self.stencil.name}: temporary {fl.name!r} is read at "
+                    f"horizontal offset {(fl.di, fl.dj)} by a level search")
             self._ops += [self.slots[fl.name], fl.di, fl.dj, fl.dk]
         self._sp -= 1  # the target
         self._has_search = True
@@ -430,10 +563,51 @@ class Encoder:
                        forward=comp.direction is Direction.FORWARD)
 
 
-def encode_stencil(stencil: Stencil, dom: DomainSpec) -> list[Program]:
-    """The launches of one stencil call, in order: each PARALLEL statement
-    is one K1 launch, each FORWARD/BACKWARD computation one K2 launch."""
+    def kblocked(self, block_k: int) -> Program:
+        """The whole solver stencil as one K4 launch: every statement of
+        every computation, interleaved per level in marching order, over
+        ``nk // block_k`` slabs (``solver_k_blockable`` must hold)."""
+        st = self.stencil
+        nk = self.dom.nk
+        if not (solver_k_blockable(st) and 0 < block_k < nk
+                and nk % block_k == 0):
+            raise ValueError(f"{st.name}: no K-blocked march with "
+                             f"block_k={block_k} at nk={nk}")
+        _check_column_hazard(st)
+        statements = [s for c in st.computations for s in c.statements]
+        prog, consts, depth, search = self._encode(statements)
+        staged: list[int] = []
+        for s in statements:
+            for a in [s.target] + [x.name for x in s.value.accesses()
+                                   if x.offset[:2] == (0, 0)]:
+                if self.slots[a] not in staged:
+                    staged.append(self.slots[a])
+        # a written field every read of which follows its write in the
+        # march starts at zero like a temporary: its old value is not read
+        written = set(st.written())
+        prior = prior_reads(st, nk, interleaved=True)
+        names = slot_names(st)
+        loaded = [s for s in staged if names[s] in st.fields
+                  and (names[s] not in written or names[s] in prior)]
+        carried = [self.slots[n] for n in solver_carried_fields(st)]
+        forward = any(c.direction is Direction.FORWARD
+                      for c in st.computations)
+        return Program("kblocked", st, prog, consts, depth, search,
+                       box=self.window(), lo=0, hi=nk, forward=forward,
+                       block_k=block_k, staged=tuple(staged),
+                       loaded=tuple(loaded), carried=tuple(carried))
+
+
+def encode_stencil(stencil: Stencil, dom: DomainSpec,
+                   schedule: Schedule | None = None) -> list[Program]:
+    """The launches of one stencil call, in order: a vertical solver whose
+    ``schedule`` K-blocks it (``kblocked_applies``) is one K4 launch;
+    otherwise each PARALLEL statement is one K1 launch and each
+    FORWARD/BACKWARD computation one K2 launch."""
     enc = Encoder(stencil, dom)
+    if (stencil.is_vertical_solver() and schedule is not None
+            and kblocked_applies(stencil, schedule, dom.nk, scratch=True)):
+        return [enc.kblocked(schedule.block_k)]
     out = []
     for comp in stencil.computations:
         if comp.direction is Direction.PARALLEL:
@@ -506,7 +680,8 @@ _LIB: ctypes.CDLL | None = None
 def bind_library(path: Path | str) -> ctypes.CDLL:
     """Load a build of the kernel source and declare its C interface."""
     lib = ctypes.CDLL(str(path))
-    for name in ("launch_stencil_parallel", "launch_stencil_column"):
+    for name in ("launch_stencil_parallel", "launch_stencil_column",
+                 "launch_stencil_kblocked"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(LaunchArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -565,9 +740,13 @@ class CudaStencil:
     With ``n_members=M`` the first dim is an ensemble's member axis, of
     extent M (K5): members may lie at any stride, 0 for a field broadcast
     across members, but each member's block must be contiguous.  Each
-    thread runs ``member_chunk`` members, which must divide M."""
+    thread runs ``member_chunk`` members, which must divide M.
+
+    ``schedule`` is the node's schedule; a vertical solver that it K-blocks
+    runs as one K4 launch (``kblocked``)."""
 
     def __init__(self, stencil: Stencil, dom: DomainSpec, *,
+                 schedule: Schedule | None = None,
                  dtype=torch.float32, n_members: int | None = None,
                  member_chunk: int = 1):
         if dtype != torch.float32:
@@ -587,7 +766,7 @@ class CudaStencil:
                         else inline_offset_temps(stencil))
         self.written = [w for w in self.stencil.written()
                         if w in self.stencil.fields]
-        self.programs = encode_stencil(self.stencil, dom)
+        self.programs = encode_stencil(self.stencil, dom, schedule)
         self.slot_names = slot_names(self.stencil)
         self._uploaded: dict[torch.device, list] = {}
         #: the kernels' plain version on any device: the plain lowering of
@@ -694,6 +873,9 @@ class CudaStencil:
             if p.kind == "horizontal":
                 args.klo, args.khi = p.klo, p.khi
                 rc = lib.launch_stencil_parallel(ctypes.byref(args), stream)
+            elif p.kind == "kblocked":
+                self._kblocked_args(args, p)
+                rc = lib.launch_stencil_kblocked(ctypes.byref(args), stream)
             else:
                 args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
                 rc = lib.launch_stencil_column(ctypes.byref(args), stream)
@@ -706,3 +888,17 @@ class CudaStencil:
                 LAUNCHES["search"] += 1
             if args.nmember > 1:  # the kernels' member axis ran
                 LAUNCHES["member"] += 1
+
+    def _kblocked_args(self, args: LaunchArgs, p: Program) -> None:
+        """K4's part of the launch arguments: the march, the slab's planes
+        (and which load from memory) and the carries, by slot."""
+        args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
+        args.bk = p.block_k
+        args.n_staged, args.n_carried = len(p.staged), len(p.carried)
+        args.nfield = len(self.stencil.fields)
+        for slot in range(len(self.slot_names)):
+            args.sidx[slot] = (p.staged.index(slot) if slot in p.staged
+                               else -1)
+            args.cidx[slot] = (p.carried.index(slot) if slot in p.carried
+                               else -1)
+            args.sload[slot] = int(slot in p.loaded)

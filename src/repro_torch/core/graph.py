@@ -19,6 +19,7 @@ from typing import Any, Callable, Mapping
 import torch
 
 from .stencil.domain import DomainSpec
+from .stencil.schedule import Schedule
 from .stencil.ir import (Assign, Computation, Expr, FieldAccess, FoundLevel,
                          LevelSearch, ParamRef, Stencil)
 
@@ -83,6 +84,7 @@ class Node:
     label: str          # unique instance label, e.g. "fvt.flux_x#3"
     stencil: Stencil    # renamed into program namespace
     extend: tuple[int, int] = (0, 0)
+    schedule: Schedule | None = None
     # params bound to program-level parameter names happen via rename
 
     @property
@@ -135,7 +137,8 @@ class StencilProgram:
     def add(self, stencil: Stencil, bindings: Mapping[str, str],
             params: Mapping[str, str] | None = None,
             extend: tuple[int, int] = (0, 0),
-            state: State | None = None) -> Node:
+            state: State | None = None,
+            schedule: Schedule | None = None) -> Node:
         self._counter += 1
         renamed = rename_stencil(stencil, bindings, params,
                                  temp_prefix=f"__t{self._counter}_")
@@ -153,7 +156,7 @@ class StencilProgram:
             if p not in self.params:
                 self.params.append(p)
         node = Node(label=f"{stencil.name}#{self._counter}", stencil=renamed,
-                    extend=extend)
+                    extend=extend, schedule=schedule)
         (state or self.states[-1]).nodes.append(node)
         return node
 
@@ -241,18 +244,25 @@ class StencilProgram:
                     "a halo exchange is required before this node")
 
     # -- execution ---------------------------------------------------------------
-    def compile(self, backend: str = "cuda", *,
-                opt_level: int = 0, verify: str | None = None,
-                device=None) -> Callable:
+    def compile(self, backend: str = "cuda", *, hardware=None,
+                schedule_overrides=None, opt_level: int = 0,
+                n_members: int | None = None, batch: str = "vmap",
+                verify: str | None = None, device=None) -> Callable:
         """Compile the whole program into one callable
         ``fn(fields: dict, params: dict) -> dict`` (live fields threaded).
 
-        Thin wrapper over :func:`repro_torch.core.backend.compile_program`.
+        Thin wrapper over :func:`repro_torch.core.backend.compile_program`:
+        ``hardware`` names the preset the optimizer tunes for, ``opt_level``
+        selects the optimization ladder (:mod:`repro_torch.core.passes`)
+        applied to a clone of this program, and ``n_members``/``batch``
+        thread the ensemble axis through every node.
         """
         from .backend import compile_program
 
-        return compile_program(self, backend, opt_level=opt_level,
-                               verify=verify, device=device)
+        return compile_program(self, backend, hardware=hardware,
+                               schedule_overrides=schedule_overrides,
+                               opt_level=opt_level, n_members=n_members,
+                               batch=batch, verify=verify, device=device)
 
     def __repr__(self):
         lines = [f"program {self.name}: {len(self.all_nodes())} nodes, "

@@ -1,21 +1,27 @@
-// Hand-written Hopper kernels for the stencil IR at opt level 0.
+// Hand-written Hopper kernels for the stencil IR, at every opt level.
 //
-// One source serves every stencil of the FV3-lite step: the kernels do not
-// contain any stencil, they interpret it.  The Python encoder
+// One source serves every stencil of the FV3-lite step, fused or not: the
+// kernels do not contain any stencil, they interpret it.  The Python encoder
 // (repro_torch/core/backend/cuda.py) turns each IR statement into a small
 // postfix program of int32 ops plus a float32 constant table; a launch gets
 // that program, the field table (pointer and K extent per slot), the scalar
 // parameters and the geometry of its iteration space.
 //
-// Three kernels replace the three Pallas kernels of the reference's opt-0
-// path (src/repro/core/backend/lowering_pallas.py), and their member axis
+// Four kernels replace the four Pallas kernels of the reference's path
+// (src/repro/core/backend/lowering_pallas.py), and their member axis
 // replaces the reference's member grid axis:
 //
 //   stencil_parallel_kernel  <- _horizontal_kernel (:350)   K1
 //   stencil_column_kernel    <- _vertical_kernel   (:486)   K2
 //   march_search (device fn) <- _march_search      (:99)    K3
+//   stencil_kblocked_kernel  <- _vertical_kernel_kblocked   K4
+//                               (:635), _compile_kblocked (:774)
 //   nmember/mchunk/mstride   <- _member_index_map,          K5
 //                               _member_specs (:207-229)
+//
+// A fused node (opt 2 and up) is one stencil with many computations; the
+// wrapper launches K1 once per PARALLEL statement and K2 once per solver
+// computation, in order, so launch order keeps it right.
 //
 // What bounds them on an H100, and what the design does about it:
 //
@@ -61,6 +67,29 @@
 //   templated on kMembers: a launch over one member (the sequential step)
 //   takes the instance without the member offset and the chunk loop, so
 //   the member axis costs that path nothing.
+// * K4 runs a single-direction solver under a K-blocked schedule
+//   (block_k < nk, block_k | nk): all statements of all computations
+//   interleaved per level, in marching order, as the reference's K-blocked
+//   kernel runs them.  On the TPU the K slabs are a sequential grid
+//   dimension and the carry crosses grid steps in VMEM scratch; a CUDA grid
+//   cannot order its blocks, so here the slab walk is a loop inside the
+//   kernel.  One CTA owns a tile of consecutive columns (thread = column,
+//   neighbouring threads on neighbouring i).  Per slab, the CTA stages the
+//   block_k levels of every slot the march reads at the column's own point
+//   or writes into shared memory (one coalesced load per level and slot;
+//   temporaries, and written fields whose every read in the march follows
+//   their write, start at zero and are not read from device memory), syncs,
+//   and each thread marches its column's levels out of shared memory,
+//   writing program fields through to device memory.  The marching-previous level
+//   comes from the slab, or, at a slab's first level, from the carry: the
+//   previous slab's last level of every carried slot, kept per thread
+//   across slabs and zeroed at each member's first slab (the reference's
+//   per-member carry reset).  Reads at a horizontal offset go to device
+//   memory; the encoder refuses them for any slot the stencil writes, so
+//   columns stay independent.  Bound: device-memory bytes (each field whose
+//   old value is read read once, each output written once) like K2; the
+//   slab adds no traffic, so the design aims at K2's time, not below it.  With the same
+//   eval_program it computes every level as K2 does, bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (plain C interface, ctypes).
@@ -70,7 +99,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_SLOTS 32
+#define MAX_SLOTS 64
 #define MAX_PARAMS 16
 #define PROG_MAX 1024
 #define CONST_MAX 256
@@ -78,6 +107,8 @@
 #define FOUND_MAX 8
 #define REC_INTS 9
 #define BLOCK 256
+#define KB_BLOCK 128                      // K4: columns per CTA at most
+#define KB_SMEM_BUDGET (200 * 1024)       // K4: dynamic shared memory cap
 
 // opcodes — keep in sync with cuda.py
 enum {
@@ -100,6 +131,10 @@ struct LaunchArgs {
   float* ptr[MAX_SLOTS];
   long long mstride[MAX_SLOTS];  // elements between members; 0: broadcast
   int kext[MAX_SLOTS];
+  int sidx[MAX_SLOTS];     // K4: the slot's plane in the slab, -1: not staged
+  int cidx[MAX_SLOTS];     // K4: the slot's carry, -1: not carried
+  int sload[MAX_SLOTS];    // K4: 1: the slab loads the slot from memory,
+                           //     0: it starts at zero
   float params[MAX_PARAMS];
   const int* prog;
   const float* consts;
@@ -109,12 +144,17 @@ struct LaunchArgs {
   int j0, j1, i0, i1;      // K1: statement box; K2: write window
   int lo, hi, forward;     // K2: the march
   int nmember, mchunk;     // K5: members, and members per thread
+  int bk, n_staged, n_carried, nfield;  // K4: slab depth, slab planes,
+                                        // carries, slots < nfield are fields
 };
 
 struct Shared {
   float* ptr[MAX_SLOTS];
   long long mstride[MAX_SLOTS];
   int kext[MAX_SLOTS];
+  int sidx[MAX_SLOTS];
+  int cidx[MAX_SLOTS];
+  int sload[MAX_SLOTS];
   float params[MAX_PARAMS];
   float consts[CONST_MAX];
   int prog[PROG_MAX];
@@ -171,10 +211,58 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
-// Interpret ops [pc, end) at point (m, t, k, j, i); returns the value.
+// Where a program's LOADs read: device memory at the point (m, t, k, j, i)
+// (K1, K2), edge-clamped in K.
 template <bool kMembers>
-__device__ float eval_program(const Shared& s, int pc, int end, int m, int t,
-                              int k, int j, int i, int jp, int ip) {
+struct GlobalReader {
+  const Shared& s;
+  int m, t, k, j, i, jp, ip;
+  __device__ __forceinline__ float load(int slot, int di, int dj,
+                                        int dk) const {
+    return load_at(slot, k + dk, di, dj);
+  }
+  __device__ __forceinline__ float load_at(int slot, int lvl, int di,
+                                           int dj) const {
+    return ::load<kMembers>(s, slot, m, t, lvl, jp, ip, j + dj, i + di);
+  }
+  __device__ __forceinline__ int search(int coord, int lo, int hi,
+                                        float target) const {
+    return march_search<kMembers>(s, coord, m, t, jp, ip, j, i, lo, hi,
+                                  target);
+  }
+};
+
+// K4's reads: the column's own point from the slab (the current level, or
+// the marching-previous one: the slab's level before, or at the slab's
+// first level the carry), horizontal offsets from device memory.
+template <bool kMembers>
+struct SlabReader {
+  GlobalReader<kMembers> g;
+  const float* slab;
+  const float* carry;
+  int local, bk, nthr, tid;
+  __device__ __forceinline__ float load(int slot, int di, int dj,
+                                        int dk) const {
+    if (di != 0 || dj != 0) return g.load(slot, di, dj, dk);
+    const int lp = local + dk;
+    if (lp >= 0 && lp < bk)
+      return slab[(g.s.sidx[slot] * bk + lp) * nthr + tid];
+    return carry[g.s.cidx[slot]];
+  }
+  __device__ __forceinline__ float load_at(int slot, int lvl, int di,
+                                           int dj) const {
+    return g.load_at(slot, lvl, di, dj);
+  }
+  __device__ __forceinline__ int search(int coord, int lo, int hi,
+                                        float target) const {
+    return g.search(coord, lo, hi, target);
+  }
+};
+
+// Interpret ops [pc, end), reading fields through ``rd``; returns the value.
+template <class Reader>
+__device__ float eval_program(const Shared& s, int pc, int end,
+                              const Reader rd) {
   float stk[STACK_MAX];
   float found[FOUND_MAX];
   int sp = 0;
@@ -185,8 +273,7 @@ __device__ float eval_program(const Shared& s, int pc, int end, int m, int t,
         const int slot = s.prog[pc], di = s.prog[pc + 1];
         const int dj = s.prog[pc + 2], dk = s.prog[pc + 3];
         pc += 4;
-        stk[sp++] = load<kMembers>(s, slot, m, t, k + dk, jp, ip, j + dj,
-                                   i + di);
+        stk[sp++] = rd.load(slot, di, dj, dk);
         break;
       }
       case OP_CONST: stk[sp++] = s.consts[s.prog[pc++]]; break;
@@ -197,14 +284,12 @@ __device__ float eval_program(const Shared& s, int pc, int end, int m, int t,
         const int hi = s.prog[pc + 2], nf = s.prog[pc + 3];
         pc += 4;
         const float target = stk[--sp];
-        const int lvl = march_search<kMembers>(s, coord, m, t, jp, ip, j, i,
-                                               lo, hi, target);
+        const int lvl = rd.search(coord, lo, hi, target);
         for (int f = 0; f < nf; ++f) {
           const int slot = s.prog[pc], di = s.prog[pc + 1];
           const int dj = s.prog[pc + 2], dk = s.prog[pc + 3];
           pc += 4;
-          found[f] = load<kMembers>(s, slot, m, t, lvl + dk, jp, ip, j + dj,
-                                    i + di);
+          found[f] = rd.load_at(slot, lvl + dk, di, dj);
         }
         break;
       }
@@ -255,6 +340,9 @@ __device__ void stage(Shared& s, const LaunchArgs& a) {
     s.ptr[x] = a.ptr[x];
     s.mstride[x] = a.mstride[x];
     s.kext[x] = a.kext[x];
+    s.sidx[x] = a.sidx[x];
+    s.cidx[x] = a.cidx[x];
+    s.sload[x] = a.sload[x];
   }
   for (int x = threadIdx.x; x < a.n_params; x += blockDim.x) s.params[x] = a.params[x];
   __syncthreads();
@@ -279,8 +367,8 @@ __global__ void __launch_bounds__(BLOCK) stencil_parallel_kernel(LaunchArgs a) {
   const int mchunk = kMembers ? a.mchunk : 1;
   for (int mm = 0; mm < mchunk; ++mm) {
     const int m = chunk * mchunk + mm;
-    const float v =
-        eval_program<kMembers>(s, r[7], r[8], m, t, k, j, i, a.jp, a.ip);
+    const GlobalReader<kMembers> rd{s, m, t, k, j, i, a.jp, a.ip};
+    const float v = eval_program(s, r[7], r[8], rd);
     *at<kMembers>(s, tgt, m, t, k, a.jp, a.ip, j, i) = v;
   }
 }
@@ -309,10 +397,79 @@ __global__ void __launch_bounds__(BLOCK) stencil_column_kernel(LaunchArgs a) {
         const int* r = s.prog + 1 + REC_INTS * q;
         if (k < r[1] || k >= r[2]) continue;                 // interval
         if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
-        const float v =
-            eval_program<kMembers>(s, r[7], r[8], m, t, k, j, i, a.jp, a.ip);
+        const GlobalReader<kMembers> rd{s, m, t, k, j, i, a.jp, a.ip};
+        const float v = eval_program(s, r[7], r[8], rd);
         *at<kMembers>(s, r[0], m, t, k, a.jp, a.ip, j, i) = v;
       }
+    }
+  }
+}
+
+// K4: a single-direction solver under a K-blocked schedule (replaces
+// _vertical_kernel_kblocked): one thread per column, a loop over the
+// nk / bk slabs in marching order, each slab staged in shared memory.
+template <bool kMembers>
+__global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
+    LaunchArgs a) {
+  __shared__ Shared s;
+  extern __shared__ float slab[];  // [n_staged][bk][blockDim.x]
+  stage(s, a);
+  const int nthr = blockDim.x, tid = threadIdx.x;
+  const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0;
+  const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
+  long long g = static_cast<long long>(blockIdx.x) * nthr + tid;
+  // threads past the last column still stage and sync with the others
+  const bool valid = g < nchunk * a.ntile * nj * ni;
+  int i = a.i0, j = a.j0, t = 0, chunk = 0;
+  if (valid) {
+    i = a.i0 + static_cast<int>(g % ni); g /= ni;
+    j = a.j0 + static_cast<int>(g % nj); g /= nj;
+    t = kMembers ? static_cast<int>(g % a.ntile) : static_cast<int>(g);
+    chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
+  }
+  const int n_stmts = s.prog[0];
+  const int mchunk = kMembers ? a.mchunk : 1;
+  const int bk = a.bk;
+  const int nblocks = (a.hi - a.lo) / bk;
+  float carry[MAX_SLOTS];
+  for (int mm = 0; mm < mchunk; ++mm) {
+    const int m = chunk * mchunk + mm;
+    for (int c = 0; c < a.n_carried; ++c) carry[c] = 0.f;  // per member
+    for (int b = 0; b < nblocks; ++b) {
+      const int k0 = a.lo + (a.forward ? b : nblocks - 1 - b) * bk;
+      __syncthreads();  // every thread is done with the previous slab
+      for (int slot = 0; slot < a.n_slots; ++slot) {
+        const int si = s.sidx[slot];
+        if (si < 0) continue;
+        const bool from_memory = valid && s.sload[slot];
+        for (int lvl = 0; lvl < bk; ++lvl)
+          slab[(si * bk + lvl) * nthr + tid] =
+              from_memory ? *at<kMembers>(s, slot, m, t, k0 + lvl, a.jp,
+                                          a.ip, j, i)
+                          : 0.f;
+      }
+      __syncthreads();
+      if (!valid) continue;
+      for (int step = 0; step < bk; ++step) {
+        const int local = a.forward ? step : bk - 1 - step;
+        const int k = k0 + local;
+        const SlabReader<kMembers> rd{{s, m, t, k, j, i, a.jp, a.ip},
+                                      slab, carry, local, bk, nthr, tid};
+        for (int q = 0; q < n_stmts; ++q) {
+          const int* r = s.prog + 1 + REC_INTS * q;
+          if (k < r[1] || k >= r[2]) continue;                 // interval
+          if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
+          const float v = eval_program(s, r[7], r[8], rd);
+          slab[(s.sidx[r[0]] * bk + local) * nthr + tid] = v;
+          if (r[0] < a.nfield)
+            *at<kMembers>(s, r[0], m, t, k, a.jp, a.ip, j, i) = v;
+        }
+      }
+      // the carry: the last marched level of every carried slot
+      const int last = a.forward ? bk - 1 : 0;
+      for (int slot = 0; slot < a.n_slots; ++slot)
+        if (s.cidx[slot] >= 0)
+          carry[s.cidx[slot]] = slab[(s.sidx[slot] * bk + last) * nthr + tid];
     }
   }
 }
@@ -357,6 +514,37 @@ int launch_stencil_column(const LaunchArgs* a, void* stream) {
     stencil_column_kernel<true><<<blocks_for(n), BLOCK, 0, st>>>(*a);
   else
     stencil_column_kernel<false><<<blocks_for(n), BLOCK, 0, st>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: as many columns per CTA (up to KB_BLOCK, down to a warp) as the
+// slab's shared memory allows.
+int launch_stencil_kblocked(const LaunchArgs* a, void* stream) {
+  const size_t per_col = static_cast<size_t>(a->n_staged) * a->bk *
+                         sizeof(float);
+  int threads = KB_BLOCK;
+  while (threads > 32 && per_col * threads > KB_SMEM_BUDGET) threads /= 2;
+  const size_t bytes = per_col * threads;
+  if (bytes > KB_SMEM_BUDGET) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = n_chunks(a) * a->ntile * (a->j1 - a->j0) *
+                      (a->i1 - a->i0);
+  const unsigned int blocks =
+      static_cast<unsigned int>((n + threads - 1) / threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  if (a->nmember > 1) {
+    rc = cudaFuncSetAttribute(stencil_kblocked_kernel<true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    stencil_kblocked_kernel<true><<<blocks, threads, bytes, st>>>(*a);
+  } else {
+    rc = cudaFuncSetAttribute(stencil_kblocked_kernel<false>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    stencil_kblocked_kernel<false><<<blocks, threads, bytes, st>>>(*a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

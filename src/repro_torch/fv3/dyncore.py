@@ -10,9 +10,11 @@ The step runs on global ``(6, nk, npx+2h, npx+2h)`` tensors on one device
 with the reference halo exchange; the ensemble step on ``(M, 6, nk, ...)``
 tensors, the member axis threaded through every program.  Four stencil
 programs (c_sw+riem, d_sw, tracer_2d, vertical_remap) compile through
-``compile_program`` at opt level 0; on the ``"cuda"`` backend every stencil
-runs on the hand-written Hopper kernels, which take the tile and member
-axes as launch-grid dimensions.  The reference's ``lax.scan`` sub-stepping
+``compile_program`` at the reference's default opt level 3 (pruning,
+strength reduction, cost-model-guided fusion and tuned schedules for the
+``hardware`` preset); on the ``"cuda"`` backend every stencil runs on the
+hand-written Hopper kernels, which take the tile and member axes as
+launch-grid dimensions.  The reference's ``lax.scan`` sub-stepping
 is a Python loop here: PyTorch runs eagerly and each runner launches its
 own kernels.
 """
@@ -208,15 +210,17 @@ def _build_programs(cfg: FV3Config, dom: DomainSpec):
 
 
 def _make_programs(cfg: FV3Config, dom: DomainSpec, backend: str,
-                   opt_level: int, device: torch.device,
+                   opt_level: int, device: torch.device, hardware=None,
                    n_members: int | None = None,
                    batch: "str | BatchSpec" = "vmap"):
     """Build the four stencil programs (acoustic c_sw / d_sw, tracer
-    transport, vertical remap) and compile each."""
+    transport, vertical remap) and compile each through the automatic
+    optimization ladder (the paper's opt pipeline applies to the whole
+    dycore — remap included — with no per-program hand-tuning)."""
     progs = _build_programs(cfg, dom)
     runners = tuple(
-        compile_program(p, backend, opt_level=opt_level, device=device,
-                        n_members=n_members, batch=batch)
+        compile_program(p, backend, hardware=hardware, opt_level=opt_level,
+                        device=device, n_members=n_members, batch=batch)
         for p in progs)
     return progs, runners
 
@@ -328,6 +332,7 @@ def _assemble_step(cfg: FV3Config, progs, runners, metrics, dev,
         return run(state)
 
     step.counters = counters
+    step.opt_report = {p.name: r.opt_report for p, r in zip(progs, runners)}
     step.n_kernels = sum(r.n_kernels for r in runners)
     step.programs = progs
     step.device = dev
@@ -336,7 +341,7 @@ def _assemble_step(cfg: FV3Config, progs, runners, metrics, dev,
 
 
 def make_step_sequential(cfg: FV3Config, *, backend: str = "cuda",
-                         opt_level: int = 0,
+                         hardware=None, opt_level: int = 3,
                          device: "torch.device | str | None" = None
                          ) -> Callable:
     """Physics step on global (6, nk, npx+2h, npx+2h) tensors, one device.
@@ -345,23 +350,29 @@ def make_step_sequential(cfg: FV3Config, *, backend: str = "cuda",
     there is none; ``device="cpu"`` runs the plain versions on the CPU.
     ``backend`` is ``"cuda"`` (the hand-written kernels; the plain versions
     for CPU tensors) or ``"torch"`` (the plain lowering on any device).
+    ``opt_level`` (default 3, the reference's default) and ``hardware``
+    (a preset name or descriptor; ``"h100"`` when None)
+    select the optimization pipeline every program compiles through.
 
     The returned ``step(state) -> state`` exposes ``n_kernels`` (compiled
-    stencil runners over the four programs), ``programs`` and ``counters``
-    (acoustic iterations, runner dispatches and step calls).
+    stencil runners over the four programs), ``opt_report`` (per-program
+    pipeline reports, ``None`` at opt level 0), ``programs`` and
+    ``counters`` (acoustic iterations, runner dispatches and step calls).
     """
     if cfg.dtype != "float32":
         raise NotImplementedError("the port steps float32 states only")
     dev = resolve_device(device)
     dom = cfg.seq_dom()
-    progs, runners = _make_programs(cfg, dom, backend, opt_level, dev)
+    progs, runners = _make_programs(cfg, dom, backend, opt_level, dev,
+                                    hardware=hardware)
     # cosa/sina hoisted out of the loops: built once per step closure
     metrics = _metric_terms(cfg, (6,) + dom.padded_shape(), dev)
     return _assemble_step(cfg, progs, runners, metrics, dev, backend)
 
 
 def make_step_ensemble(cfg: FV3Config, n_members: int, *,
-                       backend: str = "cuda", opt_level: int = 0,
+                       backend: str = "cuda", hardware=None,
+                       opt_level: int = 3,
                        batch: "str | BatchSpec | None" = None,
                        device: "torch.device | str | None" = None
                        ) -> Callable:
@@ -372,8 +383,10 @@ def make_step_ensemble(cfg: FV3Config, n_members: int, *,
     through every program (``compile_program(..., n_members=M,
     batch=...)``) instead of a loop over members; the halo exchange runs
     batched.  The result is bit-identical to M independent sequential
-    steps.  On the ``"cuda"`` backend the members go on the kernels' launch
-    grid, so a step makes the same launches as at M = 1.
+    steps at every opt level.  On the ``"cuda"`` backend the members go on
+    the kernels' launch grid, so a step makes the same launches as at
+    M = 1.  ``opt_level`` and ``hardware`` as in
+    :func:`make_step_sequential`.
 
     ``batch`` defaults to ``"grid"`` on ``"cuda"`` and ``"vmap"`` on
     ``"torch"``, and takes the chunk grammar of ``compile_program``.  A
@@ -381,12 +394,13 @@ def make_step_ensemble(cfg: FV3Config, n_members: int, *,
     the *step*: the runners compile C-wide and the whole step — halo
     exchanges, acoustic loop, remap — runs one chunk after another, so only
     one C-member working set is live at a time.  ``"vmap:C,grid"`` keeps
-    the step M-wide and runs C-member chunks inside each launch.  The
+    the step M-wide and runs C-member chunks inside each launch;
+    ``"vmap:auto"`` picks C per program through the cost model.  The
     metric terms are broadcast across members (member stride 0).
 
     ``device`` as in :func:`make_step_sequential`.  The returned step
     exposes ``n_members``, ``batch``, ``member_chunk``, ``n_chunks``,
-    ``n_kernels`` (the same for every M) and ``counters``.
+    ``n_kernels`` (the same for every M), ``opt_report`` and ``counters``.
     """
     if cfg.dtype != "float32":
         raise NotImplementedError("the port steps float32 states only")
@@ -395,7 +409,7 @@ def make_step_ensemble(cfg: FV3Config, n_members: int, *,
     spec = parse_batch(batch)
     member_chunks = None
     prog_members, prog_batch = n_members, spec
-    if spec.chunk > 0:  # an explicit chunk width (auto raises below)
+    if spec.chunk > 0:  # an explicit chunk width (AUTO resolves per program)
         C = spec.chunk_for(n_members)
         grid_loop = spec.loop == "grid" and get_backend(backend).member_grid
         if C < n_members and not grid_loop:
@@ -405,6 +419,7 @@ def make_step_ensemble(cfg: FV3Config, n_members: int, *,
     dev = resolve_device(device)
     dom = cfg.seq_dom()
     progs, runners = _make_programs(cfg, dom, backend, opt_level, dev,
+                                    hardware=hardware,
                                     n_members=prog_members, batch=prog_batch)
     base = _metric_terms(cfg, (6,) + dom.padded_shape(), dev)
     metrics = {k: v.expand((prog_members,) + tuple(v.shape))

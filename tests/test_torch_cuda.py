@@ -18,9 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.backend import TuningCache, set_default_cache
 from repro_torch.core.backend import cuda as C
+from repro_torch.core.hardware import Hardware, register_hardware
 from repro_torch.core.stencil import (Assign, Computation, DomainSpec,
-                                      FieldAccess, Interval, Stencil)
+                                      FieldAccess, Interval, Schedule,
+                                      Stencil)
 from repro_torch.core.stencil import ir
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import state as TSt
@@ -33,6 +36,16 @@ NAMES = sorted(k for k, v in vars(TS).items() if isinstance(v, Stencil))
 DOM = DomainSpec(ni=6, nj=5, nk=4, halo=3, extend=(1, 1))
 UNARY = {v: k for k, v in C.UNARY_OPS.items()}
 BINARY = {v: k for k, v in C.BINARY_OPS.items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_tuning_cache(tmp_path_factory):
+    """The port's tuning cache of this file: a throwaway file, never the
+    working tree's ``.repro_cache/torch_tuning.json``."""
+    set_default_cache(TuningCache(
+        tmp_path_factory.mktemp("torch_tuning") / "torch_tuning.json"))
+    yield
+    set_default_cache(None)
 
 
 def _inputs(st, dom, seed, lead=(2,)):
@@ -342,9 +355,10 @@ def test_step_on_card_matches_plain_step(card):
     cfg = TD.FV3Config(npx=12, nk=5)
     s0 = TSt.init_state(cfg, device=card)
     C.reset_launches()
-    got = TD.make_step_sequential(cfg, device=card)(s0)
+    got = TD.make_step_sequential(cfg, opt_level=0, device=card)(s0)
     launched = dict(C.LAUNCHES)
-    want = TD.make_step_sequential(cfg, backend="torch", device=card)(s0)
+    want = TD.make_step_sequential(cfg, backend="torch", opt_level=0,
+                                   device=card)(s0)
     assert min(launched[k] for k in ("horizontal", "column", "search")) > 0
     assert launched["member"] == 0  # one member: no member axis
     h, n = cfg.halo, cfg.npx
@@ -423,11 +437,12 @@ def test_ensemble_step_on_card_matches_member_loop(card, batch):
     cfg = TD.FV3Config(npx=12, nk=5, n_split=1, k_split=1)
     M = 3
     ens0 = TSt.ensemble_state(cfg, M, device=card)
-    step_s = TD.make_step_sequential(cfg, device=card)
+    step_s = TD.make_step_sequential(cfg, opt_level=0, device=card)
     C.reset_launches()
     step_s({k: v[0] for k, v in ens0.items()})
     per_member = dict(C.LAUNCHES)
-    step_e = TD.make_step_ensemble(cfg, M, batch=batch, device=card)
+    step_e = TD.make_step_ensemble(cfg, M, batch=batch, opt_level=0,
+                                   device=card)
     C.reset_launches()
     out = step_e(ens0)
     launched = dict(C.LAUNCHES)
@@ -441,3 +456,78 @@ def test_ensemble_step_on_card_matches_member_loop(card, batch):
         want = torch.stack([s[k] for s in singles])
         assert torch.equal(out[k], want), k
     assert (out["pt"][1] - out["pt"][0]).abs().max().item() > 0
+
+
+KDOM = DomainSpec(ni=6, nj=5, nk=16, halo=3, extend=(1, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [4, 8])
+def test_kblocked_kernel_matches_plain_and_column_on_card(card, bk):
+    """K4 equals its plain version (the whole-column march) and K2 on the
+    same inputs bit for bit."""
+    sched = Schedule(block_k=bk, k_as_grid=False)
+    run = C.CudaStencil(TS.precompute_pe, KDOM, schedule=sched)
+    assert [p.kind for p in run.programs] == ["kblocked"]
+    fields, params = _inputs(run.stencil, KDOM, seed=bk, lead=(6,))
+    fields = {k: v.to(card) for k, v in fields.items()}
+    before = C.LAUNCHES["kblocked"]
+    got = run(fields, params)
+    column = C.CudaStencil(TS.precompute_pe, KDOM)(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["kblocked"] == before + 1
+    for w in run.written:
+        torch.testing.assert_close(got[w], want[w], rtol=1e-6, atol=1e-6)
+        assert torch.equal(got[w], column[w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mchunk", [1, 2])
+def test_kblocked_member_axis_on_card(card, mchunk):
+    """K4 over 4 members: each member's carry starts from zero, so every
+    member equals its own single-member launch."""
+    M = 4
+    sched = Schedule(block_k=4, k_as_grid=False)
+    run = C.CudaStencil(TS.precompute_pe, KDOM, schedule=sched, n_members=M,
+                        member_chunk=mchunk)
+    fields, params = _inputs(run.stencil, KDOM, seed=5, lead=(M, 6))
+    fields = {k: v.to(card) for k, v in fields.items()}
+    before = C.LAUNCHES["member"]
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["member"] == before + 1
+    single = C.CudaStencil(TS.precompute_pe, KDOM, schedule=sched)
+    for w in run.written:
+        torch.testing.assert_close(got[w], want[w], rtol=1e-6, atol=1e-6)
+        for m in range(M):
+            one = single({k: v[m].contiguous() for k, v in fields.items()},
+                         params)
+            assert torch.equal(got[w][m], one[w])
+
+
+@pytest.mark.cuda
+def test_opt3_step_on_card_with_kblocked_schedules(card):
+    """The opt-3 step on a TPU-like preset whose VMEM K-blocks
+    ``precompute_pe``: K4 runs once per d_sw call, and the step equals the
+    default preset's opt-3 step and the plain opt-3 step."""
+    register_hardware(Hardware("test-tiny-vmem", peak_flops=1e12,
+                               hbm_bw=1e11, link_bw=0,
+                               vmem_bytes=12 * 1024, kind="tpu"),
+                      overwrite=True)
+    cfg = TD.FV3Config(npx=12, nk=16, n_split=2, k_split=1)
+    s0 = TSt.init_state(cfg, device=card)
+    C.reset_launches()
+    got = TD.make_step_sequential(cfg, hardware="test-tiny-vmem",
+                                  device=card)(s0)
+    launched = dict(C.LAUNCHES)
+    assert launched["kblocked"] == cfg.n_split * cfg.k_split
+    default = TD.make_step_sequential(cfg, device=card)(s0)
+    plain = TD.make_step_sequential(cfg, backend="torch", device=card)(s0)
+    h, n = cfg.halo, cfg.npx
+    for k in got:
+        assert torch.equal(got[k][..., h:h + n, h:h + n],
+                           default[k][..., h:h + n, h:h + n]), k
+        err = (got[k] - plain[k])[..., h:h + n, h:h + n].abs().max().item()
+        assert err < 1e-5, (k, err)

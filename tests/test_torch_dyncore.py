@@ -16,12 +16,23 @@ from repro.fv3 import dyncore as RD
 from repro.fv3 import halo as RH
 from repro.fv3 import state as RSt
 
+from repro_torch.core.backend import TuningCache, set_default_cache
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import halo as TH
 from repro_torch.fv3 import state as TSt
 
 NPX, NK = 12, 5
 STEP_ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_tuning_cache(tmp_path_factory):
+    """The port's tuning cache of this file: a throwaway file, never the
+    working tree's ``.repro_cache/torch_tuning.json``."""
+    set_default_cache(TuningCache(
+        tmp_path_factory.mktemp("torch_tuning") / "torch_tuning.json"))
+    yield
+    set_default_cache(None)
 
 
 def _interior(a, cfg):
@@ -42,7 +53,8 @@ def reference_run():
 def test_one_step_matches_reference(reference_run, backend):
     cfg_r, s0, ref, _ = reference_run
     cfg = TD.FV3Config(npx=NPX, nk=NK)
-    step = TD.make_step_sequential(cfg, backend=backend, device="cpu")
+    step = TD.make_step_sequential(cfg, backend=backend, opt_level=0,
+                                   device="cpu")
     out = step(TSt.state_from_reference(s0, "cpu"))
     assert set(out) == set(ref)
     for k in ref:
@@ -71,7 +83,7 @@ def test_total_mass_conserved_like_reference(reference_run):
 def test_step_structure_matches_reference(reference_run):
     _, _, _, ref_step = reference_run
     cfg = TD.FV3Config(npx=NPX, nk=NK)
-    step = TD.make_step_sequential(cfg, device="cpu")
+    step = TD.make_step_sequential(cfg, opt_level=0, device="cpu")
     assert step.n_kernels == ref_step.n_kernels == 110
     assert [p.name for p in step.programs] == \
         [p.name for p in ref_step.programs]

@@ -20,12 +20,23 @@ from repro.fv3 import halo as RH
 from repro.fv3 import state as RSt
 
 from repro_torch.core import StencilProgram, compile_program
+from repro_torch.core.backend import TuningCache, set_default_cache
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import halo as TH
 from repro_torch.fv3 import state as TSt
 
 STEP_ATOL = 1e-5
 BATCHES = ["grid", "vmap", "vmap:2", "vmap:2,grid"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_tuning_cache(tmp_path_factory):
+    """The port's tuning cache of this file: a throwaway file, never the
+    working tree's ``.repro_cache/torch_tuning.json``."""
+    set_default_cache(TuningCache(
+        tmp_path_factory.mktemp("torch_tuning") / "torch_tuning.json"))
+    yield
+    set_default_cache(None)
 
 
 def _members(names, dom, m, seed=7, interface=()):
@@ -205,9 +216,10 @@ def test_ensemble_step_matches_member_loop_and_reference(
     M = 3
     ens0 = TSt.state_from_reference(ens0_np, "cpu")
     step_e = TD.make_step_ensemble(cfg, M, backend=backend, batch=batch,
-                                   device="cpu")
+                                   opt_level=0, device="cpu")
     out = step_e(dict(ens0))
-    step_s = TD.make_step_sequential(cfg, backend=backend, device="cpu")
+    step_s = TD.make_step_sequential(cfg, backend=backend, opt_level=0,
+                                     device="cpu")
     singles = [step_s({k: v[m] for k, v in ens0.items()}) for m in range(M)]
     _assert_member_loop(out, singles, list(ref))
     h, n = cfg.halo, cfg.npx
@@ -225,17 +237,46 @@ def test_ensemble_step_matches_member_loop_and_reference(
 
 
 def test_ensemble_kernel_count_independent_of_members():
+    """110 nodes at opt 0; at the default opt 3 the reference's count for
+    the same preset — the same for every M and chunking."""
     cfg = TD.FV3Config(npx=6, nk=3)
-    counts = {(m, b): TD.make_step_ensemble(cfg, m, batch=b,
+    counts = {(m, b): TD.make_step_ensemble(cfg, m, batch=b, opt_level=0,
                                             device="cpu").n_kernels
               for m in (1, 2, 4) for b in ("grid", "vmap:2", "vmap:2,grid")}
     assert set(counts.values()) == {110}
-    assert TD.make_step_sequential(cfg, device="cpu").n_kernels == 110
+    assert TD.make_step_sequential(cfg, opt_level=0,
+                                   device="cpu").n_kernels == 110
+    ref3 = RD.make_step_sequential(RD.FV3Config(npx=6, nk=3), backend="jnp",
+                                   hardware="tpu-v5e").n_kernels
+    counts = {(m, b): TD.make_step_ensemble(cfg, m, batch=b,
+                                            hardware="tpu-v5e",
+                                            device="cpu").n_kernels
+              for m in (1, 4) for b in ("grid", "vmap:2,grid")}
+    assert set(counts.values()) == {ref3} and ref3 < 110
+    assert TD.make_step_sequential(cfg, hardware="tpu-v5e",
+                                   device="cpu").n_kernels == ref3
 
 
 def test_ensemble_step_refuses_auto_chunks():
-    cfg = TD.FV3Config(npx=6, nk=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        TD.make_step_ensemble(cfg, 4, batch="vmap:auto", device="cpu")
+    """``"vmap:auto"`` is no longer refused: the cost model picks the
+    reference's chunk per program, and the step equals the member loop.
+    A malformed spec is still refused."""
+    cfg = TD.FV3Config(npx=6, nk=3, n_split=1, k_split=1)
+    M = 4
+    ref = RD.make_step_ensemble(RD.FV3Config(npx=6, nk=3, n_split=1,
+                                             k_split=1), M, backend="jnp",
+                                hardware="tpu-v5e", batch="vmap:auto")
+    step_e = TD.make_step_ensemble(cfg, M, backend="torch",
+                                   hardware="tpu-v5e", batch="vmap:auto",
+                                   device="cpu")
+    assert (step_e.member_chunk, step_e.n_chunks) == (ref.member_chunk,
+                                                      ref.n_chunks)
+    assert step_e.batch == "vmap:auto"
+    ens0 = TSt.ensemble_state(cfg, M, device="cpu")
+    out = step_e(dict(ens0))
+    step_s = TD.make_step_sequential(cfg, backend="torch",
+                                     hardware="tpu-v5e", device="cpu")
+    singles = [step_s({k: v[m] for k, v in ens0.items()}) for m in range(M)]
+    _assert_member_loop(out, singles, list(out))
     with pytest.raises(ValueError, match="batch"):
         TD.make_step_ensemble(cfg, 4, batch="pmap", device="cpu")

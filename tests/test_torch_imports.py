@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch.core import StencilProgram
-from repro_torch.core.backend import compile_program, resolve_device
+from repro_torch.core.backend import (TuningCache, compile_program,
+                                      resolve_device, set_default_cache)
 from repro_torch.core.stencil import DomainSpec
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import state as TSt
@@ -22,6 +23,16 @@ from repro_torch.fv3 import stencils as TS
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _own_tuning_cache(tmp_path_factory):
+    """The port's tuning cache of this file: a throwaway file, never the
+    working tree's ``.repro_cache/torch_tuning.json``."""
+    set_default_cache(TuningCache(
+        tmp_path_factory.mktemp("torch_tuning") / "torch_tuning.json"))
+    yield
+    set_default_cache(None)
 
 
 def _imported_modules(path: Path) -> set[str]:
@@ -45,7 +56,11 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_port_import_loads_no_jax():
     code = ("import sys, repro_torch.fv3.dyncore, repro_torch.fv3.state, "
             "repro_torch.core.backend.cuda, "
-            "repro_torch.core.backend.batching, repro_torch.kernels.ops; "
+            "repro_torch.core.backend.batching, repro_torch.kernels.ops, "
+            "repro_torch.core.passes, repro_torch.core.autotune, "
+            "repro_torch.core.transfer_tuning, repro_torch.core.perfmodel, "
+            "repro_torch.core.transforms, repro_torch.core.analysis, "
+            "repro_torch.core.rewrite, repro_torch.core.backend.cache; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -78,20 +93,31 @@ def test_entry_points_refuse_to_run_without_a_card(no_card):
 
 
 def test_compile_program_takes_opt_level_zero_only():
+    """Opt levels 1–4, ``verify="full"`` and ``batch="vmap:auto"`` now run
+    (they raised before the optimizer was ported); opt level 0 stays the
+    default of ``compile_program``."""
     dom = DomainSpec(ni=4, nj=4, nk=3, halo=2)
     p = StencilProgram("one", dom)
     p.declare("u")
     p.declare("cx")
     p.add(TS.courant_x, {"u": "u", "cx": "cx"})
     p.propagate_extents()
-    for kw in ({"opt_level": 1}, {"opt_level": 2}, {"opt_level": 3},
-               {"opt_level": 4}, {"n_members": 2, "batch": "vmap:auto"},
-               {"verify": "full"}):
-        with pytest.raises(NotImplementedError):
-            compile_program(p, device="cpu", **kw)
-    run = compile_program(p, device="cpu")
-    assert run.n_kernels == 1 and run.device == torch.device("cpu")
     u = torch.ones(dom.padded_shape())
+    for kw in ({"opt_level": 1}, {"opt_level": 2}, {"opt_level": 3},
+               {"opt_level": 4}, {"verify": "full"}):
+        run = compile_program(p, device="cpu", **kw)
+        assert run.n_kernels == 1
+        assert (run.opt_report is None) == ("opt_level" not in kw)
+        out = run({"u": u}, {"dtdx": 0.5})
+        assert torch.allclose(out["cx"][:, 2:6, 2:6],
+                              torch.full((3, 4, 4), 0.5))
+    auto = compile_program(p, device="cpu", n_members=2, batch="vmap:auto")
+    assert auto.batch in ("vmap:1", "vmap:2")  # C resolved at compile time
+    out = auto({"u": torch.stack([u, 2 * u])}, {"dtdx": 0.5})
+    assert torch.equal(out["cx"][1, :, 2:6, 2:6], torch.full((3, 4, 4), 1.0))
+    run = compile_program(p, device="cpu")
+    assert run.opt_report is None and run.hardware == "h100"
+    assert run.n_kernels == 1 and run.device == torch.device("cpu")
     out = run({"u": u}, {"dtdx": 0.5})
     assert torch.allclose(out["cx"][:, 2:6, 2:6], torch.full((3, 4, 4), 0.5))
     ens = compile_program(p, device="cpu", n_members=2)
