@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
-   two kernel sources of ``src/repro_torch/csrc/`` with ``nvcc``, both at
+   three kernel sources of ``src/repro_torch/csrc/`` with ``nvcc``, all at
    once.
 2. Kernel phase, at C192 with 80 levels: each kernel against its plain
    PyTorch version on the same inputs on the card — K1 on ``fx_ppm``,
@@ -53,10 +53,30 @@
    step 1 must equal the default step's exactly over the interior; then one
    M = 4 ``"grid"`` ensemble step at opt 3 on ``"tpu-v5e"``, which must
    equal 4 single opt-3 steps exactly (K4's carry reset per member).
-8. Prints a ``kernels`` JSON line and, last, the ``ok`` JSON line.
+8. LM kernel phase, at the serving shapes of Granite-8B: K8
+   ``flash_attention`` at B=8, S=2048, H=32, KVH=8, D=128 (softcap 0 and
+   50), K9 ``rmsnorm`` and ``rmsnorm_residual`` at 16384 x 4096, each in
+   float32 and bfloat16 against its plain version at the reference's
+   tolerances, timed beside the plain version, its bound and one library
+   call (``F.scaled_dot_product_attention``, ``F.rms_norm``).
+9. Serving phase: Granite-8B at full width and depth (36 layers) with
+   seeded weights.  Parity: float32 weights, 2 prompts of 512 tokens,
+   prefill and 8 greedy decode steps through the kernels and again through
+   the plain versions on the card (the same tokens), the prefill logits and
+   KV caches of both held against an independent float64 prefill (the
+   kernel path within 1e-4 of the largest |value| and within 2x the plain
+   path's own float32 error).  Serving run: bfloat16 weights, 8 prompts of 2048 tokens,
+   prefill (median of 2 after a warm-up) and 31 greedy decode steps into
+   caches of 2080: prefill ms, decode ms per token, generated tokens/s, K8
+   and K9 launches per prefill and per decode step, peak memory, a traced
+   decode step's device idle share, and the last-position logits against
+   the plain path.
+10. Prints the total wall time, a ``kernels`` JSON line and, last, the
+   ``ok`` JSON line.
 
-Each path (the sequential steps, the ensemble steps, the standalone ops) is
-driven with the launch counts set to 0 just before it and read just after.
+Each path (the sequential steps, the ensemble steps, the standalone ops,
+the serving run) is driven with the launch counts set to 0 just before it
+and read just after.
 
 Any failed check raises, and the script exits nonzero without the result
 lines; so does a machine without a CUDA card, or a directory that holds
@@ -76,10 +96,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data sheet: device-memory rate and the f32 rate outside the
-# tensor cores (the stencils are f32 on CUDA cores)
+# H100 SXM data sheet: device-memory rate, the f32 rate outside the tensor
+# cores (the stencils are f32 on CUDA cores) and the dense bf16 tensor-core
+# rate (the least time of bf16 attention)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # the configuration every phase runs: C192 (6 x 192 x 192 columns), 80 levels
 C192_L80 = {"npx": 192, "nk": 80}
@@ -97,6 +119,36 @@ OPT3_HARDWARE = "tpu-v5e"          # the reference's preset: K4 on the path
 SOURCE = "src/repro_torch/csrc/stencil_kernels.cu"
 FV3_SOURCE = "src/repro_torch/csrc/fv3_kernels.cu"
 PALLAS = "src/repro/core/backend/lowering_pallas.py"
+LM_SOURCE = "src/repro_torch/csrc/lm_kernels.cu"
+
+# the LM serving path: Granite-8B (36 attn layers, d_model 4096, GQA 32/8,
+# d_head 128) at full width and depth
+SERVE_ARCH = "granite_8b"
+FA_SHAPE = {"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128}
+NORM_SHAPE = (16384, 4096)       # 8 prompts x 2048 tokens, d_model
+# kernel vs plain: the reference's own tolerances (tests/test_kernels.py)
+FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1e-1)}
+NORM_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
+PARITY = {"B": 2, "S": 512, "decode": 8}           # float32 weights
+# float32 parity at full depth is held against an independent float64
+# prefill: the kernel path's max abs error on the logits and on every KV
+# cache within PARITY_REL of the largest |value|, and within PARITY_FACTOR
+# of the plain path's own float32 error.  A fixed 1e-4 between the two
+# float32 paths is below float32's own error after 36 layers: the plain
+# path alone is ~1.4e-4 from float64 on logits of max |6|.
+PARITY_REL = 1e-4
+PARITY_FACTOR = 2.0
+SERVE = {"B": 8, "S": 2048, "decode": 31, "cache": 2080}  # bfloat16
+LM_LAUNCHES = ("flash_attention", "rmsnorm", "rmsnorm_residual")
+# bf16 serving logits vs the plain path (both compute attention and norms in
+# f32; they differ where a bf16 rounding of an activation flips, and 36
+# layers grow those flips as they grow float32's): max abs difference over
+# max |logit|, and the share of the 8 prompts whose top token agrees.  Set
+# from the first full run on an H100 (4.797e-2 and 7 of 8) with a margin of
+# 2x and one prompt; the kernel path must also stay within PARITY_FACTOR of
+# the plain path's own distance to a float32 prefill of the same weights.
+BF16_LOGIT_REL = 0.1
+BF16_TOP1 = 0.75
 
 
 def card_line() -> str:
@@ -435,7 +487,7 @@ def standalone_phase(device) -> dict:
     x = ops.tridiag(a, b, c, d)
     f = ops.fvt_flux(q, cx, halo=h)
     torch.cuda.synchronize()
-    launches = dict(KL.LAUNCHES)
+    launches = {k: KL.LAUNCHES[k] for k in ("tridiag", "fvt_flux")}
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a standalone kernel never launched: {launches}")
 
@@ -510,13 +562,14 @@ def interior(x, cfg):
     return x[..., h:h + n, h:h + n]
 
 
-def trace_step(step, state, step_ms: float) -> None:
+def trace_step(step, state, step_ms: float,
+               untraced: str = "median of steps 2-3") -> float | None:
     """One more step under ``torch.profiler``: device time by kernel, and the
     device's idle share of an untraced step.  The profiler's host cost
     lengthens the traced step's wall time, so the share is taken against
-    ``step_ms``, the median untraced step (steps 2-3): every step launches
-    the same kernels on the same shapes, so its device time is the traced
-    step's."""
+    ``step_ms``, the median untraced step (``untraced`` says which): every
+    step launches the same kernels on the same shapes, so its device time is
+    the traced step's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -541,14 +594,15 @@ def trace_step(step, state, step_ms: float) -> None:
     if busy == 0:
         print("[trace] device time: not measured (the profiler recorded no "
               "device events)")
-        return
+        return None
     rows.sort(reverse=True)
     print(f"[trace] device busy in the traced step {busy:.3f} ms; untraced "
-          f"step wall (median of steps 2-3) {step_ms:.3f} ms; device idle "
+          f"step wall ({untraced}) {step_ms:.3f} ms; device idle "
           f"share of the untraced step {1 - busy / step_ms:.4f}")
     for ms, n, key in rows[:8]:
         print(f"[trace]   {ms:10.3f} ms {100 * ms / busy:5.1f}% x{n:5d} "
               f"{key[:70]}")
+    return 1 - busy / step_ms
 
 
 def path_phase(device) -> dict:
@@ -930,8 +984,383 @@ def opt3_phase(device, path: dict) -> dict:
     return out
 
 
+def check_close(name: str, got, want, rtol: float, atol: float) -> float:
+    """Max abs error of ``got`` against ``want``; raises on a non-finite
+    value or a miss of rtol/atol."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: non-finite kernel output")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise RuntimeError(f"{name} disagrees with the plain version (max abs "
+                           f"{err:.3e}, rtol {rtol:g} atol {atol:g})")
+    return err
+
+
+def lm_kernel_phase(device) -> dict:
+    """K8 and K9 through ``repro_torch.kernels.ops`` at the serving shapes,
+    in float32 and bfloat16: each against its plain version, timed beside
+    it, its bound and one library call computing the same function.  The
+    bf16 cases (the serving dtype, K8 at softcap 0 as Granite) head the
+    ``kernels`` records."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as KR
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    B, S, H, KVH, D = (FA_SHAPE[k] for k in ("B", "S", "H", "KVH", "D"))
+    rows_n, d = NORM_SHAPE
+    out = {"K8": [], "rmsnorm": [], "rmsnorm_residual": []}
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        size = torch.finfo(dtype).bits // 8
+        q = normal((B, S, H, D), dtype)
+        k, v = normal((B, S, KVH, D), dtype), normal((B, S, KVH, D), dtype)
+        rtol, atol = FA_TOL[name]
+        # bytes: q, k, v read once, o written once; operations: the two
+        # products over the causal half (4 D flops per score), on the
+        # tensor cores for bf16, on the CUDA cores for f32 (no TF32)
+        fa_bytes = (2 * q.numel() + 2 * k.numel()) * size
+        fa_ops = 4 * B * H * D * S * (S + 1) / 2
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        t_b, t_o = fa_bytes / HBM_BYTES_PER_S, fa_ops / rate
+        for cap in (0.0, 50.0):
+            got = ops.flash_attention(q, k, v, softcap=cap)
+            want = KR.flash_attention_ref(q, k, v, softcap=cap)
+            torch.cuda.synchronize()
+            err = check_close(f"K8 flash_attention {name} softcap {cap:g}",
+                              got, want, rtol, atol)
+            del got, want
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, softcap=cap), 5)
+            plain_ms = cuda_ms(
+                lambda: KR.flash_attention_ref(q, k, v, softcap=cap), 2)
+            lib_ms = None
+            if cap == 0.0:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+                lib_ms = cuda_ms(sdpa, 5)
+            out["K8"].append(dict(
+                dtype=name, softcap=cap, err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=lib_ms))
+            print(f"[lm-kernel] K8 flash_attention {name} B={B} S={S} H={H} "
+                  f"KVH={KVH} D={D} softcap={cap:g} max_abs_err={err:.3e} "
+                  f"tol=rtol {rtol:g} + atol {atol:g} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={1e3 * max(t_b, t_o):.4f}"
+                  f" ({out['K8'][-1]['bound_by']}; {fa_bytes / 1e6:.1f} MB, "
+                  f"{fa_ops:.3e} flops at {rate / 1e12:g} TFLOP/s)"
+                  + ("" if lib_ms is None else
+                     f" sdpa library_ms={lib_ms:.4f}"), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+        x, r = normal((rows_n, d), dtype), normal((rows_n, d), dtype)
+        w = (0.1 * torch.randn(d, generator=gen, device=device)).to(dtype)
+        tol = NORM_TOL[name]
+        err = check_close(f"K9 rmsnorm {name}", ops.rmsnorm(x, w),
+                          KR.rmsnorm_ref(x, w), tol, tol)
+        n_got, s_got = ops.rmsnorm_residual(x, r, w)
+        n_want, s_want = KR.rmsnorm_residual_ref(x, r, w)
+        err_r = max(check_close(f"K9 rmsnorm_residual {name}", n_got, n_want,
+                                tol, tol),
+                    check_close(f"K9 rmsnorm_residual {name} (sum)", s_got,
+                                s_want, tol, tol))
+        del n_got, s_got, n_want, s_want
+        w1 = 1.0 + w  # the library's weight, outside the timed window
+        cases = (
+            ("rmsnorm", err, lambda: ops.rmsnorm(x, w),
+             lambda: KR.rmsnorm_ref(x, w),
+             lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-5), 2, 4),
+            ("rmsnorm_residual", err_r, lambda: ops.rmsnorm_residual(x, r, w),
+             lambda: KR.rmsnorm_residual_ref(x, r, w), None, 4, 5))
+        for key, e, run, plain, lib, n_arrays, flops in cases:
+            # bytes: n_arrays (rows, d) arrays read or written once, and w;
+            # f32 operations per element: square, sum, scale, (1 + w) scale
+            # (and the residual add)
+            t_b = (n_arrays * x.numel() * size + d * size) / HBM_BYTES_PER_S
+            t_o = flops * x.numel() / F32_OPS_PER_S
+            ms = cuda_ms(run, 20)
+            plain_ms = cuda_ms(plain, 5)
+            lib_ms = None if lib is None else cuda_ms(lib, 20)
+            out[key].append(dict(
+                dtype=name, err=e, ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=lib_ms))
+            print(f"[lm-kernel] K9 {key} {name} ({rows_n}, {d}) max_abs_err="
+                  f"{e:.3e} tol=rtol {tol:g} + atol {tol:g} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={1e3 * max(t_b, t_o):.4f}"
+                  f" ({out[key][-1]['bound_by']}) library_ms="
+                  + ("none (no one call computes it)" if lib_ms is None else
+                     f"{lib_ms:.4f} (F.rms_norm)"), flush=True)
+        del x, r, w, w1
+        torch.cuda.empty_cache()
+    return out
+
+
+def greedy(model, tokens, n_decode: int, cache_len: int, backend: str):
+    """Prefill then ``n_decode`` greedy decode steps: (prefill logits, the
+    caches, the generated tokens (B, 1 + n_decode))."""
+    import torch
+
+    from repro_torch import models as TM
+
+    logits, caches = TM.prefill(model, tokens, cache_len=cache_len,
+                                backend=backend)
+    toks = [logits.argmax(-1)]
+    S = tokens.shape[1]
+    for i in range(n_decode):
+        step, caches = TM.decode_step(model, toks[-1], caches, S + i,
+                                      backend=backend)
+        toks.append(step.argmax(-1))
+    return logits, caches, torch.cat(toks, dim=1)
+
+
+def prefill_wide(model, tokens, dtype):
+    """An independent prefill of a plain ``attn`` model (SwiGLU, pre-norm,
+    untied, no softcap: Granite) in ``dtype`` (float64, or float32 for a
+    bfloat16 model), written from the reference's equations, each layer's
+    weights widened one layer at a time; RoPE angles in float32, as the
+    reference defines them.  Returns the last-position logits and each
+    layer's (k, v)."""
+    import torch
+    import torch.nn.functional as F
+
+    cfg = model.cfg
+    if cfg.act != "swiglu" or cfg.post_norm or cfg.parallel_block \
+            or cfg.tie_embeddings or cfg.attn_softcap or cfg.final_softcap:
+        raise ValueError(f"prefill_wide does not model {cfg.name}")
+    B, S = tokens.shape
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    def norm(x, w):
+        var = (x * x).mean(-1, keepdim=True)
+        return x * torch.rsqrt(var + cfg.norm_eps) * (1.0 + w.to(dtype))
+
+    half = D // 2
+    freqs = (1.0 / cfg.rope_theta) ** (torch.arange(
+        half, dtype=torch.float32, device=tokens.device) / half)
+    ang = torch.arange(S, device=tokens.device, dtype=torch.float32)[:, None] \
+        * freqs
+    cos = torch.cos(ang).to(dtype)[:, None, :]
+    sin = torch.sin(ang).to(dtype)[:, None, :]
+
+    def rope(x):
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    causal = torch.ones((S, S), dtype=torch.bool, device=tokens.device).tril()
+    x = model.embed[tokens].to(dtype)
+    kvs = []
+    for blk in model.layers:
+        at, ff = blk.attn, blk.ffn
+        h = norm(x, blk.ln1)
+        q = rope((h @ at.wq.to(dtype)).reshape(B, S, H, D))
+        k = rope((h @ at.wk.to(dtype)).reshape(B, S, KVH, D))
+        v = (h @ at.wv.to(dtype)).reshape(B, S, KVH, D)
+        kvs.append((k, v))
+        kk = k.repeat_interleave(H // KVH, dim=2)
+        vv = v.repeat_interleave(H // KVH, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / D ** 0.5
+        p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+        a = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, S, H * D)
+        x = x + a @ at.wo.to(dtype)
+        h = norm(x, blk.ln2)
+        x = x + (F.silu(h @ ff.wg.to(dtype)) * (h @ ff.wi.to(dtype))) \
+            @ ff.wo.to(dtype)
+    h = norm(x[:, -1:], model.final_norm)
+    return h @ model.unembed.to(dtype), kvs
+
+
+def serving_phase(device) -> dict:
+    """Granite-8B at full width and depth with seeded weights: float32
+    parity of the kernel path against the plain path, then the bfloat16
+    serving run (prefill, greedy decode)."""
+    import torch
+
+    from repro_torch import configs as TC
+    from repro_torch import models as TM
+    from repro_torch.kernels import library as KL
+
+    cfg = TC.get_config(SERVE_ARCH)
+    L = cfg.n_layers
+    gen = torch.Generator(device=device).manual_seed(4)
+    t = time.perf_counter()
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=device), seed=0)
+    torch.cuda.synchronize()
+    n_params = TM.count_params(model)
+    print(f"[serve] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params / 1e9:.3f} G parameters"
+          f"; float32 weights initialised in {time.perf_counter() - t:.2f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)
+    B, S, n = PARITY["B"], PARITY["S"], PARITY["decode"]
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    KL.reset_launches()
+    got = greedy(model, tokens, n, S + n, "cuda")
+    launched = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
+    want = greedy(model, tokens, n, S + n, "ref")
+    exact = prefill_wide(model, tokens, torch.float64)
+    torch.cuda.synchronize()
+    same = torch.equal(got[2], want[2])
+    # (name, kernel path, plain path, float64) for the logits and each cache
+    cases = [("logits", got[0], want[0], exact[0])]
+    for i, (a, b, (k64, v64)) in enumerate(zip(got[1], want[1], exact[1])):
+        cases += [(f"k{i}", a["k"][:, :S], b["k"][:, :S], k64),
+                  (f"v{i}", a["v"][:, :S], b["v"][:, :S], v64)]
+    worst = {}
+    for name, a, b, x in cases:
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"serving parity: non-finite {name}")
+        scale = x.abs().max().item()
+        e_k = (a.double() - x).abs().max().item()
+        e_p = (b.double() - x).abs().max().item()
+        e_kp = (a - b).abs().max().item()
+        kind = "logits" if name == "logits" else "caches"
+        w = worst.setdefault(kind, [0.0, 0.0, 0.0, 0.0, 0.0])
+        w[:] = [max(w[0], e_k), max(w[1], e_p), max(w[2], e_kp),
+                max(w[3], e_k / scale), max(w[4], e_k / max(e_p, 1e-30))]
+        if e_k > PARITY_REL * scale or e_k > PARITY_FACTOR * e_p:
+            raise RuntimeError(
+                f"serving parity: {name} of the kernel path is {e_k:.3e} "
+                f"from float64 (max |value| {scale:.3f}), the plain path "
+                f"{e_p:.3e}: beyond {PARITY_REL:g} of the scale or "
+                f"{PARITY_FACTOR:g}x the plain path's error")
+    for kind, (e_k, e_p, e_kp, rel, ratio) in worst.items():
+        print(f"[serve] parity, float32, B={B} prompt {S}, {kind}: max abs "
+              f"vs float64: kernel path {e_k:.3e}, plain path {e_p:.3e} "
+              f"(worst kernel/plain ratio {ratio:.3f}, bar "
+              f"{PARITY_FACTOR:g}; worst kernel error / max |value| "
+              f"{rel:.3e}, bar {PARITY_REL:g}); kernel vs plain path "
+              f"{e_kp:.3e}")
+    print(f"[serve] parity: greedy tokens (prefill + {n} decode steps) "
+          f"identical on both paths: {same}; kernel launches {launched}",
+          flush=True)
+    if not same:
+        raise RuntimeError(f"greedy tokens differ: {got[2].tolist()} vs "
+                           f"{want[2].tolist()}")
+    if launched["flash_attention"] != L:
+        raise RuntimeError(f"K8 launched {launched['flash_attention']} times "
+                           f"in the parity run, expected {L}")
+    del got, want, exact, model
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.bfloat16,
+                                          device=device), seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    B, S, n, cache = (SERVE[k] for k in ("B", "S", "decode", "cache"))
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    print(f"[serve] bfloat16 weights initialised in {init_s:.2f} s; B={B} "
+          f"prompts of {S} tokens, caches of {cache}", flush=True)
+    logits, caches = TM.prefill(model, tokens, cache_len=cache)  # warm-up
+    del logits, caches
+    times = []
+    for _ in range(2):
+        logits = caches = None
+        torch.cuda.synchronize()
+        KL.reset_launches()
+        t = time.perf_counter()
+        logits, caches = TM.prefill(model, tokens, cache_len=cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        per_prefill = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
+    prefill_ms = 1e3 * statistics.median(times)
+    print(f"[serve] prefill ms {[round(1e3 * x, 3) for x in times]} -> "
+          f"median {prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.1f} prompt "
+          f"tokens/s)", flush=True)
+    idle_prefill = trace_step(
+        lambda _: TM.prefill(model, tokens, cache_len=cache), None,
+        prefill_ms, untraced="median prefill")
+    tok = logits.argmax(-1)
+    steps = []
+    KL.reset_launches()
+    for i in range(n):
+        t = time.perf_counter()
+        step_logits, caches = TM.decode_step(model, tok, caches, S + i)
+        tok = step_logits.argmax(-1)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+    per_step = {k: KL.LAUNCHES[k] / n for k in LM_LAUNCHES}
+    # one request: a prefill and its decode steps
+    request = {k: per_prefill[k] + KL.LAUNCHES[k] for k in LM_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = 1e3 * statistics.median(steps)
+    tok_s = B * n / sum(steps)
+    want_prefill = {"flash_attention": L, "rmsnorm": L + 1,
+                    "rmsnorm_residual": L}
+    want_step = {"flash_attention": 0, "rmsnorm": L + 1,
+                 "rmsnorm_residual": L}
+    print(f"[serve] decode: {n} greedy steps, ms per step median "
+          f"{decode_ms:.3f} (min {1e3 * min(steps):.3f}, max "
+          f"{1e3 * max(steps):.3f}); {tok_s:.1f} generated tokens/s")
+    print(f"[serve] launches per prefill {per_prefill} (expected "
+          f"{want_prefill}); per decode step {per_step} (expected "
+          f"{want_step})")
+    print(f"[serve] peak device memory of the phase {peak / 2**30:.3f} GiB",
+          flush=True)
+    if per_prefill != want_prefill or per_step != want_step:
+        raise RuntimeError("the serving path did not launch K8/K9 as "
+                           "expected")
+    idle = trace_step(lambda c: TM.decode_step(model, tok, c, S + n), caches,
+                      decode_ms, untraced="median decode step")
+    del caches
+    torch.cuda.empty_cache()
+    plain, _ = TM.prefill(model, tokens, backend="ref")
+    wide = prefill_wide(model, tokens, torch.float32)[0]
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits).all() or logits.shape != plain.shape:
+        raise RuntimeError("serving logits non-finite or misshapen")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.abs().max()).item()
+
+    def top1(a, b):
+        return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    r_kp, t_kp = rel(logits, plain), top1(logits, plain)
+    r_k, r_p = rel(logits, wide), rel(plain, wide)
+    print(f"[serve] bfloat16 last-position logits vs the plain path: max abs "
+          f"difference / max |logit| = {r_kp:.3e} (bar {BF16_LOGIT_REL:g}); "
+          f"top-1 agreement {t_kp:.3f} over {B} prompts (bar "
+          f"{BF16_TOP1:g})")
+    print(f"[serve] against a float32 prefill of the same bf16 weights: max "
+          f"abs difference / max |logit| kernel path {r_k:.3e}, plain path "
+          f"{r_p:.3e} (bar: kernel <= {PARITY_FACTOR:g}x plain); top-1 "
+          f"agreement kernel {top1(logits, wide):.3f}, plain "
+          f"{top1(plain, wide):.3f}", flush=True)
+    if r_kp > BF16_LOGIT_REL or t_kp < BF16_TOP1 or r_k > PARITY_FACTOR * r_p:
+        raise RuntimeError(f"bfloat16 serving logits miss the bar: vs plain "
+                           f"{r_kp:.3e} (top-1 {t_kp:.3f}); vs float32 kernel "
+                           f"{r_k:.3e}, plain {r_p:.3e}")
+    del model, logits, plain, wide
+    torch.cuda.empty_cache()
+    return {"launches": request, "per_prefill": per_prefill,
+            "per_step": per_step, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "tok_s": tok_s, "peak": peak,
+            "idle": idle, "idle_prefill": idle_prefill}
+
+
+
+
 def kernel_records(rows: list, members: list, standalone: dict, path: dict,
-                   ensemble: dict, opt3: dict) -> list:
+                   ensemble: dict, opt3: dict, lm: dict, serve: dict) -> list:
     """One record per kernel for the ``kernels`` line: the launches of its
     path (the opt-0 sequential step for K1-K3, the 3 opt-3 steps on the TPU
     preset's schedules for K4, the op calls for K6/K7; for K5 the member
@@ -939,7 +1368,9 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     opt-3 M = 4 ensemble step, K4's 8 among them, each counted from zero
     just before its run), the worst error of its checks, and the times and
     bound of its first case (fx_ppm, tridiag_solve, interface_interp;
-    fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4)."""
+    fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4).  K8
+    and K9 count one bf16 serving request (a prefill and its decode steps)
+    and take their times from the bf16 case (K8 at softcap 0)."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
                 "K5": f"{PALLAS}:207",
@@ -975,6 +1406,22 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for key, name, line in (
+            ("K8", "flash_attention_fwd_kernel",
+             "src/repro/kernels/flash_attention.py:21"),
+            ("rmsnorm", "rmsnorm_kernel", "src/repro/kernels/rmsnorm.py:17"),
+            ("rmsnorm_residual", "rmsnorm_residual_kernel",
+             "src/repro/kernels/rmsnorm.py:25")):
+        mine = lm[key]
+        head = next(r for r in mine if r["dtype"] == "bfloat16"
+                    and r.get("softcap", 0.0) == 0.0)
+        count = "flash_attention" if key == "K8" else key
+        kernels.append({
+            "name": name, "route": "cuda", "source": LM_SOURCE,
+            "replaces": line, "launches": serve["launches"][count],
+            "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
     return kernels
 
 
@@ -991,15 +1438,22 @@ def main() -> int:
     from repro_torch.core.backend import cuda as C
     from repro_torch.kernels import library as KL
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}", flush=True)
+    # full float32 products everywhere (the plain versions and the parity
+    # run are float32 references; TF32 keeps ~3 digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         libs = list(pool.map(C.build_library,
-                             ("stencil_kernels", "fv3_kernels")))
+                             ("stencil_kernels", "fv3_kernels",
+                              "lm_kernels")))
     C.load_library()
     KL.load_library()
+    KL.load_lm_library()
     print(f"[build] {time.perf_counter() - t0:.2f} s -> "
           + ", ".join(str(lib.relative_to(ROOT)) for lib in libs),
           flush=True)
@@ -1023,7 +1477,12 @@ def main() -> int:
     opt_phase(device)
     opt3 = opt3_phase(device, path)
     del path["s0"], path["plain1"]
-    kernels = kernel_records(rows, members, standalone, path, ensemble, opt3)
+    torch.cuda.empty_cache()
+    lm = lm_kernel_phase(device)
+    serve = serving_phase(device)
+    kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
+                             lm, serve)
+    print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

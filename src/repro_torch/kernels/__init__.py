@@ -1,2 +1,3 @@
-"""The standalone FV3 kernels of the port and their plain versions; the
-public entry point is :mod:`.ops`."""
+"""The standalone kernels of the port (the FV3 ones and those of the LM
+serving path) and their plain versions; the public entry point is
+:mod:`.ops`."""

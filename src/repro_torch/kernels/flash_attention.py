@@ -1,0 +1,69 @@
+"""K8: causal flash attention (forward) on the card.
+
+Replaces the reference's Pallas kernel ``kernels/flash_attention.py``
+(``_kernel``, ``flash_attention_pallas``): ``flash_attention_fwd_kernel`` in
+``csrc/lm_kernels.cu``, one CTA per (b·h, 32 query rows), the key/value
+tiles up to the causal frontier staged in shared memory, an online softmax
+in float32.  It reads q (B, S, H, D) and k/v (B, S, KVH, D) in place, with
+query head h on kv head ``h // (H / KVH)``.  For tensors on the CPU the
+wrapper runs the plain version (:func:`..ref.flash_attention_ref`); for
+CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import library
+from .ref import flash_attention_ref
+
+#: head widths the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Causal attention of q (B, S, H, D) over k/v (B, S, KVH, D), H a
+    multiple of KVH; ``softcap > 0`` caps the scores with
+    ``softcap * tanh(s / softcap)``.  Returns (B, S, H, D) in q's dtype."""
+    xs = (q, k, v)
+    if not all(isinstance(x, torch.Tensor) for x in xs):
+        raise TypeError("flash_attention takes torch tensors")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention takes q (B, S, H, D) and k/v "
+                         f"(B, S, KVH, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, D) or H % KVH:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (H must be a multiple of KVH)")
+    if any(x.device != q.device or x.dtype != q.dtype for x in xs):
+        raise ValueError("flash_attention's tensors disagree in device or "
+                         "dtype")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if q.dtype not in library.LM_DTYPES:
+        raise ValueError("flash_attention takes float32 or bfloat16, not "
+                         f"{q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {D} not in "
+                         f"{HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
+                         "launch grid's 65535")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in xs):
+        raise ValueError("flash_attention takes contiguous, 16-byte aligned "
+                         "tensors")
+    o = torch.empty_like(q)
+    lib = library.load_lm_library()
+    with torch.cuda.device(q.device):
+        rc = lib.launch_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            library.LM_DTYPES[q.dtype], B, S, H, KVH, D, float(softcap),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    library.check_launch(lib.lm_error_string, rc, "flash_attention")
+    library.LAUNCHES["flash_attention"] += 1
+    return o

@@ -46,6 +46,6 @@ def fvt_flux(q: torch.Tensor, cx: torch.Tensor, *, halo: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.launch_fvt_flux(q.data_ptr(), cx.data_ptr(), fx.data_ptr(),
                                  nk, jp, ip, halo, stream)
-    library.check_launch(lib, rc, "fvt_flux")
+    library.check_launch(lib.fv3_error_string, rc, "fvt_flux")
     library.LAUNCHES["fvt_flux"] += 1
     return fx

@@ -1,19 +1,30 @@
-"""The shared library of ``csrc/fv3_kernels.cu`` (K6 ``tridiag_kernel``, K7
-``fvt_flux_kernel``): built with ``nvcc`` at first use, like the stencil
-kernels, into its own directory under ``build/repro_torch/``, and bound
-with :mod:`ctypes`."""
+"""The shared libraries of the standalone kernels, each built with ``nvcc``
+at first use, like the stencil kernels, into its own directory under
+``build/repro_torch/``, and bound with :mod:`ctypes`:
+
+ * ``csrc/fv3_kernels.cu`` — K6 ``tridiag_kernel``, K7 ``fvt_flux_kernel``;
+ * ``csrc/lm_kernels.cu`` — K8 ``flash_attention_fwd_kernel``, K9
+   ``rmsnorm_kernel`` (plain and residual).
+"""
 
 from __future__ import annotations
 
 import ctypes
 
+import torch
+
 from ..core.backend.cuda import build_library
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-LAUNCHES = {"tridiag": 0, "fvt_flux": 0}
+LAUNCHES = {"tridiag": 0, "fvt_flux": 0, "flash_attention": 0, "rmsnorm": 0,
+            "rmsnorm_residual": 0}
+
+#: dtype codes of the LM kernels' C interface
+LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB: ctypes.CDLL | None = None
+_LM_LIB: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
@@ -44,9 +55,35 @@ def load_library() -> ctypes.CDLL:
     return _LIB
 
 
-def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+def bind_lm_library(path) -> ctypes.CDLL:
+    """Load a build of ``lm_kernels.cu`` and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    lib.launch_flash_attention.argtypes = [ptr] * 4 + [i32] * 6 + [f32, ptr]
+    lib.launch_flash_attention.restype = ctypes.c_int
+    lib.launch_rmsnorm.argtypes = [ptr] * 3 + [i32, i32, i64, i32, f32, ptr]
+    lib.launch_rmsnorm.restype = ctypes.c_int
+    lib.launch_rmsnorm_residual.argtypes = ([ptr] * 5
+                                            + [i32, i32, i64, i32, f32, ptr])
+    lib.launch_rmsnorm_residual.restype = ctypes.c_int
+    lib.lm_error_string.argtypes = [ctypes.c_int]
+    lib.lm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_lm_library() -> ctypes.CDLL:
+    """Build (at first use) and load the LM kernels' library."""
+    global _LM_LIB
+    if _LM_LIB is None:
+        _LM_LIB = bind_lm_library(build_library("lm_kernels"))
+    return _LM_LIB
+
+
+def check_launch(describe, rc: int, what: str) -> None:
     """Raise if a launch was refused (the C function returns
-    ``cudaGetLastError()``)."""
+    ``cudaGetLastError()``); ``describe`` is the library's error-string
+    function."""
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.fv3_error_string(rc).decode()}")
+                           f"{describe(rc).decode()}")

@@ -1,10 +1,11 @@
-"""Public entry points of the standalone FV3 kernels.
+"""Public entry points of the standalone kernels: the FV3 ones (K6, K7) and
+those of the LM serving path (K8 flash attention, K9 RMSNorm).
 
 ``backend="cuda"`` (the default) runs the hand-written kernel on CUDA
 tensors and its plain version on CPU tensors; ``backend="ref"`` runs the
 plain version on any device, so callers can compare the two in place, as
-with the reference's ``repro.kernels.ops``.  The LM harness's kernels
-(flash attention, RMSNorm, the SSM state scan) come with its slice.
+with the reference's ``repro.kernels.ops``.  The SSM state scan (K10) comes
+with the Mamba-2 slice.
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import flash_attention as _flash_attention_kernel
 from .fvt_flux import fvt_flux as _fvt_flux_kernel
+from .rmsnorm import rmsnorm as _rmsnorm_kernel
+from .rmsnorm import rmsnorm_residual as _rmsnorm_residual_kernel
 from .tridiag import tridiag as _tridiag_kernel
 
 _BACKENDS = ("cuda", "ref")
@@ -40,3 +44,34 @@ def fvt_flux(q: torch.Tensor, cx: torch.Tensor, *, halo: int,
     if backend == "ref":
         return ref.fvt_flux_ref(q, cx, halo=halo)
     return _fvt_flux_kernel(q, cx, halo=halo)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    softcap: float = 0.0,
+                    backend: str = "cuda") -> torch.Tensor:
+    """Causal GQA attention of q (B, S, H, D) over k/v (B, S, KVH, D), with
+    an optional tanh softcap (K8)."""
+    _check(backend)
+    if backend == "ref":
+        return ref.flash_attention_ref(q, k, v, softcap=softcap)
+    return _flash_attention_kernel(q, k, v, softcap=softcap)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
+            backend: str = "cuda") -> torch.Tensor:
+    """``(1 + w)`` RMSNorm over the last axis, in float32 (K9)."""
+    _check(backend)
+    if backend == "ref":
+        return ref.rmsnorm_ref(x, w, eps=eps)
+    return _rmsnorm_kernel(x, w, eps=eps)
+
+
+def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
+                     w: torch.Tensor, *, eps: float = 1e-5,
+                     backend: str = "cuda"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``x + residual`` then RMSNorm (K9): (normed, new residual)."""
+    _check(backend)
+    if backend == "ref":
+        return ref.rmsnorm_residual_ref(x, residual, w, eps=eps)
+    return _rmsnorm_residual_kernel(x, residual, w, eps=eps)

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the standalone kernels — what the CUDA kernels
 are held against in the tests and in ``chip_smoke.py``, and what their
 wrappers run for tensors on the CPU.  Ported from the reference's
-``kernels/ref.py``."""
+``kernels/ref.py``, with its casts."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -59,3 +61,39 @@ def fvt_flux_ref(q: torch.Tensor, cx: torch.Tensor, *,
     out = torch.zeros_like(q)
     out[:, :, h:h + ni] = c * f
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Materialized causal attention; q (B, S, H, D), k/v (B, S, KVH, D).
+    Query head h reads kv head ``h // (H / KVH)``.  Scores and the softmax
+    in float32, masked with -1e30; the output in q's dtype."""
+    S, H, D = q.shape[1], q.shape[2], q.shape[3]
+    rep = H // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis with a ``(1 + w)`` scale, in float32; the
+    output in x's dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def rmsnorm_residual_ref(x: torch.Tensor, residual: torch.Tensor,
+                         w: torch.Tensor, *, eps: float = 1e-5
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``s = x + residual`` summed in float32: returns (the RMSNorm of the
+    unrounded ``s``, ``s``), both in x's dtype."""
+    s = x.float() + residual.float()
+    return rmsnorm_ref(s, w, eps=eps).to(x.dtype), s.to(x.dtype)

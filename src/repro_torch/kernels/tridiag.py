@@ -46,6 +46,6 @@ def tridiag(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
                 x.data_ptr(), cp.data_ptr(), nk, nj * ni,
                 torch.cuda.current_stream(a.device).cuda_stream)
-    library.check_launch(lib, rc, "tridiag")
+    library.check_launch(lib.fv3_error_string, rc, "tridiag")
     library.LAUNCHES["tridiag"] += 1
     return x

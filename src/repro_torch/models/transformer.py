@@ -1,0 +1,241 @@
+"""Model assembly and the serving entry points, for blocks of type ``attn``.
+
+Ported from the reference's ``repro/models/transformer.py``.  A model is
+``n_groups`` repetitions of its ``pattern``; the reference stacks each
+slot's parameters over groups and scans them, the port keeps one
+:class:`Block` per layer in an ``nn.ModuleList`` in the reference's order
+(group g, slot s at index ``g * len(slots) + s``) and loops over it.
+
+Entry points, as the reference's:
+  * :func:`prefill`     — last-position logits and the KV caches of a prompt;
+  * :func:`decode_step` — one token against the caches;
+  * :func:`forward`     — the hidden states of the whole stack.
+
+Each takes ``backend``: ``"cuda"`` (the default) runs the kernels (K8
+flash attention in prefill, K9 RMSNorm and its fused residual add) on CUDA
+tensors and their plain versions on CPU tensors; ``"ref"`` runs the plain
+versions everywhere.  The model's device is the card unless the caller
+asks for another (``device="cpu"``, or ``"meta"`` to count parameters).
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item
+(queue 1): ``local`` (sliding-window) blocks, 12b; MoE, 12c; ``mamba2`` and
+``shared_attn``, 12d; ``mlstm``/``slstm``, 12e; int8 weights
+(``quantized=True``), 12f; ``loss_fn`` and training, 12g.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..core.backend.base import resolve_device
+from ..kernels import ops
+from . import layers as L
+from .config import ArchConfig
+
+#: block types of the reference not ported yet, and where the ROADMAP
+#: queues them
+UNPORTED = {
+    "local": "ROADMAP queue 1 item 12b (Gemma-2's sliding window)",
+    "mamba2": "ROADMAP queue 1 item 12d (Mamba-2 / Zamba2, with K10)",
+    "shared_attn": "ROADMAP queue 1 item 12d (Mamba-2 / Zamba2, with K10)",
+    "mlstm": "ROADMAP queue 1 item 12e (xLSTM)",
+    "slstm": "ROADMAP queue 1 item 12e (xLSTM)",
+}
+MOE_ITEM = "ROADMAP queue 1 item 12c (MoE: Grok-1, Llama-4 Scout)"
+QUANTIZED_ITEM = "ROADMAP queue 1 item 12f (int8 serving)"
+
+
+def mixer_slots(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """(slot_name, block_type) for stacked slots (shared_attn excluded), the
+    reference's names (``s{i}_{type}``)."""
+    return [(f"s{i}_{b}", b) for i, b in enumerate(cfg.pattern)
+            if b != "shared_attn"]
+
+
+def has_ffn(btype: str, cfg: ArchConfig) -> bool:
+    return cfg.d_ff != 0 and btype not in ("mamba2", "mlstm", "slstm")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    for b in cfg.pattern:
+        if b in UNPORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: blocks of type {b!r} are not ported yet: "
+                f"{UNPORTED[b]}")
+        if b != "attn":
+            raise ValueError(f"{cfg.name}: unknown block type {b!r}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are "
+                                  f"not ported yet: {MOE_ITEM}")
+
+
+class Block(nn.Module):
+    """One ``attn`` block: pre-norm attention and MLP, with the reference's
+    ``post_norm`` (sandwich) and ``parallel_block`` variants."""
+
+    def __init__(self, cfg: ArchConfig, with_ffn: bool, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.ln1 = L.empty_param((d,), dtype, device)
+        self.attn = L.Attention(cfg, dtype=dtype, device=device)
+        if cfg.post_norm:
+            self.ln1_post = L.empty_param((d,), dtype, device)
+        self.ffn = None
+        if with_ffn:
+            self.ln2 = L.empty_param((d,), dtype, device)
+            self.ffn = L.MLP(cfg, dtype=dtype, device=device)
+            if cfg.post_norm:
+                self.ln2_post = L.empty_param((d,), dtype, device)
+
+    def forward(self, x: torch.Tensor, *, mode: str, cache=None, pos=None,
+                backend: str = "cuda"):
+        """Returns (x, cache): the prompt's k/v in modes "train"/"prefill",
+        ``cache`` itself, written in place, in mode "decode"."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        h = ops.rmsnorm(x, self.ln1, eps=eps, backend=backend)
+        if mode == "decode":
+            a = self.attn.decode(h, cache["k"], cache["v"], pos)
+        else:
+            a, k, v = self.attn.prefill(h, backend=backend)
+            cache = {"k": k, "v": v}
+        if cfg.post_norm:
+            a = ops.rmsnorm(a, self.ln1_post, eps=eps, backend=backend)
+        if self.ffn is None:
+            return x + a, cache
+        if cfg.parallel_block:
+            f = self.ffn(ops.rmsnorm(x, self.ln2, eps=eps, backend=backend))
+            return x + a + f, cache
+        # x = x + a, then ln2 of it: one fused K9 launch
+        h, x = ops.rmsnorm_residual(a, x, self.ln2, eps=eps,
+                                    backend=backend)
+        f = self.ffn(h)
+        if cfg.post_norm:
+            f = ops.rmsnorm(f, self.ln2_post, eps=eps, backend=backend)
+        return x + f, cache
+
+
+class Transformer(nn.Module):
+    """The reference's model for patterns of ``attn`` blocks: token
+    embedding, ``n_layers`` blocks, final norm, unembedding (tied or not).
+    Parameters are created uninitialised in ``dtype`` on ``device`` (the
+    card when None); fill them with :func:`..weights.init_params` or
+    :func:`..weights.load_reference_params`."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = dtype
+        d, v = cfg.d_model, cfg.vocab
+        self.embed = L.empty_param((v, d), dtype, device)
+        self.final_norm = L.empty_param((d,), dtype, device)
+        self.layers = nn.ModuleList(
+            Block(cfg, has_ffn(btype, cfg), dtype=dtype, device=device)
+            for _ in range(cfg.n_groups) for _, btype in mixer_slots(cfg))
+        if not cfg.tie_embeddings:
+            self.unembed = L.empty_param((d, v), dtype, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def count_params(model: Transformer) -> int:
+    """Exact parameter count (the reference's ``count_params`` of its
+    ``ParamDef`` tree)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def _embed(model: Transformer, tokens: torch.Tensor,
+           prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    x = model.embed[tokens.long()]
+    if model.cfg.tie_embeddings:
+        x = x * math.sqrt(model.cfg.d_model)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(model.dtype), x], dim=1)
+    return x
+
+
+def _unembed(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    w = model.embed.T if model.cfg.tie_embeddings else model.unembed
+    return L.softcap((h @ w).float(), model.cfg.final_softcap)
+
+
+def init_caches(cfg: ArchConfig, batch: int, seq_len: int, *,
+                dtype=torch.bfloat16, device=None) -> list[dict]:
+    """Zeroed KV caches, one ``{"k", "v"}`` of (batch, seq_len, n_kv_heads,
+    d_head) per layer in the model's layer order (the reference stacks them
+    over groups)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.d_head)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+def forward(model: Transformer, tokens: torch.Tensor, *,
+            prefix_embeds: torch.Tensor | None = None, mode: str = "train",
+            caches: list | None = None, pos: int | None = None,
+            backend: str = "cuda", quantized: bool = False):
+    """Hidden states through the full stack: returns (h, caches).  Modes
+    ``"train"`` (no caches), ``"prefill"`` (the prompt's k/v per layer) and
+    ``"decode"`` (one token at ``pos`` against ``caches``, written in
+    place)."""
+    if quantized:
+        raise NotImplementedError("int8-quantized weights are not ported "
+                                  f"yet: {QUANTIZED_ITEM}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "decode" and (caches is None or pos is None):
+        raise ValueError("decode takes caches and pos")
+    x = _embed(model, tokens, prefix_embeds)
+    new_caches = []
+    for i, block in enumerate(model.layers):
+        x, cache = block(x, mode=mode, pos=pos, backend=backend,
+                         cache=caches[i] if mode == "decode" else None)
+        new_caches.append(cache)
+    x = ops.rmsnorm(x, model.final_norm, eps=model.cfg.norm_eps,
+                    backend=backend)
+    return x, (None if mode == "train" else new_caches)
+
+
+def prefill(model: Transformer, tokens: torch.Tensor, *,
+            prefix_embeds: torch.Tensor | None = None,
+            cache_len: int | None = None, backend: str = "cuda",
+            quantized: bool = False):
+    """Prefill: last-position logits (B, 1, vocab) in float32 and the KV
+    caches for decode.  The caches hold the prompt's S positions; with
+    ``cache_len`` (>= S) they are allocated that long, zero past the prompt,
+    so that decode can write past it (the reference's caller grows them)."""
+    h, caches = forward(model, tokens, prefix_embeds=prefix_embeds,
+                        mode="prefill", backend=backend, quantized=quantized)
+    if cache_len is not None:
+        B, S = h.shape[0], h.shape[1]
+        if cache_len < S:
+            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
+        grown = init_caches(model.cfg, B, cache_len, dtype=model.dtype,
+                            device=model.device)
+        for new, old in zip(grown, caches):
+            new["k"][:, :S] = old["k"]
+            new["v"][:, :S] = old["v"]
+        caches = grown
+    return _unembed(model, h[:, -1:]), caches
+
+
+def decode_step(model: Transformer, token: torch.Tensor, caches: list,
+                pos: int, *, backend: str = "cuda",
+                quantized: bool = False):
+    """One decode step: token (B, 1) against the caches at position
+    ``pos``.  Returns (logits (B, 1, vocab) float32, caches); the caches are
+    updated in place."""
+    h, caches = forward(model, token, mode="decode", caches=caches, pos=pos,
+                        backend=backend, quantized=quantized)
+    return _unembed(model, h), caches

@@ -1,0 +1,84 @@
+"""Weights of the port's models: seeded initialisation (the counterpart of
+the reference's ``parallel/sharding.init_params``) and loading the
+reference's own parameters.
+
+No weights are downloaded: both packages initialise from a seed.  The two
+draw different numbers from the same seed (``torch.Generator`` against
+``jax.random``), so a comparison between them carries the reference's
+parameters over with :func:`load_reference_params`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .transformer import Transformer, mixer_slots
+
+#: parameters the reference initialises to zero (``init_scale == 0``): the
+#: norms' ``w`` of ``(1 + w)``; every other parameter is normal x 0.02
+ZERO_INIT = frozenset({"ln1", "ln1_post", "ln2", "ln2_post", "final_norm"})
+INIT_SCALE = 0.02
+
+
+@torch.no_grad()
+def init_params(model: Transformer, seed: int = 0) -> Transformer:
+    """Fill every parameter from an explicit ``torch.Generator`` seeded with
+    ``seed`` on the model's device: normal x 0.02 drawn in float32 and cast
+    to the model's dtype (the reference keeps float32 weights and casts at
+    each use), zeros where the reference's ``init_scale`` is 0."""
+    device = model.device
+    if device.type == "meta":
+        raise ValueError("a model on the meta device holds no values")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ZERO_INIT:
+            p.zero_()
+        else:
+            p.copy_(torch.randn(p.shape, generator=gen, device=device,
+                                dtype=torch.float32) * INIT_SCALE)
+    return model
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+@torch.no_grad()
+def load_reference_params(model: Transformer, tree: dict) -> Transformer:
+    """Copy the reference's parameter tree (nested dicts of numpy arrays,
+    each slot's leaves stacked over groups, as ``model_pdefs`` lays them
+    out) into ``model``, cast to the model's dtype.  Layer ``g * n_slots +
+    s`` takes group g of slot s."""
+    cfg = model.cfg
+    slots = mixer_slots(cfg)
+    leaves = dict(_leaves(tree))
+    used = set()
+
+    def put(p: torch.Tensor, path: tuple, index=None):
+        if path not in leaves:
+            raise ValueError(f"the reference tree has no {'/'.join(path)}")
+        used.add(path)
+        a = leaves[path] if index is None else leaves[path][index]
+        a = torch.tensor(a)  # a copy: the reference's arrays are read-only
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(a.shape)}, the "
+                             f"model's is {tuple(p.shape)}")
+        p.copy_(a.to(p.dtype))
+
+    put(model.embed, ("embed",))
+    put(model.final_norm, ("final_norm",))
+    if not cfg.tie_embeddings:
+        put(model.unembed, ("unembed",))
+    for s, (slot, _) in enumerate(slots):
+        for g in range(cfg.n_groups):
+            layer = model.layers[g * len(slots) + s]
+            for name, p in layer.named_parameters():
+                put(p, ("blocks", slot) + tuple(name.split(".")), g)
+    left = sorted("/".join(k) for k in leaves if k not in used)
+    if left:
+        raise ValueError(f"the model has no place for {left}")
+    return model

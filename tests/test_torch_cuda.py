@@ -11,7 +11,9 @@ encoder's output to the IR's meaning without a card.  With a member axis,
 each slot is read through the member stride of the launch arguments, as
 the kernels index it, so a broadcast field (stride 0) is checked too.
 
-Tests marked ``cuda`` need a card and skip without one.
+Tests marked ``cuda`` need a card and skip without one; among them the LM
+kernels (K8 flash attention, K9 RMSNorm) against their plain versions and a
+2-layer Granite-width prefill and decode against the plain path.
 """
 
 import numpy as np
@@ -28,6 +30,8 @@ from repro_torch.core.stencil import ir
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import state as TSt
 from repro_torch.fv3 import stencils as TS
+from repro_torch import configs as TC
+from repro_torch import models as TM
 from repro_torch.kernels import library as KL
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import ref as KR
@@ -531,3 +535,91 @@ def test_opt3_step_on_card_with_kblocked_schedules(card):
                            default[k][..., h:h + n, h:h + n]), k
         err = (got[k] - plain[k])[..., h:h + n, h:h + n].abs().max().item()
         assert err < 1e-5, (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 128),
+    (2, 100, 4, 2, 32), (1, 300, 6, 2, 96), (1, 70, 2, 1, 256),
+    (2, 33, 4, 4, 16),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_flash_attention_kernel_matches_plain_version_on_card(
+        card, B, S, H, KVH, D, dtype, softcap):
+    """Ragged S (not a multiple of the 32-row or 64-key tiles), every head
+    width the kernel takes, GQA ratios 1-8; the reference's tolerances
+    (``tests/test_kernels.py``)."""
+    gen = torch.Generator(device=card).manual_seed(B * S + D)
+    q, k, v = (torch.randn(s, generator=gen, device=card).to(dtype)
+               for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    KL.reset_launches()
+    got = KO.flash_attention(q, k, v, softcap=softcap)
+    want = KR.flash_attention_ref(q, k, v, softcap=softcap)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["flash_attention"] == 1
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 1e-1)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(128, 64), (1024, 256), (96, 512),
+                                    (7, 4096), (3, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernels_match_plain_version_on_card(card, rows, d, dtype,
+                                                     w_dtype):
+    gen = torch.Generator(device=card).manual_seed(rows + d)
+    x, r = (torch.randn((rows, d), generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    w = (0.1 * torch.randn(d, generator=gen, device=card)).to(w_dtype)
+    KL.reset_launches()
+    got = KO.rmsnorm(x, w)
+    n, s = KO.rmsnorm_residual(x, r, w)
+    want = KR.rmsnorm_ref(x, w)
+    n_want, s_want = KR.rmsnorm_residual_ref(x, r, w)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["rmsnorm"] == 1 == KL.LAUNCHES["rmsnorm_residual"]
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(n, n_want, rtol=tol, atol=tol)
+    assert torch.equal(s, s_want)  # one rounding of an f32 sum
+
+
+@pytest.mark.cuda
+def test_granite_width_prefill_and_decode_on_card_match_plain_path(card):
+    """Two Granite-8B layers at full width in float32: prefill logits and
+    caches through K8/K9 within 1e-4 of the plain path, and the same greedy
+    tokens over 4 decode steps."""
+    import dataclasses
+
+    cfg = dataclasses.replace(TC.get_config("granite_8b"), n_layers=2)
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=card), seed=0)
+    B, S, n = 2, 96, 4
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(1))
+    runs = {}
+    for backend in ("cuda", "ref"):
+        KL.reset_launches()
+        logits, caches = TM.prefill(model, tokens, cache_len=S + n,
+                                    backend=backend)
+        launched = dict(KL.LAUNCHES)
+        toks = [logits.argmax(-1)]
+        for i in range(n):
+            step, caches = TM.decode_step(model, toks[-1], caches, S + i,
+                                          backend=backend)
+            toks.append(step.argmax(-1))
+        runs[backend] = (logits, caches, torch.cat(toks, 1), launched)
+    got, want = runs["cuda"], runs["ref"]
+    assert got[3]["flash_attention"] == 2 and got[3]["rmsnorm"] == 3
+    assert got[3]["rmsnorm_residual"] == 2
+    assert sum(want[3].values()) == 0
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(got[1], want[1]):
+        torch.testing.assert_close(a["k"][:, :S], b["k"][:, :S], rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(a["v"][:, :S], b["v"][:, :S], rtol=1e-4,
+                                   atol=1e-4)
+    assert torch.equal(got[2], want[2])

@@ -19,6 +19,8 @@ from repro_torch.core.stencil import DomainSpec
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import state as TSt
 from repro_torch.fv3 import stencils as TS
+from repro_torch import configs as TC
+from repro_torch import models as TM
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -60,7 +62,9 @@ def test_port_import_loads_no_jax():
             "repro_torch.core.passes, repro_torch.core.autotune, "
             "repro_torch.core.transfer_tuning, repro_torch.core.perfmodel, "
             "repro_torch.core.transforms, repro_torch.core.analysis, "
-            "repro_torch.core.rewrite, repro_torch.core.backend.cache; "
+            "repro_torch.core.rewrite, repro_torch.core.backend.cache, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -90,6 +94,20 @@ def test_entry_points_refuse_to_run_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         compile_program(prog)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_entry_points_refuse_to_run_without_a_card(no_card):
+    cfg = TC.smoke_config("granite_8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TM.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TM.Transformer(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TM.init_caches(cfg, 1, 8)
+    model = TM.Transformer(cfg, dtype=torch.float32, device="cpu")
+    assert model.device == torch.device("cpu")
+    assert TM.init_caches(cfg, 1, 8, device="cpu")[0]["k"].device.type == \
+        "cpu"
 
 
 def test_compile_program_takes_opt_level_zero_only():
