@@ -53,24 +53,31 @@
    step 1 must equal the default step's exactly over the interior; then one
    M = 4 ``"grid"`` ensemble step at opt 3 on ``"tpu-v5e"``, which must
    equal 4 single opt-3 steps exactly (K4's carry reset per member).
-8. LM kernel phase, at the serving shapes of Granite-8B: K8
-   ``flash_attention`` at B=8, S=2048, H=32, KVH=8, D=128 (softcap 0 and
-   50), K9 ``rmsnorm`` and ``rmsnorm_residual`` at 16384 x 4096, each in
-   float32 and bfloat16 against its plain version at the reference's
-   tolerances, timed beside the plain version, its bound and one library
-   call (``F.scaled_dot_product_attention``, ``F.rms_norm``).
-9. Serving phase: Granite-8B at full width and depth (36 layers) with
-   seeded weights.  Parity: float32 weights, 2 prompts of 512 tokens,
-   prefill and 8 greedy decode steps through the kernels and again through
-   the plain versions on the card (the same tokens), the prefill logits and
-   KV caches of both held against an independent float64 prefill (the
-   kernel path within 1e-4 of the largest |value| and within 2x the plain
-   path's own float32 error).  Serving run: bfloat16 weights, 8 prompts of 2048 tokens,
-   prefill (median of 2 after a warm-up) and 31 greedy decode steps into
-   caches of 2080: prefill ms, decode ms per token, generated tokens/s, K8
-   and K9 launches per prefill and per decode step, peak memory, a traced
-   decode step's device idle share, and the last-position logits against
-   the plain path.
+8. LM kernel phase, at the serving shapes: K8 ``flash_attention`` at
+   Granite-8B's B=8, S=2048, H=32, KVH=8, D=128 and Zamba2-7B's H=KVH=32,
+   D=112 (softcap 0 and 50), K9 ``rmsnorm`` and ``rmsnorm_residual`` at
+   16384 x 4096, each in float32 and bfloat16 against its plain version at
+   the reference's tolerances, timed beside the plain version, its bound
+   and one library call (``F.scaled_dot_product_attention``,
+   ``F.rms_norm``); K10 ``ssm_state_scan`` (float32) at Zamba2-7B's
+   (16, 8, 112, 64, 64) and a ragged (3, 2, 112, 64, 64) against its plain
+   version (no library call computes it).
+9. Serving phases: Granite-8B (36 layers), then Zamba2-7B (81 Mamba-2
+   layers and one shared attention block applied 27 times), each at full
+   width and depth with seeded weights.  Parity: float32 weights, 2
+   prompts of 512 tokens, prefill and 8 greedy decode steps through the
+   kernels and again through the plain versions on the card (the same
+   tokens), the prefill logits and every cache of both (KV, and Mamba-2's
+   conv tails and SSM states) held against an independent float64 prefill
+   (the kernel path within 1e-4 of the largest |value| and within 2x the
+   plain path's own float32 error).  Serving run: bfloat16 weights, 8
+   prompts of 2048 tokens, prefill (median of 2 after a warm-up) and 31
+   greedy decode steps into caches of 2080: prefill ms, decode ms per
+   token, generated tokens/s, K8/K9/K10 launches per prefill and per
+   decode step, peak memory, a traced prefill's device time by kernel
+   group (and Zamba2's intra-chunk work, timed alone), a traced decode
+   step's device idle share, and the last-position logits against the
+   plain path.
 10. Prints the total wall time, a ``kernels`` JSON line and, last, the
    ``ok`` JSON line.
 
@@ -123,9 +130,22 @@ LM_SOURCE = "src/repro_torch/csrc/lm_kernels.cu"
 
 # the LM serving path: Granite-8B (36 attn layers, d_model 4096, GQA 32/8,
 # d_head 128) at full width and depth
-SERVE_ARCH = "granite_8b"
-FA_SHAPE = {"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128}
-NORM_SHAPE = (16384, 4096)       # 8 prompts x 2048 tokens, d_model
+SERVE_ARCHS = ("granite_8b", "zamba2_7b")
+# K8 at the prefill shapes of Granite-8B (GQA 32/8, d_head 128) and
+# Zamba2-7B's shared block (MHA 32, d_head 112); K10 at Zamba2-7B's (16
+# chunks of 128 for 8 x 2048 tokens, 112 heads, N = P = 64) and a ragged one
+FA_SHAPES = ({"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128},
+             {"B": 8, "S": 2048, "H": 32, "KVH": 32, "D": 112})
+SCAN_SHAPES = ((16, 8, 112, 64, 64), (3, 2, 112, 64, 64))
+# K9 at the rows of a prefill of 8 prompts x 2048 tokens and the widths
+# the served models give it, with their eps and a float32 weight (the
+# models keep their norm weights in float32): Granite-8B's and Zamba2-7B's
+# d_model (every ln1, the fused residual + ln2, the final norm) and
+# Zamba2-7B's gated norm over d_inner (plain RMSNorm only)
+NORM_CASES = (("granite_8b", 16384, 4096, 1e-5, True),
+              ("zamba2_7b", 16384, 3584, 1e-5, True),
+              ("zamba2_7b gated", 16384, 7168, 1e-6, False))
+NORM_HEAD_D = 3584               # the kernels line's K9 case (bf16)
 # kernel vs plain: the reference's own tolerances (tests/test_kernels.py)
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1e-1)}
 NORM_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
@@ -139,7 +159,8 @@ PARITY = {"B": 2, "S": 512, "decode": 8}           # float32 weights
 PARITY_REL = 1e-4
 PARITY_FACTOR = 2.0
 SERVE = {"B": 8, "S": 2048, "decode": 31, "cache": 2080}  # bfloat16
-LM_LAUNCHES = ("flash_attention", "rmsnorm", "rmsnorm_residual")
+LM_LAUNCHES = ("flash_attention", "rmsnorm", "rmsnorm_residual",
+               "ssm_state_scan")
 # bf16 serving logits vs the plain path (both compute attention and norms in
 # f32; they differ where a bf16 rounding of an activation flips, and 36
 # layers grow those flips as they grow float32's): max abs difference over
@@ -563,13 +584,16 @@ def interior(x, cfg):
 
 
 def trace_step(step, state, step_ms: float,
-               untraced: str = "median of steps 2-3") -> float | None:
+               untraced: str = "median of steps 2-3",
+               groups: tuple = ()) -> float | None:
     """One more step under ``torch.profiler``: device time by kernel, and the
     device's idle share of an untraced step.  The profiler's host cost
     lengthens the traced step's wall time, so the share is taken against
     ``step_ms``, the median untraced step (``untraced`` says which): every
     step launches the same kernels on the same shapes, so its device time is
-    the traced step's."""
+    the traced step's.  ``groups`` of (label, name fragments) also sum the
+    device time of the kernels whose names hold a fragment, the first group
+    that matches taking a kernel, the rest under "other"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -602,6 +626,16 @@ def trace_step(step, state, step_ms: float,
     for ms, n, key in rows[:8]:
         print(f"[trace]   {ms:10.3f} ms {100 * ms / busy:5.1f}% x{n:5d} "
               f"{key[:70]}")
+    if groups:
+        split = {label: [0.0, 0] for label, _ in groups + (("other", ()),)}
+        for ms, n, key in rows:
+            label = next((g for g, frags in groups
+                          if any(f in key.lower() for f in frags)), "other")
+            split[label][0] += ms
+            split[label][1] += n
+        for label, (ms, n) in split.items():
+            print(f"[trace] split {ms:10.3f} ms {100 * ms / busy:5.1f}% "
+                  f"x{n:5d} {label}")
     return 1 - busy / step_ms
 
 
@@ -999,11 +1033,14 @@ def check_close(name: str, got, want, rtol: float, atol: float) -> float:
 
 
 def lm_kernel_phase(device) -> dict:
-    """K8 and K9 through ``repro_torch.kernels.ops`` at the serving shapes,
-    in float32 and bfloat16: each against its plain version, timed beside
-    it, its bound and one library call computing the same function.  The
-    bf16 cases (the serving dtype, K8 at softcap 0 as Granite) head the
-    ``kernels`` records."""
+    """K8, K9 and K10 through ``repro_torch.kernels.ops`` at the serving
+    shapes: K8 at Granite-8B's and Zamba2-7B's, K9 at the widths both
+    models give it (:data:`NORM_CASES`, float32 weight), in float32 and
+    bfloat16, and K10 (float32 only) at Zamba2's and a ragged one; each
+    against its plain version, timed beside it, its bound and one library
+    call computing the same function where there is one.  The bf16 cases
+    (the serving dtype; K8 at Granite's shape and softcap 0, K9 at d
+    :data:`NORM_HEAD_D`) head the ``kernels`` records."""
     import torch
     import torch.nn.functional as F
 
@@ -1011,9 +1048,7 @@ def lm_kernel_phase(device) -> dict:
     from repro_torch.kernels import ref as KR
 
     gen = torch.Generator(device=device).manual_seed(3)
-    B, S, H, KVH, D = (FA_SHAPE[k] for k in ("B", "S", "H", "KVH", "D"))
-    rows_n, d = NORM_SHAPE
-    out = {"K8": [], "rmsnorm": [], "rmsnorm_residual": []}
+    out = {"K8": [], "rmsnorm": [], "rmsnorm_residual": [], "K10": []}
 
     def normal(shape, dtype):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -1021,134 +1056,189 @@ def lm_kernel_phase(device) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         size = torch.finfo(dtype).bits // 8
-        q = normal((B, S, H, D), dtype)
-        k, v = normal((B, S, KVH, D), dtype), normal((B, S, KVH, D), dtype)
-        rtol, atol = FA_TOL[name]
-        # bytes: q, k, v read once, o written once; operations: the two
-        # products over the causal half (4 D flops per score), on the
-        # tensor cores for bf16, on the CUDA cores for f32 (no TF32)
-        fa_bytes = (2 * q.numel() + 2 * k.numel()) * size
-        fa_ops = 4 * B * H * D * S * (S + 1) / 2
-        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        t_b, t_o = fa_bytes / HBM_BYTES_PER_S, fa_ops / rate
-        for cap in (0.0, 50.0):
-            got = ops.flash_attention(q, k, v, softcap=cap)
-            want = KR.flash_attention_ref(q, k, v, softcap=cap)
-            torch.cuda.synchronize()
-            err = check_close(f"K8 flash_attention {name} softcap {cap:g}",
-                              got, want, rtol, atol)
-            del got, want
+        for shape in FA_SHAPES:
+            B, S, H, KVH, D = (shape[k] for k in ("B", "S", "H", "KVH", "D"))
+            q = normal((B, S, H, D), dtype)
+            k, v = normal((B, S, KVH, D), dtype), normal((B, S, KVH, D),
+                                                          dtype)
+            rtol, atol = FA_TOL[name]
+            # bytes: q, k, v read once, o written once; operations: the two
+            # products over the causal half (4 D flops per score), on the
+            # tensor cores for bf16, on the CUDA cores for f32 (no TF32)
+            fa_bytes = (2 * q.numel() + 2 * k.numel()) * size
+            fa_ops = 4 * B * H * D * S * (S + 1) / 2
+            rate = BF16_OPS_PER_S if dtype == torch.bfloat16 \
+                else F32_OPS_PER_S
+            t_b, t_o = fa_bytes / HBM_BYTES_PER_S, fa_ops / rate
+            for cap in (0.0, 50.0):
+                got = ops.flash_attention(q, k, v, softcap=cap)
+                want = KR.flash_attention_ref(q, k, v, softcap=cap)
+                torch.cuda.synchronize()
+                err = check_close(f"K8 flash_attention {name} D={D} softcap "
+                                  f"{cap:g}", got, want, rtol, atol)
+                del got, want
+                torch.cuda.empty_cache()
+                ms = cuda_ms(lambda: ops.flash_attention(q, k, v,
+                                                         softcap=cap), 5)
+                plain_ms = cuda_ms(
+                    lambda: KR.flash_attention_ref(q, k, v, softcap=cap), 2)
+                lib_ms = None
+                if cap == 0.0:
+                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+                    lib_ms = cuda_ms(sdpa, 5)
+                out["K8"].append(dict(
+                    dtype=name, D=D, softcap=cap, err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=1e3 * max(t_b, t_o),
+                    bound_by="bytes" if t_b >= t_o else "operations",
+                    library_ms=lib_ms))
+                print(f"[lm-kernel] K8 flash_attention {name} B={B} S={S} "
+                      f"H={H} KVH={KVH} D={D} softcap={cap:g} max_abs_err="
+                      f"{err:.3e} tol=rtol {rtol:g} + atol {atol:g} ms="
+                      f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                      f"{1e3 * max(t_b, t_o):.4f} "
+                      f"({out['K8'][-1]['bound_by']}; {fa_bytes / 1e6:.1f} "
+                      f"MB, {fa_ops:.3e} flops at {rate / 1e12:g} TFLOP/s)"
+                      + ("" if lib_ms is None else
+                         f" sdpa library_ms={lib_ms:.4f}"), flush=True)
+            del q, k, v
             torch.cuda.empty_cache()
-            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, softcap=cap), 5)
-            plain_ms = cuda_ms(
-                lambda: KR.flash_attention_ref(q, k, v, softcap=cap), 2)
-            lib_ms = None
-            if cap == 0.0:
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
+        for case, rows_n, d, eps, residual in NORM_CASES:
+            x, r = normal((rows_n, d), dtype), normal((rows_n, d), dtype)
+            w = 0.1 * torch.randn(d, generator=gen, device=device)  # f32
+            tol = NORM_TOL[name]
+            err = check_close(f"K9 rmsnorm {name} {case}",
+                              ops.rmsnorm(x, w, eps=eps),
+                              KR.rmsnorm_ref(x, w, eps=eps), tol, tol)
+            # the library's weight, (1 + w) in x's dtype (F.rms_norm takes
+            # one dtype), made outside the timed window
+            w1 = (1.0 + w).to(dtype)
+            cases = [("rmsnorm", err, lambda: ops.rmsnorm(x, w, eps=eps),
+                      lambda: KR.rmsnorm_ref(x, w, eps=eps),
+                      lambda: F.rms_norm(x, (d,), weight=w1, eps=eps), 2, 4)]
+            if residual:
+                n_got, s_got = ops.rmsnorm_residual(x, r, w, eps=eps)
+                n_want, s_want = KR.rmsnorm_residual_ref(x, r, w, eps=eps)
+                err_r = max(
+                    check_close(f"K9 rmsnorm_residual {name} {case}", n_got,
+                                n_want, tol, tol),
+                    check_close(f"K9 rmsnorm_residual {name} {case} (sum)",
+                                s_got, s_want, tol, tol))
+                del n_got, s_got, n_want, s_want
+                cases.append((
+                    "rmsnorm_residual", err_r,
+                    lambda: ops.rmsnorm_residual(x, r, w, eps=eps),
+                    lambda: KR.rmsnorm_residual_ref(x, r, w, eps=eps), None,
+                    4, 5))
+            for key, e, run, plain, lib, n_arrays, flops in cases:
+                # bytes: n_arrays (rows, d) arrays read or written once, and
+                # the f32 w; f32 operations per element: square, sum, scale,
+                # (1 + w) scale (and the residual add)
+                t_b = (n_arrays * x.numel() * size + d * 4) / HBM_BYTES_PER_S
+                t_o = flops * x.numel() / F32_OPS_PER_S
+                ms = cuda_ms(run, 20)
+                plain_ms = cuda_ms(plain, 5)
+                lib_ms = None if lib is None else cuda_ms(lib, 20)
+                out[key].append(dict(
+                    dtype=name, d=d, err=e, ms=ms, plain_ms=plain_ms,
+                    bound_ms=1e3 * max(t_b, t_o),
+                    bound_by="bytes" if t_b >= t_o else "operations",
+                    library_ms=lib_ms))
+                print(f"[lm-kernel] K9 {key} {name} w float32 {case} "
+                      f"({rows_n}, {d}) eps={eps:g} max_abs_err={e:.3e} "
+                      f"tol=rtol {tol:g} + atol {tol:g} ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} bound_ms="
+                      f"{1e3 * max(t_b, t_o):.4f} "
+                      f"({out[key][-1]['bound_by']}) library_ms="
+                      + ("none (no one call computes it)" if lib_ms is None
+                         else f"{lib_ms:.4f} (F.rms_norm)"), flush=True)
+            del x, r, w, w1
+            torch.cuda.empty_cache()
 
-                lib_ms = cuda_ms(sdpa, 5)
-            out["K8"].append(dict(
-                dtype=name, softcap=cap, err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=1e3 * max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
-                library_ms=lib_ms))
-            print(f"[lm-kernel] K8 flash_attention {name} B={B} S={S} H={H} "
-                  f"KVH={KVH} D={D} softcap={cap:g} max_abs_err={err:.3e} "
-                  f"tol=rtol {rtol:g} + atol {atol:g} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={1e3 * max(t_b, t_o):.4f}"
-                  f" ({out['K8'][-1]['bound_by']}; {fa_bytes / 1e6:.1f} MB, "
-                  f"{fa_ops:.3e} flops at {rate / 1e12:g} TFLOP/s)"
-                  + ("" if lib_ms is None else
-                     f" sdpa library_ms={lib_ms:.4f}"), flush=True)
-        del q, k, v
-        torch.cuda.empty_cache()
-
-        x, r = normal((rows_n, d), dtype), normal((rows_n, d), dtype)
-        w = (0.1 * torch.randn(d, generator=gen, device=device)).to(dtype)
-        tol = NORM_TOL[name]
-        err = check_close(f"K9 rmsnorm {name}", ops.rmsnorm(x, w),
-                          KR.rmsnorm_ref(x, w), tol, tol)
-        n_got, s_got = ops.rmsnorm_residual(x, r, w)
-        n_want, s_want = KR.rmsnorm_residual_ref(x, r, w)
-        err_r = max(check_close(f"K9 rmsnorm_residual {name}", n_got, n_want,
-                                tol, tol),
-                    check_close(f"K9 rmsnorm_residual {name} (sum)", s_got,
-                                s_want, tol, tol))
-        del n_got, s_got, n_want, s_want
-        w1 = 1.0 + w  # the library's weight, outside the timed window
-        cases = (
-            ("rmsnorm", err, lambda: ops.rmsnorm(x, w),
-             lambda: KR.rmsnorm_ref(x, w),
-             lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-5), 2, 4),
-            ("rmsnorm_residual", err_r, lambda: ops.rmsnorm_residual(x, r, w),
-             lambda: KR.rmsnorm_residual_ref(x, r, w), None, 4, 5))
-        for key, e, run, plain, lib, n_arrays, flops in cases:
-            # bytes: n_arrays (rows, d) arrays read or written once, and w;
-            # f32 operations per element: square, sum, scale, (1 + w) scale
-            # (and the residual add)
-            t_b = (n_arrays * x.numel() * size + d * size) / HBM_BYTES_PER_S
-            t_o = flops * x.numel() / F32_OPS_PER_S
-            ms = cuda_ms(run, 20)
-            plain_ms = cuda_ms(plain, 5)
-            lib_ms = None if lib is None else cuda_ms(lib, 20)
-            out[key].append(dict(
-                dtype=name, err=e, ms=ms, plain_ms=plain_ms,
-                bound_ms=1e3 * max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
-                library_ms=lib_ms))
-            print(f"[lm-kernel] K9 {key} {name} ({rows_n}, {d}) max_abs_err="
-                  f"{e:.3e} tol=rtol {tol:g} + atol {tol:g} ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={1e3 * max(t_b, t_o):.4f}"
-                  f" ({out[key][-1]['bound_by']}) library_ms="
-                  + ("none (no one call computes it)" if lib_ms is None else
-                     f"{lib_ms:.4f} (F.rms_norm)"), flush=True)
-        del x, r, w, w1
+    for nc, B, H, N, P in SCAN_SHAPES:
+        states = torch.randn((nc, B, H, N, P), generator=gen, device=device)
+        decay = torch.rand((nc, B, H), generator=gen, device=device)
+        err = check_close(f"K10 ssm_state_scan ({nc}, {B}, {H}, {N}, {P})",
+                          ops.ssm_state_scan(states, decay),
+                          KR.ssm_state_scan_ref(states, decay),
+                          KERNEL_RTOL, KERNEL_ATOL)
+        # bytes: the states read once, the prefix states written once, the
+        # decay read once; operations: a multiply and an add per element
+        # and chunk, f32 on the CUDA cores
+        t_b = (2 * states.numel() + decay.numel()) * 4 / HBM_BYTES_PER_S
+        t_o = 2 * states.numel() / F32_OPS_PER_S
+        ms = cuda_ms(lambda: ops.ssm_state_scan(states, decay), 20)
+        plain_ms = cuda_ms(lambda: KR.ssm_state_scan_ref(states, decay), 5)
+        out["K10"].append(dict(
+            shape=(nc, B, H, N, P), err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=1e3 * max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations",
+            library_ms=None))
+        print(f"[lm-kernel] K10 ssm_state_scan float32 nc={nc} B={B} H={H} "
+              f"N={N} P={P} max_abs_err={err:.3e} tol=rtol "
+              f"{KERNEL_RTOL:g} + atol {KERNEL_ATOL:g} ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={1e3 * max(t_b, t_o):.4f} "
+              f"({out['K10'][-1]['bound_by']}; {states.numel() * 8 / 1e6:.1f}"
+              f" MB of states in and out) library_ms=none (no one call "
+              f"computes the scan)", flush=True)
+        del states, decay
         torch.cuda.empty_cache()
     return out
 
 
 def greedy(model, tokens, n_decode: int, cache_len: int, backend: str):
     """Prefill then ``n_decode`` greedy decode steps: (prefill logits, the
-    caches, the generated tokens (B, 1 + n_decode))."""
+    prefill's caches, the generated tokens (B, 1 + n_decode)).  Decode
+    writes the KV caches past the prompt and the Mamba-2 caches over
+    theirs, so those are copied right after the prefill."""
     import torch
 
     from repro_torch import models as TM
 
     logits, caches = TM.prefill(model, tokens, cache_len=cache_len,
                                 backend=backend)
+    prefilled = [c if "k" in c else {k: v.clone() for k, v in c.items()}
+                 for c in caches]
     toks = [logits.argmax(-1)]
     S = tokens.shape[1]
     for i in range(n_decode):
         step, caches = TM.decode_step(model, toks[-1], caches, S + i,
                                       backend=backend)
         toks.append(step.argmax(-1))
-    return logits, caches, torch.cat(toks, dim=1)
+    return logits, prefilled, torch.cat(toks, dim=1)
 
 
 def prefill_wide(model, tokens, dtype):
-    """An independent prefill of a plain ``attn`` model (SwiGLU, pre-norm,
-    untied, no softcap: Granite) in ``dtype`` (float64, or float32 for a
-    bfloat16 model), written from the reference's equations, each layer's
-    weights widened one layer at a time; RoPE angles in float32, as the
-    reference defines them.  Returns the last-position logits and each
-    layer's (k, v)."""
+    """An independent prefill of a pre-norm, untied, uncapped model of
+    ``attn`` (SwiGLU: Granite) or ``shared_attn`` (GeLU) + ``mamba2`` blocks
+    (Zamba2) in ``dtype`` (float64, or float32 for a bfloat16 model), written
+    from the reference's equations, each block's weights widened one block
+    at a time; RoPE angles in float32, as the reference defines them.  A
+    Mamba-2 layer runs the reference's own form: a loop over chunks that
+    carries the state (no K10 regrouping).  Returns the last-position logits
+    and the caches in the model's order (``{"k", "v"}``, ``{"conv",
+    "ssm"}``)."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.models.transformer import MambaBlock
+
     cfg = model.cfg
-    if cfg.act != "swiglu" or cfg.post_norm or cfg.parallel_block \
-            or cfg.tie_embeddings or cfg.attn_softcap or cfg.final_softcap:
+    if cfg.act not in ("swiglu", "gelu") or cfg.post_norm \
+            or cfg.parallel_block or cfg.tie_embeddings or cfg.attn_softcap \
+            or cfg.final_softcap:
         raise ValueError(f"prefill_wide does not model {cfg.name}")
     B, S = tokens.shape
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
-    def norm(x, w):
+    def norm(x, w, eps=cfg.norm_eps):
         var = (x * x).mean(-1, keepdim=True)
-        return x * torch.rsqrt(var + cfg.norm_eps) * (1.0 + w.to(dtype))
+        return x * torch.rsqrt(var + eps) * (1.0 + w.to(dtype))
 
     half = D // 2
     freqs = (1.0 / cfg.rope_theta) ** (torch.arange(
@@ -1163,15 +1253,13 @@ def prefill_wide(model, tokens, dtype):
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
     causal = torch.ones((S, S), dtype=torch.bool, device=tokens.device).tril()
-    x = model.embed[tokens].to(dtype)
-    kvs = []
-    for blk in model.layers:
+
+    def attn_block(blk, x):
         at, ff = blk.attn, blk.ffn
         h = norm(x, blk.ln1)
         q = rope((h @ at.wq.to(dtype)).reshape(B, S, H, D))
         k = rope((h @ at.wk.to(dtype)).reshape(B, S, KVH, D))
         v = (h @ at.wv.to(dtype)).reshape(B, S, KVH, D)
-        kvs.append((k, v))
         kk = k.repeat_interleave(H // KVH, dim=2)
         vv = v.repeat_interleave(H // KVH, dim=2)
         s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / D ** 0.5
@@ -1179,34 +1267,106 @@ def prefill_wide(model, tokens, dtype):
         a = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, S, H * D)
         x = x + a @ at.wo.to(dtype)
         h = norm(x, blk.ln2)
-        x = x + (F.silu(h @ ff.wg.to(dtype)) * (h @ ff.wi.to(dtype))) \
-            @ ff.wo.to(dtype)
+        if cfg.act == "swiglu":
+            f = F.silu(h @ ff.wg.to(dtype)) * (h @ ff.wi.to(dtype))
+        else:
+            f = F.gelu(h @ ff.wi.to(dtype), approximate="tanh")
+        return x + f @ ff.wo.to(dtype), {"k": k, "v": v}
+
+    def mamba_block(blk, x):
+        mb, ssm = blk.mamba, cfg.ssm
+        di, Hs, N, P = mb.di, mb.H, mb.N, mb.P
+        h = norm(x, blk.ln1)
+        z, xin, Bc, Cc, dt = torch.split(h @ mb.w_in.to(dtype),
+                                         [di, di, N, N, Hs], dim=-1)
+        dt = torch.logaddexp(dt + mb.dt_bias.to(dtype),
+                             torch.zeros((), dtype=dtype, device=x.device))
+        seq = torch.cat([xin, Bc, Cc], -1)
+        K = ssm.d_conv
+        full = torch.cat([seq.new_zeros((B, K - 1, seq.shape[2])), seq], 1)
+        conv = F.silu(sum(full[:, i:i + S] * mb.conv_w[i].to(dtype)
+                          for i in range(K)))
+        xin, Bc, Cc = torch.split(conv, [di, N, N], dim=-1)
+        A = -torch.exp(mb.A_log.to(dtype))
+        L = min(ssm.chunk, S)
+        while S % L:
+            L -= 1
+        tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+        state = x.new_zeros((B, Hs, N, P))
+        ys = []
+        for c in range(S // L):
+            t = slice(c * L, (c + 1) * L)
+            xc, dtc = xin[:, t].reshape(B, L, Hs, P), dt[:, t]
+            Bv, Cv = Bc[:, t], Cc[:, t]
+            cum = torch.cumsum(dtc * A, dim=1)
+            decay = torch.exp(cum[:, :, None] - cum[:, None]).masked_fill(
+                ~tri[None, :, :, None], 0.0)
+            att = torch.einsum("bln,bsn->bls", Cv, Bv)[..., None] * decay
+            y = torch.einsum("blsh,bshp->blhp", att, xc * dtc[..., None])
+            y = y + torch.einsum("bln,bhnp->blhp", Cv, state) \
+                * torch.exp(cum)[..., None]
+            ys.append((y + xc * mb.D.to(dtype)[:, None]).reshape(B, L, di))
+            w = torch.exp(cum[:, -1:] - cum) * dtc
+            state = state * torch.exp(cum[:, -1])[..., None, None] \
+                + torch.einsum("bln,blhp->bhnp", Bv, xc * w[..., None])
+        y = norm(torch.cat(ys, 1) * F.silu(z), mb.norm_w, eps=1e-6)
+        # the tail as a copy: a view would hold all of `full`
+        return x + y @ mb.w_out.to(dtype), {"conv": full[:, S:].clone(),
+                                            "ssm": state}
+
+    x = model.embed[tokens].to(dtype)
+    caches = []
+    for blk in model.stack():
+        block = mamba_block if isinstance(blk, MambaBlock) else attn_block
+        x, cache = block(blk, x)
+        caches.append(cache)
     h = norm(x[:, -1:], model.final_norm)
-    return h @ model.unembed.to(dtype), kvs
+    return h @ model.unembed.to(dtype), caches
 
 
-def serving_phase(device) -> dict:
-    """Granite-8B at full width and depth with seeded weights: float32
-    parity of the kernel path against the plain path, then the bfloat16
-    serving run (prefill, greedy decode)."""
+def stack_counts(model) -> tuple[int, int]:
+    """(attention block applications, Mamba-2 layers) of the model."""
+    from repro_torch.models.transformer import MambaBlock
+
+    blocks = model.stack()
+    n_mamba = sum(isinstance(b, MambaBlock) for b in blocks)
+    return len(blocks) - n_mamba, n_mamba
+
+
+# device time of a traced prefill, by kernel name
+PREFILL_GROUPS = (
+    ("K8 flash_attention_fwd_kernel", ("flash_attention_fwd",)),
+    ("K10 ssm_state_scan_kernel", ("ssm_state_scan",)),
+    ("K9 rmsnorm_kernel", ("rmsnorm_kernel",)),
+    ("GEMMs (cuBLAS: projections, MLP, unembed, chunk einsums)",
+     ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+)
+
+
+def serving_phase(device, arch: str) -> dict:
+    """``arch`` at full width and depth with seeded weights: float32 parity
+    of the kernel path against the plain path and a float64 prefill, then
+    the bfloat16 serving run (prefill, greedy decode)."""
     import torch
 
     from repro_torch import configs as TC
     from repro_torch import models as TM
     from repro_torch.kernels import library as KL
 
-    cfg = TC.get_config(SERVE_ARCH)
-    L = cfg.n_layers
+    cfg = TC.get_config(arch)
     gen = torch.Generator(device=device).manual_seed(4)
     t = time.perf_counter()
     model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
                                           device=device), seed=0)
     torch.cuda.synchronize()
     n_params = TM.count_params(model)
-    print(f"[serve] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params / 1e9:.3f} G parameters"
-          f"; float32 weights initialised in {time.perf_counter() - t:.2f} s "
+    n_attn, n_mamba = stack_counts(model)
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers of {cfg.pattern}, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_attn} "
+          f"attention applications, {n_mamba} Mamba-2 layers: "
+          f"{n_params / 1e9:.3f} G parameters; float32 weights initialised "
+          f"in {time.perf_counter() - t:.2f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)
     B, S, n = PARITY["B"], PARITY["S"], PARITY["decode"]
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
@@ -1217,20 +1377,22 @@ def serving_phase(device) -> dict:
     exact = prefill_wide(model, tokens, torch.float64)
     torch.cuda.synchronize()
     same = torch.equal(got[2], want[2])
-    # (name, kernel path, plain path, float64) for the logits and each cache
-    cases = [("logits", got[0], want[0], exact[0])]
-    for i, (a, b, (k64, v64)) in enumerate(zip(got[1], want[1], exact[1])):
-        cases += [(f"k{i}", a["k"][:, :S], b["k"][:, :S], k64),
-                  (f"v{i}", a["v"][:, :S], b["v"][:, :S], v64)]
+    kinds = {"k": "KV caches", "v": "KV caches", "conv": "conv tails",
+             "ssm": "SSM states"}
+    # (name, kind, kernel path, plain path, float64) for the logits and
+    # every leaf of every cache; a KV cache over the prompt's slots
+    cases = [("logits", "logits", got[0], want[0], exact[0])]
+    for i, (a, b, x) in enumerate(zip(got[1], want[1], exact[1])):
+        cases += [(f"{leaf}{i}", kinds[leaf], a[leaf][:, :S], b[leaf][:, :S],
+                   x[leaf]) for leaf in x]
     worst = {}
-    for name, a, b, x in cases:
+    for name, kind, a, b, x in cases:
         if not torch.isfinite(a).all():
             raise RuntimeError(f"serving parity: non-finite {name}")
         scale = x.abs().max().item()
         e_k = (a.double() - x).abs().max().item()
         e_p = (b.double() - x).abs().max().item()
         e_kp = (a - b).abs().max().item()
-        kind = "logits" if name == "logits" else "caches"
         w = worst.setdefault(kind, [0.0, 0.0, 0.0, 0.0, 0.0])
         w[:] = [max(w[0], e_k), max(w[1], e_p), max(w[2], e_kp),
                 max(w[3], e_k / scale), max(w[4], e_k / max(e_p, 1e-30))]
@@ -1253,9 +1415,11 @@ def serving_phase(device) -> dict:
     if not same:
         raise RuntimeError(f"greedy tokens differ: {got[2].tolist()} vs "
                            f"{want[2].tolist()}")
-    if launched["flash_attention"] != L:
-        raise RuntimeError(f"K8 launched {launched['flash_attention']} times "
-                           f"in the parity run, expected {L}")
+    if launched["flash_attention"] != n_attn \
+            or launched["ssm_state_scan"] != n_mamba:
+        raise RuntimeError(f"K8/K10 launched {launched['flash_attention']}/"
+                           f"{launched['ssm_state_scan']} times in the parity "
+                           f"run, expected {n_attn}/{n_mamba}")
     del got, want, exact, model
     torch.cuda.empty_cache()
 
@@ -1271,6 +1435,9 @@ def serving_phase(device) -> dict:
           f"prompts of {S} tokens, caches of {cache}", flush=True)
     logits, caches = TM.prefill(model, tokens, cache_len=cache)  # warm-up
     del logits, caches
+    # the peak over the timed prefills: the weights, one prefill's
+    # transients and its caches (each prefill frees the last one's first)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(2):
         logits = caches = None
@@ -1282,12 +1449,21 @@ def serving_phase(device) -> dict:
         times.append(time.perf_counter() - t)
         per_prefill = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
     prefill_ms = 1e3 * statistics.median(times)
+    peak_prefill = torch.cuda.max_memory_allocated()
     print(f"[serve] prefill ms {[round(1e3 * x, 3) for x in times]} -> "
           f"median {prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.1f} prompt "
-          f"tokens/s)", flush=True)
+          f"tokens/s); peak device memory over a prefill "
+          f"{peak_prefill / 2**30:.3f} GiB", flush=True)
     idle_prefill = trace_step(
         lambda _: TM.prefill(model, tokens, cache_len=cache), None,
-        prefill_ms, untraced="median prefill")
+        prefill_ms, untraced="median prefill", groups=PREFILL_GROUPS)
+    if n_mamba:
+        chunk_ms = ssd_chunks_ms(model, tokens)
+        print(f"[serve] intra-chunk work (Mamba2.ssd_chunks: decays, mask, "
+              f"C.B, the intra-chunk product, the chunk states) of one layer "
+              f"at B={B} S={S}: {chunk_ms:.3f} ms (CUDA events), x "
+              f"{n_mamba} layers = {n_mamba * chunk_ms:.3f} ms of a prefill",
+              flush=True)
     tok = logits.argmax(-1)
     steps = []
     KL.reset_launches()
@@ -1303,20 +1479,21 @@ def serving_phase(device) -> dict:
     peak = torch.cuda.max_memory_allocated()
     decode_ms = 1e3 * statistics.median(steps)
     tok_s = B * n / sum(steps)
-    want_prefill = {"flash_attention": L, "rmsnorm": L + 1,
-                    "rmsnorm_residual": L}
-    want_step = {"flash_attention": 0, "rmsnorm": L + 1,
-                 "rmsnorm_residual": L}
+    norms = n_attn + 2 * n_mamba + 1  # every ln1, the gated norms, final
+    want_prefill = {"flash_attention": n_attn, "rmsnorm": norms,
+                    "rmsnorm_residual": n_attn, "ssm_state_scan": n_mamba}
+    want_step = {"flash_attention": 0, "rmsnorm": norms,
+                 "rmsnorm_residual": n_attn, "ssm_state_scan": 0}
     print(f"[serve] decode: {n} greedy steps, ms per step median "
           f"{decode_ms:.3f} (min {1e3 * min(steps):.3f}, max "
           f"{1e3 * max(steps):.3f}); {tok_s:.1f} generated tokens/s")
     print(f"[serve] launches per prefill {per_prefill} (expected "
           f"{want_prefill}); per decode step {per_step} (expected "
           f"{want_step})")
-    print(f"[serve] peak device memory of the phase {peak / 2**30:.3f} GiB",
-          flush=True)
+    print(f"[serve] peak device memory from the timed prefills through "
+          f"decode {peak / 2**30:.3f} GiB", flush=True)
     if per_prefill != want_prefill or per_step != want_step:
-        raise RuntimeError("the serving path did not launch K8/K9 as "
+        raise RuntimeError("the serving path did not launch K8/K9/K10 as "
                            "expected")
     idle = trace_step(lambda c: TM.decode_step(model, tok, c, S + n), caches,
                       decode_ms, untraced="median decode step")
@@ -1357,6 +1534,16 @@ def serving_phase(device) -> dict:
             "idle": idle, "idle_prefill": idle_prefill}
 
 
+def ssd_chunks_ms(model, tokens) -> float:
+    """CUDA-event ms of one Mamba-2 layer's intra-chunk work
+    (``Mamba2.ssd_chunks``) at the serving shape, on the inputs the first
+    Mamba-2 layer makes of the embedded ``tokens``."""
+    from repro_torch.kernels import ops
+
+    blk = next(b for b in model.layers if hasattr(b, "mamba"))
+    h = ops.rmsnorm(model.embed[tokens], blk.ln1, eps=model.cfg.norm_eps)
+    _, _, args = blk.mamba.chunk_inputs(h)
+    return cuda_ms(lambda: blk.mamba.ssd_chunks(*args), 3)
 
 
 def kernel_records(rows: list, members: list, standalone: dict, path: dict,
@@ -1368,9 +1555,12 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     opt-3 M = 4 ensemble step, K4's 8 among them, each counted from zero
     just before its run), the worst error of its checks, and the times and
     bound of its first case (fx_ppm, tridiag_solve, interface_interp;
-    fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4).  K8
-    and K9 count one bf16 serving request (a prefill and its decode steps)
-    and take their times from the bf16 case (K8 at softcap 0)."""
+    fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4).  K8,
+    K9 and K10 count one bf16 serving request (a prefill and its decode
+    steps) of each served model, Granite-8B and Zamba2-7B, and take their
+    times from the bf16 case (K8 at Granite's shape and softcap 0, K9 at
+    Zamba2's d_model with a float32 weight) and, for K10, Zamba2's serving
+    shape."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
                 "K5": f"{PALLAS}:207",
@@ -1406,19 +1596,25 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    for key, name, line in (
+    for key, name, line, count in (
             ("K8", "flash_attention_fwd_kernel",
-             "src/repro/kernels/flash_attention.py:21"),
-            ("rmsnorm", "rmsnorm_kernel", "src/repro/kernels/rmsnorm.py:17"),
+             "src/repro/kernels/flash_attention.py:21", "flash_attention"),
+            ("rmsnorm", "rmsnorm_kernel", "src/repro/kernels/rmsnorm.py:17",
+             "rmsnorm"),
             ("rmsnorm_residual", "rmsnorm_residual_kernel",
-             "src/repro/kernels/rmsnorm.py:25")):
+             "src/repro/kernels/rmsnorm.py:25", "rmsnorm_residual"),
+            ("K10", "ssm_state_scan_kernel",
+             "src/repro/kernels/ssm_scan.py:23", "ssm_state_scan")):
         mine = lm[key]
-        head = next(r for r in mine if r["dtype"] == "bfloat16"
-                    and r.get("softcap", 0.0) == 0.0)
-        count = "flash_attention" if key == "K8" else key
+        head = next(r for r in mine if r.get("dtype", "float32") ==
+                    ("float32" if key == "K10" else "bfloat16")
+                    and r.get("softcap", 0.0) == 0.0
+                    and r.get("D", 128) == 128
+                    and r.get("d", NORM_HEAD_D) == NORM_HEAD_D)
         kernels.append({
             "name": name, "route": "cuda", "source": LM_SOURCE,
-            "replaces": line, "launches": serve["launches"][count],
+            "replaces": line,
+            "launches": sum(run["launches"][count] for run in serve.values()),
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
@@ -1479,7 +1675,7 @@ def main() -> int:
     del path["s0"], path["plain1"]
     torch.cuda.empty_cache()
     lm = lm_kernel_phase(device)
-    serve = serving_phase(device)
+    serve = {arch: serving_phase(device, arch) for arch in SERVE_ARCHS}
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
                              lm, serve)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")

@@ -6,6 +6,8 @@
 //   rmsnorm_kernel<.., false>  <- src/repro/kernels/rmsnorm.py
 //                                 _kernel (:17-22)                      K9
 //   rmsnorm_kernel<.., true>   <- same file, _kernel_residual (:25-32)  K9
+//   ssm_state_scan_kernel      <- src/repro/kernels/ssm_scan.py
+//                                 _kernel (:23-32)                      K10
 //
 // K8, causal attention over the whole prompt, forward, with GQA and an
 // optional tanh softcap.  q is (B, S, H, D) and k/v are (B, S, KVH, D),
@@ -41,6 +43,18 @@
 // device memory: rmsnorm reads x and writes the output (268 MB at
 // 16384 x 4096 bf16, 0.080 ms at 3.35 TB/s), the residual variant reads
 // two and writes two (0.160 ms).
+//
+// K10, the exclusive inter-chunk scan of Mamba-2's SSD: for states s
+// (nc, B, H, N, P) and decay (nc, B, H), both f32, out[c] = h before chunk
+// c, then h = h * decay[c, b, h] + s[c].  Every (b, h, n, p) is a chain of
+// its own: one thread per element of B*H*N*P keeps h in a register across
+// the nc chunks (the Pallas kernel pins it in VMEM the same way), so
+// consecutive threads read and write consecutive addresses and the chunk
+// stride is B*H*N*P.  The decay of a thread's (b, h) is one f32 that the
+// N*P threads of a head share (an L1 hit).  Bound by device memory: it
+// reads s and writes out once (235 MB each at the Zamba2-7B serving shape
+// nc 16, B 8, H 112, N = P = 64: 0.140 ms at 3.35 TB/s).  --fmad=false
+// keeps h * d + s rounded twice, as the plain version computes it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (plain C interface, ctypes).
@@ -252,6 +266,8 @@ static int dispatch_fa(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_fa<T, 32>(q, k, v, o, B, S, H, KVH, softcap, stream);
     case 64: return launch_fa<T, 64>(q, k, v, o, B, S, H, KVH, softcap, stream);
     case 96: return launch_fa<T, 96>(q, k, v, o, B, S, H, KVH, softcap, stream);
+    case 112:
+      return launch_fa<T, 112>(q, k, v, o, B, S, H, KVH, softcap, stream);
     case 128:
       return launch_fa<T, 128>(q, k, v, o, B, S, H, KVH, softcap, stream);
     case 256:
@@ -339,10 +355,35 @@ static int dispatch_rn(const void* x, const void* r, const void* w, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// K10
+// ---------------------------------------------------------------------------
+
+#define SCAN_THREADS 256
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    ssm_state_scan_kernel(const float* __restrict__ s,
+                          const float* __restrict__ decay,
+                          float* __restrict__ out, int nc, long long n,
+                          long long bh, int np) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * SCAN_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const long long head = i / np;  // (b, h) of this element
+  float h = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const long long off = c * n + i;
+    const float sc = s[off];
+    const float dc = decay[c * bh + head];
+    out[off] = h;
+    h = h * dc + sc;
+  }
+}
+
 extern "C" {
 
 // q (B, S, H, D), k/v (B, S, KVH, D), o like q; contiguous, 16-byte
-// aligned, D in {16, 32, 64, 96, 128, 256}, H % KVH == 0.
+// aligned, D in {16, 32, 64, 96, 112, 128, 256}, H % KVH == 0.
 int launch_flash_attention(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int S, int H, int KVH,
                            int D, float softcap, void* stream) {
@@ -368,6 +409,21 @@ int launch_rmsnorm_residual(const void* x, const void* r, const void* w,
                             long long rows, int d, float eps, void* stream) {
   return dispatch_rn<true>(x, r, w, o, ro, dtype, w_dtype, rows, d, eps,
                            static_cast<cudaStream_t>(stream));
+}
+
+// states, out (nc, B, H, N, P) and decay (nc, B, H), f32 and contiguous;
+// n = B*H*N*P, bh = B*H, np = N*P
+int launch_ssm_state_scan(const void* states, const void* decay, void* out,
+                          int nc, long long n, long long bh, int np,
+                          void* stream) {
+  if (n == 0) return 0;
+  const long long blocks = (n + SCAN_THREADS - 1) / SCAN_THREADS;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  ssm_state_scan_kernel<<<static_cast<unsigned>(blocks), SCAN_THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(states), static_cast<const float*>(decay),
+      static_cast<float*>(out), nc, n, bh, np);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* lm_error_string(int code) {

@@ -18,7 +18,7 @@ from . import library
 from .ref import flash_attention_ref
 
 #: head widths the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -4,7 +4,7 @@ at first use, like the stencil kernels, into its own directory under
 
  * ``csrc/fv3_kernels.cu`` — K6 ``tridiag_kernel``, K7 ``fvt_flux_kernel``;
  * ``csrc/lm_kernels.cu`` — K8 ``flash_attention_fwd_kernel``, K9
-   ``rmsnorm_kernel`` (plain and residual).
+   ``rmsnorm_kernel`` (plain and residual), K10 ``ssm_state_scan_kernel``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from ..core.backend.cuda import build_library
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
 LAUNCHES = {"tridiag": 0, "fvt_flux": 0, "flash_attention": 0, "rmsnorm": 0,
-            "rmsnorm_residual": 0}
+            "rmsnorm_residual": 0, "ssm_state_scan": 0}
 
 #: dtype codes of the LM kernels' C interface
 LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -67,6 +67,8 @@ def bind_lm_library(path) -> ctypes.CDLL:
     lib.launch_rmsnorm_residual.argtypes = ([ptr] * 5
                                             + [i32, i32, i64, i32, f32, ptr])
     lib.launch_rmsnorm_residual.restype = ctypes.c_int
+    lib.launch_ssm_state_scan.argtypes = [ptr] * 3 + [i32, i64, i64, i32, ptr]
+    lib.launch_ssm_state_scan.restype = ctypes.c_int
     lib.lm_error_string.argtypes = [ctypes.c_int]
     lib.lm_error_string.restype = ctypes.c_char_p
     return lib

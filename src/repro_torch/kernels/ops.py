@@ -1,11 +1,11 @@
 """Public entry points of the standalone kernels: the FV3 ones (K6, K7) and
-those of the LM serving path (K8 flash attention, K9 RMSNorm).
+those of the LM serving path (K8 flash attention, K9 RMSNorm, K10 the SSM
+state scan).
 
 ``backend="cuda"`` (the default) runs the hand-written kernel on CUDA
 tensors and its plain version on CPU tensors; ``backend="ref"`` runs the
 plain version on any device, so callers can compare the two in place, as
-with the reference's ``repro.kernels.ops``.  The SSM state scan (K10) comes
-with the Mamba-2 slice.
+with the reference's ``repro.kernels.ops``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from .flash_attention import flash_attention as _flash_attention_kernel
 from .fvt_flux import fvt_flux as _fvt_flux_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .rmsnorm import rmsnorm_residual as _rmsnorm_residual_kernel
+from .ssm_scan import ssm_state_scan as _ssm_state_scan_kernel
 from .tridiag import tridiag as _tridiag_kernel
 
 _BACKENDS = ("cuda", "ref")
@@ -75,3 +76,13 @@ def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
     if backend == "ref":
         return ref.rmsnorm_residual_ref(x, residual, w, eps=eps)
     return _rmsnorm_residual_kernel(x, residual, w, eps=eps)
+
+
+def ssm_state_scan(states: torch.Tensor, decay: torch.Tensor, *,
+                   backend: str = "cuda") -> torch.Tensor:
+    """Exclusive inter-chunk scan ``h <- decay * h + state`` of states
+    (nc, B, H, N, P) with decay (nc, B, H), float32 (K10)."""
+    _check(backend)
+    if backend == "ref":
+        return ref.ssm_state_scan_ref(states, decay)
+    return _ssm_state_scan_kernel(states, decay)

@@ -97,3 +97,16 @@ def rmsnorm_residual_ref(x: torch.Tensor, residual: torch.Tensor,
     unrounded ``s``, ``s``), both in x's dtype."""
     s = x.float() + residual.float()
     return rmsnorm_ref(s, w, eps=eps).to(x.dtype), s.to(x.dtype)
+
+
+def ssm_state_scan_ref(states: torch.Tensor,
+                       decay: torch.Tensor) -> torch.Tensor:
+    """Exclusive scan of ``h <- decay * h + state`` over the chunk axis:
+    states (nc, B, H, N, P), decay (nc, B, H); returns the state before each
+    chunk (nc, B, H, N, P), as the reference's ``lax.scan`` emits it."""
+    out = torch.empty_like(states)
+    h = torch.zeros_like(states[0])
+    for c in range(states.shape[0]):
+        out[c] = h
+        h = h * decay[c][..., None, None] + states[c]
+    return out

@@ -9,9 +9,14 @@ attention is :func:`repro_torch.kernels.ops.flash_attention` (K8), the same
 function as the reference's query-chunked attention.  The large
 products stay ``torch.matmul``, as the reference left them to XLA; decode
 attention is plain tensor ops, as the reference computes it outside any
-kernel.  Weights have the reference's shapes (``x @ w``) and are stored in
-the compute dtype: the reference keeps them in float32 and casts them at
-each use, which gives the same bits.
+kernel.  Weights have the reference's shapes (``x @ w``).  The reference
+keeps every parameter in float32 and casts at each use.  The port stores a
+weight that the reference casts to x's dtype (the matmul weights, the
+embedding) in the compute dtype, which gives the same bits; a parameter
+that the reference reads through ``.astype(float32)`` (the norms' ``w``
+here, Mamba-2's ``A_log``, ``D``, ``dt_bias`` and ``norm_w``) stays in
+float32 in a model of any dtype (:func:`norm_param`), since a bf16 copy
+would round it.
 
 Not ported: ``constrain`` and the sharding annotations (one card), ``moe``
 (ROADMAP queue 1 item 12c) and the sliding window of ``local`` layers
@@ -58,6 +63,19 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def norm_param(d: int, device) -> nn.Parameter:
+    """The ``w`` of a ``(1 + w)`` RMSNorm over d: float32 in a model of any
+    dtype, as the reference computes ``1 + w.astype(float32)``."""
+    return empty_param((d,), torch.float32, device)
+
+
+def _padded(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t (B, S, ...) in the first S of n slots along dim 1, zeros past."""
+    out = t.new_zeros((t.shape[0], n) + t.shape[2:])
+    out[:, :t.shape[1]] = t
+    return out
+
+
 class Attention(nn.Module):
     """Causal GQA attention with RoPE: query head h reads kv head
     ``h // (n_heads / n_kv_heads)``, as the reference's ``_repeat_kv``."""
@@ -82,15 +100,19 @@ class Attention(nn.Module):
         return (rope(q, positions, cfg.rope_theta),
                 rope(k, positions, cfg.rope_theta), v)
 
-    def prefill(self, x: torch.Tensor, *, backend: str = "cuda"):
+    def prefill(self, x: torch.Tensor, *, cache_len: int | None = None,
+                backend: str = "cuda"):
         """Attention over the whole prompt x (B, S, d_model) through K8.
         Returns (output, k, v); k/v (B, S, n_kv_heads, d_head) are the
-        prompt's cache."""
+        prompt's cache, or, with ``cache_len``, a cache of that many slots
+        that holds the prompt's first and zeros past them."""
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         q, k, v = self.qkv(x, positions)
         out = ops.flash_attention(q, k, v, softcap=self.cfg.attn_softcap,
                                   backend=backend)
+        if cache_len is not None:
+            k, v = (_padded(t, cache_len) for t in (k, v))
         return out.reshape(B, S, self.cfg.q_dim) @ self.wo, k, v
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,

@@ -1,26 +1,37 @@
-"""Model assembly and the serving entry points, for blocks of type ``attn``.
+"""Model assembly and the serving entry points, for patterns of ``attn``,
+``mamba2`` and ``shared_attn`` blocks.
 
 Ported from the reference's ``repro/models/transformer.py``.  A model is
 ``n_groups`` repetitions of its ``pattern``; the reference stacks each
-slot's parameters over groups and scans them, the port keeps one
-:class:`Block` per layer in an ``nn.ModuleList`` in the reference's order
-(group g, slot s at index ``g * len(slots) + s``) and loops over it.
+slot's parameters over groups and scans them, the port keeps one block per
+layer in an ``nn.ModuleList`` in the reference's order (group g, slot s at
+index ``g * len(slots) + s``) and loops over it.  A ``shared_attn`` entry
+of the pattern (Zamba2) applies one weight-shared attention + MLP block,
+``Transformer.shared_attn``, at the head of every group, before the mixer
+slots wherever the pattern names it (the reference's ``group_body``), each
+application with its own KV cache.
 
 Entry points, as the reference's:
-  * :func:`prefill`     — last-position logits and the KV caches of a prompt;
+  * :func:`prefill`     — last-position logits and the caches of a prompt;
   * :func:`decode_step` — one token against the caches;
   * :func:`forward`     — the hidden states of the whole stack.
 
-Each takes ``backend``: ``"cuda"`` (the default) runs the kernels (K8
-flash attention in prefill, K9 RMSNorm and its fused residual add) on CUDA
-tensors and their plain versions on CPU tensors; ``"ref"`` runs the plain
-versions everywhere.  The model's device is the card unless the caller
-asks for another (``device="cpu"``, or ``"meta"`` to count parameters).
+The caches are a list with one entry per block application, in the order
+the blocks run (:meth:`Transformer.stack`: group by group, in
+:func:`group_order`): ``{"k", "v"}`` for an attention block, ``{"conv",
+"ssm"}`` for a Mamba-2 block.
+
+Each entry point takes ``backend``: ``"cuda"`` (the default) runs the
+kernels (K8 flash attention in prefill, K9 RMSNorm and its fused residual
+add, K10 the SSM state scan in a Mamba-2 prefill) on CUDA tensors and
+their plain versions on CPU tensors; ``"ref"`` runs the plain versions
+everywhere.  The model's device is the card unless the caller asks for
+another (``device="cpu"``, or ``"meta"`` to count parameters).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item
-(queue 1): ``local`` (sliding-window) blocks, 12b; MoE, 12c; ``mamba2`` and
-``shared_attn``, 12d; ``mlstm``/``slstm``, 12e; int8 weights
-(``quantized=True``), 12f; ``loss_fn`` and training, 12g.
+(queue 1): ``local`` (sliding-window) blocks, 12b; MoE, 12c;
+``mlstm``/``slstm``, 12e; int8 weights (``quantized=True``), 12f;
+``loss_fn`` and training, 12g.
 """
 
 from __future__ import annotations
@@ -33,14 +44,13 @@ from torch import nn
 from ..core.backend.base import resolve_device
 from ..kernels import ops
 from . import layers as L
+from . import ssm as SSM
 from .config import ArchConfig
 
 #: block types of the reference not ported yet, and where the ROADMAP
 #: queues them
 UNPORTED = {
     "local": "ROADMAP queue 1 item 12b (Gemma-2's sliding window)",
-    "mamba2": "ROADMAP queue 1 item 12d (Mamba-2 / Zamba2, with K10)",
-    "shared_attn": "ROADMAP queue 1 item 12d (Mamba-2 / Zamba2, with K10)",
     "mlstm": "ROADMAP queue 1 item 12e (xLSTM)",
     "slstm": "ROADMAP queue 1 item 12e (xLSTM)",
 }
@@ -55,6 +65,14 @@ def mixer_slots(cfg: ArchConfig) -> list[tuple[str, str]]:
             if b != "shared_attn"]
 
 
+def group_order(cfg: ArchConfig) -> list[str]:
+    """The block types of one group in the order they run, as the
+    reference's ``group_body``: the shared block first (where the pattern
+    has one), then the mixer slots in pattern order."""
+    shared = ["shared_attn"] if "shared_attn" in cfg.pattern else []
+    return shared + [b for _, b in mixer_slots(cfg)]
+
+
 def has_ffn(btype: str, cfg: ArchConfig) -> bool:
     return cfg.d_ff != 0 and btype not in ("mamba2", "mlstm", "slstm")
 
@@ -66,7 +84,7 @@ def check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: blocks of type {b!r} are not ported yet: "
                 f"{UNPORTED[b]}")
-        if b != "attn":
+        if b not in ("attn", "mamba2", "shared_attn"):
             raise ValueError(f"{cfg.name}: unknown block type {b!r}")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are "
@@ -74,34 +92,37 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One ``attn`` block: pre-norm attention and MLP, with the reference's
-    ``post_norm`` (sandwich) and ``parallel_block`` variants."""
+    """One ``attn`` (or ``shared_attn``) block: pre-norm attention and MLP,
+    with the reference's ``post_norm`` (sandwich) and ``parallel_block``
+    variants."""
 
     def __init__(self, cfg: ArchConfig, with_ffn: bool, *, dtype, device):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        self.ln1 = L.empty_param((d,), dtype, device)
+        self.ln1 = L.norm_param(d, device)
         self.attn = L.Attention(cfg, dtype=dtype, device=device)
         if cfg.post_norm:
-            self.ln1_post = L.empty_param((d,), dtype, device)
+            self.ln1_post = L.norm_param(d, device)
         self.ffn = None
         if with_ffn:
-            self.ln2 = L.empty_param((d,), dtype, device)
+            self.ln2 = L.norm_param(d, device)
             self.ffn = L.MLP(cfg, dtype=dtype, device=device)
             if cfg.post_norm:
-                self.ln2_post = L.empty_param((d,), dtype, device)
+                self.ln2_post = L.norm_param(d, device)
 
     def forward(self, x: torch.Tensor, *, mode: str, cache=None, pos=None,
-                backend: str = "cuda"):
-        """Returns (x, cache): the prompt's k/v in modes "train"/"prefill",
-        ``cache`` itself, written in place, in mode "decode"."""
+                cache_len: int | None = None, backend: str = "cuda"):
+        """Returns (x, cache): the prompt's k/v in modes "train"/"prefill"
+        (``cache_len`` slots long, where given), ``cache`` itself, written
+        in place, in mode "decode"."""
         cfg, eps = self.cfg, self.cfg.norm_eps
         h = ops.rmsnorm(x, self.ln1, eps=eps, backend=backend)
         if mode == "decode":
             a = self.attn.decode(h, cache["k"], cache["v"], pos)
         else:
-            a, k, v = self.attn.prefill(h, backend=backend)
+            a, k, v = self.attn.prefill(h, cache_len=cache_len,
+                                        backend=backend)
             cache = {"k": k, "v": v}
         if cfg.post_norm:
             a = ops.rmsnorm(a, self.ln1_post, eps=eps, backend=backend)
@@ -119,11 +140,39 @@ class Block(nn.Module):
         return x + f, cache
 
 
+class MambaBlock(nn.Module):
+    """One ``mamba2`` block: pre-norm Mamba-2 mixer and the residual add (no
+    MLP: Zamba2's lives in the shared block)."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = L.norm_param(cfg.d_model, device)
+        self.mamba = SSM.Mamba2(cfg, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, *, mode: str, cache=None, pos=None,
+                cache_len: int | None = None, backend: str = "cuda"):
+        """Returns (x, cache): the prompt's conv tail and final state in
+        mode "prefill", None in mode "train", ``cache`` itself, updated in
+        place, in mode "decode".  ``cache_len`` is the attention blocks'
+        and has no effect here."""
+        h = ops.rmsnorm(x, self.ln1, eps=self.cfg.norm_eps, backend=backend)
+        if mode == "decode":
+            y, cache = self.mamba.decode(h, cache, backend=backend)
+        elif mode == "prefill":
+            y, cache = self.mamba(h, return_state=True, backend=backend)
+        else:
+            y = self.mamba(h, backend=backend)
+        return x + y, cache
+
+
 class Transformer(nn.Module):
-    """The reference's model for patterns of ``attn`` blocks: token
-    embedding, ``n_layers`` blocks, final norm, unembedding (tied or not).
-    Parameters are created uninitialised in ``dtype`` on ``device`` (the
-    card when None); fill them with :func:`..weights.init_params` or
+    """The reference's model for patterns of ``attn``, ``mamba2`` and
+    ``shared_attn`` blocks: token embedding, ``n_layers`` blocks (and the
+    shared block, where the pattern has one), final norm, unembedding (tied
+    or not).  Parameters are created uninitialised on ``device`` (the card
+    when None), in ``dtype`` but for the float32 ones (:mod:`.layers`);
+    fill them with :func:`..weights.init_params` or
     :func:`..weights.load_reference_params`."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
@@ -135,10 +184,13 @@ class Transformer(nn.Module):
         self.dtype = dtype
         d, v = cfg.d_model, cfg.vocab
         self.embed = L.empty_param((v, d), dtype, device)
-        self.final_norm = L.empty_param((d,), dtype, device)
+        self.final_norm = L.norm_param(d, device)
         self.layers = nn.ModuleList(
-            Block(cfg, has_ffn(btype, cfg), dtype=dtype, device=device)
+            MambaBlock(cfg, dtype=dtype, device=device) if btype == "mamba2"
+            else Block(cfg, has_ffn(btype, cfg), dtype=dtype, device=device)
             for _ in range(cfg.n_groups) for _, btype in mixer_slots(cfg))
+        self.shared_attn = (Block(cfg, True, dtype=dtype, device=device)
+                            if "shared_attn" in cfg.pattern else None)
         if not cfg.tie_embeddings:
             self.unembed = L.empty_param((d, v), dtype, device)
 
@@ -146,10 +198,18 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def stack(self) -> list[nn.Module]:
+        """The blocks in the order they run, one per entry of the caches:
+        group by group, in :func:`group_order`."""
+        layers = iter(self.layers)
+        order = group_order(self.cfg)
+        return [self.shared_attn if b == "shared_attn" else next(layers)
+                for _ in range(self.cfg.n_groups) for b in order]
+
 
 def count_params(model: Transformer) -> int:
     """Exact parameter count (the reference's ``count_params`` of its
-    ``ParamDef`` tree)."""
+    ``ParamDef`` tree; the shared block counts once)."""
     return sum(p.numel() for p in model.parameters())
 
 
@@ -170,24 +230,33 @@ def _unembed(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int, *,
                 dtype=torch.bfloat16, device=None) -> list[dict]:
-    """Zeroed KV caches, one ``{"k", "v"}`` of (batch, seq_len, n_kv_heads,
-    d_head) per layer in the model's layer order (the reference stacks them
-    over groups)."""
+    """Zeroed caches, one per block application in the order the blocks run
+    (:meth:`Transformer.stack`; the reference stacks them over groups):
+    ``{"k", "v"}`` of (batch, seq_len, n_kv_heads, d_head) in ``dtype`` for
+    attention, :func:`.ssm.init_cache` (the conv tail in ``dtype``, the
+    state in float32) for Mamba-2."""
     check_supported(cfg)
     device = resolve_device(device)
     shape = (batch, seq_len, cfg.n_kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+
+    def cache(btype):
+        if btype == "mamba2":
+            return SSM.init_cache(cfg, batch, dtype=dtype, device=device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return [cache(b) for _ in range(cfg.n_groups) for b in group_order(cfg)]
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None, mode: str = "train",
             caches: list | None = None, pos: int | None = None,
-            backend: str = "cuda", quantized: bool = False):
+            cache_len: int | None = None, backend: str = "cuda",
+            quantized: bool = False):
     """Hidden states through the full stack: returns (h, caches).  Modes
-    ``"train"`` (no caches), ``"prefill"`` (the prompt's k/v per layer) and
-    ``"decode"`` (one token at ``pos`` against ``caches``, written in
+    ``"train"`` (no caches), ``"prefill"`` (the prompt's caches, one per
+    block application; the KV caches ``cache_len`` slots long where given)
+    and ``"decode"`` (one token at ``pos`` against ``caches``, written in
     place)."""
     if quantized:
         raise NotImplementedError("int8-quantized weights are not ported "
@@ -197,9 +266,13 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     if mode == "decode" and (caches is None or pos is None):
         raise ValueError("decode takes caches and pos")
     x = _embed(model, tokens, prefix_embeds)
+    if cache_len is not None and cache_len < x.shape[1]:
+        raise ValueError(f"cache_len {cache_len} < prompt length "
+                         f"{x.shape[1]}")
     new_caches = []
-    for i, block in enumerate(model.layers):
-        x, cache = block(x, mode=mode, pos=pos, backend=backend,
+    for i, block in enumerate(model.stack()):
+        x, cache = block(x, mode=mode, pos=pos, cache_len=cache_len,
+                         backend=backend,
                          cache=caches[i] if mode == "decode" else None)
         new_caches.append(cache)
     x = ops.rmsnorm(x, model.final_norm, eps=model.cfg.norm_eps,
@@ -211,22 +284,15 @@ def prefill(model: Transformer, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None,
             cache_len: int | None = None, backend: str = "cuda",
             quantized: bool = False):
-    """Prefill: last-position logits (B, 1, vocab) in float32 and the KV
-    caches for decode.  The caches hold the prompt's S positions; with
+    """Prefill: last-position logits (B, 1, vocab) in float32 and the caches
+    for decode.  The KV caches hold the prompt's S positions; with
     ``cache_len`` (>= S) they are allocated that long, zero past the prompt,
-    so that decode can write past it (the reference's caller grows them)."""
+    so that decode can write past it (the reference's caller grows them);
+    each attention block writes its prompt's k/v into them once.  The
+    Mamba-2 caches (``conv``, ``ssm``) pass through."""
     h, caches = forward(model, tokens, prefix_embeds=prefix_embeds,
-                        mode="prefill", backend=backend, quantized=quantized)
-    if cache_len is not None:
-        B, S = h.shape[0], h.shape[1]
-        if cache_len < S:
-            raise ValueError(f"cache_len {cache_len} < prompt length {S}")
-        grown = init_caches(model.cfg, B, cache_len, dtype=model.dtype,
-                            device=model.device)
-        for new, old in zip(grown, caches):
-            new["k"][:, :S] = old["k"]
-            new["v"][:, :S] = old["v"]
-        caches = grown
+                        mode="prefill", cache_len=cache_len, backend=backend,
+                        quantized=quantized)
     return _unembed(model, h[:, -1:]), caches
 
 

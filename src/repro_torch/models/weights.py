@@ -15,24 +15,33 @@ import torch
 from .transformer import Transformer, mixer_slots
 
 #: parameters the reference initialises to zero (``init_scale == 0``): the
-#: norms' ``w`` of ``(1 + w)``; every other parameter is normal x 0.02
-ZERO_INIT = frozenset({"ln1", "ln1_post", "ln2", "ln2_post", "final_norm"})
+#: norms' ``w`` of ``(1 + w)``, Mamba-2's gated norm among them
+ZERO_INIT = frozenset({"ln1", "ln1_post", "ln2", "ln2_post", "final_norm",
+                       "norm_w"})
+#: 1-D parameters the reference initialises to one (``init_scale == 1``):
+#: Mamba-2's per-head scalars; every other parameter is normal x 0.02
+ONE_INIT = frozenset({"A_log", "D", "dt_bias"})
 INIT_SCALE = 0.02
 
 
 @torch.no_grad()
 def init_params(model: Transformer, seed: int = 0) -> Transformer:
     """Fill every parameter from an explicit ``torch.Generator`` seeded with
-    ``seed`` on the model's device: normal x 0.02 drawn in float32 and cast
-    to the model's dtype (the reference keeps float32 weights and casts at
-    each use), zeros where the reference's ``init_scale`` is 0."""
+    ``seed`` on the model's device, by the reference's rule
+    (``parallel/sharding.init_params``): zeros where its ``init_scale`` is
+    0, ones where it is 1, normal x 0.02 elsewhere, drawn in float32 and
+    cast to the parameter's dtype (the reference keeps float32 weights and
+    casts at each use)."""
     device = model.device
     if device.type == "meta":
         raise ValueError("a model on the meta device holds no values")
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
-        if name.rsplit(".", 1)[-1] in ZERO_INIT:
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ZERO_INIT:
             p.zero_()
+        elif leaf in ONE_INIT:
+            p.fill_(1.0)
         else:
             p.copy_(torch.randn(p.shape, generator=gen, device=device,
                                 dtype=torch.float32) * INIT_SCALE)
@@ -51,8 +60,9 @@ def _leaves(tree, prefix=()):
 def load_reference_params(model: Transformer, tree: dict) -> Transformer:
     """Copy the reference's parameter tree (nested dicts of numpy arrays,
     each slot's leaves stacked over groups, as ``model_pdefs`` lays them
-    out) into ``model``, cast to the model's dtype.  Layer ``g * n_slots +
-    s`` takes group g of slot s."""
+    out, and the unstacked ``shared_attn`` block) into ``model``, each cast
+    to its parameter's dtype.  Layer ``g * n_slots + s`` takes group g of
+    slot s.  Raises on a leaf of either side that the other lacks."""
     cfg = model.cfg
     slots = mixer_slots(cfg)
     leaves = dict(_leaves(tree))
@@ -73,6 +83,9 @@ def load_reference_params(model: Transformer, tree: dict) -> Transformer:
     put(model.final_norm, ("final_norm",))
     if not cfg.tie_embeddings:
         put(model.unembed, ("unembed",))
+    if model.shared_attn is not None:
+        for name, p in model.shared_attn.named_parameters():
+            put(p, ("shared_attn",) + tuple(name.split(".")))
     for s, (slot, _) in enumerate(slots):
         for g in range(cfg.n_groups):
             layer = model.layers[g * len(slots) + s]

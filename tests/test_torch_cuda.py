@@ -12,8 +12,9 @@ each slot is read through the member stride of the launch arguments, as
 the kernels index it, so a broadcast field (stride 0) is checked too.
 
 Tests marked ``cuda`` need a card and skip without one; among them the LM
-kernels (K8 flash attention, K9 RMSNorm) against their plain versions and a
-2-layer Granite-width prefill and decode against the plain path.
+kernels (K8 flash attention, K9 RMSNorm, K10 the SSM state scan) against
+their plain versions, a 2-layer Granite-width prefill and decode and one
+Zamba2-7B group at full width against the plain path.
 """
 
 import numpy as np
@@ -541,7 +542,7 @@ def test_opt3_step_on_card_with_kblocked_schedules(card):
 @pytest.mark.parametrize("B,S,H,KVH,D", [
     (1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 128),
     (2, 100, 4, 2, 32), (1, 300, 6, 2, 96), (1, 70, 2, 1, 256),
-    (2, 33, 4, 4, 16),
+    (2, 33, 4, 4, 16), (2, 130, 4, 4, 112),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
@@ -564,7 +565,7 @@ def test_flash_attention_kernel_matches_plain_version_on_card(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(128, 64), (1024, 256), (96, 512),
-                                    (7, 4096), (3, 12)])
+                                    (7, 4096), (9, 3584), (5, 7168), (3, 12)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernels_match_plain_version_on_card(card, rows, d, dtype,
@@ -622,4 +623,70 @@ def test_granite_width_prefill_and_decode_on_card_match_plain_path(card):
                                    atol=1e-4)
         torch.testing.assert_close(a["v"][:, :S], b["v"][:, :S], rtol=1e-4,
                                    atol=1e-4)
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,B,H,N,P", [(16, 2, 112, 64, 64), (3, 2, 8, 64, 64),
+                                        (1, 1, 4, 8, 8), (5, 3, 7, 5, 3)])
+def test_ssm_state_scan_kernel_equals_plain_version_on_card(card, nc, B, H,
+                                                            N, P):
+    """Bit for bit: the kernel rounds h * d + s twice (``--fmad=false``),
+    as the plain version does; odd sizes leave a ragged last block."""
+    gen = torch.Generator(device=card).manual_seed(nc * B + H)
+    states = torch.randn((nc, B, H, N, P), generator=gen, device=card)
+    decay = torch.rand((nc, B, H), generator=gen, device=card)
+    KL.reset_launches()
+    got = KO.ssm_state_scan(states, decay)
+    want = KR.ssm_state_scan_ref(states, decay)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["ssm_state_scan"] == 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="contiguous"):
+        KO.ssm_state_scan(states.transpose(3, 4), decay)
+
+
+@pytest.mark.cuda
+def test_zamba2_group_on_card_matches_plain_path(card):
+    """One Zamba2-7B group at full width in float32 (the shared attention +
+    MLP block at d_head 112 and 3 Mamba-2 layers of 112 heads): prefill
+    logits and every cache through K8/K9/K10 within 1e-4 of the plain path,
+    the same greedy tokens over 4 decode steps, and the launches of the
+    design (per prefill K8 1, K9 1 + 3 + 3 + 1 and 1 fused, K10 3; per
+    decode step no K8 or K10)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(TC.get_config("zamba2_7b"), n_layers=3)
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=card), seed=0)
+    B, S, n = 2, 300, 4   # S = 300: chunks of 100, nc = 3
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(1))
+    runs = {}
+    for backend in ("cuda", "ref"):
+        KL.reset_launches()
+        logits, caches = TM.prefill(model, tokens, cache_len=S + n,
+                                    backend=backend)
+        launched = dict(KL.LAUNCHES)
+        KL.reset_launches()
+        toks = [logits.argmax(-1)]
+        for i in range(n):
+            step, caches = TM.decode_step(model, toks[-1], caches, S + i,
+                                          backend=backend)
+            toks.append(step.argmax(-1))
+        runs[backend] = (logits, caches, torch.cat(toks, 1), launched,
+                         dict(KL.LAUNCHES))
+    got, want = runs["cuda"], runs["ref"]
+    assert got[3]["flash_attention"] == 1 and got[3]["ssm_state_scan"] == 3
+    assert got[3]["rmsnorm"] == 8 and got[3]["rmsnorm_residual"] == 1
+    assert got[4]["flash_attention"] == 0 == got[4]["ssm_state_scan"]
+    assert got[4]["rmsnorm"] == 8 * n and got[4]["rmsnorm_residual"] == n
+    assert sum(want[3].values()) == 0 == sum(want[4].values())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(got[1], want[1]):
+        assert sorted(a) == sorted(b)
+        for leaf in a:
+            torch.testing.assert_close(a[leaf], b[leaf], rtol=1e-4,
+                                       atol=1e-4)
     assert torch.equal(got[2], want[2])

@@ -64,7 +64,8 @@ def test_port_import_loads_no_jax():
             "repro_torch.core.transforms, repro_torch.core.analysis, "
             "repro_torch.core.rewrite, repro_torch.core.backend.cache, "
             "repro_torch.models, repro_torch.configs, "
-            "repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm; "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm, "
+            "repro_torch.kernels.ssm_scan, repro_torch.models.ssm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
