@@ -59,9 +59,15 @@
    16384 x 4096, each in float32 and bfloat16 against its plain version at
    the reference's tolerances, timed beside the plain version, its bound
    and one library call (``F.scaled_dot_product_attention``,
-   ``F.rms_norm``); K10 ``ssm_state_scan`` (float32) at Zamba2-7B's
-   (16, 8, 112, 64, 64) and a ragged (3, 2, 112, 64, 64) against its plain
-   version (no library call computes it).
+   ``F.rms_norm``); bf16 K8 also against a float64 attention of the same
+   inputs beside the plain version: the max abs error, and each (b, s, h)
+   row's error relative to the row's norm, whose mean and max must stay
+   within 2x the plain version's; K10
+   ``ssm_state_scan`` (float32) at Zamba2-7B's (16, 8, 112, 64, 64) and a
+   ragged (3, 2, 112, 64, 64) against its plain version (no library call
+   computes it).  The build step prints each K8 instance's registers and
+   spills from ``ptxas`` and counts the wgmma, TMA and mbarrier
+   instructions in the bf16 kernel's SASS (none of wgmma fails the run).
 9. Serving phases: Granite-8B (36 layers), then Zamba2-7B (81 Mamba-2
    layers and one shared attention block applied 27 times), each at full
    width and depth with seeded weights.  Parity: float32 weights, 2
@@ -93,6 +99,8 @@ this script without the repository.
 from __future__ import annotations
 
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -148,6 +156,12 @@ NORM_CASES = (("granite_8b", 16384, 4096, 1e-5, True),
 NORM_HEAD_D = 3584               # the kernels line's K9 case (bf16)
 # kernel vs plain: the reference's own tolerances (tests/test_kernels.py)
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1e-1)}
+# bf16 K8 and its plain version against a float64 attention of the same
+# inputs, each (b, s, h) row's error over the row's norm: the kernel's mean
+# and max over the rows within FA_F64_FACTOR of the plain version's.  FA_TOL
+# alone is as large as |o| in the late rows (|o| ~ sqrt(1/keys)); the row
+# norm lets every row count.
+FA_F64_FACTOR = 2.0
 NORM_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 PARITY = {"B": 2, "S": 512, "decode": 8}           # float32 weights
 # float32 parity at full depth is held against an independent float64
@@ -1032,6 +1046,101 @@ def check_close(name: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
+def attention_f64(q, k, v, softcap: float):
+    """Causal attention of the same inputs in float64, one batch entry at a
+    time (its (H, S, S) scores: 1.1 GB at Granite's shape): what the bf16
+    kernel and its plain version are both measured against."""
+    import torch
+
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        kb = k[b].double().repeat_interleave(rep, dim=1)
+        vb = v[b].double().repeat_interleave(rep, dim=1)
+        s = torch.einsum("qhd,khd->hqk", q[b].double(), kb) / math.sqrt(D)
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
+        out[b] = torch.einsum("hqk,khd->qhd", p, vb)
+        del kb, vb, s, p
+    return out
+
+
+def f64_errors(name: str, got, want, exact) -> dict:
+    """The kernel's (``got``) and the plain version's (``want``) distance to
+    ``exact``, as (kernel, plain) pairs: the max abs error, and the mean and
+    max over the (b, s, h) rows of each row's error norm over the row's
+    norm.  Raises unless the kernel's mean and max are within
+    :data:`FA_F64_FACTOR` of the plain version's."""
+    norm = exact.norm(dim=-1)
+    errs = {"abs": [], "mean": [], "max": []}
+    for x in (got, want):
+        diff = x.double() - exact
+        rel = diff.norm(dim=-1) / norm
+        errs["abs"].append(diff.abs().max().item())
+        errs["mean"].append(rel.mean().item())
+        errs["max"].append(rel.max().item())
+        del diff, rel
+    for stat in ("mean", "max"):
+        kernel, plain = errs[stat]
+        if not kernel <= FA_F64_FACTOR * plain:
+            raise RuntimeError(
+                f"{name}: {stat} row error against float64 {kernel:.3e}, "
+                f"beyond {FA_F64_FACTOR:g}x the plain version's {plain:.3e}")
+    return errs
+
+
+def k8_build_report(log: str) -> list:
+    """Registers and spills of each K8 instance, from the ``ptxas -v``
+    lines of the LM library's ``build.log``: (instance, registers, spill
+    store bytes, spill load bytes, stack bytes)."""
+    rows, name, spills = [], None, None
+    for line in log.splitlines():
+        got = re.search(r"Compiling entry function '(\S+)'", line)
+        if got:
+            name, spills = got.group(1), None
+            continue
+        if name is None or "flash_attention" not in name:
+            continue
+        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                        r" (\d+) bytes spill loads", line)
+        if got:
+            spills = tuple(int(x) for x in got.groups())
+        got = re.search(r"Used (\d+) registers", line)
+        if got and spills is not None:
+            args = re.findall(r"Li(\d+)E", name)
+            kind = ("flash_attention_wgmma_kernel<" + ", ".join(args) + ">"
+                    if "wgmma" in name else
+                    f"flash_attention_fwd_kernel<{args[0]}> (float32)")
+            rows.append((kind, int(got.group(1)), spills[1], spills[2],
+                         spills[0]))
+            name = None
+    return rows
+
+
+def k8_sass_report(lib: Path) -> dict:
+    """Instruction counts in the SASS of ``flash_attention_wgmma_kernel``
+    (``cuobjdump -sass`` of the LM library, beside ``nvcc``): HGMMA
+    (``wgmma``), UTMA* (TMA loads and stores) and SYNCS* (mbarrier
+    operations)."""
+    from repro_torch.core.backend.cuda import _nvcc
+
+    sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
+                           str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {"HGMMA": 0, "UTMA": 0, "SYNCS": 0}
+    for func in sass.split("Function : ")[1:]:
+        if "flash_attention_wgmma_kernel" not in func.split("\n", 1)[0]:
+            continue
+        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z]+)", func):
+            for key in counts:
+                counts[key] += op.startswith(key)
+    return counts
+
+
 def lm_kernel_phase(device) -> dict:
     """K8, K9 and K10 through ``repro_torch.kernels.ops`` at the serving
     shapes: K8 at Granite-8B's and Zamba2-7B's, K9 at the widths both
@@ -1076,6 +1185,13 @@ def lm_kernel_phase(device) -> dict:
                 torch.cuda.synchronize()
                 err = check_close(f"K8 flash_attention {name} D={D} softcap "
                                   f"{cap:g}", got, want, rtol, atol)
+                f64 = None
+                if dtype == torch.bfloat16:
+                    # both against float64: the kernel rounds P to bf16
+                    # before P V, the plain version keeps it in f32
+                    f64 = f64_errors(f"K8 flash_attention {name} D={D} "
+                                     f"softcap {cap:g}", got, want,
+                                     attention_f64(q, k, v, cap))
                 del got, want
                 torch.cuda.empty_cache()
                 ms = cuda_ms(lambda: ops.flash_attention(q, k, v,
@@ -1104,7 +1220,14 @@ def lm_kernel_phase(device) -> dict:
                       f"({out['K8'][-1]['bound_by']}; {fa_bytes / 1e6:.1f} "
                       f"MB, {fa_ops:.3e} flops at {rate / 1e12:g} TFLOP/s)"
                       + ("" if lib_ms is None else
-                         f" sdpa library_ms={lib_ms:.4f}"), flush=True)
+                         f" sdpa library_ms={lib_ms:.4f}")
+                      + ("" if f64 is None else
+                         f" vs_float64 max_abs kernel={f64['abs'][0]:.3e} "
+                         f"plain={f64['abs'][1]:.3e}, row/|row| mean "
+                         f"kernel={f64['mean'][0]:.3e} plain="
+                         f"{f64['mean'][1]:.3e}, max kernel="
+                         f"{f64['max'][0]:.3e} plain={f64['max'][1]:.3e} "
+                         f"(bar {FA_F64_FACTOR:g}x plain)"), flush=True)
             del q, k, v
             torch.cuda.empty_cache()
 
@@ -1335,7 +1458,7 @@ def stack_counts(model) -> tuple[int, int]:
 
 # device time of a traced prefill, by kernel name
 PREFILL_GROUPS = (
-    ("K8 flash_attention_fwd_kernel", ("flash_attention_fwd",)),
+    ("K8 flash_attention_wgmma_kernel", ("flash_attention",)),
     ("K10 ssm_state_scan_kernel", ("ssm_state_scan",)),
     ("K9 rmsnorm_kernel", ("rmsnorm_kernel",)),
     ("GEMMs (cuBLAS: projections, MLP, unembed, chunk einsums)",
@@ -1597,7 +1720,7 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for key, name, line, count in (
-            ("K8", "flash_attention_fwd_kernel",
+            ("K8", "flash_attention_wgmma_kernel",
              "src/repro/kernels/flash_attention.py:21", "flash_attention"),
             ("rmsnorm", "rmsnorm_kernel", "src/repro/kernels/rmsnorm.py:17",
              "rmsnorm"),
@@ -1658,6 +1781,19 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"[build] {lib.stem}: {line.strip()}")
+    sass = k8_sass_report(libs[2])
+    print(f"[build] K8 flash_attention_wgmma_kernel SASS: {sass['HGMMA']} "
+          f"HGMMA (wgmma), {sass['UTMA']} UTMA* (TMA), {sass['SYNCS']} "
+          "SYNCS* (mbarrier) instructions over its instances")
+    if sass["HGMMA"] == 0:
+        raise RuntimeError("flash_attention_wgmma_kernel issues no wgmma")
+    for kind, regs, st, ld, stack in k8_build_report(
+            (libs[2].parent / "build.log").read_text()):
+        print(f"[build] K8 {kind}: {regs} registers at launch"
+              + (" (its consumer warpgroups raise theirs to 240 with "
+                 "setmaxnreg)" if "wgmma" in kind else "")
+              + f", spill stores {st} B, spill loads {ld} B, stack "
+              f"{stack} B")
     device = torch.device("cuda")
     # a fresh tuning cache: every run searches the schedules anew
     from repro_torch.core.backend import TuningCache, set_default_cache

@@ -1,7 +1,9 @@
 // Hand-written Hopper kernels of the LM serving path
 // (repro_torch/kernels/ops.py, called by repro_torch/models/):
 //
-//   flash_attention_fwd_kernel <- src/repro/kernels/flash_attention.py
+//   flash_attention_wgmma_kernel (bf16),
+//   flash_attention_fwd_kernel (f32)
+//                              <- src/repro/kernels/flash_attention.py
 //                                 _kernel (:21-54)                      K8
 //   rmsnorm_kernel<.., false>  <- src/repro/kernels/rmsnorm.py
 //                                 _kernel (:17-22)                      K9
@@ -12,26 +14,72 @@
 // K8, causal attention over the whole prompt, forward, with GQA and an
 // optional tanh softcap.  q is (B, S, H, D) and k/v are (B, S, KVH, D),
 // contiguous, read in that layout (the reference transposes to (B*H, S, D)
-// first; here each CTA computes its own offsets).  One CTA of 128 threads
-// owns 32 query rows of one (b, h): 4 threads per row, each holding an
-// interleaved quarter of D of the scaled query and of the f32 accumulator,
-// so the 4 threads of a row read 64 neighbouring bytes of a staged key and
-// the 8 rows of a warp read the same ones (a broadcast, no bank conflict).
-// A score is the 4 partial dots summed by two warp shuffles.  The CTA
-// walks the key tiles up to its causal frontier only, staging each tile of
-// K and V in shared memory as f32 (64 keys at D <= 128, 32 above), and
-// keeps an online softmax (m, l, acc) per row, updated every 16 keys.  The
-// Pallas kernel's numerics are kept: q is scaled by 1/sqrt(D) in f32 before
-// the dot, softcap * tanh(s / softcap) only when softcap > 0, masked scores
-// are -1e30 (not -inf), l is clamped at 1e-20, and query head h reads kv
-// head h / (H / KVH), as the reference's _repeat_kv orders them.  Every
-// product and sum is f32 on the CUDA cores: no TF32 and no bf16 products,
-// so a bf16 input is widened exactly and only the output is rounded.
-// Bound: at the serving shape (B=8, S=2048, H=32, KVH=8, D=128, bf16) the
-// 2.75e11 causal flops over the tensor cores' 989 TFLOP/s (0.278 ms) bound
-// it, not its 335 MB; this kernel does its flops on the CUDA cores and is
-// limited by shared-memory reads (one 16-byte load per 4 FMAs), well above
-// that bound.  A wgmma/TMA version is later work.
+// first; here the kernels address (b, h) themselves).  Query head h reads
+// kv head h / (H / KVH), as the reference's _repeat_kv orders them; masked
+// scores are -1e30 (not -inf), l is clamped at 1e-20.  Two instances:
+//
+// bfloat16, flash_attention_wgmma_kernel (the serving path).  Bound: at
+// Granite-8B's prefill (B=8, S=2048, H=32, KVH=8, D=128) the 2.75e11
+// causal flops over the tensor cores' 989 TFLOP/s (0.278 ms), not its
+// 335 MB.  So both products run on the tensor cores with wgmma, and the
+// design keeps them fed:
+//  - Warp specialisation: a CTA of 3 warpgroups, two consumers of 64 query
+//    rows each (240 registers a thread after setmaxnreg) and one producer
+//    (24), one CTA per SM.  It is persistent: it walks query tiles of 128
+//    rows in pairs (nq - 1 - i, i) of one (b, h), which need the same
+//    number of key tiles whatever i, so a static stride over pairs balances
+//    the SMs (the f32 kernel's order, one CTA per query tile with the
+//    longest rows first, would idle each CTA at its start and end).
+//  - Loads: one producer thread issues TMA loads (cp.async.bulk.tensor),
+//    one per 64 columns, into the 128-byte swizzle that wgmma reads.  Q has
+//    two buffers (one at DP = 256), so the next query tile's Q loads a tile
+//    ahead; K and V go through a ring of 2 stages.  Full and empty
+//    mbarriers (bytes landed; all 256 consumer threads done) synchronise
+//    them, with no __syncthreads in the key loop.  The tensor maps are
+//    rank 4 over (D, heads, S, B): rows past S and columns past D are
+//    zero-filled by the hardware instead of being read from the next batch
+//    or head, so every D of HEAD_DIMS runs on tiles of a padded width DP
+//    (64, 128 or 256).
+//  - S = Q K^T: wgmma m64 nBK k16 from shared memory (K-major Q and K) over
+//    D / 16 steps (D rounded up to 64 below 64), in f32, then multiplied by
+//    1/sqrt(D), as the reference's model scales after the product
+//    (layers.py:154-155; q is never rounded after scaling).  The scale is
+//    folded into the exponent: exp(s - m) = 2^(raw c - m c), c = scale
+//    log2 e, one FFMA and one MUFU.EX2 a score.  The softcap (tanh from
+//    ex2 and rcp), the mask (on the diagonal tiles only) and the online
+//    softmax (m, l) stay in f32 registers.
+//  - O += P V: P is rounded to bf16 in registers, where the S accumulator's
+//    layout already is the A fragment; wgmma m64 nD k16 (n96 and n112 at
+//    those widths, not the padded 128) with V read from shared memory in
+//    its MN-major (transposed) form.  l sums the unrounded P.  That
+//    rounding of P follows the reference model, which casts its
+//    probabilities to bf16 before P V (layers.py:161); the Pallas kernel
+//    keeps them in f32.
+//  - Overlap: each key tile's P V is issued with the next tile's Q K^T
+//    (its own wgmma fence, so ptxas keeps both asynchronous), and the
+//    next softmax runs while P V is on the tensor cores; the two consumer
+//    warpgroups take turns on the tensor cores (named barriers 1 and 2), so
+//    one's softmax runs under the other's products; a query tile's last P V
+//    is issued with the next query tile's first Q K^T.
+//  - Epilogue: O / max(l, 1e-20) (one division a row, then products),
+//    rounded once to bf16 into a swizzled staging buffer in shared memory
+//    and written by TMA stores, which drop rows past S and columns past D.
+//    (Stores straight from the accumulator layout, 16 bytes a row per
+//    instruction, cost more than a key tile per query tile.)
+// Keys per tile BK = 128 (64 at DP = 256, to keep O and S in registers).
+// Shared memory at DP = 128: Q 2 x 32 KB, K/V ring 4 x 32 KB, O staging
+// 2 x 16 KB (225 KB of the 227).
+//
+// float32, flash_attention_fwd_kernel (the parity path: f32 is held at
+// rtol = atol = 2e-5, which TF32 products cannot meet).  One CTA of 128
+// threads owns 32 query rows of one (b, h): 4 threads per row, each
+// holding an interleaved quarter of D of the scaled query and of the f32
+// accumulator; the key/value tiles up to the causal frontier are staged
+// in shared memory (64 keys at D <= 128, 32 above) and an online softmax
+// is updated every 16 keys, all on the CUDA cores with fmaf, as the Pallas
+// kernel computes it (q scaled by 1/sqrt(D) before the dot).  Bound: the
+// same flops over 67 TFLOP/s f32 (4.10 ms at Granite's shape); it is
+// limited by shared-memory reads (one 16-byte load per 4 FMAs).
 //
 // K9, RMSNorm with a (1 + w) scale over the last axis of (rows, d), in f32:
 // one CTA of 256 threads per row.  Each thread sums the squares of its
@@ -59,8 +107,10 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (plain C interface, ctypes).
 // --fmad=false keeps every a*b+c of K9 rounded twice, as the plain PyTorch
-// version computes it; K8's dot products call fmaf explicitly.
+// version computes it; K8's f32 dot products call fmaf explicitly (and in
+// its bf16 kernel exp2f((s - m) * log2 e) is two roundings).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,7 +155,7 @@ __device__ __forceinline__ void store4(bf16* p, float4 x) {
 }
 
 // ---------------------------------------------------------------------------
-// K8
+// K8, float32: the CUDA-core kernel
 // ---------------------------------------------------------------------------
 
 #define FA_BQ 32                      // query rows per CTA
@@ -120,13 +170,13 @@ struct FaTile {
   static constexpr int SMEM = 2 * BK * D * 4;    // K and V tiles, f32
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS)
-    flash_attention_fwd_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v, T* __restrict__ o,
-                               int S, int H, int KVH, float scale,
-                               float softcap) {
+    flash_attention_fwd_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o, int S, int H, int KVH,
+                               float scale, float softcap) {
   constexpr int BK = FaTile<D>::BK;
   constexpr int NC = FaTile<D>::NC;
   constexpr int D4 = D / 4;
@@ -239,42 +289,810 @@ __global__ void __launch_bounds__(FA_THREADS)
   }
 }
 
-template <typename T, int D>
+template <int D>
 static int launch_fa(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int H, int KVH, float softcap,
                      cudaStream_t stream) {
   constexpr int smem = FaTile<D>::SMEM;
-  auto kernel = flash_attention_fwd_kernel<T, D>;
+  auto kernel = flash_attention_fwd_kernel<D>;
   // above 48 KB only as dynamic shared memory, after this opt-in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + FA_BQ - 1) / FA_BQ, B * H);
   kernel<<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KVH,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KVH,
       1.0f / sqrtf(static_cast<float>(D)), softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-static int dispatch_fa(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int KVH, int D, float softcap,
-                       cudaStream_t stream) {
+// float32 only: bf16 runs flash_attention_wgmma_kernel
+static int dispatch_fa_f32(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int H, int KVH, int D,
+                           float softcap, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_fa<T, 16>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 32: return launch_fa<T, 32>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 64: return launch_fa<T, 64>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 96: return launch_fa<T, 96>(q, k, v, o, B, S, H, KVH, softcap, stream);
+    case 16: return launch_fa<16>(q, k, v, o, B, S, H, KVH, softcap, stream);
+    case 32: return launch_fa<32>(q, k, v, o, B, S, H, KVH, softcap, stream);
+    case 64: return launch_fa<64>(q, k, v, o, B, S, H, KVH, softcap, stream);
+    case 96: return launch_fa<96>(q, k, v, o, B, S, H, KVH, softcap, stream);
     case 112:
-      return launch_fa<T, 112>(q, k, v, o, B, S, H, KVH, softcap, stream);
+      return launch_fa<112>(q, k, v, o, B, S, H, KVH, softcap, stream);
     case 128:
-      return launch_fa<T, 128>(q, k, v, o, B, S, H, KVH, softcap, stream);
+      return launch_fa<128>(q, k, v, o, B, S, H, KVH, softcap, stream);
     case 256:
-      return launch_fa<T, 256>(q, k, v, o, B, S, H, KVH, softcap, stream);
+      return launch_fa<256>(q, k, v, o, B, S, H, KVH, softcap, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// ---------------------------------------------------------------------------
+// K8, bfloat16: wgmma, TMA and an mbarrier ring
+// ---------------------------------------------------------------------------
+
+// the bf16 kernel's tiles: DP is the padded head width (a multiple of the
+// 64 columns of one 128-byte swizzle row)
+template <int DP>
+struct FaHopper {
+  static constexpr int BQ = 128;                  // rows of a query tile
+  static constexpr int BK = DP > 128 ? 64 : 128;  // keys per tile
+  static constexpr int STAGES = 2;                // K/V ring depth
+  static constexpr int NB = DP / 64;              // 64-column blocks
+  static constexpr int QBUF = DP > 128 ? 1 : 2;   // Q buffers (by room)
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;    // one K or V tile
+  // O leaves through shared memory: each consumer warpgroup stages its 64
+  // rows, up to 128 columns at a time, for a TMA store
+  static constexpr int O_COLS = DP > 128 ? 128 : DP;
+  static constexpr int O_BYTES = 64 * O_COLS * 2;  // one warpgroup's
+  static constexpr int THREADS = 3 * 128;  // 2 consumer WGs, 1 producer WG
+  // Q, the K and V rings, the O staging, 1 KB of slack to align the
+  // swizzled tiles, and the barriers
+  static constexpr int SMEM = QBUF * Q_BYTES + 2 * STAGES * KV_BYTES +
+                              2 * O_BYTES + 1024 + 256;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait until the barrier's phase of this parity has completed; a wait that
+// outlasts 4 s (a lost arrival: a fault of the kernel, never a slow tile)
+// traps, so the launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = global_ns();
+    } else if (global_ns() - t0 > 4000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// one box of a rank-4 tensor map into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// one box from shared memory into a rank-4 tensor map (elements outside
+// the tensor are not written), tracked by the issuing thread's bulk group
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled tile in shared memory:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// (SWIZZLE_128B)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous instructions
+template <int N>
+__device__ __forceinline__ void wgmma_pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// the m64nN f32 accumulator, N/2 registers a thread: "+f" operands
+// %0 .. %(N/2 - 1) (WG_D*) and their list in the instruction (WG_L*)
+#define WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F16(d, i) \
+  WG_F4(d, i), WG_F4(d, i + 4), WG_F4(d, i + 8), WG_F4(d, i + 12)
+#define WG_D32(d) WG_F16(d, 0), WG_F16(d, 16)
+#define WG_D48(d) WG_D32(d), WG_F16(d, 32)
+#define WG_D56(d) WG_D48(d), WG_F4(d, 48), WG_F4(d, 52)
+#define WG_D64(d) WG_D32(d), WG_F16(d, 32), WG_F16(d, 48)
+#define WG_D128(d) \
+  WG_D64(d), WG_F16(d, 64), WG_F16(d, 80), WG_F16(d, 96), WG_F16(d, 112)
+#define WG_L32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_L48 WG_L32 ", " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_L56 WG_L48 ", " \
+  "%48, %49, %50, %51, %52, %53, %54, %55"
+#define WG_L64 WG_L56 ", " \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_L128 WG_L64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, " \
+  "%88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127"
+
+// d += A B for one k16 step of a warpgroup, m64nN with NA = N/2
+// accumulator registers; the later operands are numbered from NA on.
+// WGMMA_SS reads A and B through descriptors (both K-major, operands a, b,
+// scale_d); WGMMA_RS takes A from registers (4 x bf16x2 a thread, operands
+// a[0..3]) and B, MN-major (transposed), through a descriptor (b), and
+// always accumulates (the "r"(1) operand).
+#define WGMMA_SS(N, NA, IA, IB, IS)                                       \
+  asm volatile("{\n.reg .pred p;\n"                                      \
+               "setp.ne.b32 p, %" #IS ", 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+               WG_L##NA "}, %" #IA ", %" #IB ", p, 1, 1, 0, 0;\n}\n"      \
+               : WG_D##NA(d)                                              \
+               : "l"(a), "l"(b), "r"(scale_d))
+#define WGMMA_RS(N, NA, I0, I1, I2, I3, IB, IS)                           \
+  asm volatile("{\n.reg .pred p;\n"                                      \
+               "setp.ne.b32 p, %" #IS ", 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+               WG_L##NA "}, {%" #I0 ", %" #I1 ", %" #I2 ", %" #I3 "}, %" #IB \
+               ", p, 1, 1, 1;\n}\n"                                      \
+               : WG_D##NA(d)                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 64) {
+    WGMMA_SS(64, 32, 32, 33, 34);
+  } else {
+    static_assert(N == 128, "S tiles are 64 or 128 keys");
+    WGMMA_SS(128, 64, 64, 65, 66);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    WGMMA_RS(64, 32, 32, 33, 34, 35, 36, 37);
+  } else if constexpr (N == 96) {
+    WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53);
+  } else if constexpr (N == 112) {
+    WGMMA_RS(112, 56, 56, 57, 58, 59, 60, 61);
+  } else if constexpr (N == 128) {
+    WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69);
+  } else {
+    static_assert(N == 256, "head widths are 64, 96, 112, 128 or 256");
+    WGMMA_RS(256, 128, 128, 129, 130, 131, 132, 133);
+  }
+}
+
+// two floats rounded to nearest even into one bf16x2 (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+#define FA_LOG2E 1.4426950408889634f
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(y) = sign(y) (1 - 2 / (2^(2 |y| log2 e) + 1)): two MUFU operations
+// (tanhf is a long polynomial); absolute error ~1e-7
+__device__ __forceinline__ float tanh_fast(float y) {
+  const float t = ex2_approx(fabsf(y) * (2.f * FA_LOG2E));
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t + 1.f));
+  return copysignf(1.f - 2.f * r, y);
+}
+
+// register budgets of the warp-specialised kernel: the producer warpgroup
+// gives back what the consumers take (24 x 128 + 240 x 256 <= 65536)
+template <int R>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// the consumer warpgroups take turns on the tensor cores: warpgroup w
+// waits on named barrier 1 + w (its turn, 256 threads: its own 128 and the
+// other's arrival) before it issues its products, and then lets the other
+// go; while one runs its products, the other runs its softmax
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+}
+
+// the online softmax of one tile, in f32 registers: sc holds the raw
+// scores Q K^T of rows r0 (even i / 2) and r0 + 8 (odd i / 2) at keys
+// k0 + 8 (i / 4) + c2 + i % 2.  The scale is applied after the product:
+// with a softcap, s = softcap tanh(raw scale / softcap); without, s = raw
+// scale, folded into the exponent, exp(s - m) = 2^(raw c - m c) with
+// c = scale log2 e (one FFMA).  m is kept in the units of sc.  Masked
+// scores are -1e30 (keys past the row, only on a diagonal tile).  On
+// return sc holds the unrounded p = exp(s - m_new), ls the row sums of
+// this thread's p, alpha = exp(m_old - m_new).
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
+                                             float (&m)[2], float (&alpha)[2],
+                                             float (&ls)[2], int k0, int r0,
+                                             int c2, bool diag, float scale,
+                                             float softcap) {
+  float c = scale * FA_LOG2E;
+  if (softcap > 0.f) {
+    const float to_cap = scale / softcap;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      sc[i] = softcap * tanh_fast(sc[i] * to_cap);
+    c = FA_LOG2E;
+  }
+  if (diag) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + c2 + (i % 2);
+      const int row = r0 + 8 * ((i / 2) % 2);
+      if (key > row) sc[i] = -1e30f;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i)
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the 4 threads of a quad hold one row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2_approx((m[r] - mx[r]) * c);
+    m[r] = mx[r];
+    mc[r] = -mx[r] * c;
+    ls[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i / 2) % 2;
+    sc[i] = ex2_approx(fmaf(sc[i], c, mc[r]));
+    ls[r] += sc[i];
+  }
+}
+
+// p rounded to bf16 pairs: the S layout of keys 16 kt .. 16 kt + 15 is the
+// A fragment of the k16 step kt of P V
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4],
+                                       const float (&sc)[BK / 2]) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; i += 2)
+    p[i / 8][(i / 2) % 4] = pack_bf16x2(sc[i], sc[i + 1]);
+}
+
+// The j-th query tile of a CTA's walk: unit u = blockIdx.x + (j / 2)
+// gridDim.x is the pair of query tiles (nq - 1 - i, i) of one (b, h), the
+// longer first, so every unit needs the same number of key tiles (nq + 1
+// at BK = BQ) and a static stride balances the CTAs.  Advances j past the
+// missing twin of an odd count's middle tile; false past the last unit.
+__device__ __forceinline__ bool fa_next_tile(int& j, int nq, int n_units,
+                                             int H, int& b, int& h,
+                                             int& qt) {
+  const int pairs = (nq + 1) / 2;
+  for (;; ++j) {
+    const int u = blockIdx.x + (j / 2) * gridDim.x;
+    if (u >= n_units) return false;
+    const int i = u % pairs;
+    if (j % 2 == 1 && 2 * i == nq - 1) continue;  // the middle tile
+    b = u / pairs / H;
+    h = u / pairs % H;
+    qt = j % 2 == 0 ? nq - 1 - i : i;
+    return true;
+  }
+}
+
+// Persistent: one CTA per SM walks its query tiles (fa_next_tile).  The
+// producer and the consumers walk the same sequence, and the ring's stage
+// and phase count key tiles over all of a CTA's work: the next query
+// tile's Q and K load while the consumers finish the last one, whose last
+// P V is issued with the next tile's first Q K^T.  DN is D rounded up to
+// the products' width (D itself from 96 up; 64 below): Q K^T runs DN / 16
+// k16 steps and P V is m64 nDN, over the DP-wide (zero-padded) tiles in
+// shared memory.
+template <int DP, int DN>
+__global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap to,
+                                 int B, int S, int H, int KVH, int D,
+                                 float scale, float softcap) {
+  using T = FaHopper<DP>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, NB = T::NB;
+  constexpr int QB = T::QBUF;
+  extern __shared__ uint8_t fa_raw[];
+  // the swizzle repeats every 1024 bytes: every tile starts on a multiple
+  const uint32_t sq = (smem_u32(fa_raw) + 1023) & ~1023u;  // Q [QB]
+  const uint32_t sk = sq + QB * T::Q_BYTES;        // K ring
+  const uint32_t sv = sk + ST * T::KV_BYTES;       // V ring
+  const uint32_t so = sv + ST * T::KV_BYTES;       // O staging [2]
+  const uint32_t q_full = so + 2 * T::O_BYTES;     // [QB] 8-byte barriers
+  const uint32_t q_empty = q_full + 8 * QB;        // [QB]
+  const uint32_t k_full = q_empty + 8 * QB;        // [ST] bytes landed
+  const uint32_t v_full = k_full + 8 * ST;         // [ST]
+  const uint32_t k_empty = v_full + 8 * ST;        // [ST] consumers done
+  const uint32_t v_empty = k_empty + 8 * ST;       // [ST]
+
+  const int nq = (S + BQ - 1) / BQ;  // query tiles of a head
+  const int n_units = B * H * ((nq + 1) / 2);
+  const int wg = threadIdx.x / 128;
+  auto key_tiles = [&](int qt) {  // up to the causal frontier
+    return (min(qt * BQ + BQ, S) + BK - 1) / BK;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QB; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, 2 * 128);
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2 * 128);
+      mbar_init(v_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread issues every load.  Per query tile: K_0 first
+    // (its stage frees early), then Q into its buffer once the consumers
+    // are done with the query tile that used it last (with two buffers, Q
+    // loads a whole query tile ahead), then V_0, K_1, V_1, ...  A stage is
+    // refilled once both consumer warpgroups released it.
+    regs_dealloc<24>();
+    if (threadIdx.x != 256) return;
+    auto load_kv = [&](uint32_t ring, uint32_t full, uint32_t empty_bar,
+                       const CUtensorMap* map, int g, int t, int kvh,
+                       int b) {
+      const int s = g % ST;
+      if (g >= ST) mbar_wait(empty_bar + 8 * s, ((g / ST) - 1) & 1);
+      mbar_expect_tx(full + 8 * s, T::KV_BYTES);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(ring + s * T::KV_BYTES + c * BK * 128, map, full + 8 * s,
+                    64 * c, kvh, t * BK, b);
+    };
+    int items = 0, tiles = 0, b, h, qt;
+    for (int j = 0; fa_next_tile(j, nq, n_units, H, b, h, qt); ++j) {
+      const int kvh = h / (H / KVH), n_tiles = key_tiles(qt);
+      const int qb = items % QB;
+      load_kv(sk, k_full, k_empty, &tk, tiles, 0, kvh, b);
+      if (items >= QB) mbar_wait(q_empty + 8 * qb, ((items / QB) - 1) & 1);
+      mbar_expect_tx(q_full + 8 * qb, T::Q_BYTES);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(sq + qb * T::Q_BYTES + c * BQ * 128, &tq,
+                    q_full + 8 * qb, 64 * c, h, qt * BQ, b);
+      load_kv(sv, v_full, v_empty, &tv, tiles, 0, kvh, b);
+      for (int t = 1; t < n_tiles; ++t) {
+        load_kv(sk, k_full, k_empty, &tk, tiles + t, t, kvh, b);
+        load_kv(sv, v_full, v_empty, &tv, tiles + t, t, kvh, b);
+      }
+      tiles += n_tiles;
+      ++items;
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows wq0 .. wq0 + 63 of a query tile;
+  // this thread holds rows r0 and r0 + 8 of them, at columns
+  // 8 j + c2 + {0, 1} of each n8 block j of an accumulator (wgmma's
+  // m64 nN f32 layout)
+  regs_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int c2 = 2 * (tid % 4);
+  uint32_t qa;  // this warpgroup's Q rows in the query tile's buffer
+  float acc[DN / 2];
+  float m[2], l[2];
+  uint32_t p[BK / 16][4];
+
+  // S = Q K^T of the tile in stage s over DN / 16 k16 steps: a step inside
+  // a 128-byte row advances the start address by 32 bytes, a new 64-column
+  // block by the block's rows x 128 bytes; 8-row groups are 1024 apart
+  auto issue_s = [&](float (&sc)[BK / 2], int s) {
+    const uint32_t kb = sk + s * T::KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DN / 16; ++kk) {
+      const uint32_t a = qa + (kk / 4) * BQ * 128 + (kk % 4) * 32;
+      const uint32_t bk = kb + (kk / 4) * BK * 128 + (kk % 4) * 32;
+      wgmma_ss<BK>(sc, wgmma_desc(a, 16, 1024), wgmma_desc(bk, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V of the tile in stage s over BK / 16 k16 steps: V is the B
+  // operand in its MN-major form (D contiguous); 8-key groups are 1024
+  // bytes apart (SBO), 64-column blocks BK x 128 bytes (LBO), a k16 step
+  // 16 rows of 128 bytes.  Each product has its own fence: ptxas then
+  // sees two pipeline stages, and reading S after wait<1> does not
+  // serialise the P V products
+  auto issue_pv = [&](int s) {
+    const uint32_t vb = sv + s * T::KV_BYTES;
+    wgmma_pin(acc);
+    wgmma_pin(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BK / 16; ++kt)
+      wgmma_rs<DN>(acc, p[kt],
+                   wgmma_desc(vb + kt * 16 * 128, BK * 128, 1024));
+    wgmma_commit();
+  };
+  // O / max(l, 1e-20) of this warpgroup's rows wq0 .. wq0 + 63 of query
+  // tile (b, h): one division a row, then products, rounded once into the
+  // warpgroup's staging buffer (128-byte swizzle: the 8 rows of a store
+  // hit distinct banks), then TMA stores of 64 columns each, which drop
+  // rows >= S and columns >= D.  Up to 128 columns a pass (two at
+  // DP = 256): a pass first waits until the previous stores have read the
+  // buffer.  Named barrier 3 + wg syncs the warpgroup's 128 threads.
+  const uint32_t so_wg = so + wg * T::O_BYTES;
+  auto store_o = [&](int b, int h, int wq0) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-20f);
+    }
+    constexpr int PASS = T::O_COLS / 8;  // n8 blocks a pass
+#pragma unroll
+    for (int pass = 0; pass < DN / 8; pass += PASS) {
+      if (tid == 0)
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(3 + wg) : "memory");
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * (tid / 32) + (tid % 32) / 4 + 8 * r;
+#pragma unroll
+        for (int jj = 0; jj < PASS && pass + jj < DN / 8; ++jj) {
+          const int j = pass + jj;
+          const uint32_t dst = so_wg + (jj / 8) * 64 * 128 + row * 128 +
+                               (((jj % 8) ^ (row % 8)) * 16) + c2 * 2;
+          const uint32_t val = pack_bf16x2(acc[4 * j + 2 * r] * inv[r],
+                                           acc[4 * j + 2 * r + 1] * inv[r]);
+          asm volatile("st.shared.u32 [%0], %1;" ::"r"(dst), "r"(val)
+                       : "memory");
+        }
+      }
+      // the generic-proxy writes, seen by the TMA (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(3 + wg) : "memory");
+      if (tid == 0) {
+        for (int c = 0; c < T::O_COLS / 64 && 8 * pass + 64 * c < D; ++c)
+          tma_store_4d(&to, so_wg + c * 64 * 128, 8 * pass + 64 * c, h, wq0,
+                       b);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+    }
+  };
+
+  // warpgroup 0 takes the first turn
+  if (wg == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");
+  int j = 0, b, h, qt;
+  if (fa_next_tile(j, nq, n_units, H, b, h, qt)) {
+    int items = 0, tiles = 0;  // query tiles and key tiles walked before
+    int qb = 0, wq0 = qt * BQ + 64 * wg;
+    int r0 = wq0 + 16 * (tid / 32) + (tid % 32) / 4;
+    int n_tiles = key_tiles(qt);
+    // the first query tile's S_0 alone
+    {
+      float sc[BK / 2], alpha[2];
+      qa = sq + wg * 64 * 128;
+      mbar_wait(q_full, 0);
+      mbar_wait(k_full, 0);
+      turn_wait(wg);
+      issue_s(sc, 0);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      wgmma_pin(sc);
+      mbar_arrive(k_empty);
+      m[0] = m[1] = -1e30f;
+      softmax_tile<BK>(sc, m, alpha, l, 0, r0, c2, BK - 1 > wq0, scale,
+                       softcap);
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+      pack_p<BK>(p, sc);
+    }
+    for (;;) {
+      // key tile t < n - 1: O += P_t V_t, issued with S_{t+1} = Q K_{t+1}^T,
+      // whose softmax runs while P_t V_t is still on the tensor cores
+      for (int t = 0; t + 1 < n_tiles; ++t) {
+        const int g = tiles + t;
+        const int s = g % ST, s1 = (g + 1) % ST;
+        float sc[BK / 2], alpha[2], ls[2];
+        mbar_wait(k_full + 8 * s1, ((g + 1) / ST) & 1);
+        mbar_wait(v_full + 8 * s, (g / ST) & 1);
+        turn_wait(wg);
+        issue_s(sc, s1);
+        issue_pv(s);
+        turn_pass(wg);
+        wgmma_wait<1>();  // S_{t+1} is done, P_t V_t may still run
+        wgmma_pin(sc);
+        mbar_arrive(k_empty + 8 * s1);
+        const int k1 = (t + 1) * BK;
+        softmax_tile<BK>(sc, m, alpha, ls, k1, r0, c2, k1 + BK - 1 > wq0,
+                         scale, softcap);
+        wgmma_wait<0>();
+        wgmma_pin(acc);
+        mbar_arrive(v_empty + 8 * s);
+        l[0] = l[0] * alpha[0] + ls[0];
+        l[1] = l[1] * alpha[1] + ls[1];
+#pragma unroll
+        for (int i = 0; i < DN / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+        pack_p<BK>(p, sc);
+      }
+      // every product with this Q is done: its buffer may be refilled
+      mbar_arrive(q_empty + 8 * qb);
+      // the last key tile: its P V, issued with the next query tile's S_0
+      const int g = tiles + n_tiles - 1, s = g % ST;
+      int jn = j + 1, bn, hn, qtn;
+      if (!fa_next_tile(jn, nq, n_units, H, bn, hn, qtn)) {
+        mbar_wait(v_full + 8 * s, (g / ST) & 1);
+        turn_wait(wg);
+        issue_pv(s);
+        turn_pass(wg);
+        wgmma_wait<0>();
+        wgmma_pin(acc);
+        mbar_arrive(v_empty + 8 * s);
+        store_o(b, h, wq0);
+        break;
+      }
+      const int qbn = (items + 1) % QB, s1 = (g + 1) % ST;
+      const int wq0n = qtn * BQ + 64 * wg;
+      const int r0n = wq0n + 16 * (tid / 32) + (tid % 32) / 4;
+      float sc[BK / 2], alpha[2], mn[2] = {-1e30f, -1e30f}, ln[2];
+      mbar_wait(q_full + 8 * qbn, ((items + 1) / QB) & 1);
+      mbar_wait(k_full + 8 * s1, ((g + 1) / ST) & 1);
+      mbar_wait(v_full + 8 * s, (g / ST) & 1);
+      turn_wait(wg);
+      qa = sq + qbn * T::Q_BYTES + wg * 64 * 128;
+      issue_s(sc, s1);
+      issue_pv(s);
+      turn_pass(wg);
+      wgmma_wait<1>();
+      wgmma_pin(sc);
+      mbar_arrive(k_empty + 8 * s1);
+      softmax_tile<BK>(sc, mn, alpha, ln, 0, r0n, c2, BK - 1 > wq0n, scale,
+                       softcap);
+      wgmma_wait<0>();
+      wgmma_pin(acc);
+      mbar_arrive(v_empty + 8 * s);
+      store_o(b, h, wq0);
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+      m[0] = mn[0];
+      m[1] = mn[1];
+      l[0] = ln[0];
+      l[1] = ln[1];
+      pack_p<BK>(p, sc);
+      j = jn;
+      b = bn;
+      h = hn;
+      qt = qtn;
+      qb = qbn;
+      wq0 = wq0n;
+      r0 = r0n;
+      tiles += n_tiles;
+      n_tiles = key_tiles(qt);
+      ++items;
+    }
+  }
+  // the staging buffers stay until the last stores have read them
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  // warpgroup 1's last turn_pass, so barrier 1 ends balanced
+  if (wg == 0) asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled is a driver-API function: taken from the runtime
+// at first use, so the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// error codes of the C interface beyond cudaError_t's (lm_error_string)
+#define FA_NO_ENCODER (-1)
+#define FA_ENCODE_FAILED (-2)
+
+static EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a bf16 (B, S, heads, D) tensor as a rank-4 map over (D, heads, S, B):
+// boxes of 64 columns x 1 head x `rows` rows, 128-byte swizzle; loads read
+// zeros outside the tensor, stores drop what falls outside it
+static int encode_bhsd(EncodeTiledFn encode, CUtensorMap* map, const void* x,
+                       int B, int S, int heads, int D, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
+                                 2ull * D * heads * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : FA_ENCODE_FAILED;
+}
+
+template <int DP, int DN>
+static int launch_fa_wgmma(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int H, int KVH, int D,
+                           float softcap, cudaStream_t stream) {
+  using T = FaHopper<DP>;
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return FA_NO_ENCODER;
+  CUtensorMap tq, tk, tv, to;
+  int rc = encode_bhsd(encode, &tq, q, B, S, H, D, T::BQ);
+  if (rc == 0) rc = encode_bhsd(encode, &tk, k, B, S, KVH, D, T::BK);
+  if (rc == 0) rc = encode_bhsd(encode, &tv, v, B, S, KVH, D, T::BK);
+  if (rc == 0) rc = encode_bhsd(encode, &to, o, B, S, H, D, 64);
+  if (rc != 0) return rc;
+  auto kernel = flash_attention_wgmma_kernel<DP, DN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one CTA per SM (its shared memory and registers take the SM), each
+  // walking units of two query tiles
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long units =
+      static_cast<long long>(B) * H * (((S + T::BQ - 1) / T::BQ + 1) / 2);
+  if (units > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, to, B, S, H, KVH, D, 1.0f / sqrtf(static_cast<float>(D)),
+      softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static int dispatch_fa_wgmma(const void* q, const void* k, const void* v,
+                             void* o, int B, int S, int H, int KVH, int D,
+                             float softcap, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+    case 32:
+    case 64:
+      return launch_fa_wgmma<64, 64>(q, k, v, o, B, S, H, KVH, D, softcap,
+                                     stream);
+    case 96:
+      return launch_fa_wgmma<128, 96>(q, k, v, o, B, S, H, KVH, D, softcap,
+                                      stream);
+    case 112:
+      return launch_fa_wgmma<128, 112>(q, k, v, o, B, S, H, KVH, D, softcap,
+                                       stream);
+    case 128:
+      return launch_fa_wgmma<128, 128>(q, k, v, o, B, S, H, KVH, D, softcap,
+                                       stream);
+    case 256:
+      return launch_fa_wgmma<256, 256>(q, k, v, o, B, S, H, KVH, D, softcap,
+                                       stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // K9
@@ -383,15 +1201,16 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 extern "C" {
 
 // q (B, S, H, D), k/v (B, S, KVH, D), o like q; contiguous, 16-byte
-// aligned, D in {16, 32, 64, 96, 112, 128, 256}, H % KVH == 0.
+// aligned, D in {16, 32, 64, 96, 112, 128, 256}, H % KVH == 0.  float32
+// runs flash_attention_fwd_kernel, bfloat16 flash_attention_wgmma_kernel.
 int launch_flash_attention(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int S, int H, int KVH,
                            int D, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return dispatch_fa<float>(q, k, v, o, B, S, H, KVH, D, softcap, st);
+    return dispatch_fa_f32(q, k, v, o, B, S, H, KVH, D, softcap, st);
   if (dtype == DT_BF16)
-    return dispatch_fa<bf16>(q, k, v, o, B, S, H, KVH, D, softcap, st);
+    return dispatch_fa_wgmma(q, k, v, o, B, S, H, KVH, D, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -427,6 +1246,10 @@ int launch_ssm_state_scan(const void* states, const void* decay, void* out,
 }
 
 const char* lm_error_string(int code) {
+  if (code == FA_NO_ENCODER)
+    return "cuTensorMapEncodeTiled is not available from the driver";
+  if (code == FA_ENCODE_FAILED)
+    return "cuTensorMapEncodeTiled refused a K8 tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,13 +1,26 @@
 """K8: causal flash attention (forward) on the card.
 
 Replaces the reference's Pallas kernel ``kernels/flash_attention.py``
-(``_kernel``, ``flash_attention_pallas``): ``flash_attention_fwd_kernel`` in
-``csrc/lm_kernels.cu``, one CTA per (b·h, 32 query rows), the key/value
-tiles up to the causal frontier staged in shared memory, an online softmax
-in float32.  It reads q (B, S, H, D) and k/v (B, S, KVH, D) in place, with
-query head h on kv head ``h // (H / KVH)``.  For tensors on the CPU the
-wrapper runs the plain version (:func:`..ref.flash_attention_ref`); for
-CUDA tensors it launches the kernel or raises.
+(``_kernel``, ``flash_attention_pallas``) with two kernels of
+``csrc/lm_kernels.cu``, chosen by dtype:
+
+ * bfloat16 (the serving path): ``flash_attention_wgmma_kernel``, both
+   products on the tensor cores (``wgmma``, f32 accumulation).  One
+   persistent CTA per SM, with two consumer warpgroups of 64 query rows and
+   a producer warpgroup, walks query tiles of 128 rows in pairs of equal
+   work; the producer brings Q, K and V in by TMA (K/V through a 2-stage
+   ring synchronised by mbarriers), each key tile's P·V overlaps the next
+   tile's Q·Kᵀ and softmax, and O leaves by TMA stores.  The scores are
+   scaled after the product and the probabilities rounded to bf16 before
+   P·V, as the reference model computes them (``models/layers.py``);
+ * float32 (the parity path): ``flash_attention_fwd_kernel``, 32 query
+   rows per CTA, every product f32 on the CUDA cores.
+
+Both read q (B, S, H, D) and k/v (B, S, KVH, D) in place, with query head
+h on kv head ``h // (H / KVH)``, keep the online softmax in float32, mask
+with -1e30 and clamp l at 1e-20.  For tensors on the CPU the wrapper runs
+the plain version (:func:`..ref.flash_attention_ref`); for CUDA tensors it
+launches the kernel of their dtype or raises.
 """
 
 from __future__ import annotations
@@ -17,8 +30,30 @@ import torch
 from . import library
 from .ref import flash_attention_ref
 
-#: head widths the kernel is instantiated for
+#: head widths the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
+
+def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> None:
+    """The checks the card's kernels need (dtype, head width, the f32
+    kernel's grid, contiguous and 16-byte aligned tensors); raises
+    ValueError on what they do not take.  Reads only shapes, dtypes and
+    layouts, so it runs on any device."""
+    D = q.shape[3]
+    if q.dtype not in library.LM_DTYPES:
+        raise ValueError("flash_attention takes float32 or bfloat16, not "
+                         f"{q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {D} not in "
+                         f"{HEAD_DIMS}")
+    # the bf16 kernel is persistent; the f32 one takes B*H on grid.y
+    if q.dtype == torch.float32 and q.shape[0] * q.shape[2] > 65535:
+        raise ValueError(f"flash_attention: B*H = {q.shape[0] * q.shape[2]} "
+                         "exceeds the float32 kernel's launch grid (65535)")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+               for x in (q, k, v)):
+        raise ValueError("flash_attention takes contiguous, 16-byte aligned "
+                         "tensors")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -45,18 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if q.dtype not in library.LM_DTYPES:
-        raise ValueError("flash_attention takes float32 or bfloat16, not "
-                         f"{q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {D} not in "
-                         f"{HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
-                         "launch grid's 65535")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in xs):
-        raise ValueError("flash_attention takes contiguous, 16-byte aligned "
-                         "tensors")
+    check_card_inputs(q, k, v)
     o = torch.empty_like(q)
     lib = library.load_lm_library()
     with torch.cuda.device(q.device):

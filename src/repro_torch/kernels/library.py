@@ -3,8 +3,9 @@ at first use, like the stencil kernels, into its own directory under
 ``build/repro_torch/``, and bound with :mod:`ctypes`:
 
  * ``csrc/fv3_kernels.cu`` — K6 ``tridiag_kernel``, K7 ``fvt_flux_kernel``;
- * ``csrc/lm_kernels.cu`` — K8 ``flash_attention_fwd_kernel``, K9
-   ``rmsnorm_kernel`` (plain and residual), K10 ``ssm_state_scan_kernel``.
+ * ``csrc/lm_kernels.cu`` — K8 ``flash_attention_wgmma_kernel`` (bf16) and
+   ``flash_attention_fwd_kernel`` (f32), K9 ``rmsnorm_kernel`` (plain and
+   residual), K10 ``ssm_state_scan_kernel``.
 """
 
 from __future__ import annotations

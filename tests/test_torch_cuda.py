@@ -564,6 +564,69 @@ def test_flash_attention_kernel_matches_plain_version_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (1, 2048, 8, 2, 128), (2, 257, 4, 1, 256),
+])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_flash_attention_wgmma_long_and_wide_on_card(card, B, S, H, KVH, D,
+                                                      softcap):
+    """bf16 through many turns of the K/V ring (16 tiles of 128 keys), and
+    at D = 256 (64-key tiles, 2 tiles per diagonal, a ragged last one).
+    Besides the plain version at the reference's bar, the kernel and the
+    plain version against float64: each (b, s, h) row's error over the
+    row's norm, the kernel's mean and max within 2x the plain version's, so
+    that the late rows, where |o| is below the bar's atol, count too."""
+    gen = torch.Generator(device=card).manual_seed(S + D)
+    q, k, v = (torch.randn(s, generator=gen, device=card).to(torch.bfloat16)
+               for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    got = KO.flash_attention(q, k, v, softcap=softcap)
+    want = KR.flash_attention_ref(q, k, v, softcap=softcap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=1e-1)
+    kk, vv = (x.double().repeat_interleave(H // KVH, dim=2) for x in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) / D ** 0.5
+    if softcap > 0.0:
+        sc = softcap * torch.tanh(sc / softcap)
+    keep = torch.ones((S, S), dtype=torch.bool, device=card).tril()
+    exact = torch.einsum("bhqk,bkhd->bqhd",
+                         torch.softmax(torch.where(keep, sc, -1e30), -1), vv)
+    rel = [(x.double() - exact).norm(dim=-1) / exact.norm(dim=-1)
+           for x in (got, want)]
+    for stat in (torch.mean, torch.amax):
+        kernel, plain = (stat(r).item() for r in rel)
+        assert kernel <= 2.0 * plain, (stat.__name__, kernel, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_launches_its_dtypes_kernel_once(card, dtype):
+    """One call is one launch of its dtype's kernel, read from the device
+    kernels of a profiler trace: bf16 never reaches the CUDA-core kernel or
+    the plain version."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    name = {torch.bfloat16: "flash_attention_wgmma_kernel",
+            torch.float32: "flash_attention_fwd_kernel"}[dtype]
+    q = torch.randn((2, 300, 4, 128), device=card).to(dtype)
+    k = torch.randn((2, 300, 2, 128), device=card).to(dtype)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):  # the tracer's own start-up
+        KO.flash_attention(q, k, k)  # built and warm
+        torch.cuda.synchronize()
+    KL.reset_launches()
+    with profile(activities=activities) as prof:
+        KO.flash_attention(q, k, k)
+        torch.cuda.synchronize()
+    assert KL.LAUNCHES["flash_attention"] == 1
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    mine = [(key, n) for key, n in kernels if "flash_attention" in key]
+    assert len(mine) == 1 and mine[0][1] == 1, kernels
+    assert name in mine[0][0], kernels
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(128, 64), (1024, 256), (96, 512),
                                     (7, 4096), (9, 3584), (5, 7168), (3, 12)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

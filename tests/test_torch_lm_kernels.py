@@ -4,7 +4,11 @@
 softcap sweeps and tolerances of the reference's own kernel tests
 (``tests/test_kernels.py``).  On the CPU the wrappers run the plain
 versions; the kernels themselves are held against those on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  The bf16 flash-attention
+kernel's own arithmetic (tiles, padding, where it rounds) is emulated here
+in torch and held to the reference's bar before the card runs it."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +19,7 @@ from repro.kernels import ops as R
 
 from repro_torch.kernels import library
 from repro_torch.kernels import ops as T
+from repro_torch.kernels.flash_attention import check_card_inputs
 from repro_torch.kernels import ref as TR
 
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -66,6 +71,113 @@ def test_flash_attention_heads_read_their_kv_group():
         p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
         torch.testing.assert_close(got[0, :, h], p @ v[0, :, g], rtol=1e-6,
                                    atol=1e-6)
+
+
+def _wgmma_kernel_emulation(q, k, v, softcap):
+    """What ``flash_attention_wgmma_kernel`` computes, blockwise, in torch:
+    128 query rows a CTA, tiles of BK keys up to the causal frontier (128,
+    or 64 at D = 256), D padded with zeros to DP (64, 128 or 256) and rows
+    past S zero-filled, as the kernel's TMA boxes fill them; S = Q K^T in
+    f32 from the bf16 inputs, the scale applied after the product (in the
+    exponent: exp(s - m) = 2^(raw c - m c), c = scale log2 e, or log2 e after
+    a softcap), masked scores -1e30, the online softmax in f32 with l summed
+    over the unrounded p, p rounded to bf16 before P V (f32 sums), and
+    O / max(l, 1e-20) rounded once to bf16."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    DP = 64 if D <= 64 else 128 if D <= 128 else 256
+    BQ, BK = 128, 128 if DP <= 128 else 64
+    Sp = -(-S // BQ) * BQ
+
+    def tiles(x):  # (B, S, h, D) -> (B, h, Sp, DP), f32 of the bf16 values
+        x = torch.nn.functional.pad(x.float(), (0, DP - D, 0, 0, 0, Sp - S))
+        return x.permute(0, 2, 1, 3)
+
+    qp = tiles(q)
+    kp = tiles(k).repeat_interleave(rep, dim=1)
+    vp = tiles(v).repeat_interleave(rep, dim=1)
+    scale = 1.0 / math.sqrt(D)
+    log2e = 1.0 / math.log(2.0)
+    c = log2e if softcap > 0 else scale * log2e
+    out = torch.empty(B, H, Sp, DP)
+    for q0 in range(0, Sp, BQ):
+        rows = torch.arange(q0, q0 + BQ)
+        m = torch.full((B, H, BQ), -1e30)
+        l = torch.zeros(B, H, BQ)
+        acc = torch.zeros(B, H, BQ, DP)
+        for k0 in range(0, min(q0 + BQ, S), BK):
+            s = qp[:, :, q0:q0 + BQ] @ kp[:, :, k0:k0 + BK].transpose(-1, -2)
+            if softcap > 0:
+                s = softcap * torch.tanh(s * (scale / softcap))
+            keys = torch.arange(k0, k0 + BK)
+            s = torch.where(keys[None, :] > rows[:, None], -1e30, s)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - (m_new * c)[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + (p.to(torch.bfloat16).float()
+                                            @ vp[:, :, k0:k0 + BK])
+            m = m_new
+        out[:, :, q0:q0 + BQ] = acc * (1.0 / l.clamp(min=1e-20))[..., None]
+    return out[:, :, :S, :D].permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 128),
+    (2, 100, 4, 2, 32), (1, 256, 4, 2, 112),
+])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_wgmma_kernel_numerics_meet_reference_bar(B, S, H, KVH, D, softcap):
+    """The bf16 kernel's design (bf16 P, the scale after the product, padded
+    D, zero-filled rows) against the reference's Pallas kernel, which keeps
+    P in f32, and against the plain version the card holds the kernel to:
+    the reference's bf16 sweep (tests/test_kernels.py), ragged S = 100 and
+    D = 112, at rtol 2e-2 and atol 1e-1 (``chip_smoke.FA_TOL``)."""
+    rng = np.random.default_rng(B * S + H * D + 1)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D))]
+    pairs = [_pair(a, torch.bfloat16) for a in arrs]
+    want = R.flash_attention(*(p[0] for p in pairs), softcap=softcap)
+    got = _wgmma_kernel_emulation(*(p[1] for p in pairs), softcap)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, D)
+    _close(got, want, 2e-2, 1e-1)
+    plain = TR.flash_attention_ref(*(p[1] for p in pairs), softcap=softcap)
+    torch.testing.assert_close(got, plain, rtol=2e-2, atol=1e-1)
+
+
+def test_flash_attention_dispatch_and_checks():
+    """The checks the card's kernels need, read from shapes and layouts
+    (meta tensors: no data, no card); CPU tensors of either dtype run the
+    plain version and launch nothing."""
+    def t(shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    q, k = t((2, 300, 4, 128)), t((2, 300, 2, 128))
+    check_card_inputs(q, k, k)
+    check_card_inputs(*(x.float() for x in (q, k, k)))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        check_card_inputs(*(x.half() for x in (q, k, k)))
+    with pytest.raises(ValueError, match="head width 48"):
+        check_card_inputs(t((2, 300, 4, 48)), t((2, 300, 2, 48)),
+                          t((2, 300, 2, 48)))
+    wide = [t((2, 8, 32768, 16)), t((2, 8, 1, 16)), t((2, 8, 1, 16))]
+    check_card_inputs(*wide)  # the bf16 kernel is persistent
+    with pytest.raises(ValueError, match="65535"):
+        check_card_inputs(*(x.float() for x in wide))
+    with pytest.raises(ValueError, match="contiguous"):
+        check_card_inputs(t((2, 4, 300, 128)).transpose(1, 2), k, k)
+    raw = torch.zeros(2 * 300 * 4 * 128 + 1, dtype=torch.bfloat16)
+    shifted = raw[1:].view(2, 300, 4, 128)  # 2 bytes past an alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_card_inputs(shifted, k, k)
+    rng = np.random.default_rng(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        qc, kc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  .to(dtype) for s in ((1, 20, 4, 16), (1, 20, 2, 16)))
+        library.reset_launches()
+        got = T.flash_attention(qc, kc, kc)
+        assert library.LAUNCHES["flash_attention"] == 0
+        assert torch.equal(got, TR.flash_attention_ref(qc, kc, kc))
 
 
 @pytest.mark.parametrize("rows,d", [(128, 64), (1024, 256), (96, 512)])
