@@ -5,12 +5,18 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    three kernel sources of ``src/repro_torch/csrc/`` with ``nvcc``, all at
-   once.
+   once; prints each K1 and K2 instance's registers, stack frame and
+   spills from ``ptxas`` and its local loads and stores (LDL/STL) in the
+   SASS (any in K1 fails the run: its stack must stay out of local
+   memory).
 2. Kernel phase, at C192 with 80 levels: each kernel against its plain
    PyTorch version on the same inputs on the card — K1 on ``fx_ppm``,
-   ``edge_flux`` (regions) and ``riem_coeffs`` (K offsets), K2 on
-   ``tridiag_solve`` and ``column_total``, K3 on ``interface_interp``
-   (monotone coordinates); K5, the member axis, on ``fx_ppm`` and
+   ``edge_flux`` (regions), ``riem_coeffs`` (K offsets) and d_sw's
+   heaviest opt-3 node, ``inner_y_update+al_x+fx_ppm`` (one launch of 7
+   records), K2 on ``tridiag_solve`` and ``column_total``, K3 on
+   ``interface_interp`` (monotone coordinates) and on coordinates in
+   random order with NaNs (against the plain version marching,
+   ``cuda.marching_plain``); K5, the member axis, on ``fx_ppm`` and
    ``tridiag_solve`` at 4 members under ``"grid"`` and ``"vmap:2,grid"``
    with one input broadcast (member stride 0); K4, the K-blocked solver
    kernel, on ``precompute_pe`` with ``block_k`` 8 and 16 (also against
@@ -41,13 +47,17 @@
 6. Opt phase: the four step programs at C192 L80 compiled on ``"cuda"`` at
    opt 0-4 for the default (H100) preset, with the static verifier after
    every pass: stencil nodes, rule counts, verifier violations and every
-   vertical solver's tuned schedule.
+   vertical solver's tuned schedule; per step, the launches of K1, K2 and
+   K4 and the ops, field loads (and distinct loads per record) and stores
+   the interpreter executes.
 7. Opt-3 phase: the reference's default path, ``make_step_sequential(cfg)``
    (opt 3, the H100 preset), 3 steps: step 1 against the plain opt-3 step
    (same programs, the whole-step bar) and against the plain opt-0 step of
    the path phase (the reference's bar between optimized and unoptimized
-   steps), the step time, launches per step of K1-K4, peak memory, mass
-   drift and a traced step; then the same step under the
+   steps), the step time, launches per step of K1-K4 (K1's must stay
+   below 990, one launch per statement), peak memory, mass drift and a
+   traced step with K1's
+   device time and interpreted ops per ms; then the same step under the
    reference's TPU schedules, ``hardware="tpu-v5e"``, which puts d_sw's
    ``precompute_pe`` on K4 at ``block_k`` 16 (8 launches a step): its
    step 1 must equal the default step's exactly over the interior; then one
@@ -131,6 +141,10 @@ STEP_ATOL = 1e-5                  # one step vs the plain step, interior
 OPT_RTOL = OPT_ATOL = 5e-5
 MASS_RTOL = 1e-5                  # relative drift of total mass, 3 steps
 OPT3_HARDWARE = "tpu-v5e"          # the reference's preset: K4 on the path
+# d_sw's heaviest node at opt 3: PPM's fused producers, one K1 launch
+FUSED_NODE = "inner_y_update+al_x+fx_ppm"
+# K1 launches per opt-3 step with one launch per PARALLEL statement
+K1_LAUNCH_BAR = 990
 SOURCE = "src/repro_torch/csrc/stencil_kernels.cu"
 FV3_SOURCE = "src/repro_torch/csrc/fv3_kernels.cu"
 PALLAS = "src/repro/core/backend/lowering_pallas.py"
@@ -257,8 +271,7 @@ def bound(run, fields) -> tuple[float, str]:
                   for f in written)
     ops = 0
     for p in run.programs:
-        stmts = ([p.ir] if p.kind == "horizontal" else
-                 [s for c in p.ir.computations for s in c.statements]
+        stmts = ([s for c in p.ir.computations for s in c.statements]
                  if p.kind == "kblocked" else p.ir.statements)
         for s in stmts:
             klo, khi = s.interval.resolve(st.k_extent_of(s.target, dom.nk))
@@ -276,8 +289,8 @@ RANGES = {"cx": (-0.9, 0.9), "aa": (-0.5, 0.5), "cc": (-0.5, 0.5),
 def kernel_inputs(stencil, base, dom, rng, device, lead=(6,)):
     """Inputs for one node at its program's shapes: C192 L80 on six tiles
     (``lead`` puts members before them).  Coordinates of the level search
-    are monotone columns, and the Thomas solve gets a diagonally dominant
-    system."""
+    are monotone columns (``"remap_interp unsorted"``: in random order,
+    with NaNs), and the Thomas solve gets a diagonally dominant system."""
     import numpy as np
     import torch
 
@@ -288,6 +301,11 @@ def kernel_inputs(stencil, base, dom, rng, device, lead=(6,)):
         a = rng.uniform(lo, hi, shape).astype(np.float32)
         if base == "remap_interp" and f in ("fm", "pe", "pe_ref"):
             a = np.cumsum(a, axis=-3, dtype=np.float32)
+        elif base == "remap_interp unsorted" and f in ("pe", "pe_ref"):
+            # coordinates and targets in no order, a NaN in one value of
+            # 1000 of each
+            a = rng.uniform(0.0, 80.0, shape).astype(np.float32)
+            a.flat[rng.choice(a.size, a.size // 1000, replace=False)] = np.nan
         out[f] = torch.from_numpy(a).to(device)
     return out
 
@@ -300,32 +318,52 @@ def kernel_phase(device) -> dict:
     from repro_torch.core.backend import cuda as C
     from repro_torch.fv3 import dyncore as D
 
+    from repro_torch.core.backend import compile_program
+
     cfg = D.FV3Config(**C192_L80)
     dom = cfg.seq_dom()
     params = D.default_params(cfg)
     progs = {p.name: p for p in (D.build_csw_program(cfg, dom),
                                  D.build_dsw_program(cfg, dom),
                                  D.build_remap_program(cfg, dom))}
+    # d_sw at opt 3: its heaviest fused node, one launch of 7 records
+    fused = compile_program(D.build_dsw_program(cfg, dom), "cuda",
+                            opt_level=3, device=device).program
+    progs[FUSED_NODE] = fused
     cases = [("K1", "d_sw", "fx_ppm"), ("K1", "c_sw+riem", "edge_flux"),
              ("K1", "c_sw+riem", "riem_coeffs"),
+             ("K1", FUSED_NODE, FUSED_NODE),
              ("K2", "c_sw+riem", "tridiag_solve"),
              ("K2", "vertical_remap", "column_total"),
-             ("K3", "vertical_remap", "remap_interp")]
+             ("K3", "vertical_remap", "remap_interp"),
+             ("K3", "vertical_remap", "remap_interp unsorted")]
     rng = np.random.default_rng(0)
     rows = []
     for kernel, prog_name, base in cases:
         prog = progs[prog_name]
-        node = next(n for n in prog.all_nodes() if n.base_name == base)
+        node = next(n for n in prog.all_nodes()
+                    if n.base_name == base.split()[0]
+                    or n.label.split("#")[0] == base)
         ndom = prog.node_dom(node)
+        unsorted = base.endswith("unsorted")
         fields = kernel_inputs(node.stencil, base, ndom, rng, device)
         ps = {p: params[p] for p in node.stencil.params}
         run = C.CudaStencil(node.stencil, ndom)
         got = run(fields, ps)
-        want = run.plain(fields, ps)
+        if unsorted:  # the plain version marching, as the kernel does
+            with C.marching_plain():
+                want = run.plain(fields, ps)
+        else:
+            want = run.plain(fields, ps)
         torch.cuda.synchronize()
         err = 0.0
         for w in run.written:
-            if not torch.isfinite(got[w]).all():
+            nan = torch.isnan(want[w])
+            if unsorted:  # NaN targets give NaN, in the same places
+                if not torch.equal(torch.isnan(got[w]), nan):
+                    raise RuntimeError(f"K3 on {base}: NaNs differ")
+                got[w], want[w] = got[w].nan_to_num(), want[w].nan_to_num()
+            elif not torch.isfinite(got[w]).all():
                 raise RuntimeError(f"{base}: non-finite kernel output {w}")
             err = max(err, (got[w] - want[w]).abs().max().item())
             if not torch.allclose(got[w], want[w], rtol=KERNEL_RTOL,
@@ -334,10 +372,18 @@ def kernel_phase(device) -> dict:
                                    f"the plain version (max abs {err:.3e})")
         del got, want
         ms = cuda_ms(lambda: run(fields, ps), 5)
-        plain_ms = cuda_ms(lambda: run.plain(fields, ps), 2)
+        if unsorted:
+            with C.marching_plain():
+                plain_ms = cuda_ms(lambda: run.plain(fields, ps), 2)
+        else:
+            plain_ms = cuda_ms(lambda: run.plain(fields, ps), 2)
         b_ms, b_by = bound(run, fields)
-        extra = (" (search coordinate monotone: march and bisection pick "
-                 "the same layer)" if kernel == "K3" else "")
+        extra = (" (coordinates in random order, NaNs among them and the "
+                 "targets; plain version marching)" if unsorted else
+                 " (search coordinate monotone: march and bisection pick "
+                 "the same layer)" if kernel == "K3" else
+                 f" records={sum(len(p.records()) for p in run.programs)}"
+                 if kernel == "K1" else "")
         print(f"[kernel] {kernel} {base:14s} launches/call="
               f"{sum(not p.empty for p in run.programs)} max_abs_err={err:.3e}"
               f" tol=rtol {KERNEL_RTOL:g} + atol {KERNEL_ATOL:g}{extra} "
@@ -599,7 +645,8 @@ def interior(x, cfg):
 
 def trace_step(step, state, step_ms: float,
                untraced: str = "median of steps 2-3",
-               groups: tuple = ()) -> float | None:
+               groups: tuple = (), split_out: dict | None = None
+               ) -> float | None:
     """One more step under ``torch.profiler``: device time by kernel, and the
     device's idle share of an untraced step.  The profiler's host cost
     lengthens the traced step's wall time, so the share is taken against
@@ -607,7 +654,8 @@ def trace_step(step, state, step_ms: float,
     step launches the same kernels on the same shapes, so its device time is
     the traced step's.  ``groups`` of (label, name fragments) also sum the
     device time of the kernels whose names hold a fragment, the first group
-    that matches taking a kernel, the rest under "other"."""
+    that matches taking a kernel, the rest under "other"; ``split_out``
+    receives them, label -> (ms, launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -650,6 +698,8 @@ def trace_step(step, state, step_ms: float,
         for label, (ms, n) in split.items():
             print(f"[trace] split {ms:10.3f} ms {100 * ms / busy:5.1f}% "
                   f"x{n:5d} {label}")
+        if split_out is not None:
+            split_out.update(split)
     return 1 - busy / step_ms
 
 
@@ -819,7 +869,7 @@ def stream_work(fn, tiles: int = 6) -> dict:
     from repro_torch.core.backend import cuda as C
 
     work = {"horizontal": 0, "column": 0, "kblocked": 0, "ops": 0,
-            "loads": 0, "stores": 0}
+            "k1_ops": 0, "loads": 0, "distinct": 0, "stores": 0}
     for node in fn.program.all_nodes():
         run = C.CudaStencil(node.stencil, fn.program.node_dom(node),
                             schedule=node.schedule)
@@ -827,14 +877,17 @@ def stream_work(fn, tiles: int = 6) -> dict:
             if prog.empty:
                 continue
             work[prog.kind] += 1
-            for pts, ops, loads in prog.work():
+            for pts, ops, loads, distinct, stores in prog.work():
                 work["ops"] += ops * tiles * pts
+                if prog.kind == "horizontal":
+                    work["k1_ops"] += ops * tiles * pts
                 work["loads"] += loads * tiles * pts
-                work["stores"] += tiles * pts
+                work["distinct"] += distinct * tiles * pts
+                work["stores"] += stores * tiles * pts
     return work
 
 
-def opt_phase(device) -> None:
+def opt_phase(device) -> dict:
     """The four step programs at C192 L80 through the optimizer at opt 0-4
     for the default (H100) preset, verified after every pass, each compiled
     onto the kernels; per level, what a step asks of the kernels (each
@@ -847,6 +900,7 @@ def opt_phase(device) -> None:
     calls = {"c_sw+riem": cfg.n_split * cfg.k_split,
              "d_sw": cfg.n_split * cfg.k_split,
              "tracer_2d": cfg.k_split, "vertical_remap": cfg.k_split}
+    levels = {}
     for level in range(5):
         total = 0
         step_work: dict = {}
@@ -874,15 +928,20 @@ def opt_phase(device) -> None:
               f"{fn.hardware}); per step: launches K1 "
               f"{step_work['horizontal']} K2 {step_work['column']} K4 "
               f"{step_work['kblocked']}; interpreted ops "
-              f"{step_work['ops'] / 1e9:.2f} G, loads "
-              f"{step_work['loads'] / 1e9:.2f} G, stores "
+              f"{step_work['ops'] / 1e9:.2f} G, field loads "
+              f"{step_work['loads'] / 1e9:.2f} G (distinct per record "
+              f"{step_work['distinct'] / 1e9:.2f} G), stores "
               f"{step_work['stores'] / 1e9:.2f} G", flush=True)
+        levels[level] = step_work
+    return levels
 
 
-def opt3_phase(device, path: dict) -> dict:
+def opt3_phase(device, path: dict, work: dict) -> dict:
     """The reference's default path at C192 L80: the opt-3 step for the
     H100 preset (3 steps), then for the reference's TPU preset, where K4
-    runs d_sw's ``precompute_pe``, then one M = 4 opt-3 ensemble step."""
+    runs d_sw's ``precompute_pe``, then one M = 4 opt-3 ensemble step.
+    ``work`` is the opt phase's count of a step's interpreted ops by
+    level, which the traced step's K1 time turns into a rate."""
     import torch
 
     from repro_torch.core.backend import cuda as C
@@ -967,7 +1026,21 @@ def opt3_phase(device, path: dict) -> dict:
             if max(errs3.values()) >= STEP_ATOL:
                 raise RuntimeError(f"the opt-3 step disagrees with the plain "
                                    f"opt-3 step: {errs3}")
-            trace_step(step, s1, step_ms)
+            if per_step["horizontal"] >= K1_LAUNCH_BAR:
+                raise RuntimeError(f"{per_step['horizontal']} K1 launches a "
+                                   f"step, not below {K1_LAUNCH_BAR}")
+            split: dict = {}
+            trace_step(step, s1, step_ms, split_out=split,
+                       groups=(("K1", ("stencil_parallel_kernel",)),
+                               ("K2", ("stencil_column_kernel",))))
+            if "K1" in split:
+                k1_ms = split["K1"][0]
+                print(f"[opt3] hardware={name}: K1 {k1_ms:.3f} ms of device "
+                      f"time in the traced step, {split['K1'][1]} launches; "
+                      f"{work[3]['k1_ops'] / k1_ms / 1e9:.3f} G interpreted "
+                      f"ops per ms ({work[3]['k1_ops'] / 1e9:.2f} G of K1's "
+                      "a step)",
+                      flush=True)
         else:
             k4_per_step = cfg.n_split * cfg.k_split  # d_sw per substep
             if per_step["kblocked"] != k4_per_step:
@@ -1096,49 +1169,96 @@ def k8_build_report(log: str) -> list:
     """Registers and spills of each K8 instance, from the ``ptxas -v``
     lines of the LM library's ``build.log``: (instance, registers, spill
     store bytes, spill load bytes, stack bytes)."""
-    rows, name, spills = [], None, None
-    for line in log.splitlines():
-        got = re.search(r"Compiling entry function '(\S+)'", line)
-        if got:
-            name, spills = got.group(1), None
-            continue
-        if name is None or "flash_attention" not in name:
-            continue
-        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
-                        r" (\d+) bytes spill loads", line)
-        if got:
-            spills = tuple(int(x) for x in got.groups())
-        got = re.search(r"Used (\d+) registers", line)
-        if got and spills is not None:
-            args = re.findall(r"Li(\d+)E", name)
-            kind = ("flash_attention_wgmma_kernel<" + ", ".join(args) + ">"
-                    if "wgmma" in name else
-                    f"flash_attention_fwd_kernel<{args[0]}> (float32)")
-            rows.append((kind, int(got.group(1)), spills[1], spills[2],
-                         spills[0]))
-            name = None
+    rows = []
+    for name, regs, frame, st, ld in ptxas_report(log, "flash_attention"):
+        args = re.findall(r"Li(\d+)E", name)
+        kind = ("flash_attention_wgmma_kernel<" + ", ".join(args) + ">"
+                if "wgmma" in name else
+                f"flash_attention_fwd_kernel<{args[0]}> (float32)")
+        rows.append((kind, regs, st, ld, frame))
     return rows
 
 
-def k8_sass_report(lib: Path) -> dict:
-    """Instruction counts in the SASS of ``flash_attention_wgmma_kernel``
-    (``cuobjdump -sass`` of the LM library, beside ``nvcc``): HGMMA
-    (``wgmma``), UTMA* (TMA loads and stores) and SYNCS* (mbarrier
-    operations)."""
+def sass_counts(lib: Path, function: str, keys: tuple) -> dict:
+    """Instructions of each function whose name holds ``function`` in the
+    SASS of ``lib`` (``cuobjdump -sass``, beside ``nvcc``) that start with
+    each of ``keys``: {mangled name: {key: count}}."""
     from repro_torch.core.backend.cuda import _nvcc
 
     sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
                            str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts = {"HGMMA": 0, "UTMA": 0, "SYNCS": 0}
+    out = {}
     for func in sass.split("Function : ")[1:]:
-        if "flash_attention_wgmma_kernel" not in func.split("\n", 1)[0]:
+        name = func.split("\n", 1)[0].strip()
+        if function not in name:
             continue
+        counts = out.setdefault(name, dict.fromkeys(keys, 0))
         for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                              r"([A-Z]+)", func):
-            for key in counts:
+            for key in keys:
                 counts[key] += op.startswith(key)
-    return counts
+    return out
+
+
+def k8_sass_report(lib: Path) -> dict:
+    """HGMMA (``wgmma``), UTMA* (TMA loads and stores) and SYNCS* (mbarrier
+    operations) in the SASS of ``flash_attention_wgmma_kernel``'s
+    instances, summed."""
+    total = {"HGMMA": 0, "UTMA": 0, "SYNCS": 0}
+    for counts in sass_counts(lib, "flash_attention_wgmma_kernel",
+                              tuple(total)).values():
+        for key in total:
+            total[key] += counts[key]
+    return total
+
+
+def ptxas_report(log: str, function: str) -> list:
+    """(mangled name, registers, stack frame, spill store, spill load
+    bytes) of each function whose name holds ``function``, from the
+    ``ptxas -v`` lines of a ``build.log``."""
+    rows, name, frame = [], None, None
+    for line in log.splitlines():
+        got = re.search(r"Compiling entry function '(\S+)'", line)
+        if got:
+            name, frame = got.group(1), None
+            continue
+        if name is None or function not in name:
+            continue
+        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                        r" (\d+) bytes spill loads", line)
+        if got:
+            frame = tuple(int(x) for x in got.groups())
+        got = re.search(r"Used (\d+) registers", line)
+        if got and frame is not None:
+            rows.append((name, int(got.group(1))) + frame)
+            name = None
+    return rows
+
+
+def stencil_build_report(lib: Path) -> None:
+    """K1's and K2's instances (K3 is inlined into both): registers, stack
+    frame and spills from ``ptxas``, local loads and stores (LDL/STL) and
+    indirect branches (BRX, the op dispatch) in their SASS.  A K1 instance
+    with a spill or a local access fails the run: its stack must live in
+    registers."""
+    log = (lib.parent / "build.log").read_text()
+    sass = {}
+    for fn in ("stencil_parallel_kernel", "stencil_column_kernel"):
+        sass.update(sass_counts(lib, fn, ("LDL", "STL", "BRX")))
+    for fn in ("stencil_parallel_kernel", "stencil_column_kernel"):
+        for name, regs, frame, st, ld in ptxas_report(log, fn):
+            args = [{"b0": "false", "b1": "true"}.get(x, x[1:])
+                    for x in re.findall(r"L(b[01]|i\d+)E", name)]
+            counts = sass.get(name, {})
+            print(f"[build] {fn}<{', '.join(args)}>: {regs} registers, stack "
+                  f"frame {frame} B, spill stores {st} B, spill loads {ld} "
+                  f"B; SASS {counts.get('LDL', 0)} LDL, {counts.get('STL', 0)}"
+                  f" STL, {counts.get('BRX', 0)} BRX", flush=True)
+            if fn == "stencil_parallel_kernel" and (
+                    st or ld or frame or counts.get("LDL") or
+                    counts.get("STL")):
+                raise RuntimeError(f"{name}: the K1 stack left registers")
 
 
 def lm_kernel_phase(device) -> dict:
@@ -1781,6 +1901,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"[build] {lib.stem}: {line.strip()}")
+    stencil_build_report(libs[0])
     sass = k8_sass_report(libs[2])
     print(f"[build] K8 flash_attention_wgmma_kernel SASS: {sass['HGMMA']} "
           f"HGMMA (wgmma), {sass['UTMA']} UTMA* (TMA), {sass['SYNCS']} "
@@ -1806,8 +1927,8 @@ def main() -> int:
     standalone = standalone_phase(device)
     path = path_phase(device)
     ensemble = ensemble_phase(device, path["launches"])
-    opt_phase(device)
-    opt3 = opt3_phase(device, path)
+    work = opt_phase(device)
+    opt3 = opt3_phase(device, path, work)
     del path["s0"], path["plain1"]
     torch.cuda.empty_cache()
     lm = lm_kernel_phase(device)

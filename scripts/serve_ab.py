@@ -172,6 +172,31 @@ def child(src: Path, label: str) -> None:
         torch.cuda.empty_cache()
 
 
+def interleaved_runs(script: str, base: Path) -> list | None:
+    """Run ``script --child SRC --label RUN`` for the trees in
+    :data:`ORDER` (``base``, or the checkout that holds this file), each a
+    fresh process, echoing its output; the ``RESULT`` JSON objects of all
+    runs, or None after a run that failed."""
+    roots = {"base": base.resolve(), "new": ROOT}
+    results = []
+    for i, label in enumerate(ORDER):
+        run = f"{label}{i + 1}"
+        proc = subprocess.run(
+            [sys.executable, script, "--child", str(roots[label] / "src"),
+             "--label", run],
+            capture_output=True, text=True, timeout=1800)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr)
+            print(f"{Path(script).stem}: run {run} failed "
+                  f"({proc.returncode})", file=sys.stderr)
+            return None
+        results += [json.loads(line[len("RESULT "):])
+                    for line in proc.stdout.splitlines()
+                    if line.startswith("RESULT ")]
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base", nargs="?", type=Path,
@@ -189,23 +214,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("serve_ab: no CUDA device", file=sys.stderr)
         return 1
-    roots = {"base": args.base.resolve(), "new": ROOT}
-    results = []
-    for i, label in enumerate(ORDER):
-        run = f"{label}{i + 1}"
-        proc = subprocess.run(
-            [sys.executable, __file__, "--child", str(roots[label] / "src"),
-             "--label", run],
-            capture_output=True, text=True, timeout=1800)
-        sys.stdout.write(proc.stdout)
-        if proc.returncode:
-            sys.stderr.write(proc.stderr)
-            print(f"serve_ab: run {run} failed ({proc.returncode})",
-                  file=sys.stderr)
-            return 1
-        results += [json.loads(line[len("RESULT "):])
-                    for line in proc.stdout.splitlines()
-                    if line.startswith("RESULT ")]
+    results = interleaved_runs(__file__, args.base)
+    if results is None:
+        return 1
     import chip_smoke as CS
 
     gemm = next(g for g, _ in CS.PREFILL_GROUPS if g.startswith("GEMMs"))

@@ -61,10 +61,10 @@ class TorchBackend(Backend):
 
 
 class CudaBackend(Backend):
-    """The hand-written Hopper kernels (K1–K4), one launch per PARALLEL
-    statement and per solver computation — or one K-blocked launch for a
-    single-direction solver under a K-blocked schedule — with the member
-    axis on the launch grid (K5)."""
+    """The hand-written Hopper kernels (K1–K4), one launch per group of
+    consecutive PARALLEL statements and per solver computation — or one
+    K-blocked launch for a single-direction solver under a K-blocked
+    schedule — with the member axis on the launch grid (K5)."""
 
     name = "cuda"
     member_grid = True

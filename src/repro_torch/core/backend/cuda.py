@@ -4,8 +4,10 @@ Four hand-written kernels in ``csrc/stencil_kernels.cu`` run every
 stencil of the path, fused or not, at every opt level; they port the
 reference's Pallas kernels (``src/repro/core/backend/lowering_pallas.py``):
 
- * ``stencil_parallel_kernel`` (K1, ``_horizontal_kernel``) — one PARALLEL
-   statement, one thread per ``(tile, k, j, i)`` point of its write window;
+ * ``stencil_parallel_kernel`` (K1, ``_horizontal_kernel``) — a group of
+   consecutive PARALLEL statements (:func:`parallel_groups`), one thread
+   per ``(tile, K span, j, i)``, each op evaluated for a strip of
+   :data:`STRIP` levels of the thread's column;
  * ``stencil_column_kernel`` (K2, ``_vertical_kernel``) — one FORWARD or
    BACKWARD computation, one thread per ``(tile, j, i)`` column marching K;
  * ``march_search`` (K3, ``_march_search``) — the ``index_search`` level
@@ -19,13 +21,18 @@ reference's Pallas kernels (``src/repro/core/backend/lowering_pallas.py``):
    members (``"vmap:C,grid"``) per thread, with a per-slot member stride
    that is 0 for a field broadcast across members.
 
-The kernels interpret the IR: this module encodes each statement into a
-postfix program of int32 ops with a float32 constant table (see the opcode
-table below, mirrored in the CUDA source), and the wrapper launches the
-kernels with the program, a field table (pointer and K extent per slot) and
-the scalar parameters.  A fused node is one stencil of many computations:
-each PARALLEL statement is one K1 launch and each solver computation one
-K2 launch, in order, so launch order keeps it right.
+The kernels interpret the IR.  This module encodes each statement into a
+record (target, levels, box) and a postfix stream of int32 op words with a
+float32 constant table (the opcode table below, mirrored in the CUDA
+source).  Each op word carries the stack depth before the op and, for a
+push or a binary op, the source of its operand (a load, a constant, a
+parameter or a stack entry), so the kernels keep the top of the stack in
+registers and the rest in shared memory at fixed places.  A launch is a
+:class:`Program`: its records run in order at every point; a temporary
+that only later records of the launch read, inside its writer's box, stays
+on the stack (``Program.kept``) and is never stored or allocated.
+``Program.work`` counts what the interpreter executes, and
+:data:`LAUNCHES` what the wrappers launched.
 
 Of a node's schedule the backend honours ``block_k`` of a vertical solver:
 whenever ``kblocked_applies(stencil, schedule, nk)`` holds, as it does for
@@ -46,6 +53,7 @@ on the CPU; for CUDA tensors it launches the kernels or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -90,16 +98,76 @@ MAX_PARAMS = 16
 PROG_MAX = 1024
 CONST_MAX = 256
 STACK_MAX = 16
-FOUND_MAX = 8
 REC_INTS = 9
 
-OP_LOAD, OP_CONST, OP_PARAM, OP_FOUND, OP_SEARCH = 1, 2, 3, 4, 5
-UNARY_OPS = {"neg": 10, "sqrt": 11, "abs": 12, "exp": 13, "log": 14,
-             "sign": 15, "floor": 16}
-BINARY_OPS = {"+": 20, "-": 21, "*": 22, "/": 23, "<": 24, "<=": 25,
-              ">": 26, ">=": 27, "==": 28, "!=": 29}
-OP_MIN, OP_MAX, OP_POW = 30, 31, 32
-OP_WHERE = 40
+#: an op word is ``src << SRC_SHIFT | op * OPW | depth``: the opcode, the
+#: number of values on the stack before the op (known when the stream is
+#: encoded; the kernels keep the top of the stack in registers and the
+#: entries below it in shared memory, addressed by the depth), and where a
+#: push or a binary op takes its operand from
+OPW = 32
+SRC_SHIFT = 11
+# sources, their operand words right after the op word: LOAD slot di dj
+# dk; CONST c; PARAM p; PICK j (a copy of stack entry j)
+SRC_LOAD, SRC_CONST, SRC_PARAM, SRC_PICK = 1, 2, 3, 4
+OP_PUSH = 0     # pushes its source
+OP_FLOAD = 1    # slot di dj dk: pushes an at_found read of the search
+OP_SEARCH = 2   # coord lo hi: pops the target, selects the level per point
+OP_STORE = 3    # slot: pops the value into the slot at the point
+OP_KEEP = 4     # the value stays on the stack for later records
+OP_DROP = 5     # n: the top replaces the n entries below it
+UNARY_OPS = {"neg": 8, "sqrt": 9, "abs": 10, "exp": 11, "log": 12,
+             "sign": 13, "floor": 14}
+# binary ops compute f(a, b): without a source a is the entry below the
+# top and b the top (both popped); with one, a is the top and b the source
+BINARY_OPS = {"+": 16, "-": 17, "*": 18, "/": 19, "<": 20, "<=": 21,
+              ">": 22, ">=": 23, "==": 24, "!=": 25}
+OP_MIN, OP_MAX, OP_POW = 26, 27, 28
+# f(b, a): the IR's right operand was evaluated first
+OP_RSUB, OP_RDIV, OP_RMIN, OP_RMAX, OP_RPOW = 29, 30, 31, 32, 33
+OP_WHERE = 34   # pops b, a, cond
+#: the op a binary op becomes when its right operand was evaluated first
+REVERSED = {16: 16, 17: OP_RSUB, 18: 18, 19: OP_RDIV, 20: 22, 21: 23,
+            22: 20, 23: 21, 24: 24, 25: 25, OP_MIN: OP_RMIN,
+            OP_MAX: OP_RMAX, OP_POW: OP_RPOW}
+#: operand words of each source and of each op
+SRC_OPERANDS = {0: 0, SRC_LOAD: 4, SRC_CONST: 1, SRC_PARAM: 1, SRC_PICK: 1}
+OPERANDS = {OP_FLOAD: 4, OP_SEARCH: 3, OP_STORE: 1, OP_DROP: 1}
+#: K1 evaluates each op for a strip of this many levels of one column
+STRIP = 8
+
+
+def is_binary(op: int) -> bool:
+    return BINARY_OPS["+"] <= op <= OP_RPOW
+
+
+def stack_effect(op: int, src: int = 0, args=()) -> int:
+    """Values ``op`` (with source ``src`` and operands ``args``) leaves on
+    the stack minus the values it takes."""
+    if op in (OP_PUSH, OP_FLOAD):
+        return 1
+    if op == OP_DROP:
+        return -args[0]
+    if is_binary(op):
+        return 0 if src else -1
+    if op in (OP_SEARCH, OP_STORE):
+        return -1
+    if op == OP_WHERE:
+        return -2
+    return 0  # unary, KEEP
+
+
+def decode(prog, pc: int, end: int):
+    """The ops of ``prog[pc:end]`` in order: ``(op, depth, src, source
+    operands, operands)``."""
+    while pc < end:
+        word = prog[pc]
+        src, op, depth = word >> SRC_SHIFT, (word >> 5) & 63, word & 31
+        n = SRC_OPERANDS[src]
+        m = OPERANDS.get(op, 0)
+        yield (op, depth, src, tuple(prog[pc + 1:pc + 1 + n]),
+               tuple(prog[pc + 1 + n:pc + 1 + n + m]))
+        pc += 1 + n + m
 
 
 class LaunchArgs(ctypes.Structure):
@@ -125,6 +193,8 @@ class LaunchArgs(ctypes.Structure):
         ("ip", ctypes.c_int),
         ("klo", ctypes.c_int),
         ("khi", ctypes.c_int),
+        ("kspan", ctypes.c_int),
+        ("depth", ctypes.c_int),
         ("j0", ctypes.c_int),
         ("j1", ctypes.c_int),
         ("i0", ctypes.c_int),
@@ -222,18 +292,48 @@ def _walk(e: Expr):
         yield from _walk(c)
 
 
-def _check_parallel_hazard(st: Assign) -> None:
-    """One K1 launch writes the target while every thread reads: a read of
-    the target anywhere but the thread's own point is a race."""
+def _away_reads(st: Assign) -> set[str]:
+    """The fields and temporaries ``st`` reads anywhere but at the point it
+    writes: at an offset, as a search coordinate or at a found level."""
+    out = set()
     for e in _walk(st.value):
-        bad = ((isinstance(e, FieldAccess) and e.name == st.target
-                and e.offset != (0, 0, 0))
-               or (isinstance(e, FoundLevel) and e.name == st.target)
-               or (isinstance(e, LevelSearch) and e.coord == st.target))
-        if bad:
-            raise NotImplementedError(
-                f"statement {st} reads its own target away from the point "
-                "it writes; one launch cannot order those reads")
+        if isinstance(e, FieldAccess) and e.offset != (0, 0, 0):
+            out.add(e.name)
+        elif isinstance(e, FoundLevel):
+            out.add(e.name)
+        elif isinstance(e, LevelSearch):
+            out.add(e.coord)
+    return out
+
+
+def _check_parallel_hazard(st: Assign) -> None:
+    """Every thread of a K1 launch writes the target while it reads: a read
+    of the target anywhere but the thread's own point is a race."""
+    if st.target in _away_reads(st):
+        raise NotImplementedError(
+            f"statement {st} reads its own target away from the point "
+            "it writes; one launch cannot order those reads")
+
+
+def parallel_groups(statements) -> list[list[Assign]]:
+    """Consecutive PARALLEL statements cut into K1 launches: a thread runs
+    a launch's statements in order at its points, so a statement joins the
+    open launch unless it reads an earlier member's target away from the
+    point, or writes a field or temporary that an earlier member read away
+    from the point (either would see another thread mid-launch)."""
+    groups: list[list[Assign]] = []
+    written: set[str] = set()
+    away: set[str] = set()
+    for st in statements:
+        _check_parallel_hazard(st)
+        reads = _away_reads(st)
+        if not groups or reads & written or st.target in away:
+            groups.append([])
+            written, away = set(), set()
+        groups[-1].append(st)
+        written.add(st.target)
+        away |= reads
+    return groups
 
 
 def _check_column_hazard(comp: Computation | Stencil) -> None:
@@ -259,6 +359,37 @@ def _check_column_hazard(comp: Computation | Stencil) -> None:
                     "columns would not be independent")
 
 
+def march_levels(cwin: torch.Tensor, target: torch.Tensor, lo: int,
+                 hi: int) -> torch.Tensor:
+    """K3's plain version: per point, the last layer ``s`` in ``(lo, hi)``
+    with ``cwin[s] <= target``, else ``lo`` — the reference's marching rule
+    (``_march_search``), right on any column (no order assumed; a NaN
+    compares false and is never taken).  On a monotone column it picks the
+    layer the plain lowering's bisection picks (``bisect_levels``, whose
+    signature it shares)."""
+    shape = torch.broadcast_shapes(
+        target.shape, cwin.shape[:-3] + (1,) + cwin.shape[-2:])
+    lvl = torch.full(shape, lo, dtype=torch.int64, device=cwin.device)
+    kc = cwin.shape[-3]
+    for s in range(lo + 1, hi):
+        k = min(max(s, 0), kc - 1)
+        lvl = torch.where(cwin[..., k:k + 1, :, :] <= target, s, lvl)
+    return lvl
+
+
+@contextlib.contextmanager
+def marching_plain():
+    """While the block runs, the plain lowering searches by
+    :func:`march_levels` instead of bisection: the plain version of the
+    kernels on columns that are not monotone."""
+    saved = plain.bisect_levels
+    plain.bisect_levels = march_levels
+    try:
+        yield
+    finally:
+        plain.bisect_levels = saved
+
+
 # ---------------------------------------------------------------------------
 # encoding
 # ---------------------------------------------------------------------------
@@ -271,12 +402,12 @@ class Program:
 
     kind: str                     # "horizontal" (K1) | "column" (K2) |
     #                               "kblocked" (K4)
-    ir: Assign | Computation | Stencil
+    ir: Computation | Stencil     # K1: the launch's PARALLEL statements
     prog: list[int]
     consts: list[float]
     stack: int                    # deepest stack the ops reach
     has_search: bool
-    klo: int = 0                  # K1: interval and box
+    klo: int = 0                  # K1: the levels and box of all records
     khi: int = 0
     box: tuple[int, int, int, int] = (0, 0, 0, 0)
     lo: int = 0                   # K2, K4: march
@@ -286,6 +417,8 @@ class Program:
     staged: tuple[int, ...] = ()  # the slots staged in shared memory,
     loaded: tuple[int, ...] = ()  # those of them loaded from memory,
     carried: tuple[int, ...] = ()  # the slots carried from slab to slab
+    kept: tuple[str, ...] = ()    # K1: temporaries held on the stack
+    #                               and never stored
 
     @property
     def empty(self) -> bool:
@@ -294,32 +427,41 @@ class Program:
             return self.hi <= self.lo or j1 <= j0 or i1 <= i0
         return self.khi <= self.klo or j1 <= j0 or i1 <= i0
 
-    def work(self) -> list[tuple[int, int, int]]:
-        """Per statement record: the points it writes per tile (levels x
-        rows x columns of its box), and the ops and field loads the
-        interpreter executes at one point (a level search counts one load
-        per layer it marches and one per ``at_found`` read)."""
+    @property
+    def strip(self) -> int:
+        """Levels of a column each op is evaluated for at once."""
+        return STRIP if self.kind == "horizontal" else 1
+
+    def records(self) -> list[list[int]]:
+        """Per statement: target klo khi j0 j1 i0 i1 op_begin op_end."""
         code = self.prog
+        return [code[1 + REC_INTS * q:1 + REC_INTS * (q + 1)]
+                for q in range(code[0])]
+
+    def work(self) -> list[tuple[int, int, int, int, int]]:
+        """Per statement record: the points it writes per tile (levels x
+        rows x columns of its box); the ops, field loads and distinct
+        ``(slot, di, dj, dk)`` loads the interpreter executes at one point
+        (a level search counts the layers it may march, shared by the
+        points of a strip, and its ``at_found`` reads); and 1 if it stores,
+        0 if its value stays on the stack."""
         out = []
-        for q in range(code[0]):
-            _, klo, khi, j0, j1, i0, i1, pc, end = \
-                code[1 + REC_INTS * q:1 + REC_INTS * (q + 1)]
-            ops = loads = 0
-            while pc < end:
-                op = code[pc]
-                pc += 1
+        for _, klo, khi, j0, j1, i0, i1, pc, end in self.records():
+            ops = loads = stores = 0
+            keys = set()
+            for op, _, src, sargs, args in decode(self.prog, pc, end):
+                if op == OP_STORE:
+                    stores += 1
+                    continue
                 ops += 1
-                if op == OP_LOAD:
-                    pc += 4
+                if src == SRC_LOAD or op == OP_FLOAD:
                     loads += 1
-                elif op in (OP_CONST, OP_PARAM, OP_FOUND):
-                    pc += 1
+                    keys.add((op == OP_FLOAD,) + sargs + args)
                 elif op == OP_SEARCH:
-                    lo, hi, nf = code[pc + 1:pc + 4]
-                    pc += 4 + 4 * nf
-                    loads += max(0, hi - lo - 1) + nf
+                    loads += math.ceil(max(0, args[2] - args[1] - 1)
+                                       / self.strip)
             out.append((max(0, khi - klo) * max(0, j1 - j0)
-                        * max(0, i1 - i0), ops, loads))
+                        * max(0, i1 - i0), ops, loads, len(keys), stores))
         return out
 
 
@@ -391,7 +533,17 @@ def slot_names(stencil: Stencil) -> list[str]:
 
 
 class Encoder:
-    """Encodes the statements of one stencil against its slot table."""
+    """Encodes the statements of one stencil against its slot table.
+
+    Each statement becomes a record (target, interval, box, op range) and
+    postfix ops whose op words carry the stack depth.  A binary op whose
+    second operand is a leaf (a load, a constant, a parameter, a found
+    value or a kept temporary) takes it as its source instead of a push.
+    The encoder orders each operation's operands to keep the stack shallow
+    (the deeper one first; a binary op whose right operand went first takes
+    its reversed form, computing the same value), and in a K1 launch leaves
+    a temporary that only later statements of the launch read, at their
+    own points inside its box, on the stack instead of storing it."""
 
     def __init__(self, stencil: Stencil, dom: DomainSpec):
         self.stencil = stencil
@@ -407,6 +559,7 @@ class Encoder:
         self.params = {p: i for i, p in enumerate(stencil.params)}
         h = dom.halo
         self.jp, self.ip = dom.nj + 2 * h, dom.ni + 2 * h
+        self._needs: dict[int, int] = {}
 
     # -- geometry -------------------------------------------------------------
     def window(self) -> tuple[int, int, int, int]:
@@ -423,6 +576,10 @@ class Encoder:
             i0, i1 = max(i0, h + ilo), min(i1, h + ihi)
         return (j0, j1, i0, i1)
 
+    def levels(self, st: Assign) -> tuple[int, int]:
+        return st.interval.resolve(
+            self.stencil.k_extent_of(st.target, self.dom.nk))
+
     def _check_reach(self, name: str, di: int, dj: int) -> None:
         j0, j1, i0, i1 = self.window()
         if j0 + dj < 0 or j1 + dj > self.jp or i0 + di < 0 or i1 + di > self.ip:
@@ -430,9 +587,57 @@ class Encoder:
                 f"{self.stencil.name}: read of {name!r} at offset {(di, dj)} "
                 "reaches outside the allocation; widen the halo")
 
+    def _check_temp(self, name: str, di: int, dj: int, what: str) -> None:
+        if (di, dj) != (0, 0) and name in self.temps:
+            raise NotImplementedError(
+                f"{self.stencil.name}: temporary {name!r} is read at "
+                f"horizontal offset {(di, dj)}{what}, but a launch computes "
+                "it on its own write window only and its definition "
+                "cannot be inlined at that offset")
+
     # -- expressions ------------------------------------------------------------
-    def _push(self) -> None:
-        self._sp += 1
+    @staticmethod
+    def _is_leaf(e: Expr) -> bool:
+        return isinstance(e, (ParamRef, FieldAccess, FoundLevel)) or \
+            plain.fold_const(e) is not None
+
+    def _order(self, a: Expr, b: Expr) -> tuple[bool, int]:
+        """Whether to evaluate ``a`` before ``b``, and the stack it takes:
+        the second one fuses into the op when it is a leaf, else it is
+        pushed above the first."""
+        na, nb = self._need(a), self._need(b)
+        a_first = max(na, nb + (not self._is_leaf(b)))
+        b_first = max(nb, na + (not self._is_leaf(a)))
+        return (True, a_first) if a_first <= b_first else (False, b_first)
+
+    def _need(self, e: Expr) -> int:
+        """Stack entries that evaluating ``e`` takes, operands ordered as
+        :meth:`_expr` orders them."""
+        got = self._needs.get(id(e))
+        if got is not None:
+            return got
+        if self._is_leaf(e):
+            n = 1
+        elif isinstance(e, LevelSearch):
+            n = max(self._need(e.target),
+                    len(e.found_levels()) + self._need(e.body))
+        else:
+            ch = e.children()
+            if len(ch) == 1:
+                n = self._need(ch[0])
+            elif len(ch) == 2:
+                n = self._order(*ch)[1]
+            else:  # where: condition, then a, then b
+                n = max(self._need(c) + i for i, c in enumerate(ch))
+        self._needs[id(e)] = n
+        return n
+
+    def _emit(self, op: int, *operands: int, src: tuple = (0,)) -> None:
+        """One op word (``src``: the source and its operand words), then
+        the op's operands."""
+        self._ops += [src[0] << SRC_SHIFT | op * OPW | self._sp, *src[1:],
+                      *operands]
+        self._sp += stack_effect(op, src[0], operands)
         self._max = max(self._max, self._sp)
 
     def _const(self, v) -> int:
@@ -445,93 +650,112 @@ class Encoder:
             self._consts.append(v)
         return self._cidx[key]
 
-    def _expr(self, e: Expr, found: dict | None) -> None:
+    def _load_key(self, e: FieldAccess) -> tuple[int, int, int, int]:
+        di, dj, dk = e.offset
+        self._check_reach(e.name, di, dj)
+        self._check_temp(e.name, di, dj, "")
+        return (self.slots[e.name], di, dj, dk)
+
+    def _source(self, e: Expr, found: dict | None) -> tuple:
+        """A leaf as a source: (kind, operand words...)."""
         v = plain.fold_const(e)
         if v is not None:
-            self._ops += [OP_CONST, self._const(v)]
-            self._push()
-            return
+            return (SRC_CONST, self._const(v))
         if isinstance(e, ParamRef):
-            self._ops += [OP_PARAM, self.params[e.name]]
-            self._push()
-        elif isinstance(e, FieldAccess):
-            di, dj, dk = e.offset
-            self._check_reach(e.name, di, dj)
-            if (di, dj) != (0, 0) and e.name in self.temps:
-                raise NotImplementedError(
-                    f"{self.stencil.name}: temporary {e.name!r} is read at "
-                    f"horizontal offset {(di, dj)}, but a launch computes "
-                    "it on its own write window only and its definition "
-                    "cannot be inlined at that offset")
-            self._ops += [OP_LOAD, self.slots[e.name], di, dj, dk]
-            self._push()
-        elif isinstance(e, FoundLevel):
+            return (SRC_PARAM, self.params[e.name])
+        if isinstance(e, FoundLevel):
             if found is None:
                 raise TypeError("FoundLevel outside a LevelSearch body")
-            self._ops += [OP_FOUND, found[e]]
-            self._push()
+            return (SRC_PICK, found[e])
+        key = self._load_key(e)
+        if key in self._held:
+            return (SRC_PICK, self._held[key])
+        return (SRC_LOAD, *key)
+
+    def _expr(self, e: Expr, found: dict | None) -> None:
+        if self._is_leaf(e):
+            self._emit(OP_PUSH, src=self._source(e, found))
         elif isinstance(e, LevelSearch):
             self._search(e)
         elif isinstance(e, (BinOp, Min, Max, Pow)):
-            self._expr(e.children()[0], found)
-            self._expr(e.children()[1], found)
+            a, b = e.children()
             op = (BINARY_OPS[e.op] if isinstance(e, BinOp) else
                   OP_MIN if isinstance(e, Min) else
                   OP_MAX if isinstance(e, Max) else OP_POW)
-            self._ops.append(op)
-            self._sp -= 1
+            a_first = self._order(a, b)[0]
+            first, second = (a, b) if a_first else (b, a)
+            op = op if a_first else REVERSED[op]
+            self._expr(first, found)
+            if self._is_leaf(second):
+                self._emit(op, src=self._source(second, found))
+            else:
+                self._expr(second, found)
+                self._emit(op)
         elif isinstance(e, UnaryOp):
             self._expr(e.a, found)
-            self._ops.append(UNARY_OPS[e.op])
+            self._emit(UNARY_OPS[e.op])
         elif isinstance(e, Where):
             for c in e.children():
                 self._expr(c, found)
-            self._ops.append(OP_WHERE)
-            self._sp -= 2
+            self._emit(OP_WHERE)
         else:
             raise TypeError(f"cannot encode {e!r}")
 
     def _search(self, e: LevelSearch) -> None:
+        """The target, ``SEARCH`` (which pops it), each ``at_found`` value
+        loaded once onto the stack, the body reading them with ``PICK``,
+        and ``DROP`` leaving the body's value in their place."""
         self._expr(e.target, None)
         finds = e.found_levels()
-        if len(finds) > FOUND_MAX:
-            raise ValueError(f"{self.stencil.name}: more than {FOUND_MAX} "
-                             "at_found reads in one search")
         lo, hi = e.resolve_bounds(self.dom.nk)
-        self._ops += [OP_SEARCH, self.slots[e.coord], lo, hi, len(finds)]
+        self._emit(OP_SEARCH, self.slots[e.coord], lo, hi)
+        found = {}
         for fl in finds:
             self._check_reach(fl.name, fl.di, fl.dj)
-            if (fl.di, fl.dj) != (0, 0) and fl.name in self.temps:
-                raise NotImplementedError(
-                    f"{self.stencil.name}: temporary {fl.name!r} is read at "
-                    f"horizontal offset {(fl.di, fl.dj)} by a level search")
-            self._ops += [self.slots[fl.name], fl.di, fl.dj, fl.dk]
-        self._sp -= 1  # the target
+            self._check_temp(fl.name, fl.di, fl.dj, " by a level search")
+            found[fl] = self._sp
+            self._emit(OP_FLOAD, self.slots[fl.name], fl.di, fl.dj, fl.dk)
         self._has_search = True
-        self._expr(e.body, {fl: n for n, fl in enumerate(finds)})
+        self._expr(e.body, found)
+        if finds:
+            self._emit(OP_DROP, len(finds))
+
+    def _statement(self, st: Assign, store: bool) -> list[int]:
+        """The ops of one statement, from the current stack depth: the
+        value, then its store (``store``) or ``KEEP`` (it stays)."""
+        self._ops = []
+        self._expr(st.value, None)
+        if store:
+            self._emit(OP_STORE, self.slots[st.target])
+        else:
+            self._emit(OP_KEEP)
+        return self._ops
 
     # -- launches -----------------------------------------------------------------
-    def _encode(self, statements) -> tuple[list[int], list[float], int, bool]:
-        """Records + ops of ``statements`` (each with its box and interval)."""
+    def _encode(self, statements, keep=frozenset()):
+        """Records + ops of ``statements`` (each with its box and interval);
+        the statements in ``keep`` (by index) leave their value on the
+        stack for the later ones, which read their target with ``PICK``."""
         self._consts: list[float] = []
         self._cidx: dict = {}
         self._max = 0
+        self._sp = 0
+        self._held: dict = {}
         self._has_search = False
         header = [len(statements)]
         body: list[int] = []
         base = 1 + REC_INTS * len(statements)
-        for st in statements:
-            self._ops: list[int] = []
-            self._sp = 0
-            self._expr(st.value, None)
-            if self._sp != 1:
+        for q, st in enumerate(statements):
+            depth = self._sp
+            ops = self._statement(st, q not in keep)
+            if self._sp != depth + (q in keep):
                 raise AssertionError(f"unbalanced stack encoding {st}")
-            klo, khi = st.interval.resolve(
-                self.stencil.k_extent_of(st.target, self.dom.nk))
+            if q in keep:
+                self._held[(self.slots[st.target], 0, 0, 0)] = depth
             begin = base + len(body)
-            body += self._ops
-            header += [self.slots[st.target], klo, khi, *self.box(st),
-                       begin, base + len(body)]
+            body += ops
+            header += [self.slots[st.target], *self.levels(st),
+                       *self.box(st), begin, base + len(body)]
         if self._max > STACK_MAX:
             raise ValueError(
                 f"{self.stencil.name}: expression needs a stack of "
@@ -542,26 +766,71 @@ class Encoder:
                              f"ints exceeds the kernels' {PROG_MAX}")
         return prog, list(self._consts), self._max, self._has_search
 
-    def parallel(self, st: Assign) -> Program:
-        _check_parallel_hazard(st)
-        prog, consts, depth, search = self._encode([st])
-        klo, khi = st.interval.resolve(
-            self.stencil.k_extent_of(st.target, self.dom.nk))
-        return Program("horizontal", st, prog, consts, depth, search,
-                       klo=klo, khi=khi, box=self.box(st))
+    def _keep(self, group: list[Assign]) -> set[int]:
+        """The members of a K1 launch whose value can stay on the stack: a
+        temporary defined once in the stencil and read only by later
+        members, each inside its box and levels (the group already reads
+        it only at the point), while every later member still has room on
+        the stack above the kept values."""
+        stmts = [s for c in self.stencil.computations for s in c.statements]
+        boxes = [self.box(s) for s in group]
+        spans = [self.levels(s) for s in group]
+        needs = [self._need(s.value) for s in group]
+
+        def reads(s: Assign, t: str) -> bool:
+            return t in {x.name for x in s.value.accesses()}
+
+        def inside(q: int, a: int) -> bool:
+            (j0, j1, i0, i1), (lo, hi) = boxes[a], spans[a]
+            qj0, qj1, qi0, qi1 = boxes[q]
+            return (lo <= spans[q][0] and spans[q][1] <= hi and j0 <= qj0
+                    and qj1 <= j1 and i0 <= qi0 and qi1 <= i1)
+
+        keep: set[int] = set()
+        for a, st in enumerate(group):
+            t = st.target
+            if t not in self.temps or sum(s.target == t for s in stmts) != 1:
+                continue
+            readers = [q for q, s in enumerate(group) if reads(s, t)]
+            if (readers and min(readers) > a
+                    and sum(reads(s, t) for s in stmts) == len(readers)
+                    and all(inside(q, a) for q in readers)
+                    and all(len(keep) + 1 + needs[q] <= STACK_MAX
+                            for q in range(a + 1, len(group)))):
+                keep.add(a)
+        return keep
+
+    def parallel(self, group: list[Assign]) -> Program:
+        """One K1 launch over consecutive PARALLEL statements (a group of
+        :func:`parallel_groups`): the records whose box and levels are not
+        empty, in order."""
+        live = []
+        for st in group:
+            (j0, j1, i0, i1), (lo, hi) = self.box(st), self.levels(st)
+            if hi > lo and j1 > j0 and i1 > i0:
+                live.append(st)
+        keep = self._keep(live)
+        prog, consts, depth, search = self._encode(live, keep)
+        boxes = [self.box(st) for st in live] or [(0, 0, 0, 0)]
+        spans = [self.levels(st) for st in live] or [(0, 0)]
+        return Program("horizontal", Computation(Direction.PARALLEL,
+                                                 tuple(group)),
+                       prog, consts, depth, search,
+                       klo=min(s[0] for s in spans),
+                       khi=max(s[1] for s in spans),
+                       box=(min(b[0] for b in boxes), max(b[1] for b in boxes),
+                            min(b[2] for b in boxes), max(b[3] for b in boxes)),
+                       kept=tuple(live[q].target for q in sorted(keep)))
 
     def column(self, comp: Computation) -> Program:
         _check_column_hazard(comp)
         prog, consts, depth, search = self._encode(comp.statements)
-        bounds = [st.interval.resolve(
-            self.stencil.k_extent_of(st.target, self.dom.nk))
-            for st in comp.statements]
+        bounds = [self.levels(st) for st in comp.statements]
         return Program("column", comp, prog, consts, depth, search,
                        box=self.window(),
                        lo=min(b[0] for b in bounds),
                        hi=max(b[1] for b in bounds),
                        forward=comp.direction is Direction.FORWARD)
-
 
     def kblocked(self, block_k: int) -> Program:
         """The whole solver stencil as one K4 launch: every statement of
@@ -602,19 +871,23 @@ def encode_stencil(stencil: Stencil, dom: DomainSpec,
                    schedule: Schedule | None = None) -> list[Program]:
     """The launches of one stencil call, in order: a vertical solver whose
     ``schedule`` K-blocks it (``kblocked_applies``) is one K4 launch;
-    otherwise each PARALLEL statement is one K1 launch and each
-    FORWARD/BACKWARD computation one K2 launch."""
+    otherwise each run of consecutive PARALLEL statements is cut into K1
+    launches by :func:`parallel_groups`, and each FORWARD/BACKWARD
+    computation is one K2 launch."""
     enc = Encoder(stencil, dom)
     if (stencil.is_vertical_solver() and schedule is not None
             and kblocked_applies(stencil, schedule, dom.nk, scratch=True)):
         return [enc.kblocked(schedule.block_k)]
-    out = []
+    out: list[Program] = []
+    run: list[Assign] = []
     for comp in stencil.computations:
         if comp.direction is Direction.PARALLEL:
-            out += [enc.parallel(st) for st in comp.statements]
-        else:
-            out.append(enc.column(comp))
-    return out
+            run += comp.statements
+            continue
+        out += [enc.parallel(g) for g in parallel_groups(run)]
+        run = []
+        out.append(enc.column(comp))
+    return out + [enc.parallel(g) for g in parallel_groups(run)]
 
 
 # ---------------------------------------------------------------------------
@@ -695,10 +968,10 @@ def bind_library(path: Path | str) -> ctypes.CDLL:
     if got != ctypes.sizeof(LaunchArgs):
         raise RuntimeError(f"LaunchArgs is {got} bytes in the library but "
                            f"{ctypes.sizeof(LaunchArgs)} in cuda.py")
-    limits = (ctypes.c_int * 7)()
+    limits = (ctypes.c_int * 8)()
     lib.stencil_limits(limits)
-    want = (MAX_SLOTS, MAX_PARAMS, PROG_MAX, CONST_MAX, STACK_MAX, FOUND_MAX,
-            REC_INTS)
+    want = (MAX_SLOTS, MAX_PARAMS, PROG_MAX, CONST_MAX, STACK_MAX, REC_INTS,
+            OPW, STRIP)
     if tuple(limits) != want:
         raise RuntimeError(f"kernel limits {tuple(limits)} disagree with "
                            f"cuda.py's {want}")
@@ -716,6 +989,21 @@ def load_library() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+
+
+#: K1 threads a launch aims at: a thread walks a column's levels in
+#: strips, and the column is cut into K spans until the launch has this
+#: many threads, enough to fill 132 SMs several times over
+K1_THREADS = 1 << 20
+
+
+def k1_span(p: Program, columns_per_plane: int) -> int:
+    """Levels of a column one K1 thread walks: a multiple of the strip."""
+    j0, j1, i0, i1 = p.box
+    columns = max(1, columns_per_plane * (j1 - j0) * (i1 - i0))
+    strips = -(-(p.khi - p.klo) // p.strip)
+    cuts = min(strips, max(1, -(-K1_THREADS // columns)))
+    return p.strip * -(-strips // cuts)
 
 
 def _member_stride(name: str, x: torch.Tensor, members: bool) -> int:
@@ -817,12 +1105,30 @@ class CudaStencil:
                 raise ValueError(f"{self.stencil.name}: field {f!r} must be "
                                  "float32")
         params = dict(params or {})
-        env = plain.prepare_env(self.stencil, self.dom, fields,
-                                torch.float32)
+        env = self._env(fields)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             self.launch(env, params, load_library(), stream)
         return {w: env[w] for w in self.written}
+
+    def _env(self, fields: Mapping[str, torch.Tensor]) -> dict:
+        """The launches' working set, as the plain version's
+        (``prepare_env``), except that a temporary every launch keeps on
+        the stack is never allocated: its slot points at one element that
+        no load or store reaches."""
+        kept = {t for p in self.programs for t in p.kept}
+        env = {f: fields[f] for f in self.stencil.fields}
+        for w in self.stencil.written():
+            if w in env:
+                env[w] = env[w].clone()
+        some = env[self.stencil.fields[0]]
+        lead = tuple(some.shape[:-3])
+        for t in self.stencil.temporaries():
+            shape = (lead + (1, 1, 1) if t in kept else lead +
+                     self.dom.padded_shape(self.stencil.is_interface(t)))
+            env[t] = (torch.empty if t in kept else torch.zeros)(
+                shape, dtype=torch.float32, device=some.device)
+        return env
 
     def _device_programs(self, device: torch.device) -> list:
         progs = self._uploaded.get(device)
@@ -870,8 +1176,11 @@ class CudaStencil:
             args.prog, args.consts = prog.data_ptr(), consts.data_ptr()
             args.n_prog, args.n_consts = len(p.prog), len(p.consts)
             args.j0, args.j1, args.i0, args.i1 = p.box
+            args.depth = max(1, p.stack)
             if p.kind == "horizontal":
                 args.klo, args.khi = p.klo, p.khi
+                args.kspan = k1_span(p, args.nmember // args.mchunk
+                                     * args.ntile)
                 rc = lib.launch_stencil_parallel(ctypes.byref(args), stream)
             elif p.kind == "kblocked":
                 self._kblocked_args(args, p)

@@ -3,9 +3,9 @@
 Two rewrites greedy fusion cannot express, both value-preserving by the
 same argument that makes fusion value-preserving: every backend lowers a
 run of PARALLEL computations by executing their statements *flat, in
-order* (the CUDA backend launches one kernel per PARALLEL statement in
-order; the plain torch lowering and the column kernel walk computations
-sequentially), so rewrites that only re-group statements or name repeated
+order* (the CUDA backend runs each group of PARALLEL statements in order
+at every point; the plain torch lowering and the column kernel walk
+computations sequentially), so rewrites that only re-group statements or name repeated
 subexpressions leave the per-point FP operation sequence intact.
 
  * :class:`StencilCombine` — the xdsl ``stencil-combine`` motif: merge

@@ -2,9 +2,10 @@
 //
 // One source serves every stencil of the FV3-lite step, fused or not: the
 // kernels do not contain any stencil, they interpret it.  The Python encoder
-// (repro_torch/core/backend/cuda.py) turns each IR statement into a small
-// postfix program of int32 ops plus a float32 constant table; a launch gets
-// that program, the field table (pointer and K extent per slot), the scalar
+// (repro_torch/core/backend/cuda.py) turns each IR statement into a record
+// (target, levels, box) and a postfix stream of int32 op words plus a
+// float32 constant table; a launch gets the records and the stream, the
+// field table (pointer, member stride and K extent per slot), the scalar
 // parameters and the geometry of its iteration space.
 //
 // Four kernels replace the four Pallas kernels of the reference's path
@@ -20,41 +21,67 @@
 //                               _member_specs (:207-229)
 //
 // A fused node (opt 2 and up) is one stencil with many computations; the
-// wrapper launches K1 once per PARALLEL statement and K2 once per solver
-// computation, in order, so launch order keeps it right.
+// wrapper launches K1 once per group of consecutive PARALLEL statements
+// (cuda.parallel_groups) and K2 once per solver computation, in order.
+//
+// The interpreter.  An op word is src << 11 | op << 5 | depth, where depth,
+// the number of values on the stack before the op, is fixed when the
+// stream is encoded.  The top of the stack lives in registers, ``acc[P]``
+// for the P points a thread evaluates at once; the entries below it live
+// in shared memory, [depth][P][thread] (each warp access conflict-free),
+// addressed by the depth.  So one switch over ~35 opcodes decodes an op:
+// a switch over (op, depth) pairs, which would keep the whole stack in
+// registers, compiles to a ~10-level tree of compares and branches (nvcc
+// builds no jump table that large) and cost more than the stack traffic.
+// A push or a binary op names its operand's source in the word (a load, a
+// constant, a parameter, a stack entry), so ``x op leaf`` is one dispatch
+// with no stack traffic; the encoder orders each operation's operands to
+// keep the stack shallow (the deeper first; the reversed op when the
+// right one went first) and every op computes what the plain version
+// computes, so results stay bit for bit.
 //
 // What bounds them on an H100, and what the design does about it:
 //
-// * K1 runs one thread per (tile, k, j, i) point of ONE statement's write
-//   window.  A stencil statement reads a handful of f32 words per point and
-//   writes one, so its floor is device-memory bandwidth (3.35 TB/s); the
-//   interpreter adds decode work per op (a switch over the opcode, a stack
-//   in local memory) which at opt 0 makes it bound by instruction issue
-//   instead.  Neighbouring threads take neighbouring i, so every LOAD and
-//   the store coalesce; the program, constants and field table are staged
-//   in shared memory once per block, so decoding reads no device memory.
+// * K1 runs a group of statements: one thread per (tile, K span, j, i)
+//   walks its column's levels in strips of P = 8 and runs every record of
+//   the group on each strip, in order, each masked by its levels and box.
+//   A statement joins the group unless it reads an earlier member's target
+//   away from the point or writes what an earlier member read away from
+//   the point, so no thread sees another mid-launch; a temporary that only
+//   later members read, inside its box, stays on the stack (``KEEP``) and
+//   is never stored.  A stencil statement reads a handful of f32 words per
+//   point and writes one, so the floor is device-memory bandwidth (3.35
+//   TB/s); the interpreter is bound by issuing its instructions (a decode
+//   and ~P arithmetic instructions per op) and by shared-memory traffic,
+//   which the strip amortises over P points and the sources cut.
+//   Neighbouring threads take neighbouring i, so loads and stores coalesce;
+//   the records, stream, constants and field table are staged in shared
+//   memory once per CTA, each CTA's threads walk K spans of several strips,
+//   and the launch is cut into enough spans (cuda.k1_span) to fill the SMs.
 //   Pallas holds the whole IJ plane in one block and runs a stencil's
 //   statements in order inside it; blocks of a CUDA grid run in no order,
-//   so the wrapper launches K1 once per statement and the launch boundary
-//   orders the statements.
+//   so a launch boundary orders what the group rule cuts apart.
 // * K2 runs one thread per (tile, j, i) column and marches k over [lo, hi)
 //   forward or backward, evaluating the computation's statements in order
-//   at each level and re-reading earlier levels from memory (opt 0's
-//   memory-backed carry, as the reference's jnp oracle).  Columns are
-//   independent (the encoder refuses horizontal-offset reads of fields the
-//   computation writes), so no synchronisation is needed.  It is bound by
-//   the sequential K chain per thread and by occupancy: a C192 tile set has
-//   6*204*204 columns, about 1900 warps over 132 SMs.
-// * K3 is the `index_search` level search: one march over the source
-//   layers of the coordinate column, keeping the last layer whose lower
-//   coordinate does not exceed the target.  It tracks the layer index and
-//   loads the at_found values once at the end, which selects the same
-//   values as the reference's select-per-layer accumulation.  O(nk) loads
-//   per point; the column stays in L1/L2 for the neighbouring k threads.
+//   at each level (the same interpreter, one point at a time) and
+//   re-reading earlier levels from memory (opt 0's memory-backed carry, as
+//   the reference's jnp oracle).  Columns are independent (the encoder
+//   refuses horizontal-offset reads of fields the computation writes), so
+//   no synchronisation is needed.  It is bound by the sequential K chain
+//   per thread and by occupancy: a C192 tile set has 6*204*204 columns,
+//   about 1900 warps over 132 SMs.
+// * K3 is the `index_search` level search, for the P points of a strip at
+//   once: they share the column, so it is read once for all of them, from
+//   the top layer down, 8 layers a load batch, until every point has the
+//   last layer whose coordinate does not exceed its target; a batch whose
+//   least coordinate exceeds every open target is passed over.  This is
+//   the reference's marching rule on any column (no order assumed, a NaN
+//   never taken), not a bisection.  The at_found values are read once, at
+//   the end, onto the stack.
 // * K5, the ensemble member axis.  Pallas puts members on the outermost
 //   sequential grid axis, one member (or one C-member chunk) per step.
 //   Here a launch covers nmember members: K1 runs one thread per (member
-//   chunk, tile, k, j, i) and K2 one per (member chunk, tile, j, i)
+//   chunk, tile, K span, j, i) and K2 one per (member chunk, tile, j, i)
 //   column, and each thread loops over the mchunk members of its chunk
 //   (mchunk = 1 under "grid", C under "vmap:C,grid"); K2 runs the march
 //   again from lo for each member, so the carry resets per member.  A
@@ -63,10 +90,9 @@
 //   tensor reaches the kernel without M copies.  The launch count of a
 //   step does not change with M.  The work per member is K1/K2's, so the
 //   bound and the cost scale with M; a chunk's members each decode the
-//   program again (sharing that decode is later work).  Both kernels are
-//   templated on kMembers: a launch over one member (the sequential step)
-//   takes the instance without the member offset and the chunk loop, so
-//   the member axis costs that path nothing.
+//   program again.  Both kernels are templated on kMembers: a launch over
+//   one member (the sequential step) takes the instance without the member
+//   offset and the chunk loop, so the member axis costs that path nothing.
 // * K4 runs a single-direction solver under a K-blocked schedule
 //   (block_k < nk, block_k | nk): all statements of all computations
 //   interleaved per level, in marching order, as the reference's K-blocked
@@ -88,8 +114,9 @@
 //   memory; the encoder refuses them for any slot the stencil writes, so
 //   columns stay independent.  Bound: device-memory bytes (each field whose
 //   old value is read read once, each output written once) like K2; the
-//   slab adds no traffic, so the design aims at K2's time, not below it.  With the same
-//   eval_program it computes every level as K2 does, bit for bit.
+//   slab adds no traffic, so the design aims at K2's time, not below it.
+//   With the same interpreter it computes every level as K2 does, bit for
+//   bit; its stack sits in shared memory after the slab.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (plain C interface, ctypes).
@@ -104,23 +131,42 @@
 #define PROG_MAX 1024
 #define CONST_MAX 256
 #define STACK_MAX 16
-#define FOUND_MAX 8
 #define REC_INTS 9
-#define BLOCK 256
+#define OPW 32                            // op word: op * OPW + depth
+#define BLOCK 256                         // K2
+#define K1_BLOCK 128                      // K1: threads per CTA
+#define K1_STRIP 8                        // K1: levels each op evaluates
 #define KB_BLOCK 128                      // K4: columns per CTA at most
 #define KB_SMEM_BUDGET (200 * 1024)       // K4: dynamic shared memory cap
+#define SMEM_MAX (227 * 1024)             // a CTA's shared memory on sm_90
 
-// opcodes — keep in sync with cuda.py
+// opcodes — keep in sync with cuda.py.  An op word is
+//   src << SRC_SHIFT | op * OPW | depth:
+// the stack depth before the op (the top of the stack is a register,
+// ``acc``, the entries below it sit in shared memory at their depth) and
+// where a push or a binary op takes its operand from.
+#define SRC_SHIFT 11
+enum {            // sources: their operand words follow the op word
+  SRC_LOAD = 1,   // slot di dj dk
+  SRC_CONST = 2,  // index into the constant table
+  SRC_PARAM = 3,  // index into the parameter array
+  SRC_PICK = 4    // j: a copy of stack entry j
+};
 enum {
-  OP_LOAD = 1,    // slot di dj dk
-  OP_CONST = 2,   // index into the constant table
-  OP_PARAM = 3,   // index into the parameter array
-  OP_FOUND = 4,   // index of an at_found value of the enclosing search
-  OP_SEARCH = 5,  // coord lo hi nf (slot di dj dk)*nf ; pops the target
-  OP_NEG = 10, OP_SQRT, OP_ABS, OP_EXP, OP_LOG, OP_SIGN, OP_FLOOR,
-  OP_ADD = 20, OP_SUB, OP_MUL, OP_DIV, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ,
+  OP_PUSH = 0,    // pushes its source
+  OP_FLOAD = 1,   // slot di dj dk: pushes a read at the found level
+  OP_SEARCH = 2,  // coord lo hi ; pops the target, selects the level
+  OP_STORE = 3,   // slot ; pops the value into the slot at the point
+  OP_KEEP = 4,    // the value stays on the stack for a later record
+  OP_DROP = 5,    // n: the top replaces the n entries below it
+  OP_NEG = 8, OP_SQRT, OP_ABS, OP_EXP, OP_LOG, OP_SIGN, OP_FLOOR,
+  // f(a, b): without a source a is the entry below the top and b the top
+  // (both popped); with one, a is the top and b the source
+  OP_ADD = 16, OP_SUB, OP_MUL, OP_DIV, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ,
   OP_NE, OP_MIN, OP_MAX, OP_POW,
-  OP_WHERE = 40   // pops b, a, cond
+  // f(b, a): the IR's right operand was evaluated first
+  OP_RSUB, OP_RDIV, OP_RMIN, OP_RMAX, OP_RPOW,
+  OP_WHERE = 34   // pops b, a, cond
 };
 
 // One launch.  The program buffer starts with the statement records:
@@ -140,8 +186,10 @@ struct LaunchArgs {
   const float* consts;
   int n_prog, n_consts, n_slots, n_params;
   int ntile, jp, ip;
-  int klo, khi;            // K1: the statement's interval
-  int j0, j1, i0, i1;      // K1: statement box; K2: write window
+  int klo, khi;            // K1: the levels of all records
+  int kspan;               // K1: levels per thread, a multiple of K1_STRIP
+  int depth;               // stack entries the ops reach
+  int j0, j1, i0, i1;      // K1: box of all records; K2: write window
   int lo, hi, forward;     // K2: the march
   int nmember, mchunk;     // K5: members, and members per thread
   int bk, n_staged, n_carried, nfield;  // K4: slab depth, slab planes,
@@ -164,39 +212,65 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-__device__ __forceinline__ size_t offset(int t, int K, int k, int jp, int ip,
-                                         int j, int i) {
-  return ((static_cast<size_t>(t) * K + k) * jp + j) * static_cast<size_t>(ip) + i;
-}
-
-// The element of (member m, tile t, k, j, i) in a slot.  Launches over one
-// member take kMembers = false and skip the member offset.
+// The column (member m, tile t, j, i) of a slot: its level k is
+// column[k * jp * ip].
 template <bool kMembers>
-__device__ __forceinline__ float* at(const Shared& s, int slot, int m, int t,
-                                     int k, int jp, int ip, int j, int i) {
-  float* p = s.ptr[slot] + offset(t, s.kext[slot], k, jp, ip, j, i);
+__device__ __forceinline__ float* column(const Shared& s, int slot, int m,
+                                         int t, int jp, int ip, int j,
+                                         int i) {
+  float* p = s.ptr[slot] +
+             (static_cast<size_t>(t) * s.kext[slot] * jp + j) *
+                 static_cast<size_t>(ip) + i;
   return kMembers ? p + m * s.mstride[slot] : p;
 }
 
-// K reads are edge-clamped into the field's extent, as the reference's
-// _k_align (K1) and dynamic_index_in_dim (K2) do.
-template <bool kMembers>
-__device__ __forceinline__ float load(const Shared& s, int slot, int m, int t,
-                                      int k, int jp, int ip, int j, int i) {
-  return *at<kMembers>(s, slot, m, t, clampi(k, 0, s.kext[slot] - 1), jp, ip,
-                       j, i);
-}
-
-// K3: the level search of one point (replaces _march_search).
-template <bool kMembers>
-__device__ int march_search(const Shared& s, int coord, int m, int t, int jp,
-                            int ip, int j, int i, int lo, int hi,
-                            float target) {
-  int found = lo;
-  for (int l = lo + 1; l < hi; ++l) {
-    if (load<kMembers>(s, coord, m, t, l, jp, ip, j, i) <= target) found = l;
+// K3: the level search of P points of one column (replaces _march_search):
+// the last layer l in (lo, hi) with col[l] <= target[p], else lo.  The
+// march runs from the top layer down, SEARCH_CHUNK layers at a time (their
+// loads issued together), and stops once every point has its layer: a
+// column is read once for the P targets of a strip, and a point reads only
+// the layers above its own.  A chunk whose least coordinate exceeds every
+// open target holds no layer for any point and is passed over; the others
+// are tested layer by layer, highest first.  A NaN compares false and is
+// never taken (fminf and fmaxf pass over it too), and no order of the
+// column is assumed.
+#define SEARCH_CHUNK 8
+template <int P>
+__device__ __forceinline__ void march_search(const float* col, int kext,
+                                             size_t plane, int lo, int hi,
+                                             const float (&target)[P],
+                                             int (&lvl)[P]) {
+  const float nan = __int_as_float(0x7fc00000);
+  unsigned open = (1u << P) - 1u;
+  float reach = nan;  // the largest open target
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    lvl[p] = lo;
+    reach = fmaxf(reach, target[p]);
   }
-  return found;
+  for (int top = hi - 1; top > lo && open; top -= SEARCH_CHUNK) {
+    float c[SEARCH_CHUNK], least = nan;
+#pragma unroll
+    for (int u = 0; u < SEARCH_CHUNK; ++u) {
+      c[u] = top - u > lo ? col[clampi(top - u, 0, kext - 1) * plane] : nan;
+      least = fminf(least, c[u]);
+    }
+    if (!(least <= reach)) continue;
+#pragma unroll
+    for (int u = 0; u < SEARCH_CHUNK; ++u) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (((open >> p) & 1u) && c[u] <= target[p]) {
+          lvl[p] = top - u;
+          open &= ~(1u << p);
+        }
+      }
+    }
+    reach = nan;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if ((open >> p) & 1u) reach = fmaxf(reach, target[p]);
+  }
 }
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -211,126 +285,260 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
-// Where a program's LOADs read: device memory at the point (m, t, k, j, i)
-// (K1, K2), edge-clamped in K.
-template <bool kMembers>
-struct GlobalReader {
+// The stack below its top: shared memory, [depth][P][thread].
+template <int P>
+struct Stack {
+  float* base;  // this thread's entry 0 of point 0
+  int nthr;
+  __device__ __forceinline__ float& at(int d, int p) const {
+    return base[(d * P + p) * nthr];
+  }
+};
+
+// K1's reads and writes: a strip of P levels k0 .. k0 + P - 1 of the column
+// (m, t, j, i); K reads edge-clamped into the field's extent, as the
+// reference's _k_align does, and a store masked to the record's levels.
+template <bool kMembers, int P>
+struct StripReader {
   const Shared& s;
-  int m, t, k, j, i, jp, ip;
-  __device__ __forceinline__ float load(int slot, int di, int dj,
-                                        int dk) const {
-    return load_at(slot, k + dk, di, dj);
+  int m, t, j, i, k0, jp, ip;
+  __device__ __forceinline__ float* col(int slot, int di, int dj) const {
+    return column<kMembers>(s, slot, m, t, jp, ip, j + dj, i + di);
   }
-  __device__ __forceinline__ float load_at(int slot, int lvl, int di,
-                                           int dj) const {
-    return ::load<kMembers>(s, slot, m, t, lvl, jp, ip, j + dj, i + di);
-  }
-  __device__ __forceinline__ int search(int coord, int lo, int hi,
-                                        float target) const {
-    return march_search<kMembers>(s, coord, m, t, jp, ip, j, i, lo, hi,
-                                  target);
-  }
-};
-
-// K4's reads: the column's own point from the slab (the current level, or
-// the marching-previous one: the slab's level before, or at the slab's
-// first level the carry), horizontal offsets from device memory.
-template <bool kMembers>
-struct SlabReader {
-  GlobalReader<kMembers> g;
-  const float* slab;
-  const float* carry;
-  int local, bk, nthr, tid;
-  __device__ __forceinline__ float load(int slot, int di, int dj,
-                                        int dk) const {
-    if (di != 0 || dj != 0) return g.load(slot, di, dj, dk);
-    const int lp = local + dk;
-    if (lp >= 0 && lp < bk)
-      return slab[(g.s.sidx[slot] * bk + lp) * nthr + tid];
-    return carry[g.s.cidx[slot]];
-  }
-  __device__ __forceinline__ float load_at(int slot, int lvl, int di,
-                                           int dj) const {
-    return g.load_at(slot, lvl, di, dj);
-  }
-  __device__ __forceinline__ int search(int coord, int lo, int hi,
-                                        float target) const {
-    return g.search(coord, lo, hi, target);
-  }
-};
-
-// Interpret ops [pc, end), reading fields through ``rd``; returns the value.
-template <class Reader>
-__device__ float eval_program(const Shared& s, int pc, int end,
-                              const Reader rd) {
-  float stk[STACK_MAX];
-  float found[FOUND_MAX];
-  int sp = 0;
-  while (pc < end) {
-    const int op = s.prog[pc++];
-    switch (op) {
-      case OP_LOAD: {
-        const int slot = s.prog[pc], di = s.prog[pc + 1];
-        const int dj = s.prog[pc + 2], dk = s.prog[pc + 3];
-        pc += 4;
-        stk[sp++] = rd.load(slot, di, dj, dk);
-        break;
-      }
-      case OP_CONST: stk[sp++] = s.consts[s.prog[pc++]]; break;
-      case OP_PARAM: stk[sp++] = s.params[s.prog[pc++]]; break;
-      case OP_FOUND: stk[sp++] = found[s.prog[pc++]]; break;
-      case OP_SEARCH: {
-        const int coord = s.prog[pc], lo = s.prog[pc + 1];
-        const int hi = s.prog[pc + 2], nf = s.prog[pc + 3];
-        pc += 4;
-        const float target = stk[--sp];
-        const int lvl = rd.search(coord, lo, hi, target);
-        for (int f = 0; f < nf; ++f) {
-          const int slot = s.prog[pc], di = s.prog[pc + 1];
-          const int dj = s.prog[pc + 2], dk = s.prog[pc + 3];
-          pc += 4;
-          found[f] = rd.load_at(slot, lvl + dk, di, dj);
-        }
-        break;
-      }
-      case OP_NEG: stk[sp - 1] = -stk[sp - 1]; break;
-      case OP_SQRT: stk[sp - 1] = sqrtf(stk[sp - 1]); break;
-      case OP_ABS: stk[sp - 1] = fabsf(stk[sp - 1]); break;
-      case OP_EXP: stk[sp - 1] = expf(stk[sp - 1]); break;
-      case OP_LOG: stk[sp - 1] = logf(stk[sp - 1]); break;
-      case OP_SIGN: stk[sp - 1] = sign_of(stk[sp - 1]); break;
-      case OP_FLOOR: stk[sp - 1] = floorf(stk[sp - 1]); break;
-      case OP_WHERE: {
-        const float b = stk[--sp];
-        const float a = stk[--sp];
-        stk[sp - 1] = stk[sp - 1] != 0.f ? a : b;
-        break;
-      }
-      default: {  // binary
-        const float b = stk[--sp];
-        const float a = stk[sp - 1];
-        float r;
-        switch (op) {
-          case OP_ADD: r = a + b; break;
-          case OP_SUB: r = a - b; break;
-          case OP_MUL: r = a * b; break;
-          case OP_DIV: r = a / b; break;
-          case OP_LT: r = a < b ? 1.f : 0.f; break;
-          case OP_LE: r = a <= b ? 1.f : 0.f; break;
-          case OP_GT: r = a > b ? 1.f : 0.f; break;
-          case OP_GE: r = a >= b ? 1.f : 0.f; break;
-          case OP_EQ: r = a == b ? 1.f : 0.f; break;
-          case OP_NE: r = a != b ? 1.f : 0.f; break;
-          case OP_MIN: r = nan_min(a, b); break;
-          case OP_MAX: r = nan_max(a, b); break;
-          case OP_POW: r = powf(a, b); break;
-          default: r = __int_as_float(0x7fc00000); break;  // unknown op: NaN
-        }
-        stk[sp - 1] = r;
-      }
+  __device__ __forceinline__ void load(int slot, int di, int dj, int dk,
+                                       float (&out)[P]) const {
+    const float* c = col(slot, di, dj);
+    const int kext = s.kext[slot], k = k0 + dk, plane = jp * ip;
+    if (k >= 0 && k + P <= kext) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) out[p] = c[(k + p) * plane];
+    } else {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        out[p] = c[clampi(k + p, 0, kext - 1) * plane];
     }
   }
-  return stk[0];
+  __device__ __forceinline__ void load_found(int slot, int di, int dj, int dk,
+                                             const int (&lvl)[P],
+                                             float (&out)[P]) const {
+    const float* c = col(slot, di, dj);
+    const int kext = s.kext[slot], plane = jp * ip;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      out[p] = c[clampi(lvl[p] + dk, 0, kext - 1) * plane];
+  }
+  __device__ __forceinline__ void search(int coord, int lo, int hi,
+                                         const float (&target)[P],
+                                         int (&lvl)[P]) const {
+    march_search<P>(col(coord, 0, 0), s.kext[coord],
+                    static_cast<size_t>(jp) * ip, lo, hi, target, lvl);
+  }
+  __device__ __forceinline__ void store(int slot, const float (&v)[P],
+                                        int klo, int khi) const {
+    float* c = col(slot, 0, 0);
+    const int plane = jp * ip;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (k0 + p >= klo && k0 + p < khi) c[(k0 + p) * plane] = v[p];
+  }
+};
+
+// K2's reads and writes: one point (m, t, k, j, i) of a column march.
+template <bool kMembers>
+struct PointReader {
+  const Shared& s;
+  int m, t, k, j, i, jp, ip;
+  __device__ __forceinline__ float* col(int slot, int di, int dj) const {
+    return column<kMembers>(s, slot, m, t, jp, ip, j + dj, i + di);
+  }
+  __device__ __forceinline__ float at(int slot, int lvl, int di,
+                                      int dj) const {
+    return col(slot, di, dj)[static_cast<size_t>(
+        clampi(lvl, 0, s.kext[slot] - 1)) * jp * ip];
+  }
+  __device__ __forceinline__ void load(int slot, int di, int dj, int dk,
+                                       float (&out)[1]) const {
+    out[0] = at(slot, k + dk, di, dj);
+  }
+  __device__ __forceinline__ void load_found(int slot, int di, int dj, int dk,
+                                             const int (&lvl)[1],
+                                             float (&out)[1]) const {
+    out[0] = at(slot, lvl[0] + dk, di, dj);
+  }
+  __device__ __forceinline__ void search(int coord, int lo, int hi,
+                                         const float (&target)[1],
+                                         int (&lvl)[1]) const {
+    march_search<1>(col(coord, 0, 0), s.kext[coord],
+                    static_cast<size_t>(jp) * ip, lo, hi, target, lvl);
+  }
+  __device__ __forceinline__ void store(int slot, const float (&v)[1], int,
+                                        int) const {
+    col(slot, 0, 0)[static_cast<size_t>(k) * jp * ip] = v[0];
+  }
+};
+
+// K4's reads and writes: the column's own point from the slab (the current
+// level, or the marching-previous one: the slab's level before, or at the
+// slab's first level the carry), horizontal offsets from device memory; a
+// store goes to the slab, and through to device memory for a field.
+template <bool kMembers>
+struct SlabReader {
+  PointReader<kMembers> g;
+  float* slab;
+  const float* carry;
+  int local, bk, nthr, tid, nfield;
+  __device__ __forceinline__ void load(int slot, int di, int dj, int dk,
+                                       float (&out)[1]) const {
+    const int lp = local + dk;
+    if (di != 0 || dj != 0)
+      g.load(slot, di, dj, dk, out);
+    else if (lp >= 0 && lp < bk)
+      out[0] = slab[(g.s.sidx[slot] * bk + lp) * nthr + tid];
+    else
+      out[0] = carry[g.s.cidx[slot]];
+  }
+  __device__ __forceinline__ void load_found(int slot, int di, int dj, int dk,
+                                             const int (&lvl)[1],
+                                             float (&out)[1]) const {
+    g.load_found(slot, di, dj, dk, lvl, out);
+  }
+  __device__ __forceinline__ void search(int coord, int lo, int hi,
+                                         const float (&target)[1],
+                                         int (&lvl)[1]) const {
+    g.search(coord, lo, hi, target, lvl);
+  }
+  __device__ __forceinline__ void store(int slot, const float (&v)[1], int,
+                                        int) const {
+    slab[(g.s.sidx[slot] * bk + local) * nthr + tid] = v[0];
+    if (slot < nfield) g.store(slot, v, 0, 0);
+  }
+};
+
+// -- the interpreter -----------------------------------------------------
+// One switch over the opcode.  An op works on P points at once: the top of
+// the stack is ``acc[P]`` in registers, entry d of point p below it is
+// ``Stack::at(d, p)`` in shared memory, laid out [depth][P][thread] so a
+// warp's accesses fall on 32 banks.  A push writes the old top to its
+// entry; an op that takes the top and the entry below reads that entry
+// from shared memory; a pop reloads the new top.  Between records every
+// entry below the top is in shared memory (``KEEP`` writes a kept value
+// there), so a record skipped by its box or levels leaves the rest right.
+
+#define UNROLL_P _Pragma("unroll") for (int p = 0; p < P; ++p)
+#define BINARY(op, expr)                                                  \
+  case op:                                                                \
+    UNROLL_P {                                                            \
+      const float x = a[p], y = b[p];                                     \
+      acc[p] = (expr);                                                    \
+    }                                                                     \
+    break;
+#define UNARY(op, f)                                                      \
+  case op:                                                                \
+    UNROLL_P acc[p] = f(acc[p]);                                          \
+    break;
+#define NEG_OF(x) (-(x))
+
+// Interpret the ops [pc, end) of one record for the P points of ``rd``;
+// ``lvl`` holds the enclosing search's levels.
+template <int P, class Reader>
+__device__ __forceinline__ void run_ops(const Shared& s, int pc,
+                                        const int end, const Reader& rd,
+                                        const Stack<P>& st, float (&acc)[P],
+                                        int (&lvl)[P], const int klo,
+                                        const int khi) {
+  while (pc < end) {
+    const unsigned w = static_cast<unsigned>(s.prog[pc++]);
+    const int d = w & (OPW - 1), op = (w >> 5) & 63, src = w >> SRC_SHIFT;
+    float b[P];  // the source's values
+    if (src != 0) {
+      const int* arg = s.prog + pc;
+      switch (src) {
+        case SRC_LOAD:
+          rd.load(arg[0], arg[1], arg[2], arg[3], b);
+          pc += 4;
+          break;
+        case SRC_CONST: {
+          const float c = s.consts[arg[0]];
+          UNROLL_P b[p] = c;
+          pc += 1;
+          break;
+        }
+        case SRC_PARAM: {
+          const float c = s.params[arg[0]];
+          UNROLL_P b[p] = c;
+          pc += 1;
+          break;
+        }
+        default:  // SRC_PICK: the top is acc, the entries below in memory
+          if (arg[0] == d - 1) {
+            UNROLL_P b[p] = acc[p];
+          } else {
+            UNROLL_P b[p] = st.at(arg[0], p);
+          }
+          pc += 1;
+      }
+    }
+    const int* arg = s.prog + pc;
+    if (op >= OP_ADD && op <= OP_RPOW) {
+      float a[P];
+      if (src != 0) {
+        UNROLL_P a[p] = acc[p];
+      } else {
+        UNROLL_P {
+          a[p] = st.at(d - 2, p);
+          b[p] = acc[p];
+        }
+      }
+      switch (op) {
+        BINARY(OP_ADD, x + y) BINARY(OP_SUB, x - y) BINARY(OP_MUL, x * y)
+        BINARY(OP_DIV, x / y) BINARY(OP_LT, x < y ? 1.f : 0.f)
+        BINARY(OP_LE, x <= y ? 1.f : 0.f) BINARY(OP_GT, x > y ? 1.f : 0.f)
+        BINARY(OP_GE, x >= y ? 1.f : 0.f) BINARY(OP_EQ, x == y ? 1.f : 0.f)
+        BINARY(OP_NE, x != y ? 1.f : 0.f) BINARY(OP_MIN, nan_min(x, y))
+        BINARY(OP_MAX, nan_max(x, y)) BINARY(OP_POW, powf(x, y))
+        BINARY(OP_RSUB, y - x) BINARY(OP_RDIV, y / x)
+        BINARY(OP_RMIN, nan_min(y, x)) BINARY(OP_RMAX, nan_max(y, x))
+        default:  // OP_RPOW
+          UNROLL_P acc[p] = powf(b[p], a[p]);
+      }
+      continue;
+    }
+    switch (op) {
+      case OP_PUSH:
+        if (d > 0) { UNROLL_P st.at(d - 1, p) = acc[p]; }
+        UNROLL_P acc[p] = b[p];
+        break;
+      case OP_FLOAD:
+        if (d > 0) { UNROLL_P st.at(d - 1, p) = acc[p]; }
+        rd.load_found(arg[0], arg[1], arg[2], arg[3], lvl, acc);
+        pc += 4;
+        break;
+      case OP_SEARCH:
+        rd.search(arg[0], arg[1], arg[2], acc, lvl);
+        if (d >= 2) { UNROLL_P acc[p] = st.at(d - 2, p); }
+        pc += 3;
+        break;
+      case OP_STORE:
+        rd.store(arg[0], acc, klo, khi);
+        if (d >= 2) { UNROLL_P acc[p] = st.at(d - 2, p); }
+        pc += 1;
+        break;
+      case OP_KEEP:
+        UNROLL_P st.at(d - 1, p) = acc[p];
+        break;
+      case OP_DROP:  // the top stays in acc: nothing moves
+        pc += 1;
+        break;
+      UNARY(OP_NEG, NEG_OF) UNARY(OP_SQRT, sqrtf) UNARY(OP_ABS, fabsf)
+      UNARY(OP_EXP, expf) UNARY(OP_LOG, logf) UNARY(OP_SIGN, sign_of)
+      UNARY(OP_FLOOR, floorf)
+      case OP_WHERE:
+        UNROLL_P acc[p] = st.at(d - 3, p) != 0.f ? st.at(d - 2, p) : acc[p];
+        break;
+      default:
+        __trap();  // a word the encoder never writes
+    }
+  }
 }
 
 __device__ void stage(Shared& s, const LaunchArgs& a) {
@@ -348,28 +556,53 @@ __device__ void stage(Shared& s, const LaunchArgs& a) {
   __syncthreads();
 }
 
-// K1: one statement of a PARALLEL computation (replaces _horizontal_kernel).
-template <bool kMembers>
-__global__ void __launch_bounds__(BLOCK) stencil_parallel_kernel(LaunchArgs a) {
+extern __shared__ float dynamic_smem[];  // K1/K2: the stack; K4: slab, stack
+
+// K1: a launch group of PARALLEL statements (replaces _horizontal_kernel).
+// One thread per (member chunk, tile, K span, j, i): it walks the span's
+// levels in strips of P and runs every record of the group on each strip,
+// in order, each masked by its box and levels.
+// At least 4 CTAs an SM: at most 128 registers a thread.  Left to its
+// own choice, ptxas gave the member instance 80 registers and spilled.
+template <bool kMembers, int P>
+__global__ void __launch_bounds__(K1_BLOCK, 4) stencil_parallel_kernel(LaunchArgs a) {
   __shared__ Shared s;
   stage(s, a);
-  const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0, nk = a.khi - a.klo;
+  const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0;
+  const int nspan = (a.khi - a.klo + a.kspan - 1) / a.kspan;
   const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
   long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= nchunk * a.ntile * nk * nj * ni) return;
+  if (g >= nchunk * a.ntile * nspan * nj * ni) return;
   const int i = a.i0 + static_cast<int>(g % ni); g /= ni;
   const int j = a.j0 + static_cast<int>(g % nj); g /= nj;
-  const int k = a.klo + static_cast<int>(g % nk); g /= nk;
+  const int span = static_cast<int>(g % nspan); g /= nspan;
   const int t = kMembers ? static_cast<int>(g % a.ntile) : static_cast<int>(g);
   const int chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
-  const int* r = s.prog + 1;  // the single statement record
-  const int tgt = r[0];
+  const int kbeg = a.klo + span * a.kspan;
+  const int kend = min(kbeg + a.kspan, a.khi);
+  const int n_rec = s.prog[0];
   const int mchunk = kMembers ? a.mchunk : 1;
+  const Stack<P> st{dynamic_smem + threadIdx.x, static_cast<int>(blockDim.x)};
+  float acc[P];
+  int lvl[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) { acc[p] = 0.f; lvl[p] = 0; }
   for (int mm = 0; mm < mchunk; ++mm) {
     const int m = chunk * mchunk + mm;
-    const GlobalReader<kMembers> rd{s, m, t, k, j, i, a.jp, a.ip};
-    const float v = eval_program(s, r[7], r[8], rd);
-    *at<kMembers>(s, tgt, m, t, k, a.jp, a.ip, j, i) = v;
+    for (int k0 = kbeg; k0 < kend; k0 += P) {
+      const StripReader<kMembers, P> rd{s, m, t, j, i, k0, a.jp, a.ip};
+      for (int q = 0; q < n_rec; ++q) {
+        const int* r = s.prog + 1 + REC_INTS * q;
+        // the record's levels and box, read at once, tested without a
+        // branch per bound
+        const int klo = r[1], khi = r[2], j0 = r[3], j1 = r[4], i0 = r[5],
+                  i1 = r[6];
+        if ((k0 + P <= klo) | (k0 >= khi) | (j < j0) | (j >= j1) | (i < i0) |
+            (i >= i1))
+          continue;
+        run_ops<P>(s, r[7], r[8], rd, st, acc, lvl, klo, khi);
+      }
+    }
   }
 }
 
@@ -389,17 +622,19 @@ __global__ void __launch_bounds__(BLOCK) stencil_column_kernel(LaunchArgs a) {
   const int chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
   const int n_stmts = s.prog[0];
   const int mchunk = kMembers ? a.mchunk : 1;
+  const Stack<1> st{dynamic_smem + threadIdx.x, static_cast<int>(blockDim.x)};
+  float acc[1] = {0.f};
+  int lvl[1] = {0};
   for (int mm = 0; mm < mchunk; ++mm) {
     const int m = chunk * mchunk + mm;
     for (int step = 0; step < a.hi - a.lo; ++step) {
       const int k = a.forward ? a.lo + step : a.hi - 1 - step;
+      const PointReader<kMembers> rd{s, m, t, k, j, i, a.jp, a.ip};
       for (int q = 0; q < n_stmts; ++q) {
         const int* r = s.prog + 1 + REC_INTS * q;
         if (k < r[1] || k >= r[2]) continue;                 // interval
         if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
-        const GlobalReader<kMembers> rd{s, m, t, k, j, i, a.jp, a.ip};
-        const float v = eval_program(s, r[7], r[8], rd);
-        *at<kMembers>(s, r[0], m, t, k, a.jp, a.ip, j, i) = v;
+        run_ops<1>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
       }
     }
   }
@@ -412,7 +647,7 @@ template <bool kMembers>
 __global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
     LaunchArgs a) {
   __shared__ Shared s;
-  extern __shared__ float slab[];  // [n_staged][bk][blockDim.x]
+  float* slab = dynamic_smem;  // [n_staged][bk][blockDim.x], then the stack
   stage(s, a);
   const int nthr = blockDim.x, tid = threadIdx.x;
   const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0;
@@ -431,7 +666,10 @@ __global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
   const int mchunk = kMembers ? a.mchunk : 1;
   const int bk = a.bk;
   const int nblocks = (a.hi - a.lo) / bk;
+  const Stack<1> st{slab + a.n_staged * bk * nthr + tid, nthr};
   float carry[MAX_SLOTS];
+  float acc[1] = {0.f};
+  int lvl[1] = {0};
   for (int mm = 0; mm < mchunk; ++mm) {
     const int m = chunk * mchunk + mm;
     for (int c = 0; c < a.n_carried; ++c) carry[c] = 0.f;  // per member
@@ -442,10 +680,10 @@ __global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
         const int si = s.sidx[slot];
         if (si < 0) continue;
         const bool from_memory = valid && s.sload[slot];
-        for (int lvl = 0; lvl < bk; ++lvl)
-          slab[(si * bk + lvl) * nthr + tid] =
-              from_memory ? *at<kMembers>(s, slot, m, t, k0 + lvl, a.jp,
-                                          a.ip, j, i)
+        const float* col = column<kMembers>(s, slot, m, t, a.jp, a.ip, j, i);
+        for (int l = 0; l < bk; ++l)
+          slab[(si * bk + l) * nthr + tid] =
+              from_memory ? col[static_cast<size_t>(k0 + l) * a.jp * a.ip]
                           : 0.f;
       }
       __syncthreads();
@@ -454,15 +692,13 @@ __global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
         const int local = a.forward ? step : bk - 1 - step;
         const int k = k0 + local;
         const SlabReader<kMembers> rd{{s, m, t, k, j, i, a.jp, a.ip},
-                                      slab, carry, local, bk, nthr, tid};
+                                      slab, carry, local, bk, nthr, tid,
+                                      a.nfield};
         for (int q = 0; q < n_stmts; ++q) {
           const int* r = s.prog + 1 + REC_INTS * q;
           if (k < r[1] || k >= r[2]) continue;                 // interval
           if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
-          const float v = eval_program(s, r[7], r[8], rd);
-          slab[(s.sidx[r[0]] * bk + local) * nthr + tid] = v;
-          if (r[0] < a.nfield)
-            *at<kMembers>(s, r[0], m, t, k, a.jp, a.ip, j, i) = v;
+          run_ops<1>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
         }
       }
       // the carry: the last marched level of every carried slot
@@ -474,8 +710,35 @@ __global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
   }
 }
 
-static unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + BLOCK - 1) / BLOCK);
+// One launch of ``kernel`` with ``bytes`` of dynamic shared memory (above
+// the default 48 KB only after raising the kernel's cap).
+template <class Kernel>
+static int launch(Kernel kernel, long long n, int threads, size_t bytes,
+                  cudaStream_t st, const LaunchArgs* a) {
+  if (bytes > SMEM_MAX - sizeof(Shared))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes + sizeof(Shared) > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const unsigned int blocks =
+      static_cast<unsigned int>((n + threads - 1) / threads);
+  kernel<<<blocks, threads, bytes, st>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+static int launch_parallel(const LaunchArgs* a, long long n,
+                           cudaStream_t st) {
+  const size_t bytes = static_cast<size_t>(a->depth) * P * K1_BLOCK *
+                       sizeof(float);
+  return a->nmember > 1
+             ? launch(stencil_parallel_kernel<true, P>, n, K1_BLOCK, bytes,
+                      st, a)
+             : launch(stencil_parallel_kernel<false, P>, n, K1_BLOCK, bytes,
+                      st, a);
 }
 
 extern "C" {
@@ -485,8 +748,8 @@ int stencil_launch_args_size() { return static_cast<int>(sizeof(LaunchArgs)); }
 
 int stencil_limits(int* out) {
   out[0] = MAX_SLOTS; out[1] = MAX_PARAMS; out[2] = PROG_MAX;
-  out[3] = CONST_MAX; out[4] = STACK_MAX; out[5] = FOUND_MAX;
-  out[6] = REC_INTS;
+  out[3] = CONST_MAX; out[4] = STACK_MAX; out[5] = REC_INTS;
+  out[6] = OPW; out[7] = K1_STRIP;
   return 0;
 }
 
@@ -496,56 +759,41 @@ static long long n_chunks(const LaunchArgs* a) {
 
 // A launch over more than one member takes the kernels' member axis (K5).
 int launch_stencil_parallel(const LaunchArgs* a, void* stream) {
-  const long long n = n_chunks(a) * a->ntile * (a->khi - a->klo) *
-                      (a->j1 - a->j0) * (a->i1 - a->i0);
+  if (a->kspan <= 0 || a->kspan % K1_STRIP != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nspan = (a->khi - a->klo + a->kspan - 1) / a->kspan;
+  const long long n = n_chunks(a) * a->ntile * nspan * (a->j1 - a->j0) *
+                      (a->i1 - a->i0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->nmember > 1)
-    stencil_parallel_kernel<true><<<blocks_for(n), BLOCK, 0, st>>>(*a);
-  else
-    stencil_parallel_kernel<false><<<blocks_for(n), BLOCK, 0, st>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_parallel<K1_STRIP>(a, n, st);
 }
 
 int launch_stencil_column(const LaunchArgs* a, void* stream) {
   const long long n = n_chunks(a) * a->ntile * (a->j1 - a->j0) *
                       (a->i1 - a->i0);
+  const size_t bytes = static_cast<size_t>(a->depth) * BLOCK * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->nmember > 1)
-    stencil_column_kernel<true><<<blocks_for(n), BLOCK, 0, st>>>(*a);
-  else
-    stencil_column_kernel<false><<<blocks_for(n), BLOCK, 0, st>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  return a->nmember > 1
+             ? launch(stencil_column_kernel<true>, n, BLOCK, bytes, st, a)
+             : launch(stencil_column_kernel<false>, n, BLOCK, bytes, st, a);
 }
 
 // K4: as many columns per CTA (up to KB_BLOCK, down to a warp) as the
-// slab's shared memory allows.
+// slab and the stack's shared memory allow.
 int launch_stencil_kblocked(const LaunchArgs* a, void* stream) {
-  const size_t per_col = static_cast<size_t>(a->n_staged) * a->bk *
-                         sizeof(float);
+  const size_t per_col =
+      (static_cast<size_t>(a->n_staged) * a->bk + a->depth) * sizeof(float);
   int threads = KB_BLOCK;
   while (threads > 32 && per_col * threads > KB_SMEM_BUDGET) threads /= 2;
   const size_t bytes = per_col * threads;
   if (bytes > KB_SMEM_BUDGET) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = n_chunks(a) * a->ntile * (a->j1 - a->j0) *
                       (a->i1 - a->i0);
-  const unsigned int blocks =
-      static_cast<unsigned int>((n + threads - 1) / threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t rc;
-  if (a->nmember > 1) {
-    rc = cudaFuncSetAttribute(stencil_kblocked_kernel<true>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    stencil_kblocked_kernel<true><<<blocks, threads, bytes, st>>>(*a);
-  } else {
-    rc = cudaFuncSetAttribute(stencil_kblocked_kernel<false>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    stencil_kblocked_kernel<false><<<blocks, threads, bytes, st>>>(*a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return a->nmember > 1
+             ? launch(stencil_kblocked_kernel<true>, n, threads, bytes, st, a)
+             : launch(stencil_kblocked_kernel<false>, n, threads, bytes, st,
+                      a);
 }
 
 const char* stencil_error_string(int code) {

@@ -68,8 +68,34 @@ def _inputs(st, dom, seed, lead=(2,)):
     return out, params
 
 
+def _binary(op, a, b):
+    """A binary op of the stream on its two operands (``OP_R*``: the
+    operands swapped)."""
+    if op in BINARY:
+        r = {"+": a + b, "-": a - b, "*": a * b, "/": a / b, "<": a < b,
+             "<=": a <= b, ">": a > b, ">=": a >= b, "==": a == b,
+             "!=": a != b}[BINARY[op]]
+    else:
+        r = {C.OP_MIN: torch.minimum, C.OP_MAX: torch.maximum,
+             C.OP_POW: torch.pow,
+             C.OP_RSUB: lambda x, y: y - x,
+             C.OP_RDIV: lambda x, y: y / x,
+             C.OP_RMIN: lambda x, y: torch.minimum(y, x),
+             C.OP_RMAX: lambda x, y: torch.maximum(y, x),
+             C.OP_RPOW: lambda x, y: torch.pow(y, x)}[op](a, b)
+    return r.to(torch.float32)
+
+
 class _StreamEvaluator:
-    """Vectorised torch reading of the kernels' instruction stream."""
+    """Vectorised torch reading of the kernels' instruction stream.
+
+    Each op word holds the op, the stack depth before it and the source of
+    a push's or a binary op's operand; the reader keeps its own stack and
+    checks that it holds ``depth`` values before each op.  A K1
+    launch runs its records in order over the
+    launch's levels and box, values staying on the stack from record to
+    record, each store masked by its record's levels and box; a K2 launch
+    runs the records of each level in marching order."""
 
     def __init__(self, slots, params, consts):
         self.slots = slots          # slot -> (T, K, Jp, Ip) tensor
@@ -80,43 +106,64 @@ class _StreamEvaluator:
         arr = self.slots[slot]
         return arr[:, ks.clamp(0, arr.shape[-3] - 1), js, is_]
 
-    def run(self, prog, pc, end, ks, js, is_):
-        stk, found = [], []
+    def search(self, coord, lo, hi, target, js, is_):
+        """The last layer in (lo, hi) whose coordinate is <= the target,
+        else lo, per point (the reference's march)."""
+        lvl = torch.full(target.shape, lo, dtype=torch.int64)
+        for layer in range(lo + 1, hi):
+            c = self.load(coord, torch.tensor(layer), js, is_)
+            lvl = torch.where(c <= target, layer, lvl)
+        return lvl
+
+    def found(self, slot, di, dj, dk, lvl, js, is_):
+        arr = self.slots[slot]
+        win = arr[:, :, (js + dj)[0], (is_ + di)[0]]
+        win = win.expand(lvl.shape[:1] + win.shape[1:2] + lvl.shape[2:])
+        return torch.gather(win, 1, (lvl + dk).clamp(0, arr.shape[-3] - 1))
+
+    def source(self, prog, pc, src, ks, js, is_, stk):
+        """The value of a push's or binary op's source; its words."""
+        if src == C.SRC_LOAD:
+            s, di, dj, dk = prog[pc:pc + 4]
+            return self.load(s, ks + dk, js + dj, is_ + di), 4
+        if src == C.SRC_CONST:
+            return self.consts[prog[pc]], 1
+        if src == C.SRC_PARAM:
+            return torch.tensor(self.params[prog[pc]], dtype=torch.float32), 1
+        assert src == C.SRC_PICK, src
+        return stk[prog[pc]], 1
+
+    def run(self, prog, pc, end, ks, js, is_, stk, store):
         f32 = torch.float32
+        lvl = None
         while pc < end:
-            op = prog[pc]
+            word = prog[pc]
+            src, op, depth = word >> C.SRC_SHIFT, (word >> 5) & 63, word & 31
             pc += 1
-            if op == C.OP_LOAD:
+            assert depth == len(stk), (op, depth, len(stk))
+            if src:
+                val, n = self.source(prog, pc, src, ks, js, is_, stk)
+                pc += n
+            if op == C.OP_PUSH:
+                stk.append(val)
+            elif op == C.OP_FLOAD:
                 s, di, dj, dk = prog[pc:pc + 4]
                 pc += 4
-                stk.append(self.load(s, ks + dk, js + dj, is_ + di))
-            elif op == C.OP_CONST:
-                stk.append(self.consts[prog[pc]])
+                stk.append(self.found(s, di, dj, dk, lvl, js, is_))
+            elif op == C.OP_DROP:
+                top = stk.pop()
+                del stk[len(stk) - prog[pc]:]
+                stk.append(top)
                 pc += 1
-            elif op == C.OP_PARAM:
-                stk.append(torch.tensor(self.params[prog[pc]], dtype=f32))
-                pc += 1
-            elif op == C.OP_FOUND:
-                stk.append(found[prog[pc]])
-                pc += 1
+            elif op == C.OP_KEEP:
+                pass
             elif op == C.OP_SEARCH:
-                coord, lo, hi, nf = prog[pc:pc + 4]
-                pc += 4
-                target = stk.pop()
-                lvl = torch.full(target.shape, lo, dtype=torch.int64)
-                for layer in range(lo + 1, hi):
-                    c = self.load(coord, torch.tensor(layer), js, is_)
-                    lvl = torch.where(c <= target, layer, lvl)
-                found = []
-                for _ in range(nf):
-                    s, di, dj, dk = prog[pc:pc + 4]
-                    pc += 4
-                    arr = self.slots[s]
-                    win = arr[:, :, (js + dj)[0], (is_ + di)[0]]
-                    win = win.expand(lvl.shape[:1] + win.shape[1:2]
-                                     + lvl.shape[2:])
-                    idx = (lvl + dk).clamp(0, arr.shape[-3] - 1)
-                    found.append(torch.gather(win, 1, idx))
+                coord, lo, hi = prog[pc:pc + 3]
+                pc += 3
+                lvl = self.search(coord, lo, hi, stk.pop(), js, is_)
+            elif op == C.OP_STORE:
+                store(prog[pc], stk.pop())
+                pc += 1
             elif op in UNARY:
                 x = stk.pop()
                 stk.append({"neg": torch.neg, "sqrt": torch.sqrt,
@@ -126,43 +173,39 @@ class _StreamEvaluator:
             elif op == C.OP_WHERE:
                 b, a, c = stk.pop(), stk.pop(), stk.pop()
                 stk.append(torch.where(c != 0, a, b))
-            else:
-                b, a = stk.pop(), stk.pop()
-                if op in BINARY:
-                    r = {"+": a + b, "-": a - b, "*": a * b, "/": a / b,
-                         "<": a < b, "<=": a <= b, ">": a > b, ">=": a >= b,
-                         "==": a == b, "!=": a != b}[BINARY[op]]
-                else:
-                    r = {C.OP_MIN: torch.minimum, C.OP_MAX: torch.maximum,
-                         C.OP_POW: torch.pow}[op](a, b)
-                stk.append(r.to(f32))
-        assert len(stk) == 1
-        return stk[0]
+            else:  # f(a, b): a below b, or a the top and b the source
+                b = val if src else stk.pop()
+                a = stk.pop()
+                stk.append(_binary(op, a, b))
 
-    def statement(self, prog, rec, ks):
-        tgt, klo, khi, j0, j1, i0, i1, b, e = rec
+    def records(self, p, ks, box, stk):
+        """Run every record of ``p`` over levels ``ks`` and ``box``."""
+        j0, j1, i0, i1 = box
+        kk = ks[:, None, None]
         js = torch.arange(j0, j1)[None, :, None]
         is_ = torch.arange(i0, i1)[None, None, :]
-        val = self.run(prog, b, e, ks[:, None, None], js, is_)
-        out = self.slots[tgt]
-        k0, k1 = int(ks[0]), int(ks[-1]) + 1
-        out[:, k0:k1, j0:j1, i0:i1] = val.expand(
-            out.shape[0], k1 - k0, j1 - j0, i1 - i0)
+        for tgt, klo, khi, rj0, rj1, ri0, ri1, b, e in p.records():
+            if not ((ks >= klo) & (ks < khi)).any():
+                continue
+            mask = ((kk >= klo) & (kk < khi) & (js >= rj0) & (js < rj1)
+                    & (is_ >= ri0) & (is_ < ri1))
+
+            def store(slot, val, mask=mask):
+                out = self.slots[slot]
+                win = out[:, int(ks[0]):int(ks[-1]) + 1, j0:j1, i0:i1]
+                win.copy_(torch.where(mask, val.expand_as(win), win))
+
+            self.run(p.prog, b, e, kk, js, is_, stk, store)
 
     def launch(self, p):
-        n = p.prog[0]
-        recs = [p.prog[1 + C.REC_INTS * q: 1 + C.REC_INTS * (q + 1)]
-                for q in range(n)]
+        if p.empty:
+            return
         if p.kind == "horizontal":
-            (rec,) = recs
-            if rec[2] > rec[1] and rec[4] > rec[3] and rec[6] > rec[5]:
-                self.statement(p.prog, rec, torch.arange(rec[1], rec[2]))
+            self.records(p, torch.arange(p.klo, p.khi), p.box, [])
             return
         for step in range(p.hi - p.lo):
             k = p.lo + step if p.forward else p.hi - 1 - step
-            for rec in recs:
-                if rec[1] <= k < rec[2] and rec[4] > rec[3] and rec[6] > rec[5]:
-                    self.statement(p.prog, rec, torch.tensor([k]))
+            self.records(p, torch.tensor([k]), p.box, [])
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -242,11 +285,16 @@ def test_member_axis_checks():
 
 
 def test_launch_plan_of_the_fv3_stencils():
-    n = {name: len(C.CudaStencil(getattr(TS, name), DOM).programs)
-         for name in NAMES}
-    # one K1 launch per PARALLEL statement, one K2 per solver computation
-    assert n["fx_ppm"] == 7 and n["edge_flux"] == 3
-    assert n["riem_coeffs"] == 12 and n["tridiag_solve"] == 2
+    runs = {name: C.CudaStencil(getattr(TS, name), DOM) for name in NAMES}
+    n = {name: len(run.programs) for name, run in runs.items()}
+    records = {name: [len(p.records()) for p in run.programs]
+               for name, run in runs.items()}
+    # one K1 launch per group of PARALLEL statements, its statements as
+    # records; one K2 per solver computation
+    assert n["fx_ppm"] == 1 and records["fx_ppm"] == [7]
+    assert n["edge_flux"] == 1 and records["edge_flux"] == [3]
+    assert n["riem_coeffs"] == 1 and records["riem_coeffs"] == [12]
+    assert n["tridiag_solve"] == 2 and records["tridiag_solve"] == [4, 2]
     assert n["column_total"] == 2 and n["interface_interp"] == 1
     kinds = {p.kind for p in C.CudaStencil(TS.tridiag_solve, DOM).programs}
     assert kinds == {"column"}
@@ -292,8 +340,8 @@ def test_encoder_refuses_races_deep_stacks_and_far_reads():
     with pytest.raises(NotImplementedError, match="horizontal"):
         C.encode_stencil(col, DOM)
     e = q
-    for _ in range(C.STACK_MAX):
-        e = q + e * q
+    for _ in range(C.STACK_MAX // 2):  # each where's else-branch: 2 deeper
+        e = ir.Where(q, q, e)
     deep = _stencil([Computation(ir.PARALLEL, (Assign("out", e),))],
                     ("q", "out"))
     with pytest.raises(ValueError, match="stack"):
@@ -307,7 +355,8 @@ def test_encoder_refuses_races_deep_stacks_and_far_reads():
 def test_constants_fold_in_double_precision():
     (p,) = C.CudaStencil(TS.al_x, DOM).programs
     assert p.consts == [7.0 / 12.0, 1.0 / 12.0]
-    assert C.BINARY_OPS["/"] not in p.prog[1 + C.REC_INTS:]
+    ops = [op for op, *_ in C.decode(p.prog, 1 + C.REC_INTS, len(p.prog))]
+    assert C.BINARY_OPS["/"] not in ops and C.OP_RDIV not in ops
 
 
 def test_wrapper_checks_its_inputs():
@@ -402,6 +451,79 @@ def test_member_axis_matches_plain_version_on_card(card, name, mchunk):
             single = C.CudaStencil(getattr(TS, name), DOM)(
                 {k: v[m].contiguous() for k, v in fields.items()}, params)
             assert torch.equal(got[w][m], single[w])
+
+
+@pytest.mark.cuda
+def test_opt3_fused_node_on_card_matches_plain_version(card):
+    """d_sw's heaviest node at opt 3 (PPM's fused producers): one K1 launch
+    of 7 records, its temporaries kept on the stack."""
+    from repro_torch.core.backend import compile_program
+
+    cfg = TD.FV3Config(npx=12, nk=8)
+    fn = compile_program(TD.build_dsw_program(cfg, cfg.seq_dom()), "cuda",
+                         opt_level=3, device=card)
+    node = next(n for n in fn.program.all_nodes()
+                if n.label.startswith("inner_y_update+al_x+fx_ppm"))
+    run = C.CudaStencil(node.stencil, fn.program.node_dom(node))
+    (p,) = run.programs
+    assert len(p.records()) == 7 and p.kept
+    fields, params = _inputs(run.stencil, run.dom, seed=7, lead=(6,))
+    fields = {k: v.to(card) for k, v in fields.items()}
+    params = {k: TD.default_params(cfg)[k] for k in run.stencil.params}
+    before = C.LAUNCHES["horizontal"]
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["horizontal"] == before + 1
+    for w in run.written:
+        torch.testing.assert_close(got[w], want[w], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_search_on_unsorted_columns_with_nans_on_card(card, seed):
+    """K3 on coordinates in random order with NaNs (also among the
+    targets) against the plain version marching (``marching_plain``): the
+    last layer whose coordinate does not exceed the target."""
+    run = C.CudaStencil(TS.interface_interp, DOM)
+    rng = np.random.default_rng(seed)
+    fields = {}
+    for f in run.stencil.fields:
+        a = rng.uniform(0.0, 4.0, (6,) + DOM.padded_shape(True))
+        if f in ("pe", "pe_ref"):
+            a.flat[rng.choice(a.size, a.size // 50, replace=False)] = np.nan
+        fields[f] = torch.from_numpy(a.astype(np.float32)).to(card)
+    got = run(fields, {})["fi"]
+    with C.marching_plain():
+        want = run.plain(fields, {})["fi"]
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_temporary_kept_on_the_stack_on_card(card):
+    """A group whose temporary stays on the stack (never stored) beside one
+    that a record outside its box reads from memory."""
+    q, t, u = FieldAccess("q"), FieldAccess("t"), FieldAccess("u")
+    region = ir.Region(i_lo=(0, 0), i_hi=(0, 2))
+    st = Stencil("kept", (Computation(ir.PARALLEL, (
+        Assign("t", q * q + 1.0),
+        Assign("u", q - 2.0, region=region),
+        Assign("out", t * q + t),
+        Assign("out2", u + t * 0.5),
+    )),), ("q", "out", "out2"), ("out", "out2"))
+    run = C.CudaStencil(st, DOM)
+    (p,) = run.programs
+    assert p.kept == ("t",)
+    fields, params = _inputs(run.stencil, DOM, seed=5, lead=(6,))
+    fields = {k: v.to(card) for k, v in fields.items()}
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    for w in run.written:
+        torch.testing.assert_close(got[w], want[w], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -40,8 +40,9 @@ from repro_torch.core.transforms import subgraph_fuse
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import stencils as TS
 
+from test_torch_cuda import _binary
+
 UNARY = {v: k for k, v in C.UNARY_OPS.items()}
-BINARY = {v: k for k, v in C.BINARY_OPS.items()}
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
@@ -138,21 +139,28 @@ class _SlabWalker:
         self.loaded = set(p.loaded)
 
     def eval(self, pc, end, load):
+        """The value a record's ops store (each op word holds the op, the
+        depth, checked against the reader's own stack, and the source of a
+        push's or binary op's operand)."""
         prog, stk = self.p.prog, []
         while pc < end:
-            op = prog[pc]
+            word = prog[pc]
+            src, op, depth = word >> C.SRC_SHIFT, (word >> 5) & 63, word & 31
             pc += 1
-            if op == C.OP_LOAD:
-                stk.append(load(*prog[pc:pc + 4]))
+            assert depth == len(stk)
+            if src == C.SRC_LOAD:
+                val = load(*prog[pc:pc + 4])
                 pc += 4
-            elif op == C.OP_CONST:
-                stk.append(torch.tensor(self.consts[prog[pc]],
-                                        dtype=torch.float32))
+            elif src:
+                val = (torch.tensor(self.consts[prog[pc]], dtype=torch.float32)
+                       if src == C.SRC_CONST else
+                       torch.tensor(self.params[prog[pc]], dtype=torch.float32)
+                       if src == C.SRC_PARAM else stk[prog[pc]])
                 pc += 1
-            elif op == C.OP_PARAM:
-                stk.append(torch.tensor(self.params[prog[pc]],
-                                        dtype=torch.float32))
-                pc += 1
+            if op == C.OP_PUSH:
+                stk.append(val)
+            elif op == C.OP_STORE:
+                return stk.pop()
             elif op in UNARY:
                 stk.append({"neg": torch.neg, "sqrt": torch.sqrt,
                             "abs": torch.abs, "exp": torch.exp,
@@ -162,16 +170,10 @@ class _SlabWalker:
                 b, a, c = stk.pop(), stk.pop(), stk.pop()
                 stk.append(torch.where(c != 0, a, b))
             else:
-                b, a = stk.pop(), stk.pop()
-                r = ({"+": a + b, "-": a - b, "*": a * b, "/": a / b,
-                      "<": a < b, "<=": a <= b, ">": a > b, ">=": a >= b,
-                      "==": a == b, "!=": a != b}[BINARY[op]]
-                     if op in BINARY else
-                     {C.OP_MIN: torch.minimum, C.OP_MAX: torch.maximum,
-                      C.OP_POW: torch.pow}[op](a, b))
-                stk.append(r.to(torch.float32))
-        assert len(stk) == 1
-        return stk[0]
+                b = val if src else stk.pop()
+                a = stk.pop()
+                stk.append(_binary(op, a, b))
+        raise AssertionError("a record without its store")
 
     def walk(self):
         p, bk = self.p, self.p.block_k
