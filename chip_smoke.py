@@ -7,8 +7,8 @@
    three kernel sources of ``src/repro_torch/csrc/`` with ``nvcc``, all at
    once; prints each K1 and K2 instance's registers, stack frame and
    spills from ``ptxas`` and its local loads and stores (LDL/STL) in the
-   SASS (any in K1 fails the run: its stack must stay out of local
-   memory).
+   SASS (any of them fails the run: K1's stack top and K2's carry stay out
+   of local memory).
 2. Kernel phase, at C192 with 80 levels: each kernel against its plain
    PyTorch version on the same inputs on the card — K1 on ``fx_ppm``,
    ``edge_flux`` (regions), ``riem_coeffs`` (K offsets) and d_sw's
@@ -68,16 +68,19 @@
    D=112 (softcap 0 and 50), K9 ``rmsnorm`` and ``rmsnorm_residual`` at
    16384 x 4096, each in float32 and bfloat16 against its plain version at
    the reference's tolerances, timed beside the plain version, its bound
-   and one library call (``F.scaled_dot_product_attention``,
-   ``F.rms_norm``); bf16 K8 also against a float64 attention of the same
-   inputs beside the plain version: the max abs error, and each (b, s, h)
-   row's error relative to the row's norm, whose mean and max must stay
-   within 2x the plain version's; K10
+   (float32 K8: three TF32 products on the tensor cores, its old CUDA-core
+   bound printed beside) and one library call
+   (``F.scaled_dot_product_attention``, in float32 too, ``F.rms_norm``);
+   K8 in both dtypes also against a float64 attention of the same inputs
+   beside the plain version: the max abs error, and each (b, s, h) row's
+   error relative to the row's norm, whose mean and max must stay within
+   2x the plain version's; K10
    ``ssm_state_scan`` (float32) at Zamba2-7B's (16, 8, 112, 64, 64) and a
    ragged (3, 2, 112, 64, 64) against its plain version (no library call
    computes it).  The build step prints each K8 instance's registers and
-   spills from ``ptxas`` and counts the wgmma, TMA and mbarrier
-   instructions in the bf16 kernel's SASS (none of wgmma fails the run).
+   spills from ``ptxas`` and counts the wgmma, TMA, mbarrier and local
+   memory instructions in each K8 kernel's SASS (no wgmma in either, or a
+   spill or local access in the float32 kernel, fails the run).
 9. Serving phases: Granite-8B (36 layers), then Zamba2-7B (81 Mamba-2
    layers and one shared attention block applied 27 times), each at full
    width and depth with seeded weights.  Parity: float32 weights, 2
@@ -86,7 +89,8 @@
    tokens), the prefill logits and every cache of both (KV, and Mamba-2's
    conv tails and SSM states) held against an independent float64 prefill
    (the kernel path within 1e-4 of the largest |value| and within 2x the
-   plain path's own float32 error).  Serving run: bfloat16 weights, 8
+   plain path's own float32 error), and the float32 prefill timed alone.
+   Serving run: bfloat16 weights, 8
    prompts of 2048 tokens, prefill (median of 2 after a warm-up) and 31
    greedy decode steps into caches of 2080: prefill ms, decode ms per
    token, generated tokens/s, K8/K9/K10 launches per prefill and per
@@ -127,6 +131,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 # the configuration every phase runs: C192 (6 x 192 x 192 columns), 80 levels
 C192_L80 = {"npx": 192, "nk": 80}
@@ -1171,10 +1176,9 @@ def k8_build_report(log: str) -> list:
     store bytes, spill load bytes, stack bytes)."""
     rows = []
     for name, regs, frame, st, ld in ptxas_report(log, "flash_attention"):
-        args = re.findall(r"Li(\d+)E", name)
-        kind = ("flash_attention_wgmma_kernel<" + ", ".join(args) + ">"
-                if "wgmma" in name else
-                f"flash_attention_fwd_kernel<{args[0]}> (float32)")
+        args = ", ".join(re.findall(r"Li(\d+)E", name))
+        kind = (f"flash_attention_wgmma_kernel<{args}>" if "wgmma" in name
+                else f"flash_attention_fwd_kernel<{args}> (float32)")
         rows.append((kind, regs, st, ld, frame))
     return rows
 
@@ -1202,15 +1206,19 @@ def sass_counts(lib: Path, function: str, keys: tuple) -> dict:
 
 
 def k8_sass_report(lib: Path) -> dict:
-    """HGMMA (``wgmma``), UTMA* (TMA loads and stores) and SYNCS* (mbarrier
-    operations) in the SASS of ``flash_attention_wgmma_kernel``'s
-    instances, summed."""
-    total = {"HGMMA": 0, "UTMA": 0, "SYNCS": 0}
-    for counts in sass_counts(lib, "flash_attention_wgmma_kernel",
-                              tuple(total)).values():
-        for key in total:
-            total[key] += counts[key]
-    return total
+    """HGMMA (``wgmma``), UTMA* (TMA loads and stores), SYNCS* (mbarrier
+    operations) and LDL/STL (local memory) in the SASS of each K8 kernel's
+    instances, summed: {"bf16": {...}, "f32": {...}}."""
+    keys = ("HGMMA", "UTMA", "SYNCS", "LDL", "STL")
+    out = {}
+    for dtype, fn in (("bf16", "flash_attention_wgmma_kernel"),
+                      ("f32", "flash_attention_fwd_kernel")):
+        total = dict.fromkeys(keys, 0)
+        for counts in sass_counts(lib, fn, keys).values():
+            for key in keys:
+                total[key] += counts[key]
+        out[dtype] = total
+    return out
 
 
 def ptxas_report(log: str, function: str) -> list:
@@ -1239,9 +1247,9 @@ def ptxas_report(log: str, function: str) -> list:
 def stencil_build_report(lib: Path) -> None:
     """K1's and K2's instances (K3 is inlined into both): registers, stack
     frame and spills from ``ptxas``, local loads and stores (LDL/STL) and
-    indirect branches (BRX, the op dispatch) in their SASS.  A K1 instance
-    with a spill or a local access fails the run: its stack must live in
-    registers."""
+    indirect branches (BRX, the op dispatch) in their SASS.  An instance
+    with a spill or a local access fails the run: K1's stack top and K2's
+    carry bits must live in registers."""
     log = (lib.parent / "build.log").read_text()
     sass = {}
     for fn in ("stencil_parallel_kernel", "stencil_column_kernel"):
@@ -1255,10 +1263,9 @@ def stencil_build_report(lib: Path) -> None:
                   f"frame {frame} B, spill stores {st} B, spill loads {ld} "
                   f"B; SASS {counts.get('LDL', 0)} LDL, {counts.get('STL', 0)}"
                   f" STL, {counts.get('BRX', 0)} BRX", flush=True)
-            if fn == "stencil_parallel_kernel" and (
-                    st or ld or frame or counts.get("LDL") or
+            if (st or ld or frame or counts.get("LDL") or
                     counts.get("STL")):
-                raise RuntimeError(f"{name}: the K1 stack left registers")
+                raise RuntimeError(f"{name}: spills or local memory")
 
 
 def lm_kernel_phase(device) -> dict:
@@ -1293,25 +1300,28 @@ def lm_kernel_phase(device) -> dict:
             rtol, atol = FA_TOL[name]
             # bytes: q, k, v read once, o written once; operations: the two
             # products over the causal half (4 D flops per score), on the
-            # tensor cores for bf16, on the CUDA cores for f32 (no TF32)
+            # tensor cores: bf16 once, f32 as three TF32 products (3xTF32);
+            # the f32 kernel's old CUDA-core bound, the flops once at 67
+            # TFLOP/s, is printed beside it
             fa_bytes = (2 * q.numel() + 2 * k.numel()) * size
             fa_ops = 4 * B * H * D * S * (S + 1) / 2
-            rate = BF16_OPS_PER_S if dtype == torch.bfloat16 \
-                else F32_OPS_PER_S
-            t_b, t_o = fa_bytes / HBM_BYTES_PER_S, fa_ops / rate
+            if dtype == torch.bfloat16:
+                t_o, rate = fa_ops / BF16_OPS_PER_S, BF16_OPS_PER_S
+            else:
+                t_o, rate = 3 * fa_ops / TF32_OPS_PER_S, TF32_OPS_PER_S
+            t_b = fa_bytes / HBM_BYTES_PER_S
             for cap in (0.0, 50.0):
                 got = ops.flash_attention(q, k, v, softcap=cap)
                 want = KR.flash_attention_ref(q, k, v, softcap=cap)
                 torch.cuda.synchronize()
                 err = check_close(f"K8 flash_attention {name} D={D} softcap "
                                   f"{cap:g}", got, want, rtol, atol)
-                f64 = None
-                if dtype == torch.bfloat16:
-                    # both against float64: the kernel rounds P to bf16
-                    # before P V, the plain version keeps it in f32
-                    f64 = f64_errors(f"K8 flash_attention {name} D={D} "
-                                     f"softcap {cap:g}", got, want,
-                                     attention_f64(q, k, v, cap))
+                # both against float64: the bf16 kernel rounds P to bf16
+                # before P V, the plain version keeps it in f32; the f32
+                # kernel's products are 3xTF32, the plain version's f32
+                f64 = f64_errors(f"K8 flash_attention {name} D={D} "
+                                 f"softcap {cap:g}", got, want,
+                                 attention_f64(q, k, v, cap))
                 del got, want
                 torch.cuda.empty_cache()
                 ms = cuda_ms(lambda: ops.flash_attention(q, k, v,
@@ -1338,16 +1348,19 @@ def lm_kernel_phase(device) -> dict:
                       f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
                       f"{1e3 * max(t_b, t_o):.4f} "
                       f"({out['K8'][-1]['bound_by']}; {fa_bytes / 1e6:.1f} "
-                      f"MB, {fa_ops:.3e} flops at {rate / 1e12:g} TFLOP/s)"
+                      f"MB, {fa_ops:.3e} flops"
+                      + (f" at {rate / 1e12:g} TFLOP/s)" if dtype ==
+                         torch.bfloat16 else
+                         f" x 3 at {rate / 1e12:g} TFLOP/s TF32; CUDA-core "
+                         f"f32 bound {1e3 * fa_ops / F32_OPS_PER_S:.4f})")
                       + ("" if lib_ms is None else
                          f" sdpa library_ms={lib_ms:.4f}")
-                      + ("" if f64 is None else
-                         f" vs_float64 max_abs kernel={f64['abs'][0]:.3e} "
-                         f"plain={f64['abs'][1]:.3e}, row/|row| mean "
-                         f"kernel={f64['mean'][0]:.3e} plain="
-                         f"{f64['mean'][1]:.3e}, max kernel="
-                         f"{f64['max'][0]:.3e} plain={f64['max'][1]:.3e} "
-                         f"(bar {FA_F64_FACTOR:g}x plain)"), flush=True)
+                      + f" vs_float64 max_abs kernel={f64['abs'][0]:.3e} "
+                      f"plain={f64['abs'][1]:.3e}, row/|row| mean "
+                      f"kernel={f64['mean'][0]:.3e} plain="
+                      f"{f64['mean'][1]:.3e}, max kernel="
+                      f"{f64['max'][0]:.3e} plain={f64['max'][1]:.3e} "
+                      f"(bar {FA_F64_FACTOR:g}x plain)", flush=True)
             del q, k, v
             torch.cuda.empty_cache()
 
@@ -1663,7 +1676,14 @@ def serving_phase(device, arch: str) -> dict:
         raise RuntimeError(f"K8/K10 launched {launched['flash_attention']}/"
                            f"{launched['ssm_state_scan']} times in the parity "
                            f"run, expected {n_attn}/{n_mamba}")
-    del got, want, exact, model
+    del got, want, exact
+    torch.cuda.empty_cache()
+    # the float32 parity prefill (K8's float32 kernel), timed alone
+    parity_ms = cuda_ms(lambda: TM.prefill(model, tokens, cache_len=S + n), 2)
+    print(f"[serve] parity prefill, float32, B={B} prompt {S}: "
+          f"{parity_ms:.3f} ms (CUDA events, mean of 2 after a warm-up)",
+          flush=True)
+    del model
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1772,7 +1792,8 @@ def serving_phase(device, arch: str) -> dict:
     del model, logits, plain, wide
     torch.cuda.empty_cache()
     return {"launches": request, "per_prefill": per_prefill,
-            "per_step": per_step, "prefill_ms": prefill_ms,
+            "per_step": per_step, "parity_launches": launched,
+            "parity_prefill_ms": parity_ms, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "tok_s": tok_s, "peak": peak,
             "idle": idle, "idle_prefill": idle_prefill}
 
@@ -1798,12 +1819,14 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     opt-3 M = 4 ensemble step, K4's 8 among them, each counted from zero
     just before its run), the worst error of its checks, and the times and
     bound of its first case (fx_ppm, tridiag_solve, interface_interp;
-    fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4).  K8,
-    K9 and K10 count one bf16 serving request (a prefill and its decode
-    steps) of each served model, Granite-8B and Zamba2-7B, and take their
-    times from the bf16 case (K8 at Granite's shape and softcap 0, K9 at
-    Zamba2's d_model with a float32 weight) and, for K10, Zamba2's serving
-    shape."""
+    fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4).  K8's
+    bf16 kernel, K9 and K10 count one bf16 serving request (a prefill and
+    its decode steps) of each served model, Granite-8B and Zamba2-7B, and
+    take their times from the bf16 case (K8 at Granite's shape and softcap
+    0, K9 at Zamba2's d_model with a float32 weight) and, for K10, Zamba2's
+    serving shape; K8's float32 kernel counts the float32 parity runs of
+    both models and takes its times from the float32 case at Granite's
+    shape, softcap 0."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
                 "K5": f"{PALLAS}:207",
@@ -1839,6 +1862,19 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    f32 = next(r for r in lm["K8"] if r["dtype"] == "float32"
+               and r["softcap"] == 0.0 and r["D"] == 128)
+    kernels.append({
+        "name": "flash_attention_fwd_kernel", "route": "cuda",
+        "source": LM_SOURCE,
+        "replaces": "src/repro/kernels/flash_attention.py:21",
+        "launches": sum(run["parity_launches"]["flash_attention"]
+                        for run in serve.values()),
+        "max_abs_err": max(r["err"] for r in lm["K8"]
+                           if r["dtype"] == "float32"),
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"]})
     for key, name, line, count in (
             ("K8", "flash_attention_wgmma_kernel",
              "src/repro/kernels/flash_attention.py:21", "flash_attention"),
@@ -1848,7 +1884,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
              "src/repro/kernels/rmsnorm.py:25", "rmsnorm_residual"),
             ("K10", "ssm_state_scan_kernel",
              "src/repro/kernels/ssm_scan.py:23", "ssm_state_scan")):
-        mine = lm[key]
+        mine = [r for r in lm[key] if key != "K8"
+                or r["dtype"] == "bfloat16"]
         head = next(r for r in mine if r.get("dtype", "float32") ==
                     ("float32" if key == "K10" else "bfloat16")
                     and r.get("softcap", 0.0) == 0.0
@@ -1903,11 +1940,17 @@ def main() -> int:
                 print(f"[build] {lib.stem}: {line.strip()}")
     stencil_build_report(libs[0])
     sass = k8_sass_report(libs[2])
-    print(f"[build] K8 flash_attention_wgmma_kernel SASS: {sass['HGMMA']} "
-          f"HGMMA (wgmma), {sass['UTMA']} UTMA* (TMA), {sass['SYNCS']} "
-          "SYNCS* (mbarrier) instructions over its instances")
-    if sass["HGMMA"] == 0:
-        raise RuntimeError("flash_attention_wgmma_kernel issues no wgmma")
+    for dtype, fn in (("bf16", "flash_attention_wgmma_kernel"),
+                      ("f32", "flash_attention_fwd_kernel")):
+        c = sass[dtype]
+        print(f"[build] K8 {fn} SASS: {c['HGMMA']} HGMMA (wgmma), "
+              f"{c['UTMA']} UTMA* (TMA), {c['SYNCS']} SYNCS* (mbarrier), "
+              f"{c['LDL']} LDL, {c['STL']} STL instructions over its "
+              "instances")
+        if c["HGMMA"] == 0:
+            raise RuntimeError(f"{fn} issues no wgmma")
+    if sass["f32"]["LDL"] or sass["f32"]["STL"]:
+        raise RuntimeError("flash_attention_fwd_kernel uses local memory")
     for kind, regs, st, ld, stack in k8_build_report(
             (libs[2].parent / "build.log").read_text()):
         print(f"[build] K8 {kind}: {regs} registers at launch"
@@ -1915,6 +1958,8 @@ def main() -> int:
                  "setmaxnreg)" if "wgmma" in kind else "")
               + f", spill stores {st} B, spill loads {ld} B, stack "
               f"{stack} B")
+        if "float32" in kind and (st or ld or stack):
+            raise RuntimeError(f"{kind} spills")
     device = torch.device("cuda")
     # a fresh tuning cache: every run searches the schedules anew
     from repro_torch.core.backend import TuningCache, set_default_cache

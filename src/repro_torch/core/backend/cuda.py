@@ -9,7 +9,12 @@ reference's Pallas kernels (``src/repro/core/backend/lowering_pallas.py``):
    per ``(tile, K span, j, i)``, each op evaluated for a strip of
    :data:`STRIP` levels of the thread's column;
  * ``stencil_column_kernel`` (K2, ``_vertical_kernel``) — one FORWARD or
-   BACKWARD computation, one thread per ``(tile, j, i)`` column marching K;
+   BACKWARD computation, one thread per :data:`COLUMNS` neighbouring
+   columns ``(tile, rows j .. j + 3, i)`` marching K, each op decoded once
+   for the 4; the marching-previous level of a slot the march writes read
+   from the thread's carry (``CARRY``), the reads no store of the march can
+   change copied into shared memory a level ahead (``AHEAD``), a binary op
+   of two leaves one op (``src2``);
  * ``march_search`` (K3, ``_march_search``) — the ``index_search`` level
    search, a device function both kernels call for the ``SEARCH`` op;
  * ``stencil_kblocked_kernel`` (K4, ``_vertical_kernel_kblocked``) — a
@@ -100,16 +105,25 @@ CONST_MAX = 256
 STACK_MAX = 16
 REC_INTS = 9
 
-#: an op word is ``src << SRC_SHIFT | op * OPW | depth``: the opcode, the
-#: number of values on the stack before the op (known when the stream is
-#: encoded; the kernels keep the top of the stack in registers and the
-#: entries below it in shared memory, addressed by the depth), and where a
-#: push or a binary op takes its operand from
+#: an op word is ``src2 << SRC2_SHIFT | src << SRC_SHIFT | op * OPW |
+#: depth``: the opcode, the number of values on the stack before the op
+#: (known when the stream is encoded; the kernels keep the top of the
+#: stack in registers and the entries below it in shared memory, addressed
+#: by the depth), where a push or a binary op takes its operand from, and
+#: (K2 only) where a binary op takes its first operand from, so that it
+#: pushes f(src2, src) without a push of its own
 OPW = 32
 SRC_SHIFT = 11
+SRC2_SHIFT = 14
 # sources, their operand words right after the op word: LOAD slot di dj
-# dk; CONST c; PARAM p; PICK j (a copy of stack entry j)
-SRC_LOAD, SRC_CONST, SRC_PARAM, SRC_PICK = 1, 2, 3, 4
+# dk; CONST c; PARAM p; PICK j (a copy of stack entry j); CARRY slot di dj
+# dk (K2 only: a read at the marching-previous level of a slot the march
+# writes, taken from the value the thread stored there, kept on chip, and
+# from memory where it stored none); AHEAD j (K2 only: the read of key j of
+# the program's ahead table, copied from memory into shared memory while
+# the level before ran)
+SRC_LOAD, SRC_CONST, SRC_PARAM, SRC_PICK, SRC_CARRY, SRC_AHEAD = \
+    1, 2, 3, 4, 5, 6
 OP_PUSH = 0     # pushes its source
 OP_FLOAD = 1    # slot di dj dk: pushes an at_found read of the search
 OP_SEARCH = 2   # coord lo hi: pops the target, selects the level per point
@@ -131,25 +145,34 @@ REVERSED = {16: 16, 17: OP_RSUB, 18: 18, 19: OP_RDIV, 20: 22, 21: 23,
             22: 20, 23: 21, 24: 24, 25: 25, OP_MIN: OP_RMIN,
             OP_MAX: OP_RMAX, OP_POW: OP_RPOW}
 #: operand words of each source and of each op
-SRC_OPERANDS = {0: 0, SRC_LOAD: 4, SRC_CONST: 1, SRC_PARAM: 1, SRC_PICK: 1}
+SRC_OPERANDS = {0: 0, SRC_LOAD: 4, SRC_CONST: 1, SRC_PARAM: 1, SRC_PICK: 1,
+                SRC_CARRY: 4, SRC_AHEAD: 1}
 OPERANDS = {OP_FLOAD: 4, OP_SEARCH: 3, OP_STORE: 1, OP_DROP: 1}
 #: K1 evaluates each op for a strip of this many levels of one column
 STRIP = 8
+#: K2 evaluates each op for this many neighbouring columns (rows j at one
+#: i), each marching its own chain (the kernel's K2_COLS)
+COLUMNS = 4
+#: K2 keeps on chip the marching carry of at most this many slots
+CARRY_MAX = 8
+#: K2 copies at most this many distinct loads of the next level into
+#: shared memory while a level runs (``cp.async``)
+AHEAD_MAX = 8
 
 
 def is_binary(op: int) -> bool:
     return BINARY_OPS["+"] <= op <= OP_RPOW
 
 
-def stack_effect(op: int, src: int = 0, args=()) -> int:
-    """Values ``op`` (with source ``src`` and operands ``args``) leaves on
-    the stack minus the values it takes."""
+def stack_effect(op: int, src: int = 0, args=(), src2: int = 0) -> int:
+    """Values ``op`` (with sources ``src``, ``src2`` and operands ``args``)
+    leaves on the stack minus the values it takes."""
     if op in (OP_PUSH, OP_FLOAD):
         return 1
     if op == OP_DROP:
         return -args[0]
     if is_binary(op):
-        return 0 if src else -1
+        return 1 if src2 else 0 if src else -1
     if op in (OP_SEARCH, OP_STORE):
         return -1
     if op == OP_WHERE:
@@ -159,15 +182,19 @@ def stack_effect(op: int, src: int = 0, args=()) -> int:
 
 def decode(prog, pc: int, end: int):
     """The ops of ``prog[pc:end]`` in order: ``(op, depth, src, source
-    operands, operands)``."""
+    operands, operands, (src2, its operands))``; the operand words are
+    src2's, then src's, then the op's."""
     while pc < end:
         word = prog[pc]
-        src, op, depth = word >> SRC_SHIFT, (word >> 5) & 63, word & 31
-        n = SRC_OPERANDS[src]
+        src2, src = word >> SRC2_SHIFT, (word >> SRC_SHIFT) & 7
+        op, depth = (word >> 5) & 63, word & 31
+        n2, n = SRC_OPERANDS[src2], SRC_OPERANDS[src]
         m = OPERANDS.get(op, 0)
-        yield (op, depth, src, tuple(prog[pc + 1:pc + 1 + n]),
-               tuple(prog[pc + 1 + n:pc + 1 + n + m]))
-        pc += 1 + n + m
+        pc += 1
+        yield (op, depth, src, tuple(prog[pc + n2:pc + n2 + n]),
+               tuple(prog[pc + n2 + n:pc + n2 + n + m]),
+               (src2, tuple(prog[pc:pc + n2])))
+        pc += n2 + n + m
 
 
 class LaunchArgs(ctypes.Structure):
@@ -208,6 +235,8 @@ class LaunchArgs(ctypes.Structure):
         ("n_staged", ctypes.c_int),
         ("n_carried", ctypes.c_int),
         ("nfield", ctypes.c_int),
+        ("ahead_begin", ctypes.c_int),
+        ("ahead_end", ctypes.c_int),
     ]
 
 
@@ -416,7 +445,10 @@ class Program:
     block_k: int = 0              # K4: slab depth,
     staged: tuple[int, ...] = ()  # the slots staged in shared memory,
     loaded: tuple[int, ...] = ()  # those of them loaded from memory,
-    carried: tuple[int, ...] = ()  # the slots carried from slab to slab
+    carried: tuple[int, ...] = ()  # K4: the slots carried from slab to
+    #                                slab; K2: those read through CARRY
+    ahead: tuple[int, int] = (0, 0)  # K2: prog[a:b], the keys read
+    #                                  through AHEAD, 4 words each
     kept: tuple[str, ...] = ()    # K1: temporaries held on the stack
     #                               and never stored
 
@@ -431,6 +463,11 @@ class Program:
     def strip(self) -> int:
         """Levels of a column each op is evaluated for at once."""
         return STRIP if self.kind == "horizontal" else 1
+
+    def ahead_keys(self) -> list[tuple[int, int, int, int]]:
+        """K2: the ``(slot, di, dj, dk)`` that ``AHEAD j`` reads, by j."""
+        a, b = self.ahead
+        return [tuple(self.prog[x:x + 4]) for x in range(a, b, 4)]
 
     def records(self) -> list[list[int]]:
         """Per statement: target klo khi j0 j1 i0 i1 op_begin op_end."""
@@ -449,14 +486,21 @@ class Program:
         for _, klo, khi, j0, j1, i0, i1, pc, end in self.records():
             ops = loads = stores = 0
             keys = set()
-            for op, _, src, sargs, args in decode(self.prog, pc, end):
+            for op, _, src, sargs, args, (src2, s2args) in decode(
+                    self.prog, pc, end):
                 if op == OP_STORE:
                     stores += 1
                     continue
                 ops += 1
-                if src == SRC_LOAD or op == OP_FLOAD:
+                for kind, operand in ((src, sargs), (src2, s2args)):
+                    if kind == SRC_AHEAD:
+                        operand = self.ahead_keys()[operand[0]]
+                    if kind in (SRC_LOAD, SRC_CARRY, SRC_AHEAD):
+                        loads += 1
+                        keys.add((False,) + operand)
+                if op == OP_FLOAD:
                     loads += 1
-                    keys.add((op == OP_FLOAD,) + sargs + args)
+                    keys.add((True,) + args)
                 elif op == OP_SEARCH:
                     loads += math.ceil(max(0, args[2] - args[1] - 1)
                                        / self.strip)
@@ -632,12 +676,13 @@ class Encoder:
         self._needs[id(e)] = n
         return n
 
-    def _emit(self, op: int, *operands: int, src: tuple = (0,)) -> None:
-        """One op word (``src``: the source and its operand words), then
-        the op's operands."""
-        self._ops += [src[0] << SRC_SHIFT | op * OPW | self._sp, *src[1:],
-                      *operands]
-        self._sp += stack_effect(op, src[0], operands)
+    def _emit(self, op: int, *operands: int, src: tuple = (0,),
+              src2: tuple = (0,)) -> None:
+        """One op word (``src``, ``src2``: the sources and their operand
+        words), then the op's operands."""
+        self._ops += [src2[0] << SRC2_SHIFT | src[0] << SRC_SHIFT
+                      | op * OPW | self._sp, *src2[1:], *src[1:], *operands]
+        self._sp += stack_effect(op, src[0], operands, src2[0])
         self._max = max(self._max, self._sp)
 
     def _const(self, v) -> int:
@@ -670,6 +715,10 @@ class Encoder:
         key = self._load_key(e)
         if key in self._held:
             return (SRC_PICK, self._held[key])
+        if key[0] in self._carry and key[1:] == (0, 0, self._prev):
+            return (SRC_CARRY, *key)
+        if key in self._ahead:
+            return (SRC_AHEAD, self._ahead[key])
         return (SRC_LOAD, *key)
 
     def _expr(self, e: Expr, found: dict | None) -> None:
@@ -685,6 +734,10 @@ class Encoder:
             a_first = self._order(a, b)[0]
             first, second = (a, b) if a_first else (b, a)
             op = op if a_first else REVERSED[op]
+            if self._pairs and self._is_leaf(first) and self._is_leaf(second):
+                self._emit(op, src=self._source(second, found),
+                           src2=self._source(first, found))
+                return
             self._expr(first, found)
             if self._is_leaf(second):
                 self._emit(op, src=self._source(second, found))
@@ -732,15 +785,23 @@ class Encoder:
         return self._ops
 
     # -- launches -----------------------------------------------------------------
-    def _encode(self, statements, keep=frozenset()):
+    def _encode(self, statements, keep=frozenset(), carry=(), prev=0,
+                ahead=None, pairs=False):
         """Records + ops of ``statements`` (each with its box and interval);
         the statements in ``keep`` (by index) leave their value on the
-        stack for the later ones, which read their target with ``PICK``."""
+        stack for the later ones, which read their target with ``PICK``;
+        reads of a slot in ``carry`` at ``(0, 0, prev)`` are ``CARRY``, a
+        read whose key is in ``ahead`` is ``AHEAD`` of its index, and with
+        ``pairs`` a binary op of two leaves takes both from sources."""
         self._consts: list[float] = []
         self._cidx: dict = {}
         self._max = 0
         self._sp = 0
         self._held: dict = {}
+        self._carry = frozenset(carry)
+        self._prev = prev
+        self._ahead = ahead or {}
+        self._pairs = pairs
         self._has_search = False
         header = [len(statements)]
         body: list[int] = []
@@ -823,14 +884,79 @@ class Encoder:
                        kept=tuple(live[q].target for q in sorted(keep)))
 
     def column(self, comp: Computation) -> Program:
+        """One K2 launch: the computation's statements at each level of
+        the march.  A slot the computation writes and reads at the
+        marching-previous level (``(0, 0, -1)`` forward, ``(0, 0, 1)``
+        backward) is read through ``CARRY`` (the first :data:`CARRY_MAX`
+        such slots).  A read that no store of the march can change between
+        the start of the level before and the read (:meth:`_ahead_keys`)
+        is read through ``AHEAD``; the table of their keys follows the
+        ops.  A binary op of two leaves takes both from sources (``src2``)
+        and pushes its value: one op where a push and the op were two."""
         _check_column_hazard(comp)
-        prog, consts, depth, search = self._encode(comp.statements)
+        forward = comp.direction is Direction.FORWARD
+        prev = -1 if forward else 1
+        written = set(comp.written())
+        carried = []
+        for st in comp.statements:
+            for a in st.value.accesses():
+                slot = self.slots[a.name]
+                if (a.name in written and a.offset == (0, 0, prev)
+                        and slot not in carried
+                        and len(carried) < CARRY_MAX):
+                    carried.append(slot)
+        keys = self._ahead_keys(comp, carried, prev)
+        prog, consts, depth, search = self._encode(
+            comp.statements, carry=carried, prev=prev,
+            ahead={k: j for j, k in enumerate(keys)}, pairs=True)
+        begin = len(prog)
+        prog = prog + [w for key in keys for w in key]
+        if len(prog) > PROG_MAX:
+            raise ValueError(f"{self.stencil.name}: program of {len(prog)} "
+                             f"ints exceeds the kernels' {PROG_MAX}")
         bounds = [self.levels(st) for st in comp.statements]
         return Program("column", comp, prog, consts, depth, search,
                        box=self.window(),
                        lo=min(b[0] for b in bounds),
-                       hi=max(b[1] for b in bounds),
-                       forward=comp.direction is Direction.FORWARD)
+                       hi=max(b[1] for b in bounds), forward=forward,
+                       carried=tuple(carried), ahead=(begin, len(prog)))
+
+    def _ahead_keys(self, comp: Computation, carried, prev: int) -> list:
+        """The ``(slot, di, dj, dk)`` that K2 may copy into shared memory
+        at the start of the level before the one that reads them (the
+        first :data:`AHEAD_MAX`, in order of first read): a field or
+        temporary the computation never writes, at any offset, and a
+        written one at its own level (``dk = 0``) where no statement before
+        the reader, at a level the two share, writes it (its other reads
+        see stores of the march the copy would miss, or are ``CARRY``).
+        Reads inside a level search's body are left to ``LOAD``."""
+        written = set(comp.written())
+        stmts = comp.statements
+        spans = [self.levels(st) for st in stmts]
+
+        def reads(e, inside_search=False):
+            if isinstance(e, FieldAccess):
+                yield e, inside_search
+            for c in e.children():
+                yield from reads(c, inside_search
+                                 or isinstance(e, LevelSearch))
+
+        keys, unsafe = [], set()
+        for q, st in enumerate(stmts):
+            for e, in_search in reads(st.value):
+                key = (self.slots[e.name], *e.offset)
+                if key[0] in carried and e.offset == (0, 0, prev):
+                    continue
+                safe = not in_search and (e.name not in written or (
+                    e.offset == (0, 0, 0) and not any(
+                        stmts[w].target == e.name
+                        and spans[w][0] < spans[q][1]
+                        and spans[q][0] < spans[w][1] for w in range(q))))
+                if not safe:
+                    unsafe.add(key)
+                elif key not in keys:
+                    keys.append(key)
+        return [k for k in keys if k not in unsafe][:AHEAD_MAX]
 
     def kblocked(self, block_k: int) -> Program:
         """The whole solver stencil as one K4 launch: every statement of
@@ -968,10 +1094,10 @@ def bind_library(path: Path | str) -> ctypes.CDLL:
     if got != ctypes.sizeof(LaunchArgs):
         raise RuntimeError(f"LaunchArgs is {got} bytes in the library but "
                            f"{ctypes.sizeof(LaunchArgs)} in cuda.py")
-    limits = (ctypes.c_int * 8)()
+    limits = (ctypes.c_int * 11)()
     lib.stencil_limits(limits)
     want = (MAX_SLOTS, MAX_PARAMS, PROG_MAX, CONST_MAX, STACK_MAX, REC_INTS,
-            OPW, STRIP)
+            OPW, STRIP, CARRY_MAX, AHEAD_MAX, COLUMNS)
     if tuple(limits) != want:
         raise RuntimeError(f"kernel limits {tuple(limits)} disagree with "
                            f"cuda.py's {want}")
@@ -1186,7 +1312,7 @@ class CudaStencil:
                 self._kblocked_args(args, p)
                 rc = lib.launch_stencil_kblocked(ctypes.byref(args), stream)
             else:
-                args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
+                self._column_args(args, p)
                 rc = lib.launch_stencil_column(ctypes.byref(args), stream)
             if rc != 0:
                 raise RuntimeError(
@@ -1197,6 +1323,16 @@ class CudaStencil:
                 LAUNCHES["search"] += 1
             if args.nmember > 1:  # the kernels' member axis ran
                 LAUNCHES["member"] += 1
+
+    def _column_args(self, args: LaunchArgs, p: Program) -> None:
+        """K2's part of the launch arguments: the march, the carries by
+        slot and the ahead table."""
+        args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
+        args.n_carried = len(p.carried)
+        for slot in range(len(self.slot_names)):
+            args.cidx[slot] = (p.carried.index(slot) if slot in p.carried
+                               else -1)
+        args.ahead_begin, args.ahead_end = p.ahead
 
     def _kblocked_args(self, args: LaunchArgs, p: Program) -> None:
         """K4's part of the launch arguments: the march, the slab's planes

@@ -70,17 +70,61 @@
 // Shared memory at DP = 128: Q 2 x 32 KB, K/V ring 4 x 32 KB, O staging
 // 2 x 16 KB (225 KB of the 227).
 //
-// float32, flash_attention_fwd_kernel (the parity path: f32 is held at
-// rtol = atol = 2e-5, which TF32 products cannot meet).  One CTA of 128
-// threads owns 32 query rows of one (b, h): 4 threads per row, each
-// holding an interleaved quarter of D of the scaled query and of the f32
-// accumulator; the key/value tiles up to the causal frontier are staged
-// in shared memory (64 keys at D <= 128, 32 above) and an online softmax
-// is updated every 16 keys, all on the CUDA cores with fmaf, as the Pallas
-// kernel computes it (q scaled by 1/sqrt(D) before the dot).  Bound: the
-// same flops over 67 TFLOP/s f32 (4.10 ms at Granite's shape); it is
-// limited by shared-memory reads (one 16-byte load per 4 FMAs).
-//
+// float32, flash_attention_fwd_kernel (the parity path, held at rtol =
+// atol = 2e-5).  One TF32 product keeps 11 of f32's 24 significand bits
+// and misses that bar; three do not: each f32 operand x is split into
+// hi = rna(x) and lo = rna(x - hi) (cvt.rna.tf32.f32, to nearest, ties
+// away from zero) and a product is a_hi b_hi + a_hi b_lo + a_lo b_hi with
+// f32 sums (lo lo, below 2^-22 of the product, is dropped): ~21 bits, as
+// CUTLASS's 3xTF32 (OpMultiplyAddFastF32) computes f32 GEMMs.  The torch
+// emulation of this arithmetic in tests/test_torch_lm_kernels.py meets the
+// bar against the reference and one product misses it.  Bound: the causal
+// flops three times over the tensor cores' 495 TFLOP/s TF32 (1.667 ms at
+// Granite-8B's prefill shape, 1.458 at Zamba2-7B's D 112); the CUDA-core
+// bound it replaced is the flops once over 67 TFLOP/s (4.10 ms).  What the
+// design does about it:
+//  - Tiles: one CTA per 64-row query tile of one (b, h), the longest rows
+//    first; keys in tiles of 64 (32 at D 256).  Q, K and V live in shared
+//    memory as TF32 hi and lo halves in the 128-byte swizzle wgmma reads,
+//    K-major: Q and K as they are, V transposed (.tf32 wgmma takes no
+//    transposed operand).  At D 128: Q 64 KB, a ring of 2 slots of 64 KB
+//    (K_t in one, V_t in the other), 193 KB in all; 1 slot at D 256.
+//  - Warp specialisation: a producer warpgroup loads each tile into
+//    registers one ring item ahead (16 float4 a thread in flight, each
+//    warp load 128 contiguous bytes a row), and once its slot is free
+//    splits it and stores both halves (V transposed, its keys reordered so
+//    P's accumulator layout is the A fragment), then arrives on the slot's
+//    full mbarrier; the consumer warpgroup releases a slot on its empty
+//    mbarrier as soon as its products are done.
+//  - S = Q K^T: wgmma m64n64k8 .tf32, both operands from shared memory,
+//    3 products a k8 step; q was scaled by 1/sqrt(D) in f32 before the
+//    split, as the Pallas kernel scales it.  The online softmax in f32
+//    registers (tanhf for a softcap, masked scores -1e30, exp as one FFMA
+//    and one MUFU.EX2), l over the unrounded p.
+//  - O += P V: P split in registers into the A fragments (wgmma RS),
+//    V^T's hi and lo from shared memory, m64nNk8 (N = D, or 128 twice at
+//    D 256), 3 products a step.
+//  - The sums: the tensor cores round each sum they add to toward zero,
+//    not to nearest, so an error that f32 adds leave random builds up,
+//    the same sign every time.  Accumulated straight into O over the key
+//    tiles, that made the kernel's rows 4-12x further from a float64
+//    attention than the plain version's at S 2048 while inside the 2e-5
+//    bar.  So each product sums the small cross terms first (into a small
+//    sum, where a truncation is small) and the hi products last, and each
+//    key tile's P V is summed apart and added to O in f32 registers,
+//    rounded to nearest: the rows then land as close to float64 as the
+//    plain version's.
+//    (Issuing each tile's P V with the next tile's S, as the bf16 kernel
+//    does, needs both tiles' registers: at D 112 to 256 ptxas then spills
+//    and the kernel is slower.)
+//  - Epilogue: O / max(l, 1e-20) stored from the accumulator as float2.
+// The producer, not the tensor cores, limits it: every CTA loads and
+// splits its key tiles again (a K/V tile serves 4 query heads x 32 query
+// tiles at Granite's shape), and one warpgroup's loads and splits take
+// longer than the consumer's products.  (A second producer warpgroup
+// needs setmaxnreg, under which ptxas spills the consumer; three register
+// buffers spill at D 112.)
+
 // K9, RMSNorm with a (1 + w) scale over the last axis of (rows, d), in f32:
 // one CTA of 256 threads per row.  Each thread sums the squares of its
 // 4-wide chunks, the CTA reduces them with warp shuffles and one shared
@@ -152,178 +196,6 @@ __device__ __forceinline__ void store4(bf16* p, float4 x) {
   raw.x = f32_to_bf16_bits(x.x) | (f32_to_bf16_bits(x.y) << 16);
   raw.y = f32_to_bf16_bits(x.z) | (f32_to_bf16_bits(x.w) << 16);
   *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// ---------------------------------------------------------------------------
-// K8, float32: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-#define FA_BQ 32                      // query rows per CTA
-#define FA_TPR 4                      // threads per query row
-#define FA_THREADS (FA_BQ * FA_TPR)   // 128
-#define FA_KC 16                      // keys per online-softmax update
-
-template <int D>
-struct FaTile {
-  static constexpr int BK = D > 128 ? 32 : 64;   // keys staged per tile
-  static constexpr int NC = D / (4 * FA_TPR);    // float4 chunks per thread
-  static constexpr int SMEM = 2 * BK * D * 4;    // K and V tiles, f32
-};
-
-template <int D>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_attention_fwd_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               float* __restrict__ o, int S, int H, int KVH,
-                               float scale, float softcap) {
-  constexpr int BK = FaTile<D>::BK;
-  constexpr int NC = FaTile<D>::NC;
-  constexpr int D4 = D / 4;
-  extern __shared__ float4 fa_smem[];
-  float4* ks = fa_smem;             // [BK][D4]
-  float4* vs = fa_smem + BK * D4;   // [BK][D4]
-
-  const int tid = threadIdx.x;
-  const int row = tid / FA_TPR;
-  const int part = tid % FA_TPR;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows first
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kvh = h / (H / KVH);
-  const int qpos = qt * FA_BQ + row;
-  const bool live = qpos < S;
-  const long long q_off =
-      (static_cast<long long>(b) * S + (live ? qpos : S - 1)) * H * D +
-      static_cast<long long>(h) * D;
-
-  float4 qr[NC], acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float4 x = load4(q + q_off + 4 * (part + FA_TPR * c));
-    qr[c] = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -1e30f, l = 0.f;
-
-  const int q_end = min(qt * FA_BQ + FA_BQ, S);  // one past the last row
-  const int n_tiles = (q_end + BK - 1) / BK;     // the causal frontier
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BK * D4; i += FA_THREADS) {
-      const int kp = k0 + i / D4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (kp < S) {
-        const long long off =
-            (static_cast<long long>(b) * S + kp) * KVH * D +
-            static_cast<long long>(kvh) * D + 4 * (i % D4);
-        kk = load4(k + off);
-        vv = load4(v + off);
-      }
-      ks[i] = kk;
-      vs[i] = vv;
-    }
-    __syncthreads();
-    const int n_keys = min(BK, q_end - k0);
-    for (int j0 = 0; j0 < n_keys; j0 += FA_KC) {
-      float s[FA_KC];
-      float m_new = m;
-#pragma unroll
-      for (int jj = 0; jj < FA_KC; ++jj) {
-        const float4* kr = ks + (j0 + jj) * D4;
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 kc = kr[part + FA_TPR * c];
-          dot = fmaf(qr[c].x, kc.x, dot);
-          dot = fmaf(qr[c].y, kc.y, dot);
-          dot = fmaf(qr[c].z, kc.z, dot);
-          dot = fmaf(qr[c].w, kc.w, dot);
-        }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
-        // keys past the query (and past S, which are past every query of
-        // a live row) are masked
-        s[jj] = (k0 + j0 + jj <= qpos) ? dot : -1e30f;
-        m_new = fmaxf(m_new, s[jj]);
-      }
-      const float alpha = expf(m - m_new);
-      float p_sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < FA_KC; ++jj) {
-        s[jj] = expf(s[jj] - m_new);
-        p_sum += s[jj];
-      }
-      l = l * alpha + p_sum;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        acc[c].x *= alpha;
-        acc[c].y *= alpha;
-        acc[c].z *= alpha;
-        acc[c].w *= alpha;
-      }
-#pragma unroll
-      for (int jj = 0; jj < FA_KC; ++jj) {
-        const float4* vr = vs + (j0 + jj) * D4;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vc = vr[part + FA_TPR * c];
-          acc[c].x = fmaf(s[jj], vc.x, acc[c].x);
-          acc[c].y = fmaf(s[jj], vc.y, acc[c].y);
-          acc[c].z = fmaf(s[jj], vc.z, acc[c].z);
-          acc[c].w = fmaf(s[jj], vc.w, acc[c].w);
-        }
-      }
-      m = m_new;
-    }
-  }
-  if (!live) return;
-  const float den = fmaxf(l, 1e-20f);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    store4(o + q_off + 4 * (part + FA_TPR * c),
-           make_float4(acc[c].x / den, acc[c].y / den, acc[c].z / den,
-                       acc[c].w / den));
-  }
-}
-
-template <int D>
-static int launch_fa(const void* q, const void* k, const void* v, void* o,
-                     int B, int S, int H, int KVH, float softcap,
-                     cudaStream_t stream) {
-  constexpr int smem = FaTile<D>::SMEM;
-  auto kernel = flash_attention_fwd_kernel<D>;
-  // above 48 KB only as dynamic shared memory, after this opt-in
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + FA_BQ - 1) / FA_BQ, B * H);
-  kernel<<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KVH,
-      1.0f / sqrtf(static_cast<float>(D)), softcap);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// float32 only: bf16 runs flash_attention_wgmma_kernel
-static int dispatch_fa_f32(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int KVH, int D,
-                           float softcap, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_fa<16>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 32: return launch_fa<32>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 64: return launch_fa<64>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 96: return launch_fa<96>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 112:
-      return launch_fa<112>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 128:
-      return launch_fa<128>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    case 256:
-      return launch_fa<256>(q, k, v, o, B, S, H, KVH, softcap, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1093,6 +965,558 @@ static int dispatch_fa_wgmma(const void* q, const void* k, const void* v,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// K8, float32: 3xTF32 on the tensor cores, a producer warpgroup
+// ---------------------------------------------------------------------------
+
+// the f32 kernel's tiles: DP is the head width rounded up to the 32 floats
+// (128 bytes) of one swizzle row
+template <int DP>
+struct FaTf32 {
+  static constexpr int BQ = 64;                    // query rows of a CTA
+  static constexpr int BK = DP > 128 ? 32 : 64;    // keys per tile
+  static constexpr int SLOTS = DP > 128 ? 1 : 2;   // K/V ring depth
+  static constexpr int Q_BYTES = BQ * DP * 4;      // Q's hi (or lo)
+  static constexpr int KV_BYTES = BK * DP * 4;     // a K's or V's hi (or lo)
+  static constexpr int SLOT_BYTES = 2 * KV_BYTES;  // hi, then lo
+  static constexpr int THREADS = 2 * 128;  // consumer WG, producer WG
+  // Q's hi and lo, the ring, 1 KB of slack to align the swizzled tiles,
+  // and the barriers
+  static constexpr int SMEM = 2 * Q_BYTES + SLOTS * SLOT_BYTES + 1024 + 64;
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as a .b32 whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the 3xTF32 split: x = hi + lo + a remainder below 2^-21 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// byte offset of the 16-byte chunk c (floats 4c .. 4c + 3) of row r in a
+// K-major tile of `rows` rows under the 128-byte swizzle that wgmma reads:
+// column blocks of 32 floats, `rows` x 128 bytes apart, and the chunk's
+// place in its 128-byte row XORed with r % 8
+__device__ __forceinline__ uint32_t swz128(int rows, int r, int c) {
+  return static_cast<uint32_t>((c / 8) * rows * 128 + r * 128 +
+                               (((c % 8) ^ (r % 8)) << 4));
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint4 x) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
+}
+
+// The producer's tiles go through registers in two steps, so a tile's
+// loads are in flight while the slot it goes to is still in use: fetch (at
+// most 16 float4 a thread) and put (split into hi and lo, stored
+// swizzled).
+
+// Q and K: rows 0 .. ROWS - 1 of src (row stride ld floats, D columns),
+// rows from n_valid on zeros, 16 of a thread's float4s from its u0-th on;
+// put stores them times mul, K-major as they are.
+template <int ROWS, int D>
+struct RowItems {
+  static constexpr int C4 = D / 4, NT = ROWS * C4 / 128;  // items a thread
+  static constexpr int PASS = NT < 16 ? NT : 16;          // a fetch's
+  static_assert(ROWS * C4 % 128 == 0 && NT % PASS == 0, "tile shape");
+};
+
+template <int ROWS, int D>
+__device__ __forceinline__ void fetch_rows(float4 (&x)[16], const float* src,
+                                           long long ld, int n_valid,
+                                           int tid, int u0 = 0) {
+  using I = RowItems<ROWS, D>;
+#pragma unroll
+  for (int u = 0; u < I::PASS; ++u) {
+    const int i = tid + 128 * (u0 + u), r = i / I::C4, c = i % I::C4;
+    x[u] = r < n_valid
+               ? *reinterpret_cast<const float4*>(src + r * ld + 4 * c)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <int ROWS, int D>
+__device__ __forceinline__ void put_rows(const float4 (&x)[16], uint32_t dst,
+                                         uint32_t lo_off, int tid,
+                                         int u0 = 0, float mul = 1.f) {
+  using I = RowItems<ROWS, D>;
+#pragma unroll
+  for (int u = 0; u < I::PASS; ++u) {
+    const int i = tid + 128 * (u0 + u), r = i / I::C4, c = i % I::C4;
+    uint4 hi, lo;
+    split_tf32(x[u].x * mul, hi.x, lo.x);
+    split_tf32(x[u].y * mul, hi.y, lo.y);
+    split_tf32(x[u].z * mul, hi.z, lo.z);
+    split_tf32(x[u].w * mul, hi.w, lo.w);
+    const uint32_t a = dst + swz128(ROWS, r, c);
+    st_shared4(a, hi);
+    st_shared4(a + lo_off, lo);
+  }
+}
+
+// V, transposed: rows 0 .. BK - 1 of src (keys, row stride ld, D columns)
+// become V^T, DP rows of BK keys, K-major (keys contiguous) as .tf32
+// wgmma takes its B operand; keys from n_valid on are zeros.  The keys of
+// each group of 8 are stored in the order 0 2 4 6 1 3 5 7: the .tf32 A
+// fragment of a k8 step holds positions t and t + 4 (t = lane % 4), where
+// P's accumulator layout holds keys 2t and 2t + 1, so position t must hold
+// key 2t and t + 4 key 2t + 1.  An item of a thread is the 4 keys of one
+// 16-byte chunk kg x 4 columns (float4 c), stored as one chunk a column.
+// A warp takes 4 chunks x 8 float4s: each of its loads reads 4 keys' 128
+// contiguous bytes, and the 8 lanes of a store phase (4 chunks x 2
+// float4s, so rows d % 8 = e and e + 4) write 8 distinct chunks.
+template <int BK, int D>
+struct VItems {
+  static constexpr int KG = BK / 4, C4 = D / 4;
+  static constexpr int NKB = KG / 4, NCB = (C4 + 7) / 8;  // warp blocks
+  static constexpr int NT = NKB * NCB * 32 / 128;         // items a thread
+  static_assert(KG % 4 == 0 && NKB * NCB % 4 == 0 && NT <= 4, "tile shape");
+  // item u of thread tid: its chunk kg and float4 c (c >= C4: none)
+  __device__ static __forceinline__ void at(int tid, int u, int& kg,
+                                            int& c) {
+    const int blk = tid / 32 + 4 * u, l = tid % 32;
+    kg = 4 * (blk % NKB) + (l / 2) % 4;
+    c = 8 * (blk / NKB) + l % 2 + 2 * (l / 8);
+  }
+};
+
+template <int BK, int D>
+__device__ __forceinline__ void fetch_v(float4 (&x)[16], const float* src,
+                                        long long ld, int n_valid, int tid) {
+  using I = VItems<BK, D>;
+#pragma unroll
+  for (int u = 0; u < I::NT; ++u) {
+    int kg, c;
+    I::at(tid, u, kg, c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 8 * (kg / 2) + 2 * j + kg % 2;
+      x[4 * u + j] = c < I::C4 && r < n_valid
+                         ? *reinterpret_cast<const float4*>(src + r * ld +
+                                                            4 * c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <int BK, int D, int DP>
+__device__ __forceinline__ void put_v(const float4 (&x)[16], uint32_t dst,
+                                      uint32_t lo_off, int tid) {
+  using I = VItems<BK, D>;
+#pragma unroll
+  for (int u = 0; u < I::NT; ++u) {
+    int kg, c;
+    I::at(tid, u, kg, c);
+    if (c >= I::C4) continue;
+    const float4* y = x + 4 * u;
+    const float col[4][4] = {{y[0].x, y[1].x, y[2].x, y[3].x},
+                             {y[0].y, y[1].y, y[2].y, y[3].y},
+                             {y[0].z, y[1].z, y[2].z, y[3].z},
+                             {y[0].w, y[1].w, y[2].w, y[3].w}};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint4 hi, lo;
+      split_tf32(col[e][0], hi.x, lo.x);
+      split_tf32(col[e][1], hi.y, lo.y);
+      split_tf32(col[e][2], hi.z, lo.z);
+      split_tf32(col[e][3], hi.w, lo.w);
+      const uint32_t a = dst + swz128(DP, 4 * c + e, kg);
+      st_shared4(a, hi);
+      st_shared4(a + lo_off, lo);
+    }
+  }
+}
+
+// the m64nN f32 accumulators of 16 and 8 registers
+#define WG_D8(d) WG_F4(d, 0), WG_F4(d, 4)
+#define WG_D16(d) WG_F16(d, 0)
+#define WG_L8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_L16 WG_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+
+// d += A B for one k8 step of .tf32 operands (f32 accumulation), m64nN with
+// NA = N/2 accumulator registers.  WGMMA_TF32_SS reads A and B through
+// descriptors (both K-major: .tf32 takes no transpose), WGMMA_TF32_RS takes
+// A from registers (4 tf32 a thread) and always accumulates.
+#define WGMMA_TF32_SS(N, NA, IA, IB, IS)                                  \
+  asm volatile("{\n.reg .pred p;\n"                                      \
+               "setp.ne.b32 p, %" #IS ", 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n" #N                    \
+               "k8.f32.tf32.tf32 {" WG_L##NA "}, %" #IA ", %" #IB        \
+               ", p, 1, 1;\n}\n"                                         \
+               : WG_D##NA(d)                                              \
+               : "l"(a), "l"(b), "r"(scale_d))
+#define WGMMA_TF32_RS(N, NA, I0, I1, I2, I3, IB, IS)                      \
+  asm volatile("{\n.reg .pred p;\n"                                      \
+               "setp.ne.b32 p, %" #IS ", 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n" #N                    \
+               "k8.f32.tf32.tf32 {" WG_L##NA "}, {%" #I0 ", %" #I1       \
+               ", %" #I2 ", %" #I3 "}, %" #IB ", p, 1, 1;\n}\n"          \
+               : WG_D##NA(d)                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  if constexpr (N == 32) {
+    WGMMA_TF32_SS(32, 16, 16, 17, 18);
+  } else {
+    static_assert(N == 64, "S tiles are 32 or 64 keys");
+    WGMMA_TF32_SS(64, 32, 32, 33, 34);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  if constexpr (N == 16) {
+    WGMMA_TF32_RS(16, 8, 8, 9, 10, 11, 12, 13);
+  } else if constexpr (N == 32) {
+    WGMMA_TF32_RS(32, 16, 16, 17, 18, 19, 20, 21);
+  } else if constexpr (N == 64) {
+    WGMMA_TF32_RS(64, 32, 32, 33, 34, 35, 36, 37);
+  } else if constexpr (N == 96) {
+    WGMMA_TF32_RS(96, 48, 48, 49, 50, 51, 52, 53);
+  } else if constexpr (N == 112) {
+    WGMMA_TF32_RS(112, 56, 56, 57, 58, 59, 60, 61);
+  } else if constexpr (N == 128) {
+    WGMMA_TF32_RS(128, 64, 64, 65, 66, 67, 68, 69);
+  } else {
+    static_assert(N == 256, "head widths are 16 to 256");
+    WGMMA_TF32_RS(256, 128, 128, 129, 130, 131, 132, 133);
+  }
+}
+
+// The online softmax of one f32 tile: sc holds the scores of rows r0
+// (even i / 2) and r0 + 8 (odd i / 2) at keys k0 + 8 (i / 4) + c2 + i % 2,
+// already scaled (q was scaled before the product).  With a softcap,
+// s = softcap tanh(s / softcap) (tanhf: the f32 bar leaves no room for an
+// approximate tanh); masked scores -1e30; exp(s - m) = 2^(s log2 e -
+// m log2 e) (one FFMA and one MUFU.EX2).  On return sc holds the unrounded
+// p, ls the row sums of this thread's p, alpha = exp(m_old - m_new).
+template <int BK>
+__device__ __forceinline__ void softmax_f32(float (&sc)[BK / 2],
+                                            float (&m)[2], float (&alpha)[2],
+                                            float (&ls)[2], int k0, int r0,
+                                            int c2, bool diag,
+                                            float softcap) {
+  if (softcap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      sc[i] = softcap * tanhf(sc[i] / softcap);
+  }
+  if (diag) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + c2 + (i % 2);
+      const int row = r0 + 8 * ((i / 2) % 2);
+      if (key > row) sc[i] = -1e30f;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i)
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2_approx((m[r] - mx[r]) * FA_LOG2E);
+    m[r] = mx[r];
+    mc[r] = -mx[r] * FA_LOG2E;
+    ls[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i / 2) % 2;
+    sc[i] = ex2_approx(fmaf(sc[i], FA_LOG2E, mc[r]));
+    ls[r] += sc[i];
+  }
+}
+
+// One CTA per query tile of 64 rows of one (b, h), the longest rows first
+// (a 1-D grid of B * H * ceil(S / 64)).  Warpgroup 1 produces: it loads Q
+// once and then K_0, V_0, K_1, V_1, ... through a ring of SLOTS slots,
+// each tile split into TF32 hi and lo in its pass (V transposed), and
+// signals a full barrier; warpgroup 0 consumes: S = Q K^T over D / 8 k8
+// steps of three products each, the softmax, P split in registers (the S
+// accumulator's registers 4 kt .. 4 kt + 3 are the A fragment of the k8
+// step kt of P V, taken in the order 0 2 1 3 that put_v's key order
+// matches), then O += P V, releasing each slot on its empty barrier as
+// soon as its products are done.
+template <int DP, int D>
+__global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
+    flash_attention_fwd_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o, int B, int S, int H,
+                               int KVH, float scale, float softcap) {
+  using T = FaTf32<DP>;
+  constexpr int BQ = T::BQ, BK = T::BK, NS = T::SLOTS;
+  constexpr int NC = D > 128 ? 128 : D;  // columns of one P V product
+  extern __shared__ uint8_t fa_raw[];
+  const uint32_t sq = (smem_u32(fa_raw) + 1023) & ~1023u;  // Q hi, Q lo
+  const uint32_t ring = sq + 2 * T::Q_BYTES;
+  const uint32_t q_full = ring + NS * T::SLOT_BYTES;  // 8-byte barriers
+  const uint32_t full = q_full + 8;                   // [NS]
+  const uint32_t empty = full + 8 * NS;               // [NS]
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x / (B * H));
+  const int b = bh / H, h = bh % H, kvh = h / (H / KVH);
+  const int q0 = qt * BQ;
+  const int n_tiles = (min(q0 + BQ, S) + BK - 1) / BK;  // causal frontier
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 128);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 128);
+      mbar_init(empty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int tid = threadIdx.x % 128;
+
+  if (threadIdx.x >= 128) {
+    // producer: every thread stores its share of a tile, makes its writes
+    // visible to the tensor cores (the async proxy) and arrives.  K_0's
+    // loads are issued first, so they land while Q is split.
+    const long long q_ld = static_cast<long long>(H) * D;
+    const long long kv_ld = static_cast<long long>(KVH) * D;
+    const long long kv0 = static_cast<long long>(b) * S * kv_ld +
+                          static_cast<long long>(kvh) * D;
+    float4 kx[16], vx[16];
+    fetch_rows<BK, D>(kx, k + kv0, kv_ld, S, tid);
+    // Q, times 1/sqrt(D) in f32, 16 float4s a thread at a time (32 at D
+    // 256); a K tile is 16 at most
+    static_assert(RowItems<BK, D>::NT <= 16, "K tile");
+    const float* qsrc = q + (static_cast<long long>(b) * S + q0) * q_ld +
+                        static_cast<long long>(h) * D;
+    using QI = RowItems<BQ, D>;
+#pragma unroll 1
+    for (int u0 = 0; u0 < QI::NT; u0 += QI::PASS) {
+      fetch_rows<BQ, D>(vx, qsrc, q_ld, S - q0, tid, u0);
+      put_rows<BQ, D>(vx, sq, T::Q_BYTES, tid, u0, scale);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(q_full);
+    // item g of the ring: K_{g/2} (even g) or V_{g/2}; its slot is free
+    // once the consumer released the item NS before it
+    auto slot_of = [&](int g) {
+      const int s = g % NS;
+      if (g >= NS) mbar_wait(empty + 8 * s, ((g / NS) - 1) & 1);
+      return ring + s * T::SLOT_BYTES;
+    };
+    auto done = [&](int g) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(full + 8 * (g % NS));
+    };
+    // each tile's loads are issued one item ahead of its stores (three
+    // buffers, two items ahead, spill at D 112 and run slower)
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * BK;
+      fetch_v<BK, D>(vx, v + kv0 + k0 * kv_ld, kv_ld, S - k0, tid);
+      put_rows<BK, D>(kx, slot_of(2 * t), T::KV_BYTES, tid);
+      done(2 * t);
+      if (t + 1 < n_tiles)
+        fetch_rows<BK, D>(kx, k + kv0 + (k0 + BK) * kv_ld, kv_ld,
+                          S - k0 - BK, tid);
+      put_v<BK, D, DP>(vx, slot_of(2 * t + 1), T::KV_BYTES, tid);
+      done(2 * t + 1);
+    }
+    return;
+  }
+
+  // consumer: this thread holds rows r0 and r0 + 8 of the tile, at columns
+  // 8 j + c2 + {0, 1} of each n8 block j of an accumulator (wgmma's m64nN
+  // f32 layout)
+  const int c2 = 2 * (tid % 4);
+  const int r0 = q0 + 16 * (tid / 32) + (tid % 32) / 4;
+  float acc[D / 2], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  uint32_t ph[BK / 8][4], pl[BK / 8][4];  // P's A fragments, hi and lo
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // S = Q K^T of key tile t (ring item 2t): per k8 step (32 bytes of a
+  // 128-byte row; a new column block every 4 steps) Q_hi K_hi + Q_hi K_lo
+  // + Q_lo K_hi
+  auto issue_s = [&](float (&sc)[BK / 2], int t) {
+    const int g = 2 * t;
+    const uint32_t kh = ring + (g % NS) * T::SLOT_BYTES;
+    const uint32_t kl = kh + T::KV_BYTES;
+    mbar_wait(full + 8 * (g % NS), (g / NS) & 1);
+    wgmma_fence();
+    // the small cross terms first, into a small sum, then the hi products:
+    // the tensor cores truncate each sum they add to, so the big terms
+    // are added last and the fewest times
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t ao = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      wgmma_tf32_ss<BK>(sc, wgmma_desc(sq + ao, 16, 1024),
+                        wgmma_desc(kl + bo, 16, 1024), kk > 0);
+      wgmma_tf32_ss<BK>(sc, wgmma_desc(sq + T::Q_BYTES + ao, 16, 1024),
+                        wgmma_desc(kh + bo, 16, 1024), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t ao = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      wgmma_tf32_ss<BK>(sc, wgmma_desc(sq + ao, 16, 1024),
+                        wgmma_desc(kh + bo, 16, 1024), 1);
+    }
+    wgmma_commit();
+  };
+  // P V of key tile t (ring item 2t + 1), columns NC c .. NC c + NC - 1,
+  // into a fresh sum `part`: per k8 step of 8 keys, P_hi V_lo + P_lo V_hi
+  // first, then P_hi V_hi (as in S); V^T read K-major (D rows of BK keys,
+  // 8-row groups 1024 bytes apart)
+  auto issue_pv = [&](int t, int c, float (&part)[NC / 2]) {
+    const int g = 2 * t + 1;
+    const uint32_t vh = ring + (g % NS) * T::SLOT_BYTES + c * NC * 128;
+    const uint32_t vl = vh + T::KV_BYTES;
+    mbar_wait(full + 8 * (g % NS), (g / NS) & 1);
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) part[i] = 0.f;
+    wgmma_pin(part);
+    wgmma_pin(ph);
+    wgmma_pin(pl);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BK / 8; ++kt) {
+      const uint32_t bo = (kt / 4) * DP * 128 + (kt % 4) * 32;
+      wgmma_tf32_rs<NC>(part, ph[kt], wgmma_desc(vl + bo, 16, 1024));
+      wgmma_tf32_rs<NC>(part, pl[kt], wgmma_desc(vh + bo, 16, 1024));
+    }
+#pragma unroll
+    for (int kt = 0; kt < BK / 8; ++kt) {
+      const uint32_t bo = (kt / 4) * DP * 128 + (kt % 4) * 32;
+      wgmma_tf32_rs<NC>(part, ph[kt], wgmma_desc(vh + bo, 16, 1024));
+    }
+    wgmma_commit();
+  };
+  auto release = [&](int g) { mbar_arrive(empty + 8 * (g % NS)); };
+  auto softmax = [&](float (&sc)[BK / 2], int t, float (&alpha)[2],
+                     float (&ls)[2]) {
+    const int k0 = t * BK;
+    softmax_f32<BK>(sc, m, alpha, ls, k0, r0, c2, k0 + BK - 1 > q0, softcap);
+  };
+  // P into the A fragments of P V, and the rescaled l and O.  a0 .. a3 of
+  // step kt: (row r0, key 2t), (r0 + 8, 2t), (r0, 2t + 1), (r0 + 8,
+  // 2t + 1) of the tile's keys 8 kt .. 8 kt + 7
+  auto take_p = [&](const float (&sc)[BK / 2], const float (&alpha)[2],
+                    const float (&ls)[2]) {
+#pragma unroll
+    for (int kt = 0; kt < BK / 8; ++kt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(sc[4 * kt + (e % 2) * 2 + e / 2], ph[kt][e], pl[kt][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+  };
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    float sc[BK / 2], alpha[2], ls[2];
+    issue_s(sc, t);
+    wgmma_wait<0>();
+    wgmma_pin(sc);
+    release(2 * t);
+    softmax(sc, t, alpha, ls);
+    take_p(sc, alpha, ls);
+    // O = alpha O + P V: each tile's P V summed apart on the tensor cores,
+    // then added to O in f32 registers, rounded to nearest
+#pragma unroll
+    for (int c = 0; c < D / NC; ++c) {
+      float part[NC / 2];
+      issue_pv(t, c, part);
+      wgmma_wait<0>();
+      wgmma_pin(part);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) acc[NC / 2 * c + i] += part[i];
+    }
+    release(2 * t + 1);
+  }
+  // O / max(l, 1e-20): the 4 threads of a quad hold a row's columns
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + 8 * r;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    float* out = o + (static_cast<long long>(b) * S + row) * H * D +
+                 static_cast<long long>(h) * D + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int DP, int D>
+static int launch_fa_tf32(const void* q, const void* k, const void* v,
+                          void* o, int B, int S, int H, int KVH,
+                          float softcap, cudaStream_t stream) {
+  using T = FaTf32<DP>;
+  auto kernel = flash_attention_fwd_kernel<DP, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>(B) * H * ((S + T::BQ - 1) / T::BQ);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;
+  kernel<<<static_cast<unsigned>(blocks), T::THREADS, T::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), B, S, H, KVH,
+      1.0f / sqrtf(static_cast<float>(D)), softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float32 only: bf16 runs flash_attention_wgmma_kernel
+static int dispatch_fa_f32(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int H, int KVH, int D,
+                           float softcap, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch_fa_tf32<32, 16>(q, k, v, o, B, S, H, KVH, softcap,
+                                    stream);
+    case 32:
+      return launch_fa_tf32<32, 32>(q, k, v, o, B, S, H, KVH, softcap,
+                                    stream);
+    case 64:
+      return launch_fa_tf32<64, 64>(q, k, v, o, B, S, H, KVH, softcap,
+                                    stream);
+    case 96:
+      return launch_fa_tf32<96, 96>(q, k, v, o, B, S, H, KVH, softcap,
+                                    stream);
+    case 112:
+      return launch_fa_tf32<128, 112>(q, k, v, o, B, S, H, KVH, softcap,
+                                      stream);
+    case 128:
+      return launch_fa_tf32<128, 128>(q, k, v, o, B, S, H, KVH, softcap,
+                                      stream);
+    case 256:
+      return launch_fa_tf32<256, 256>(q, k, v, o, B, S, H, KVH, softcap,
+                                      stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // K9

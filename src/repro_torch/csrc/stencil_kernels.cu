@@ -61,15 +61,36 @@
 //   Pallas holds the whole IJ plane in one block and runs a stencil's
 //   statements in order inside it; blocks of a CUDA grid run in no order,
 //   so a launch boundary orders what the group rule cuts apart.
-// * K2 runs one thread per (tile, j, i) column and marches k over [lo, hi)
-//   forward or backward, evaluating the computation's statements in order
-//   at each level (the same interpreter, one point at a time) and
-//   re-reading earlier levels from memory (opt 0's memory-backed carry, as
-//   the reference's jnp oracle).  Columns are independent (the encoder
-//   refuses horizontal-offset reads of fields the computation writes), so
-//   no synchronisation is needed.  It is bound by the sequential K chain
-//   per thread and by occupancy: a C192 tile set has 6*204*204 columns,
-//   about 1900 warps over 132 SMs.
+// * K2 runs a FORWARD/BACKWARD computation: one thread per K2_COLS = 4
+//   neighbouring columns (rows j .. j + 3 at one i, so each column's warp
+//   access stays one coalesced line) marches k over [lo, hi) forward or
+//   backward and runs the computation's records at each level for its 4
+//   columns at once, each masked by its levels and, per column, by its
+//   box.  Its bound is device-memory bytes like K1's, but the march is a
+//   chain of levels, and the interpreter's work per level is a chain of
+//   dependent instructions; with 4 columns a thread a C192 tile set has
+//   ~13 warps an SM, so K2 waits on latency, and the design takes the
+//   waits off the chain:
+//   - the carry on chip: a slot the march writes and reads at the
+//     marching-previous level is read (``CARRY``) from the value the
+//     thread stored there, kept in shared memory [carried][level parity]
+//     [column][thread], where the opt-0 design reloaded it from device
+//     memory just after storing it; a column that stored nothing at the
+//     level before (the march's first level, a record's box) reads memory;
+//   - the next level's loads copied ahead: every read that no store of the
+//     march can change before it (``AHEAD``: slots it never writes, and
+//     written ones at their own level before any store of them) is copied
+//     by cp.async into shared memory while the level before runs, one
+//     commit group a level, so a level's loads wait on nothing;
+//   - one decode for 4 chains: each op is decoded once for the 4 columns,
+//     and a binary op of two leaves takes both from sources (``src2``),
+//     one op where a push and the op were two;
+//   - addresses once: a column's base address of each slot is computed
+//     once a thread (a table in shared memory), and the 4 columns sit
+//     joff[p] floats apart.
+//   Columns are independent (the encoder refuses horizontal-offset reads
+//   of fields the computation writes), so no synchronisation is needed;
+//   every value is the one the plain version computes, bit for bit.
 // * K3 is the `index_search` level search, for the P points of a strip at
 //   once: they share the column, so it is read once for all of them, from
 //   the top layer down, 8 layers a load batch, until every point has the
@@ -81,10 +102,10 @@
 // * K5, the ensemble member axis.  Pallas puts members on the outermost
 //   sequential grid axis, one member (or one C-member chunk) per step.
 //   Here a launch covers nmember members: K1 runs one thread per (member
-//   chunk, tile, K span, j, i) and K2 one per (member chunk, tile, j, i)
-//   column, and each thread loops over the mchunk members of its chunk
+//   chunk, tile, K span, j, i) and K2 one per (member chunk, tile, 4 rows
+//   j, i), and each thread loops over the mchunk members of its chunk
 //   (mchunk = 1 under "grid", C under "vmap:C,grid"); K2 runs the march
-//   again from lo for each member, so the carry resets per member.  A
+//   again from lo for each member, its carry emptied.  A
 //   slot's member offset is m * mstride[slot] in 64 bits; mstride is 0 for
 //   a field broadcast across members (the metric terms), so an expanded
 //   tensor reaches the kernel without M copies.  The launch count of a
@@ -133,7 +154,10 @@
 #define STACK_MAX 16
 #define REC_INTS 9
 #define OPW 32                            // op word: op * OPW + depth
-#define BLOCK 256                         // K2
+#define K2_BLOCK 128                      // K2: threads per CTA
+#define K2_COLS 4                         // K2: columns a thread
+#define CARRY_MAX 8                       // K2: slots carried on chip
+#define AHEAD_MAX 8                       // K2: loads copied a level ahead
 #define K1_BLOCK 128                      // K1: threads per CTA
 #define K1_STRIP 8                        // K1: levels each op evaluates
 #define KB_BLOCK 128                      // K4: columns per CTA at most
@@ -141,16 +165,23 @@
 #define SMEM_MAX (227 * 1024)             // a CTA's shared memory on sm_90
 
 // opcodes — keep in sync with cuda.py.  An op word is
-//   src << SRC_SHIFT | op * OPW | depth:
+//   src2 << SRC2_SHIFT | src << SRC_SHIFT | op * OPW | depth:
 // the stack depth before the op (the top of the stack is a register,
-// ``acc``, the entries below it sit in shared memory at their depth) and
-// where a push or a binary op takes its operand from.
+// ``acc``, the entries below it sit in shared memory at their depth),
+// where a push or a binary op takes its operand from, and (K2 only) where
+// a binary op takes its first operand from: it then pushes f(src2, src).
+// The operand words follow: src2's, src's, then the op's.
 #define SRC_SHIFT 11
+#define SRC2_SHIFT 14  // K2: a binary op's first operand's source
 enum {            // sources: their operand words follow the op word
   SRC_LOAD = 1,   // slot di dj dk
   SRC_CONST = 2,  // index into the constant table
   SRC_PARAM = 3,  // index into the parameter array
-  SRC_PICK = 4    // j: a copy of stack entry j
+  SRC_PICK = 4,   // j: a copy of stack entry j
+  SRC_CARRY = 5,  // slot di dj dk (K2): the marching-previous level of a
+                  // slot the march writes, from the carry where it is held
+  SRC_AHEAD = 6   // j (K2): key j of the ahead table, copied into shared
+                  // memory while the level before ran
 };
 enum {
   OP_PUSH = 0,    // pushes its source
@@ -194,6 +225,9 @@ struct LaunchArgs {
   int nmember, mchunk;     // K5: members, and members per thread
   int bk, n_staged, n_carried, nfield;  // K4: slab depth, slab planes,
                                         // carries, slots < nfield are fields
+                                        // (K2: n_carried, its carries)
+  int ahead_begin, ahead_end;  // K2: prog[ahead_begin, ahead_end), the
+                               // ahead table (slot di dj dk each)
 };
 
 struct Shared {
@@ -285,6 +319,8 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
+extern __shared__ float dynamic_smem[];  // K1/K2: the stack; K4: slab, stack
+
 // The stack below its top: shared memory, [depth][P][thread].
 template <int P>
 struct Stack {
@@ -295,11 +331,24 @@ struct Stack {
   }
 };
 
+// K2's: the same layout, addressed by an index into dynamic_smem (a
+// shared-memory address from a constant base, where a pointer would be a
+// generic one to convert at every access)
+template <int P>
+struct SharedStack {
+  int base;  // this thread's entry 0 of point 0
+  int nthr;
+  __device__ __forceinline__ float& at(int d, int p) const {
+    return dynamic_smem[base + (d * P + p) * nthr];
+  }
+};
+
 // K1's reads and writes: a strip of P levels k0 .. k0 + P - 1 of the column
 // (m, t, j, i); K reads edge-clamped into the field's extent, as the
 // reference's _k_align does, and a store masked to the record's levels.
 template <bool kMembers, int P>
 struct StripReader {
+  static constexpr bool kCarry = false;
   const Shared& s;
   int m, t, j, i, k0, jp, ip;
   __device__ __forceinline__ float* col(int slot, int di, int dj) const {
@@ -343,7 +392,7 @@ struct StripReader {
   }
 };
 
-// K2's reads and writes: one point (m, t, k, j, i) of a column march.
+// K4's reads and writes at one point (m, t, k, j, i) of device memory.
 template <bool kMembers>
 struct PointReader {
   const Shared& s;
@@ -383,6 +432,7 @@ struct PointReader {
 // store goes to the slab, and through to device memory for a field.
 template <bool kMembers>
 struct SlabReader {
+  static constexpr bool kCarry = false;
   PointReader<kMembers> g;
   float* slab;
   const float* carry;
@@ -414,6 +464,112 @@ struct SlabReader {
   }
 };
 
+// K2's column table: row j's column (t, j, i) of every slot, computed once
+// a thread, in shared memory [slot][thread]; cell() is the point (di, dj)
+// away from it at level kk, edge-clamped into the slot's K extent, of
+// member m.
+template <bool kMembers>
+__device__ __forceinline__ float* cell(const Shared& s, float* const* cols,
+                                       int nthr, int slot, int m, int jp,
+                                       int ip, int di, int dj, int kk) {
+  float* c = cols[slot * nthr] + dj * ip + di +
+             static_cast<size_t>(clampi(kk, 0, s.kext[slot] - 1)) * jp * ip;
+  return kMembers ? c + m * s.mstride[slot] : c;
+}
+
+// K2's reads and writes: level k of P neighbouring columns (m, t, j + p,
+// i), rows j .. j + P - 1 at one i; the column of row j + p is joff[p]
+// floats from row j's (a row past the window is clamped to its last row:
+// it reads in bounds and stores nothing), so an address is computed once
+// for the P columns.  A store is masked per column by ``live``; a level
+// search runs per column.  The marching carry: a store to a carried slot
+// also writes the value to shared memory, [carried][level parity][P]
+// [thread], and sets the (slot, column) bit of ``cur``; a CARRY read, of
+// the marching-previous level, takes the value from there where that bit
+// is set in ``prev`` (``cur`` of the level before), and from device memory
+// where the thread stored none.  An AHEAD read takes its key's value from
+// ``ahead``, [key][P][thread] of this level's parity, which cp.async
+// filled while the level before ran.
+template <bool kMembers, int P>
+struct ColumnReader {
+  static constexpr bool kCarry = true;
+  const Shared& s;
+  int m, k, jp, ip;
+  float* const* cols;  // this thread's entry of the table of row j's columns
+  int joff[P];
+  unsigned live;
+  int cv;     // this thread's carry entry 0, in dynamic_smem
+  int ahead;  // this thread's entry 0 of this level's copies
+  int nthr;
+  unsigned cur;        // the carry's bits of this level's stores
+  unsigned prev;       // and of the level before's
+  __device__ __forceinline__ float* col(int slot, int di, int dj,
+                                        int kk) const {
+    return cell<kMembers>(s, cols, nthr, slot, m, jp, ip, di, dj, kk);
+  }
+  __device__ __forceinline__ float& held(int c, int kk, int p) const {
+    return dynamic_smem[cv + ((c * 2 + (kk & 1)) * P + p) * nthr];
+  }
+  __device__ __forceinline__ void load(int slot, int di, int dj, int dk,
+                                       float (&out)[P]) const {
+    const float* c = col(slot, di, dj, k + dk);
+#pragma unroll
+    for (int p = 0; p < P; ++p) out[p] = c[joff[p]];
+  }
+  __device__ __forceinline__ void load_found(int slot, int di, int dj, int dk,
+                                             const int (&lvl)[P],
+                                             float (&out)[P]) const {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      out[p] = col(slot, di, dj, lvl[p] + dk)[joff[p]];
+  }
+  __device__ __forceinline__ void search(int coord, int lo, int hi,
+                                         const float (&target)[P],
+                                         int (&lvl)[P]) const {
+    const float* c = col(coord, 0, 0, 0);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float one[1] = {target[p]};
+      int got[1];
+      march_search<1>(c + joff[p], s.kext[coord],
+                      static_cast<size_t>(jp) * ip, lo, hi, one, got);
+      lvl[p] = got[0];
+    }
+  }
+  __device__ __forceinline__ void carry(int slot, int dk,
+                                        float (&out)[P]) const {
+    const int c = s.cidx[slot], kk = k + dk;
+    const unsigned have = (prev >> (c * P)) & ((1u << P) - 1u);
+    if (have == (1u << P) - 1u) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) out[p] = held(c, kk, p);
+      return;
+    }
+    const float* mem = col(slot, 0, 0, kk);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      out[p] = (have >> p) & 1u ? held(c, kk, p) : mem[joff[p]];
+  }
+  __device__ __forceinline__ void copied(int key, float (&out)[P]) const {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      out[p] = dynamic_smem[ahead + (key * P + p) * nthr];
+  }
+  __device__ __forceinline__ void store(int slot, const float (&v)[P], int,
+                                        int) {
+    float* c = col(slot, 0, 0, k);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if ((live >> p) & 1u) c[joff[p]] = v[p];
+    const int ci = s.cidx[slot];
+    if (ci >= 0) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) held(ci, k, p) = v[p];
+      cur |= live << (ci * P);
+    }
+  }
+};
+
 // -- the interpreter -----------------------------------------------------
 // One switch over the opcode.  An op works on P points at once: the top of
 // the stack is ``acc[P]`` in registers, entry d of point p below it is
@@ -438,50 +594,84 @@ struct SlabReader {
     break;
 #define NEG_OF(x) (-(x))
 
+// The P values of source src (stack depth d before the op), its operand
+// words from pc on; advances pc past them.
+template <int P, class Reader, class Stk>
+__device__ __forceinline__ void read_source(const Shared& s, int src, int d,
+                                            int& pc, Reader& rd,
+                                            const Stk& st,
+                                            const float (&acc)[P],
+                                            float (&out)[P]) {
+  const int* arg = s.prog + pc;
+  if constexpr (Reader::kCarry) {  // K2's own sources
+    if (src == SRC_CARRY) {
+      rd.carry(arg[0], arg[3], out);
+      pc += 4;
+      return;
+    }
+    if (src == SRC_AHEAD) {
+      rd.copied(arg[0], out);
+      pc += 1;
+      return;
+    }
+  }
+  switch (src) {
+    case SRC_LOAD:
+      rd.load(arg[0], arg[1], arg[2], arg[3], out);
+      pc += 4;
+      break;
+    case SRC_CONST: {
+      const float c = s.consts[arg[0]];
+      UNROLL_P out[p] = c;
+      pc += 1;
+      break;
+    }
+    case SRC_PARAM: {
+      const float c = s.params[arg[0]];
+      UNROLL_P out[p] = c;
+      pc += 1;
+      break;
+    }
+    default:  // SRC_PICK: the top is acc, the entries below in memory
+      if (arg[0] == d - 1) {
+        UNROLL_P out[p] = acc[p];
+      } else {
+        UNROLL_P out[p] = st.at(arg[0], p);
+      }
+      pc += 1;
+  }
+}
+
 // Interpret the ops [pc, end) of one record for the P points of ``rd``;
 // ``lvl`` holds the enclosing search's levels.
-template <int P, class Reader>
+template <int P, class Reader, class Stk>
 __device__ __forceinline__ void run_ops(const Shared& s, int pc,
-                                        const int end, const Reader& rd,
-                                        const Stack<P>& st, float (&acc)[P],
+                                        const int end, Reader& rd,
+                                        const Stk& st, float (&acc)[P],
                                         int (&lvl)[P], const int klo,
                                         const int khi) {
   while (pc < end) {
     const unsigned w = static_cast<unsigned>(s.prog[pc++]);
-    const int d = w & (OPW - 1), op = (w >> 5) & 63, src = w >> SRC_SHIFT;
-    float b[P];  // the source's values
-    if (src != 0) {
-      const int* arg = s.prog + pc;
-      switch (src) {
-        case SRC_LOAD:
-          rd.load(arg[0], arg[1], arg[2], arg[3], b);
-          pc += 4;
-          break;
-        case SRC_CONST: {
-          const float c = s.consts[arg[0]];
-          UNROLL_P b[p] = c;
-          pc += 1;
-          break;
-        }
-        case SRC_PARAM: {
-          const float c = s.params[arg[0]];
-          UNROLL_P b[p] = c;
-          pc += 1;
-          break;
-        }
-        default:  // SRC_PICK: the top is acc, the entries below in memory
-          if (arg[0] == d - 1) {
-            UNROLL_P b[p] = acc[p];
-          } else {
-            UNROLL_P b[p] = st.at(arg[0], p);
-          }
-          pc += 1;
+    const int d = w & (OPW - 1), op = (w >> 5) & 63;
+    const int src = (w >> SRC_SHIFT) & 7;
+    float b[P];   // the source's values
+    float a2[P];  // K2: a binary op's first operand, from src2
+    bool pair = false;
+    if constexpr (Reader::kCarry) {
+      const int src2 = w >> SRC2_SHIFT;
+      if (src2 != 0) {
+        read_source<P>(s, src2, d, pc, rd, st, acc, a2);
+        pair = true;
       }
     }
+    if (src != 0) read_source<P>(s, src, d, pc, rd, st, acc, b);
     const int* arg = s.prog + pc;
     if (op >= OP_ADD && op <= OP_RPOW) {
       float a[P];
-      if (src != 0) {
+      if (pair) {  // f(src2, src) is pushed
+        if (d > 0) { UNROLL_P st.at(d - 1, p) = acc[p]; }
+        UNROLL_P a[p] = a2[p];
+      } else if (src != 0) {
         UNROLL_P a[p] = acc[p];
       } else {
         UNROLL_P {
@@ -556,7 +746,6 @@ __device__ void stage(Shared& s, const LaunchArgs& a) {
   __syncthreads();
 }
 
-extern __shared__ float dynamic_smem[];  // K1/K2: the stack; K4: slab, stack
 
 // K1: a launch group of PARALLEL statements (replaces _horizontal_kernel).
 // One thread per (member chunk, tile, K span, j, i): it walks the span's
@@ -590,7 +779,7 @@ __global__ void __launch_bounds__(K1_BLOCK, 4) stencil_parallel_kernel(LaunchArg
   for (int mm = 0; mm < mchunk; ++mm) {
     const int m = chunk * mchunk + mm;
     for (int k0 = kbeg; k0 < kend; k0 += P) {
-      const StripReader<kMembers, P> rd{s, m, t, j, i, k0, a.jp, a.ip};
+      StripReader<kMembers, P> rd{s, m, t, j, i, k0, a.jp, a.ip};
       for (int q = 0; q < n_rec; ++q) {
         const int* r = s.prog + 1 + REC_INTS * q;
         // the record's levels and box, read at once, tested without a
@@ -606,36 +795,122 @@ __global__ void __launch_bounds__(K1_BLOCK, 4) stencil_parallel_kernel(LaunchArg
   }
 }
 
-// K2: a FORWARD/BACKWARD computation, one column per thread (replaces
-// _vertical_kernel with the memory-backed carry).
-template <bool kMembers>
-__global__ void __launch_bounds__(BLOCK) stencil_column_kernel(LaunchArgs a) {
+// a 4-byte copy from device memory into shared memory that completes
+// asynchronously (cp.async), in the thread's current commit group
+__device__ __forceinline__ void copy_async(int dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(
+                       __cvta_generic_to_shared(dynamic_smem + dst))),
+               "l"(src)
+               : "memory");
+}
+
+// K2: a FORWARD/BACKWARD computation (replaces _vertical_kernel).  One
+// thread per P neighbouring columns (member chunk, tile, rows j .. j + P -
+// 1, i): it marches k over [lo, hi) and runs the computation's records at
+// each level for its P columns at once (one decode per op for P chains),
+// each record masked by its levels and, per column, by its box.  Reads of
+// the marching-previous level of a carried slot come from the carry
+// (ColumnReader), which starts empty for each member.  The keys of the
+// ahead table are copied for the next level (the next member's first at a
+// member's last) into shared memory by cp.async while a level runs, one
+// commit group a level, so a level's loads wait on no device memory.
+// At least one CTA an SM in the launch bounds: left to its own choice,
+// ptxas gave the P = 4 instances under 100 registers and spilled.
+template <bool kMembers, int P>
+__global__ void __launch_bounds__(K2_BLOCK, 1) stencil_column_kernel(
+    LaunchArgs a) {
   __shared__ Shared s;
   stage(s, a);
-  const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0;
+  const int nthr = blockDim.x, tid = threadIdx.x;
+  const long long ni = a.i1 - a.i0, njg = (a.j1 - a.j0 + P - 1) / P;
   const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
-  long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= nchunk * a.ntile * nj * ni) return;
+  long long g = static_cast<long long>(blockIdx.x) * nthr + tid;
+  if (g >= nchunk * a.ntile * njg * ni) return;
   const int i = a.i0 + static_cast<int>(g % ni); g /= ni;
-  const int j = a.j0 + static_cast<int>(g % nj); g /= nj;
+  const int j = a.j0 + P * static_cast<int>(g % njg); g /= njg;
   const int t = kMembers ? static_cast<int>(g % a.ntile) : static_cast<int>(g);
   const int chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
+  int joff[P];  // row j + p's column, from row j's
+#pragma unroll
+  for (int p = 0; p < P; ++p) joff[p] = (min(j + p, a.j1 - 1) - j) * a.ip;
   const int n_stmts = s.prog[0];
   const int mchunk = kMembers ? a.mchunk : 1;
-  const Stack<1> st{dynamic_smem + threadIdx.x, static_cast<int>(blockDim.x)};
-  float acc[1] = {0.f};
-  int lvl[1] = {0};
+  const int nkey = (a.ahead_end - a.ahead_begin) / 4;
+  const int n_steps = a.hi - a.lo;
+  const int first = a.forward ? a.lo : a.hi - 1, dir = a.forward ? 1 : -1;
+  // dynamic_smem: the stack [depth][P], the carry [carried][2][P], the
+  // copies [2][nkey][P], each [..][thread], then the column table
+  // [slot][thread] (pointers, 8-byte aligned: nthr is even)
+  const SharedStack<P> st{tid, nthr};
+  const int cv = a.depth * P * nthr + tid;
+  const int copies = cv + 2 * a.n_carried * P * nthr;
+  float** table = reinterpret_cast<float**>(
+      dynamic_smem + (a.depth + 2 * a.n_carried + 2 * nkey) * P * nthr);
+  for (int slot = 0; slot < a.n_slots; ++slot)
+    table[slot * nthr + tid] = column<false>(s, slot, 0, t, a.jp, a.ip, j, i);
+  float* const* cols = table + tid;
+  // the ahead table's keys at level k of member m into buffer buf, as one
+  // commit group (an empty one past the chunk's last level)
+  auto copy_level = [&](bool any, int m, int k, int buf) {
+    if (any) {
+      for (int x = 0; x < nkey; ++x) {
+        const int* key = s.prog + a.ahead_begin + 4 * x;
+        const float* c = cell<kMembers>(s, cols, nthr, key[0], m, a.jp,
+                                        a.ip, key[1], key[2], k + key[3]);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          copy_async(copies + ((buf * nkey + x) * P + p) * nthr, c + joff[p]);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  // the march of the copies runs a level ahead of the interpreter's
+  int c_mm = 0, c_step = 0, c_buf = 0;
+  auto copy_next = [&]() {
+    copy_level(c_mm < mchunk, chunk * mchunk + c_mm, first + dir * c_step,
+               c_buf);
+    c_buf ^= 1;
+    if (++c_step == n_steps) {
+      c_step = 0;
+      ++c_mm;
+    }
+  };
+  if (nkey > 0) copy_next();
+  float acc[P];
+  int lvl[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) { acc[p] = 0.f; lvl[p] = 0; }
+  int buf = 0;
   for (int mm = 0; mm < mchunk; ++mm) {
     const int m = chunk * mchunk + mm;
-    for (int step = 0; step < a.hi - a.lo; ++step) {
-      const int k = a.forward ? a.lo + step : a.hi - 1 - step;
-      const PointReader<kMembers> rd{s, m, t, k, j, i, a.jp, a.ip};
+    unsigned cur = 0;  // the carry starts empty for each member
+    for (int step = 0; step < n_steps; ++step) {
+      const int k = first + dir * step;
+      if (nkey > 0) {
+        copy_next();
+        // this level's group is done (the next level's may still run)
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      }
+      ColumnReader<kMembers, P> rd{s,    m,  k,    a.jp, a.ip,
+                                   cols, {}, 0u,   cv,   copies + buf * nkey * P * nthr,
+                                   nthr, 0u, cur};
+#pragma unroll
+      for (int p = 0; p < P; ++p) rd.joff[p] = joff[p];
       for (int q = 0; q < n_stmts; ++q) {
         const int* r = s.prog + 1 + REC_INTS * q;
-        if (k < r[1] || k >= r[2]) continue;                 // interval
-        if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
-        run_ops<1>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
+        if (k < r[1] || k >= r[2] || i < r[5] || i >= r[6]) continue;
+        unsigned live = 0;
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          live |= static_cast<unsigned>(j + p >= r[3] && j + p < r[4] &&
+                                        j + p < a.j1) << p;
+        if (live == 0) continue;
+        rd.live = live;
+        run_ops<P>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
       }
+      cur = rd.cur;
+      buf ^= 1;
     }
   }
 }
@@ -691,7 +966,7 @@ __global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
       for (int step = 0; step < bk; ++step) {
         const int local = a.forward ? step : bk - 1 - step;
         const int k = k0 + local;
-        const SlabReader<kMembers> rd{{s, m, t, k, j, i, a.jp, a.ip},
+        SlabReader<kMembers> rd{{s, m, t, k, j, i, a.jp, a.ip},
                                       slab, carry, local, bk, nthr, tid,
                                       a.nfield};
         for (int q = 0; q < n_stmts; ++q) {
@@ -741,6 +1016,25 @@ static int launch_parallel(const LaunchArgs* a, long long n,
                       st, a);
 }
 
+// K2: the stack, the carry and the copies a level ahead in shared memory,
+// each [..][K2_COLS][thread]
+static int launch_column(const LaunchArgs* a, cudaStream_t st) {
+  constexpr int P = K2_COLS;
+  const long long njg = (a->j1 - a->j0 + P - 1) / P;
+  const long long n = static_cast<long long>(a->nmember / a->mchunk) *
+                      a->ntile * njg * (a->i1 - a->i0);
+  const size_t bytes =
+      static_cast<size_t>(a->depth + 2 * a->n_carried +
+                          2 * (a->ahead_end - a->ahead_begin) / 4) *
+          P * K2_BLOCK * sizeof(float) +
+      static_cast<size_t>(a->n_slots) * K2_BLOCK * sizeof(float*);
+  return a->nmember > 1
+             ? launch(stencil_column_kernel<true, P>, n, K2_BLOCK, bytes, st,
+                      a)
+             : launch(stencil_column_kernel<false, P>, n, K2_BLOCK, bytes,
+                      st, a);
+}
+
 extern "C" {
 
 // Layout check for the ctypes mirror of LaunchArgs.
@@ -749,7 +1043,8 @@ int stencil_launch_args_size() { return static_cast<int>(sizeof(LaunchArgs)); }
 int stencil_limits(int* out) {
   out[0] = MAX_SLOTS; out[1] = MAX_PARAMS; out[2] = PROG_MAX;
   out[3] = CONST_MAX; out[4] = STACK_MAX; out[5] = REC_INTS;
-  out[6] = OPW; out[7] = K1_STRIP;
+  out[6] = OPW; out[7] = K1_STRIP; out[8] = CARRY_MAX; out[9] = AHEAD_MAX;
+  out[10] = K2_COLS;
   return 0;
 }
 
@@ -769,13 +1064,11 @@ int launch_stencil_parallel(const LaunchArgs* a, void* stream) {
 }
 
 int launch_stencil_column(const LaunchArgs* a, void* stream) {
-  const long long n = n_chunks(a) * a->ntile * (a->j1 - a->j0) *
-                      (a->i1 - a->i0);
-  const size_t bytes = static_cast<size_t>(a->depth) * BLOCK * sizeof(float);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a->nmember > 1
-             ? launch(stencil_column_kernel<true>, n, BLOCK, bytes, st, a)
-             : launch(stencil_column_kernel<false>, n, BLOCK, bytes, st, a);
+  if (a->n_carried > CARRY_MAX || a->ahead_begin > a->ahead_end ||
+      a->ahead_end > a->n_prog ||
+      a->ahead_end - a->ahead_begin > 4 * AHEAD_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_column(a, static_cast<cudaStream_t>(stream));
 }
 
 // K4: as many columns per CTA (up to KB_BLOCK, down to a warp) as the

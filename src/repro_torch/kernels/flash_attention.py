@@ -13,8 +13,15 @@ Replaces the reference's Pallas kernel ``kernels/flash_attention.py``
    tile's Q·Kᵀ and softmax, and O leaves by TMA stores.  The scores are
    scaled after the product and the probabilities rounded to bf16 before
    P·V, as the reference model computes them (``models/layers.py``);
- * float32 (the parity path): ``flash_attention_fwd_kernel``, 32 query
-   rows per CTA, every product f32 on the CUDA cores.
+ * float32 (the parity path): ``flash_attention_fwd_kernel``, both
+   products on the tensor cores in 3xTF32: each operand is split into a
+   TF32 ``hi`` and the TF32 rounding of its remainder ``lo``, and a product
+   is ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` (``wgmma`` ``.tf32``, f32
+   sums), which keeps the f32 bar.  One CTA per query tile of 64 rows: a
+   producer warpgroup loads and splits Q, then K and V (V transposed)
+   through a ring of shared-memory slots, and a consumer warpgroup runs the
+   products and the online softmax.  q is scaled by 1/sqrt(D) before the
+   product, as the Pallas kernel does.
 
 Both read q (B, S, H, D) and k/v (B, S, KVH, D) in place, with query head
 h on kv head ``h // (H / KVH)``, keep the online softmax in float32, mask
@@ -36,9 +43,10 @@ HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> None:
     """The checks the card's kernels need (dtype, head width, the f32
-    kernel's grid, contiguous and 16-byte aligned tensors); raises
-    ValueError on what they do not take.  Reads only shapes, dtypes and
-    layouts, so it runs on any device."""
+    kernel's 1-D grid of one CTA per 64 query rows of each head, contiguous
+    and 16-byte aligned tensors); raises ValueError on what they do not
+    take.  Reads only shapes, dtypes and layouts, so it runs on any
+    device."""
     D = q.shape[3]
     if q.dtype not in library.LM_DTYPES:
         raise ValueError("flash_attention takes float32 or bfloat16, not "
@@ -46,10 +54,12 @@ def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {D} not in "
                          f"{HEAD_DIMS}")
-    # the bf16 kernel is persistent; the f32 one takes B*H on grid.y
-    if q.dtype == torch.float32 and q.shape[0] * q.shape[2] > 65535:
-        raise ValueError(f"flash_attention: B*H = {q.shape[0] * q.shape[2]} "
-                         "exceeds the float32 kernel's launch grid (65535)")
+    # the bf16 kernel is persistent; the f32 one launches a CTA per query
+    # tile of 64 rows of each (b, h)
+    tiles = q.shape[0] * q.shape[2] * -(-q.shape[1] // 64)
+    if q.dtype == torch.float32 and tiles > 2**31 - 1:
+        raise ValueError(f"flash_attention: {tiles} query tiles of 64 rows "
+                         "exceed the float32 kernel's launch grid (2^31 - 1)")
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
                for x in (q, k, v)):
         raise ValueError("flash_attention takes contiguous, 16-byte aligned "

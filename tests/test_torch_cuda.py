@@ -90,17 +90,34 @@ class _StreamEvaluator:
     """Vectorised torch reading of the kernels' instruction stream.
 
     Each op word holds the op, the stack depth before it and the source of
-    a push's or a binary op's operand; the reader keeps its own stack and
+    a push's or a binary op's operand (in K2, also a binary op's first
+    operand: it then pushes its value); the reader keeps its own stack and
     checks that it holds ``depth`` values before each op.  A K1
     launch runs its records in order over the
     launch's levels and box, values staying on the stack from record to
-    record, each store masked by its record's levels and box; a K2 launch
-    runs the records of each level in marching order."""
+    record, each store masked by its record's levels and box.  A K2 launch
+    runs as the kernel maps it: a thread per ``C.COLUMNS`` neighbouring
+    rows at one i (rows past the window clamped to its last row), the
+    records of each level in marching order, each store masked per column
+    by the record's box and the window; a store to a carried slot also
+    goes to the carry, and a ``CARRY`` read takes the marching-previous
+    level from there where that column stored it at the level before, else
+    from memory (``carry_reads`` counts both).  :meth:`reset_carry` empties
+    the carry, as the kernel does at each member's first level.  An
+    ``AHEAD`` read takes its key's value as memory held it when the level
+    before started, where the kernel's copy reads it (the first level's:
+    before the march)."""
 
     def __init__(self, slots, params, consts):
         self.slots = slots          # slot -> (T, K, Jp, Ip) tensor
         self.params = params        # f32 values in parameter order
         self.consts = torch.tensor(consts or [0.0], dtype=torch.float32)
+        self.carry_reads = {"carry": 0, "memory": 0}
+        self.reset_carry()
+
+    def reset_carry(self):
+        # slot -> (values, stored) of the level before / this level
+        self.prev, self.cur = {}, {}
 
     def load(self, slot, ks, js, is_):
         arr = self.slots[slot]
@@ -130,6 +147,18 @@ class _StreamEvaluator:
             return self.consts[prog[pc]], 1
         if src == C.SRC_PARAM:
             return torch.tensor(self.params[prog[pc]], dtype=torch.float32), 1
+        if src == C.SRC_AHEAD:
+            return self.copies[prog[pc]], 1
+        if src == C.SRC_CARRY:
+            s, di, dj, dk = prog[pc:pc + 4]
+            assert (di, dj) == (0, 0), (di, dj)
+            mem = self.load(s, ks + dk, js, is_)
+            val, ok = self.prev.get(s, (mem, torch.zeros_like(mem,
+                                                              dtype=bool)))
+            ok = ok.expand_as(mem)
+            self.carry_reads["carry"] += int(ok.sum())
+            self.carry_reads["memory"] += int((~ok).sum())
+            return torch.where(ok, val, mem), 4
         assert src == C.SRC_PICK, src
         return stk[prog[pc]], 1
 
@@ -138,9 +167,14 @@ class _StreamEvaluator:
         lvl = None
         while pc < end:
             word = prog[pc]
-            src, op, depth = word >> C.SRC_SHIFT, (word >> 5) & 63, word & 31
+            src2, src = word >> C.SRC2_SHIFT, (word >> C.SRC_SHIFT) & 7
+            op, depth = (word >> 5) & 63, word & 31
             pc += 1
             assert depth == len(stk), (op, depth, len(stk))
+            if src2:  # K2: a binary op's first operand, its words first
+                assert C.is_binary(op) and src, (op, src2, src)
+                first, n = self.source(prog, pc, src2, ks, js, is_, stk)
+                pc += n
             if src:
                 val, n = self.source(prog, pc, src, ks, js, is_, stk)
                 pc += n
@@ -173,6 +207,8 @@ class _StreamEvaluator:
             elif op == C.OP_WHERE:
                 b, a, c = stk.pop(), stk.pop(), stk.pop()
                 stk.append(torch.where(c != 0, a, b))
+            elif src2:  # f(src2, src), pushed
+                stk.append(_binary(op, first, val))
             else:  # f(a, b): a below b, or a the top and b the source
                 b = val if src else stk.pop()
                 a = stk.pop()
@@ -197,15 +233,57 @@ class _StreamEvaluator:
 
             self.run(p.prog, b, e, kk, js, is_, stk, store)
 
+    def columns(self, p, ncol):
+        """K2: every level of the march for the launch's columns, ``ncol``
+        rows a thread."""
+        j0, j1, i0, i1 = p.box
+        rows = torch.arange(j0, j0 + -(-(j1 - j0) // ncol) * ncol)
+        real = rows < j1  # the rows past the window store nothing
+        js = rows.clamp(max=j1 - 1)[None, :, None]
+        is_ = torch.arange(i0, i1)[None, None, :]
+        levels = (range(p.lo, p.hi) if p.forward
+                  else range(p.hi - 1, p.lo - 1, -1))
+
+        def copy(k):  # the AHEAD keys of level k, as memory holds them now
+            kk = torch.tensor(k).reshape(1, 1, 1)
+            return [self.load(s, kk + dk, js + dj, is_ + di)
+                    for s, di, dj, dk in p.ahead_keys()]
+
+        after = copy(levels[0]) if levels else []
+        for step, k in enumerate(levels):
+            self.copies = after
+            after = copy(levels[step + 1]) if step + 1 < len(levels) else []
+            kk = torch.tensor(k).reshape(1, 1, 1)
+            self.prev, self.cur = self.cur, {}
+            for tgt, klo, khi, rj0, rj1, ri0, ri1, b, e in p.records():
+                if not klo <= k < khi:
+                    continue
+                live = ((rows >= rj0) & (rows < rj1) & real)[None, :, None] \
+                    & (is_ >= ri0) & (is_ < ri1)
+                if not live.any():
+                    continue
+
+                def store(slot, val, live=live[:, None]):
+                    # val and live as (T, 1 level, rows, I)
+                    out = self.slots[slot]
+                    val = val.expand(out.shape[:1] + live.shape[1:])
+                    win = out[:, k:k + 1, rows[real], i0:i1]
+                    out[:, k:k + 1, rows[real], i0:i1] = torch.where(
+                        live[..., real, :], val[..., real, :], win)
+                    if slot in p.carried:
+                        old, ok = self.cur.get(slot, (val, live & False))
+                        self.cur[slot] = (torch.where(live, val, old),
+                                          ok | live)
+
+                self.run(p.prog, b, e, kk, js, is_, [], store)
+
     def launch(self, p):
         if p.empty:
             return
         if p.kind == "horizontal":
             self.records(p, torch.arange(p.klo, p.khi), p.box, [])
-            return
-        for step in range(p.hi - p.lo):
-            k = p.lo + step if p.forward else p.hi - 1 - step
-            self.records(p, torch.tensor([k]), p.box, [])
+        else:
+            self.columns(p, C.COLUMNS)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -585,6 +663,44 @@ def test_ensemble_step_on_card_matches_member_loop(card, batch):
     assert (out["pt"][1] - out["pt"][0]).abs().max().item() > 0
 
 
+#: windows whose rows are no multiple of K2's columns a thread and whose
+#: columns are no multiple of a warp
+RAGGED = [DomainSpec(ni=37, nj=13, nk=9, halo=3, extend=(1, 1)),
+          DomainSpec(ni=45, nj=6, nk=12, halo=3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dom", RAGGED, ids=["37x13", "45x6"])
+@pytest.mark.parametrize("name", ["tridiag_solve", "column_total",
+                                  "precompute_pe", "cumsum_mass"])
+@pytest.mark.parametrize("members", [None, 4])
+def test_column_kernel_on_ragged_windows_on_card(card, dom, name, members):
+    """K2 (its columns a thread, the carry, the copies a level ahead) at
+    windows whose rows are no multiple of ``C.COLUMNS`` and whose columns
+    are no multiple of 32, alone and over 4 members in chunks of 2 (one
+    input broadcast across members): exactly its plain version."""
+    st = getattr(TS, name)
+    if members is None:
+        run = C.CudaStencil(st, dom)
+        fields, params = _inputs(run.stencil, dom, seed=11, lead=(3,))
+        fields = {k: v.to(card) for k, v in fields.items()}
+        before = C.LAUNCHES["column"]
+    else:
+        run = C.CudaStencil(st, dom, n_members=members, member_chunk=2)
+        fields, params = _inputs(run.stencil, dom, seed=12,
+                                 lead=(members, 3))
+        bcast = next(f for f in run.stencil.fields if f not in run.written)
+        fields = {k: v.to(card) for k, v in fields.items()}
+        fields[bcast] = fields[bcast][:1].expand_as(fields[bcast])
+        before = C.LAUNCHES["column"]
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["column"] > before
+    for w in run.written:
+        assert torch.equal(got[w], want[w]), (name, w)
+
+
 KDOM = DomainSpec(ni=6, nj=5, nk=16, halo=3, extend=(1, 1))
 
 
@@ -705,6 +821,40 @@ def test_flash_attention_wgmma_long_and_wide_on_card(card, B, S, H, KVH, D,
     want = KR.flash_attention_ref(q, k, v, softcap=softcap)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-2, atol=1e-1)
+    kk, vv = (x.double().repeat_interleave(H // KVH, dim=2) for x in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) / D ** 0.5
+    if softcap > 0.0:
+        sc = softcap * torch.tanh(sc / softcap)
+    keep = torch.ones((S, S), dtype=torch.bool, device=card).tril()
+    exact = torch.einsum("bhqk,bkhd->bqhd",
+                         torch.softmax(torch.where(keep, sc, -1e30), -1), vv)
+    rel = [(x.double() - exact).norm(dim=-1) / exact.norm(dim=-1)
+           for x in (got, want)]
+    for stat in (torch.mean, torch.amax):
+        kernel, plain = (stat(r).item() for r in rel)
+        assert kernel <= 2.0 * plain, (stat.__name__, kernel, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (1, 2048, 8, 2, 128), (2, 257, 4, 1, 256), (1, 1000, 4, 4, 112),
+    (3, 65, 6, 3, 96),
+])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_flash_attention_f32_long_and_wide_on_card(card, B, S, H, KVH, D,
+                                                    softcap):
+    """float32 (3xTF32) through many turns of the K/V ring (32 tiles of 64
+    keys), at D 256 (one slot, 32-key tiles), ragged S and GQA: the plain
+    version's bar (rtol = atol = 2e-5), and against float64 each (b, s, h)
+    row's error over the row's norm, the kernel's mean and max within 2x
+    the plain version's."""
+    gen = torch.Generator(device=card).manual_seed(S + D + 1)
+    q, k, v = (torch.randn(s, generator=gen, device=card)
+               for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    got = KO.flash_attention(q, k, v, softcap=softcap)
+    want = KR.flash_attention_ref(q, k, v, softcap=softcap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     kk, vv = (x.double().repeat_interleave(H // KVH, dim=2) for x in (k, v))
     sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) / D ** 0.5
     if softcap > 0.0:

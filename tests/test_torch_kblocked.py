@@ -145,7 +145,8 @@ class _SlabWalker:
         prog, stk = self.p.prog, []
         while pc < end:
             word = prog[pc]
-            src, op, depth = word >> C.SRC_SHIFT, (word >> 5) & 63, word & 31
+            src, op, depth = ((word >> C.SRC_SHIFT) & 7, (word >> 5) & 63,
+                              word & 31)
             pc += 1
             assert depth == len(stk)
             if src == C.SRC_LOAD:

@@ -4,9 +4,10 @@
 softcap sweeps and tolerances of the reference's own kernel tests
 (``tests/test_kernels.py``).  On the CPU the wrappers run the plain
 versions; the kernels themselves are held against those on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  The bf16 flash-attention
-kernel's own arithmetic (tiles, padding, where it rounds) is emulated here
-in torch and held to the reference's bar before the card runs it."""
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Each flash-attention
+kernel's own arithmetic (tiles, padding, where it rounds: bf16 P in the
+bf16 kernel, 3xTF32 products in the f32 one) is emulated here in torch and
+held to the reference's bar before the card runs it."""
 
 import math
 
@@ -145,6 +146,114 @@ def test_wgmma_kernel_numerics_meet_reference_bar(B, S, H, KVH, D, softcap):
     torch.testing.assert_close(got, plain, rtol=2e-2, atol=1e-1)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the 13 low
+    mantissa bits dropped, to nearest with ties away from zero (the float's
+    bits are sign and magnitude, so adding half of the dropped unit to
+    them rounds the magnitude up at a tie, whatever the sign)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tensor_core_product(a, b, products):
+    """``a @ b`` of f32 operands as the f32 kernel runs it on the tensor
+    cores, with f32 sums: 3 products of the split operands (hi = tf32(x),
+    lo = tf32(x - hi); ``lo lo`` is dropped), or, for ``products=1``, the
+    one TF32 product that the f32 bar rules out."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if products == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def _tf32x3_kernel_emulation(q, k, v, softcap, products=3):
+    """What ``flash_attention_fwd_kernel`` (float32) computes, blockwise, in
+    torch: 64 query rows a CTA, tiles of BK keys up to the causal frontier
+    (64, or 32 at D = 256), rows past S zero-filled as the producer fills
+    them; q scaled by 1/sqrt(D) in f32 before the product, as the Pallas
+    kernel scales it; S = Q K^T and O += P V each as three TF32 products of
+    the split operands (:func:`_tensor_core_product`), P split from the
+    unrounded f32 probabilities; masked scores -1e30, the online softmax in
+    f32 (exp(s - m) = 2^(s log2 e - m log2 e)), l summed over the unrounded
+    p, and O times 1 / max(l, 1e-20).  Its sums round to nearest; the
+    tensor cores' truncate, which the kernel's order of sums answers for
+    (a float64 check on the card holds it there)."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    BQ, BK = 64, 64 if D <= 128 else 32
+    Sp = -(-S // BQ) * BQ
+
+    def rows(x):  # (B, S, h, D) -> (B, h, Sp, D)
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, Sp - S)).permute(
+            0, 2, 1, 3)
+
+    qs = rows(q) * torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    kp = rows(k).repeat_interleave(rep, dim=1)
+    vp = rows(v).repeat_interleave(rep, dim=1)
+    log2e = torch.tensor(1.0 / math.log(2.0), dtype=torch.float32)
+    out = torch.empty(B, H, Sp, D)
+    for q0 in range(0, Sp, BQ):
+        qrows = torch.arange(q0, q0 + BQ)
+        m = torch.full((B, H, BQ), -1e30)
+        l = torch.zeros(B, H, BQ)
+        acc = torch.zeros(B, H, BQ, D)
+        for k0 in range(0, min(q0 + BQ, S), BK):
+            s = _tensor_core_product(qs[:, :, q0:q0 + BQ],
+                                     kp[:, :, k0:k0 + BK].transpose(-1, -2),
+                                     products)
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            keys = torch.arange(k0, k0 + BK)
+            s = torch.where(keys[None, :] > qrows[:, None], -1e30, s)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp2((m - m_new) * log2e)
+            p = torch.exp2(s * log2e - (m_new * log2e)[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + _tensor_core_product(
+                p, vp[:, :, k0:k0 + BK], products)
+            m = m_new
+        out[:, :, q0:q0 + BQ] = acc * (1.0 / l.clamp(min=1e-20))[..., None]
+    return out[:, :, :S].permute(0, 2, 1, 3)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # the TF32 unit at 1 is 2^-10
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), one + 2 ** -11,
+                      1.0 + 2.0 ** -12, 1.0 + 3 * 2.0 ** -12, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one, -one, one + 2 ** -10, 1.0, one, 3.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (1, 128, 2, 2, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 128),
+    (2, 100, 4, 2, 32), (1, 256, 4, 2, 112), (1, 96, 2, 1, 256),
+])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_tf32x3_kernel_numerics_meet_f32_bar(B, S, H, KVH, D, softcap):
+    """The f32 kernel's design (3xTF32 products, 64-row query tiles, q
+    scaled before the product) against the reference's Pallas kernel and
+    the plain version at the card's f32 bar, rtol = atol = 2e-5
+    (``chip_smoke.FA_TOL``); one TF32 product at the same shapes misses
+    that bar, so the bar tells the two designs apart."""
+    rng = np.random.default_rng(B * S + H * D + 2)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D))]
+    pairs = [_pair(a, torch.float32) for a in arrs]
+    want = R.flash_attention(*(p[0] for p in pairs), softcap=softcap)
+    ins = [p[1] for p in pairs]
+    got = _tf32x3_kernel_emulation(*ins, softcap)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, D)
+    _close(got, want, 2e-5, 2e-5)
+    plain = TR.flash_attention_ref(*ins, softcap=softcap)
+    torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
+    one = _tf32x3_kernel_emulation(*ins, softcap, products=1)
+    assert not np.allclose(one.numpy(), np.asarray(want), rtol=2e-5,
+                           atol=2e-5)
+    assert not torch.allclose(one, plain, rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_dispatch_and_checks():
     """The checks the card's kernels need, read from shapes and layouts
     (meta tensors: no data, no card); CPU tensors of either dtype run the
@@ -161,9 +270,13 @@ def test_flash_attention_dispatch_and_checks():
         check_card_inputs(t((2, 300, 4, 48)), t((2, 300, 2, 48)),
                           t((2, 300, 2, 48)))
     wide = [t((2, 8, 32768, 16)), t((2, 8, 1, 16)), t((2, 8, 1, 16))]
-    check_card_inputs(*wide)  # the bf16 kernel is persistent
-    with pytest.raises(ValueError, match="65535"):
-        check_card_inputs(*(x.float() for x in wide))
+    check_card_inputs(*wide)
+    check_card_inputs(*(x.float() for x in wide))  # 2^16 CTAs of 64 rows
+    huge = [t((2**12, 2**13, 2**12, 16)), t((2**12, 2**13, 1, 16)),
+            t((2**12, 2**13, 1, 16))]
+    check_card_inputs(*huge)  # the bf16 kernel is persistent
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        check_card_inputs(*(x.float() for x in huge))  # 2^31 query tiles
     with pytest.raises(ValueError, match="contiguous"):
         check_card_inputs(t((2, 4, 300, 128)).transpose(1, 2), k, k)
     raw = torch.zeros(2 * 300 * 4 * 128 + 1, dtype=torch.bfloat16)

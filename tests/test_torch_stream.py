@@ -1,16 +1,21 @@
-"""The K1 launch plan and the K3 search rule, read from the kernels'
-instruction stream on the CPU.
+"""The K1 and K2 launch plans and the K3 search rule, read from the
+kernels' instruction stream on the CPU.
 
 K1 runs a group of consecutive PARALLEL statements in one launch, each
 thread running the group's records in order at its points
-(``cuda.parallel_groups``); ``_StreamEvaluator`` (``test_torch_cuda.py``)
-reads the encoded stream the way the kernels do.  Here: every node of the
-four step programs at opt 0 and 3, as launched, equals the plain stencil;
-the grouping rule starts a new launch exactly where a thread could see
-another thread mid-launch; and the level search the stream asks for keeps
-the reference's marching rule (``_march_search``) on columns that are not
-monotone and on NaNs, against the reference's Pallas kernel in interpret
-mode.
+(``cuda.parallel_groups``); K2 runs a FORWARD/BACKWARD computation with a
+thread per ``cuda.COLUMNS`` neighbouring columns, the marching-previous
+level of a slot the march writes read from the thread's carry (``CARRY``)
+and the reads no store of the march can change copied a level ahead
+(``AHEAD``).  ``_StreamEvaluator`` (``test_torch_cuda.py``) reads the
+encoded stream the way the kernels do.  Here: every node of the four step
+programs at opt 0 and 3, as launched, equals the plain stencil (and, for
+the solver computations, the reference's own stencil); the grouping rule
+starts a new launch exactly where a thread could see another thread
+mid-launch; the carry empties at each member and leaves to memory what it
+must; and the level search the stream asks for keeps the reference's
+marching rule (``_march_search``) on columns that are not monotone and on
+NaNs, against the reference's Pallas kernel in interpret mode.
 """
 
 import numpy as np
@@ -18,9 +23,12 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import repro.core as R
 from repro.core.backend import compile_stencil as r_compile_stencil
+from repro.fv3 import dyncore as RD
 from repro.fv3 import stencils as RS
 
+from repro_torch.core import optimize_program
 from repro_torch.core.backend import TuningCache, compile_program
 from repro_torch.core.backend import cuda as C
 from repro_torch.core.backend import set_default_cache
@@ -29,7 +37,7 @@ from repro_torch.core.stencil import (Assign, Computation, DomainSpec,
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import stencils as TS
 
-from test_torch_cuda import _StreamEvaluator
+from test_torch_cuda import _StreamEvaluator, _member_view
 
 DOM = DomainSpec(ni=6, nj=5, nk=4, halo=3, extend=(1, 1))
 
@@ -109,6 +117,180 @@ def test_launch_groups_of_the_step_programs_match_plain(program, opt_level):
                 launches += 1
                 statements += len(p.ir.statements)
     assert (launches, statements) == GROUPS[program, opt_level]
+
+
+#: nodes with a FORWARD/BACKWARD computation of one call of each step
+#: program at C6 with 6 levels (tracer_2d has none)
+SOLVER_NODES = {("c_sw+riem", 0): 2, ("d_sw", 0): 1, ("tracer_2d", 0): 0,
+                ("vertical_remap", 0): 11, ("c_sw+riem", 3): 1,
+                ("d_sw", 3): 1, ("tracer_2d", 3): 0,
+                ("vertical_remap", 3): 1}
+THOMAS = {"aa": (-0.5, 0.5), "cc": (-0.5, 0.5), "bb": (2.0, 3.0)}
+
+
+@pytest.mark.parametrize("program, opt_level", sorted(GROUPS))
+def test_column_launches_of_the_step_programs_match_plain_and_reference(
+        program, opt_level):
+    """Every node of a step program with a FORWARD/BACKWARD computation,
+    each solver computation run as K2 launches it (``cuda.COLUMNS`` rows a
+    thread, ragged at the window's edge; carried slots from the carry, the
+    safe reads copied a level ahead), equals its plain stencil, and the
+    fields its solver computations write equal the reference's own stencil
+    of the same node (the reference's program at the same opt level, on the
+    reference's TPU preset, which the port's programs match node for node;
+    a fused node's PARALLEL outputs are K1's, held to the plain version
+    here); and the carry serves the march's marching-previous reads."""
+    rc, tc = RD.FV3Config(npx=6, nk=6), TD.FV3Config(npx=6, nk=6)
+    ref_prog = next(p for p in RD._build_programs(rc, rc.seq_dom())
+                    if p.name == program)
+    port_prog = next(p for p in TD._build_programs(tc, tc.seq_dom())
+                     if p.name == program)
+    rp, _ = R.optimize_program(ref_prog, opt_level=opt_level, backend="jnp",
+                               hardware="tpu-v5e")
+    tp, _ = optimize_program(port_prog, opt_level=opt_level, backend="cuda",
+                             hardware="tpu-v5e")
+    rnodes = {n.label: n for n in rp.all_nodes()}
+    params = TD.default_params(tc)
+    rng = np.random.default_rng(opt_level + 7)
+    solvers = 0
+    for node in tp.all_nodes():
+        if not node.stencil.is_vertical_solver():
+            continue
+        run = C.CudaStencil(node.stencil, tp.node_dom(node))
+        assert any(p.kind == "column" for p in run.programs)
+        fields = _inputs(run.stencil, run.dom, rng)
+        for f, (lo, hi) in THOMAS.items():  # a diagonally dominant solve
+            if f in fields:
+                fields[f] = torch.from_numpy(rng.uniform(
+                    lo, hi, fields[f].shape).astype(np.float32))
+        ps = {p: params[p] for p in run.stencil.params}
+        ev = _reader(run, fields, ps)
+        got = {w: ev.env[w] for w in run.written}
+        want = run.plain(fields, ps)
+        rnode = rnodes[node.label]
+        ref = r_compile_stencil(rnode.stencil, rp.node_dom(rnode),
+                                backend="jnp")
+        marched = {st.target for c in run.stencil.computations
+                   if c.direction is not ir.PARALLEL for st in c.statements}
+        for t in range(2):
+            rgot = ref({f: jnp.asarray(v[t].numpy())
+                        for f, v in fields.items()}, ps)
+            for w in marched & set(run.written):
+                np.testing.assert_allclose(got[w][t].numpy(),
+                                           np.asarray(rgot[w]), rtol=1e-6,
+                                           atol=1e-6,
+                                           err_msg=f"{node.label}.{w}")
+        for w in run.written:
+            torch.testing.assert_close(got[w], want[w], rtol=1e-6, atol=1e-6,
+                                       msg=f"{node.label}.{w}")
+        if any(p.carried for p in run.programs):
+            assert ev.carry_reads["carry"] > 0
+        solvers += 1
+    assert solvers == SOLVER_NODES[program, opt_level]
+
+
+def _reader(run, fields, params):
+    """A reader that has run every launch of ``run`` on ``fields``; its
+    ``env`` holds the results."""
+    env = C.plain.prepare_env(run.stencil, run.dom, fields, torch.float32)
+    ev = _StreamEvaluator([env[n] for n in run.slot_names],
+                          [float(params[p]) for p in run.stencil.params], [])
+    for p in run.programs:
+        ev.consts = torch.tensor(p.consts or [0.0], dtype=torch.float32)
+        ev.launch(p)
+    ev.env = env
+    return ev
+
+
+X2, Q2 = FieldAccess("x"), FieldAccess("q")
+
+
+def _march(*statements, direction=ir.FORWARD, fields=("q", "x")):
+    return Stencil("march", (Computation(direction, statements),), fields,
+                   ("x",))
+
+
+@pytest.mark.parametrize("mchunk", [1, 2])
+def test_carry_resets_for_each_member(mchunk):
+    """A march whose every level reads its own marching-previous level,
+    over 4 members: one reader per member chunk runs its members in turn,
+    emptying the carry at each member's first level as the kernel does.
+    Each member's first level reads memory (the member's own old value,
+    edge-clamped), and every member equals the plain march; a carry left
+    over from the member before would not."""
+    st = _march(Assign("x", X2.shift((0, 0, -1)) * 0.5 + Q2))
+    M = 4
+    run = C.CudaStencil(st, DOM, n_members=M, member_chunk=mchunk)
+    (p,) = run.programs
+    assert p.carried == (run.slot_names.index("x"),)
+    rng = np.random.default_rng(mchunk)
+    fields = {f: torch.from_numpy(rng.uniform(0.5, 1.5, (M, 2) +
+                                              DOM.padded_shape())
+                                  .astype(np.float32)) for f in st.fields}
+    want = run.plain(fields, {})
+    for reset in (True, False):
+        env = C.plain.prepare_env(run.stencil, DOM, fields, torch.float32)
+        args = run.launch_args(env, {})
+        views = [_member_view(env[n], args, s)
+                 for s, n in enumerate(run.slot_names)]
+        for chunk in range(M // mchunk):
+            ev = _StreamEvaluator([v[chunk * mchunk] for v in views], [],
+                                  p.consts)
+            for mm in range(mchunk):
+                ev.slots = [v[chunk * mchunk + mm] for v in views]
+                if reset:
+                    ev.reset_carry()
+                ev.launch(p)
+        same = torch.equal(env["x"], want["x"])
+        assert same == (reset or mchunk == 1), (reset, mchunk)
+
+
+MEMORY_CASES = {
+    # a written field two levels back: a load, never the carry
+    "dk -2": ([Assign("x", X2.shift((0, 0, -2)) + Q2)], ir.FORWARD, 0),
+    # the old value at the march's first level: the carry is empty there
+    "first level": ([Assign("x", X2.shift((0, 0, -1)) * 0.5 + Q2,
+                             interval=ir.interval(1, None))],
+                    ir.FORWARD, 1),
+    # written on part of the window only: the other columns read memory
+    "region": ([Assign("x", Q2 * 2.0,
+                       region=ir.Region(i_lo=(0, 0), i_hi=(0, 2))),
+                Assign("x", X2.shift((0, 0, 1)) + Q2,
+                       interval=ir.interval(0, -1))],
+               ir.BACKWARD, 1),
+    # the next level of the march is not its previous one: a load
+    "next level": ([Assign("x", X2.shift((0, 0, 1)) + Q2)], ir.FORWARD, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MEMORY_CASES))
+def test_carry_leaves_to_memory_what_it_must(case):
+    """Reads the carry cannot serve still go to memory: a written field at
+    dk = -2 or at the next level is a LOAD (the march carries nothing); a
+    CARRY read at a level where the column stored nothing (the march's
+    first level, a column outside the writer's region) reads memory; and
+    the march equals the plain one."""
+    statements, direction, n_carried = MEMORY_CASES[case]
+    st = _march(*statements, direction=direction)
+    run = C.CudaStencil(st, DOM)
+    (p,) = run.programs
+    assert len(p.carried) == n_carried
+    sources = {kind for *_, pc, end in p.records()
+               for _, _, src, _, _, (src2, _) in C.decode(p.prog, pc, end)
+               for kind in (src, src2)}
+    assert (C.SRC_CARRY in sources) == bool(n_carried)
+    # x is written, so its reads at other levels are never copied ahead
+    assert all(key[0] != run.slot_names.index("x") or key[3] == 0
+               for key in p.ahead_keys())
+    rng = np.random.default_rng(len(case))
+    fields = {f: torch.from_numpy(rng.uniform(0.5, 1.5, (2,) +
+                                              DOM.padded_shape())
+                                  .astype(np.float32)) for f in st.fields}
+    ev = _reader(run, fields, {})
+    torch.testing.assert_close(ev.env["x"], run.plain(fields, {})["x"],
+                               rtol=1e-6, atol=1e-6)
+    if n_carried:
+        assert ev.carry_reads["memory"] > 0 and ev.carry_reads["carry"] > 0
 
 
 def _probe(*statements, fields=("q", "a", "x", "out")):
