@@ -5,10 +5,10 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    three kernel sources of ``src/repro_torch/csrc/`` with ``nvcc``, all at
-   once; prints each K1 and K2 instance's registers, stack frame and
-   spills from ``ptxas`` and its local loads and stores (LDL/STL) in the
-   SASS (any of them fails the run: K1's stack top and K2's carry stay out
-   of local memory).
+   once; prints each K1, K2, K4 and K6 instance's registers, stack frame
+   and spills from ``ptxas`` and its local loads and stores (LDL/STL) in
+   the SASS (any of them fails the run: K1's stack top, K2's and K4's
+   carry and K6's on-chip columns stay out of local memory).
 2. Kernel phase, at C192 with 80 levels: each kernel against its plain
    PyTorch version on the same inputs on the card — K1 on ``fx_ppm``,
    ``edge_flux`` (regions), ``riem_coeffs`` (K offsets) and d_sw's
@@ -19,15 +19,17 @@
    ``cuda.marching_plain``); K5, the member axis, on ``fx_ppm`` and
    ``tridiag_solve`` at 4 members under ``"grid"`` and ``"vmap:2,grid"``
    with one input broadcast (member stride 0); K4, the K-blocked solver
-   kernel, on ``precompute_pe`` with ``block_k`` 8 and 16 (also against
-   K2, exactly) and at 4 members under ``"grid"`` and ``"vmap:2,grid"`` —
-   with the max error, its tolerance, and both times (CUDA events after a
+   kernel (K2's march with its copies a slab ahead), on ``precompute_pe``
+   with ``block_k`` 8 and 16 (also against K2, exactly, and timed beside
+   it) and at 4 members under ``"grid"`` and ``"vmap:2,grid"`` — with the
+   max error, its tolerance, and both times (CUDA events after a
    warm-up).
 3. Standalone phase: ``repro_torch.kernels.ops`` at C192 L80 shapes — K6
    ``tridiag`` on the six tile interiors stacked along J (80, 1152, 192),
-   f32 and one f64 check, timed beside ``torch.linalg.solve`` on the same
-   systems as dense matrices; K7 ``fvt_flux`` on the six tiles' levels
-   stacked along K (480, 204, 204), halo 6.
+   f32 and f64, each timed beside its bound, f32 also beside
+   ``torch.linalg.solve`` on the same systems as dense matrices; K7
+   ``fvt_flux`` on the six tiles' levels stacked along K (480, 204, 204),
+   halo 6.
 4. Path phase: ``make_step_sequential(FV3Config(npx=192, nk=80),
    opt_level=0)`` takes 3 steps on the card from ``init_state(cfg,
    seed=0)``; step 1 is held against the plain ``"torch"`` backend on the
@@ -66,7 +68,9 @@
 8. LM kernel phase, at the serving shapes: K8 ``flash_attention`` at
    Granite-8B's B=8, S=2048, H=32, KVH=8, D=128 and Zamba2-7B's H=KVH=32,
    D=112 (softcap 0 and 50), K9 ``rmsnorm`` and ``rmsnorm_residual`` at
-   16384 x 4096, each in float32 and bfloat16 against its plain version at
+   the prefill's 16384 rows and the decode step's 8 (d 4096 and 3584; at 8
+   rows also the device time a call under ``torch.profiler``), each in
+   float32 and bfloat16 against its plain version at
    the reference's tolerances, timed beside the plain version, its bound
    (float32 K8: three TF32 products on the tensor cores, its old CUDA-core
    bound printed beside) and one library call
@@ -171,8 +175,12 @@ SCAN_SHAPES = ((16, 8, 112, 64, 64), (3, 2, 112, 64, 64))
 # Zamba2-7B's gated norm over d_inner (plain RMSNorm only)
 NORM_CASES = (("granite_8b", 16384, 4096, 1e-5, True),
               ("zamba2_7b", 16384, 3584, 1e-5, True),
-              ("zamba2_7b gated", 16384, 7168, 1e-6, False))
-NORM_HEAD_D = 3584               # the kernels line's K9 case (bf16)
+              ("zamba2_7b gated", 16384, 7168, 1e-6, False),
+              # a decode step's 8 rows, where K9's launches are
+              ("granite_8b decode", 8, 4096, 1e-5, True),
+              ("zamba2_7b decode", 8, 3584, 1e-5, True))
+NORM_HEAD = (16384, 3584)        # the kernels line's K9 case (bf16)
+NORM_DECODE_ROWS = 8             # also timed by device time a call
 # kernel vs plain: the reference's own tolerances (tests/test_kernels.py)
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1e-1)}
 # bf16 K8 and its plain version against a float64 attention of the same
@@ -229,6 +237,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms_per_call(fn, reps: int) -> float:
+    """Device ms of one call of ``fn``: its CUDA kernels' time under
+    ``torch.profiler`` over ``reps`` calls after a warm-up, divided by
+    ``reps`` (no host time, which event timing of short calls measures)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        got = getattr(e, "self_device_time_total", None)
+        us += getattr(e, "self_cuda_time_total", 0) if got is None else got
+    if us <= 0.0:
+        raise RuntimeError("the profiler saw no device time")
+    return us / 1e3 / reps
+
+
 def expr_ops(e, nk: int) -> int:
     """Arithmetic operations of one evaluation of ``e``; a level search
     counts one comparison per layer it marches."""
@@ -276,9 +310,7 @@ def bound(run, fields) -> tuple[float, str]:
                   for f in written)
     ops = 0
     for p in run.programs:
-        stmts = ([s for c in p.ir.computations for s in c.statements]
-                 if p.kind == "kblocked" else p.ir.statements)
-        for s in stmts:
+        for s in p.ir.statements:
             klo, khi = s.interval.resolve(st.k_extent_of(s.target, dom.nk))
             ops += expr_ops(s.value, dom.nk) * lead * max(0, khi - klo) * plane
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -475,7 +507,8 @@ def kblocked_phase(device) -> list:
     K-blocked schedules the reference's TPU tuner gives it (``block_k``
     16) and one shallower slab (8): against its plain version (the
     whole-column march) and against K2 on the same inputs, which it must
-    equal exactly; then at 4 members under "grid" and "vmap:2,grid"."""
+    equal exactly and beside which it is timed; then at 4 members under
+    "grid" and "vmap:2,grid" (K2 with the same member axis)."""
     import numpy as np
     import torch
 
@@ -491,7 +524,6 @@ def kblocked_phase(device) -> list:
     ndom = prog.node_dom(node)
     ps = {p: params[p] for p in node.stencil.params}
     rng = np.random.default_rng(4)
-    column = C.CudaStencil(node.stencil, ndom)
     rows = []
     for bk, M, mchunk in ((16, None, 1), (8, None, 1), (16, 4, 1),
                           (16, 4, 2)):
@@ -501,17 +533,15 @@ def kblocked_phase(device) -> list:
         if [p.kind for p in run.programs] != ["kblocked"]:
             raise RuntimeError(f"precompute_pe at block_k={bk} did not "
                                "take the K-blocked kernel")
+        column = C.CudaStencil(node.stencil, ndom, n_members=M,
+                               member_chunk=mchunk)
+        depth = C.copy_depth(run.programs[0], len(run.slot_names))
         lead = (6,) if M is None else (M, 6)
         fields = kernel_inputs(node.stencil, "precompute_pe", ndom, rng,
                                device, lead=lead)
         got = run(fields, ps)
         want = run.plain(fields, ps)
-        if M is None:
-            k2 = column(fields, ps)
-        else:  # K2, one member at a time
-            k2 = {w: torch.stack([column({f: v[m] for f, v in
-                                          fields.items()}, ps)[w]
-                                  for m in range(M)]) for w in run.written}
+        k2 = column(fields, ps)
         torch.cuda.synchronize()
         err = err_k2 = 0.0
         for w in run.written:
@@ -528,20 +558,20 @@ def kblocked_phase(device) -> list:
                                f"{err_k2:.3e}")
         del got, want, k2
         ms = cuda_ms(lambda: run(fields, ps), 10)
-        k2_ms = cuda_ms(lambda: column(fields, ps), 10) if M is None else None
+        k2_ms = cuda_ms(lambda: column(fields, ps), 10)
         plain_ms = cuda_ms(lambda: run.plain(fields, ps), 2)
         b_ms, b_by = bound(run, fields)
         case = ("" if M is None else
                 f" M={M} batch={'grid' if mchunk == 1 else 'vmap:2,grid'}")
-        k2_txt = "" if k2_ms is None else f" K2_ms={k2_ms:.4f}"
-        print(f"[kernel] K4 precompute_pe block_k={bk}{case} launches/call="
-              f"{len(run.programs)} max_abs_err={err:.3e} tol=rtol "
-              f"{KERNEL_RTOL:g} + atol {KERNEL_ATOL:g}; vs K2 max abs "
-              f"{err_k2:.3e} (must be 0) ms={ms:.4f}{k2_txt} plain_ms="
-              f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        print(f"[kernel] K4 precompute_pe block_k={bk}{case} copies "
+              f"{depth} levels ahead, launches/call={len(run.programs)} "
+              f"max_abs_err={err:.3e} tol=rtol {KERNEL_RTOL:g} + atol "
+              f"{KERNEL_ATOL:g}; vs K2 max abs {err_k2:.3e} (must be 0) "
+              f"ms={ms:.4f} K2_ms={k2_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         rows.append(dict(kernel="K4", stencil="precompute_pe", block_k=bk,
-                         members=M, err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         members=M, err=err, ms=ms, k2_ms=k2_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
         del fields
         torch.cuda.empty_cache()
     return rows
@@ -591,6 +621,9 @@ def standalone_phase(device) -> dict:
     d64 = [t.double() for t in (a, b, c, d)]
     err6_64 = check("K6 tridiag f64", ops.tridiag(*d64),
                     KR.tridiag_ref(*d64), F64_RTOL, F64_ATOL)
+    ms6_64 = cuda_ms(lambda: ops.tridiag(*d64), 10)
+    # f64 doubles the bytes; its operations stay below them
+    bound6_64 = 1e3 * 5 * 8 * a.numel() / HBM_BYTES_PER_S
     del d64
     err7 = check("K7 fvt_flux", f, KR.fvt_flux_ref(q, cx, halo=h),
                  KERNEL_RTOL, KERNEL_ATOL)
@@ -629,8 +662,9 @@ def standalone_phase(device) -> dict:
             ("K7", f"fvt_flux {tuple(q.shape)} halo {h}", err7, ms7, plain7,
              t7, None)):
         b_ms, b_by = 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
-        extra = (f" f64_max_abs_err={err6_64:.3e} (tol {F64_RTOL:g}); "
-                 f"torch.linalg.solve library_ms={lib:.4f} (max abs diff "
+        extra = (f" f64_max_abs_err={err6_64:.3e} (tol {F64_RTOL:g}) "
+                 f"f64_ms={ms6_64:.4f} f64_bound_ms={bound6_64:.4f} (bytes);"
+                 f" torch.linalg.solve library_ms={lib:.4f} (max abs diff "
                  f"to the kernel {lib_err:.3e})" if key == "K6" else "")
         count = launches["tridiag" if key == "K6" else "fvt_flux"]
         print(f"[kernel] {key} {name} launches={count} "
@@ -640,6 +674,7 @@ def standalone_phase(device) -> dict:
         rows[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib)
     rows["K6"]["err"] = max(err6, err6_64)
+    rows["K6"]["f64_ms"], rows["K6"]["f64_bound_ms"] = ms6_64, bound6_64
     return {"rows": rows, "launches": launches}
 
 
@@ -1062,6 +1097,10 @@ def opt3_phase(device, path: dict, work: dict) -> dict:
             if any(v != 0.0 for v in diffs.values()):
                 raise RuntimeError(f"the opt-3 step on {hw} schedules differs "
                                    f"from the default: {diffs}")
+            trace_step(step, s1, step_ms,
+                       groups=(("K1", ("stencil_parallel_kernel",)),
+                               ("K2", ("stencil_column_kernel",)),
+                               ("K4", ("stencil_kblocked_kernel",))))
         out[hw] = {"launches": launches, "step_ms": step_ms, "peak": peak}
         del s1, step
         torch.cuda.empty_cache()
@@ -1244,28 +1283,39 @@ def ptxas_report(log: str, function: str) -> list:
     return rows
 
 
-def stencil_build_report(lib: Path) -> None:
-    """K1's and K2's instances (K3 is inlined into both): registers, stack
-    frame and spills from ``ptxas``, local loads and stores (LDL/STL) and
-    indirect branches (BRX, the op dispatch) in their SASS.  An instance
-    with a spill or a local access fails the run: K1's stack top and K2's
-    carry bits must live in registers."""
-    log = (lib.parent / "build.log").read_text()
-    sass = {}
-    for fn in ("stencil_parallel_kernel", "stencil_column_kernel"):
-        sass.update(sass_counts(lib, fn, ("LDL", "STL", "BRX")))
-    for fn in ("stencil_parallel_kernel", "stencil_column_kernel"):
-        for name, regs, frame, st, ld in ptxas_report(log, fn):
-            args = [{"b0": "false", "b1": "true"}.get(x, x[1:])
-                    for x in re.findall(r"L(b[01]|i\d+)E", name)]
-            counts = sass.get(name, {})
-            print(f"[build] {fn}<{', '.join(args)}>: {regs} registers, stack "
-                  f"frame {frame} B, spill stores {st} B, spill loads {ld} "
-                  f"B; SASS {counts.get('LDL', 0)} LDL, {counts.get('STL', 0)}"
-                  f" STL, {counts.get('BRX', 0)} BRX", flush=True)
-            if (st or ld or frame or counts.get("LDL") or
-                    counts.get("STL")):
-                raise RuntimeError(f"{name}: spills or local memory")
+def stencil_build_report(lib: Path, fv3_lib: Path) -> None:
+    """K1's, K2's and K4's instances (K3 is inlined into all three) and
+    K6's: registers, stack frame and spills from ``ptxas``, local loads and
+    stores (LDL/STL) and indirect branches (BRX, the op dispatch) in their
+    SASS.  An instance with a spill or a local access fails the run: K1's
+    stack top, K2's and K4's carry bits and K6's carries must live in
+    registers."""
+    for path, fns in ((lib, ("stencil_parallel_kernel",
+                             "stencil_column_kernel",
+                             "stencil_kblocked_kernel")),
+                      (fv3_lib, ("tridiag_kernel",))):
+        log = (path.parent / "build.log").read_text()
+        sass = {}
+        for fn in fns:
+            sass.update(sass_counts(path, fn, ("LDL", "STL", "BRX")))
+        for fn in fns:
+            found = ptxas_report(log, fn)
+            if not found:
+                raise RuntimeError(f"no ptxas report of {fn} in {path}")
+            for name, regs, frame, st, ld in found:
+                args = [{"b0": "false", "b1": "true"}.get(x, x[1:])
+                        for x in re.findall(r"L(b[01]|i\d+)E", name)]
+                if fn == "tridiag_kernel":  # tridiag_kernel<float|double>
+                    args = ["double" if "IdE" in name else "float"]
+                counts = sass.get(name, {})
+                print(f"[build] {fn}<{', '.join(args)}>: {regs} registers, "
+                      f"stack frame {frame} B, spill stores {st} B, spill "
+                      f"loads {ld} B; SASS {counts.get('LDL', 0)} LDL, "
+                      f"{counts.get('STL', 0)} STL, {counts.get('BRX', 0)} "
+                      "BRX", flush=True)
+                if (st or ld or frame or counts.get("LDL") or
+                        counts.get("STL")):
+                    raise RuntimeError(f"{name}: spills or local memory")
 
 
 def lm_kernel_phase(device) -> dict:
@@ -1400,9 +1450,16 @@ def lm_kernel_phase(device) -> dict:
                 ms = cuda_ms(run, 20)
                 plain_ms = cuda_ms(plain, 5)
                 lib_ms = None if lib is None else cuda_ms(lib, 20)
+                dev = ""
+                if rows_n == NORM_DECODE_ROWS:
+                    # F.rms_norm of the same rows beside the residual
+                    # kernel too: the norm is the part one call computes
+                    dev = (f" device_ms={device_ms_per_call(run, 50):.5f} "
+                           "F.rms_norm device_ms="
+                           f"{device_ms_per_call(cases[0][4], 50):.5f}")
                 out[key].append(dict(
-                    dtype=name, d=d, err=e, ms=ms, plain_ms=plain_ms,
-                    bound_ms=1e3 * max(t_b, t_o),
+                    dtype=name, rows=rows_n, d=d, err=e, ms=ms,
+                    plain_ms=plain_ms, bound_ms=1e3 * max(t_b, t_o),
                     bound_by="bytes" if t_b >= t_o else "operations",
                     library_ms=lib_ms))
                 print(f"[lm-kernel] K9 {key} {name} w float32 {case} "
@@ -1412,7 +1469,7 @@ def lm_kernel_phase(device) -> dict:
                       f"{1e3 * max(t_b, t_o):.4f} "
                       f"({out[key][-1]['bound_by']}) library_ms="
                       + ("none (no one call computes it)" if lib_ms is None
-                         else f"{lib_ms:.4f} (F.rms_norm)"), flush=True)
+                         else f"{lib_ms:.4f} (F.rms_norm)") + dev, flush=True)
             del x, r, w, w1
             torch.cuda.empty_cache()
 
@@ -1823,8 +1880,9 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     bf16 kernel, K9 and K10 count one bf16 serving request (a prefill and
     its decode steps) of each served model, Granite-8B and Zamba2-7B, and
     take their times from the bf16 case (K8 at Granite's shape and softcap
-    0, K9 at Zamba2's d_model with a float32 weight) and, for K10, Zamba2's
-    serving shape; K8's float32 kernel counts the float32 parity runs of
+    0, K9 at Zamba2's d_model over a prefill's rows with a float32 weight)
+    and, for K10, Zamba2's serving shape; K8's float32 kernel counts the
+    float32 parity runs of
     both models and takes its times from the float32 case at Granite's
     shape, softcap 0."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
@@ -1833,7 +1891,9 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                 "K6": "src/repro/kernels/tridiag.py:22",
                 "K7": "src/repro/kernels/fvt_flux.py:21"}
     names = {"K1": "stencil_parallel_kernel", "K2": "stencil_column_kernel",
-             "K3": "march_search", "K4": "stencil_kblocked_kernel",
+             "K3": "march_search",
+             "K4": "stencil_kblocked_kernel (march_columns, K2's march, "
+                   "copies a slab ahead)",
              "K5": "member axis of stencil_parallel_kernel, "
                    "stencil_column_kernel and stencil_kblocked_kernel",
              "K6": "tridiag_kernel", "K7": "fvt_flux_kernel"}
@@ -1890,7 +1950,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                     ("float32" if key == "K10" else "bfloat16")
                     and r.get("softcap", 0.0) == 0.0
                     and r.get("D", 128) == 128
-                    and r.get("d", NORM_HEAD_D) == NORM_HEAD_D)
+                    and (r.get("rows"), r.get("d")) in ((None, None),
+                                                        NORM_HEAD))
         kernels.append({
             "name": name, "route": "cuda", "source": LM_SOURCE,
             "replaces": line,
@@ -1938,7 +1999,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"[build] {lib.stem}: {line.strip()}")
-    stencil_build_report(libs[0])
+    stencil_build_report(libs[0], libs[1])
     sass = k8_sass_report(libs[2])
     for dtype, fn in (("bf16", "flash_attention_wgmma_kernel"),
                       ("f32", "flash_attention_fwd_kernel")):

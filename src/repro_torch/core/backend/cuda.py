@@ -16,11 +16,15 @@ reference's Pallas kernels (``src/repro/core/backend/lowering_pallas.py``):
    change copied into shared memory a level ahead (``AHEAD``), a binary op
    of two leaves one op (``src2``);
  * ``march_search`` (K3, ``_march_search``) — the ``index_search`` level
-   search, a device function both kernels call for the ``SEARCH`` op;
+   search, a device function the kernels call for the ``SEARCH`` op;
  * ``stencil_kblocked_kernel`` (K4, ``_vertical_kernel_kblocked``) — a
-   single-direction solver under a K-blocked schedule: one thread per
-   column walking the ``nk / block_k`` slabs in marching order, each slab
-   staged in shared memory, the marching carry handed from slab to slab;
+   single-direction solver under a K-blocked schedule: K2's march (the
+   same template) over all its statements interleaved per level and all
+   ``nk`` levels, the AHEAD copies taken in groups of the slab's
+   ``block_k`` levels, at most :data:`KB_DEPTH_MAX` and fewer where two
+   groups exceed :data:`KB_SMEM_BUDGET` (:func:`copy_depth`), the records
+   decided once a group, and 0 read a level before the first, the
+   reference's zeroed carry;
  * their member axis (K5, ``_member_index_map``/``_member_specs``) — an
    ensemble's members in one launch, one member (``"grid"``) or a chunk of
    members (``"vmap:C,grid"``) per thread, with a per-slot member stride
@@ -41,9 +45,10 @@ on the stack (``Program.kept``) and is never stored or allocated.
 
 Of a node's schedule the backend honours ``block_k`` of a vertical solver:
 whenever ``kblocked_applies(stencil, schedule, nk)`` holds, as it does for
-the reference's ``compile_pallas``, the whole stencil is one K4 launch over
-slabs of ``block_k`` levels.  Tile sizes, ``k_as_grid``, the carry storage
-and the region strategy are not read (one thread per point or column).
+the reference's ``compile_pallas``, the whole stencil is one K4 launch
+whose copies run a slab of ``block_k`` levels ahead.  Tile sizes,
+``k_as_grid``, the carry storage and the region strategy are not read (one
+thread per point or group of columns).
 Expressions built from constants only are folded in double precision at
 encode time, as the plain lowering computes them.
 
@@ -93,7 +98,7 @@ from ..stencil.ir import (
     expr_contains_level_search,
 )
 from ..stencil.schedule import (Schedule, kblocked_applies,
-                                solver_carried_fields, solver_k_blockable)
+                                solver_k_blockable)
 from . import lowering_torch as plain
 
 # -- the kernels' ABI (keep in sync with csrc/stencil_kernels.cu) ------------
@@ -110,18 +115,18 @@ REC_INTS = 9
 #: (known when the stream is encoded; the kernels keep the top of the
 #: stack in registers and the entries below it in shared memory, addressed
 #: by the depth), where a push or a binary op takes its operand from, and
-#: (K2 only) where a binary op takes its first operand from, so that it
+#: (K2, K4) where a binary op takes its first operand from, so that it
 #: pushes f(src2, src) without a push of its own
 OPW = 32
 SRC_SHIFT = 11
 SRC2_SHIFT = 14
 # sources, their operand words right after the op word: LOAD slot di dj
 # dk; CONST c; PARAM p; PICK j (a copy of stack entry j); CARRY slot di dj
-# dk (K2 only: a read at the marching-previous level of a slot the march
+# dk (K2, K4: a read at the marching-previous level of a slot the march
 # writes, taken from the value the thread stored there, kept on chip, and
-# from memory where it stored none); AHEAD j (K2 only: the read of key j of
+# from memory where it stored none); AHEAD j (K2, K4: the read of key j of
 # the program's ahead table, copied from memory into shared memory while
-# the level before ran)
+# the level, in K4 the slab, before ran)
 SRC_LOAD, SRC_CONST, SRC_PARAM, SRC_PICK, SRC_CARRY, SRC_AHEAD = \
     1, 2, 3, 4, 5, 6
 OP_PUSH = 0     # pushes its source
@@ -150,14 +155,24 @@ SRC_OPERANDS = {0: 0, SRC_LOAD: 4, SRC_CONST: 1, SRC_PARAM: 1, SRC_PICK: 1,
 OPERANDS = {OP_FLOAD: 4, OP_SEARCH: 3, OP_STORE: 1, OP_DROP: 1}
 #: K1 evaluates each op for a strip of this many levels of one column
 STRIP = 8
-#: K2 evaluates each op for this many neighbouring columns (rows j at one
-#: i), each marching its own chain (the kernel's K2_COLS)
+#: K2 and K4 evaluate each op for this many neighbouring columns (rows j
+#: at one i), each marching its own chain (the kernel's K2_COLS)
 COLUMNS = 4
-#: K2 keeps on chip the marching carry of at most this many slots
+#: threads of a K2 or K4 CTA (the kernel's K2_BLOCK)
+COLUMN_BLOCK = 128
+#: K2 and K4 keep on chip the marching carry of at most this many slots
 CARRY_MAX = 8
-#: K2 copies at most this many distinct loads of the next level into
-#: shared memory while a level runs (``cp.async``)
+#: K2 and K4 copy at most this many distinct loads of a level into shared
+#: memory ahead of it (``cp.async``)
 AHEAD_MAX = 8
+#: K4's dynamic shared memory a CTA at most, where the copies' depth
+#: allows: four CTAs an SM (as many as K2's registers allow) with the
+#: kernels' static table of ~7 KB and the 1 KB the card keeps a CTA
+KB_SMEM_BUDGET = 48 * 1024
+#: K4's copy groups hold at most this many levels: the march, not device
+#: memory, bounds it, and deeper groups measured slower on an H100 (their
+#: copies issued at once stall the group's first level; ``PERF.md`` §6)
+KB_DEPTH_MAX = 4
 
 
 def is_binary(op: int) -> bool:
@@ -205,9 +220,7 @@ class LaunchArgs(ctypes.Structure):
         ("ptr", ctypes.c_void_p * MAX_SLOTS),
         ("mstride", ctypes.c_longlong * MAX_SLOTS),
         ("kext", ctypes.c_int * MAX_SLOTS),
-        ("sidx", ctypes.c_int * MAX_SLOTS),
         ("cidx", ctypes.c_int * MAX_SLOTS),
-        ("sload", ctypes.c_int * MAX_SLOTS),
         ("params", ctypes.c_float * MAX_PARAMS),
         ("prog", ctypes.c_void_p),
         ("consts", ctypes.c_void_p),
@@ -232,9 +245,7 @@ class LaunchArgs(ctypes.Structure):
         ("nmember", ctypes.c_int),
         ("mchunk", ctypes.c_int),
         ("bk", ctypes.c_int),
-        ("n_staged", ctypes.c_int),
         ("n_carried", ctypes.c_int),
-        ("nfield", ctypes.c_int),
         ("ahead_begin", ctypes.c_int),
         ("ahead_end", ctypes.c_int),
     ]
@@ -365,15 +376,13 @@ def parallel_groups(statements) -> list[list[Assign]]:
     return groups
 
 
-def _check_column_hazard(comp: Computation | Stencil) -> None:
-    """K2 threads own columns: a read, at a horizontal offset, of a field
-    the same computation writes would see a neighbour column mid-march.
-    K4 interleaves all computations of a stencil per level, so there the
-    rule covers every field the stencil writes."""
+def _check_column_hazard(comp: Computation) -> None:
+    """K2 and K4 threads own columns: a read, at a horizontal offset, of a
+    field the same computation writes would see a neighbour column
+    mid-march.  K4 marches all computations of a stencil as one, so there
+    the rule covers every field the stencil writes."""
     written = set(comp.written())
-    statements = (comp.statements if isinstance(comp, Computation)
-                  else [st for c in comp.computations for st in c.statements])
-    for st in statements:
+    for st in comp.statements:
         for e in _walk(st.value):
             if isinstance(e, FieldAccess):
                 name, di, dj = e.name, e.offset[0], e.offset[1]
@@ -431,7 +440,8 @@ class Program:
 
     kind: str                     # "horizontal" (K1) | "column" (K2) |
     #                               "kblocked" (K4)
-    ir: Computation | Stencil     # K1: the launch's PARALLEL statements
+    ir: Computation               # K1: the launch's PARALLEL statements;
+    #                               K4: all statements, interleaved
     prog: list[int]
     consts: list[float]
     stack: int                    # deepest stack the ops reach
@@ -442,12 +452,9 @@ class Program:
     lo: int = 0                   # K2, K4: march
     hi: int = 0
     forward: bool = True
-    block_k: int = 0              # K4: slab depth,
-    staged: tuple[int, ...] = ()  # the slots staged in shared memory,
-    loaded: tuple[int, ...] = ()  # those of them loaded from memory,
-    carried: tuple[int, ...] = ()  # K4: the slots carried from slab to
-    #                                slab; K2: those read through CARRY
-    ahead: tuple[int, int] = (0, 0)  # K2: prog[a:b], the keys read
+    block_k: int = 0              # K4: slab depth
+    carried: tuple[int, ...] = ()  # K2, K4: the slots read through CARRY
+    ahead: tuple[int, int] = (0, 0)  # K2, K4: prog[a:b], the keys read
     #                                  through AHEAD, 4 words each
     kept: tuple[str, ...] = ()    # K1: temporaries held on the stack
     #                               and never stored
@@ -465,7 +472,8 @@ class Program:
         return STRIP if self.kind == "horizontal" else 1
 
     def ahead_keys(self) -> list[tuple[int, int, int, int]]:
-        """K2: the ``(slot, di, dj, dk)`` that ``AHEAD j`` reads, by j."""
+        """K2, K4: the ``(slot, di, dj, dk)`` that ``AHEAD j`` reads, by
+        j."""
         a, b = self.ahead
         return [tuple(self.prog[x:x + 4]) for x in range(a, b, 4)]
 
@@ -509,8 +517,7 @@ class Program:
         return out
 
 
-def prior_reads(stencil: Stencil, nk: int, *,
-                interleaved: bool = False) -> set[str]:
+def prior_reads(stencil: Stencil, nk: int) -> set[str]:
     """The fields ``stencil`` writes of which some read can see the value
     from before the call: a read at a horizontal offset or by a level
     search, or a read at a level that no earlier statement of the call has
@@ -518,10 +525,7 @@ def prior_reads(stencil: Stencil, nk: int, *,
 
     Statements run as the plain lowering orders them: each computation in
     turn, a PARALLEL one statement by statement, a solver level by level in
-    its marching order, K reads edge-clamped.  With ``interleaved`` they run
-    as K4 runs them: every statement of every computation at each level, in
-    marching order over all ``nk`` levels, where a read before the first
-    level takes the zeroed carry, not memory."""
+    its marching order, K reads edge-clamped."""
     written = {w for w in stencil.written() if w in stencil.fields}
     done: dict[str, set[int]] = {f: set() for f in written}
     prior: set[str] = set()
@@ -541,8 +545,7 @@ def prior_reads(stencil: Stencil, nk: int, *,
                 kext = stencil.k_extent_of(e.name, nk)
                 if (di, dj) != (0, 0) or any(
                         min(max(k + dk, 0), kext - 1) not in done[e.name]
-                        for k in ks
-                        if not interleaved or 0 <= k + dk < kext):
+                        for k in ks):
                     prior.add(e.name)
         if st.target in written and st.region is None:
             done[st.target].update(ks)
@@ -554,12 +557,7 @@ def prior_reads(stencil: Stencil, nk: int, *,
                 if k in span:
                     run(st, (k,))
 
-    comps = stencil.computations
-    if interleaved:
-        march([st for c in comps for st in c.statements],
-              any(c.direction is Direction.FORWARD for c in comps), 0, nk)
-        return prior
-    for c in comps:
+    for c in stencil.computations:
         if c.direction is Direction.PARALLEL:
             for st in c.statements:
                 run(st, levels(st))
@@ -883,16 +881,19 @@ class Encoder:
                             min(b[2] for b in boxes), max(b[3] for b in boxes)),
                        kept=tuple(live[q].target for q in sorted(keep)))
 
-    def column(self, comp: Computation) -> Program:
-        """One K2 launch: the computation's statements at each level of
-        the march.  A slot the computation writes and reads at the
+    def column(self, comp: Computation, kind: str = "column",
+               levels: tuple[int, int] | None = None) -> Program:
+        """One K2 launch (``kind="column"``; K4's, ``"kblocked"``, over all
+        statements of a stencil interleaved): the statements at each level
+        of the march.  A slot the statements write and read at the
         marching-previous level (``(0, 0, -1)`` forward, ``(0, 0, 1)``
         backward) is read through ``CARRY`` (the first :data:`CARRY_MAX`
         such slots).  A read that no store of the march can change between
-        the start of the level before and the read (:meth:`_ahead_keys`)
-        is read through ``AHEAD``; the table of their keys follows the
-        ops.  A binary op of two leaves takes both from sources (``src2``)
-        and pushes its value: one op where a push and the op were two."""
+        the start of the level (K4: the slab) before and the read
+        (:meth:`_ahead_keys`) is read through ``AHEAD``; the table of their
+        keys follows the ops.  A binary op of two leaves takes both from
+        sources (``src2``) and pushes its value: one op where a push and
+        the op were two."""
         _check_column_hazard(comp)
         forward = comp.direction is Direction.FORWARD
         prev = -1 if forward else 1
@@ -905,7 +906,8 @@ class Encoder:
                         and slot not in carried
                         and len(carried) < CARRY_MAX):
                     carried.append(slot)
-        keys = self._ahead_keys(comp, carried, prev)
+        keys = self._ahead_keys(comp, carried, prev,
+                                first=kind == "kblocked")
         prog, consts, depth, search = self._encode(
             comp.statements, carry=carried, prev=prev,
             ahead={k: j for j, k in enumerate(keys)}, pairs=True)
@@ -915,20 +917,24 @@ class Encoder:
             raise ValueError(f"{self.stencil.name}: program of {len(prog)} "
                              f"ints exceeds the kernels' {PROG_MAX}")
         bounds = [self.levels(st) for st in comp.statements]
-        return Program("column", comp, prog, consts, depth, search,
-                       box=self.window(),
-                       lo=min(b[0] for b in bounds),
-                       hi=max(b[1] for b in bounds), forward=forward,
+        lo, hi = levels or (min(b[0] for b in bounds),
+                            max(b[1] for b in bounds))
+        return Program(kind, comp, prog, consts, depth, search,
+                       box=self.window(), lo=lo, hi=hi, forward=forward,
                        carried=tuple(carried), ahead=(begin, len(prog)))
 
-    def _ahead_keys(self, comp: Computation, carried, prev: int) -> list:
+    def _ahead_keys(self, comp: Computation, carried, prev: int,
+                    first: bool = False) -> list:
         """The ``(slot, di, dj, dk)`` that K2 may copy into shared memory
-        at the start of the level before the one that reads them (the
-        first :data:`AHEAD_MAX`, in order of first read): a field or
-        temporary the computation never writes, at any offset, and a
-        written one at its own level (``dk = 0``) where no statement before
-        the reader, at a level the two share, writes it (its other reads
-        see stores of the march the copy would miss, or are ``CARRY``).
+        at the start of the level before the one that reads them, and K4
+        at any level before it (the first :data:`AHEAD_MAX`, in order of
+        first read; with ``first``, K4's, those at the marching-previous
+        level first): a field or temporary the statements never write, at
+        any offset, and a written one at its own level (``dk = 0``) where
+        no statement before the reader, at a level the two share, writes
+        it (its other reads see stores of the march the copy would miss,
+        or are ``CARRY``).  A store writes the marching level only, so no
+        store of the march changes such a read's value before its level.
         Reads inside a level search's body are left to ``LOAD``."""
         written = set(comp.written())
         stmts = comp.statements
@@ -956,41 +962,63 @@ class Encoder:
                     unsafe.add(key)
                 elif key not in keys:
                     keys.append(key)
-        return [k for k in keys if k not in unsafe][:AHEAD_MAX]
+        keys = [k for k in keys if k not in unsafe]
+        if first:
+            keys.sort(key=lambda k: k[3] == 0)
+        return keys[:AHEAD_MAX]
 
     def kblocked(self, block_k: int) -> Program:
-        """The whole solver stencil as one K4 launch: every statement of
-        every computation, interleaved per level in marching order, over
-        ``nk // block_k`` slabs (``solver_k_blockable`` must hold)."""
+        """The whole solver stencil as one K4 launch: K2's program over
+        every statement of every computation, interleaved per level in
+        marching order over all ``nk`` levels, its copies taken up to a
+        slab of ``block_k`` levels at a time (``solver_k_blockable`` must
+        hold, and ``block_k | nk``).  Every read at the marching-previous
+        level must be ``CARRY`` or ``AHEAD``: at the first level the kernel
+        reads 0 there (the reference's zeroed carry) through those two
+        only, so a stencil that needs more than :data:`CARRY_MAX` carried
+        slots or :data:`AHEAD_MAX` such keys is refused."""
         st = self.stencil
         nk = self.dom.nk
         if not (solver_k_blockable(st) and 0 < block_k < nk
                 and nk % block_k == 0):
             raise ValueError(f"{st.name}: no K-blocked march with "
                              f"block_k={block_k} at nk={nk}")
-        _check_column_hazard(st)
-        statements = [s for c in st.computations for s in c.statements]
-        prog, consts, depth, search = self._encode(statements)
-        staged: list[int] = []
-        for s in statements:
-            for a in [s.target] + [x.name for x in s.value.accesses()
-                                   if x.offset[:2] == (0, 0)]:
-                if self.slots[a] not in staged:
-                    staged.append(self.slots[a])
-        # a written field every read of which follows its write in the
-        # march starts at zero like a temporary: its old value is not read
-        written = set(st.written())
-        prior = prior_reads(st, nk, interleaved=True)
-        names = slot_names(st)
-        loaded = [s for s in staged if names[s] in st.fields
-                  and (names[s] not in written or names[s] in prior)]
-        carried = [self.slots[n] for n in solver_carried_fields(st)]
         forward = any(c.direction is Direction.FORWARD
                       for c in st.computations)
-        return Program("kblocked", st, prog, consts, depth, search,
-                       box=self.window(), lo=0, hi=nk, forward=forward,
-                       block_k=block_k, staged=tuple(staged),
-                       loaded=tuple(loaded), carried=tuple(carried))
+        march = Computation(Direction.FORWARD if forward
+                            else Direction.BACKWARD,
+                            tuple(s for c in st.computations
+                                  for s in c.statements))
+        p = self.column(march, kind="kblocked", levels=(0, nk))
+        prev = -1 if forward else 1
+        for *_, pc, end in p.records():
+            for _, _, src, sargs, _, (src2, s2args) in decode(p.prog, pc,
+                                                                end):
+                for kind, operand in ((src, sargs), (src2, s2args)):
+                    if kind == SRC_LOAD and operand[3] == prev:
+                        raise NotImplementedError(
+                            f"{st.name}: K4 reads the marching-previous "
+                            f"level of slot {operand[0]} from memory; its "
+                            f"tables hold {CARRY_MAX} carried slots and "
+                            f"{AHEAD_MAX} copied keys")
+        p.block_k = block_k
+        return p
+
+
+def copy_depth(p: Program, n_slots: int) -> int:
+    """Levels of a K4 copy group: the slab (``block_k``) up to
+    :data:`KB_DEPTH_MAX`, or as many as two groups of copies fit beside the
+    stack, the carry and the column table within :data:`KB_SMEM_BUDGET`
+    (at least 1, K2's depth)."""
+    level = COLUMNS * COLUMN_BLOCK * 4  # bytes of one key at one level
+    nkey = len(p.ahead_keys())
+    fixed = (max(1, p.stack) + 2 * len(p.carried)) * level \
+        + n_slots * COLUMN_BLOCK * 8
+    depth = min(p.block_k, KB_DEPTH_MAX)
+    if nkey == 0:
+        return depth
+    return max(1, min(depth, (KB_SMEM_BUDGET - fixed) // (2 * nkey
+                                                          * level)))
 
 
 def encode_stencil(stencil: Stencil, dom: DomainSpec,
@@ -1094,10 +1122,10 @@ def bind_library(path: Path | str) -> ctypes.CDLL:
     if got != ctypes.sizeof(LaunchArgs):
         raise RuntimeError(f"LaunchArgs is {got} bytes in the library but "
                            f"{ctypes.sizeof(LaunchArgs)} in cuda.py")
-    limits = (ctypes.c_int * 11)()
+    limits = (ctypes.c_int * 12)()
     lib.stencil_limits(limits)
     want = (MAX_SLOTS, MAX_PARAMS, PROG_MAX, CONST_MAX, STACK_MAX, REC_INTS,
-            OPW, STRIP, CARRY_MAX, AHEAD_MAX, COLUMNS)
+            OPW, STRIP, CARRY_MAX, AHEAD_MAX, COLUMNS, COLUMN_BLOCK)
     if tuple(limits) != want:
         raise RuntimeError(f"kernel limits {tuple(limits)} disagree with "
                            f"cuda.py's {want}")
@@ -1308,12 +1336,11 @@ class CudaStencil:
                 args.kspan = k1_span(p, args.nmember // args.mchunk
                                      * args.ntile)
                 rc = lib.launch_stencil_parallel(ctypes.byref(args), stream)
-            elif p.kind == "kblocked":
-                self._kblocked_args(args, p)
-                rc = lib.launch_stencil_kblocked(ctypes.byref(args), stream)
             else:
                 self._column_args(args, p)
-                rc = lib.launch_stencil_column(ctypes.byref(args), stream)
+                launch = (lib.launch_stencil_kblocked if p.kind == "kblocked"
+                          else lib.launch_stencil_column)
+                rc = launch(ctypes.byref(args), stream)
             if rc != 0:
                 raise RuntimeError(
                     f"{self.stencil.name}: {p.kind} kernel launch failed: "
@@ -1325,25 +1352,13 @@ class CudaStencil:
                 LAUNCHES["member"] += 1
 
     def _column_args(self, args: LaunchArgs, p: Program) -> None:
-        """K2's part of the launch arguments: the march, the carries by
-        slot and the ahead table."""
+        """K2's and K4's part of the launch arguments: the march, the
+        carries by slot, the ahead table and (K4) the levels of a copy
+        group."""
         args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
         args.n_carried = len(p.carried)
         for slot in range(len(self.slot_names)):
             args.cidx[slot] = (p.carried.index(slot) if slot in p.carried
                                else -1)
         args.ahead_begin, args.ahead_end = p.ahead
-
-    def _kblocked_args(self, args: LaunchArgs, p: Program) -> None:
-        """K4's part of the launch arguments: the march, the slab's planes
-        (and which load from memory) and the carries, by slot."""
-        args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
-        args.bk = p.block_k
-        args.n_staged, args.n_carried = len(p.staged), len(p.carried)
-        args.nfield = len(self.stencil.fields)
-        for slot in range(len(self.slot_names)):
-            args.sidx[slot] = (p.staged.index(slot) if slot in p.staged
-                               else -1)
-            args.cidx[slot] = (p.carried.index(slot) if slot in p.carried
-                               else -1)
-            args.sload[slot] = int(slot in p.loaded)
+        args.bk = copy_depth(p, len(self.slot_names)) if p.block_k else 1

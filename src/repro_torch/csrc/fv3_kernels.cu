@@ -8,16 +8,29 @@
 //
 // K6, a batched Thomas solve of tridiag(a, b, c) x = d along K for every
 // (j, i) column.  The Pallas kernel holds a (nk, bj, ni) block in VMEM and
-// keeps the carries in vector registers.  Here one thread owns one column:
-// the forward elimination keeps cp/dp of the previous level in registers,
-// stages cp in a scratch buffer and dp in x, and the back substitution
-// walks the column upward through both.  Neighbouring threads take
-// neighbouring i, so every load and store of a level coalesces.  It reads
-// four fields and writes one (the scratch is written and read again, which
-// the bound does not count), about 10 flops a point: bound by device
-// memory, 5 * 4 bytes a point in f32.  A C192 six-tile interior stack has
-// 221 184 columns, 864 blocks of 256 threads, enough to fill 132 SMs.
-// Templated on float and double: the reference sweeps both.
+// keeps the carries in vector registers.  It reads four fields and writes
+// one, about 10 flops a point (two IEEE divisions): bound by device
+// memory, 5 words a point.  Here one thread owns one column, neighbouring
+// threads neighbouring i, so every load and store of a level coalesces, and
+// a CTA is one warp, K6_TILE columns:
+// * cp and dp of every level stay in shared memory, [level][column], so
+//   the back substitution reads them there and x is written once: 5 words
+//   a point, where keeping cp in a scratch and dp in x moved 9;
+// * the levels' loads run ahead of the division chain: a ring of K6_RING
+//   levels of a, b, c, d in shared memory, each level one cp.async commit
+//   group issued K6_RING - 1 levels before the march reaches it, so a
+//   level's divisions wait on no device memory;
+// * no barrier: each thread copies, waits for and reads its own column;
+// * a warp a CTA: the columns an SM holds are bound by its shared memory,
+//   and the finest tile packs the most of them (at 80 levels in f32, 9
+//   CTAs of 24 KB, 288 columns, where tiles of 128 held 256), with the
+//   finest tail.
+// A CTA may take 227 KB: 2 nk + 4 K6_RING values a column fit up to nk 892
+// in f32 and 438 in f64 (kernels/tridiag.py, ``plan``); past that the
+// levels >= `levels` keep cp in the scratch `cpg` ([k - levels][column])
+// and dp in x (9 words a point there).  Templated on float and
+// double: the reference sweeps both; each division is the IEEE one
+// (--fmad=false), in the plain version's order.
 //
 // K7, the fused PPM x-flux of al_x -> fx_ppm.  One thread per (k, j, i)
 // point of the padded (K, J+2h, I+2h) array.  It recomputes the
@@ -38,42 +51,88 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define BLOCK 256
+#define BLOCK 256  // K7: threads a CTA
 
 static unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + BLOCK - 1) / BLOCK);
 }
 
-// K6: one thread per column of nk levels; plane = nj * ni.
+// cp.async of one T (4 or 8 bytes) into shared memory, in the thread's
+// current commit group
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+#define K6_RING 8   // levels of a, b, c, d in flight a thread (a power of 2)
+#define K6_TILE 32  // columns (threads) a CTA
+
+// K6: one thread per column of nk levels; plane = nj * ni.  Shared memory,
+// each [..][K6_TILE]: cp [levels], dp [levels], the ring [K6_RING][4].
+template <typename T>
+__global__ void __launch_bounds__(K6_TILE)
     tridiag_kernel(const T* __restrict__ a, const T* __restrict__ b,
                    const T* __restrict__ c, const T* __restrict__ d,
-                   T* __restrict__ x, T* __restrict__ cp, int nk,
-                   long long plane) {
+                   T* __restrict__ x, T* __restrict__ cpg, int nk,
+                   long long plane, int levels) {
+  extern __shared__ __align__(16) unsigned char k6_smem[];
+  constexpr int tile = K6_TILE;
   const long long col =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * tile + threadIdx.x;
   if (col >= plane) return;
-  T cp_prev = c[col] / b[col];
-  T dp_prev = d[col] / b[col];
-  cp[col] = cp_prev;
-  x[col] = dp_prev;
-  for (int k = 1; k < nk; ++k) {
-    const long long o = k * plane + col;
-    const T ak = a[o];
-    const T denom = b[o] - ak * cp_prev;
-    const T cpk = c[o] / denom;
-    const T dpk = (d[o] - ak * dp_prev) / denom;
-    cp[o] = cpk;
-    x[o] = dpk;
+  T* const cps = reinterpret_cast<T*>(k6_smem) + threadIdx.x;
+  T* const dps = cps + static_cast<size_t>(levels) * tile;
+  T* const ring = dps + static_cast<size_t>(levels) * tile;
+  const T* const src[4] = {a + col, b + col, c + col, d + col};
+  // level k's a, b, c, d into its ring slot, as one commit group (an empty
+  // one past the last level)
+  auto issue = [&](int k) {
+    if (k < nk) {
+      T* slot = ring + (k & (K6_RING - 1)) * 4 * tile;
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        copy_async(slot + f * tile, src[f] + k * plane);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  for (int k = 0; k < K6_RING - 1; ++k) issue(k);
+  T cp_prev = 0, dp_prev = 0;
+  for (int k = 0; k < nk; ++k) {
+    // level k's group is done; the K6_RING - 2 after it may still run
+    asm volatile("cp.async.wait_group %0;" ::"n"(K6_RING - 2) : "memory");
+    const T* slot = ring + (k & (K6_RING - 1)) * 4 * tile;
+    const T ak = slot[0], bk = slot[tile], ck = slot[2 * tile],
+            dk = slot[3 * tile];
+    issue(k + K6_RING - 1);  // into the slot level k - 1 left
+    T cpk, dpk;
+    if (k == 0) {
+      cpk = ck / bk;
+      dpk = dk / bk;
+    } else {
+      const T denom = bk - ak * cp_prev;
+      cpk = ck / denom;
+      dpk = (dk - ak * dp_prev) / denom;
+    }
+    if (k < levels) {
+      cps[k * tile] = cpk;
+      dps[k * tile] = dpk;
+    } else {
+      cpg[(k - levels) * plane + col] = cpk;
+      x[k * plane + col] = dpk;
+    }
     cp_prev = cpk;
     dp_prev = dpk;
   }
   T x_next = dp_prev;
+  x[(nk - 1) * plane + col] = x_next;
   for (int k = nk - 2; k >= 0; --k) {
-    const long long o = k * plane + col;
-    x_next = x[o] - cp[o] * x_next;
-    x[o] = x_next;
+    const T cpk = k < levels ? cps[k * tile] : cpg[(k - levels) * plane + col];
+    const T dpk = k < levels ? dps[k * tile] : x[k * plane + col];
+    x_next = dpk - cpk * x_next;
+    x[k * plane + col] = x_next;
   }
 }
 
@@ -119,24 +178,43 @@ __global__ void __launch_bounds__(BLOCK)
   fx[g] = c * f;
 }
 
-extern "C" {
-
-int launch_tridiag_f32(const float* a, const float* b, const float* c,
-                       const float* d, float* x, float* cp, int nk,
-                       long long plane, void* stream) {
-  tridiag_kernel<float><<<blocks_for(plane), BLOCK, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, d, x, cp, nk, plane);
+// K6: cp and dp of levels [0, levels) in shared memory, the deeper ones in
+// ``cpg`` and x.
+template <typename T>
+static int launch_tridiag(const T* a, const T* b, const T* c, const T* d,
+                          T* x, T* cpg, int nk, long long plane, int levels,
+                          void* stream) {
+  const size_t bytes =
+      (2 * static_cast<size_t>(levels) + 4 * K6_RING) * K6_TILE * sizeof(T);
+  if (nk < 1 || levels < 0 || levels > nk ||
+      (levels < nk && cpg == nullptr) || bytes > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        tridiag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const unsigned int blocks =
+      static_cast<unsigned int>((plane + K6_TILE - 1) / K6_TILE);
+  tridiag_kernel<T><<<blocks, K6_TILE, bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      a, b, c, d, x, cpg, nk, plane, levels);
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" {
+
+int launch_tridiag_f32(const float* a, const float* b, const float* c,
+                       const float* d, float* x, float* cpg, int nk,
+                       long long plane, int levels, void* stream) {
+  return launch_tridiag(a, b, c, d, x, cpg, nk, plane, levels, stream);
+}
+
 int launch_tridiag_f64(const double* a, const double* b, const double* c,
-                       const double* d, double* x, double* cp, int nk,
-                       long long plane, void* stream) {
-  tridiag_kernel<double><<<blocks_for(plane), BLOCK, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, d, x, cp, nk, plane);
-  return static_cast<int>(cudaGetLastError());
+                       const double* d, double* x, double* cpg, int nk,
+                       long long plane, int levels, void* stream) {
+  return launch_tridiag(a, b, c, d, x, cpg, nk, plane, levels, stream);
 }
 
 int launch_fvt_flux(const float* q, const float* cx, float* fx, int nk,

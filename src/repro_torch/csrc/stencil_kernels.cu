@@ -118,26 +118,27 @@
 //   (block_k < nk, block_k | nk): all statements of all computations
 //   interleaved per level, in marching order, as the reference's K-blocked
 //   kernel runs them.  On the TPU the K slabs are a sequential grid
-//   dimension and the carry crosses grid steps in VMEM scratch; a CUDA grid
-//   cannot order its blocks, so here the slab walk is a loop inside the
-//   kernel.  One CTA owns a tile of consecutive columns (thread = column,
-//   neighbouring threads on neighbouring i).  Per slab, the CTA stages the
-//   block_k levels of every slot the march reads at the column's own point
-//   or writes into shared memory (one coalesced load per level and slot;
-//   temporaries, and written fields whose every read in the march follows
-//   their write, start at zero and are not read from device memory), syncs,
-//   and each thread marches its column's levels out of shared memory,
-//   writing program fields through to device memory.  The marching-previous level
-//   comes from the slab, or, at a slab's first level, from the carry: the
-//   previous slab's last level of every carried slot, kept per thread
-//   across slabs and zeroed at each member's first slab (the reference's
-//   per-member carry reset).  Reads at a horizontal offset go to device
-//   memory; the encoder refuses them for any slot the stencil writes, so
-//   columns stay independent.  Bound: device-memory bytes (each field whose
-//   old value is read read once, each output written once) like K2; the
-//   slab adds no traffic, so the design aims at K2's time, not below it.
-//   With the same interpreter it computes every level as K2 does, bit for
-//   bit; its stack sits in shared memory after the slab.
+//   dimension, each staged whole in VMEM, and the carry crosses grid steps
+//   in VMEM scratch.  Here a slab is only a depth of prefetch: K4 is K2's
+//   march (the same template, kBlocked) over the interleaved statements and
+//   all nk levels, 4 columns a thread, the carry on chip, and the copies
+//   ahead taken a group of G levels at a time: at the first level of a
+//   group one commit group copies the next group's AHEAD keys, double-
+//   buffered.  G is the slab, at most 4 levels (cuda.KB_DEPTH_MAX: the
+//   interpreter's chain, not device memory, bounds the march, and deeper
+//   groups, issued at once, measured slower), fewer where two groups would
+//   pass the 48 KB that keeps four CTAs an SM.  No barrier: each thread
+//   copies and waits for its own columns.  A group's levels share each
+//   record's activity: K4 decides once a group, for its thread, which
+//   records no level of it runs and which run at every level (with their
+//   columns), where K2 tests each record's levels and box at each level.  The reference zeroes its carry
+//   at each member's first slab: the level before K4's first lies outside
+//   every slot's K extent, and K4 reads 0 there, its carry entries zeroed
+//   and marked held and the first level's copies of keys a level up zeroed
+//   (the encoder routes every such read through the two), where K2 clamps
+//   it.  Bound: device-memory bytes, like K2's; every value is the one K2
+//   and the plain version compute, bit for bit, wherever such a read is
+//   dead.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (plain C interface, ctypes).
@@ -160,28 +161,26 @@
 #define AHEAD_MAX 8                       // K2: loads copied a level ahead
 #define K1_BLOCK 128                      // K1: threads per CTA
 #define K1_STRIP 8                        // K1: levels each op evaluates
-#define KB_BLOCK 128                      // K4: columns per CTA at most
-#define KB_SMEM_BUDGET (200 * 1024)       // K4: dynamic shared memory cap
 #define SMEM_MAX (227 * 1024)             // a CTA's shared memory on sm_90
 
 // opcodes — keep in sync with cuda.py.  An op word is
 //   src2 << SRC2_SHIFT | src << SRC_SHIFT | op * OPW | depth:
 // the stack depth before the op (the top of the stack is a register,
 // ``acc``, the entries below it sit in shared memory at their depth),
-// where a push or a binary op takes its operand from, and (K2 only) where
+// where a push or a binary op takes its operand from, and (K2, K4) where
 // a binary op takes its first operand from: it then pushes f(src2, src).
 // The operand words follow: src2's, src's, then the op's.
 #define SRC_SHIFT 11
-#define SRC2_SHIFT 14  // K2: a binary op's first operand's source
+#define SRC2_SHIFT 14  // K2, K4: a binary op's first operand's source
 enum {            // sources: their operand words follow the op word
   SRC_LOAD = 1,   // slot di dj dk
   SRC_CONST = 2,  // index into the constant table
   SRC_PARAM = 3,  // index into the parameter array
   SRC_PICK = 4,   // j: a copy of stack entry j
-  SRC_CARRY = 5,  // slot di dj dk (K2): the marching-previous level of a
-                  // slot the march writes, from the carry where it is held
-  SRC_AHEAD = 6   // j (K2): key j of the ahead table, copied into shared
-                  // memory while the level before ran
+  SRC_CARRY = 5,  // slot di dj dk (K2, K4): the marching-previous level of
+                  // a slot the march writes, from the carry where it is held
+  SRC_AHEAD = 6   // j (K2, K4): key j of the ahead table, copied into
+                  // shared memory while the level (K4: slab) before ran
 };
 enum {
   OP_PUSH = 0,    // pushes its source
@@ -208,10 +207,7 @@ struct LaunchArgs {
   float* ptr[MAX_SLOTS];
   long long mstride[MAX_SLOTS];  // elements between members; 0: broadcast
   int kext[MAX_SLOTS];
-  int sidx[MAX_SLOTS];     // K4: the slot's plane in the slab, -1: not staged
-  int cidx[MAX_SLOTS];     // K4: the slot's carry, -1: not carried
-  int sload[MAX_SLOTS];    // K4: 1: the slab loads the slot from memory,
-                           //     0: it starts at zero
+  int cidx[MAX_SLOTS];     // K2, K4: the slot's carry, -1: not carried
   float params[MAX_PARAMS];
   const int* prog;
   const float* consts;
@@ -221,12 +217,10 @@ struct LaunchArgs {
   int kspan;               // K1: levels per thread, a multiple of K1_STRIP
   int depth;               // stack entries the ops reach
   int j0, j1, i0, i1;      // K1: box of all records; K2: write window
-  int lo, hi, forward;     // K2: the march
+  int lo, hi, forward;     // K2, K4: the march
   int nmember, mchunk;     // K5: members, and members per thread
-  int bk, n_staged, n_carried, nfield;  // K4: slab depth, slab planes,
-                                        // carries, slots < nfield are fields
-                                        // (K2: n_carried, its carries)
-  int ahead_begin, ahead_end;  // K2: prog[ahead_begin, ahead_end), the
+  int bk, n_carried;       // K4: levels a copy group holds; K2, K4: carries
+  int ahead_begin, ahead_end;  // K2, K4: prog[ahead_begin, ahead_end), the
                                // ahead table (slot di dj dk each)
 };
 
@@ -234,9 +228,7 @@ struct Shared {
   float* ptr[MAX_SLOTS];
   long long mstride[MAX_SLOTS];
   int kext[MAX_SLOTS];
-  int sidx[MAX_SLOTS];
   int cidx[MAX_SLOTS];
-  int sload[MAX_SLOTS];
   float params[MAX_PARAMS];
   float consts[CONST_MAX];
   int prog[PROG_MAX];
@@ -319,7 +311,7 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
-extern __shared__ float dynamic_smem[];  // K1/K2: the stack; K4: slab, stack
+extern __shared__ float dynamic_smem[];  // the stack; K2, K4: carry, copies
 
 // The stack below its top: shared memory, [depth][P][thread].
 template <int P>
@@ -392,82 +384,10 @@ struct StripReader {
   }
 };
 
-// K4's reads and writes at one point (m, t, k, j, i) of device memory.
-template <bool kMembers>
-struct PointReader {
-  const Shared& s;
-  int m, t, k, j, i, jp, ip;
-  __device__ __forceinline__ float* col(int slot, int di, int dj) const {
-    return column<kMembers>(s, slot, m, t, jp, ip, j + dj, i + di);
-  }
-  __device__ __forceinline__ float at(int slot, int lvl, int di,
-                                      int dj) const {
-    return col(slot, di, dj)[static_cast<size_t>(
-        clampi(lvl, 0, s.kext[slot] - 1)) * jp * ip];
-  }
-  __device__ __forceinline__ void load(int slot, int di, int dj, int dk,
-                                       float (&out)[1]) const {
-    out[0] = at(slot, k + dk, di, dj);
-  }
-  __device__ __forceinline__ void load_found(int slot, int di, int dj, int dk,
-                                             const int (&lvl)[1],
-                                             float (&out)[1]) const {
-    out[0] = at(slot, lvl[0] + dk, di, dj);
-  }
-  __device__ __forceinline__ void search(int coord, int lo, int hi,
-                                         const float (&target)[1],
-                                         int (&lvl)[1]) const {
-    march_search<1>(col(coord, 0, 0), s.kext[coord],
-                    static_cast<size_t>(jp) * ip, lo, hi, target, lvl);
-  }
-  __device__ __forceinline__ void store(int slot, const float (&v)[1], int,
-                                        int) const {
-    col(slot, 0, 0)[static_cast<size_t>(k) * jp * ip] = v[0];
-  }
-};
-
-// K4's reads and writes: the column's own point from the slab (the current
-// level, or the marching-previous one: the slab's level before, or at the
-// slab's first level the carry), horizontal offsets from device memory; a
-// store goes to the slab, and through to device memory for a field.
-template <bool kMembers>
-struct SlabReader {
-  static constexpr bool kCarry = false;
-  PointReader<kMembers> g;
-  float* slab;
-  const float* carry;
-  int local, bk, nthr, tid, nfield;
-  __device__ __forceinline__ void load(int slot, int di, int dj, int dk,
-                                       float (&out)[1]) const {
-    const int lp = local + dk;
-    if (di != 0 || dj != 0)
-      g.load(slot, di, dj, dk, out);
-    else if (lp >= 0 && lp < bk)
-      out[0] = slab[(g.s.sidx[slot] * bk + lp) * nthr + tid];
-    else
-      out[0] = carry[g.s.cidx[slot]];
-  }
-  __device__ __forceinline__ void load_found(int slot, int di, int dj, int dk,
-                                             const int (&lvl)[1],
-                                             float (&out)[1]) const {
-    g.load_found(slot, di, dj, dk, lvl, out);
-  }
-  __device__ __forceinline__ void search(int coord, int lo, int hi,
-                                         const float (&target)[1],
-                                         int (&lvl)[1]) const {
-    g.search(coord, lo, hi, target, lvl);
-  }
-  __device__ __forceinline__ void store(int slot, const float (&v)[1], int,
-                                        int) const {
-    slab[(g.s.sidx[slot] * bk + local) * nthr + tid] = v[0];
-    if (slot < nfield) g.store(slot, v, 0, 0);
-  }
-};
-
-// K2's column table: row j's column (t, j, i) of every slot, computed once
-// a thread, in shared memory [slot][thread]; cell() is the point (di, dj)
-// away from it at level kk, edge-clamped into the slot's K extent, of
-// member m.
+// K2's and K4's column table: row j's column (t, j, i) of every slot,
+// computed once a thread, in shared memory [slot][thread]; cell() is the
+// point (di, dj) away from it at level kk, edge-clamped into the slot's K
+// extent, of member m.
 template <bool kMembers>
 __device__ __forceinline__ float* cell(const Shared& s, float* const* cols,
                                        int nthr, int slot, int m, int jp,
@@ -477,19 +397,19 @@ __device__ __forceinline__ float* cell(const Shared& s, float* const* cols,
   return kMembers ? c + m * s.mstride[slot] : c;
 }
 
-// K2's reads and writes: level k of P neighbouring columns (m, t, j + p,
-// i), rows j .. j + P - 1 at one i; the column of row j + p is joff[p]
-// floats from row j's (a row past the window is clamped to its last row:
-// it reads in bounds and stores nothing), so an address is computed once
-// for the P columns.  A store is masked per column by ``live``; a level
-// search runs per column.  The marching carry: a store to a carried slot
-// also writes the value to shared memory, [carried][level parity][P]
-// [thread], and sets the (slot, column) bit of ``cur``; a CARRY read, of
-// the marching-previous level, takes the value from there where that bit
-// is set in ``prev`` (``cur`` of the level before), and from device memory
-// where the thread stored none.  An AHEAD read takes its key's value from
-// ``ahead``, [key][P][thread] of this level's parity, which cp.async
-// filled while the level before ran.
+// K2's and K4's reads and writes: level k of P neighbouring columns (m, t,
+// j + p, i), rows j .. j + P - 1 at one i; the column of row j + p is
+// joff[p] floats from row j's (a row past the window is clamped to its last
+// row: it reads in bounds and stores nothing), so an address is computed
+// once for the P columns.  A store is masked per column by ``live``; a
+// level search runs per column.  The marching carry: a store to a carried
+// slot also writes the value of each column it stores to shared memory,
+// [carried][level parity][P][thread], and sets the (slot, column) bit of
+// ``cur``; a CARRY read, of the marching-previous level, takes the value
+// from there where that bit is set in ``prev`` (``cur`` of the level
+// before), and from device memory where the column stored none.  An AHEAD
+// read takes its key's value from ``ahead``, [key][P][thread] of this
+// level, which cp.async filled while the level (K4: the slab) before ran.
 template <bool kMembers, int P>
 struct ColumnReader {
   static constexpr bool kCarry = true;
@@ -563,8 +483,11 @@ struct ColumnReader {
       if ((live >> p) & 1u) c[joff[p]] = v[p];
     const int ci = s.cidx[slot];
     if (ci >= 0) {
+      // only the columns stored: an earlier store of the slot at this
+      // level may hold the others
 #pragma unroll
-      for (int p = 0; p < P; ++p) held(ci, k, p) = v[p];
+      for (int p = 0; p < P; ++p)
+        if ((live >> p) & 1u) held(ci, k, p) = v[p];
       cur |= live << (ci * P);
     }
   }
@@ -738,9 +661,7 @@ __device__ void stage(Shared& s, const LaunchArgs& a) {
     s.ptr[x] = a.ptr[x];
     s.mstride[x] = a.mstride[x];
     s.kext[x] = a.kext[x];
-    s.sidx[x] = a.sidx[x];
     s.cidx[x] = a.cidx[x];
-    s.sload[x] = a.sload[x];
   }
   for (int x = threadIdx.x; x < a.n_params; x += blockDim.x) s.params[x] = a.params[x];
   __syncthreads();
@@ -805,22 +726,26 @@ __device__ __forceinline__ void copy_async(int dst, const float* src) {
                : "memory");
 }
 
-// K2: a FORWARD/BACKWARD computation (replaces _vertical_kernel).  One
-// thread per P neighbouring columns (member chunk, tile, rows j .. j + P -
-// 1, i): it marches k over [lo, hi) and runs the computation's records at
-// each level for its P columns at once (one decode per op for P chains),
-// each record masked by its levels and, per column, by its box.  Reads of
-// the marching-previous level of a carried slot come from the carry
-// (ColumnReader), which starts empty for each member.  The keys of the
-// ahead table are copied for the next level (the next member's first at a
-// member's last) into shared memory by cp.async while a level runs, one
-// commit group a level, so a level's loads wait on no device memory.
-// At least one CTA an SM in the launch bounds: left to its own choice,
-// ptxas gave the P = 4 instances under 100 registers and spilled.
-template <bool kMembers, int P>
-__global__ void __launch_bounds__(K2_BLOCK, 1) stencil_column_kernel(
-    LaunchArgs a) {
-  __shared__ Shared s;
+// K2 and K4: the column march.  One thread per P neighbouring columns
+// (member chunk, tile, rows j .. j + P - 1, i): it marches k over [lo, hi)
+// and runs the records at each level for its P columns at once (one decode
+// per op for P chains), each record masked by its levels and, per column,
+// by its box.  Reads of the marching-previous level of a carried slot come
+// from the carry (ColumnReader), which starts empty for each member.  The
+// keys of the ahead table are copied into shared memory by cp.async while
+// the march runs, one commit group per G levels, double-buffered: at the
+// first level of a group the next group's copies (the next member's first
+// at a member's last) are issued and this group's are waited for, so a
+// level's loads wait on no device memory.  K2 (kBlocked false): G = 1, a
+// level ahead.  K4: G = bk levels (cuda.py's copy_depth), and its march
+// spans [0, nk): the marching-previous level of its first level lies
+// outside every slot's K extent, and there K4 reads 0, the reference's
+// carry zeroed at each member's first slab (the carry's entries of that
+// level zeroed and marked held, and the copies of the AHEAD keys at that
+// level zeroed; the encoder leaves no other read there).
+template <bool kMembers, int P, bool kBlocked>
+__device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
+  static_assert(P <= 4, "K4 packs a record's columns in 4 bits");
   stage(s, a);
   const int nthr = blockDim.x, tid = threadIdx.x;
   const long long ni = a.i1 - a.i0, njg = (a.j1 - a.j0 + P - 1) / P;
@@ -839,40 +764,49 @@ __global__ void __launch_bounds__(K2_BLOCK, 1) stencil_column_kernel(
   const int nkey = (a.ahead_end - a.ahead_begin) / 4;
   const int n_steps = a.hi - a.lo;
   const int first = a.forward ? a.lo : a.hi - 1, dir = a.forward ? 1 : -1;
+  const int G = kBlocked ? a.bk : 1;  // levels of a copy group
+  const int n_groups = (n_steps + G - 1) / G;
   // dynamic_smem: the stack [depth][P], the carry [carried][2][P], the
-  // copies [2][nkey][P], each [..][thread], then the column table
+  // copies [2][G][nkey][P], each [..][thread], then the column table
   // [slot][thread] (pointers, 8-byte aligned: nthr is even)
   const SharedStack<P> st{tid, nthr};
   const int cv = a.depth * P * nthr + tid;
   const int copies = cv + 2 * a.n_carried * P * nthr;
+  const int level_words = nkey * P * nthr;  // one level of copies
   float** table = reinterpret_cast<float**>(
-      dynamic_smem + (a.depth + 2 * a.n_carried + 2 * nkey) * P * nthr);
+      dynamic_smem + (a.depth + 2 * a.n_carried) * P * nthr +
+      2 * G * level_words);
   for (int slot = 0; slot < a.n_slots; ++slot)
     table[slot * nthr + tid] = column<false>(s, slot, 0, t, a.jp, a.ip, j, i);
   float* const* cols = table + tid;
-  // the ahead table's keys at level k of member m into buffer buf, as one
-  // commit group (an empty one past the chunk's last level)
-  auto copy_level = [&](bool any, int m, int k, int buf) {
+  // the ahead table's keys at the levels of group grp of member m into
+  // buffer buf, as one commit group (an empty one past the chunk's last
+  // level)
+  auto copy_group = [&](bool any, int m, int grp, int buf) {
     if (any) {
-      for (int x = 0; x < nkey; ++x) {
-        const int* key = s.prog + a.ahead_begin + 4 * x;
-        const float* c = cell<kMembers>(s, cols, nthr, key[0], m, a.jp,
-                                        a.ip, key[1], key[2], k + key[3]);
+      const int s0 = grp * G, s1 = min(s0 + G, n_steps);
+      for (int step = s0; step < s1; ++step) {
+        const int k = first + dir * step;
+        const int at = copies + (buf * G + step - s0) * level_words;
+        for (int x = 0; x < nkey; ++x) {
+          const int* key = s.prog + a.ahead_begin + 4 * x;
+          const float* c = cell<kMembers>(s, cols, nthr, key[0], m, a.jp,
+                                          a.ip, key[1], key[2], k + key[3]);
 #pragma unroll
-        for (int p = 0; p < P; ++p)
-          copy_async(copies + ((buf * nkey + x) * P + p) * nthr, c + joff[p]);
+          for (int p = 0; p < P; ++p)
+            copy_async(at + (x * P + p) * nthr, c + joff[p]);
+        }
       }
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
-  // the march of the copies runs a level ahead of the interpreter's
-  int c_mm = 0, c_step = 0, c_buf = 0;
+  // the march of the copies runs a group ahead of the interpreter's
+  int c_mm = 0, c_grp = 0, c_buf = 0;
   auto copy_next = [&]() {
-    copy_level(c_mm < mchunk, chunk * mchunk + c_mm, first + dir * c_step,
-               c_buf);
+    copy_group(c_mm < mchunk, chunk * mchunk + c_mm, c_grp, c_buf);
     c_buf ^= 1;
-    if (++c_step == n_steps) {
-      c_step = 0;
+    if (++c_grp == n_groups) {
+      c_grp = 0;
       ++c_mm;
     }
   };
@@ -881,108 +815,126 @@ __global__ void __launch_bounds__(K2_BLOCK, 1) stencil_column_kernel(
   int lvl[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) { acc[p] = 0.f; lvl[p] = 0; }
-  int buf = 0;
-  for (int mm = 0; mm < mchunk; ++mm) {
-    const int m = chunk * mchunk + mm;
-    unsigned cur = 0;  // the carry starts empty for each member
-    for (int step = 0; step < n_steps; ++step) {
-      const int k = first + dir * step;
-      if (nkey > 0) {
-        copy_next();
-        // this level's group is done (the next level's may still run)
-        asm volatile("cp.async.wait_group 1;" ::: "memory");
-      }
-      ColumnReader<kMembers, P> rd{s,    m,  k,    a.jp, a.ip,
-                                   cols, {}, 0u,   cv,   copies + buf * nkey * P * nthr,
-                                   nthr, 0u, cur};
+  // one level of the march: the records at level first + dir * step of
+  // member m, this level's copies at ``ahead``.  K4 decides per copy
+  // group which of the first 32 records no level of the group runs for
+  // this thread (``skip``), and which of the first 8 run at every level,
+  // with their columns (``sure``, ``lives``: 4 bits each)
+  auto level = [&](int m, int step, int ahead, unsigned& cur, unsigned skip,
+                   unsigned sure, unsigned lives) {
+    const int k = first + dir * step;
+    ColumnReader<kMembers, P> rd{s,    m,     k,    a.jp, a.ip, cols, {}, 0u,
+                                 cv,   ahead, nthr, 0u,   cur};
 #pragma unroll
-      for (int p = 0; p < P; ++p) rd.joff[p] = joff[p];
-      for (int q = 0; q < n_stmts; ++q) {
-        const int* r = s.prog + 1 + REC_INTS * q;
-        if (k < r[1] || k >= r[2] || i < r[5] || i >= r[6]) continue;
-        unsigned live = 0;
+    for (int p = 0; p < P; ++p) rd.joff[p] = joff[p];
+    for (int q = 0; q < n_stmts; ++q) {
+      const int* r = s.prog + 1 + REC_INTS * q;
+      unsigned live = 0;
+      if (q < 8 && ((sure >> q) & 1u)) {
+        live = (lives >> (4 * q)) & 15u;
+      } else {
+        if (q < 32 && ((skip >> q) & 1u)) continue;
+        // the record's levels and box, read at once, tested without a
+        // branch per bound
+        const int rk0 = r[1], rk1 = r[2], ri0 = r[5], ri1 = r[6];
+        if ((k < rk0) | (k >= rk1) | (i < ri0) | (i >= ri1)) continue;
 #pragma unroll
         for (int p = 0; p < P; ++p)
           live |= static_cast<unsigned>(j + p >= r[3] && j + p < r[4] &&
                                         j + p < a.j1) << p;
         if (live == 0) continue;
-        rd.live = live;
-        run_ops<P>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
       }
-      cur = rd.cur;
+      rd.live = live;
+      run_ops<P>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
+    }
+    cur = rd.cur;
+  };
+  int buf = 1;
+  for (int mm = 0; mm < mchunk; ++mm) {
+    const int m = chunk * mchunk + mm;
+    unsigned cur = 0;  // the carry starts empty for each member
+    if constexpr (!kBlocked) {
+      for (int step = 0; step < n_steps; ++step) {
+        if (nkey > 0) {
+          copy_next();
+          // this level's copies are done (the next level's may still run)
+          asm volatile("cp.async.wait_group 1;" ::: "memory");
+        }
+        buf ^= 1;
+        level(m, step, copies + buf * level_words, cur, 0u, 0u, 0u);
+      }
+      continue;
+    }
+    // K4: zeroed, and held for the level before the first
+    const int before = first - dir;
+    for (int c = 0; c < a.n_carried; ++c) {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        dynamic_smem[cv + ((c * 2 + (before & 1)) * P + p) * nthr] = 0.f;
+    }
+    cur = a.n_carried * P >= 32 ? ~0u : (1u << (a.n_carried * P)) - 1u;
+    for (int s0 = 0; s0 < n_steps; s0 += G) {  // a copy group's levels
+      if (nkey > 0) {
+        copy_next();
+        // this group's copies are done (the next group's may still run)
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      }
       buf ^= 1;
+      int ahead = copies + buf * G * level_words;
+      if (s0 == 0) {  // the first level's keys a level up
+        for (int x = 0; x < nkey; ++x) {
+          if (s.prog[a.ahead_begin + 4 * x + 3] == 0) continue;
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            dynamic_smem[ahead + (x * P + p) * nthr] = 0.f;
+        }
+      }
+      const int s1 = min(s0 + G, n_steps);
+      // the records no level of the group runs, and those every level
+      // runs, for this thread
+      const int ka = first + dir * s0, kb = first + dir * (s1 - 1);
+      const int klo = min(ka, kb), khi = max(ka, kb) + 1;
+      unsigned skip = 0, sure = 0, lives = 0;
+      for (int q = 0; q < min(n_stmts, 32); ++q) {
+        const int* r = s.prog + 1 + REC_INTS * q;
+        const int rk0 = r[1], rk1 = r[2], rj0 = r[3], rj1 = r[4],
+                  ri0 = r[5], ri1 = r[6];
+        unsigned live = 0;
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          live |= static_cast<unsigned>((j + p >= rj0) & (j + p < rj1) &
+                                        (j + p < a.j1)) << p;
+        const bool out = (i < ri0) | (i >= ri1) | (live == 0);
+        skip |= static_cast<unsigned>(out | (khi <= rk0) | (klo >= rk1)) << q;
+        if (q < 8 && !out && klo >= rk0 && khi <= rk1) {
+          sure |= 1u << q;
+          lives |= live << (4 * q);
+        }
+      }
+      for (int step = s0; step < s1; ++step, ahead += level_words)
+        level(m, step, ahead, cur, skip, sure, lives);
     }
   }
 }
 
-// K4: a single-direction solver under a K-blocked schedule (replaces
-// _vertical_kernel_kblocked): one thread per column, a loop over the
-// nk / bk slabs in marching order, each slab staged in shared memory.
-template <bool kMembers>
-__global__ void __launch_bounds__(KB_BLOCK) stencil_kblocked_kernel(
+// K2: a FORWARD/BACKWARD computation (replaces _vertical_kernel).  At
+// least one CTA an SM in the launch bounds: left to its own choice, ptxas
+// gave the P = 4 instances under 100 registers and spilled.
+template <bool kMembers, int P>
+__global__ void __launch_bounds__(K2_BLOCK, 1) stencil_column_kernel(
     LaunchArgs a) {
   __shared__ Shared s;
-  float* slab = dynamic_smem;  // [n_staged][bk][blockDim.x], then the stack
-  stage(s, a);
-  const int nthr = blockDim.x, tid = threadIdx.x;
-  const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0;
-  const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
-  long long g = static_cast<long long>(blockIdx.x) * nthr + tid;
-  // threads past the last column still stage and sync with the others
-  const bool valid = g < nchunk * a.ntile * nj * ni;
-  int i = a.i0, j = a.j0, t = 0, chunk = 0;
-  if (valid) {
-    i = a.i0 + static_cast<int>(g % ni); g /= ni;
-    j = a.j0 + static_cast<int>(g % nj); g /= nj;
-    t = kMembers ? static_cast<int>(g % a.ntile) : static_cast<int>(g);
-    chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
-  }
-  const int n_stmts = s.prog[0];
-  const int mchunk = kMembers ? a.mchunk : 1;
-  const int bk = a.bk;
-  const int nblocks = (a.hi - a.lo) / bk;
-  const Stack<1> st{slab + a.n_staged * bk * nthr + tid, nthr};
-  float carry[MAX_SLOTS];
-  float acc[1] = {0.f};
-  int lvl[1] = {0};
-  for (int mm = 0; mm < mchunk; ++mm) {
-    const int m = chunk * mchunk + mm;
-    for (int c = 0; c < a.n_carried; ++c) carry[c] = 0.f;  // per member
-    for (int b = 0; b < nblocks; ++b) {
-      const int k0 = a.lo + (a.forward ? b : nblocks - 1 - b) * bk;
-      __syncthreads();  // every thread is done with the previous slab
-      for (int slot = 0; slot < a.n_slots; ++slot) {
-        const int si = s.sidx[slot];
-        if (si < 0) continue;
-        const bool from_memory = valid && s.sload[slot];
-        const float* col = column<kMembers>(s, slot, m, t, a.jp, a.ip, j, i);
-        for (int l = 0; l < bk; ++l)
-          slab[(si * bk + l) * nthr + tid] =
-              from_memory ? col[static_cast<size_t>(k0 + l) * a.jp * a.ip]
-                          : 0.f;
-      }
-      __syncthreads();
-      if (!valid) continue;
-      for (int step = 0; step < bk; ++step) {
-        const int local = a.forward ? step : bk - 1 - step;
-        const int k = k0 + local;
-        SlabReader<kMembers> rd{{s, m, t, k, j, i, a.jp, a.ip},
-                                      slab, carry, local, bk, nthr, tid,
-                                      a.nfield};
-        for (int q = 0; q < n_stmts; ++q) {
-          const int* r = s.prog + 1 + REC_INTS * q;
-          if (k < r[1] || k >= r[2]) continue;                 // interval
-          if (j < r[3] || j >= r[4] || i < r[5] || i >= r[6]) continue;  // region
-          run_ops<1>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
-        }
-      }
-      // the carry: the last marched level of every carried slot
-      const int last = a.forward ? bk - 1 : 0;
-      for (int slot = 0; slot < a.n_slots; ++slot)
-        if (s.cidx[slot] >= 0)
-          carry[s.cidx[slot]] = slab[(s.sidx[slot] * bk + last) * nthr + tid];
-    }
-  }
+  march_columns<kMembers, P, false>(s, a);
+}
+
+// K4: a single-direction solver under a K-blocked schedule (replaces
+// _vertical_kernel_kblocked and _compile_kblocked): K2's march over the
+// interleaved statements, a slab of copies ahead.
+template <bool kMembers, int P>
+__global__ void __launch_bounds__(K2_BLOCK, 1) stencil_kblocked_kernel(
+    LaunchArgs a) {
+  __shared__ Shared s;
+  march_columns<kMembers, P, true>(s, a);
 }
 
 // One launch of ``kernel`` with ``bytes`` of dynamic shared memory (above
@@ -1016,23 +968,38 @@ static int launch_parallel(const LaunchArgs* a, long long n,
                       st, a);
 }
 
-// K2: the stack, the carry and the copies a level ahead in shared memory,
-// each [..][K2_COLS][thread]
+// K2 and K4: the stack, the carry and two groups of copies (G levels each:
+// K2 1, K4 a.bk) in shared memory, each [..][K2_COLS][thread], then the
+// column table
+template <bool kBlocked>
 static int launch_column(const LaunchArgs* a, cudaStream_t st) {
   constexpr int P = K2_COLS;
   const long long njg = (a->j1 - a->j0 + P - 1) / P;
   const long long n = static_cast<long long>(a->nmember / a->mchunk) *
                       a->ntile * njg * (a->i1 - a->i0);
+  const size_t G = kBlocked ? a->bk : 1;
   const size_t bytes =
-      static_cast<size_t>(a->depth + 2 * a->n_carried +
-                          2 * (a->ahead_end - a->ahead_begin) / 4) *
+      (static_cast<size_t>(a->depth + 2 * a->n_carried) +
+       2 * G * ((a->ahead_end - a->ahead_begin) / 4)) *
           P * K2_BLOCK * sizeof(float) +
       static_cast<size_t>(a->n_slots) * K2_BLOCK * sizeof(float*);
+  if (kBlocked)
+    return a->nmember > 1
+               ? launch(stencil_kblocked_kernel<true, P>, n, K2_BLOCK, bytes,
+                        st, a)
+               : launch(stencil_kblocked_kernel<false, P>, n, K2_BLOCK,
+                        bytes, st, a);
   return a->nmember > 1
              ? launch(stencil_column_kernel<true, P>, n, K2_BLOCK, bytes, st,
                       a)
              : launch(stencil_column_kernel<false, P>, n, K2_BLOCK, bytes,
                       st, a);
+}
+
+static bool column_args_ok(const LaunchArgs* a) {
+  return a->n_carried <= CARRY_MAX && a->ahead_begin <= a->ahead_end &&
+         a->ahead_end <= a->n_prog &&
+         a->ahead_end - a->ahead_begin <= 4 * AHEAD_MAX;
 }
 
 extern "C" {
@@ -1044,7 +1011,7 @@ int stencil_limits(int* out) {
   out[0] = MAX_SLOTS; out[1] = MAX_PARAMS; out[2] = PROG_MAX;
   out[3] = CONST_MAX; out[4] = STACK_MAX; out[5] = REC_INTS;
   out[6] = OPW; out[7] = K1_STRIP; out[8] = CARRY_MAX; out[9] = AHEAD_MAX;
-  out[10] = K2_COLS;
+  out[10] = K2_COLS; out[11] = K2_BLOCK;
   return 0;
 }
 
@@ -1064,29 +1031,16 @@ int launch_stencil_parallel(const LaunchArgs* a, void* stream) {
 }
 
 int launch_stencil_column(const LaunchArgs* a, void* stream) {
-  if (a->n_carried > CARRY_MAX || a->ahead_begin > a->ahead_end ||
-      a->ahead_end > a->n_prog ||
-      a->ahead_end - a->ahead_begin > 4 * AHEAD_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_column(a, static_cast<cudaStream_t>(stream));
+  if (!column_args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_column<false>(a, static_cast<cudaStream_t>(stream));
 }
 
-// K4: as many columns per CTA (up to KB_BLOCK, down to a warp) as the
-// slab and the stack's shared memory allow.
+// K4: bk, the levels of a copy group, is the slab or fewer (cuda.py's
+// copy_depth keeps two groups within the budget of four CTAs an SM).
 int launch_stencil_kblocked(const LaunchArgs* a, void* stream) {
-  const size_t per_col =
-      (static_cast<size_t>(a->n_staged) * a->bk + a->depth) * sizeof(float);
-  int threads = KB_BLOCK;
-  while (threads > 32 && per_col * threads > KB_SMEM_BUDGET) threads /= 2;
-  const size_t bytes = per_col * threads;
-  if (bytes > KB_SMEM_BUDGET) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = n_chunks(a) * a->ntile * (a->j1 - a->j0) *
-                      (a->i1 - a->i0);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a->nmember > 1
-             ? launch(stencil_kblocked_kernel<true>, n, threads, bytes, st, a)
-             : launch(stencil_kblocked_kernel<false>, n, threads, bytes, st,
-                      a);
+  if (!column_args_ok(a) || a->bk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_column<true>(a, static_cast<cudaStream_t>(stream));
 }
 
 const char* stencil_error_string(int code) {

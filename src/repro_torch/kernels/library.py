@@ -39,7 +39,7 @@ def bind_library(path) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("launch_tridiag_f32", "launch_tridiag_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 6 + [i32, i64, ptr]
+        fn.argtypes = [ptr] * 6 + [i32, i64, i32, ptr]
         fn.restype = ctypes.c_int
     lib.launch_fvt_flux.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     lib.launch_fvt_flux.restype = ctypes.c_int

@@ -25,8 +25,8 @@ from repro_torch.core.backend import TuningCache, set_default_cache
 from repro_torch.core.backend import cuda as C
 from repro_torch.core.hardware import Hardware, register_hardware
 from repro_torch.core.stencil import (Assign, Computation, DomainSpec,
-                                      FieldAccess, Interval, Schedule,
-                                      Stencil)
+                                      Field, FieldAccess, Interval, Schedule,
+                                      Stencil, gtstencil)
 from repro_torch.core.stencil import ir
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import state as TSt
@@ -106,13 +106,19 @@ class _StreamEvaluator:
     the carry, as the kernel does at each member's first level.  An
     ``AHEAD`` read takes its key's value as memory held it when the level
     before started, where the kernel's copy reads it (the first level's:
-    before the march)."""
+    before the march).  A K4 launch runs as K2's on all its statements,
+    except that its copies are taken a group of ``C.copy_depth`` levels at
+    a time, the next group's as memory holds it at the first level of the
+    group before (the first group's before the march), and that a read of a
+    level outside the slot's K extent (the marching-previous level of the
+    first) is 0, the reference's zeroed carry, where K2 clamps it."""
 
     def __init__(self, slots, params, consts):
         self.slots = slots          # slot -> (T, K, Jp, Ip) tensor
         self.params = params        # f32 values in parameter order
         self.consts = torch.tensor(consts or [0.0], dtype=torch.float32)
         self.carry_reads = {"carry": 0, "memory": 0}
+        self.blocked = False  # K4: 0 outside a slot's K extent
         self.reset_carry()
 
     def reset_carry(self):
@@ -121,7 +127,10 @@ class _StreamEvaluator:
 
     def load(self, slot, ks, js, is_):
         arr = self.slots[slot]
-        return arr[:, ks.clamp(0, arr.shape[-3] - 1), js, is_]
+        got = arr[:, ks.clamp(0, arr.shape[-3] - 1), js, is_]
+        if self.blocked:
+            got = torch.where((ks < 0) | (ks >= arr.shape[-3]), 0.0, got)
+        return got
 
     def search(self, coord, lo, hi, target, js, is_):
         """The last layer in (lo, hi) whose coordinate is <= the target,
@@ -233,9 +242,10 @@ class _StreamEvaluator:
 
             self.run(p.prog, b, e, kk, js, is_, stk, store)
 
-    def columns(self, p, ncol):
-        """K2: every level of the march for the launch's columns, ``ncol``
-        rows a thread."""
+    def columns(self, p, ncol, depth=1):
+        """K2 and K4: every level of the march for the launch's columns,
+        ``ncol`` rows a thread, the copies taken ``depth`` levels at a
+        time."""
         j0, j1, i0, i1 = p.box
         rows = torch.arange(j0, j0 + -(-(j1 - j0) // ncol) * ncol)
         real = rows < j1  # the rows past the window store nothing
@@ -249,10 +259,14 @@ class _StreamEvaluator:
             return [self.load(s, kk + dk, js + dj, is_ + di)
                     for s, di, dj, dk in p.ahead_keys()]
 
-        after = copy(levels[0]) if levels else []
+        def group(g):  # the copies of group g's levels, taken now
+            return [copy(k) for k in levels[g * depth:(g + 1) * depth]]
+
+        after = group(0)
         for step, k in enumerate(levels):
-            self.copies = after
-            after = copy(levels[step + 1]) if step + 1 < len(levels) else []
+            if step % depth == 0:
+                this, after = after, group(step // depth + 1)
+            self.copies = this[step % depth]
             kk = torch.tensor(k).reshape(1, 1, 1)
             self.prev, self.cur = self.cur, {}
             for tgt, klo, khi, rj0, rj1, ri0, ri1, b, e in p.records():
@@ -280,10 +294,12 @@ class _StreamEvaluator:
     def launch(self, p):
         if p.empty:
             return
+        self.blocked = p.kind == "kblocked"
         if p.kind == "horizontal":
             self.records(p, torch.arange(p.klo, p.khi), p.box, [])
         else:
-            self.columns(p, C.COLUMNS)
+            self.columns(p, C.COLUMNS, C.copy_depth(p, len(self.slots))
+                         if self.blocked else 1)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -748,6 +764,147 @@ def test_kblocked_member_axis_on_card(card, mchunk):
             one = single({k: v[m].contiguous() for k, v in fields.items()},
                          params)
             assert torch.equal(got[w][m], one[w])
+
+
+def _bwd_subst(rhs: Field, cc: Field, pp: Field):
+    with computation(BACKWARD):
+        with interval(-1, None):
+            pp = rhs
+        with interval(0, -1):
+            pp = rhs[0, 0, 0] - cc[0, 0, 0] * pp[0, 0, 1]
+
+
+def _fwd_partial(q: Field, acc: Field, out: Field):
+    # acc: read at its own level before its write, and at the level below
+    with computation(FORWARD):
+        with interval(1, None):
+            out = acc + q
+            acc = acc[0, 0, -1] + q
+
+
+def _many_inputs(n: int = 4) -> Stencil:
+    """A march reading n inputs at its level and a level up: 2n keys to
+    copy, so the copies' depth shrinks to fit the budget, and the keys
+    past the table at its own level are loads."""
+    inputs = tuple(f"q{m}" for m in range(n))
+    total = FieldAccess("x", (0, 0, -1))
+    for f in inputs:
+        total = total + FieldAccess(f) * FieldAccess(f, (0, 0, -1))
+    return Stencil("many_inputs", (Computation(ir.FORWARD, (
+        Assign("x", total, interval=ir.interval(1, None)),)),),
+        inputs + ("x",), ("x",))
+
+
+#: K4's solvers on the card: d_sw's precompute_pe (the node the reference's
+#: TPU schedules K-block), a BACKWARD one, one that reads a field it writes
+#: before writing it, and one with more keys than its copies' full depth
+#: holds
+K4_SOLVERS = {"precompute_pe": TS.precompute_pe,
+              "bwd_subst": gtstencil(_bwd_subst),
+              "fwd_partial": gtstencil(_fwd_partial),
+              "many_inputs": _many_inputs()}
+#: windows whose rows are no multiple of K4's 4 a thread and whose columns
+#: are no multiple of a warp, with their slabs: 8 of 16 levels, and 40 of 80
+#: (the copies run at most cuda.KB_DEPTH_MAX levels ahead)
+K4_RAGGED = [(DomainSpec(ni=37, nj=13, nk=16, halo=3, extend=(1, 1)), 8),
+             (DomainSpec(ni=45, nj=6, nk=80, halo=3), 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dom, bk", K4_RAGGED, ids=["37x13 bk8", "45x6 bk40"])
+@pytest.mark.parametrize("name", sorted(K4_SOLVERS))
+@pytest.mark.parametrize("batch", [None, "grid", "vmap:2,grid"])
+def test_kblocked_kernel_on_ragged_windows_on_card(card, dom, bk, name,
+                                                   batch):
+    """K4 (K2's march, the copies a slab ahead) at ragged windows, alone
+    and over 4 members (one member a thread, or two), one input broadcast
+    across members: exactly its plain version and K2 on the same inputs."""
+    st = K4_SOLVERS[name]
+    sched = Schedule(block_k=bk, k_as_grid=False)
+    M = None if batch is None else 4
+    mchunk = 2 if batch == "vmap:2,grid" else 1
+    run = C.CudaStencil(st, dom, schedule=sched, n_members=M,
+                        member_chunk=mchunk)
+    assert [p.kind for p in run.programs] == ["kblocked"]
+    (p,) = run.programs
+    assert C.copy_depth(p, len(run.slot_names)) == (
+        1 if name == "many_inputs" else C.KB_DEPTH_MAX)
+    lead = (3,) if M is None else (M, 3)
+    fields, params = _inputs(run.stencil, dom, seed=bk, lead=lead)
+    fields = {k: v.to(card) for k, v in fields.items()}
+    if M is not None:
+        bcast = next(f for f in run.stencil.fields if f not in run.written)
+        fields[bcast] = fields[bcast][:1].expand_as(fields[bcast])
+    before = C.LAUNCHES["kblocked"]
+    got = run(fields, params)
+    assert C.LAUNCHES["kblocked"] == before + 1
+    want = run.plain(fields, params)
+    column = C.CudaStencil(st, dom, n_members=M, member_chunk=mchunk)
+    k2 = column(fields, params)
+    torch.cuda.synchronize()
+    for w in run.written:
+        assert torch.equal(got[w], want[w]), (name, w)
+        assert torch.equal(got[w], k2[w]), (name, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True], ids=["K2", "K4"])
+def test_carry_holds_only_the_rows_stored_on_card(card, blocked):
+    """A carried field written twice a level, the second time on 2 of a
+    thread's 4 rows: the carry of the other rows keeps the first store (a
+    carry that took the second store's value on every row, stored or not,
+    read it at the next level)."""
+    x, q = FieldAccess("x"), FieldAccess("q")
+    st = Stencil("rows", (Computation(ir.FORWARD, (
+        Assign("x", x.shift((0, 0, -1)) * 0.5 + q,
+               interval=ir.interval(1, None)),
+        Assign("x", q * 3.0, region=ir.Region(j_lo=(0, 0), j_hi=(0, 2))),
+    )),), ("q", "x"), ("x",))
+    sched = Schedule(block_k=8, k_as_grid=False) if blocked else None
+    run = C.CudaStencil(st, KDOM, schedule=sched)
+    (p,) = run.programs
+    assert p.kind == ("kblocked" if blocked else "column") and p.carried
+    fields, params = _inputs(run.stencil, KDOM, seed=2, lead=(6,))
+    fields = {k: v.to(card) for k, v in fields.items()}
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert torch.equal(got["x"], want["x"])
+
+
+#: K6's depths: one level, two, the model's 80, and one past the levels
+#: whose cp and dp fit on chip at a warp's tile (f32 892, f64 438)
+TRIDIAG_DEPTHS = [1, 2, 80, "past"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", TRIDIAG_DEPTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tridiag_kernel_at_any_depth_on_card(card, nk, dtype):
+    """K6 on a plane of 7 x 37 columns (no multiple of its warp) at depths
+    1, 2, 80 and one past its on-chip plan, where the deeper levels keep cp
+    in a scratch and dp in x: the plain version exactly in f32, within
+    1e-12 in f64."""
+    from repro_torch.kernels import tridiag as KT
+
+    itemsize = torch.finfo(dtype).bits // 8
+    if nk == "past":
+        nk = KT.plan(10 ** 6, itemsize) + 1
+    assert (KT.plan(nk, itemsize) < nk) == (
+        nk > 438 if dtype == torch.float64 else nk > 892)
+    rng = np.random.default_rng(nk)
+    shape = (nk, 7, 37)
+    a, b, c, d = (torch.from_numpy(rng.uniform(lo, hi, shape)).to(card, dtype)
+                  for lo, hi in ((0.1, 0.5), (2.0, 3.0), (0.1, 0.5), (-1, 1)))
+    KL.reset_launches()
+    x = KO.tridiag(a, b, c, d)
+    want = KR.tridiag_ref(a, b, c, d)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["tridiag"] == 1
+    if dtype == torch.float32:
+        assert torch.equal(x, want)
+    else:
+        torch.testing.assert_close(x, want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.cuda

@@ -2,18 +2,21 @@
 
 K4 (``stencil_kblocked_kernel`` in ``csrc/stencil_kernels.cu``) replaces the
 reference's ``_vertical_kernel_kblocked``: a single-direction solver under a
-K-blocked schedule marches all its statements level by level over
-``nk / block_k`` slabs, staging each slab in shared memory and handing the
-marching carry from slab to slab.  It cannot run here, so ``_SlabWalker``
-below reads the encoded stream as the kernel does — slab staging (the
-program fields whose old values the march reads from memory, the others and
-temporaries from zero), the march inside the slab, the
-carry at a slab's first level, the carry zeroed per member — written from
-the kernel's source, not from the IR.  It must give the whole-column march
-of the plain lowering (K4's plain version) and the reference's own K-blocked
-Pallas kernel in interpret mode, for ``precompute_pe``, a FORWARD and a
-BACKWARD single-direction solver, a solver that reads a field it writes
-before writing it, an SGF-fused solver, and a member axis.
+K-blocked schedule marches all its statements level by level in marching
+order.  On this card the slab is a depth of prefetch: K4 is K2's march (the
+same template) over the interleaved statements, 4 rows a thread, the carry
+on chip, the AHEAD copies taken a slab (``cuda.copy_depth`` levels) ahead,
+and a read outside a slot's K extent 0, the reference's carry zeroed at
+each member's first slab.  It cannot run here, so the stream reader of
+``test_torch_cuda`` (``_StreamEvaluator``, written from the kernels' source)
+reads the launch as the kernel runs it — ragged rows and columns, the carry
+emptied per member, the copies of each group as memory holds them a group
+earlier.  It must give the whole-column march of the plain lowering (K4's
+plain version) exactly and the reference's own K-blocked Pallas kernel in
+interpret mode, for ``precompute_pe`` (the node the reference's
+``"tpu-v5e"`` schedules K-block), FORWARD and BACKWARD single-direction
+solvers, a solver that reads a field it writes before writing it, an
+SGF-fused solver, and a member axis.
 """
 
 import numpy as np
@@ -40,9 +43,8 @@ from repro_torch.core.transforms import subgraph_fuse
 from repro_torch.fv3 import dyncore as TD
 from repro_torch.fv3 import stencils as TS
 
-from test_torch_cuda import _binary
+from test_torch_cuda import _StreamEvaluator, _member_view
 
-UNARY = {v: k for k, v in C.UNARY_OPS.items()}
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
@@ -70,6 +72,15 @@ def _bwd_subst(rhs: Field, cc: Field, pp: Field):
             pp = rhs
         with interval(0, -1):
             pp = rhs[0, 0, 0] - cc[0, 0, 0] * pp[0, 0, 1]
+
+
+def _fwd_decay(q: Field, x: Field):
+    # every level reads the marching-previous one, the first level too:
+    # the reference's K-blocked kernel reads its zeroed carry there, the
+    # plain march the level itself (edge-clamped)
+    with computation(FORWARD):
+        with interval(0, None):
+            x = x[0, 0, -1] * 0.5 + q
 
 
 def _fwd_partial(q: Field, acc: Field, out: Field):
@@ -126,120 +137,35 @@ def _inputs(fields, dom, seed, lead=()):
         np.float32) for f in fields}
 
 
-class _SlabWalker:
-    """Torch reading of K4's launch: slabs in marching order, staged, then
-    marched level by level, the carry handed on at each slab's end."""
-
-    def __init__(self, run, p, env, params, consts):
-        self.run, self.p = run, p
-        self.slots = [env[n] for n in run.slot_names]  # (T, K, Jp, Ip)
-        self.params = [float(params[q]) for q in run.stencil.params]
-        self.consts = consts
-        self.nfield = len(run.stencil.fields)
-        self.loaded = set(p.loaded)
-
-    def eval(self, pc, end, load):
-        """The value a record's ops store (each op word holds the op, the
-        depth, checked against the reader's own stack, and the source of a
-        push's or binary op's operand)."""
-        prog, stk = self.p.prog, []
-        while pc < end:
-            word = prog[pc]
-            src, op, depth = ((word >> C.SRC_SHIFT) & 7, (word >> 5) & 63,
-                              word & 31)
-            pc += 1
-            assert depth == len(stk)
-            if src == C.SRC_LOAD:
-                val = load(*prog[pc:pc + 4])
-                pc += 4
-            elif src:
-                val = (torch.tensor(self.consts[prog[pc]], dtype=torch.float32)
-                       if src == C.SRC_CONST else
-                       torch.tensor(self.params[prog[pc]], dtype=torch.float32)
-                       if src == C.SRC_PARAM else stk[prog[pc]])
-                pc += 1
-            if op == C.OP_PUSH:
-                stk.append(val)
-            elif op == C.OP_STORE:
-                return stk.pop()
-            elif op in UNARY:
-                stk.append({"neg": torch.neg, "sqrt": torch.sqrt,
-                            "abs": torch.abs, "exp": torch.exp,
-                            "log": torch.log, "sign": torch.sign,
-                            "floor": torch.floor}[UNARY[op]](stk.pop()))
-            elif op == C.OP_WHERE:
-                b, a, c = stk.pop(), stk.pop(), stk.pop()
-                stk.append(torch.where(c != 0, a, b))
-            else:
-                b = val if src else stk.pop()
-                a = stk.pop()
-                stk.append(_binary(op, a, b))
-        raise AssertionError("a record without its store")
-
-    def walk(self):
-        p, bk = self.p, self.p.block_k
-        j0, j1, i0, i1 = p.box
-        recs = [p.prog[1 + C.REC_INTS * q: 1 + C.REC_INTS * (q + 1)]
-                for q in range(p.prog[0])]
-        T = self.slots[0].shape[0]
-        plane = (T, j1 - j0, i1 - i0)
-        carry = {s: torch.zeros(plane) for s in p.carried}  # per member
-        nblocks = (p.hi - p.lo) // bk
-        for b in range(nblocks):
-            k0 = p.lo + (b if p.forward else nblocks - 1 - b) * bk
-            slab = {s: (self.slots[s][:, k0:k0 + bk, j0:j1, i0:i1].clone()
-                        if s in self.loaded else torch.zeros((T, bk)
-                                                             + plane[1:]))
-                    for s in p.staged}
-            for step in range(bk):
-                local = step if p.forward else bk - 1 - step
-                k = k0 + local
-
-                def load(s, di, dj, dk, local=local, k=k):
-                    if (di, dj) != (0, 0):
-                        arr = self.slots[s]
-                        kk = min(max(k + dk, 0), arr.shape[1] - 1)
-                        return arr[:, kk, j0 + dj:j1 + dj, i0 + di:i1 + di]
-                    lp = local + dk
-                    return slab[s][:, lp] if 0 <= lp < bk else carry[s]
-
-                for tgt, klo, khi, rj0, rj1, ri0, ri1, pc, end in recs:
-                    if not klo <= k < khi:
-                        continue
-                    val = self.eval(pc, end, load).expand(plane)
-                    jj = torch.arange(j0, j1)[:, None]
-                    ii = torch.arange(i0, i1)[None, :]
-                    box = (jj >= rj0) & (jj < rj1) & (ii >= ri0) & (ii < ri1)
-                    slab[tgt][:, local] = torch.where(box, val,
-                                                      slab[tgt][:, local])
-                    if tgt < self.nfield:
-                        self.slots[tgt][:, k, j0:j1, i0:i1] = \
-                            slab[tgt][:, local]
-            last = bk - 1 if p.forward else 0
-            for s in p.carried:
-                carry[s] = slab[s][:, last].clone()
-
-
 def _walk(run, fields, params, members=None):
-    """Run ``run``'s K4 launch through the reader; returns its outputs."""
+    """Run ``run``'s K4 launch through the stream reader; returns its
+    outputs.  With ``members``, each member's march starts from an empty
+    carry, as the kernel's does."""
     (p,) = run.programs
     assert p.kind == "kblocked"
     env = C.plain.prepare_env(run.stencil, run.dom, fields, torch.float32)
-    if members is None:
-        _SlabWalker(run, p, env, params, p.consts).walk()
-    else:  # each member's march starts from a zero carry
-        for m in range(members):
-            member = {k: v[m].reshape((-1,) + v.shape[-3:])
-                      for k, v in env.items()}
-            _SlabWalker(run, p, member, params, p.consts).walk()
+    pvals = [float(params[q]) for q in run.stencil.params]
+    views = ([[env[n] for n in run.slot_names]] if members is None else
+             [[env[n][m].reshape((-1,) + env[n].shape[-3:])
+               for n in run.slot_names] for m in range(members)])
+    for slots in views:
+        _StreamEvaluator(slots, pvals, p.consts).launch(p)
     return {w: env[w] for w in run.written}
+
+
+#: a window whose rows are no multiple of 4 (K4's rows a thread) and whose
+#: columns are no multiple of a warp; 32 levels, so block_k 8 and 16 K-block
+#: it
+RAGGED = DomainSpec(ni=5, nj=7, nk=32, halo=2)
 
 
 @pytest.mark.parametrize("name", ["precompute_pe", "fwd_cumsum", "bwd_subst",
                                   "fwd_partial", "fused"])
-@pytest.mark.parametrize("bk", [4, 8])
+@pytest.mark.parametrize("bk", [8, 16])
 def test_slab_walk_matches_whole_column_and_reference(name, bk):
-    dom = DomainSpec(ni=5, nj=4, nk=16, halo=2)
+    """K4 as launched on a ragged window: exactly its plain version (the
+    whole-column march), and the reference's K-blocked Pallas kernel."""
+    dom = RAGGED
     port, ref, fields, params = _case(name, dom)
     assert solver_k_blockable(port)
     run = C.CudaStencil(port, dom, schedule=Schedule(block_k=bk,
@@ -255,16 +181,56 @@ def test_slab_walk_matches_whole_column_and_reference(name, bk):
         {k: jnp.asarray(v) for k, v in ins.items()}, params)
     assert set(got) == set(want)
     for w in got:
-        torch.testing.assert_close(got[w], whole[w], **TOL, msg=w)
+        assert torch.equal(got[w], whole[w]), w
         np.testing.assert_allclose(got[w][0].numpy(), np.asarray(want[w]),
                                    **TOL, err_msg=w)
 
 
+def _chunked_walk(run, fields, params, reset=True):
+    """``run``'s K4 launch over a member axis as the kernel maps it: one
+    reader per member chunk runs the chunk's members in turn through the
+    member strides of the launch arguments, emptying the carry at each
+    member's first level (unless ``reset`` is false)."""
+    (p,) = run.programs
+    env = C.plain.prepare_env(run.stencil, run.dom, fields, torch.float32)
+    args = run.launch_args(env, params)
+    views = [_member_view(env[n], args, s)
+             for s, n in enumerate(run.slot_names)]
+    pvals = [float(params[q]) for q in run.stencil.params]
+    for chunk in range(args.nmember // args.mchunk):
+        ev = _StreamEvaluator([v[chunk * args.mchunk] for v in views], pvals,
+                              p.consts)
+        for mm in range(args.mchunk):
+            ev.slots = [v[chunk * args.mchunk + mm] for v in views]
+            if reset:
+                ev.reset_carry()
+            ev.launch(p)
+    return {w: env[w] for w in run.written}
+
+
+def _reference_members(ref_stencil, dom, fields, written, ins, params, M,
+                       mchunk, bk):
+    """The reference's K-blocked Pallas kernel over a member grid
+    (``"grid"``) or member chunks (``"vmap:2,grid"``)."""
+    rp = RProgram("kblocked_members", dom)
+    for f in fields:
+        rp.declare(f)
+    rp.add(ref_stencil, {f: f for f in fields})
+    rp.propagate_extents()
+    fn = r_compile_program(rp, "pallas-tpu", n_members=M,
+                           batch="grid" if mchunk == 1 else "vmap:2,grid",
+                           schedule_overrides={ref_stencil.name: RSchedule(
+                               block_k=bk, k_as_grid=False)})
+    return fn({k: jnp.asarray(v) for k, v in ins.items()
+               if k not in written}, params)
+
+
 @pytest.mark.parametrize("mchunk", [1, 2])
 def test_slab_walk_resets_the_carry_per_member(mchunk):
-    """A member axis (K5 on K4): each member's march starts from a zero
-    carry, so members equal single runs — against the reference's
-    K-blocked member grid (``"grid"``) and chunk (``"vmap:2,grid"``)."""
+    """A member axis (K5 on K4): a thread's members march in turn, each
+    from an empty carry, so members equal single runs — against the
+    reference's K-blocked member grid (``"grid"``) and chunk
+    (``"vmap:2,grid"``)."""
     cfg = TD.FV3Config(npx=6, nk=16, halo=6, n_tracers=0)
     dom = cfg.seq_dom()
     M = 4
@@ -275,22 +241,56 @@ def test_slab_walk_resets_the_carry_per_member(mchunk):
     params = {"ptop": 10.0}
     tins = {k: torch.from_numpy(v) for k, v in ins.items()}
     tins["pe"] = torch.zeros_like(tins["delp"])  # as compile_program allocates
-    got = _walk(run, tins, params, members=M)["pe"]
+    got = _chunked_walk(run, tins, params)["pe"]
     single = C.CudaStencil(TS.precompute_pe, dom, schedule=sch)
     for m in range(M):
         torch.testing.assert_close(got[m], single.plain(
             {k: v[m] for k, v in tins.items()}, params)["pe"], rtol=0, atol=0)
-    rp = RProgram("pe_fwd", dom)
-    rp.declare("delp")
-    rp.declare("pe")
-    rp.add(RS.precompute_pe, {"delp": "delp", "pe": "pe"})
-    rp.propagate_extents()
-    rsch = RSchedule(block_k=4, k_as_grid=False)
-    fn = r_compile_program(rp, "pallas-tpu", n_members=M,
-                           batch="grid" if mchunk == 1 else "vmap:2,grid",
-                           schedule_overrides={"precompute_pe": rsch})
-    want = fn({"delp": jnp.asarray(ins["delp"])}, params)["pe"]
+    want = _reference_members(RS.precompute_pe, dom, ("delp", "pe"), {"pe"},
+                              ins, params, M, mchunk, 4)["pe"]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mchunk", [1, 2])
+def test_kblocked_carry_is_zeroed_at_each_members_first_level(mchunk):
+    """A march whose first level reads its marching-previous level: K4
+    reads 0 there, the reference's carry zeroed at each member's first
+    slab, so it equals the reference's K-blocked kernel over 4 members and
+    not the plain march (which reads the level itself, edge-clamped); with
+    two members a thread, a carry left over from the member before would
+    give another result."""
+    dom = RAGGED
+    M, bk = 4, 8
+    port, ref = gtstencil(_fwd_decay), r_gtstencil(_fwd_decay)
+    assert solver_k_blockable(port)
+    run = C.CudaStencil(port, dom, schedule=Schedule(block_k=bk,
+                                                     k_as_grid=False),
+                        n_members=M, member_chunk=mchunk)
+    ins = _inputs(("q", "x"), dom, seed=3, lead=(M,))
+    tins = {k: torch.from_numpy(v) for k, v in ins.items()}
+    got = _chunked_walk(run, tins, {})["x"]
+    want = _reference_members(ref, dom, ("q", "x"), set(), ins, {}, M, mchunk,
+                              bk)["x"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not torch.allclose(got, run.plain(tins, {})["x"], **TOL)
+    leaked = _chunked_walk(run, tins, {}, reset=False)["x"]
+    assert torch.equal(leaked, got) == (mchunk == 1)
+
+
+def _memory_reads(run, p) -> set[str]:
+    """Names of the slots K4's ops read from device memory: through the
+    copies ahead (AHEAD) and loads (LOAD); a CARRY read takes memory only
+    where the column stored nothing at the level before."""
+    keys = p.ahead_keys()
+    slots = set()
+    for *_, pc, end in p.records():
+        for _, _, src, sargs, _, (src2, s2args) in C.decode(p.prog, pc, end):
+            for kind, operand in ((src, sargs), (src2, s2args)):
+                if kind == C.SRC_AHEAD:
+                    slots.add(keys[operand[0]][0])
+                elif kind == C.SRC_LOAD:
+                    slots.add(operand[0])
+    return {run.slot_names[s] for s in slots}
 
 
 @pytest.mark.parametrize("name, loaded", [
@@ -298,17 +298,21 @@ def test_slab_walk_resets_the_carry_per_member(mchunk):
     ("bwd_subst", {"rhs", "cc"}), ("fwd_partial", {"q", "acc"}),
     ("fused", {"delp", "q"})])
 def test_kblocked_loads_only_old_values_the_march_reads(name, loaded):
-    """K4's slab loads a field from memory only where the march can read its
-    value from before the launch; a field written at every level before any
-    read (``pe`` of ``precompute_pe``) starts at zero, as does one that is
-    only written (``out``)."""
+    """K4 reads a field from device memory (a copy ahead or a load) only
+    where the march reads its value from before the launch; a field the
+    march writes at every level before its marching-previous read (``pe``
+    of ``precompute_pe``) is read through the carry, held on chip, and one
+    that is only written (``out``) is never read."""
     dom = DomainSpec(ni=5, nj=4, nk=16, halo=2)
     port = _case(name, dom)[0]
     run = C.CudaStencil(port, dom, schedule=Schedule(block_k=4,
                                                      k_as_grid=False))
     (p,) = run.programs
-    assert {run.slot_names[s] for s in p.loaded} == loaded
-    assert set(p.loaded) <= set(p.staged)
+    read = _memory_reads(run, p)
+    assert read == loaded
+    written = set(run.written)
+    assert read & written <= C.prior_reads(port, dom.nk)
+    assert {run.slot_names[s] for s in p.carried} <= written
 
 
 def test_prior_reads_follows_the_plain_order():
@@ -333,8 +337,6 @@ def test_prior_reads_follows_the_plain_order():
     assert C.prior_reads(copy_then_read, nk) == set()
     assert C.prior_reads(offset, nk) == {"a"}
     assert C.prior_reads(clamped, nk) == {"a"}
-    # K4 reads the zeroed carry before the first level, not memory
-    assert C.prior_reads(clamped, nk, interleaved=True) == set()
     assert C.prior_reads(TS.precompute_pe, nk) == set()
     assert C.prior_reads(SOLVERS["fwd_partial"][0], nk) == {"acc"}
     assert C.prior_reads(TS.tridiag_solve, nk) <= set(
@@ -361,11 +363,75 @@ def test_kblocked_dispatch_follows_the_schedule():
     (p,) = run.programs
     slot = {n: i for i, n in enumerate(run.slot_names)}
     assert (p.block_k, p.forward, p.lo, p.hi) == (4, True, 0, 16)
-    assert set(p.staged) == {slot["delp"], slot["q"], slot["fm"]}
-    assert set(p.carried) == {slot["delp"], slot["q"], slot["fm"]}
+    # the written fm's marching-previous level from the carry; the inputs'
+    # (delp, q) copied ahead with their own levels
+    assert p.carried == (slot["fm"],)
+    assert {(k[0], k[3]) for k in p.ahead_keys()} == {
+        (slot[f], dk) for f in ("delp", "q") for dk in (0, -1)}
     (p,) = C.CudaStencil(SOLVERS["bwd_subst"][0], dom,
                          schedule=blocked).programs
     assert not p.forward
+    # one statement list, one program: K4's is K2's, with the slab
+    k4, k2 = (C.CudaStencil(TS.precompute_pe, dom, schedule=sch).programs[0]
+              for sch in (blocked, None))
+    assert (k4.kind, k2.kind) == ("kblocked", "column")
+    assert (k4.prog, k4.carried, k4.ahead) == (k2.prog, k2.carried, k2.ahead)
+
+
+def test_kblocked_copy_depth_is_the_slab_within_its_bounds():
+    """K4's copies run a slab ahead, at most ``KB_DEPTH_MAX`` levels, fewer
+    where two groups of copies beside the stack, the carry and the column
+    table would pass the budget of four CTAs an SM; at least K2's one
+    level."""
+    dom = DomainSpec(ni=192, nj=192, nk=80, halo=6)
+    level = C.COLUMNS * C.COLUMN_BLOCK * 4
+
+    def depth(st, bk):
+        run = C.CudaStencil(st, dom, schedule=Schedule(block_k=bk,
+                                                       k_as_grid=False))
+        (p,) = run.programs
+        got = C.copy_depth(p, len(run.slot_names))
+        used = ((max(1, p.stack) + 2 * len(p.carried)
+                 + 2 * got * len(p.ahead_keys())) * level
+                + len(run.slot_names) * C.COLUMN_BLOCK * 8)
+        assert got == 1 or used <= C.KB_SMEM_BUDGET
+        return got
+
+    # precompute_pe: one key (delp a level up)
+    assert C.KB_DEPTH_MAX == 4
+    assert [depth(TS.precompute_pe, bk) for bk in (2, 4, 8, 16, 40)] == [
+        2, 4, 4, 4, 4]
+    inputs = ("q", "a", "b", "c", "e", "f", "g", "h")
+    total = FieldAccess("x", (0, 0, -1))
+    for f in inputs:
+        total = total + FieldAccess(f)
+    wide = Stencil("wide", (Computation(ir.FORWARD, (Assign("x", total),)),),
+                   inputs + ("x",), ("x",))
+    # eight keys: two levels of them would pass the budget, so one
+    assert depth(wide, 16) == 1
+
+
+def test_kblocked_refuses_a_previous_level_it_cannot_zero():
+    """At the first level K4 reads 0 at the marching-previous level through
+    the carry and the copies ahead only, so every such read must be one of
+    them: the copies take those keys first, and a stencil with more of
+    them than the table holds is refused."""
+    dom = DomainSpec(ni=5, nj=4, nk=16, halo=2)
+    blocked = Schedule(block_k=4, k_as_grid=False)
+
+    def march(n_inputs):
+        inputs = tuple(f"q{n}" for n in range(n_inputs))
+        total = FieldAccess("x", (0, 0, -1))
+        for f in inputs:  # each input at its own level and a level up
+            total = total + FieldAccess(f) + FieldAccess(f, (0, 0, -1))
+        return Stencil("many", (Computation(ir.FORWARD, (
+            Assign("x", total),)),), inputs + ("x",), ("x",))
+
+    (p,) = C.CudaStencil(march(C.AHEAD_MAX), dom, schedule=blocked).programs
+    assert all(key[3] == -1 for key in p.ahead_keys())  # a level up first
+    with pytest.raises(NotImplementedError, match="marching-previous"):
+        C.CudaStencil(march(C.AHEAD_MAX + 1), dom, schedule=blocked)
+
 
 
 def test_kblocked_encoder_refuses_offset_reads_of_written_fields():

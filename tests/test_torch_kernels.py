@@ -89,3 +89,22 @@ def test_wrappers_check_their_inputs():
         T.fvt_flux(q, q[..., 1:], halo=3)
     with pytest.raises(ValueError, match="no kernel"):
         T.fvt_flux(q.to("meta"), q.to("meta"), halo=3)
+
+
+@pytest.mark.parametrize("itemsize, deepest", [(4, 892), (8, 438)])
+def test_tridiag_plan_keeps_cp_and_dp_on_chip_where_they_fit(itemsize,
+                                                             deepest):
+    """K6's launch plan: a warp of columns a CTA keeps cp and dp of every
+    level in shared memory, beside a ring of 8 levels of a, b, c, d, while
+    they fit a CTA's 227 KB; past that every level beyond the deepest that
+    fits keeps cp in a scratch and dp in x."""
+    from repro_torch.kernels import tridiag as KT
+
+    def smem(levels):
+        return (2 * levels + 4 * KT.RING) * KT.TILE * itemsize
+
+    assert KT.TILE == 32
+    for nk in (1, 2, 80, 200, 439, deepest, deepest + 1, 4 * deepest):
+        levels = KT.plan(nk, itemsize)
+        assert levels == min(nk, deepest)
+        assert smem(levels) <= KT.SMEM_MAX < smem(levels + 1) or levels == nk

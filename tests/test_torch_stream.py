@@ -260,6 +260,14 @@ MEMORY_CASES = {
                ir.BACKWARD, 1),
     # the next level of the march is not its previous one: a load
     "next level": ([Assign("x", X2.shift((0, 0, 1)) + Q2)], ir.FORWARD, 0),
+    # written twice a level, the second time on rows 0-1 of a thread's 4
+    # only: the carry holds each row's last store, the first one's on the
+    # other rows
+    "rows rewritten": ([Assign("x", X2.shift((0, 0, -1)) * 0.5 + Q2,
+                               interval=ir.interval(1, None)),
+                        Assign("x", Q2 * 3.0,
+                               region=ir.Region(j_lo=(0, 0), j_hi=(0, 2)))],
+                       ir.FORWARD, 1),
 }
 
 
