@@ -5,10 +5,11 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    three kernel sources of ``src/repro_torch/csrc/`` with ``nvcc``, all at
-   once; prints each K1, K2, K4 and K6 instance's registers, stack frame
-   and spills from ``ptxas`` and its local loads and stores (LDL/STL) in
-   the SASS (any of them fails the run: K1's stack top, K2's and K4's
-   carry and K6's on-chip columns stay out of local memory).
+   once; prints each K1, K2, K4, K6 and K9 instance's registers, stack
+   frame and spills from ``ptxas`` and its local loads and stores (LDL/STL)
+   in the SASS (any of them fails the run: K1's stack top, K2's and K4's
+   carry, K6's on-chip columns and the rows K9 holds stay out of local
+   memory).
 2. Kernel phase, at C192 with 80 levels: each kernel against its plain
    PyTorch version on the same inputs on the card — K1 on ``fx_ppm``,
    ``edge_flux`` (regions), ``riem_coeffs`` (K offsets) and d_sw's
@@ -23,7 +24,9 @@
    with ``block_k`` 8 and 16 (also against K2, exactly, and timed beside
    it) and at 4 members under ``"grid"`` and ``"vmap:2,grid"`` — with the
    max error, its tolerance, and both times (CUDA events after a
-   warm-up).
+   warm-up).  Then the stencils past the encoder's old fixed tables
+   (``TABLE_CASES`` of ``tests/test_torch_cuda.py``) at C192 L80 on one
+   tile, each exactly its plain version.
 3. Standalone phase: ``repro_torch.kernels.ops`` at C192 L80 shapes — K6
    ``tridiag`` on the six tile interiors stacked along J (80, 1152, 192),
    f32 and f64, each timed beside its bound, f32 also beside
@@ -71,7 +74,10 @@
    the prefill's 16384 rows and the decode step's 8 (d 4096 and 3584; at 8
    rows also the device time a call under ``torch.profiler``), each in
    float32 and bfloat16 against its plain version at
-   the reference's tolerances, timed beside the plain version, its bound
+   the reference's tolerances (and at d 5120, K9's general instance; at 8
+   rows the host µs a call beside the device µs, for ``F.rms_norm`` too,
+   and K9's bars against this run's numbers),
+   timed beside the plain version, its bound
    (float32 K8: three TF32 products on the tensor cores, its old CUDA-core
    bound printed beside) and one library call
    (``F.scaled_dot_product_attention``, in float32 too, ``F.rms_norm``);
@@ -178,7 +184,10 @@ NORM_CASES = (("granite_8b", 16384, 4096, 1e-5, True),
               ("zamba2_7b gated", 16384, 7168, 1e-6, False),
               # a decode step's 8 rows, where K9's launches are
               ("granite_8b decode", 8, 4096, 1e-5, True),
-              ("zamba2_7b decode", 8, 3584, 1e-5, True))
+              ("zamba2_7b decode", 8, 3584, 1e-5, True),
+              # a width no model gives it: K9's general instance
+              ("general d 5120", 16384, 5120, 1e-5, True),
+              ("general d 5120 decode", 8, 5120, 1e-5, True))
 NORM_HEAD = (16384, 3584)        # the kernels line's K9 case (bf16)
 NORM_DECODE_ROWS = 8             # also timed by device time a call
 # kernel vs plain: the reference's own tolerances (tests/test_kernels.py)
@@ -221,11 +230,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn()`` over ``reps`` runs, CUDA events, after warm-up."""
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean ms of ``fn()`` over ``reps`` runs, CUDA events, after
+    ``warmup`` runs."""
     import torch
 
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -237,30 +248,83 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms_per_call(fn, reps: int) -> float:
-    """Device ms of one call of ``fn``: its CUDA kernels' time under
-    ``torch.profiler`` over ``reps`` calls after a warm-up, divided by
-    ``reps`` (no host time, which event timing of short calls measures)."""
+def device_ms_per_call(fn, reps: int) -> tuple[float, str]:
+    """Device ms of one call of ``fn`` and how it was read: its CUDA
+    kernels' time under ``torch.profiler`` over ``reps`` calls after a
+    warm-up, divided by ``reps`` (no host time, which event timing of short
+    calls measures).  The profiler does not always record the device's
+    events (a run on an H100 once had none for a call it had traced the
+    line before); after two such tries the time is read from CUDA events
+    around ``reps`` calls enqueued while the stream is held by a sleep
+    kernel (:func:`queued_ms`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        got = getattr(e, "self_device_time_total", None)
-        us += getattr(e, "self_cuda_time_total", 0) if got is None else got
-    if us <= 0.0:
-        raise RuntimeError("the profiler saw no device time")
-    return us / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
+            got = getattr(e, "self_device_time_total", None)
+            us += (getattr(e, "self_cuda_time_total", 0) if got is None
+                   else got)
+        if us > 0.0:
+            return us / 1e3 / reps, "profiler"
+    return queued_ms(fn, reps), "events behind a sleep"
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms of one call of ``fn``: CUDA events around ``reps`` calls
+    enqueued while a sleep kernel holds the stream, so the device runs
+    them back to back (their kernels and the gaps between them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # ~10 ms at the H100's clocks, far longer than enqueueing the calls
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us_per_call(fn, reps: int) -> float:
+    """Host µs of one call of ``fn``: the wall clock around ``reps`` calls
+    issued back to back, read before the device is waited for (a call whose
+    kernel is shorter than its host time never waits on the queue)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t) / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def in_turns(fns: dict, measure, rounds: int = 7) -> dict:
+    """The median of ``rounds`` measurements of each of ``fns``, taken in
+    turns (so a drift of the host's speed reaches each alike)."""
+    got = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            got[k].append(measure(fn))
+    return {k: statistics.median(v) for k, v in got.items()}
 
 
 def expr_ops(e, nk: int) -> int:
@@ -535,7 +599,7 @@ def kblocked_phase(device) -> list:
                                "take the K-blocked kernel")
         column = C.CudaStencil(node.stencil, ndom, n_members=M,
                                member_chunk=mchunk)
-        depth = C.copy_depth(run.programs[0], len(run.slot_names))
+        depth = C.copy_depth(run.programs[0])
         lead = (6,) if M is None else (M, 6)
         fields = kernel_inputs(node.stencil, "precompute_pe", ndom, rng,
                                device, lead=lead)
@@ -575,6 +639,61 @@ def kblocked_phase(device) -> list:
         del fields
         torch.cuda.empty_cache()
     return rows
+
+
+def table_phase(device) -> None:
+    """The stencils past the encoder's old fixed tables (``TABLE_CASES`` of
+    ``tests/test_torch_cuda.py``: 70 and 100 fields, 20 parameters, ~1300
+    op words, 300 constants, a stack of ~41, a K1 group cut at a statement,
+    a K-blocked solver whose marching-previous reads K4's tables cannot
+    hold) at C192 L80 on one tile, each against its plain version on the
+    same inputs: max abs 0.0, with the launches, their shared memory and
+    both times."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_cuda import TABLE_CASES
+
+    from repro_torch.core import stencil as S
+    from repro_torch.core.backend import cuda as C
+
+    dom = S.DomainSpec(ni=192, nj=192, nk=80, halo=6)
+    gen = torch.Generator(device=device).manual_seed(21)
+    for case, build in TABLE_CASES.items():
+        blocked = case == "K4 tables"
+        run = C.CudaStencil(build(S), dom, schedule=S.Schedule(
+            block_k=16, k_as_grid=False) if blocked else None)
+        if run.kblocked_refused != blocked:
+            raise RuntimeError(f"{case}: K4 refusal {run.kblocked_refused}")
+        fields = {f: 0.5 + torch.rand(
+            (1,) + dom.padded_shape(run.stencil.is_interface(f)),
+            generator=gen, device=device) for f in run.stencil.fields}
+        params = {p: 0.5 + n / 40 for n, p in enumerate(run.stencil.params)}
+        got = run(fields, params)
+        want = run.plain(fields, params)
+        torch.cuda.synchronize()
+        err = 0.0
+        for w in run.written:
+            if not torch.isfinite(got[w]).all():
+                raise RuntimeError(f"{case}: non-finite kernel output {w}")
+            err = max(err, (got[w] - want[w]).abs().max().item())
+        if err != 0.0:
+            raise RuntimeError(f"{case}: the kernels differ from the plain "
+                               f"version by {err:.3e}")
+        del got, want
+        ms = cuda_ms(lambda: run(fields, params), 3)
+        plain_ms = cuda_ms(lambda: run.plain(fields, params), 1)
+        launches = ", ".join(
+            f"{p.kind} ({len(p.prog)} words, {len(p.consts)} constants, "
+            f"stack {p.stack}, "
+            f"{p.smem_bytes(C.copy_depth(p) if p.block_k else 1)} B of "
+            "shared memory)" for p in run.programs)
+        print(f"[tables] {case}: {len(run.slot_names)} slots, "
+              f"{len(run.stencil.params)} parameters; launches {launches}; "
+              f"max_abs_err={err:.3e} (must be 0) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f}", flush=True)
+        del fields
+        torch.cuda.empty_cache()
 
 
 def standalone_phase(device) -> dict:
@@ -1283,17 +1402,24 @@ def ptxas_report(log: str, function: str) -> list:
     return rows
 
 
-def stencil_build_report(lib: Path, fv3_lib: Path) -> None:
-    """K1's, K2's and K4's instances (K3 is inlined into all three) and
-    K6's: registers, stack frame and spills from ``ptxas``, local loads and
-    stores (LDL/STL) and indirect branches (BRX, the op dispatch) in their
-    SASS.  An instance with a spill or a local access fails the run: K1's
-    stack top, K2's and K4's carry bits and K6's carries must live in
-    registers."""
+#: type arguments of K9's instances, as the mangled names spell them
+K9_TYPES = {"4bf16f": "bf16, float", "f4bf16": "float, bf16",
+            "ff": "float, float", "4bf16S0_": "bf16, bf16"}
+
+
+def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
+    """K1's, K2's and K4's instances (K3 is inlined into all three), K6's
+    and K9's: registers, stack frame and spills from ``ptxas``, local loads
+    and stores (LDL/STL) and indirect branches (BRX, the op dispatch) in
+    their SASS.  An instance with a spill or a local access fails the run:
+    K1's stack top, K2's and K4's carry bits, K6's carries and the rows K9
+    holds must live in registers."""
+    bad = []
     for path, fns in ((lib, ("stencil_parallel_kernel",
                              "stencil_column_kernel",
                              "stencil_kblocked_kernel")),
-                      (fv3_lib, ("tridiag_kernel",))):
+                      (fv3_lib, ("tridiag_kernel",)),
+                      (lm_lib, ("rmsnorm_kernel",))):
         log = (path.parent / "build.log").read_text()
         sass = {}
         for fn in fns:
@@ -1307,6 +1433,10 @@ def stencil_build_report(lib: Path, fv3_lib: Path) -> None:
                         for x in re.findall(r"L(b[01]|i\d+)E", name)]
                 if fn == "tridiag_kernel":  # tridiag_kernel<float|double>
                     args = ["double" if "IdE" in name else "float"]
+                elif fn == "rmsnorm_kernel":  # <T, W, residual, d or 0>
+                    types = re.search(r"rmsnorm_kernelI(\w+?)Lb", name)
+                    args = [K9_TYPES.get(types.group(1), types.group(1))
+                            ] + args
                 counts = sass.get(name, {})
                 print(f"[build] {fn}<{', '.join(args)}>: {regs} registers, "
                       f"stack frame {frame} B, spill stores {st} B, spill "
@@ -1315,7 +1445,9 @@ def stencil_build_report(lib: Path, fv3_lib: Path) -> None:
                       "BRX", flush=True)
                 if (st or ld or frame or counts.get("LDL") or
                         counts.get("STL")):
-                    raise RuntimeError(f"{name}: spills or local memory")
+                    bad.append(name)
+    if bad:
+        raise RuntimeError(f"spills or local memory in {', '.join(bad)}")
 
 
 def lm_kernel_phase(device) -> dict:
@@ -1441,22 +1573,37 @@ def lm_kernel_phase(device) -> dict:
                     lambda: ops.rmsnorm_residual(x, r, w, eps=eps),
                     lambda: KR.rmsnorm_residual_ref(x, r, w, eps=eps), None,
                     4, 5))
+            decode = rows_n == NORM_DECODE_ROWS
+            # both forms and F.rms_norm taken in turns, 7 rounds, the median
+            # of each: at a decode step's rows host-bound calls, whose times
+            # drift with the host's load, 200 calls after 500; else 50
+            # calls after 5 (after one warm-up call the first of them ran
+            # slower on an H100, the card coming up to speed)
+            turns = {c[0]: c[2] for c in cases}
+            turns["F.rms_norm"] = cases[0][4]
+            call_ms = in_turns(turns, (lambda f: cuda_ms(f, 200, 500))
+                               if decode else (lambda f: cuda_ms(f, 50, 5)))
+            if decode:
+                host_us = in_turns(turns, lambda f: host_us_per_call(f, 200))
             for key, e, run, plain, lib, n_arrays, flops in cases:
                 # bytes: n_arrays (rows, d) arrays read or written once, and
                 # the f32 w; f32 operations per element: square, sum, scale,
                 # (1 + w) scale (and the residual add)
                 t_b = (n_arrays * x.numel() * size + d * 4) / HBM_BYTES_PER_S
                 t_o = flops * x.numel() / F32_OPS_PER_S
-                ms = cuda_ms(run, 20)
                 plain_ms = cuda_ms(plain, 5)
-                lib_ms = None if lib is None else cuda_ms(lib, 20)
+                ms = call_ms[key]
+                lib_ms = None if lib is None else call_ms["F.rms_norm"]
                 dev = ""
-                if rows_n == NORM_DECODE_ROWS:
+                if decode:
                     # F.rms_norm of the same rows beside the residual
                     # kernel too: the norm is the part one call computes
-                    dev = (f" device_ms={device_ms_per_call(run, 50):.5f} "
-                           "F.rms_norm device_ms="
-                           f"{device_ms_per_call(cases[0][4], 50):.5f}")
+                    k_ms, k_how = device_ms_per_call(run, 50)
+                    f_ms, f_how = device_ms_per_call(cases[0][4], 50)
+                    dev = (f" host_us={host_us[key]:.2f} "
+                           f"device_us={1e3 * k_ms:.3f} ({k_how})"
+                           f" F.rms_norm host_us={host_us['F.rms_norm']:.2f} "
+                           f"device_us={1e3 * f_ms:.3f} ({f_how})")
                 out[key].append(dict(
                     dtype=name, rows=rows_n, d=d, err=e, ms=ms,
                     plain_ms=plain_ms, bound_ms=1e3 * max(t_b, t_o),
@@ -1473,6 +1620,7 @@ def lm_kernel_phase(device) -> dict:
             del x, r, w, w1
             torch.cuda.empty_cache()
 
+    k9_bars(out)
     for nc, B, H, N, P in SCAN_SHAPES:
         states = torch.randn((nc, B, H, N, P), generator=gen, device=device)
         decay = torch.rand((nc, B, H), generator=gen, device=device)
@@ -1502,6 +1650,43 @@ def lm_kernel_phase(device) -> dict:
         del states, decay
         torch.cuda.empty_cache()
     return out
+
+
+def k9_bars(out: dict) -> None:
+    """Print K9's bars against this run's numbers ("a call" is CUDA events
+    over back-to-back calls, host included): at a decode step's 8 rows (d
+    4096 and 3584, float32 and bfloat16) a call no slower than
+    ``F.rms_norm``'s and the residual form within 1.1x the plain form's; at
+    :data:`NORM_HEAD` (16384, 3584) bfloat16 no slower than ``F.rms_norm``
+    and both forms at 80 % of their bound or more.  Prints each as met or
+    not; a bar is a measurement here, not a check that fails the run."""
+    def row(key, dtype, rows, d):
+        return next(r for r in out[key] if (r["dtype"], r["rows"], r["d"])
+                    == (dtype, rows, d))
+
+    bars = []
+    for dtype in ("float32", "bfloat16"):
+        for d in (4096, 3584):
+            plain, res = (row(k, dtype, NORM_DECODE_ROWS, d)
+                          for k in ("rmsnorm", "rmsnorm_residual"))
+            bars.append((f"{dtype} 8 x {d} call <= F.rms_norm's",
+                         plain["ms"], plain["library_ms"],
+                         plain["ms"] <= plain["library_ms"]))
+            bars.append((f"{dtype} 8 x {d} residual call <= 1.1x the plain "
+                         "form's", res["ms"], 1.1 * plain["ms"],
+                         res["ms"] <= 1.1 * plain["ms"]))
+    head = row("rmsnorm", "bfloat16", *NORM_HEAD)
+    shape = f"{NORM_HEAD[0]} x {NORM_HEAD[1]}"
+    bars.append((f"bfloat16 {shape} <= F.rms_norm's", head["ms"],
+                 head["library_ms"], head["ms"] <= head["library_ms"]))
+    for key in ("rmsnorm", "rmsnorm_residual"):
+        r = row(key, "bfloat16", *NORM_HEAD)
+        bars.append((f"{key} bfloat16 {shape} >= 80 % of its bound",
+                     r["ms"], r["bound_ms"] / 0.8,
+                     r["bound_ms"] >= 0.8 * r["ms"]))
+    for name, got, bar, met in bars:
+        print(f"[lm-kernel] K9 bar: {name}: {got:.4f} ms against "
+              f"{bar:.4f} ms: {'met' if met else 'NOT MET'}", flush=True)
 
 
 def greedy(model, tokens, n_decode: int, cache_len: int, backend: str):
@@ -1999,7 +2184,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"[build] {lib.stem}: {line.strip()}")
-    stencil_build_report(libs[0], libs[1])
+    build_report(*libs)
     sass = k8_sass_report(libs[2])
     for dtype, fn in (("bf16", "flash_attention_wgmma_kernel"),
                       ("f32", "flash_attention_fwd_kernel")):
@@ -2030,6 +2215,7 @@ def main() -> int:
     set_default_cache(TuningCache(cache))
     rows = kernel_phase(device)
     members = member_phase(device) + kblocked_phase(device)
+    table_phase(device)
     standalone = standalone_phase(device)
     path = path_phase(device)
     ensemble = ensemble_phase(device, path["launches"])

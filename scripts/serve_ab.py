@@ -15,9 +15,11 @@ clock and the power draw every 20 ms meanwhile), one prefill under
 ``torch.profiler`` (device ms by kernel group: K8, K9, K10, the cuBLAS
 GEMMs and their three largest kernels, the rest), 31 greedy decode steps
 (host clock around
-``torch.cuda.synchronize()``: median, min, max) and one traced decode step
-(device-busy ms).  Prints one ``RESULT`` JSON line per (run, arch) and a
-table of the runs side by side.  Needs one card.
+``torch.cuda.synchronize()``: median, min, max; the greedy tokens) and one
+traced decode step (device-busy ms, and the idle share of the median
+step).  Prints one ``RESULT`` JSON line per (run, arch) and a table of the
+runs side by side, and fails unless every run of an arch generated the same
+tokens.  Needs one card.
 """
 
 from __future__ import annotations
@@ -151,13 +153,14 @@ def child(src: Path, label: str) -> None:
             lambda: TM.prefill(model, tokens, cache_len=cache),
             CS.PREFILL_GROUPS)
         tok = logits.argmax(-1)
-        steps = []
+        steps, generated = [], [tok.flatten().tolist()]
         for i in range(n):
             t = time.perf_counter()
             step_logits, caches = TM.decode_step(model, tok, caches, S + i)
             tok = step_logits.argmax(-1)
             torch.cuda.synchronize()
             steps.append(1e3 * (time.perf_counter() - t))
+            generated.append(tok.flatten().tolist())
         busy = device_ms(lambda: TM.decode_step(model, tok, caches, S + n),
                          ())["busy"]
         print("RESULT " + json.dumps({
@@ -166,7 +169,9 @@ def child(src: Path, label: str) -> None:
             "prefill_clocks": clocks,
             "prefill_device_ms": traced, "decode_median_ms":
             statistics.median(steps), "decode_min_ms": min(steps),
-            "decode_max_ms": max(steps), "decode_step_busy_ms": busy}),
+            "decode_max_ms": max(steps), "decode_step_busy_ms": busy,
+            "decode_idle": 1.0 - busy / statistics.median(steps),
+            "tokens": generated}),
             flush=True)
         del model, logits, caches, step_logits, tokens
         torch.cuda.empty_cache()
@@ -222,7 +227,7 @@ def main() -> int:
     gemm = next(g for g, _ in CS.PREFILL_GROUPS if g.startswith("GEMMs"))
     print(f"{'run':8} {'arch':11} {'prefill ms':>11} {'GEMMs ms':>9} "
           f"{'other ms':>9} {'SM MHz':>7} {'W':>6} {'decode ms':>10} "
-          f"{'min':>8} {'max':>8} {'busy ms':>8}")
+          f"{'min':>8} {'max':>8} {'busy ms':>8} {'idle':>6}")
     for r in results:
         d, c = r["prefill_device_ms"], r["prefill_clocks"]
         mhz, watts = (f"{c[k][0]:{w}.0f}" if isinstance(c[k], list)
@@ -231,8 +236,17 @@ def main() -> int:
         print(f"{r['run']:8} {r['arch']:11} {r['prefill_median_ms']:11.3f} "
               f"{d[gemm]:9.3f} {d['other']:9.3f} {mhz} {watts} "
               f"{r['decode_median_ms']:10.3f} {r['decode_min_ms']:8.3f} "
-              f"{r['decode_max_ms']:8.3f} {r['decode_step_busy_ms']:8.3f}")
-    return 0
+              f"{r['decode_max_ms']:8.3f} {r['decode_step_busy_ms']:8.3f} "
+              f"{r['decode_idle']:6.3f}")
+    same = True
+    for arch in CS.SERVE_ARCHS:
+        runs = [r for r in results if r["arch"] == arch]
+        equal = all(r["tokens"] == runs[0]["tokens"] for r in runs)
+        print(f"{arch}: greedy tokens of the prefill and "
+              f"{len(runs[0]['tokens']) - 1} decode steps equal in every "
+              f"run: {equal}")
+        same &= equal
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

@@ -252,6 +252,9 @@ def compile_program(program: "StencilProgram",
                 n_members=stencil_members or None,
                 member_chunk=member_chunk)))
 
+    if opt_report is not None:
+        opt_report.kblocked_on_column = sum(
+            getattr(r, "kblocked_refused", False) for _, r in runners)
     fields_decl = program.fields
     dom = program.dom
     inputs, drop_after = _liveness(program, runners)

@@ -41,12 +41,20 @@ registers and the rest in shared memory at fixed places.  A launch is a
 that only later records of the launch read, inside its writer's box, stays
 on the stack (``Program.kept``) and is never stored or allocated.
 ``Program.work`` counts what the interpreter executes, and
-:data:`LAUNCHES` what the wrappers launched.
+:data:`LAUNCHES` what the wrappers launched.  A launch's tables (records
+and ops, constants, the field table and the parameters) and its stack are
+sized by what it holds, in shared memory (:func:`table_words`,
+``Program.smem_bytes``); only a launch past a CTA's 227 KB is refused (or
+a stencil whose field table passes the 32 KB of kernel parameters that
+carry it, ~1,330 fields and temporaries), and a K1 group whose program
+passes :data:`K1_PROGRAM_BYTES` is cut (``Encoder.parallel_launches``).
 
 Of a node's schedule the backend honours ``block_k`` of a vertical solver:
 whenever ``kblocked_applies(stencil, schedule, nk)`` holds, as it does for
 the reference's ``compile_pallas``, the whole stencil is one K4 launch
-whose copies run a slab of ``block_k`` levels ahead.  Tile sizes,
+whose copies run a slab of ``block_k`` levels ahead, or, where K4's carry
+and copy tables cannot hold its marching-previous reads, K2's launches,
+which compute the same values (``CudaStencil.kblocked_refused``).  Tile sizes,
 ``k_as_grid``, the carry storage and the region strategy are not read (one
 thread per point or group of columns).
 Expressions built from constants only are folded in double precision at
@@ -103,11 +111,6 @@ from . import lowering_torch as plain
 
 # -- the kernels' ABI (keep in sync with csrc/stencil_kernels.cu) ------------
 
-MAX_SLOTS = 64
-MAX_PARAMS = 16
-PROG_MAX = 1024
-CONST_MAX = 256
-STACK_MAX = 16
 REC_INTS = 9
 
 #: an op word is ``src2 << SRC2_SHIFT | src << SRC_SHIFT | op * OPW |
@@ -117,9 +120,10 @@ REC_INTS = 9
 #: by the depth), where a push or a binary op takes its operand from, and
 #: (K2, K4) where a binary op takes its first operand from, so that it
 #: pushes f(src2, src) without a push of its own
-OPW = 32
-SRC_SHIFT = 11
-SRC2_SHIFT = 14
+OPW = 1 << 16
+OP_SHIFT = 16
+SRC_SHIFT = 22
+SRC2_SHIFT = 25
 # sources, their operand words right after the op word: LOAD slot di dj
 # dk; CONST c; PARAM p; PICK j (a copy of stack entry j); CARRY slot di dj
 # dk (K2, K4: a read at the marching-previous level of a slot the march
@@ -155,6 +159,8 @@ SRC_OPERANDS = {0: 0, SRC_LOAD: 4, SRC_CONST: 1, SRC_PARAM: 1, SRC_PICK: 1,
 OPERANDS = {OP_FLOAD: 4, OP_SEARCH: 3, OP_STORE: 1, OP_DROP: 1}
 #: K1 evaluates each op for a strip of this many levels of one column
 STRIP = 8
+#: threads of a K1 CTA (the kernel's K1_BLOCK)
+K1_BLOCK = 128
 #: K2 and K4 evaluate each op for this many neighbouring columns (rows j
 #: at one i), each marching its own chain (the kernel's K2_COLS)
 COLUMNS = 4
@@ -165,14 +171,30 @@ CARRY_MAX = 8
 #: K2 and K4 copy at most this many distinct loads of a level into shared
 #: memory ahead of it (``cp.async``)
 AHEAD_MAX = 8
-#: K4's dynamic shared memory a CTA at most, where the copies' depth
-#: allows: four CTAs an SM (as many as K2's registers allow) with the
-#: kernels' static table of ~7 KB and the 1 KB the card keeps a CTA
-KB_SMEM_BUDGET = 48 * 1024
+#: K4's dynamic shared memory a CTA at most (the tables included), where
+#: the copies' depth allows: four CTAs an SM (as many as K2's registers
+#: allow) with the 1 KB the card keeps a CTA
+KB_SMEM_BUDGET = 55 * 1024
 #: K4's copy groups hold at most this many levels: the march, not device
 #: memory, bounds it, and deeper groups measured slower on an H100 (their
 #: copies issued at once stall the group's first level; ``PERF.md`` §6)
 KB_DEPTH_MAX = 4
+#: the shared memory a CTA can take on the card (the kernel's SMEM_MAX): a
+#: launch whose tables and stack need more is refused
+SMEM_MAX = 227 * 1024
+#: 8-byte words of the slot table and parameters that the kernels' two
+#: instances take as a kernel parameter (TABLE_LARGE: what Hopper's 32 KB
+#: of kernel parameters hold beside the header)
+TABLE_SMALL, TABLE_LARGE = 256, 4000
+#: a K1 launch group whose records, ops and constants take more bytes is
+#: cut at a statement boundary: within it the group's tables take no more
+#: shared memory than the fixed tables did before (1024 words of program
+#: and 256 constants), so no group runs at fewer CTAs an SM than it did
+K1_PROGRAM_BYTES = 4 * (1024 + 256)
+#: a K1 temporary stays on the stack only while every later record of its
+#: launch needs no deeper stack than this (each entry takes 4 KB of a K1
+#: CTA's shared memory)
+KEEP_STACK = 16
 
 
 def is_binary(op: int) -> bool:
@@ -202,7 +224,7 @@ def decode(prog, pc: int, end: int):
     while pc < end:
         word = prog[pc]
         src2, src = word >> SRC2_SHIFT, (word >> SRC_SHIFT) & 7
-        op, depth = (word >> 5) & 63, word & 31
+        op, depth = (word >> OP_SHIFT) & 63, word & (OPW - 1)
         n2, n = SRC_OPERANDS[src2], SRC_OPERANDS[src]
         m = OPERANDS.get(op, 0)
         pc += 1
@@ -212,16 +234,12 @@ def decode(prog, pc: int, end: int):
         pc += n2 + n + m
 
 
-class LaunchArgs(ctypes.Structure):
-    """Mirror of ``struct LaunchArgs`` in the CUDA source (by-value kernel
-    argument; the loader checks the two sizes agree)."""
+class LaunchHeader(ctypes.Structure):
+    """Mirror of ``struct LaunchHeader`` in the CUDA source (the kernels'
+    parameter with the launch's table; the loader checks the two sizes
+    agree)."""
 
     _fields_ = [
-        ("ptr", ctypes.c_void_p * MAX_SLOTS),
-        ("mstride", ctypes.c_longlong * MAX_SLOTS),
-        ("kext", ctypes.c_int * MAX_SLOTS),
-        ("cidx", ctypes.c_int * MAX_SLOTS),
-        ("params", ctypes.c_float * MAX_PARAMS),
         ("prog", ctypes.c_void_p),
         ("consts", ctypes.c_void_p),
         ("n_prog", ctypes.c_int),
@@ -249,6 +267,19 @@ class LaunchArgs(ctypes.Structure):
         ("ahead_begin", ctypes.c_int),
         ("ahead_end", ctypes.c_int),
     ]
+
+
+def table_words(n_prog: int, n_slots: int, n_params: int,
+                n_consts: int) -> tuple[int, int]:
+    """The kernels' ``Tables`` layout of a launch, in 4-byte words of
+    shared memory: the records and ops at 0, then each slot's pointer and
+    member stride (8 bytes each, from an even word), K extent and carry
+    index, the parameters and, from an even word, the constants.  Returns
+    (the 8-byte words of the kernel parameter's table, pointers to
+    parameters; all the words, rounded up to 16 bytes)."""
+    ptr = n_prog + (n_prog & 1)
+    consts = ptr + 6 * n_slots + n_params + (n_params & 1)
+    return (consts - ptr) // 2, -(-(consts + n_consts) // 4) * 4
 
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
@@ -458,6 +489,9 @@ class Program:
     #                                  through AHEAD, 4 words each
     kept: tuple[str, ...] = ()    # K1: temporaries held on the stack
     #                               and never stored
+    n_slots: int = 0              # the stencil's fields and temporaries
+    n_params: int = 0             # and parameters, which every launch
+    #                               carries in its table
 
     @property
     def empty(self) -> bool:
@@ -470,6 +504,23 @@ class Program:
     def strip(self) -> int:
         """Levels of a column each op is evaluated for at once."""
         return STRIP if self.kind == "horizontal" else 1
+
+    def table_bytes(self) -> int:
+        """Shared memory of the launch's tables (:func:`table_words`)."""
+        return 4 * table_words(len(self.prog), self.n_slots, self.n_params,
+                               len(self.consts))[1]
+
+    def smem_bytes(self, copy_levels: int = 1) -> int:
+        """The launch's dynamic shared memory a CTA: its tables, then K1's
+        stack of a strip a thread, or K2's and K4's stack, carry, two
+        groups of ``copy_levels`` levels of copies and column table."""
+        depth = max(1, self.stack)
+        if self.kind == "horizontal":
+            return self.table_bytes() + 4 * depth * STRIP * K1_BLOCK
+        return (self.table_bytes() + 4 * COLUMNS * COLUMN_BLOCK
+                * (depth + 2 * len(self.carried)
+                   + 2 * copy_levels * len(self.ahead_keys()))
+                + 8 * COLUMN_BLOCK * self.n_slots)
 
     def ahead_keys(self) -> list[tuple[int, int, int, int]]:
         """K2, K4: the ``(slot, di, dj, dk)`` that ``AHEAD j`` reads, by
@@ -568,6 +619,12 @@ def prior_reads(stencil: Stencil, nk: int) -> set[str]:
     return prior
 
 
+class KBlockedTablesFull(NotImplementedError):
+    """K4 would read a marching-previous level from memory: its carry and
+    copy tables (:data:`CARRY_MAX`, :data:`AHEAD_MAX`) cannot hold every
+    such read, through which alone it reads the first level's 0."""
+
+
 def slot_names(stencil: Stencil) -> list[str]:
     """The field table of a launch: the stencil's fields, then its
     temporaries; a LOAD names a field by its index here."""
@@ -591,11 +648,6 @@ class Encoder:
         self.stencil = stencil
         self.dom = dom
         names = slot_names(stencil)
-        if len(names) > MAX_SLOTS:
-            raise ValueError(f"{stencil.name}: {len(names)} fields and "
-                             f"temporaries exceed the kernels' {MAX_SLOTS}")
-        if len(stencil.params) > MAX_PARAMS:
-            raise ValueError(f"{stencil.name}: more than {MAX_PARAMS} params")
         self.slots = {n: i for i, n in enumerate(names)}
         self.temps = set(stencil.temporaries())
         self.params = {p: i for i, p in enumerate(stencil.params)}
@@ -687,8 +739,6 @@ class Encoder:
         v = float(v)
         key = struct.pack("<f", v)  # one slot per f32 value (0.0 != -0.0)
         if key not in self._cidx:
-            if len(self._consts) >= CONST_MAX:
-                raise ValueError(f"{self.stencil.name}: constant table full")
             self._cidx[key] = len(self._consts)
             self._consts.append(v)
         return self._cidx[key]
@@ -815,14 +865,7 @@ class Encoder:
             body += ops
             header += [self.slots[st.target], *self.levels(st),
                        *self.box(st), begin, base + len(body)]
-        if self._max > STACK_MAX:
-            raise ValueError(
-                f"{self.stencil.name}: expression needs a stack of "
-                f"{self._max}, deeper than the kernels' {STACK_MAX}")
         prog = header + body
-        if len(prog) > PROG_MAX:
-            raise ValueError(f"{self.stencil.name}: program of {len(prog)} "
-                             f"ints exceeds the kernels' {PROG_MAX}")
         return prog, list(self._consts), self._max, self._has_search
 
     def _keep(self, group: list[Assign]) -> set[int]:
@@ -854,7 +897,7 @@ class Encoder:
             if (readers and min(readers) > a
                     and sum(reads(s, t) for s in stmts) == len(readers)
                     and all(inside(q, a) for q in readers)
-                    and all(len(keep) + 1 + needs[q] <= STACK_MAX
+                    and all(len(keep) + 1 + needs[q] <= KEEP_STACK
                             for q in range(a + 1, len(group)))):
                 keep.add(a)
         return keep
@@ -879,7 +922,58 @@ class Encoder:
                        khi=max(s[1] for s in spans),
                        box=(min(b[0] for b in boxes), max(b[1] for b in boxes),
                             min(b[2] for b in boxes), max(b[3] for b in boxes)),
-                       kept=tuple(live[q].target for q in sorted(keep)))
+                       kept=tuple(live[q].target for q in sorted(keep)),
+                       n_slots=len(self.slots), n_params=len(self.params))
+
+    def parallel_launches(self, group: list[Assign]) -> list[Program]:
+        """The K1 launches of a group of :func:`parallel_groups`: one,
+        unless its records, ops and constants pass
+        :data:`K1_PROGRAM_BYTES`; then it is cut at statement boundaries,
+        each launch the longest run of the statements left that stays
+        within it (a statement alone may pass it).  A temporary that a cut
+        separates from a later reader is stored, not kept (:meth:`_keep`
+        keeps only what its own launch reads)."""
+        def size(p: Program) -> int:
+            return 4 * (len(p.prog) + len(p.consts))
+
+        out = []
+        rest = list(group)
+        while rest:
+            p = self.parallel(rest)
+            n = len(rest)
+            if n > 1 and size(p) > K1_PROGRAM_BYTES:
+                lo, hi = 1, n - 1  # the longest prefix that fits
+                while lo < hi:
+                    mid = (lo + hi + 1) // 2
+                    if size(self.parallel(rest[:mid])) <= K1_PROGRAM_BYTES:
+                        lo = mid
+                    else:
+                        hi = mid - 1
+                n = lo
+                p = self.parallel(rest[:n])
+            out.append(p)
+            rest = rest[n:]
+        return out
+
+    def fits(self, p: Program, copy_levels: int = 1) -> Program:
+        """``p``, if the card can launch it: its tables and stack within a
+        CTA's :data:`SMEM_MAX` of shared memory (K4 with ``copy_levels``
+        levels of copies a group) and its slot table and parameters within
+        the kernel parameter (:data:`TABLE_LARGE` words); else a
+        ValueError."""
+        need = p.smem_bytes(copy_levels)
+        words = table_words(len(p.prog), p.n_slots, p.n_params,
+                            len(p.consts))[0]
+        if need > SMEM_MAX or words > TABLE_LARGE:
+            raise ValueError(
+                f"{self.stencil.name}: a {p.kind} launch of {p.n_slots} "
+                f"fields and temporaries, {p.n_params} parameters, a stack of "
+                f"{p.stack} and {len(p.prog)} program words takes {need} "
+                f"bytes of shared memory a CTA and {8 * words} bytes of "
+                f"kernel parameters: more than the {SMEM_MAX // 1024} KB of "
+                f"shared memory (and {8 * TABLE_LARGE} bytes of parameters) "
+                "a launch has on the card")
+        return p
 
     def column(self, comp: Computation, kind: str = "column",
                levels: tuple[int, int] | None = None) -> Program:
@@ -913,15 +1007,13 @@ class Encoder:
             ahead={k: j for j, k in enumerate(keys)}, pairs=True)
         begin = len(prog)
         prog = prog + [w for key in keys for w in key]
-        if len(prog) > PROG_MAX:
-            raise ValueError(f"{self.stencil.name}: program of {len(prog)} "
-                             f"ints exceeds the kernels' {PROG_MAX}")
         bounds = [self.levels(st) for st in comp.statements]
         lo, hi = levels or (min(b[0] for b in bounds),
                             max(b[1] for b in bounds))
         return Program(kind, comp, prog, consts, depth, search,
                        box=self.window(), lo=lo, hi=hi, forward=forward,
-                       carried=tuple(carried), ahead=(begin, len(prog)))
+                       carried=tuple(carried), ahead=(begin, len(prog)),
+                       n_slots=len(self.slots), n_params=len(self.params))
 
     def _ahead_keys(self, comp: Computation, carried, prev: int,
                     first: bool = False) -> list:
@@ -976,7 +1068,9 @@ class Encoder:
         level must be ``CARRY`` or ``AHEAD``: at the first level the kernel
         reads 0 there (the reference's zeroed carry) through those two
         only, so a stencil that needs more than :data:`CARRY_MAX` carried
-        slots or :data:`AHEAD_MAX` such keys is refused."""
+        slots or :data:`AHEAD_MAX` such keys is refused
+        (:class:`KBlockedTablesFull`; :func:`encode_stencil` then marches
+        it whole-column on K2)."""
         st = self.stencil
         nk = self.dom.nk
         if not (solver_k_blockable(st) and 0 < block_k < nk
@@ -996,7 +1090,7 @@ class Encoder:
                                                                 end):
                 for kind, operand in ((src, sargs), (src2, s2args)):
                     if kind == SRC_LOAD and operand[3] == prev:
-                        raise NotImplementedError(
+                        raise KBlockedTablesFull(
                             f"{st.name}: K4 reads the marching-previous "
                             f"level of slot {operand[0]} from memory; its "
                             f"tables hold {CARRY_MAX} carried slots and "
@@ -1005,43 +1099,59 @@ class Encoder:
         return p
 
 
-def copy_depth(p: Program, n_slots: int) -> int:
+def copy_depth(p: Program) -> int:
     """Levels of a K4 copy group: the slab (``block_k``) up to
     :data:`KB_DEPTH_MAX`, or as many as two groups of copies fit beside the
-    stack, the carry and the column table within :data:`KB_SMEM_BUDGET`
-    (at least 1, K2's depth)."""
+    tables, the stack, the carry and the column table within
+    :data:`KB_SMEM_BUDGET` (at least 1, K2's depth)."""
     level = COLUMNS * COLUMN_BLOCK * 4  # bytes of one key at one level
     nkey = len(p.ahead_keys())
-    fixed = (max(1, p.stack) + 2 * len(p.carried)) * level \
-        + n_slots * COLUMN_BLOCK * 8
     depth = min(p.block_k, KB_DEPTH_MAX)
     if nkey == 0:
         return depth
-    return max(1, min(depth, (KB_SMEM_BUDGET - fixed) // (2 * nkey
-                                                          * level)))
+    return max(1, min(depth, (KB_SMEM_BUDGET - p.smem_bytes(0))
+                      // (2 * nkey * level)))
+
+
+def kblocked_wanted(stencil: Stencil, dom: DomainSpec,
+                    schedule: Schedule | None) -> bool:
+    """Whether ``schedule`` K-blocks the vertical solver ``stencil``
+    (``kblocked_applies``, as the reference's ``compile_pallas`` decides):
+    then the stencil is one K4 launch, where K4's tables allow."""
+    return (stencil.is_vertical_solver() and schedule is not None
+            and kblocked_applies(stencil, schedule, dom.nk, scratch=True))
 
 
 def encode_stencil(stencil: Stencil, dom: DomainSpec,
                    schedule: Schedule | None = None) -> list[Program]:
     """The launches of one stencil call, in order: a vertical solver whose
-    ``schedule`` K-blocks it (``kblocked_applies``) is one K4 launch;
-    otherwise each run of consecutive PARALLEL statements is cut into K1
-    launches by :func:`parallel_groups`, and each FORWARD/BACKWARD
-    computation is one K2 launch."""
+    ``schedule`` K-blocks it (:func:`kblocked_wanted`) is one K4 launch,
+    unless K4's carry and copy tables cannot hold its marching-previous
+    reads; otherwise each run of consecutive PARALLEL statements is cut
+    into K1 launches by :func:`parallel_groups` (and
+    :meth:`Encoder.parallel_launches`), and each FORWARD/BACKWARD
+    computation is one K2 launch, which computes what K4 would, bit for
+    bit.  Raises ValueError for a launch the card cannot hold
+    (:meth:`Encoder.fits`)."""
     enc = Encoder(stencil, dom)
-    if (stencil.is_vertical_solver() and schedule is not None
-            and kblocked_applies(stencil, schedule, dom.nk, scratch=True)):
-        return [enc.kblocked(schedule.block_k)]
+    if kblocked_wanted(stencil, dom, schedule):
+        try:
+            p = enc.kblocked(schedule.block_k)
+            return [enc.fits(p, copy_depth(p))]
+        except KBlockedTablesFull:
+            pass
     out: list[Program] = []
     run: list[Assign] = []
     for comp in stencil.computations:
         if comp.direction is Direction.PARALLEL:
             run += comp.statements
             continue
-        out += [enc.parallel(g) for g in parallel_groups(run)]
+        out += [p for g in parallel_groups(run)
+                for p in enc.parallel_launches(g)]
         run = []
         out.append(enc.column(comp))
-    return out + [enc.parallel(g) for g in parallel_groups(run)]
+    out += [p for g in parallel_groups(run) for p in enc.parallel_launches(g)]
+    return [enc.fits(p) for p in out]
 
 
 # ---------------------------------------------------------------------------
@@ -1110,25 +1220,35 @@ def bind_library(path: Path | str) -> ctypes.CDLL:
     for name in ("launch_stencil_parallel", "launch_stencil_column",
                  "launch_stencil_kblocked"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(LaunchArgs), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(LaunchHeader), ctypes.c_char_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.stencil_launch_args_size.argtypes = []
-    lib.stencil_launch_args_size.restype = ctypes.c_int
+    lib.stencil_header_size.argtypes = []
+    lib.stencil_header_size.restype = ctypes.c_int
+    lib.stencil_table_words.argtypes = [ctypes.c_int] * 4
+    lib.stencil_table_words.restype = ctypes.c_int
     lib.stencil_error_string.argtypes = [ctypes.c_int]
     lib.stencil_error_string.restype = ctypes.c_char_p
     lib.stencil_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.stencil_limits.restype = ctypes.c_int
-    got = lib.stencil_launch_args_size()
-    if got != ctypes.sizeof(LaunchArgs):
-        raise RuntimeError(f"LaunchArgs is {got} bytes in the library but "
-                           f"{ctypes.sizeof(LaunchArgs)} in cuda.py")
-    limits = (ctypes.c_int * 12)()
+    got = lib.stencil_header_size()
+    if got != ctypes.sizeof(LaunchHeader):
+        raise RuntimeError(f"LaunchHeader is {got} bytes in the library but "
+                           f"{ctypes.sizeof(LaunchHeader)} in cuda.py")
+    limits = (ctypes.c_int * 14)()
     lib.stencil_limits(limits)
-    want = (MAX_SLOTS, MAX_PARAMS, PROG_MAX, CONST_MAX, STACK_MAX, REC_INTS,
-            OPW, STRIP, CARRY_MAX, AHEAD_MAX, COLUMNS, COLUMN_BLOCK)
+    want = (REC_INTS, OPW, OP_SHIFT, SRC_SHIFT, SRC2_SHIFT, STRIP, K1_BLOCK,
+            CARRY_MAX, AHEAD_MAX, COLUMNS, COLUMN_BLOCK, SMEM_MAX,
+            TABLE_SMALL, TABLE_LARGE)
     if tuple(limits) != want:
         raise RuntimeError(f"kernel limits {tuple(limits)} disagree with "
                            f"cuda.py's {want}")
+    for counts in ((1, 1, 0, 0), (1024, 64, 16, 256), (7, 3, 5, 1)):
+        got = lib.stencil_table_words(*counts)
+        if got != table_words(*counts)[1]:
+            raise RuntimeError(f"the library lays out the tables of "
+                               f"{counts} in {got} words, cuda.py in "
+                               f"{table_words(*counts)[1]}")
     return lib
 
 
@@ -1209,7 +1329,18 @@ class CudaStencil:
         self.written = [w for w in self.stencil.written()
                         if w in self.stencil.fields]
         self.programs = encode_stencil(self.stencil, dom, schedule)
+        #: a K-blocked solver that K4's tables refused, marching on K2
+        self.kblocked_refused = kblocked_wanted(
+            self.stencil, dom, schedule) and not any(
+                p.kind == "kblocked" for p in self.programs)
         self.slot_names = slot_names(self.stencil)
+        #: each launch's carry index of every slot (-1: not carried), the
+        #: part of its table between the field table and the parameters
+        self._carry_tables = [
+            struct.pack(f"<{len(self.slot_names)}i", *(
+                p.carried.index(s) if s in p.carried else -1
+                for s in range(len(self.slot_names))))
+            for p in self.programs]
         self._uploaded: dict[torch.device, list] = {}
         #: the kernels' plain version on any device: the plain lowering of
         #: the same (inlined) stencil, statement by statement
@@ -1258,11 +1389,11 @@ class CudaStencil:
             if fields[f].dtype != torch.float32:
                 raise ValueError(f"{self.stencil.name}: field {f!r} must be "
                                  "float32")
-        params = dict(params or {})
+        from ...kernels import library as kernel_library
+
         env = self._env(fields)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            self.launch(env, params, load_library(), stream)
+        kernel_library.launch(None, self.launch, None, device.index, env,
+                              dict(params or {}), load_library())
         return {w: env[w] for w in self.written}
 
     def _env(self, fields: Mapping[str, torch.Tensor]) -> dict:
@@ -1295,22 +1426,27 @@ class CudaStencil:
         return progs
 
     def launch_args(self, env: Mapping[str, torch.Tensor],
-                    params: Mapping[str, Any]) -> LaunchArgs:
-        """What every launch of the stencil shares: the field table (pointer,
-        member stride, K extent per slot), the parameters, and the member,
-        tile and plane extents of the grid."""
+                    params: Mapping[str, Any]) -> LaunchHeader:
+        """What every launch of the stencil shares: the member, tile and
+        plane extents of the grid in the header, and the field table
+        (``ptr``, ``mstride``, ``kext``: pointer, member stride, K extent
+        per slot) and the parameters (``params``), packed as the launch's
+        table lays them out around each program's carry indices (``head``,
+        ``tail``)."""
         members = self.n_members is not None
         tensors = [env[n] for n in self.slot_names]
         some = tensors[0]
-        args = LaunchArgs()
-        for s, (name, x) in enumerate(zip(self.slot_names, tensors)):
-            args.ptr[s] = x.data_ptr()
-            args.mstride[s] = _member_stride(name, x, members)
-            args.kext[s] = x.shape[-3]
-        for i, p in enumerate(self.stencil.params):
-            args.params[i] = float(params[p])
-        args.n_slots = len(tensors)
-        args.n_params = len(self.stencil.params)
+        args = LaunchHeader()
+        args.ptr = [x.data_ptr() for x in tensors]
+        args.mstride = [_member_stride(name, x, members)
+                        for name, x in zip(self.slot_names, tensors)]
+        args.kext = [x.shape[-3] for x in tensors]
+        args.params = [float(params[p]) for p in self.stencil.params]
+        n, m = len(tensors), len(args.params)
+        args.head = struct.pack(f"<{n}Q{n}q{n}i", *args.ptr, *args.mstride,
+                                *args.kext)
+        args.tail = struct.pack(f"<{m}f{4 * (m & 1)}x", *args.params)
+        args.n_slots, args.n_params = n, m
         args.ntile = math.prod(some.shape[1 if members else 0:-3])
         args.nmember = self.n_members or 1
         args.mchunk = self.member_chunk
@@ -1323,24 +1459,30 @@ class CudaStencil:
         """Launch every program of the stencil, in order, on ``stream``."""
         args = self.launch_args(env, params)
         device = env[self.slot_names[0]].device
-        for p, (prog, consts) in zip(self.programs,
-                                     self._device_programs(device)):
+        for p, (prog, consts), cidx in zip(
+                self.programs, self._device_programs(device),
+                self._carry_tables):
             if p.empty:
                 continue
             args.prog, args.consts = prog.data_ptr(), consts.data_ptr()
             args.n_prog, args.n_consts = len(p.prog), len(p.consts)
             args.j0, args.j1, args.i0, args.i1 = p.box
             args.depth = max(1, p.stack)
+            table = args.head + cidx + args.tail
             if p.kind == "horizontal":
                 args.klo, args.khi = p.klo, p.khi
                 args.kspan = k1_span(p, args.nmember // args.mchunk
                                      * args.ntile)
-                rc = lib.launch_stencil_parallel(ctypes.byref(args), stream)
+                rc = lib.launch_stencil_parallel(ctypes.byref(args), table,
+                                                 stream)
             else:
-                self._column_args(args, p)
+                args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
+                args.n_carried = len(p.carried)
+                args.ahead_begin, args.ahead_end = p.ahead
+                args.bk = copy_depth(p) if p.block_k else 1
                 launch = (lib.launch_stencil_kblocked if p.kind == "kblocked"
                           else lib.launch_stencil_column)
-                rc = launch(ctypes.byref(args), stream)
+                rc = launch(ctypes.byref(args), table, stream)
             if rc != 0:
                 raise RuntimeError(
                     f"{self.stencil.name}: {p.kind} kernel launch failed: "
@@ -1350,15 +1492,3 @@ class CudaStencil:
                 LAUNCHES["search"] += 1
             if args.nmember > 1:  # the kernels' member axis ran
                 LAUNCHES["member"] += 1
-
-    def _column_args(self, args: LaunchArgs, p: Program) -> None:
-        """K2's and K4's part of the launch arguments: the march, the
-        carries by slot, the ahead table and (K4) the levels of a copy
-        group."""
-        args.lo, args.hi, args.forward = p.lo, p.hi, int(p.forward)
-        args.n_carried = len(p.carried)
-        for slot in range(len(self.slot_names)):
-            args.cidx[slot] = (p.carried.index(slot) if slot in p.carried
-                               else -1)
-        args.ahead_begin, args.ahead_end = p.ahead
-        args.bk = copy_depth(p, len(self.slot_names)) if p.block_k else 1

@@ -118,6 +118,10 @@ class PipelineReport:
     #: pipeline name when an explicit Pipeline drove the run ("" for the
     #: opt_level presets)
     pipeline: str = ""
+    #: nodes whose schedule K-blocks a vertical solver that the CUDA
+    #: backend's K4 refused for its carry and copy tables, run whole-column
+    #: on K2 instead (set by ``compile_program``)
+    kblocked_on_column: int = 0
 
     @property
     def total_rewrites(self) -> int:
@@ -138,6 +142,9 @@ class PipelineReport:
         if self.verify_mode != "off":
             lines.append(f"  verifier ({self.verify_mode}): 0 violations, "
                          f"{self.total_verify_seconds * 1e3:.2f} ms total")
+        if self.kblocked_on_column:
+            lines.append(f"  K-blocked solvers on K2 (K4's tables full): "
+                         f"{self.kblocked_on_column}")
         return "\n".join(lines)
 
     @property
@@ -164,6 +171,7 @@ class PipelineReport:
             "rules": dict(self.rules),
             "rewrite_trace": [dataclasses.asdict(t)
                               for t in self.rewrite_trace],
+            "kblocked_on_column": self.kblocked_on_column,
         }
 
 

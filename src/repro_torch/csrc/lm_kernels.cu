@@ -126,15 +126,28 @@
 // buffers spill at D 112.)
 
 // K9, RMSNorm with a (1 + w) scale over the last axis of (rows, d), in f32:
-// one CTA of 256 threads per row.  Each thread sums the squares of its
-// 4-wide chunks, the CTA reduces them with warp shuffles and one shared
-// slot per warp, and a second pass over the row (from L1/L2) writes
-// x * (1 / sqrt(mean + eps)) * (1 + w) in x's dtype.  The residual variant
-// sums s = x + r in f32, writes s rounded to x's dtype as the new residual
-// and normalises the unrounded s, as _kernel_residual does.  Bound by
-// device memory: rmsnorm reads x and writes the output (268 MB at
-// 16384 x 4096 bf16, 0.080 ms at 3.35 TB/s), the residual variant reads
-// two and writes two (0.160 ms).
+// o = x * (1 / sqrt(mean(x^2) + eps)) * (1 + w) in x's dtype; the residual
+// variant sums s = x + r in f32, writes s rounded to x's dtype as the new
+// residual and normalises the unrounded s, as _kernel_residual does.
+// Bound by device memory: rmsnorm reads x and writes o (235 MB at 16384 x
+// 3584 bf16, 0.070 ms at 3.35 TB/s), the residual variant reads two and
+// writes two (0.140 ms); at a decode step's 8 rows, by the latency of one
+// round trip to memory and one reduction.  So one CTA per row holds the
+// row in registers between the sum of squares and the scale: x (and r) are
+// read once, s is formed once, and every access moves 16 bytes (8 bf16 or
+// 4 f32), neighbouring threads on neighbouring pieces.  The widths the
+// served models give it (3584, 4096, 7168) are instances of their own: a
+// thread holds the pieces at 1024 c + 8 t (bf16, 128 threads) or 1024 c +
+// 4 t (f32, 256 threads), and at a decode step's few rows the weight's
+// beside them, loaded with the row before the reduction (a prefill's rows
+// load it after the reduction, from L1 and L2, and keep the registers for
+// more rows in flight).  Any other d (d % 4 == 0) runs the general
+// instance of the same kernel, 256 threads over pieces of 4 elements (8
+// bytes in bf16: rows are only 8-byte aligned there) that reads the row a
+// second time for the scale.  Every instance adds the squares in one
+// order (cta_sum: 256 lanes of 4 elements at a stride of 1024, a shuffle
+// tree a warp of lanes, 8 slots in turn), so they give the same bits as
+// one another and as the kernel before them, which made those sums.
 //
 // K10, the exclusive inter-chunk scan of Mamba-2's SSD: for states s
 // (nc, B, H, N, P) and decay (nc, B, H), both f32, out[c] = h before chunk
@@ -178,24 +191,6 @@ __device__ __forceinline__ uint32_t f32_to_bf16_bits(float f) {
   const uint32_t u = __float_as_uint(f);
   if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
   return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_lo(raw.x), bf16_hi(raw.x), bf16_lo(raw.y),
-                     bf16_hi(raw.y));
-}
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 x) {
-  uint2 raw;
-  raw.x = f32_to_bf16_bits(x.x) | (f32_to_bf16_bits(x.y) << 16);
-  raw.y = f32_to_bf16_bits(x.z) | (f32_to_bf16_bits(x.w) << 16);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // ---------------------------------------------------------------------------
@@ -1522,78 +1517,353 @@ static int dispatch_fa_f32(const void* q, const void* k, const void* v,
 // K9
 // ---------------------------------------------------------------------------
 
-#define RN_THREADS 256
+#define RN_THREADS 256   // lanes of the sum of squares (cta_sum)
+#define RN_SEGMENT 1024  // elements the lanes take at once, 4 each
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+// 16 and 8 bytes of device memory as 32-bit words, in registers: K9's
+// inputs are read-only while it runs (the non-coherent path), its outputs
+// written once
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+// a 16-byte piece of a row read once (a prefill's rows): it leaves L1
+// alone, and is issued in program order (asm volatile), so a thread's
+// loads of its row are all in flight before the first is used
+__device__ __forceinline__ uint4 ld16_once(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+// a store of data written once (a prefill's rows): evicted first
+__device__ __forceinline__ void st16_once(void* p, uint32_t a, uint32_t b,
+                                          uint32_t c, uint32_t d) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ uint2 ld8(const void* p) {
+  uint2 v;
+  asm("ld.global.nc.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ void st16(void* p, uint32_t a, uint32_t b,
+                                     uint32_t c, uint32_t d) {
+  asm volatile("st.global.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(a),
+               "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+__device__ __forceinline__ void st8(void* p, uint32_t a, uint32_t b) {
+  asm volatile("st.global.v2.u32 [%0], {%1, %2};" ::"l"(p), "r"(a), "r"(b)
+               : "memory");
 }
 
-template <typename T, typename W, bool kResidual>
-__global__ void __launch_bounds__(RN_THREADS)
-    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                   const W* __restrict__ w, T* __restrict__ o,
-                   T* __restrict__ ro, int d, float eps) {
-  __shared__ float partial[RN_THREADS / 32];
-  const long long base = static_cast<long long>(blockIdx.x) * d;
-  float ss = 0.f;
-  for (int i = 4 * threadIdx.x; i < d; i += 4 * RN_THREADS) {
-    float4 s = load4(x + base + i);
-    if (kResidual) {
-      s = add4(s, load4(r + base + i));
-      store4(ro + base + i, s);
-    }
-    ss += s.x * s.x;
-    ss += s.y * s.y;
-    ss += s.z * s.z;
-    ss += s.w * s.w;
+// a 16-byte piece as f32: 4 f32 or 8 bf16
+template <typename T>
+__device__ __forceinline__ void unpack16(uint4 q, float* v) {
+  if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float(q.x);
+    v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z);
+    v[3] = __uint_as_float(q.w);
+  } else {
+    v[0] = bf16_lo(q.x);
+    v[1] = bf16_hi(q.x);
+    v[2] = bf16_lo(q.y);
+    v[3] = bf16_hi(q.y);
+    v[4] = bf16_lo(q.z);
+    v[5] = bf16_hi(q.z);
+    v[6] = bf16_lo(q.w);
+    v[7] = bf16_hi(q.w);
   }
+}
+
+// n consecutive elements (n = 4: 16 bytes of f32, 8 of bf16; n = 8: 32 of
+// f32, 16 of bf16) read into f32 registers in 16-byte pieces where they fill
+// them, and written back from them (kOnce: with st16_once)
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (threadIdx.x % 32 == 0) partial[threadIdx.x / 32] = ss;
+  for (int c = 0; c < N / 4; ++c) {
+    const uint4 q = ld16(p + 4 * c);
+    v[4 * c] = __uint_as_float(q.x);
+    v[4 * c + 1] = __uint_as_float(q.y);
+    v[4 * c + 2] = __uint_as_float(q.z);
+    v[4 * c + 3] = __uint_as_float(q.w);
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_n(const bf16* p, float* v) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c) unpack16<bf16>(ld16(p + 8 * c), v + 8 * c);
+  } else {
+    static_assert(N == 4, "four or a multiple of eight bf16");
+    const uint2 q = ld8(p);
+    v[0] = bf16_lo(q.x);
+    v[1] = bf16_hi(q.x);
+    v[2] = bf16_lo(q.y);
+    v[3] = bf16_hi(q.y);
+  }
+}
+template <int N, bool kOnce = false>
+__device__ __forceinline__ void store_n(float* p, const float* v) {
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    const float* u = v + 4 * c;
+    if (kOnce)
+      st16_once(p + 4 * c, __float_as_uint(u[0]), __float_as_uint(u[1]),
+                __float_as_uint(u[2]), __float_as_uint(u[3]));
+    else
+      st16(p + 4 * c, __float_as_uint(u[0]), __float_as_uint(u[1]),
+           __float_as_uint(u[2]), __float_as_uint(u[3]));
+  }
+}
+// two floats rounded to bf16, a in the low half
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return f32_to_bf16_bits(a) | (f32_to_bf16_bits(b) << 16);
+}
+template <int N, bool kOnce = false>
+__device__ __forceinline__ void store_n(bf16* p, const float* v) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c) {
+      const float* u = v + 8 * c;
+      if (kOnce)
+        st16_once(p + 8 * c, bf16_pair(u[0], u[1]), bf16_pair(u[2], u[3]),
+                  bf16_pair(u[4], u[5]), bf16_pair(u[6], u[7]));
+      else
+        st16(p + 8 * c, bf16_pair(u[0], u[1]), bf16_pair(u[2], u[3]),
+             bf16_pair(u[4], u[5]), bf16_pair(u[6], u[7]));
+    }
+  } else {
+    static_assert(N == 4, "four or a multiple of eight bf16");
+    st8(p, bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+  }
+}
+
+// s of n elements at i of the row: x, or x + r in f32 (the residual
+// variant, which also writes it rounded to x's dtype as the new residual)
+template <int N, typename T, bool kResidual>
+__device__ __forceinline__ void row_piece(const T* __restrict__ x,
+                                          const T* __restrict__ r,
+                                          T* __restrict__ ro, long long at,
+                                          float* s) {
+  load_n<N>(x + at, s);
+  if (kResidual) {
+    float b[N];
+    load_n<N>(r + at, b);
+#pragma unroll
+    for (int e = 0; e < N; ++e) s[e] += b[e];
+    store_n<N>(ro + at, s);
+  }
+}
+
+// The CTA's sum of squares, in the order of RN_THREADS lanes: lane t sums
+// the squares of the 4 elements at 1024 c + 4 t, c = 0, 1, ... in turn,
+// each 32 lanes add theirs by a shuffle tree (xor 16, 8, 4, 2, 1) and one
+// shared slot a warp of them, and the 8 slots are added in order.  Every
+// instance sums in that one order, so each gives the same bits.  A thread
+// holds kH lanes (kH t + h in a[h]): the lane offsets 16 .. kH cross
+// threads (at offset off / kH), and offset 1 of kH = 2 adds a thread's
+// two.
+template <int kH>
+__device__ __forceinline__ float cta_sum(float (&a)[kH]) {
+  __shared__ float partial[RN_THREADS / 32];
+#pragma unroll
+  for (int off = 16; off >= kH; off >>= 1) {
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+      a[h] += __shfl_xor_sync(0xffffffffu, a[h], off / kH);
+  }
+  if constexpr (kH == 2) a[0] += a[1];
+  if (threadIdx.x % (32 / kH) == 0) partial[threadIdx.x / (32 / kH)] = a[0];
   __syncthreads();
   float total = 0.f;
 #pragma unroll
-  for (int i = 0; i < RN_THREADS / 32; ++i) total += partial[i];
-  const float inv = 1.0f / sqrtf(total / static_cast<float>(d) + eps);
-  for (int i = 4 * threadIdx.x; i < d; i += 4 * RN_THREADS) {
-    float4 s = load4(x + base + i);
-    if (kResidual) s = add4(s, load4(r + base + i));
-    const float4 g = load4(w + i);
-    store4(o + base + i,
-           make_float4(s.x * inv * (1.0f + g.x), s.y * inv * (1.0f + g.y),
-                       s.z * inv * (1.0f + g.z), s.w * inv * (1.0f + g.w)));
+  for (int q = 0; q < RN_THREADS / 32; ++q) total += partial[q];
+  return total;
+}
+
+// One CTA per row.  kD > 0: the instance of width kD, the row held in
+// registers: a thread holds the 16-byte pieces (E elements) at 1024 c + E t
+// of the row, the lanes E t / 4 .. of cta_sum; with kHoldW the weight's
+// pieces too, loaded beside the row, each piece used as it comes; else
+// (a prefill's rows) every load of the row is issued before the first is
+// used, with the read-once hints (ld16_once, st16_once), and the weight is
+// loaded after the reduction (with the loads and the arithmetic
+// interleaved, such a call on an H100 ran further from a copy of its
+// bytes; issued first in the decode instance, ptxas spilled).  kD == 0:
+// the general instance, lane t a thread, pieces of 4 elements, the row read
+// again for the scale.
+template <typename T, typename W, bool kResidual, int kD, bool kHoldW>
+__global__ void __launch_bounds__(kD > 0 ? RN_SEGMENT * sizeof(T) / 16
+                                         : RN_THREADS)
+    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                   const W* __restrict__ w, T* __restrict__ o,
+                   T* __restrict__ ro, int d, float eps) {
+  const long long base = static_cast<long long>(blockIdx.x) * d;
+  if constexpr (kD > 0) {
+    constexpr int E = 16 / sizeof(T);  // elements of a piece
+    constexpr int H = E / 4;           // lanes of the sum a thread holds
+    constexpr int A = (kD + RN_SEGMENT - 1) / RN_SEGMENT;  // pieces, at most
+    float s[A][E], g[A][E], a[H] = {};
+    if constexpr (kHoldW) {
+#pragma unroll
+      for (int c = 0; c < A; ++c) {
+        const int i = c * RN_SEGMENT + E * threadIdx.x;
+        if (i < kD) {
+          row_piece<E, T, kResidual>(x, r, ro, base + i, s[c]);
+          load_n<E>(w + i, g[c]);
+#pragma unroll
+          for (int e = 0; e < E; ++e) a[e / 4] += s[c][e] * s[c][e];
+        }
+      }
+    } else {
+      uint4 qx[A], qr[A];
+#pragma unroll
+      for (int c = 0; c < A; ++c) {  // every load of the row issued first
+        const int i = c * RN_SEGMENT + E * threadIdx.x;
+        if (i < kD) {
+          qx[c] = ld16_once(x + base + i);
+          if (kResidual) qr[c] = ld16_once(r + base + i);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < A; ++c) {
+        const int i = c * RN_SEGMENT + E * threadIdx.x;
+        if (i < kD) {
+          unpack16<T>(qx[c], s[c]);
+          if (kResidual) {
+            float b[E];
+            unpack16<T>(qr[c], b);
+#pragma unroll
+            for (int e = 0; e < E; ++e) s[c][e] += b[e];
+            store_n<E, true>(ro + base + i, s[c]);
+          }
+#pragma unroll
+          for (int e = 0; e < E; ++e) a[e / 4] += s[c][e] * s[c][e];
+        }
+      }
+    }
+    const float inv =
+        1.0f / sqrtf(cta_sum<H>(a) / static_cast<float>(kD) + eps);
+#pragma unroll
+    for (int c = 0; c < A; ++c) {
+      const int i = c * RN_SEGMENT + E * threadIdx.x;
+      if (i < kD) {
+        if (!kHoldW) load_n<E>(w + i, g[c]);
+        float out[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) out[e] = s[c][e] * inv * (1.0f + g[c][e]);
+        store_n<E, !kHoldW>(o + base + i, out);
+      }
+    }
+  } else {
+    // the loops not unrolled: unrolled, ptxas spilled a word of the
+    // float32 residual instance
+    float ss = 0.f;
+#pragma unroll 1
+    for (int i = 4 * threadIdx.x; i < d; i += RN_SEGMENT) {
+      float s[4];
+      row_piece<4, T, kResidual>(x, r, ro, base + i, s);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ss += s[e] * s[e];
+    }
+    float a[1] = {ss};
+    const float inv =
+        1.0f / sqrtf(cta_sum<1>(a) / static_cast<float>(d) + eps);
+#pragma unroll 1
+    for (int i = 4 * threadIdx.x; i < d; i += RN_SEGMENT) {
+      float s[4], g[4], out[4];
+      load_n<4>(x + base + i, s);
+      if (kResidual) {
+        float b[4];
+        load_n<4>(r + base + i, b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[e] += b[e];
+      }
+      load_n<4>(w + i, g);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[e] = s[e] * inv * (1.0f + g[e]);
+      store_n<4>(o + base + i, out);
+    }
   }
 }
 
-template <typename T, typename W, bool kResidual>
+template <typename T, typename W, bool kResidual, int kD, bool kHoldW = false>
 static int launch_rn(const void* x, const void* r, const void* w, void* o,
                      void* ro, long long rows, int d, float eps,
                      cudaStream_t stream) {
-  rmsnorm_kernel<T, W, kResidual><<<static_cast<unsigned>(rows), RN_THREADS,
-                                    0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const W*>(w), static_cast<T*>(o), static_cast<T*>(ro), d,
-      eps);
+  constexpr int threads = kD > 0 ? RN_SEGMENT * sizeof(T) / 16 : RN_THREADS;
+  rmsnorm_kernel<T, W, kResidual, kD, kHoldW>
+      <<<static_cast<unsigned>(rows), threads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(r),
+          static_cast<const W*>(w), static_cast<T*>(o), static_cast<T*>(ro),
+          d, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instance of d: the served widths hold their rows in registers, and
+// at a decode step's few rows (up to RN_HOLD_ROWS) the weight too: there
+// the call is one round trip to memory, and the weight's, issued with the
+// row's, costs it nothing, where loaded after the reduction it adds one; a
+// prefill's rows leave it to L1 and L2 and keep the registers for more
+// rows in flight (both measured faster so on an H100)
+#define RN_HOLD_ROWS 256
+template <typename T, typename W, bool kResidual, int kD>
+static int launch_rn_rows(const void* x, const void* r, const void* w,
+                          void* o, void* ro, long long rows, int d, float eps,
+                          cudaStream_t stream) {
+  return rows <= RN_HOLD_ROWS
+             ? launch_rn<T, W, kResidual, kD, true>(x, r, w, o, ro, rows, d,
+                                                    eps, stream)
+             : launch_rn<T, W, kResidual, kD, false>(x, r, w, o, ro, rows, d,
+                                                     eps, stream);
+}
+
+template <typename T, typename W, bool kResidual>
+static int launch_rn_d(const void* x, const void* r, const void* w, void* o,
+                       void* ro, long long rows, int d, float eps,
+                       cudaStream_t stream) {
+  switch (d) {
+    case 3584:
+      return launch_rn_rows<T, W, kResidual, 3584>(x, r, w, o, ro, rows, d,
+                                                   eps, stream);
+    case 4096:
+      return launch_rn_rows<T, W, kResidual, 4096>(x, r, w, o, ro, rows, d,
+                                                   eps, stream);
+    case 7168:
+      return launch_rn_rows<T, W, kResidual, 7168>(x, r, w, o, ro, rows, d,
+                                                   eps, stream);
+    default:
+      return launch_rn<T, W, kResidual, 0>(x, r, w, o, ro, rows, d, eps,
+                                           stream);
+  }
 }
 
 template <bool kResidual>
 static int dispatch_rn(const void* x, const void* r, const void* w, void* o,
                        void* ro, int dtype, int w_dtype, long long rows,
                        int d, float eps, cudaStream_t stream) {
+  if (rows == 0) return 0;
   if (dtype == DT_F32 && w_dtype == DT_F32)
-    return launch_rn<float, float, kResidual>(x, r, w, o, ro, rows, d, eps,
-                                              stream);
+    return launch_rn_d<float, float, kResidual>(x, r, w, o, ro, rows, d, eps,
+                                                stream);
   if (dtype == DT_F32 && w_dtype == DT_BF16)
-    return launch_rn<float, bf16, kResidual>(x, r, w, o, ro, rows, d, eps,
-                                             stream);
+    return launch_rn_d<float, bf16, kResidual>(x, r, w, o, ro, rows, d, eps,
+                                               stream);
   if (dtype == DT_BF16 && w_dtype == DT_F32)
-    return launch_rn<bf16, float, kResidual>(x, r, w, o, ro, rows, d, eps,
-                                             stream);
+    return launch_rn_d<bf16, float, kResidual>(x, r, w, o, ro, rows, d, eps,
+                                               stream);
   if (dtype == DT_BF16 && w_dtype == DT_BF16)
-    return launch_rn<bf16, bf16, kResidual>(x, r, w, o, ro, rows, d, eps,
-                                            stream);
+    return launch_rn_d<bf16, bf16, kResidual>(x, r, w, o, ro, rows, d, eps,
+                                              stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -24,8 +24,8 @@
 // wrapper launches K1 once per group of consecutive PARALLEL statements
 // (cuda.parallel_groups) and K2 once per solver computation, in order.
 //
-// The interpreter.  An op word is src << 11 | op << 5 | depth, where depth,
-// the number of values on the stack before the op, is fixed when the
+// The interpreter.  An op word is src << 22 | op << 16 | depth, where
+// depth, the number of values on the stack before the op, is fixed when the
 // stream is encoded.  The top of the stack lives in registers, ``acc[P]``
 // for the P points a thread evaluates at once; the entries below it live
 // in shared memory, [depth][P][thread] (each warp access conflict-free),
@@ -56,7 +56,8 @@
 //   which the strip amortises over P points and the sources cut.
 //   Neighbouring threads take neighbouring i, so loads and stores coalesce;
 //   the records, stream, constants and field table are staged in shared
-//   memory once per CTA, each CTA's threads walk K spans of several strips,
+//   memory once per CTA (each table sized by what the launch holds:
+//   Tables), each CTA's threads walk K spans of several strips,
 //   and the launch is cut into enough spans (cuda.k1_span) to fill the SMs.
 //   Pallas holds the whole IJ plane in one block and runs a stencil's
 //   statements in order inside it; blocks of a CUDA grid run in no order,
@@ -147,14 +148,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
-#define MAX_SLOTS 64
-#define MAX_PARAMS 16
-#define PROG_MAX 1024
-#define CONST_MAX 256
-#define STACK_MAX 16
 #define REC_INTS 9
-#define OPW 32                            // op word: op * OPW + depth
+#define OPW 65536                         // op word: op * OPW + depth
 #define K2_BLOCK 128                      // K2: threads per CTA
 #define K2_COLS 4                         // K2: columns a thread
 #define CARRY_MAX 8                       // K2: slots carried on chip
@@ -162,6 +159,12 @@
 #define K1_BLOCK 128                      // K1: threads per CTA
 #define K1_STRIP 8                        // K1: levels each op evaluates
 #define SMEM_MAX (227 * 1024)             // a CTA's shared memory on sm_90
+// The slot table and parameters travel as a kernel parameter: an instance
+// with room for TABLE_SMALL 8-byte words (a stencil of up to 80 fields and
+// temporaries, as every FV3 program), and one with TABLE_LARGE, what
+// Hopper's 32 KB of kernel parameters hold beside the header
+#define TABLE_SMALL 256
+#define TABLE_LARGE 4000
 
 // opcodes — keep in sync with cuda.py.  An op word is
 //   src2 << SRC2_SHIFT | src << SRC_SHIFT | op * OPW | depth:
@@ -170,8 +173,9 @@
 // where a push or a binary op takes its operand from, and (K2, K4) where
 // a binary op takes its first operand from: it then pushes f(src2, src).
 // The operand words follow: src2's, src's, then the op's.
-#define SRC_SHIFT 11
-#define SRC2_SHIFT 14  // K2, K4: a binary op's first operand's source
+#define OP_SHIFT 16
+#define SRC_SHIFT 22
+#define SRC2_SHIFT 25  // K2, K4: a binary op's first operand's source
 enum {            // sources: their operand words follow the op word
   SRC_LOAD = 1,   // slot di dj dk
   SRC_CONST = 2,  // index into the constant table
@@ -203,14 +207,9 @@ enum {
 //   prog[0] = n_stmts; then per statement REC_INTS ints:
 //   target klo khi j0 j1 i0 i1 op_begin op_end
 // (j/i bounds in padded coordinates, the write window cut to the region).
-struct LaunchArgs {
-  float* ptr[MAX_SLOTS];
-  long long mstride[MAX_SLOTS];  // elements between members; 0: broadcast
-  int kext[MAX_SLOTS];
-  int cidx[MAX_SLOTS];     // K2, K4: the slot's carry, -1: not carried
-  float params[MAX_PARAMS];
-  const int* prog;
-  const float* consts;
+struct LaunchHeader {
+  const int* prog;         // the records and ops (device memory)
+  const float* consts;     // the constant table (device memory)
   int n_prog, n_consts, n_slots, n_params;
   int ntile, jp, ip;
   int klo, khi;            // K1: the levels of all records
@@ -224,15 +223,63 @@ struct LaunchArgs {
                                // ahead table (slot di dj dk each)
 };
 
-struct Shared {
-  float* ptr[MAX_SLOTS];
-  long long mstride[MAX_SLOTS];
-  int kext[MAX_SLOTS];
-  int cidx[MAX_SLOTS];
-  float params[MAX_PARAMS];
-  float consts[CONST_MAX];
-  int prog[PROG_MAX];
+// The kernels' parameter: the header, then the slot table and the
+// parameters as Tables lays them out from Tables::ptr on (pointers, member
+// strides: elements between members, 0 for a broadcast field; K extents;
+// K2's and K4's carry index of each slot, -1 where it is not carried; the
+// parameters), in 8-byte words.
+template <int kWords>
+struct LaunchArgs {
+  LaunchHeader h;
+  unsigned long long table[kWords];
 };
+
+// the stack; K2, K4: carry, copies; all after the tables
+extern __shared__ __align__(16) float dynamic_smem[];
+
+// A launch's tables in dynamic shared memory, each sized by what its
+// program holds, at these offsets (4-byte words): the records and ops at
+// 0 (the interpreter's most frequent reads need no offset), then the slot
+// table, the parameters and the constants.  ``words`` is where the stack
+// and the rest begin, 16-byte aligned.  The host computes the same layout
+// (cuda.py's table_words) to size the launch.
+struct Tables {
+  int ptr, mstride, kext, cidx, params, consts, words;
+  __host__ __device__ explicit Tables(const LaunchHeader& h) {
+    ptr = (h.n_prog + 1) & ~1;  // 8-byte entries on an even word
+    mstride = ptr + 2 * h.n_slots;
+    kext = mstride + 2 * h.n_slots;
+    cidx = kext + h.n_slots;
+    params = cidx + h.n_slots;
+    consts = (params + h.n_params + 1) & ~1;  // the kernel parameter's end
+    words = (consts + h.n_consts + 3) & ~3;
+  }
+  // 8-byte words of the kernel parameter's table
+  __host__ __device__ int param_words() const { return (consts - ptr) / 2; }
+  __device__ __forceinline__ float* field(int slot) const {
+    return reinterpret_cast<float* const*>(dynamic_smem + ptr)[slot];
+  }
+  __device__ __forceinline__ long long member_stride(int slot) const {
+    return reinterpret_cast<const long long*>(dynamic_smem + mstride)[slot];
+  }
+  __device__ __forceinline__ int k_extent(int slot) const {
+    return reinterpret_cast<const int*>(dynamic_smem + kext)[slot];
+  }
+  __device__ __forceinline__ int carry_index(int slot) const {
+    return reinterpret_cast<const int*>(dynamic_smem + cidx)[slot];
+  }
+  __device__ __forceinline__ float param(int x) const {
+    return dynamic_smem[params + x];
+  }
+  __device__ __forceinline__ float constant(int x) const {
+    return dynamic_smem[consts + x];
+  }
+};
+
+// word x of the records and ops
+__device__ __forceinline__ int prog_at(int x) {
+  return reinterpret_cast<const int*>(dynamic_smem)[x];
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -241,13 +288,13 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 // The column (member m, tile t, j, i) of a slot: its level k is
 // column[k * jp * ip].
 template <bool kMembers>
-__device__ __forceinline__ float* column(const Shared& s, int slot, int m,
+__device__ __forceinline__ float* column(const Tables& s, int slot, int m,
                                          int t, int jp, int ip, int j,
                                          int i) {
-  float* p = s.ptr[slot] +
-             (static_cast<size_t>(t) * s.kext[slot] * jp + j) *
+  float* p = s.field(slot) +
+             (static_cast<size_t>(t) * s.k_extent(slot) * jp + j) *
                  static_cast<size_t>(ip) + i;
-  return kMembers ? p + m * s.mstride[slot] : p;
+  return kMembers ? p + m * s.member_stride(slot) : p;
 }
 
 // K3: the level search of P points of one column (replaces _march_search):
@@ -311,8 +358,6 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
-extern __shared__ float dynamic_smem[];  // the stack; K2, K4: carry, copies
-
 // The stack below its top: shared memory, [depth][P][thread].
 template <int P>
 struct Stack {
@@ -341,7 +386,7 @@ struct SharedStack {
 template <bool kMembers, int P>
 struct StripReader {
   static constexpr bool kCarry = false;
-  const Shared& s;
+  const Tables& s;
   int m, t, j, i, k0, jp, ip;
   __device__ __forceinline__ float* col(int slot, int di, int dj) const {
     return column<kMembers>(s, slot, m, t, jp, ip, j + dj, i + di);
@@ -349,7 +394,7 @@ struct StripReader {
   __device__ __forceinline__ void load(int slot, int di, int dj, int dk,
                                        float (&out)[P]) const {
     const float* c = col(slot, di, dj);
-    const int kext = s.kext[slot], k = k0 + dk, plane = jp * ip;
+    const int kext = s.k_extent(slot), k = k0 + dk, plane = jp * ip;
     if (k >= 0 && k + P <= kext) {
 #pragma unroll
       for (int p = 0; p < P; ++p) out[p] = c[(k + p) * plane];
@@ -363,7 +408,7 @@ struct StripReader {
                                              const int (&lvl)[P],
                                              float (&out)[P]) const {
     const float* c = col(slot, di, dj);
-    const int kext = s.kext[slot], plane = jp * ip;
+    const int kext = s.k_extent(slot), plane = jp * ip;
 #pragma unroll
     for (int p = 0; p < P; ++p)
       out[p] = c[clampi(lvl[p] + dk, 0, kext - 1) * plane];
@@ -371,7 +416,7 @@ struct StripReader {
   __device__ __forceinline__ void search(int coord, int lo, int hi,
                                          const float (&target)[P],
                                          int (&lvl)[P]) const {
-    march_search<P>(col(coord, 0, 0), s.kext[coord],
+    march_search<P>(col(coord, 0, 0), s.k_extent(coord),
                     static_cast<size_t>(jp) * ip, lo, hi, target, lvl);
   }
   __device__ __forceinline__ void store(int slot, const float (&v)[P],
@@ -389,12 +434,12 @@ struct StripReader {
 // point (di, dj) away from it at level kk, edge-clamped into the slot's K
 // extent, of member m.
 template <bool kMembers>
-__device__ __forceinline__ float* cell(const Shared& s, float* const* cols,
+__device__ __forceinline__ float* cell(const Tables& s, float* const* cols,
                                        int nthr, int slot, int m, int jp,
                                        int ip, int di, int dj, int kk) {
   float* c = cols[slot * nthr] + dj * ip + di +
-             static_cast<size_t>(clampi(kk, 0, s.kext[slot] - 1)) * jp * ip;
-  return kMembers ? c + m * s.mstride[slot] : c;
+             static_cast<size_t>(clampi(kk, 0, s.k_extent(slot) - 1)) * jp * ip;
+  return kMembers ? c + m * s.member_stride(slot) : c;
 }
 
 // K2's and K4's reads and writes: level k of P neighbouring columns (m, t,
@@ -413,7 +458,7 @@ __device__ __forceinline__ float* cell(const Shared& s, float* const* cols,
 template <bool kMembers, int P>
 struct ColumnReader {
   static constexpr bool kCarry = true;
-  const Shared& s;
+  const Tables& s;
   int m, k, jp, ip;
   float* const* cols;  // this thread's entry of the table of row j's columns
   int joff[P];
@@ -451,14 +496,14 @@ struct ColumnReader {
     for (int p = 0; p < P; ++p) {
       const float one[1] = {target[p]};
       int got[1];
-      march_search<1>(c + joff[p], s.kext[coord],
+      march_search<1>(c + joff[p], s.k_extent(coord),
                       static_cast<size_t>(jp) * ip, lo, hi, one, got);
       lvl[p] = got[0];
     }
   }
   __device__ __forceinline__ void carry(int slot, int dk,
                                         float (&out)[P]) const {
-    const int c = s.cidx[slot], kk = k + dk;
+    const int c = s.carry_index(slot), kk = k + dk;
     const unsigned have = (prev >> (c * P)) & ((1u << P) - 1u);
     if (have == (1u << P) - 1u) {
 #pragma unroll
@@ -481,7 +526,7 @@ struct ColumnReader {
 #pragma unroll
     for (int p = 0; p < P; ++p)
       if ((live >> p) & 1u) c[joff[p]] = v[p];
-    const int ci = s.cidx[slot];
+    const int ci = s.carry_index(slot);
     if (ci >= 0) {
       // only the columns stored: an earlier store of the slot at this
       // level may hold the others
@@ -520,46 +565,47 @@ struct ColumnReader {
 // The P values of source src (stack depth d before the op), its operand
 // words from pc on; advances pc past them.
 template <int P, class Reader, class Stk>
-__device__ __forceinline__ void read_source(const Shared& s, int src, int d,
+__device__ __forceinline__ void read_source(const Tables& s, int src, int d,
                                             int& pc, Reader& rd,
                                             const Stk& st,
                                             const float (&acc)[P],
                                             float (&out)[P]) {
-  const int* arg = s.prog + pc;
+  const int arg = pc;  // the operand words: prog_at(arg), ...
   if constexpr (Reader::kCarry) {  // K2's own sources
     if (src == SRC_CARRY) {
-      rd.carry(arg[0], arg[3], out);
+      rd.carry(prog_at(arg), prog_at(arg + 3), out);
       pc += 4;
       return;
     }
     if (src == SRC_AHEAD) {
-      rd.copied(arg[0], out);
+      rd.copied(prog_at(arg), out);
       pc += 1;
       return;
     }
   }
   switch (src) {
     case SRC_LOAD:
-      rd.load(arg[0], arg[1], arg[2], arg[3], out);
+      rd.load(prog_at(arg), prog_at(arg + 1), prog_at(arg + 2),
+              prog_at(arg + 3), out);
       pc += 4;
       break;
     case SRC_CONST: {
-      const float c = s.consts[arg[0]];
+      const float c = s.constant(prog_at(arg));
       UNROLL_P out[p] = c;
       pc += 1;
       break;
     }
     case SRC_PARAM: {
-      const float c = s.params[arg[0]];
+      const float c = s.param(prog_at(arg));
       UNROLL_P out[p] = c;
       pc += 1;
       break;
     }
     default:  // SRC_PICK: the top is acc, the entries below in memory
-      if (arg[0] == d - 1) {
+      if (prog_at(arg) == d - 1) {
         UNROLL_P out[p] = acc[p];
       } else {
-        UNROLL_P out[p] = st.at(arg[0], p);
+        UNROLL_P out[p] = st.at(prog_at(arg), p);
       }
       pc += 1;
   }
@@ -568,14 +614,14 @@ __device__ __forceinline__ void read_source(const Shared& s, int src, int d,
 // Interpret the ops [pc, end) of one record for the P points of ``rd``;
 // ``lvl`` holds the enclosing search's levels.
 template <int P, class Reader, class Stk>
-__device__ __forceinline__ void run_ops(const Shared& s, int pc,
+__device__ __forceinline__ void run_ops(const Tables& s, int pc,
                                         const int end, Reader& rd,
                                         const Stk& st, float (&acc)[P],
                                         int (&lvl)[P], const int klo,
                                         const int khi) {
   while (pc < end) {
-    const unsigned w = static_cast<unsigned>(s.prog[pc++]);
-    const int d = w & (OPW - 1), op = (w >> 5) & 63;
+    const unsigned w = static_cast<unsigned>(prog_at(pc++));
+    const int d = w & (OPW - 1), op = (w >> OP_SHIFT) & 63;
     const int src = (w >> SRC_SHIFT) & 7;
     float b[P];   // the source's values
     float a2[P];  // K2: a binary op's first operand, from src2
@@ -588,7 +634,7 @@ __device__ __forceinline__ void run_ops(const Shared& s, int pc,
       }
     }
     if (src != 0) read_source<P>(s, src, d, pc, rd, st, acc, b);
-    const int* arg = s.prog + pc;
+    const int arg = pc;  // the op's operand words
     if (op >= OP_ADD && op <= OP_RPOW) {
       float a[P];
       if (pair) {  // f(src2, src) is pushed
@@ -623,16 +669,18 @@ __device__ __forceinline__ void run_ops(const Shared& s, int pc,
         break;
       case OP_FLOAD:
         if (d > 0) { UNROLL_P st.at(d - 1, p) = acc[p]; }
-        rd.load_found(arg[0], arg[1], arg[2], arg[3], lvl, acc);
+        rd.load_found(prog_at(arg), prog_at(arg + 1), prog_at(arg + 2),
+                      prog_at(arg + 3), lvl, acc);
         pc += 4;
         break;
       case OP_SEARCH:
-        rd.search(arg[0], arg[1], arg[2], acc, lvl);
+        rd.search(prog_at(arg), prog_at(arg + 1), prog_at(arg + 2), acc,
+                  lvl);
         if (d >= 2) { UNROLL_P acc[p] = st.at(d - 2, p); }
         pc += 3;
         break;
       case OP_STORE:
-        rd.store(arg[0], acc, klo, khi);
+        rd.store(prog_at(arg), acc, klo, khi);
         if (d >= 2) { UNROLL_P acc[p] = st.at(d - 2, p); }
         pc += 1;
         break;
@@ -654,19 +702,24 @@ __device__ __forceinline__ void run_ops(const Shared& s, int pc,
   }
 }
 
-__device__ void stage(Shared& s, const LaunchArgs& a) {
-  for (int x = threadIdx.x; x < a.n_prog; x += blockDim.x) s.prog[x] = a.prog[x];
-  for (int x = threadIdx.x; x < a.n_consts; x += blockDim.x) s.consts[x] = a.consts[x];
-  for (int x = threadIdx.x; x < a.n_slots; x += blockDim.x) {
-    s.ptr[x] = a.ptr[x];
-    s.mstride[x] = a.mstride[x];
-    s.kext[x] = a.kext[x];
-    s.cidx[x] = a.cidx[x];
-  }
-  for (int x = threadIdx.x; x < a.n_params; x += blockDim.x) s.params[x] = a.params[x];
+// Copy the launch's tables into dynamic shared memory (Tables' layout):
+// the records and ops and the constants from device memory, the slot table
+// and the parameters from the kernel parameter.
+template <int kWords>
+__device__ __forceinline__ Tables stage(const LaunchArgs<kWords>& a) {
+  const LaunchHeader& h = a.h;
+  const Tables t(h);
+  int* prog = reinterpret_cast<int*>(dynamic_smem);
+  for (int x = threadIdx.x; x < h.n_prog; x += blockDim.x) prog[x] = h.prog[x];
+  unsigned long long* table =
+      reinterpret_cast<unsigned long long*>(dynamic_smem + t.ptr);
+  for (int x = threadIdx.x; x < t.param_words(); x += blockDim.x)
+    table[x] = a.table[x];
+  for (int x = threadIdx.x; x < h.n_consts; x += blockDim.x)
+    dynamic_smem[t.consts + x] = h.consts[x];
   __syncthreads();
+  return t;
 }
-
 
 // K1: a launch group of PARALLEL statements (replaces _horizontal_kernel).
 // One thread per (member chunk, tile, K span, j, i): it walks the span's
@@ -674,10 +727,11 @@ __device__ void stage(Shared& s, const LaunchArgs& a) {
 // in order, each masked by its box and levels.
 // At least 4 CTAs an SM: at most 128 registers a thread.  Left to its
 // own choice, ptxas gave the member instance 80 registers and spilled.
-template <bool kMembers, int P>
-__global__ void __launch_bounds__(K1_BLOCK, 4) stencil_parallel_kernel(LaunchArgs a) {
-  __shared__ Shared s;
-  stage(s, a);
+template <bool kMembers, int P, int kWords>
+__global__ void __launch_bounds__(K1_BLOCK, 4)
+    stencil_parallel_kernel(const __grid_constant__ LaunchArgs<kWords> args) {
+  const Tables s = stage(args);
+  const LaunchHeader& a = args.h;
   const long long ni = a.i1 - a.i0, nj = a.j1 - a.j0;
   const int nspan = (a.khi - a.klo + a.kspan - 1) / a.kspan;
   const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
@@ -690,9 +744,10 @@ __global__ void __launch_bounds__(K1_BLOCK, 4) stencil_parallel_kernel(LaunchArg
   const int chunk = kMembers ? static_cast<int>(g / a.ntile) : 0;
   const int kbeg = a.klo + span * a.kspan;
   const int kend = min(kbeg + a.kspan, a.khi);
-  const int n_rec = s.prog[0];
+  const int n_rec = prog_at(0);
   const int mchunk = kMembers ? a.mchunk : 1;
-  const Stack<P> st{dynamic_smem + threadIdx.x, static_cast<int>(blockDim.x)};
+  const Stack<P> st{dynamic_smem + s.words + threadIdx.x,
+                    static_cast<int>(blockDim.x)};
   float acc[P];
   int lvl[P];
 #pragma unroll
@@ -702,15 +757,17 @@ __global__ void __launch_bounds__(K1_BLOCK, 4) stencil_parallel_kernel(LaunchArg
     for (int k0 = kbeg; k0 < kend; k0 += P) {
       StripReader<kMembers, P> rd{s, m, t, j, i, k0, a.jp, a.ip};
       for (int q = 0; q < n_rec; ++q) {
-        const int* r = s.prog + 1 + REC_INTS * q;
+        const int r = 1 + REC_INTS * q;
         // the record's levels and box, read at once, tested without a
         // branch per bound
-        const int klo = r[1], khi = r[2], j0 = r[3], j1 = r[4], i0 = r[5],
-                  i1 = r[6];
+        const int klo = prog_at(r + 1), khi = prog_at(r + 2),
+                  j0 = prog_at(r + 3), j1 = prog_at(r + 4),
+                  i0 = prog_at(r + 5), i1 = prog_at(r + 6);
         if ((k0 + P <= klo) | (k0 >= khi) | (j < j0) | (j >= j1) | (i < i0) |
             (i >= i1))
           continue;
-        run_ops<P>(s, r[7], r[8], rd, st, acc, lvl, klo, khi);
+        run_ops<P>(s, prog_at(r + 7), prog_at(r + 8), rd, st, acc, lvl, klo,
+                   khi);
       }
     }
   }
@@ -743,10 +800,12 @@ __device__ __forceinline__ void copy_async(int dst, const float* src) {
 // carry zeroed at each member's first slab (the carry's entries of that
 // level zeroed and marked held, and the copies of the AHEAD keys at that
 // level zeroed; the encoder leaves no other read there).
-template <bool kMembers, int P, bool kBlocked>
-__device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
+template <bool kMembers, int P, bool kBlocked, int kWords>
+__device__ __forceinline__ void march_columns(
+    const LaunchArgs<kWords>& args) {
   static_assert(P <= 4, "K4 packs a record's columns in 4 bits");
-  stage(s, a);
+  const Tables s = stage(args);
+  const LaunchHeader& a = args.h;
   const int nthr = blockDim.x, tid = threadIdx.x;
   const long long ni = a.i1 - a.i0, njg = (a.j1 - a.j0 + P - 1) / P;
   const long long nchunk = kMembers ? a.nmember / a.mchunk : 1;
@@ -759,22 +818,23 @@ __device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
   int joff[P];  // row j + p's column, from row j's
 #pragma unroll
   for (int p = 0; p < P; ++p) joff[p] = (min(j + p, a.j1 - 1) - j) * a.ip;
-  const int n_stmts = s.prog[0];
+  const int n_stmts = prog_at(0);
   const int mchunk = kMembers ? a.mchunk : 1;
   const int nkey = (a.ahead_end - a.ahead_begin) / 4;
   const int n_steps = a.hi - a.lo;
   const int first = a.forward ? a.lo : a.hi - 1, dir = a.forward ? 1 : -1;
   const int G = kBlocked ? a.bk : 1;  // levels of a copy group
   const int n_groups = (n_steps + G - 1) / G;
-  // dynamic_smem: the stack [depth][P], the carry [carried][2][P], the
-  // copies [2][G][nkey][P], each [..][thread], then the column table
-  // [slot][thread] (pointers, 8-byte aligned: nthr is even)
-  const SharedStack<P> st{tid, nthr};
-  const int cv = a.depth * P * nthr + tid;
+  // dynamic_smem, after the tables: the stack [depth][P], the carry
+  // [carried][2][P], the copies [2][G][nkey][P], each [..][thread], then
+  // the column table [slot][thread] (pointers, 8-byte aligned: nthr is
+  // even)
+  const SharedStack<P> st{s.words + tid, nthr};
+  const int cv = s.words + a.depth * P * nthr + tid;
   const int copies = cv + 2 * a.n_carried * P * nthr;
   const int level_words = nkey * P * nthr;  // one level of copies
   float** table = reinterpret_cast<float**>(
-      dynamic_smem + (a.depth + 2 * a.n_carried) * P * nthr +
+      dynamic_smem + s.words + (a.depth + 2 * a.n_carried) * P * nthr +
       2 * G * level_words);
   for (int slot = 0; slot < a.n_slots; ++slot)
     table[slot * nthr + tid] = column<false>(s, slot, 0, t, a.jp, a.ip, j, i);
@@ -789,9 +849,10 @@ __device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
         const int k = first + dir * step;
         const int at = copies + (buf * G + step - s0) * level_words;
         for (int x = 0; x < nkey; ++x) {
-          const int* key = s.prog + a.ahead_begin + 4 * x;
-          const float* c = cell<kMembers>(s, cols, nthr, key[0], m, a.jp,
-                                          a.ip, key[1], key[2], k + key[3]);
+          const int key = a.ahead_begin + 4 * x;  // slot di dj dk
+          const float* c = cell<kMembers>(
+              s, cols, nthr, prog_at(key), m, a.jp, a.ip, prog_at(key + 1),
+              prog_at(key + 2), k + prog_at(key + 3));
 #pragma unroll
           for (int p = 0; p < P; ++p)
             copy_async(at + (x * P + p) * nthr, c + joff[p]);
@@ -828,7 +889,7 @@ __device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
 #pragma unroll
     for (int p = 0; p < P; ++p) rd.joff[p] = joff[p];
     for (int q = 0; q < n_stmts; ++q) {
-      const int* r = s.prog + 1 + REC_INTS * q;
+      const int r = 1 + REC_INTS * q;
       unsigned live = 0;
       if (q < 8 && ((sure >> q) & 1u)) {
         live = (lives >> (4 * q)) & 15u;
@@ -836,16 +897,19 @@ __device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
         if (q < 32 && ((skip >> q) & 1u)) continue;
         // the record's levels and box, read at once, tested without a
         // branch per bound
-        const int rk0 = r[1], rk1 = r[2], ri0 = r[5], ri1 = r[6];
+        const int rk0 = prog_at(r + 1), rk1 = prog_at(r + 2),
+                  ri0 = prog_at(r + 5), ri1 = prog_at(r + 6);
         if ((k < rk0) | (k >= rk1) | (i < ri0) | (i >= ri1)) continue;
+        const int rj0 = prog_at(r + 3), rj1 = prog_at(r + 4);
 #pragma unroll
         for (int p = 0; p < P; ++p)
-          live |= static_cast<unsigned>(j + p >= r[3] && j + p < r[4] &&
+          live |= static_cast<unsigned>(j + p >= rj0 && j + p < rj1 &&
                                         j + p < a.j1) << p;
         if (live == 0) continue;
       }
       rd.live = live;
-      run_ops<P>(s, r[7], r[8], rd, st, acc, lvl, r[1], r[2]);
+      run_ops<P>(s, prog_at(r + 7), prog_at(r + 8), rd, st, acc, lvl,
+                 prog_at(r + 1), prog_at(r + 2));
     }
     cur = rd.cur;
   };
@@ -883,7 +947,7 @@ __device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
       int ahead = copies + buf * G * level_words;
       if (s0 == 0) {  // the first level's keys a level up
         for (int x = 0; x < nkey; ++x) {
-          if (s.prog[a.ahead_begin + 4 * x + 3] == 0) continue;
+          if (prog_at(a.ahead_begin + 4 * x + 3) == 0) continue;
 #pragma unroll
           for (int p = 0; p < P; ++p)
             dynamic_smem[ahead + (x * P + p) * nthr] = 0.f;
@@ -896,9 +960,10 @@ __device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
       const int klo = min(ka, kb), khi = max(ka, kb) + 1;
       unsigned skip = 0, sure = 0, lives = 0;
       for (int q = 0; q < min(n_stmts, 32); ++q) {
-        const int* r = s.prog + 1 + REC_INTS * q;
-        const int rk0 = r[1], rk1 = r[2], rj0 = r[3], rj1 = r[4],
-                  ri0 = r[5], ri1 = r[6];
+        const int r = 1 + REC_INTS * q;
+        const int rk0 = prog_at(r + 1), rk1 = prog_at(r + 2),
+                  rj0 = prog_at(r + 3), rj1 = prog_at(r + 4),
+                  ri0 = prog_at(r + 5), ri1 = prog_at(r + 6);
         unsigned live = 0;
 #pragma unroll
         for (int p = 0; p < P; ++p)
@@ -920,127 +985,165 @@ __device__ __forceinline__ void march_columns(Shared& s, const LaunchArgs& a) {
 // K2: a FORWARD/BACKWARD computation (replaces _vertical_kernel).  At
 // least one CTA an SM in the launch bounds: left to its own choice, ptxas
 // gave the P = 4 instances under 100 registers and spilled.
-template <bool kMembers, int P>
-__global__ void __launch_bounds__(K2_BLOCK, 1) stencil_column_kernel(
-    LaunchArgs a) {
-  __shared__ Shared s;
-  march_columns<kMembers, P, false>(s, a);
+template <bool kMembers, int P, int kWords>
+__global__ void __launch_bounds__(K2_BLOCK, 1)
+    stencil_column_kernel(const __grid_constant__ LaunchArgs<kWords> a) {
+  march_columns<kMembers, P, false>(a);
 }
 
 // K4: a single-direction solver under a K-blocked schedule (replaces
 // _vertical_kernel_kblocked and _compile_kblocked): K2's march over the
 // interleaved statements, a slab of copies ahead.
-template <bool kMembers, int P>
-__global__ void __launch_bounds__(K2_BLOCK, 1) stencil_kblocked_kernel(
-    LaunchArgs a) {
-  __shared__ Shared s;
-  march_columns<kMembers, P, true>(s, a);
+template <bool kMembers, int P, int kWords>
+__global__ void __launch_bounds__(K2_BLOCK, 1)
+    stencil_kblocked_kernel(const __grid_constant__ LaunchArgs<kWords> a) {
+  march_columns<kMembers, P, true>(a);
 }
 
-// One launch of ``kernel`` with ``bytes`` of dynamic shared memory (above
-// the default 48 KB only after raising the kernel's cap).
-template <class Kernel>
+// One launch of ``kernel`` over ``n`` threads with ``bytes`` of dynamic
+// shared memory (above the default 48 KB only after raising the kernel's
+// cap), its parameter the header and the launch's table.
+template <int kWords, class Kernel>
 static int launch(Kernel kernel, long long n, int threads, size_t bytes,
-                  cudaStream_t st, const LaunchArgs* a) {
-  if (bytes > SMEM_MAX - sizeof(Shared))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes + sizeof(Shared) > 48 * 1024) {
+                  cudaStream_t st, const LaunchHeader* h, const void* table) {
+  if (bytes > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
+  LaunchArgs<kWords> a;
+  a.h = *h;
+  memcpy(a.table, table, Tables(*h).param_words() * sizeof(a.table[0]));
   const unsigned int blocks =
       static_cast<unsigned int>((n + threads - 1) / threads);
-  kernel<<<blocks, threads, bytes, st>>>(*a);
+  kernel<<<blocks, threads, bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
-static int launch_parallel(const LaunchArgs* a, long long n,
-                           cudaStream_t st) {
-  const size_t bytes = static_cast<size_t>(a->depth) * P * K1_BLOCK *
-                       sizeof(float);
-  return a->nmember > 1
-             ? launch(stencil_parallel_kernel<true, P>, n, K1_BLOCK, bytes,
-                      st, a)
-             : launch(stencil_parallel_kernel<false, P>, n, K1_BLOCK, bytes,
-                      st, a);
-}
-
-// K2 and K4: the stack, the carry and two groups of copies (G levels each:
-// K2 1, K4 a.bk) in shared memory, each [..][K2_COLS][thread], then the
-// column table
-template <bool kBlocked>
-static int launch_column(const LaunchArgs* a, cudaStream_t st) {
-  constexpr int P = K2_COLS;
-  const long long njg = (a->j1 - a->j0 + P - 1) / P;
-  const long long n = static_cast<long long>(a->nmember / a->mchunk) *
-                      a->ntile * njg * (a->i1 - a->i0);
-  const size_t G = kBlocked ? a->bk : 1;
+// K1: the tables, then the stack [depth][K1_STRIP][thread]
+template <int kWords>
+static int launch_parallel(const LaunchHeader* h, const void* table,
+                           long long n, cudaStream_t st) {
   const size_t bytes =
-      (static_cast<size_t>(a->depth + 2 * a->n_carried) +
-       2 * G * ((a->ahead_end - a->ahead_begin) / 4)) *
-          P * K2_BLOCK * sizeof(float) +
-      static_cast<size_t>(a->n_slots) * K2_BLOCK * sizeof(float*);
-  if (kBlocked)
-    return a->nmember > 1
-               ? launch(stencil_kblocked_kernel<true, P>, n, K2_BLOCK, bytes,
-                        st, a)
-               : launch(stencil_kblocked_kernel<false, P>, n, K2_BLOCK,
-                        bytes, st, a);
-  return a->nmember > 1
-             ? launch(stencil_column_kernel<true, P>, n, K2_BLOCK, bytes, st,
-                      a)
-             : launch(stencil_column_kernel<false, P>, n, K2_BLOCK, bytes,
-                      st, a);
+      (Tables(*h).words +
+       static_cast<size_t>(h->depth) * K1_STRIP * K1_BLOCK) *
+      sizeof(float);
+  return h->nmember > 1
+             ? launch<kWords>(stencil_parallel_kernel<true, K1_STRIP, kWords>,
+                              n, K1_BLOCK, bytes, st, h, table)
+             : launch<kWords>(stencil_parallel_kernel<false, K1_STRIP, kWords>,
+                              n, K1_BLOCK, bytes, st, h, table);
 }
 
-static bool column_args_ok(const LaunchArgs* a) {
-  return a->n_carried <= CARRY_MAX && a->ahead_begin <= a->ahead_end &&
-         a->ahead_end <= a->n_prog &&
-         a->ahead_end - a->ahead_begin <= 4 * AHEAD_MAX;
+// K2 and K4: the tables, the stack, the carry and two groups of copies (G
+// levels each: K2 1, K4 h.bk) in shared memory, each
+// [..][K2_COLS][thread], then the column table
+template <bool kBlocked, int kWords>
+static int launch_column(const LaunchHeader* h, const void* table,
+                         cudaStream_t st) {
+  constexpr int P = K2_COLS;
+  const long long njg = (h->j1 - h->j0 + P - 1) / P;
+  const long long n = static_cast<long long>(h->nmember / h->mchunk) *
+                      h->ntile * njg * (h->i1 - h->i0);
+  const size_t G = kBlocked ? h->bk : 1;
+  const size_t bytes =
+      (Tables(*h).words +
+       (static_cast<size_t>(h->depth + 2 * h->n_carried) +
+        2 * G * ((h->ahead_end - h->ahead_begin) / 4)) *
+           P * K2_BLOCK) *
+          sizeof(float) +
+      static_cast<size_t>(h->n_slots) * K2_BLOCK * sizeof(float*);
+  if (kBlocked)
+    return h->nmember > 1
+               ? launch<kWords>(stencil_kblocked_kernel<true, P, kWords>, n,
+                                K2_BLOCK, bytes, st, h, table)
+               : launch<kWords>(stencil_kblocked_kernel<false, P, kWords>, n,
+                                K2_BLOCK, bytes, st, h, table);
+  return h->nmember > 1
+             ? launch<kWords>(stencil_column_kernel<true, P, kWords>, n,
+                              K2_BLOCK, bytes, st, h, table)
+             : launch<kWords>(stencil_column_kernel<false, P, kWords>, n,
+                              K2_BLOCK, bytes, st, h, table);
+}
+
+// the instance whose kernel parameter holds the launch's table
+template <bool kBlocked>
+static int launch_column_sized(const LaunchHeader* h, const void* table,
+                               cudaStream_t st) {
+  const int words = Tables(*h).param_words();
+  if (words <= TABLE_SMALL)
+    return launch_column<kBlocked, TABLE_SMALL>(h, table, st);
+  if (words <= TABLE_LARGE)
+    return launch_column<kBlocked, TABLE_LARGE>(h, table, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+static bool column_args_ok(const LaunchHeader* h) {
+  return h->n_carried <= CARRY_MAX && h->ahead_begin <= h->ahead_end &&
+         h->ahead_end <= h->n_prog &&
+         h->ahead_end - h->ahead_begin <= 4 * AHEAD_MAX;
 }
 
 extern "C" {
 
-// Layout check for the ctypes mirror of LaunchArgs.
-int stencil_launch_args_size() { return static_cast<int>(sizeof(LaunchArgs)); }
+// Layout checks for the ctypes mirror of LaunchHeader and of Tables.
+int stencil_header_size() { return static_cast<int>(sizeof(LaunchHeader)); }
+
+int stencil_table_words(int n_prog, int n_slots, int n_params,
+                        int n_consts) {
+  LaunchHeader h{};
+  h.n_prog = n_prog;
+  h.n_slots = n_slots;
+  h.n_params = n_params;
+  h.n_consts = n_consts;
+  return Tables(h).words;
+}
 
 int stencil_limits(int* out) {
-  out[0] = MAX_SLOTS; out[1] = MAX_PARAMS; out[2] = PROG_MAX;
-  out[3] = CONST_MAX; out[4] = STACK_MAX; out[5] = REC_INTS;
-  out[6] = OPW; out[7] = K1_STRIP; out[8] = CARRY_MAX; out[9] = AHEAD_MAX;
-  out[10] = K2_COLS; out[11] = K2_BLOCK;
+  out[0] = REC_INTS; out[1] = OPW; out[2] = OP_SHIFT; out[3] = SRC_SHIFT;
+  out[4] = SRC2_SHIFT; out[5] = K1_STRIP; out[6] = K1_BLOCK;
+  out[7] = CARRY_MAX; out[8] = AHEAD_MAX; out[9] = K2_COLS;
+  out[10] = K2_BLOCK; out[11] = SMEM_MAX; out[12] = TABLE_SMALL;
+  out[13] = TABLE_LARGE;
   return 0;
 }
 
-static long long n_chunks(const LaunchArgs* a) {
-  return a->nmember / a->mchunk;
-}
-
+// Each launch takes the header and the table of slots and parameters
+// (Tables' layout from Tables::ptr on, Tables::param_words() 8-byte words).
 // A launch over more than one member takes the kernels' member axis (K5).
-int launch_stencil_parallel(const LaunchArgs* a, void* stream) {
-  if (a->kspan <= 0 || a->kspan % K1_STRIP != 0)
+int launch_stencil_parallel(const LaunchHeader* h, const void* table,
+                            void* stream) {
+  if (h->kspan <= 0 || h->kspan % K1_STRIP != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long nspan = (a->khi - a->klo + a->kspan - 1) / a->kspan;
-  const long long n = n_chunks(a) * a->ntile * nspan * (a->j1 - a->j0) *
-                      (a->i1 - a->i0);
+  const long long nspan = (h->khi - h->klo + h->kspan - 1) / h->kspan;
+  const long long n = static_cast<long long>(h->nmember / h->mchunk) *
+                      h->ntile * nspan * (h->j1 - h->j0) * (h->i1 - h->i0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_parallel<K1_STRIP>(a, n, st);
+  const int words = Tables(*h).param_words();
+  if (words <= TABLE_SMALL)
+    return launch_parallel<TABLE_SMALL>(h, table, n, st);
+  if (words <= TABLE_LARGE)
+    return launch_parallel<TABLE_LARGE>(h, table, n, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_stencil_column(const LaunchArgs* a, void* stream) {
-  if (!column_args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_column<false>(a, static_cast<cudaStream_t>(stream));
+int launch_stencil_column(const LaunchHeader* h, const void* table,
+                          void* stream) {
+  if (!column_args_ok(h)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_column_sized<false>(h, table,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // K4: bk, the levels of a copy group, is the slab or fewer (cuda.py's
 // copy_depth keeps two groups within the budget of four CTAs an SM).
-int launch_stencil_kblocked(const LaunchArgs* a, void* stream) {
-  if (!column_args_ok(a) || a->bk < 1)
+int launch_stencil_kblocked(const LaunchHeader* h, const void* table,
+                            void* stream) {
+  if (!column_args_ok(h) || h->bk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_column<true>(a, static_cast<cudaStream_t>(stream));
+  return launch_column_sized<true>(h, table,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 const char* stencil_error_string(int code) {

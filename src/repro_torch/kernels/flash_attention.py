@@ -92,12 +92,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     check_card_inputs(q, k, v)
     o = torch.empty_like(q)
-    lib = library.load_lm_library()
-    with torch.cuda.device(q.device):
-        rc = lib.launch_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            library.LM_DTYPES[q.dtype], B, S, H, KVH, D, float(softcap),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    library.check_launch(lib.lm_error_string, rc, "flash_attention")
-    library.LAUNCHES["flash_attention"] += 1
+    lib = library.LM or library.load_lm_library()
+    library.launch("flash_attention", lib.launch_flash_attention,
+                   lib.lm_error_string, q.get_device(), q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   library.LM_DTYPES[q.dtype], B, S, H, KVH, D,
+                   float(softcap))
     return o

@@ -41,11 +41,8 @@ def fvt_flux(q: torch.Tensor, cx: torch.Tensor, *, halo: int) -> torch.Tensor:
         raise ValueError("fvt_flux takes contiguous tensors")
     nk, jp, ip = q.shape
     fx = torch.empty_like(q)
-    lib = library.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.launch_fvt_flux(q.data_ptr(), cx.data_ptr(), fx.data_ptr(),
-                                 nk, jp, ip, halo, stream)
-    library.check_launch(lib.fv3_error_string, rc, "fvt_flux")
-    library.LAUNCHES["fvt_flux"] += 1
+    lib = library.FV3 or library.load_library()
+    library.launch("fvt_flux", lib.launch_fvt_flux, lib.fv3_error_string,
+                   q.get_device(), q.data_ptr(), cx.data_ptr(), fx.data_ptr(),
+                   nk, jp, ip, halo)
     return fx

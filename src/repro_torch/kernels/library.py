@@ -24,8 +24,10 @@ LAUNCHES = {"tridiag": 0, "fvt_flux": 0, "flash_attention": 0, "rmsnorm": 0,
 #: dtype codes of the LM kernels' C interface
 LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_LIB: ctypes.CDLL | None = None
-_LM_LIB: ctypes.CDLL | None = None
+#: the bound libraries, loaded at first use (:func:`load_library`,
+#: :func:`load_lm_library`) and kept for every later call
+FV3: ctypes.CDLL | None = None
+LM: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
@@ -50,15 +52,18 @@ def bind_library(path) -> ctypes.CDLL:
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the library."""
-    global _LIB
-    if _LIB is None:
-        _LIB = bind_library(build_library("fv3_kernels"))
-    return _LIB
+    global FV3
+    if FV3 is None:
+        FV3 = bind_library(build_library("fv3_kernels"))
+    return FV3
 
 
 def bind_lm_library(path) -> ctypes.CDLL:
-    """Load a build of ``lm_kernels.cu`` and declare its C interface."""
-    lib = ctypes.CDLL(str(path))
+    """Load a build of ``lm_kernels.cu`` and declare its C interface.  Its
+    entries only enqueue work and return within microseconds, so they keep
+    the interpreter lock (``ctypes.PyDLL``): releasing it and taking it back
+    is a part of a decode step's K9 call worth saving."""
+    lib = ctypes.PyDLL(str(path))
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.launch_flash_attention.argtypes = [ptr] * 4 + [i32] * 6 + [f32, ptr]
@@ -77,16 +82,35 @@ def bind_lm_library(path) -> ctypes.CDLL:
 
 def load_lm_library() -> ctypes.CDLL:
     """Build (at first use) and load the LM kernels' library."""
-    global _LM_LIB
-    if _LM_LIB is None:
-        _LM_LIB = bind_lm_library(build_library("lm_kernels"))
-    return _LM_LIB
+    global LM
+    if LM is None:
+        LM = bind_lm_library(build_library("lm_kernels"))
+    return LM
 
 
-def check_launch(describe, rc: int, what: str) -> None:
-    """Raise if a launch was refused (the C function returns
-    ``cudaGetLastError()``); ``describe`` is the library's error-string
-    function."""
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
+def launch(name: str | None, fn, describe, device: int, *args) -> None:
+    """Call a C launch entry, ``fn(*args, stream)``: ``stream`` is the
+    caller's current stream of CUDA device ``device`` as a raw pointer, and
+    the call runs with that device current, switched (and switched back)
+    only where it is not.  A nonzero return is a refused launch (the C
+    function returns ``cudaGetLastError()``; ``describe`` is its library's
+    error-string function) and raises; else ``LAUNCHES[name]`` counts the
+    launch.  ``name`` None: ``fn`` makes several launches and checks and
+    counts them itself (a stencil's, ``CudaStencil.launch``).
+
+    Both reads go through torch's private entries, the ones that
+    ``torch.cuda.current_device`` and ``torch.cuda.current_stream`` call
+    (``torch._C._cuda_getDevice``, ``torch._C._cuda_getCurrentRawStream``),
+    without their Python layers or a ``torch.cuda.Stream`` object: a
+    kernel of a few microseconds pays for those on every call
+    (``tests/test_torch_cuda.py`` launches the kernels on a stream of
+    their own)."""
+    if torch._C._cuda_getDevice() != device:
+        with torch.cuda.device(device):
+            return launch(name, fn, describe, device, *args)
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: "
                            f"{describe(rc).decode()}")
+    if name is not None:
+        LAUNCHES[name] += 1

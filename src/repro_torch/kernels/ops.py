@@ -61,10 +61,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
             backend: str = "cuda") -> torch.Tensor:
     """``(1 + w)`` RMSNorm over the last axis, in float32 (K9)."""
+    if backend == "cuda":  # first: a decode step makes hundreds of calls
+        return _rmsnorm_kernel(x, w, eps=eps)
     _check(backend)
-    if backend == "ref":
-        return ref.rmsnorm_ref(x, w, eps=eps)
-    return _rmsnorm_kernel(x, w, eps=eps)
+    return ref.rmsnorm_ref(x, w, eps=eps)
 
 
 def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
@@ -72,10 +72,10 @@ def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
                      backend: str = "cuda"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused ``x + residual`` then RMSNorm (K9): (normed, new residual)."""
+    if backend == "cuda":
+        return _rmsnorm_residual_kernel(x, residual, w, eps=eps)
     _check(backend)
-    if backend == "ref":
-        return ref.rmsnorm_residual_ref(x, residual, w, eps=eps)
-    return _rmsnorm_residual_kernel(x, residual, w, eps=eps)
+    return ref.rmsnorm_residual_ref(x, residual, w, eps=eps)
 
 
 def ssm_state_scan(states: torch.Tensor, decay: torch.Tensor, *,

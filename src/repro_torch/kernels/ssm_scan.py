@@ -41,12 +41,9 @@ def ssm_state_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
         raise ValueError("ssm_state_scan takes contiguous tensors")
     nc, B, H, N, P = states.shape
     out = torch.empty_like(states)
-    lib = library.load_lm_library()
-    with torch.cuda.device(states.device):
-        rc = lib.launch_ssm_state_scan(
-            states.data_ptr(), decay.data_ptr(), out.data_ptr(), nc,
-            B * H * N * P, B * H, N * P,
-            torch.cuda.current_stream(states.device).cuda_stream)
-    library.check_launch(lib.lm_error_string, rc, "ssm_state_scan")
-    library.LAUNCHES["ssm_state_scan"] += 1
+    lib = library.LM or library.load_lm_library()
+    library.launch("ssm_state_scan", lib.launch_ssm_state_scan,
+                   lib.lm_error_string, states.get_device(),
+                   states.data_ptr(), decay.data_ptr(), out.data_ptr(), nc,
+                   B * H * N * P, B * H, N * P)
     return out

@@ -59,14 +59,11 @@ def tridiag(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     # cp of the levels past the on-chip plan (none at the model's depths)
     cpg = (torch.empty((nk - levels, nj, ni), dtype=a.dtype, device=a.device)
            if levels < nk else None)
-    lib = library.load_library()
+    lib = library.FV3 or library.load_library()
     fn = (lib.launch_tridiag_f32 if a.dtype == torch.float32
           else lib.launch_tridiag_f64)
-    with torch.cuda.device(a.device):
-        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
-                x.data_ptr(), None if cpg is None else cpg.data_ptr(), nk,
-                nj * ni, levels,
-                torch.cuda.current_stream(a.device).cuda_stream)
-    library.check_launch(lib.fv3_error_string, rc, "tridiag")
-    library.LAUNCHES["tridiag"] += 1
+    library.launch("tridiag", fn, lib.fv3_error_string, a.get_device(),
+                   a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                   x.data_ptr(), None if cpg is None else cpg.data_ptr(), nk,
+                   nj * ni, levels)
     return x

@@ -177,7 +177,7 @@ class _StreamEvaluator:
         while pc < end:
             word = prog[pc]
             src2, src = word >> C.SRC2_SHIFT, (word >> C.SRC_SHIFT) & 7
-            op, depth = (word >> 5) & 63, word & 31
+            op, depth = (word >> C.OP_SHIFT) & 63, word & (C.OPW - 1)
             pc += 1
             assert depth == len(stk), (op, depth, len(stk))
             if src2:  # K2: a binary op's first operand, its words first
@@ -298,7 +298,7 @@ class _StreamEvaluator:
         if p.kind == "horizontal":
             self.records(p, torch.arange(p.klo, p.khi), p.box, [])
         else:
-            self.columns(p, C.COLUMNS, C.copy_depth(p, len(self.slots))
+            self.columns(p, C.COLUMNS, C.copy_depth(p)
                          if self.blocked else 1)
 
 
@@ -394,9 +394,10 @@ def test_launch_plan_of_the_fv3_stencils():
     assert kinds == {"column"}
     (search,) = C.CudaStencil(TS.interface_interp, DOM).programs
     assert search.kind == "horizontal" and search.has_search
+    # every FV3 stack is as shallow as the fixed stack of 16 entries was
     assert max(p.stack for name in NAMES
                for p in C.CudaStencil(getattr(TS, name), DOM).programs) \
-        <= C.STACK_MAX
+        <= 16
 
 
 def test_fv3_solvers_have_independent_columns():
@@ -434,11 +435,13 @@ def test_encoder_refuses_races_deep_stacks_and_far_reads():
     with pytest.raises(NotImplementedError, match="horizontal"):
         C.encode_stencil(col, DOM)
     e = q
-    for _ in range(C.STACK_MAX // 2):  # each where's else-branch: 2 deeper
+    # each where's else-branch: 2 deeper; past the stack a K1 CTA's shared
+    # memory holds (4 * STRIP * K1_BLOCK bytes an entry)
+    for _ in range(C.SMEM_MAX // (4 * C.STRIP * C.K1_BLOCK) // 2 + 1):
         e = ir.Where(q, q, e)
     deep = _stencil([Computation(ir.PARALLEL, (Assign("out", e),))],
                     ("q", "out"))
-    with pytest.raises(ValueError, match="stack"):
+    with pytest.raises(ValueError, match="stack of .* 227 KB of shared"):
         C.encode_stencil(deep, DOM)
     far = _stencil([Computation(ir.PARALLEL, (
         Assign("out", FieldAccess("q", (DOM.halo, 0, 0))),))], ("q", "out"))
@@ -473,6 +476,125 @@ def test_wrapper_checks_its_inputs():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+
+
+# -- stencils past the encoder's old fixed tables: test_torch_tables.py reads
+# them on the CPU against the reference, and they run on the card here ----
+
+TABLE_DOM = {"ni": 6, "nj": 5, "nk": 16, "halo": 2}
+TABLE_BLOCKED = {"block_k": 4, "k_as_grid": False}
+TABLE_OFFSETS = [(di, dj, 0) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
+
+
+def _sum(terms):
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    return total
+
+
+def _table_stencil(S, name, stmts, fields, direction=None, params=()):
+    written = tuple(dict.fromkeys(s.target for s in stmts
+                                  if s.target in fields))
+    comp = S.Computation(direction or S.PARALLEL, tuple(stmts))
+    return S.Stencil(name, (comp,), tuple(fields), written, tuple(params))
+
+
+def _seventy_fields(S):
+    """A FORWARD march over 69 inputs: 70 slots (K2's column table alone
+    takes 70 KB of shared memory)."""
+    qs = [f"q{n}" for n in range(69)]
+    sums = _sum([S.FieldAccess(q) for q in qs])
+    return _table_stencil(S, "seventy_fields", [
+        S.Assign("x", S.FieldAccess("q0"), S.interval(0, 1)),
+        S.Assign("x", S.FieldAccess("x", (0, 0, -1)) + sums * 0.01,
+                 S.interval(1, None)),
+    ], qs + ["x"], direction=S.FORWARD)
+
+
+def _hundred_fields(S):
+    """99 inputs and an output on K1: a field table past the kernels'
+    small kernel parameter (TABLE_SMALL words), so the large instance."""
+    qs = [f"q{n}" for n in range(99)]
+    return _table_stencil(S, "hundred_fields", [
+        S.Assign("out", _sum([S.FieldAccess(q) for q in qs]))],
+        qs + ["out"])
+
+
+def _twenty_params(S):
+    ps = [f"p{n}" for n in range(20)]
+    qs = ("a", "b", "c")
+    terms = [S.ParamRef(p) * S.FieldAccess(qs[n % 3])
+             for n, p in enumerate(ps)]
+    return _table_stencil(S, "twenty_params",
+                          [S.Assign("out", _sum(terms))],
+                          list(qs) + ["out"], params=ps)
+
+
+def _long_program(S):
+    """One statement of 260 reads at offsets: ~1300 op words."""
+    terms = [S.FieldAccess(("a", "b", "c")[n % 3], TABLE_OFFSETS[n % 9])
+             for n in range(260)]
+    return _table_stencil(S, "long_program",
+                          [S.Assign("out", _sum(terms))],
+                          ["a", "b", "c", "out"])
+
+
+def _many_constants(S):
+    """300 distinct constants in one statement."""
+    terms = [S.FieldAccess(("a", "b")[n % 2]) * ((n + 1) / 4096.0)
+             for n in range(300)]
+    return _table_stencil(S, "many_constants",
+                          [S.Assign("out", _sum(terms))], ["a", "b", "out"])
+
+
+def _deep_stack(S):
+    """Nested wheres, each else-branch two entries deeper: a stack of ~41,
+    past the 16 entries of the fixed stack and the 31 of the old op word."""
+    e = S.FieldAccess("a")
+    for n in range(20):
+        e = S.Where(S.FieldAccess("c") > (0.5 + n / 20.0),
+                    S.FieldAccess("b") * float(n), e)
+    return _table_stencil(S, "deep_stack", [S.Assign("out", e)],
+                          ["a", "b", "c", "out"])
+
+
+def _split_group(S):
+    """A temporary defined first and read last, around 40 statements whose
+    program passes K1_PROGRAM_BYTES: the group is cut, and the temporary
+    (kept on the stack in one launch) is stored across the cut."""
+    ins = ["a", "b", "c", "d", "e", "f"]
+    outs = [f"o{n}" for n in range(40)]
+    stmts = [S.Assign("tmp", S.FieldAccess("a") * S.FieldAccess("b"))]
+    for n, o in enumerate(outs):
+        stmts.append(S.Assign(o, _sum([
+            S.FieldAccess(f, TABLE_OFFSETS[(n + m) % 9])
+            for m, f in enumerate(ins)])))
+    stmts.append(S.Assign("last", S.FieldAccess("tmp") + S.FieldAccess("c")))
+    return _table_stencil(S, "split_group", stmts, ins + outs + ["last"])
+
+
+def _k4_past_tables(S):
+    """A K-blocked FORWARD march with AHEAD_MAX + 1 inputs read at the
+    marching-previous level: K4 refuses it, K2 marches it."""
+    qs = [f"q{n}" for n in range(C.AHEAD_MAX + 1)]
+    total = S.FieldAccess("x", (0, 0, -1))
+    for q in qs:
+        total = total + S.FieldAccess(q) + S.FieldAccess(q, (0, 0, -1))
+    return _table_stencil(S, "k4_past_tables", [
+        S.Assign("x", S.FieldAccess("q0"), S.interval(0, 1)),
+        S.Assign("x", total * 0.25, S.interval(1, None))],
+        qs + ["x"], direction=S.FORWARD)
+
+
+TABLE_CASES = {"70 fields": _seventy_fields,
+         "100 fields": _hundred_fields,
+         "20 parameters": _twenty_params,
+         "1024 op words": _long_program,
+         "256 constants": _many_constants,
+         "stack of 16": _deep_stack,
+         "K1 group split": _split_group,
+         "K4 tables": _k4_past_tables}
 
 
 @pytest.fixture
@@ -827,7 +949,7 @@ def test_kblocked_kernel_on_ragged_windows_on_card(card, dom, bk, name,
                         member_chunk=mchunk)
     assert [p.kind for p in run.programs] == ["kblocked"]
     (p,) = run.programs
-    assert C.copy_depth(p, len(run.slot_names)) == (
+    assert C.copy_depth(p) == (
         1 if name == "many_inputs" else C.KB_DEPTH_MAX)
     lead = (3,) if M is None else (M, 3)
     fields, params = _inputs(run.stencil, dom, seed=bk, lead=lead)
@@ -1077,6 +1199,91 @@ def test_rmsnorm_kernels_match_plain_version_on_card(card, rows, d, dtype,
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     torch.testing.assert_close(n, n_want, rtol=tol, atol=tol)
     assert torch.equal(s, s_want)  # one rounding of an f32 sum
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 4096])
+@pytest.mark.parametrize("d", [12, 3584, 4096, 7168, 8192])
+@pytest.mark.parametrize("dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_rmsnorm_instances_match_plain_version_on_card(card, rows, d, dtype,
+                                                       w_dtype):
+    """K9's two instances: the row held in registers at the models' widths
+    (3584, 4096, 7168), the general one at 12 and at 8192, past them; both
+    forms, at a decode step's rows, one row and a prefill's."""
+    gen = torch.Generator(device=card).manual_seed(rows * 3 + d)
+    x, r = (torch.randn((rows, d), generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    w = (0.1 * torch.randn(d, generator=gen, device=card)).to(w_dtype)
+    KL.reset_launches()
+    got = KO.rmsnorm(x, w)
+    n, s = KO.rmsnorm_residual(x, r, w)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["rmsnorm"] == 1 == KL.LAUNCHES["rmsnorm_residual"]
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got, KR.rmsnorm_ref(x, w), rtol=tol, atol=tol)
+    n_want, s_want = KR.rmsnorm_residual_ref(x, r, w)
+    torch.testing.assert_close(n, n_want, rtol=tol, atol=tol)
+    assert torch.equal(s, s_want)  # one rounding of an f32 sum
+
+
+@pytest.mark.cuda
+def test_lm_kernels_run_on_the_callers_stream_on_card(card):
+    """K9 and K10 launched inside ``torch.cuda.stream(s)`` run on ``s``:
+    each reads a tensor that ``s`` writes just before it, behind a delay on
+    ``s``, and the results are read after ``s.synchronize()`` only (on
+    another stream the kernels would read the tensors unwritten)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    x0 = torch.randn((8, 4096), generator=gen, device=card,
+                     dtype=torch.bfloat16)
+    r0 = torch.randn((8, 4096), generator=gen, device=card,
+                     dtype=torch.bfloat16)
+    w = 0.1 * torch.randn(4096, generator=gen, device=card)
+    states0 = torch.randn((4, 2, 8, 16, 16), generator=gen, device=card)
+    decay = torch.rand((4, 2, 8), generator=gen, device=card)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=card)
+    KL.reset_launches()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)  # ~50 ms of the card's clock on s
+        x, r, states = x0 * 2, r0 + 1, states0 * 3
+        got = KO.rmsnorm(x, w)
+        n, s = KO.rmsnorm_residual(x, r, w)
+        scan = KO.ssm_state_scan(states, decay)
+    side.synchronize()
+    assert KL.LAUNCHES["rmsnorm"] == KL.LAUNCHES["rmsnorm_residual"] == 1
+    assert KL.LAUNCHES["ssm_state_scan"] == 1
+    torch.testing.assert_close(got, KR.rmsnorm_ref(x0 * 2, w), rtol=1e-2,
+                               atol=1e-2)
+    n_want, s_want = KR.rmsnorm_residual_ref(x0 * 2, r0 + 1, w)
+    torch.testing.assert_close(n, n_want, rtol=1e-2, atol=1e-2)
+    assert torch.equal(s, s_want)
+    assert torch.equal(scan, KR.ssm_state_scan_ref(states0 * 3, decay))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_stencils_past_the_old_tables_on_card(card, case):
+    """The stencils past the encoder's old fixed tables (``TABLE_CASES``)
+    run on the card exactly as their plain version computes them."""
+    from repro_torch.core import stencil as S
+
+    dom = S.DomainSpec(**TABLE_DOM)
+    st = TABLE_CASES[case](S)
+    blocked = case == "K4 tables"
+    run = C.CudaStencil(st, dom, schedule=S.Schedule(**TABLE_BLOCKED)
+                        if blocked else None)
+    assert run.kblocked_refused == blocked
+    fields, params = _inputs(run.stencil, dom, seed=len(case), lead=(3,))
+    fields = {k: v.to(card) for k, v in fields.items()}
+    before = sum(C.LAUNCHES.values())
+    got = run(fields, params)
+    want = run.plain(fields, params)
+    torch.cuda.synchronize()
+    assert sum(C.LAUNCHES.values()) > before
+    for w in run.written:
+        assert (got[w] - want[w]).abs().max().item() == 0.0, (case, w)
 
 
 @pytest.mark.cuda

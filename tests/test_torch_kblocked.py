@@ -390,10 +390,12 @@ def test_kblocked_copy_depth_is_the_slab_within_its_bounds():
         run = C.CudaStencil(st, dom, schedule=Schedule(block_k=bk,
                                                        k_as_grid=False))
         (p,) = run.programs
-        got = C.copy_depth(p, len(run.slot_names))
+        got = C.copy_depth(p)
         used = ((max(1, p.stack) + 2 * len(p.carried)
                  + 2 * got * len(p.ahead_keys())) * level
-                + len(run.slot_names) * C.COLUMN_BLOCK * 8)
+                + len(run.slot_names) * C.COLUMN_BLOCK * 8
+                + p.table_bytes())
+        assert used == p.smem_bytes(got)
         assert got == 1 or used <= C.KB_SMEM_BUDGET
         return got
 
@@ -414,8 +416,9 @@ def test_kblocked_copy_depth_is_the_slab_within_its_bounds():
 def test_kblocked_refuses_a_previous_level_it_cannot_zero():
     """At the first level K4 reads 0 at the marching-previous level through
     the carry and the copies ahead only, so every such read must be one of
-    them: the copies take those keys first, and a stencil with more of
-    them than the table holds is refused."""
+    them: the copies take those keys first, and K4 refuses a stencil with
+    more of them than the table holds, which then marches whole-column on
+    K2 (its one computation, one launch)."""
     dom = DomainSpec(ni=5, nj=4, nk=16, halo=2)
     blocked = Schedule(block_k=4, k_as_grid=False)
 
@@ -427,10 +430,15 @@ def test_kblocked_refuses_a_previous_level_it_cannot_zero():
         return Stencil("many", (Computation(ir.FORWARD, (
             Assign("x", total),)),), inputs + ("x",), ("x",))
 
-    (p,) = C.CudaStencil(march(C.AHEAD_MAX), dom, schedule=blocked).programs
+    run = C.CudaStencil(march(C.AHEAD_MAX), dom, schedule=blocked)
+    (p,) = run.programs
+    assert p.kind == "kblocked" and not run.kblocked_refused
     assert all(key[3] == -1 for key in p.ahead_keys())  # a level up first
-    with pytest.raises(NotImplementedError, match="marching-previous"):
-        C.CudaStencil(march(C.AHEAD_MAX + 1), dom, schedule=blocked)
+    with pytest.raises(C.KBlockedTablesFull, match="marching-previous"):
+        C.Encoder(march(C.AHEAD_MAX + 1), dom).kblocked(blocked.block_k)
+    run = C.CudaStencil(march(C.AHEAD_MAX + 1), dom, schedule=blocked)
+    assert [p.kind for p in run.programs] == ["column"]
+    assert run.kblocked_refused
 
 
 
