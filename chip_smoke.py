@@ -68,6 +68,26 @@
    step 1 must equal the default step's exactly over the interior; then one
    M = 4 ``"grid"`` ensemble step at opt 3 on ``"tpu-v5e"``, which must
    equal 4 single opt-3 steps exactly (K4's carry reset per member).
+   Distributed phase (``[distributed]`` lines, its own wall time):
+   ``make_step_distributed`` at C192 L80, layout (2, 2) — 24 ranks of
+   96 x 96 held by this process on one leading axis, opt 3, the H100
+   preset, ``overlap=True`` (the interiors beside the exchange on a second
+   stream) — takes 3 steps from ``blocks_from_global`` of the path phase's
+   state; step 1 must equal the opt-3 sequential step 1 within 1e-5 over
+   the interior, and exactly away from the tiles' corners (a cube
+   corner's diagonal ghost cell carries what a program wrote into the
+   ghost ring: ``corner_split``).  Prints the step time, launches of K1-K4
+   and exchange passes per step, peak memory, mass drift and a traced step
+   (device time by kernel, the ``halo_exchange`` range's device time, the
+   idle share).  Then opt 4 against opt 3 without overlap (one step each,
+   ``delpc_exchange_skipped`` as the cost model decides it; exactly equal
+   away from the tiles' corners, within 1e-5 near them); the exchanger
+   alone on every state field, exactly ``exchange_reference`` on the
+   global tensors, timed; the split runners of c_sw, d_sw and tracer_2d
+   (their strips are 6-wide domains) on the kernels against the plain
+   lowering; and ``n_members=2`` on a (2, 6, 1, 1) mesh, overlapped
+   (each member within 1e-5 of the sequential step on its state, exactly
+   away from the tiles' corners) and with the exchange first (exactly).
 8. LM kernel phase, at the serving shapes: K8 ``flash_attention`` at
    Granite-8B's B=8, S=2048, H=32, KVH=8, D=128 and Zamba2-7B's H=KVH=32,
    D=112 (softcap 0 and 50), K9 ``rmsnorm`` and ``rmsnorm_residual`` at
@@ -804,8 +824,8 @@ def interior(x, cfg):
 
 def trace_step(step, state, step_ms: float,
                untraced: str = "median of steps 2-3",
-               groups: tuple = (), split_out: dict | None = None
-               ) -> float | None:
+               groups: tuple = (), split_out: dict | None = None,
+               ranges: tuple = ()) -> float | None:
     """One more step under ``torch.profiler``: device time by kernel, and the
     device's idle share of an untraced step.  The profiler's host cost
     lengthens the traced step's wall time, so the share is taken against
@@ -814,7 +834,9 @@ def trace_step(step, state, step_ms: float,
     the traced step's.  ``groups`` of (label, name fragments) also sum the
     device time of the kernels whose names hold a fragment, the first group
     that matches taking a kernel, the rest under "other"; ``split_out``
-    receives them, label -> (ms, launches)."""
+    receives them, label -> (ms, launches).  ``ranges`` names
+    ``record_function`` ranges whose kernels' device time is printed (and
+    put in ``split_out``) too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -826,9 +848,22 @@ def trace_step(step, state, step_ms: float,
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
+        on_device = getattr(e, "device_type", None) == DeviceType.CUDA
+        if e.key in ranges:
+            # the host-side range sums its kernels' device time; its
+            # device-side twin spans them and is no kernel of its own
+            if not on_device:
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = getattr(e, "cuda_time_total", 0)
+                print(f"[trace] range {e.key}: {us / 1e3:.3f} ms of device "
+                      f"time in {e.count} calls")
+                if split_out is not None:
+                    split_out[e.key] = (us / 1e3, e.count)
+            continue
         # device-side events only (kernels, copies, fills): the CPU op that
         # launched a kernel carries the same device time again
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        if not on_device:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1223,6 +1258,8 @@ def opt3_phase(device, path: dict, work: dict) -> dict:
         out[hw] = {"launches": launches, "step_ms": step_ms, "peak": peak}
         del s1, step
         torch.cuda.empty_cache()
+    # the distributed phase holds its step 1 against this one
+    out["s1"] = s1_default
     del s1_default
     # the member axis on the opt-3 path: K4's carry resets per member
     M = 4
@@ -1266,6 +1303,326 @@ def opt3_phase(device, path: dict, work: dict) -> dict:
     out["ensemble"] = {"launches": launches, "step_ms": ens_ms,
                        "peak": peak}
     return out
+
+
+# the distributed phase: C192 L80 over a (6, 2, 2) rank mesh, 24 ranks of
+# 96 x 96 held by this process; and the member axis at layout (1, 1)
+DIST_LAYOUT = (2, 2)
+DIST_MEMBERS = 2
+DIST_KERNELS = (("K1", ("stencil_parallel_kernel",)),
+                ("K2", ("stencil_column_kernel",)),
+                ("K4", ("stencil_kblocked_kernel",)))
+
+
+def distributed_phase(device, s0: dict, seq1: dict) -> dict:
+    """The distributed step on the card: 3 overlapped opt-3 steps (step 1
+    against ``seq1``, the opt-3 sequential step 1 from ``s0``), a traced
+    step, opt 4 against opt 3 without overlap, the exchanger alone against
+    ``exchange_reference``, the split runners' strips on the kernels against
+    the plain lowering, and the member axis."""
+    import torch
+
+    from repro_torch.core.backend import cuda as C
+    from repro_torch.fv3 import dyncore as D
+    from repro_torch.fv3 import halo as H
+    from repro_torch.fv3 import state as S
+    from repro_torch.fv3.mesh import make_mesh
+    from repro_torch.fv3.overlap import make_overlapped_runner
+
+    t_phase = time.perf_counter()
+    cfg = D.FV3Config(layout=DIST_LAYOUT, **C192_L80)
+    py, px = DIST_LAYOUT
+    mesh = make_mesh((6, py, px), ("tile", "y", "x"))
+    m0 = S.total_mass(s0, cfg)
+    t = time.perf_counter()
+    step = D.make_step_distributed(cfg, mesh, device=device)
+    blocks = S.blocks_from_global(s0, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    if not step.overlapped:
+        raise RuntimeError("the C192 L80 layout (2, 2) step did not overlap")
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_launches()
+    ex0 = step.counters["exchanges"]
+    st, times, b1 = blocks, [], None
+    for i in range(3):
+        t = time.perf_counter()
+        st = step(st)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if i == 0:
+            b1 = st
+    launches = dict(C.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    exchanges = (step.counters["exchanges"] - ex0) / 3
+    g3 = S.global_from_blocks(st, cfg)
+    for k, v in g3.items():
+        if not torch.isfinite(interior(v, cfg)).all():
+            raise RuntimeError(f"distributed step: {k} non-finite")
+    drift = (S.total_mass(g3, cfg) - m0) / m0
+    del st, g3
+    g1 = S.global_from_blocks(b1, cfg)
+    cells, away = corner_split(g1, seq1, global_corners(cfg, device), cfg)
+    errs = {k: v["err"] for k, v in cells.items()}
+    del g1
+    step_ms = 1e3 * statistics.median(times[1:])
+    per_step = {k: v / 3 for k, v in launches.items()}
+    print(f"[distributed] C192 L80 layout {DIST_LAYOUT}: {mesh.size} ranks of "
+          f"{cfg.n_local} x {cfg.n_local} in one process, opt 3 (h100), "
+          f"overlapped {step.overlapped}, {step.n_kernels} stencil nodes, "
+          f"setup {setup_s:.2f} s", flush=True)
+    print(f"[distributed] step ms {[round(1e3 * x, 3) for x in times]} -> "
+          f"median of steps 2-3 = {step_ms:.3f} ms; launches per step "
+          f"{per_step}; exchange passes per step {exchanges:g}")
+    worst = max(cells, key=lambda k: cells[k]["err"])
+    print(f"[distributed] step 1 vs the sequential opt-3 step 1, interior "
+          "max abs err per field: "
+          + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f"; tol {STEP_ATOL:g}; worst field {worst} "
+          f"{describe_cell(cells[worst])}; away from the tiles' corners "
+          f"{max(away.values()):.3e} (must be 0)")
+    print(f"[distributed] peak device memory {peak / 2**30:.3f} GiB; total "
+          f"mass drift over 3 steps {drift:.3e} (tol {MASS_RTOL:g})",
+          flush=True)
+    if max(errs.values()) >= STEP_ATOL or max(away.values()) != 0.0:
+        raise RuntimeError(f"the distributed step disagrees with the "
+                           f"sequential step: {errs}, away from the "
+                           f"corners {away}")
+    if abs(drift) >= MASS_RTOL:
+        raise RuntimeError(f"distributed step: mass drift {drift:.3e}")
+    if min(launches[k] for k in ("horizontal", "column", "search")) <= 0:
+        raise RuntimeError(f"a kernel of the distributed step never "
+                           f"launched: {launches}")
+    split: dict = {}
+    idle = trace_step(step, b1, step_ms, split_out=split,
+                      groups=DIST_KERNELS, ranges=("halo_exchange",))
+    del step
+    torch.cuda.empty_cache()
+
+    # opt 4 against opt 3, the exchange before the compute
+    plain_steps = {}
+    for level in (3, 4):
+        stp = D.make_step_distributed(cfg, mesh, opt_level=level,
+                                      overlap=False, device=device)
+        e0 = stp.counters["exchanges"]
+        t = time.perf_counter()
+        plain_steps[level] = stp(blocks)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        print(f"[distributed] opt {level}, overlap=False: step 1 {ms:.3f} ms;"
+              f" delpc_exchange_skipped {stp.delpc_exchange_skipped}; "
+              f"exchange passes per step {stp.counters['exchanges'] - e0}",
+              flush=True)
+        del stp
+    # the widened rim equals the exchanged one wherever a neighbour's
+    # interior lies there, but not at a cube corner's diagonal ghost cell
+    # (see ``corner_split``): bit for bit away from the tiles' corners, and
+    # within STEP_ATOL near them, with the worst cell reported
+    g3, g4 = (S.global_from_blocks(plain_steps[lv], cfg) for lv in (3, 4))
+    near, away = corner_split(g4, g3, global_corners(cfg, device), cfg)
+    del g3, g4
+    print("[distributed] opt 4 vs opt 3 (overlap=False), interior max abs "
+          "difference away from the tiles' corners (must be 0): "
+          + ", ".join(f"{k}={v:.3e}" for k, v in away.items()))
+    print(f"[distributed] ... within the halo width of a tile's corner "
+          f"(tol {STEP_ATOL:g}): "
+          + ("; ".join(f"{k} {describe_cell(v)}" for k, v in near.items()
+                       if v["cells"]) or "no cell differs"), flush=True)
+    if any(v != 0.0 for v in away.values()):
+        raise RuntimeError(f"the opt-4 distributed step differs from opt 3 "
+                           f"away from the tiles' corners: {away}")
+    if max(v["err"] for v in near.values()) >= STEP_ATOL:
+        raise RuntimeError(f"the opt-4 distributed step differs from opt 3 "
+                           f"near a tile's corner: {near}")
+    del plain_steps
+    torch.cuda.empty_cache()
+
+    # the exchanger alone: every state field with the (u, v) pair
+    g1 = S.global_from_blocks(b1, cfg)
+    exchanger = H.make_halo_exchanger(cfg.decomposition(), mesh)
+    stack = {k: v.reshape((-1,) + tuple(v.shape[-3:])) for k, v in
+             S.blocks_from_global(g1, cfg).items()}
+    got = exchanger(stack, vector_pairs=[("u", "v")])
+    want = S.blocks_from_global(
+        H.exchange_reference(g1, cfg.halo, vector_pairs=[("u", "v")]), cfg)
+    diff = max((got[k].reshape(want[k].shape) - want[k]).abs().max().item()
+               for k in want)
+    ex_ms = cuda_ms(lambda: exchanger(stack, vector_pairs=[("u", "v")]),
+                    reps=5)
+    print(f"[distributed] exchanger, {len(stack)} fields with (u, v), "
+          f"{len(exchanger.rounds)} rounds: {ex_ms:.3f} ms an exchange; max "
+          f"abs difference to exchange_reference {diff:.3e} (must be 0)",
+          flush=True)
+    if diff != 0.0 or not all(torch.equal(got[k].reshape(want[k].shape),
+                                          want[k]) for k in want):
+        raise RuntimeError("the exchanger differs from exchange_reference")
+    del got, want, g1
+
+    # the split runners' strips (6-wide domains) on the kernels against the
+    # same runners on the plain lowering
+    dom = cfg.local_dom()
+    progs = D._build_programs(cfg, dom)[:3]
+    params = D.default_params(cfg)
+    fresh = exchanger(stack, vector_pairs=[("u", "v")])
+    metric = D._metric_terms(cfg, (mesh.size,) + dom.padded_shape(), device)
+    strip_errs = {}
+    for prog in progs:
+        outs = {}
+        for backend in ("cuda", "torch"):
+            run = make_overlapped_runner(prog, backend=backend, opt_level=3,
+                                         device=device)
+            # the state fields and metric terms it reads (d_sw's delpc from
+            # delp's values); what it writes first it allocates itself
+            names = {f: {"delpc": "delp"}.get(f, f)
+                     for f in run.full_run.input_fields}
+            names = {f: src for f, src in names.items()
+                     if src in fresh or f in metric}
+            ins = {f: metric[f] if f in metric else fresh[src]
+                   for f, src in names.items()}
+            stale = {f: metric[f] if f in metric else stack[src]
+                     for f, src in names.items()}
+            C.reset_launches()
+            outs[backend] = run(stale, ins, params)
+            torch.cuda.synchronize()
+            if backend == "cuda" and C.LAUNCHES["horizontal"] <= 0:
+                raise RuntimeError(f"{prog.name}: no K1 launch")
+            del run, ins, stale
+        worst = 0.0
+        for k in outs["cuda"]:
+            a = interior_local(outs["cuda"][k], cfg)
+            b = interior_local(outs["torch"][k], cfg)
+            worst = max(worst, (a - b).abs().max().item())
+            if not torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+                raise RuntimeError(f"{prog.name} strips: {k} differs from "
+                                   "the plain runner")
+        strip_errs[prog.name] = worst
+        del outs
+    print("[distributed] split runners (full domain + 4 strips of 6) on the "
+          "kernels vs the plain lowering, interior max abs err: "
+          + ", ".join(f"{k}={v:.3e}" for k, v in strip_errs.items())
+          + f"; tol rtol {KERNEL_RTOL:g} + atol {KERNEL_ATOL:g}", flush=True)
+    del stack, fresh, metric, blocks, b1
+    torch.cuda.empty_cache()
+
+    # the member axis: a (2, 6, 1, 1) mesh, one member per group; the
+    # step with the exchange before the compute must equal the sequential
+    # step on each member bit for bit, the overlapped one likewise away
+    # from the tiles' corners and within STEP_ATOL near them (see
+    # ``corner_split``)
+    mcfg = D.FV3Config(**C192_L80)
+    M = DIST_MEMBERS
+    ens = S.ensemble_state(mcfg, M, seed=0, device=device)
+    mmesh = make_mesh((M, 6, 1, 1), ("member", "tile", "y", "x"))
+    mout, m_ms = {}, {}
+    for ovl in (True, False):
+        mstep = D.make_step_distributed(mcfg, mmesh, member_axis="member",
+                                        n_members=M, overlap=ovl,
+                                        device=device)
+        if mstep.overlapped != ovl:
+            raise RuntimeError(f"member-sharded step: overlapped "
+                               f"{mstep.overlapped}, asked {ovl}")
+        t = time.perf_counter()
+        mout[ovl] = mstep(S.blocks_from_global(ens, mcfg))
+        torch.cuda.synchronize()
+        m_ms[ovl] = 1e3 * (time.perf_counter() - t)
+        del mstep
+    seq = D.make_step_sequential(mcfg, device=device)
+    merrs = {True: [], False: []}
+    maway = []
+    mcorner = global_corners(mcfg, device)
+    for m in range(M):
+        ref = seq({k: v[m] for k, v in ens.items()})
+        for ovl in (True, False):
+            got = S.global_from_blocks({k: v[m] for k, v in
+                                        mout[ovl].items()}, mcfg)
+            cells, away = corner_split(got, ref, mcorner, mcfg)
+            worst = max(cells, key=lambda k: cells[k]["err"])
+            merrs[ovl].append(cells[worst]["err"])
+            if ovl:
+                maway.append(max(away.values()))
+            print(f"[distributed] member {m}, overlap={ovl}: step 1 "
+                  f"{m_ms[ovl]:.3f} ms; vs the sequential opt-3 step on its "
+                  f"state, interior: worst field {worst} "
+                  f"{describe_cell(cells[worst])}; away from the tiles' "
+                  f"corners {max(away.values()):.3e}; cells that differ "
+                  + ", ".join(f"{k}={v['cells']}" for k, v in cells.items()),
+                  flush=True)
+            del got
+        del ref
+    print(f"[distributed] member axis, mesh (2, 6, 1, 1), n_members={M}: "
+          f"interior max abs err per member, overlapped {merrs[True]} (tol "
+          f"{STEP_ATOL:g}; away from the tiles' corners {maway}, must be 0), "
+          f"exchange first {merrs[False]} (must be 0)", flush=True)
+    if max(merrs[True]) >= STEP_ATOL or max(maway) != 0.0 \
+            or max(merrs[False]) != 0.0:
+        raise RuntimeError(f"the member-sharded step disagrees: {merrs}, "
+                           f"away from the corners {maway}")
+    del ens, mout, seq
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[distributed] wall {wall:.1f} s", flush=True)
+    return {"launches": launches, "step_ms": step_ms, "idle": idle,
+            "split": split, "exchange_ms": ex_ms, "peak": peak}
+
+
+def interior_local(x, cfg):
+    """A rank block's interior."""
+    h, n = cfg.halo, cfg.n_local
+    return x[..., h:h + n, h:h + n]
+
+
+def worst_cell(got, want) -> dict:
+    """Where ``got`` differs most from ``want``: the abs difference, the
+    cell's index and ``want``'s value there, that difference in units of
+    the value's last place (float32), and the count of cells that differ."""
+    import torch
+
+    d = (got - want).abs()
+    at = int(d.argmax())
+    idx = tuple(int(i) for i in torch.unravel_index(torch.tensor(at),
+                                                    d.shape))
+    value = want.reshape(-1)[at].abs().float()
+    ulp = (torch.nextafter(value, torch.tensor(float("inf"),
+                                               device=value.device))
+           - value).item()
+    err = d.reshape(-1)[at].item()
+    return {"err": err, "cell": idx, "value": value.item(),
+            "ulps": err / ulp, "cells": int((d > 0).sum())}
+
+
+def describe_cell(c: dict) -> str:
+    return (f"max {c['err']:.3e} at {c['cell']} (|value| {c['value']:.6g}, "
+            f"{c['ulps']:g} ulp; {c['cells']} cells differ)")
+
+
+def global_corners(cfg, device):
+    """Interior cells ``(N, N)`` of a tile within the halo width of one of
+    its corners, on ``device``."""
+    import torch
+
+    j = torch.arange(cfg.npx)
+    edge = (j < cfg.halo) | (j >= cfg.npx - cfg.halo)
+    return (edge[:, None] & edge[None, :]).to(device)
+
+
+def corner_split(got: dict, want: dict, corners, cfg) -> tuple:
+    """Per field of two global states, the worst interior cell
+    (:func:`worst_cell`) and the max abs difference away from the tiles'
+    corners (``corners``, :func:`global_corners`).
+
+    At a cube corner the exchange (as ``exchange_reference``) fills a
+    tile's diagonal ghost cell from a neighbour's ghost row as it was, that
+    is from what the last program wrote into its ghost ring, and no
+    neighbour interior lies there.  A step whose programs write other
+    values into the ghost ring (the overlapped step's full-domain run on
+    the pre-exchange state, opt 4's widened rim) may then differ in the
+    cells a step reaches from that ghost cell, and only there."""
+    cells, away = {}, {}
+    for k in want:
+        a, b = interior(got[k], cfg), interior(want[k], cfg)
+        cells[k] = worst_cell(a, b)
+        away[k] = (a - b).abs().masked_fill(corners, 0.0).max().item()
+    return cells, away
 
 
 def check_close(name: str, got, want, rtol: float, atol: float) -> float:
@@ -2053,7 +2410,8 @@ def ssd_chunks_ms(model, tokens) -> float:
 
 
 def kernel_records(rows: list, members: list, standalone: dict, path: dict,
-                   ensemble: dict, opt3: dict, lm: dict, serve: dict) -> list:
+                   ensemble: dict, opt3: dict, lm: dict, serve: dict,
+                   distributed: dict) -> list:
     """One record per kernel for the ``kernels`` line: the launches of its
     path (the opt-0 sequential step for K1-K3, the 3 opt-3 steps on the TPU
     preset's schedules for K4, the op calls for K6/K7; for K5 the member
@@ -2069,7 +2427,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     and, for K10, Zamba2's serving shape; K8's float32 kernel counts the
     float32 parity runs of
     both models and takes its times from the float32 case at Granite's
-    shape, softcap 0."""
+    shape, softcap 0.  K1-K4 also carry ``distributed_launches``: their
+    launches in the 3 overlapped distributed steps."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
                 "K5": f"{PALLAS}:207",
@@ -2098,6 +2457,9 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None})
+        if k != "K5":
+            kernels[-1]["distributed_launches"] = distributed["launches"][
+                counts.get(k, "kblocked")]
     for k, count in (("K6", "tridiag"), ("K7", "fvt_flux")):
         r = standalone["rows"][k]
         kernels.append({
@@ -2221,12 +2583,13 @@ def main() -> int:
     ensemble = ensemble_phase(device, path["launches"])
     work = opt_phase(device)
     opt3 = opt3_phase(device, path, work)
+    distributed = distributed_phase(device, path["s0"], opt3.pop("s1"))
     del path["s0"], path["plain1"]
     torch.cuda.empty_cache()
     lm = lm_kernel_phase(device)
     serve = {arch: serving_phase(device, arch) for arch in SERVE_ARCHS}
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
-                             lm, serve)
+                             lm, serve, distributed)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

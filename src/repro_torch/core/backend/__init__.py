@@ -26,4 +26,9 @@ from .cache import (  # noqa: F401
     set_default_cache,
     stencil_fingerprint,
 )
-from .compile import compile_program, compile_stencil  # noqa: F401
+from .compile import (  # noqa: F401
+    clear_compile_cache,
+    compile_program,
+    compile_stencil,
+    register_cache_clear,
+)

@@ -80,6 +80,22 @@ class CudaBackend(Backend):
 register_backend(TorchBackend())
 register_backend(CudaBackend())
 
+_clear_hooks: list[Callable[[], None]] = []
+
+
+def register_cache_clear(fn: Callable[[], None]) -> None:
+    """Register an in-process compile memo (e.g. the FV3 remap-runner memo)
+    to be dropped by :func:`clear_compile_cache` — one clearing entry
+    point, no stale runners left behind a benchmark reset."""
+    _clear_hooks.append(fn)
+
+
+def clear_compile_cache() -> None:
+    """Drop every registered in-process compile memo.  ``compile_program``
+    itself memoizes nothing; the persistent tuning cache is not touched."""
+    for fn in _clear_hooks:
+        fn()
+
 
 def compile_stencil(stencil: Stencil, dom: DomainSpec, *,
                     backend: "str | Backend" = "cuda",

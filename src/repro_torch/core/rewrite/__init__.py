@@ -12,10 +12,6 @@ Public surface of the redesigned pass-manager API:
    :mod:`repro_torch.core.passes`);
  * :func:`run_fixpoint` — the deterministic fixpoint loop with
    per-application rewrite trace and verifier attribution.
-
-The reference's third level-4 rewrite, recompute-vs-exchange
-(``rewrite/distributed.py``), needs the distributed step's exchange
-context and comes with it.
 """
 
 from .base import (
@@ -33,6 +29,7 @@ from .base import (
 from .driver import MAX_APPLICATIONS, find_match, run_fixpoint
 from . import legacy as _legacy  # noqa: F401  (registers the four passes)
 from . import stencil_rules as _stencil_rules  # noqa: F401  (opt-4 rules)
+from .distributed import ExchangeModel, RecomputeVsExchange, widen_for_exchange
 from .stencil_rules import CrossComputationCSE, StencilCombine
 from .legacy import GreedyFuse, PruneTransients, StrengthReduce, TuneSchedules
 from .pipeline import (
@@ -47,6 +44,7 @@ from .pipeline import (
 
 __all__ = [
     "CrossComputationCSE",
+    "ExchangeModel",
     "FunctionRule",
     "GreedyFuse",
     "MAX_APPLICATIONS",
@@ -58,6 +56,7 @@ __all__ = [
     "Pipeline",
     "PipelineReport",
     "PruneTransients",
+    "RecomputeVsExchange",
     "RewriteRule",
     "RewriteTraceEntry",
     "Stage",
@@ -72,4 +71,5 @@ __all__ = [
     "pipeline_for_level",
     "register_rule",
     "run_fixpoint",
+    "widen_for_exchange",
 ]

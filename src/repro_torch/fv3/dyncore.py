@@ -1,5 +1,5 @@
-"""FV3-lite dynamical core step (paper Fig. 2 structure), sequential and
-ensemble modes.
+"""FV3-lite dynamical core step (paper Fig. 2 structure): sequential,
+ensemble and distributed modes.
 
 Sub-stepping hierarchy, exactly the paper's:
   * remapping loop (``k_split``): tracer advection + vertical remap
@@ -17,21 +17,33 @@ hand-written Hopper kernels, which take the tile and member axes as
 launch-grid dimensions.  The reference's ``lax.scan`` sub-stepping
 is a Python loop here: PyTorch runs eagerly and each runner launches its
 own kernels.
+
+The distributed step runs the same programs on each rank's subdomain of a
+("tile", "y", "x") rank mesh (:mod:`.mesh`); a process holds a block of
+ranks on one leading axis, so one launch covers all of them, and the halo
+exchanger (:func:`.halo.make_halo_exchanger`) moves strips between ranks
+by device copies inside the process and ``torch.distributed``
+point-to-point between processes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..core import StencilProgram, compile_program
 from ..core.backend import BatchSpec, get_backend, parse_batch, resolve_device
 from ..core.backend.batching import scan_chunked
+from ..core.backend.compile import register_cache_clear
 from ..core.stencil import DomainSpec
 from . import stencils as S
-from .halo import exchange_reference
+from .halo import exchange_reference, make_halo_exchanger
+from .overlap import make_overlapped_runner
+from .topology import Decomposition
 
 TRACER_NAMES = ("qvapor", "qliquid", "qice", "qrain")
 
@@ -41,6 +53,7 @@ class FV3Config:
     npx: int = 24            # interior points per tile per dim
     nk: int = 16             # vertical levels (80 in production)
     halo: int = 6
+    layout: tuple[int, int] = (1, 1)   # ranks per tile (py, px)
     dt: float = 0.02         # acoustic step (nondimensional units)
     n_split: int = 4         # acoustic substeps per remap step
     k_split: int = 2         # remap steps per physics step
@@ -51,8 +64,23 @@ class FV3Config:
     dtype: str = "float32"
 
     @property
+    def n_local(self) -> int:
+        """Interior points per rank per dim (square subdomains)."""
+        if self.layout[0] != self.layout[1] or self.npx % self.layout[1]:
+            raise ValueError(f"layout {self.layout} must be square and "
+                             f"divide npx={self.npx}")
+        return self.npx // self.layout[1]
+
+    @property
     def tracers(self) -> tuple[str, ...]:
         return TRACER_NAMES[: self.n_tracers]
+
+    def decomposition(self) -> Decomposition:
+        return Decomposition(self.layout, self.n_local, self.halo)
+
+    def local_dom(self) -> DomainSpec:
+        return DomainSpec(ni=self.n_local, nj=self.n_local, nk=self.nk,
+                          halo=self.halo)
 
     def seq_dom(self) -> DomainSpec:
         return DomainSpec(ni=self.npx, nj=self.npx, nk=self.nk, halo=self.halo)
@@ -159,14 +187,80 @@ def default_params(cfg: FV3Config) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Vertical remapping (paper Fig. 2 orange region) — DSL stencil program
+# ---------------------------------------------------------------------------
+
+
+def _interp_rows(x: torch.Tensor, xp: torch.Tensor,
+                 fp: torch.Tensor) -> torch.Tensor:
+    """Row-wise piecewise-linear interpolation of ``(rows, n)`` tensors,
+    ``jnp.interp``'s arithmetic: the right-side search, clamped to
+    ``[1, n - 1]``; a bracket no wider than ``spacing(eps)`` takes its left
+    value; targets below ``xp[0]`` / above ``xp[-1]`` take ``fp[0]`` /
+    ``fp[-1]``."""
+    n = xp.shape[-1]
+    i = torch.searchsorted(xp.contiguous(), x.contiguous(),
+                           right=True).clamp(1, n - 1)
+    x0, x1 = xp.gather(-1, i - 1), xp.gather(-1, i)
+    f0, f1 = fp.gather(-1, i - 1), fp.gather(-1, i)
+    dx, df, delta = x1 - x0, f1 - f0, x - x0
+    eps = float(np.spacing(np.finfo(np.float32 if xp.dtype == torch.float32
+                                    else np.float64).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, f0, f0 + (delta / torch.where(
+        dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(x < xp[..., :1], fp[..., :1], f)
+    return torch.where(x > xp[..., -1:], fp[..., -1:], f)
+
+
+def vertical_remap_reference(cfg: FV3Config, delp: torch.Tensor,
+                             fields: dict) -> tuple:
+    """The pre-DSL hand-written remap, kept as the regression oracle
+    (``delp`` and ``fields``: ``(nk, J, I)`` tensors).
+
+    Known flaw (why the DSL path replaced it): the ``maximum(delp_ref,
+    1e-10)`` denominator floor violates mass conservation whenever a
+    reference layer is thinner than the floor — ``sum(q * delp)`` is no
+    longer preserved.  The stencil path divides by the exact interface
+    difference instead.  It also bypasses the pass manager, the kernels and
+    the tuning cache.
+    """
+    nk = cfg.nk
+    ptop = cfg.ptop
+    zero = torch.zeros_like(delp[:1])
+    pe = ptop + torch.cat([zero, torch.cumsum(delp, 0)], 0)
+    psfc = pe[-1]
+    sigma = torch.arange(nk + 1, dtype=delp.dtype, device=delp.device) / nk
+    pe_ref = ptop + sigma[:, None, None] * (psfc[None] - ptop)
+    delp_ref = pe_ref[1:] - pe_ref[:-1]
+    pcols = pe.reshape(nk + 1, -1).T          # (ncol, nk+1)
+    prefs = pe_ref.reshape(nk + 1, -1).T
+
+    def remap_one(f):
+        # cumulative mass-weighted integral at Lagrangian interfaces
+        F = torch.cat([torch.zeros_like(f[:1]), torch.cumsum(f * delp, 0)],
+                      0)
+        Fi = _interp_rows(prefs, pcols, F.reshape(nk + 1, -1).T)
+        Fi = Fi.T.reshape(pe.shape)
+        return (Fi[1:] - Fi[:-1]) / torch.clamp(delp_ref, min=1e-10)
+
+    out = {k: remap_one(v) for k, v in fields.items()}
+    return delp_ref, out
+
+
 def build_remap_program(cfg: FV3Config, dom: DomainSpec,
-                        fields: tuple[str, ...] | None = None
-                        ) -> StencilProgram:
+                        fields: tuple[str, ...] | None = None, *,
+                        unrolled_interp: bool = False) -> StencilProgram:
     """First-order conservative Lagrangian→reference remap as a stencil
     program on K-interface fields: FORWARD cumulative builds of ``pe`` /
     ``pe_ref`` and the per-field mass integrals, the ``index_search`` level
     search onto the reference interfaces, and exact interface differencing
-    for the remapped means."""
+    for the remapped means.
+
+    ``unrolled_interp=True`` swaps the pre-construct unrolled interpolation
+    (:func:`~.stencils.interface_interp_stencil`, O(nk²) IR) back in — the
+    A/B baseline of the level search."""
     if fields is None:
         fields = ("pt", "w", "u", "v", *cfg.tracers)
     p = StencilProgram("vertical_remap", dom)
@@ -180,18 +274,68 @@ def build_remap_program(cfg: FV3Config, dom: DomainSpec,
     p.add(S.column_total, {"delp": "delp", "cum": "cum", "total": "total"})
     p.add(S.reference_pe, {"total": "total", "pe_ref": "pe_ref"})
     p.add(S.remap_delp, {"pe_ref": "pe_ref", "delp_out": "delp_out"})
+    interp = (S.interface_interp_stencil(cfg.nk) if unrolled_interp
+              else S.interface_interp)
     for q in fields:
         p.declare(q)
         p.declare(f"{q}_out")
         p.declare(f"{q}_fm", transient=True, interface=True)
         p.declare(f"{q}_fi", transient=True, interface=True)
         p.add(S.cumsum_mass, {"q": q, "delp": "delp", "fm": f"{q}_fm"})
-        p.add(S.interface_interp, {"fm": f"{q}_fm", "pe": "pe",
-                                   "pe_ref": "pe_ref", "fi": f"{q}_fi"})
+        p.add(interp, {"fm": f"{q}_fm", "pe": "pe", "pe_ref": "pe_ref",
+                       "fi": f"{q}_fi"})
         p.add(S.remap_field, {"fi": f"{q}_fi", "pe_ref": "pe_ref",
                               "q_out": f"{q}_out"})
     p.propagate_extents()
     return p
+
+
+def make_vertical_remap(cfg: FV3Config, dom: DomainSpec,
+                        fields: tuple[str, ...], *, backend: str = "cuda",
+                        hardware=None, opt_level: int = 0,
+                        device: "torch.device | str | None" = None):
+    """Compile the remap program; returns ``remap(delp, field_dict, params)
+    -> (delp_ref, remapped_dict)`` with the compiled runner as
+    ``remap.run`` and the remapped names as ``remap.fields``.  ``device``
+    as in :func:`make_step_sequential`."""
+    prog = build_remap_program(cfg, dom, fields)
+    run = compile_program(prog, backend, hardware=hardware,
+                          opt_level=opt_level, device=device)
+
+    def remap(delp, field_dict, params):
+        ins = {"delp": delp, **{q: field_dict[q] for q in fields}}
+        out = run(ins, params)
+        return out["delp_out"], {q: out[f"{q}_out"] for q in fields}
+
+    remap.run = run
+    remap.fields = tuple(fields)
+    return remap
+
+
+_REMAP_MEMO: dict[tuple, Callable] = {}
+# dropped together with the compile caches, so a clear_compile_cache()
+# leaves no stale remap runner behind
+register_cache_clear(_REMAP_MEMO.clear)
+
+
+def vertical_remap(cfg: FV3Config, delp: torch.Tensor, fields: dict
+                   ) -> tuple:
+    """First-order conservative remap from the deformed Lagrangian levels
+    back to reference sigma levels; ``delp``/``fields``: ``(nk, nyp, nxp)``
+    tensors, on the device they lie on.
+
+    A thin wrapper over :func:`make_vertical_remap`, memoized per (config,
+    field set, shape, device); step factories build their own runner."""
+    names = tuple(fields)
+    nyp = delp.shape[-2] - 2 * cfg.halo
+    nxp = delp.shape[-1] - 2 * cfg.halo
+    key = (cfg.nk, cfg.halo, nyp, nxp, names, delp.device)
+    fn = _REMAP_MEMO.get(key)
+    if fn is None:
+        dom = DomainSpec(ni=nxp, nj=nyp, nk=cfg.nk, halo=cfg.halo)
+        fn = _REMAP_MEMO[key] = make_vertical_remap(cfg, dom, names,
+                                                    device=delp.device)
+    return fn(delp, fields, {"ptop": cfg.ptop, "rk": 1.0 / cfg.nk})
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +345,10 @@ def build_remap_program(cfg: FV3Config, dom: DomainSpec,
 
 STATE_FIELDS = ("delp", "pt", "w", "u", "v")
 REMAP_FIELDS = ("pt", "w", "u", "v")
+
+
+def all_state_fields(cfg: FV3Config) -> list[str]:
+    return list(STATE_FIELDS) + list(cfg.tracers)
 
 
 def _build_programs(cfg: FV3Config, dom: DomainSpec):
@@ -250,16 +398,52 @@ def _reference_halo_fn(cfg: FV3Config):
     return halo_fn
 
 
-def _acoustic_iteration(cfg, runners, params, halo_fn, state, metrics):
+def _acoustic_iteration(cfg, runners, params, halo_fn, state, metrics,
+                        overlap=None, skip_delpc_exchange=False):
     """One acoustic substep (paper Fig. 2, blue region): c_sw-lite +
     riem_solver_c, halo update of the C-grid mass, then d_sw-lite with
-    FVT."""
+    FVT.
+
+    With ``overlap`` (the distributed step's split runners) each exchanged
+    program computes its full domain from the *pre-exchange* state while
+    the exchange runs, and recomputes only its edge strips from the
+    exchanged fields (:mod:`.overlap`).  ``skip_delpc_exchange``: c_sw
+    already computed ``delpc`` on the one-cell rim d_sw reads (the
+    recompute-vs-exchange rewrite), so its exchange is dropped."""
+    if overlap is not None:
+        ov_csw, ov_dsw, _ = overlap
+        st = dict(state)
+        ex: dict = {}
+
+        def exchange_state():
+            ex.update(halo_fn(st, list(STATE_FIELDS)))
+            return _csw_inputs(ex, metrics)
+
+        out = ov_csw(_csw_inputs(st, metrics), exchange_state, params)
+        st = ex
+        st["w"] = out["w"]
+        dsw_stale = {"u": st["u"], "v": st["v"], "delp": st["delp"],
+                     "pt": st["pt"], "delpc": out["delpc"]}
+
+        def exchange_delpc():
+            delpc = halo_fn({**st, "delpc": out["delpc"]}, ["delpc"])
+            return {**dsw_stale, "delpc": delpc["delpc"]}
+
+        out2 = ov_dsw(dsw_stale, exchange_delpc, params)
+        st["u"], st["v"] = out2["u"], out2["v"]
+        st["delp"], st["pt"] = out2["delp_out"], out2["pt_out"]
+        return st
+
     run_csw, run_dsw = runners[0], runners[1]
     st = halo_fn(dict(state), list(STATE_FIELDS))
     out = run_csw(_csw_inputs(st, metrics), params)
     st["w"] = out["w"]
-    # d_sw's Smagorinsky reads delpc at extent (1,1) — one scalar exchange
-    delpc = halo_fn({**st, "delpc": out["delpc"]}, ["delpc"])["delpc"]
+    if skip_delpc_exchange:
+        delpc = out["delpc"]
+    else:
+        # d_sw's Smagorinsky reads delpc at extent (1,1) — one scalar
+        # exchange
+        delpc = halo_fn({**st, "delpc": out["delpc"]}, ["delpc"])["delpc"]
     dsw_in = {"u": st["u"], "v": st["v"], "delp": st["delp"],
               "pt": st["pt"], "delpc": delpc}
     out2 = run_dsw(dsw_in, params)
@@ -269,15 +453,27 @@ def _acoustic_iteration(cfg, runners, params, halo_fn, state, metrics):
 
 
 def _remap_iteration(cfg, runners, params, halo_fn, state, metrics,
-                     counters):
+                     counters, overlap=None, skip_delpc_exchange=False):
     run_trc, run_remap = runners[2], runners[3]
     st = dict(state)
     for _ in range(cfg.n_split):
         counters["acoustic_iterations"] += 1
-        st = _acoustic_iteration(cfg, runners, params, halo_fn, st, metrics)
-    st = halo_fn(st, ["u", "v", *cfg.tracers])
-    trc_in = {"u": st["u"], "v": st["v"], **{q: st[q] for q in cfg.tracers}}
-    out = run_trc(trc_in, params)
+        st = _acoustic_iteration(cfg, runners, params, halo_fn, st, metrics,
+                                 overlap=overlap,
+                                 skip_delpc_exchange=skip_delpc_exchange)
+    names = ["u", "v", *cfg.tracers]
+    if overlap is not None:
+        ex: dict = {}
+
+        def exchange_tracers():
+            ex.update(halo_fn(st, names))
+            return {q: ex[q] for q in names}
+
+        out = overlap[2]({q: st[q] for q in names}, exchange_tracers, params)
+        st = ex
+    else:
+        st = halo_fn(st, names)
+        out = run_trc({q: st[q] for q in names}, params)
     for q in cfg.tracers:
         st[q] = out[f"{q}_out"]
     # vertical remap back to reference levels — a compiled stencil program
@@ -293,9 +489,9 @@ def _remap_iteration(cfg, runners, params, halo_fn, state, metrics,
 
 def _counting_runner(run, counters):
     """Count runner dispatches for the instrumentation."""
-    def counting(fields, ps):
+    def counting(*args):
         counters["runner_dispatches"] += 1
-        return run(fields, ps)
+        return run(*args)
 
     return counting
 
@@ -432,4 +628,207 @@ def make_step_ensemble(cfg: FV3Config, n_members: int, *,
                          else runners[0].member_chunk)
     step.n_chunks = (-(-n_members // member_chunks[1]) if member_chunks
                      else runners[0].n_chunks)
+    return step
+
+
+def _rank_stack(v: torch.Tensor, lead: int, ml: int) -> torch.Tensor:
+    """Block layout ``([M,] 6, py, px, nk, J, I)`` → the rank stack
+    ``([ml,] ranks, nk, J, I)``: ranks numbered over the mesh (member group
+    outermost), each group's ``ml`` members on a leading member axis."""
+    if lead == 3:
+        return v.reshape((-1,) + tuple(v.shape[-3:]))
+    groups = v.reshape((-1, ml) + tuple(v.shape[1:]))  # (D, ml, 6, py, ...)
+    stack = groups.transpose(0, 1).reshape((ml, -1) + tuple(v.shape[-3:]))
+    return stack[0] if ml == 1 else stack
+
+
+def _block_layout(x: torch.Tensor, lead: int, ml: int, layout) -> torch.Tensor:
+    """Inverse of :func:`_rank_stack`."""
+    tail = (6,) + tuple(layout) + tuple(x.shape[-3:])
+    if lead == 3:
+        return x.reshape(tail)
+    x = x.reshape((ml, -1) + tail)                        # (ml, D, 6, ...)
+    return x.transpose(0, 1).reshape((-1,) + tail)
+
+
+def make_step_distributed(cfg: FV3Config, mesh, *, backend: str = "cuda",
+                          hardware=None, opt_level: int = 3,
+                          ensemble: bool = False,
+                          member_axis: str | None = None,
+                          n_members: int | None = None,
+                          batch: "str | BatchSpec | None" = None,
+                          overlap: bool = True,
+                          device: "torch.device | str | None" = None
+                          ) -> Callable:
+    """Physics step over the rank mesh ``("tile", "y", "x")`` of
+    :func:`~.mesh.make_mesh` — or ``(member, "tile", "y", "x")`` with
+    independent ensemble members.
+
+    Each rank steps its ``cfg.local_dom()`` subdomain; the ranks this
+    process holds (``mesh.local_ranks``) are stacked on one leading axis,
+    so each program compiles once and one launch covers all of them, and
+    the halo exchanger (:func:`~.halo.make_halo_exchanger`) fills their
+    ghosts: device copies between ranks of the process, ``torch.distributed``
+    point-to-point to the others.
+
+    ``member_axis`` names an extra *leading* mesh axis members shard over,
+    orthogonally to the tile/y/x decomposition; no exchange crosses it.
+    The deprecated ``ensemble=True`` is shorthand for ``member_axis="ens"``
+    and warns.  Without ``n_members`` the member extent D is the ensemble
+    size; ``n_members=M`` (a multiple of D) gives each group ``M // D``
+    members, batched per ``batch`` (default ``"grid"`` on ``"cuda"``,
+    ``"vmap"`` on ``"torch"``; the chunk grammar of ``compile_program``).
+
+    At ``opt_level >= 4`` without overlap the recompute-vs-exchange rewrite
+    (:class:`~repro_torch.core.rewrite.RecomputeVsExchange`) widens c_sw so
+    ``delpc`` is valid on the one-cell rim d_sw reads, when the cost model
+    prefers it, and the per-substep ``delpc`` exchange is dropped
+    (``step.delpc_exchange_skipped``): the same result bit for bit wherever
+    a neighbour's interior lies under the rim.  At a tile's corner, where
+    three tiles meet, the exchange fills the diagonal ghost from the tile's
+    ghost rows as they were, so cells a step reaches from there may differ
+    in their last bits.
+
+    ``overlap=True`` splits each exchanged program's domain
+    (:mod:`.overlap`): the interior runs from the pre-exchange state while
+    the exchange runs (on a second stream on the card), the edge strips
+    after it.  It does not apply when the local interior holds no strip-free
+    core (``n_local <= 2*halo``) or a group holds more than one member.
+
+    State: the reference's block layout, ``([M,] 6, py, px, nk, nl+2h,
+    nl+2h)``; ``blocks_from_global`` makes it.  A process steps the ranks
+    it holds and returns the others' blocks as it was given them.
+    ``device`` and ``opt_level``/``hardware`` as in
+    :func:`make_step_sequential`.  The step exposes ``n_members``,
+    ``members_per_group``, ``batch``, ``member_chunk``, ``overlapped``,
+    ``delpc_exchange_skipped``, ``local_ranks`` and ``counters`` (those of
+    the sequential step, plus ``exchanges``: exchanger calls).
+    """
+    if ensemble:
+        warnings.warn(
+            "make_step_distributed(ensemble=True) is deprecated; pass "
+            "member_axis='ens' (or your mesh's member axis name) instead",
+            DeprecationWarning, stacklevel=2)
+        if member_axis is None:
+            member_axis = "ens"
+    ml = 1
+    if n_members is not None:
+        if member_axis is None:
+            raise ValueError("n_members requires member_axis (an ensemble "
+                             "mesh axis to shard members over)")
+        d = mesh.shape[member_axis]
+        if n_members % d:
+            raise ValueError(
+                f"n_members={n_members} must be a multiple of the "
+                f"member-axis extent {d}")
+        ml = n_members // d
+    if cfg.dtype != "float32":
+        raise NotImplementedError("the port steps float32 states only")
+    py, px = cfg.layout
+    want = ((member_axis,) if member_axis else ()) + ("tile", "y", "x")
+    if tuple(mesh.axis_names) != want or \
+            tuple(mesh.axis_sizes[-3:]) != (6, py, px):
+        raise ValueError(f"mesh {mesh.shape} does not match axes {want} "
+                         f"over (6, {py}, {px}) ranks")
+    if batch is None:
+        batch = "grid" if backend == "cuda" else "vmap"
+    dev = resolve_device(device)
+    dom = cfg.local_dom()
+    dec = cfg.decomposition()
+    progs = _build_programs(cfg, dom)
+    exchanger = make_halo_exchanger(dec, mesh)
+    nl, h, nk = cfg.n_local, cfg.halo, cfg.nk
+
+    memb = {"n_members": ml, "batch": batch} if ml > 1 else {}
+    # the remap program is purely vertical (no horizontal reads), so it
+    # never takes part in the overlap — compiled plain
+    run_remap = compile_program(progs[3], backend, hardware=hardware,
+                                opt_level=opt_level, device=dev, **memb)
+    ov = None
+    if overlap and ml == 1:
+        cands = tuple(make_overlapped_runner(
+            p, backend=backend, hardware=hardware, opt_level=opt_level,
+            device=dev) for p in progs[:3])
+        if all(c is not None for c in cands):
+            ov = cands
+    skip_delpc = False
+    if ov is None and opt_level >= 4:
+        # recompute-vs-exchange: widen c_sw so delpc is valid on a one-cell
+        # rim (d_sw's widest read) when the cost model prefers redundant rim
+        # compute to the exchange rounds.  The rim equals the neighbour's
+        # interior bit for bit (c_sw runs on the exchanged inputs and its
+        # reads from the widened window stay within the halo), except at a
+        # cube corner's diagonal ghost cell, which has no neighbour interior.
+        from ..core.rewrite import (ExchangeModel, PassContext,
+                                    widen_for_exchange)
+
+        itemsize = np.dtype(cfg.dtype).itemsize
+        model = ExchangeModel(n_rounds=len(exchanger.rounds),
+                              ring_bytes=4 * nl * h * nk * itemsize)
+        ctx = PassContext(backend=get_backend(backend).name,
+                          hardware=hardware)
+        skip_delpc = widen_for_exchange(progs[0], {"delpc": (1, 1)}, model,
+                                        ctx) > 0
+    if ov is not None:
+        # the split runners hold the full-domain runners: reuse them
+        runners = tuple(c.full_run for c in ov) + (run_remap,)
+    else:
+        runners = tuple(
+            compile_program(p, backend, hardware=hardware,
+                            opt_level=opt_level, device=dev, **memb)
+            for p in progs[:3]) + (run_remap,)
+
+    params = default_params(cfg)
+    counters = {"acoustic_iterations": 0, "runner_dispatches": 0,
+                "step_calls": 0, "exchanges": 0}
+    runners_c = tuple(_counting_runner(r, counters) for r in runners)
+    ov_c = (tuple(_counting_runner(r, counters) for r in ov)
+            if ov is not None else None)
+
+    def halo_fn(st, names):
+        counters["exchanges"] += 1
+        vec = [("u", "v")] if ("u" in names and "v" in names) else []
+        # a named range: a profiler trace reads the exchange's device time
+        with torch.profiler.record_function("halo_exchange"):
+            out = exchanger({k: st[k] for k in names}, vector_pairs=vec)
+        return {**st, **out}
+
+    ranks = mesh.local_ranks
+    every = len(ranks) == mesh.size
+    lead = 4 if member_axis else 3
+    base = _metric_terms(cfg, (len(ranks),) + dom.padded_shape(), dev)
+    metrics = ({k: v.expand((ml,) + tuple(v.shape)) for k, v in base.items()}
+               if ml > 1 else base)
+
+    def step(state: dict) -> dict:
+        counters["step_calls"] += 1
+        stacks = {k: _rank_stack(v, lead, ml) for k, v in state.items()}
+        st = {k: v[..., ranks.start:ranks.stop, :, :, :]
+              for k, v in stacks.items()}
+        for _ in range(cfg.k_split):
+            st = _remap_iteration(cfg, runners_c, params, halo_fn, st,
+                                  metrics, counters, overlap=ov_c,
+                                  skip_delpc_exchange=skip_delpc)
+        out = {}
+        for k, v in st.items():
+            if not every:
+                full = stacks[k].clone()
+                full[..., ranks.start:ranks.stop, :, :, :] = v
+                v = full
+            out[k] = _block_layout(v, lead, ml, cfg.layout)
+        return out
+
+    step.counters = counters
+    step.opt_report = {p.name: r.opt_report for p, r in zip(progs, runners)}
+    step.n_kernels = sum(r.n_kernels for r in runners)
+    step.programs = progs
+    step.device = dev
+    step.backend = backend
+    step.local_ranks = ranks
+    step.n_members = n_members
+    step.members_per_group = ml
+    step.batch = (parse_batch(batch).token if ml > 1 else None)
+    step.member_chunk = runners[0].member_chunk if ml > 1 else None
+    step.overlapped = ov is not None
+    step.delpc_exchange_skipped = skip_delpc
     return step

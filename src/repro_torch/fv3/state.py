@@ -118,6 +118,39 @@ def ensemble_state(cfg: FV3Config, n_members: int, *,
         dev)
 
 
+def blocks_from_global(state: Mapping[str, torch.Tensor],
+                       cfg: FV3Config) -> dict:
+    """Sequential ``([lead...,] 6, nk, N+2h, N+2h)`` state as distributed
+    rank blocks ``([lead...,] 6, py, px, nk, nl+2h, nl+2h)`` — each rank's
+    padded window, halos overlapping the neighbours' interiors — as new
+    contiguous tensors on the input's device."""
+    nl, h = cfg.n_local, cfg.halo
+    cfg.decomposition()  # validates the layout
+    w = nl + 2 * h
+    # (..., 6, nk, py, px, w, w) windows of stride nl along J, then I
+    return {k: v.unfold(-2, w, nl).unfold(-2, w, nl).movedim(-5, -3)
+            .contiguous() for k, v in state.items()}
+
+
+def global_from_blocks(blocks: Mapping[str, torch.Tensor],
+                       cfg: FV3Config) -> dict:
+    """Inverse of :func:`blocks_from_global` on the interiors: sequential
+    ``([lead...,] 6, nk, N+2h, N+2h)`` tensors whose halos are zero."""
+    py, px = cfg.layout
+    nl, h, N = cfg.n_local, cfg.halo, cfg.npx
+    out = {}
+    for k, v in blocks.items():
+        lead = tuple(v.shape[:-6])
+        n = len(lead)
+        # (..., 6, py, px, nk, nl, nl) -> (..., 6, nk, py, nl, px, nl)
+        inner = v[..., h:h + nl, h:h + nl].permute(
+            *range(n), *(n + d for d in (0, 3, 1, 4, 2, 5)))
+        glob = v.new_zeros(lead + (6, cfg.nk, N + 2 * h, N + 2 * h))
+        glob[..., h:h + N, h:h + N] = inner.reshape(lead + (6, cfg.nk, N, N))
+        out[k] = glob
+    return out
+
+
 def total_mass(state: Mapping[str, torch.Tensor], cfg: FV3Config) -> float:
     """Global integral of delp (unit cell area) — conserved by the FVT;
     summed in float64."""

@@ -65,7 +65,10 @@ def test_port_import_loads_no_jax():
             "repro_torch.core.rewrite, repro_torch.core.backend.cache, "
             "repro_torch.models, repro_torch.configs, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm, "
-            "repro_torch.kernels.ssm_scan, repro_torch.models.ssm; "
+            "repro_torch.kernels.ssm_scan, repro_torch.models.ssm, "
+            "repro_torch.fv3.overlap, repro_torch.fv3.mesh, "
+            "repro_torch.fv3.halo, repro_torch.core.rewrite.distributed, "
+            "repro_torch.core.orchestration, repro_torch.lint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -95,6 +98,22 @@ def test_entry_points_refuse_to_run_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         compile_program(prog)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_distributed_entry_points_refuse_to_run_without_a_card(no_card):
+    from repro_torch.core.orchestration import orchestrate
+    from repro_torch.fv3.mesh import make_mesh
+
+    cfg = TD.FV3Config(npx=12, nk=2, layout=(2, 2))
+    mesh = make_mesh((6, 2, 2), ("tile", "y", "x"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TD.make_step_distributed(cfg, mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TD.make_vertical_remap(cfg, cfg.seq_dom(), ("pt",))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        orchestrate(TD.build_tracer_program(cfg, cfg.seq_dom()))
+    step = TD.make_step_distributed(cfg, mesh, device="cpu")
+    assert step.device == torch.device("cpu")
 
 
 def test_model_entry_points_refuse_to_run_without_a_card(no_card):
