@@ -90,7 +90,13 @@
    away from the tiles' corners) and with the exchange first (exactly).
 8. LM kernel phase, at the serving shapes: K8 ``flash_attention`` at
    Granite-8B's B=8, S=2048, H=32, KVH=8, D=128 and Zamba2-7B's H=KVH=32,
-   D=112 (softcap 0 and 50), K9 ``rmsnorm`` and ``rmsnorm_residual`` at
+   D=112 (softcap 0 and 50), at Gemma-2-2B's B=4, S=6144, H=8, KVH=4,
+   D=256 with its window 4096 and softcap 50 (local layers), without the
+   window (global layers) and with the window and softcap 0 (beside
+   ``F.scaled_dot_product_attention`` with the window as a boolean mask),
+   and with windows 1000 and 100 (softcap 30) at Granite's shape; each
+   bound counts the (query, key) pairs its window keeps; K9 ``rmsnorm``
+   and ``rmsnorm_residual`` at
    the prefill's 16384 rows and the decode step's 8 (d 4096 and 3584; at 8
    rows also the device time a call under ``torch.profiler``), each in
    float32 and bfloat16 against its plain version at
@@ -112,14 +118,23 @@
    memory instructions in each K8 kernel's SASS (no wgmma in either, or a
    spill or local access in the float32 kernel, fails the run).
 9. Serving phases: Granite-8B (36 layers), then Zamba2-7B (81 Mamba-2
-   layers and one shared attention block applied 27 times), each at full
-   width and depth with seeded weights.  Parity: float32 weights, 2
+   layers and one shared attention block applied 27 times), Gemma-2-2B
+   (13 local and 13 global layers), Llama-4 Scout (4 of its 48 MoE layers)
+   and Grok-1 (2 of its 64), each at full width (and depth, but for the
+   MoE models, cut to fit their float32 weights on one card) with seeded
+   weights; Gemma-2 with traffic of its own (:data:`TRAFFIC`: parity at
+   one prompt of 4608 tokens, serving at 4 x 6144 into global caches of
+   6176 and local rings of 4096, decode from 6144, where the rings have
+   wrapped).  Parity: float32 weights, 2
    prompts of 512 tokens, prefill and 8 greedy decode steps through the
    kernels and again through the plain versions on the card (the same
    tokens), the prefill logits and every cache of both (KV, and Mamba-2's
    conv tails and SSM states) held against an independent float64 prefill
    (the kernel path within 1e-4 of the largest |value| and within 2x the
-   plain path's own float32 error), and the float32 prefill timed alone.
+   plain path's own float32 error), and the float32 prefill timed alone;
+   for the MoE models, how many (token, layer) top-k expert choices of the
+   prefill differ between the kernel path, the plain path and the float64
+   (or, for the bf16 run, float32) prefill.
    Serving run: bfloat16 weights, 8
    prompts of 2048 tokens, prefill (median of 2 after a warm-up) and 31
    greedy decode steps into caches of 2080: prefill ms, decode ms per
@@ -142,6 +157,8 @@ this script without the repository.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -193,6 +210,18 @@ SERVE_ARCHS = ("granite_8b", "zamba2_7b")
 # chunks of 128 for 8 x 2048 tokens, 112 heads, N = P = 64) and a ragged one
 FA_SHAPES = ({"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128},
              {"B": 8, "S": 2048, "H": 32, "KVH": 32, "D": 112})
+# K8 at Gemma-2-2B's serving prefill (4 prompts of 6144 tokens, GQA 8/4,
+# d_head 256), as (window, softcap) cases: its local layers (window 4096,
+# softcap 50), its global layers (no window, softcap 50), and the window
+# without the softcap, which one PyTorch call computes
+# (F.scaled_dot_product_attention with the window as a boolean mask)
+FA_GEMMA2 = {"B": 4, "S": 6144, "H": 8, "KVH": 4, "D": 256,
+             "cases": ((4096, 50.0), (0, 50.0), (4096, 0.0))}
+# and the window at Granite's shape (D 128, the MoE models' head width):
+# 1000 keys, and 100 under Grok-1's softcap 30
+FA_WINDOW_D128 = {"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128,
+                  "cases": ((1000, 0.0), (100, 30.0))}
+FA_CASES = ((0, 0.0), (0, 50.0))  # the other shapes' (window, softcap)
 SCAN_SHAPES = ((16, 8, 112, 64, 64), (3, 2, 112, 64, 64))
 # K9 at the rows of a prefill of 8 prompts x 2048 tokens and the widths
 # the served models give it, with their eps and a float32 weight (the
@@ -229,8 +258,22 @@ PARITY = {"B": 2, "S": 512, "decode": 8}           # float32 weights
 PARITY_REL = 1e-4
 PARITY_FACTOR = 2.0
 SERVE = {"B": 8, "S": 2048, "decode": 31, "cache": 2080}  # bfloat16
-LM_LAUNCHES = ("flash_attention", "rmsnorm", "rmsnorm_residual",
-               "ssm_state_scan")
+# the served models past Granite-8B and Zamba2-7B (SERVE_ARCHS, which the
+# A/B scripts time): Gemma-2-2B at full width and depth, with traffic of
+# its own so that its window (4096) binds: float32 parity at one prompt of
+# window + 512 tokens, bfloat16 serving at 4 prompts of 6144 tokens into
+# global caches of 6176 (local rings of 4096), decode from position 6144,
+# where the rings have wrapped (6144 % 4096 != 0); the MoE models at full
+# width with their depth cut to fit one card (float32 parity weights:
+# Scout's 4 layers 43.5 GB, Grok-1's 2 layers 32.9 GB) and Granite's
+# traffic
+SERVED_MODELS = SERVE_ARCHS + ("gemma2_2b", "llama4_scout_17b_a16e",
+                               "grok1_314b")
+TRAFFIC = {"gemma2_2b": ({"B": 1, "S": 4608, "decode": 8},
+                         {"B": 4, "S": 6144, "decode": 31, "cache": 6176})}
+DEPTH = {"llama4_scout_17b_a16e": 4, "grok1_314b": 2}  # of 48 and 64
+LM_LAUNCHES = ("flash_attention", "flash_attention_window", "rmsnorm",
+               "rmsnorm_residual", "ssm_state_scan")
 # bf16 serving logits vs the plain path (both compute attention and norms in
 # f32; they differ where a bf16 rounding of an activation flips, and 36
 # layers grow those flips as they grow float32's): max abs difference over
@@ -1639,15 +1682,18 @@ def check_close(name: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
-def attention_f64(q, k, v, softcap: float):
-    """Causal attention of the same inputs in float64, one batch entry at a
-    time (its (H, S, S) scores: 1.1 GB at Granite's shape): what the bf16
-    kernel and its plain version are both measured against."""
+def attention_f64(q, k, v, softcap: float, window: int = 0):
+    """Causal attention of the same inputs in float64 (the keys of a
+    ``window`` where it is not 0), one batch entry at a time (its (H, S, S)
+    scores: 1.1 GB at Granite's shape, 2.4 GB at Gemma-2's): what the
+    kernels and their plain versions are both measured against."""
     import torch
+
+    from repro_torch.kernels.ref import attention_mask
 
     B, S, H, D = q.shape
     rep = H // k.shape[2]
-    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    keep = attention_mask(S, window, q.device)
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
     for b in range(B):
         kb = k[b].double().repeat_interleave(rep, dim=1)
@@ -1659,6 +1705,14 @@ def attention_f64(q, k, v, softcap: float):
         out[b] = torch.einsum("hqk,khd->qhd", p, vb)
         del kb, vb, s, p
     return out
+
+
+def attention_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal attention over S positions computes, each
+    query over its last ``window`` keys where ``window`` is not 0: what the
+    bound counts (these inputs' work, not the whole square)."""
+    w = window if window > 0 else S
+    return sum(min(r + 1, w) for r in range(S))
 
 
 def f64_errors(name: str, got, want, exact) -> dict:
@@ -1691,7 +1745,8 @@ def k8_build_report(log: str) -> list:
     store bytes, spill load bytes, stack bytes)."""
     rows = []
     for name, regs, frame, st, ld in ptxas_report(log, "flash_attention"):
-        args = ", ".join(re.findall(r"Li(\d+)E", name))
+        args = ", ".join(re.findall(r"Li(\d+)E", name)
+                         + ["window" if "Lb1E" in name else "causal"])
         kind = (f"flash_attention_wgmma_kernel<{args}>" if "wgmma" in name
                 else f"flash_attention_fwd_kernel<{args}> (float32)")
         rows.append((kind, regs, st, ld, frame))
@@ -1809,13 +1864,15 @@ def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
 
 def lm_kernel_phase(device) -> dict:
     """K8, K9 and K10 through ``repro_torch.kernels.ops`` at the serving
-    shapes: K8 at Granite-8B's and Zamba2-7B's, K9 at the widths both
-    models give it (:data:`NORM_CASES`, float32 weight), in float32 and
+    shapes: K8 at Granite-8B's and Zamba2-7B's and at Gemma-2-2B's with and
+    without its window (:data:`FA_GEMMA2`), K9 at the widths Granite and
+    Zamba2 give it (:data:`NORM_CASES`, float32 weight), in float32 and
     bfloat16, and K10 (float32 only) at Zamba2's and a ragged one; each
     against its plain version, timed beside it, its bound and one library
     call computing the same function where there is one.  The bf16 cases
-    (the serving dtype; K8 at Granite's shape and softcap 0, K9 at d
-    :data:`NORM_HEAD_D`) head the ``kernels`` records."""
+    (the serving dtype; K8 at Granite's shape and softcap 0, its window at
+    Gemma-2's shape and softcap 0, K9 at :data:`NORM_HEAD`) head the
+    ``kernels`` records."""
     import torch
     import torch.nn.functional as F
 
@@ -1831,61 +1888,70 @@ def lm_kernel_phase(device) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         size = torch.finfo(dtype).bits // 8
-        for shape in FA_SHAPES:
+        for shape in FA_SHAPES + (FA_GEMMA2, FA_WINDOW_D128):
             B, S, H, KVH, D = (shape[k] for k in ("B", "S", "H", "KVH", "D"))
             q = normal((B, S, H, D), dtype)
             k, v = normal((B, S, KVH, D), dtype), normal((B, S, KVH, D),
                                                           dtype)
             rtol, atol = FA_TOL[name]
-            # bytes: q, k, v read once, o written once; operations: the two
-            # products over the causal half (4 D flops per score), on the
-            # tensor cores: bf16 once, f32 as three TF32 products (3xTF32);
-            # the f32 kernel's old CUDA-core bound, the flops once at 67
-            # TFLOP/s, is printed beside it
-            fa_bytes = (2 * q.numel() + 2 * k.numel()) * size
-            fa_ops = 4 * B * H * D * S * (S + 1) / 2
-            if dtype == torch.bfloat16:
-                t_o, rate = fa_ops / BF16_OPS_PER_S, BF16_OPS_PER_S
-            else:
-                t_o, rate = 3 * fa_ops / TF32_OPS_PER_S, TF32_OPS_PER_S
-            t_b = fa_bytes / HBM_BYTES_PER_S
-            for cap in (0.0, 50.0):
-                got = ops.flash_attention(q, k, v, softcap=cap)
-                want = KR.flash_attention_ref(q, k, v, softcap=cap)
+            for window, cap in shape.get("cases", FA_CASES):
+                # bytes: q, k, v read once, o written once; operations: the
+                # two products over the pairs the causal mask (and window)
+                # keeps (4 D flops per score), on the tensor cores: bf16
+                # once, f32 as three TF32 products (3xTF32); the f32
+                # kernel's old CUDA-core bound, the flops once at 67
+                # TFLOP/s, is printed beside it
+                fa_bytes = (2 * q.numel() + 2 * k.numel()) * size
+                fa_ops = 4 * B * H * D * attention_pairs(S, window)
+                if dtype == torch.bfloat16:
+                    t_o, rate = fa_ops / BF16_OPS_PER_S, BF16_OPS_PER_S
+                else:
+                    t_o, rate = 3 * fa_ops / TF32_OPS_PER_S, TF32_OPS_PER_S
+                t_b = fa_bytes / HBM_BYTES_PER_S
+                label = (f"K8 flash_attention {name} D={D} window={window} "
+                         f"softcap {cap:g}")
+                got = ops.flash_attention(q, k, v, softcap=cap,
+                                          window=window)
+                want = KR.flash_attention_ref(q, k, v, softcap=cap,
+                                              window=window)
                 torch.cuda.synchronize()
-                err = check_close(f"K8 flash_attention {name} D={D} softcap "
-                                  f"{cap:g}", got, want, rtol, atol)
+                err = check_close(label, got, want, rtol, atol)
                 # both against float64: the bf16 kernel rounds P to bf16
                 # before P V, the plain version keeps it in f32; the f32
                 # kernel's products are 3xTF32, the plain version's f32
-                f64 = f64_errors(f"K8 flash_attention {name} D={D} "
-                                 f"softcap {cap:g}", got, want,
-                                 attention_f64(q, k, v, cap))
+                f64 = f64_errors(label, got, want,
+                                 attention_f64(q, k, v, cap, window))
                 del got, want
                 torch.cuda.empty_cache()
-                ms = cuda_ms(lambda: ops.flash_attention(q, k, v,
-                                                         softcap=cap), 5)
-                plain_ms = cuda_ms(
-                    lambda: KR.flash_attention_ref(q, k, v, softcap=cap), 2)
+                ms = cuda_ms(lambda: ops.flash_attention(
+                    q, k, v, softcap=cap, window=window), 5)
+                plain_ms = cuda_ms(lambda: KR.flash_attention_ref(
+                    q, k, v, softcap=cap, window=window), 2)
                 lib_ms = None
                 if cap == 0.0:
                     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                    keep = (KR.attention_mask(S, window, q.device)
+                            if window else None)
 
                     def sdpa():
+                        if keep is None:
+                            return F.scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True, enable_gqa=True)
                         return F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, enable_gqa=True)
+                            qt, kt, vt, attn_mask=keep, enable_gqa=True)
 
                     lib_ms = cuda_ms(sdpa, 5)
+                    del keep
                 out["K8"].append(dict(
-                    dtype=name, D=D, softcap=cap, err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=1e3 * max(t_b, t_o),
+                    dtype=name, D=D, window=window, softcap=cap, err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_b, t_o),
                     bound_by="bytes" if t_b >= t_o else "operations",
                     library_ms=lib_ms))
                 print(f"[lm-kernel] K8 flash_attention {name} B={B} S={S} "
-                      f"H={H} KVH={KVH} D={D} softcap={cap:g} max_abs_err="
-                      f"{err:.3e} tol=rtol {rtol:g} + atol {atol:g} ms="
-                      f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-                      f"{1e3 * max(t_b, t_o):.4f} "
+                      f"H={H} KVH={KVH} D={D} window={window} softcap="
+                      f"{cap:g} max_abs_err={err:.3e} tol=rtol {rtol:g} + "
+                      f"atol {atol:g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"bound_ms={1e3 * max(t_b, t_o):.4f} "
                       f"({out['K8'][-1]['bound_by']}; {fa_bytes / 1e6:.1f} "
                       f"MB, {fa_ops:.3e} flops"
                       + (f" at {rate / 1e12:g} TFLOP/s)" if dtype ==
@@ -1893,7 +1959,8 @@ def lm_kernel_phase(device) -> dict:
                          f" x 3 at {rate / 1e12:g} TFLOP/s TF32; CUDA-core "
                          f"f32 bound {1e3 * fa_ops / F32_OPS_PER_S:.4f})")
                       + ("" if lib_ms is None else
-                         f" sdpa library_ms={lib_ms:.4f}")
+                         f" sdpa{' (window as a mask)' if window else ''} "
+                         f"library_ms={lib_ms:.4f}")
                       + f" vs_float64 max_abs kernel={f64['abs'][0]:.3e} "
                       f"plain={f64['abs'][1]:.3e}, row/|row| mean "
                       f"kernel={f64['mean'][0]:.3e} plain="
@@ -2049,16 +2116,16 @@ def k9_bars(out: dict) -> None:
 def greedy(model, tokens, n_decode: int, cache_len: int, backend: str):
     """Prefill then ``n_decode`` greedy decode steps: (prefill logits, the
     prefill's caches, the generated tokens (B, 1 + n_decode)).  Decode
-    writes the KV caches past the prompt and the Mamba-2 caches over
-    theirs, so those are copied right after the prefill."""
+    writes the caches in place (a local block's ring over the prompt's
+    positions, the Mamba-2 state over its own), so they are copied right
+    after the prefill."""
     import torch
 
     from repro_torch import models as TM
 
     logits, caches = TM.prefill(model, tokens, cache_len=cache_len,
                                 backend=backend)
-    prefilled = [c if "k" in c else {k: v.clone() for k, v in c.items()}
-                 for c in caches]
+    prefilled = [{k: v.clone() for k, v in c.items()} for c in caches]
     toks = [logits.argmax(-1)]
     S = tokens.shape[1]
     for i in range(n_decode):
@@ -2068,25 +2135,32 @@ def greedy(model, tokens, n_decode: int, cache_len: int, backend: str):
     return logits, prefilled, torch.cat(toks, dim=1)
 
 
-def prefill_wide(model, tokens, dtype):
-    """An independent prefill of a pre-norm, untied, uncapped model of
-    ``attn`` (SwiGLU: Granite) or ``shared_attn`` (GeLU) + ``mamba2`` blocks
-    (Zamba2) in ``dtype`` (float64, or float32 for a bfloat16 model), written
-    from the reference's equations, each block's weights widened one block
-    at a time; RoPE angles in float32, as the reference defines them.  A
-    Mamba-2 layer runs the reference's own form: a loop over chunks that
-    carries the state (no K10 regrouping).  Returns the last-position logits
-    and the caches in the model's order (``{"k", "v"}``, ``{"conv",
+def prefill_wide(model, tokens, dtype, routes: list | None = None):
+    """An independent prefill of a pre-norm model of ``attn``, ``local``
+    (the window), ``shared_attn`` and ``mamba2`` blocks in ``dtype``
+    (float64, or float32 for a bfloat16 model), written from the
+    reference's equations, each block's weights widened one block (one
+    expert) at a time; RoPE angles in float32, as the reference defines
+    them.  It follows the reference's options that the served models use:
+    sandwich norms, tied embeddings times sqrt(d_model), the attention and
+    final softcaps, SwiGLU, GeGLU and GeLU feed-forwards, and the mixture
+    of experts (``moe``: router softmax, top-k gates over their sum,
+    capacity C per chunk of 8192 tokens by a one-hot cumsum in (token,
+    choice) order, an expert at a time, the shared expert after; each
+    layer's top-k choices appended to ``routes``).  A Mamba-2 layer runs
+    the reference's own form: a loop over chunks that carries the state
+    (no K10 regrouping).  Returns the last-position logits and the caches
+    in the model's order (``{"k", "v"}``, a local block's a ring of
+    min(window, S) slots with position p in slot p % W; ``{"conv",
     "ssm"}``)."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.models.layers import MoE
     from repro_torch.models.transformer import MambaBlock
 
     cfg = model.cfg
-    if cfg.act not in ("swiglu", "gelu") or cfg.post_norm \
-            or cfg.parallel_block or cfg.tie_embeddings or cfg.attn_softcap \
-            or cfg.final_softcap:
+    if cfg.act not in ("swiglu", "geglu", "gelu") or cfg.parallel_block:
         raise ValueError(f"prefill_wide does not model {cfg.name}")
     B, S = tokens.shape
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -2094,6 +2168,9 @@ def prefill_wide(model, tokens, dtype):
     def norm(x, w, eps=cfg.norm_eps):
         var = (x * x).mean(-1, keepdim=True)
         return x * torch.rsqrt(var + eps) * (1.0 + w.to(dtype))
+
+    def cap(x, c):
+        return c * torch.tanh(x / c) if c > 0.0 else x
 
     half = D // 2
     freqs = (1.0 / cfg.rope_theta) ** (torch.arange(
@@ -2107,7 +2184,52 @@ def prefill_wide(model, tokens, dtype):
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
-    causal = torch.ones((S, S), dtype=torch.bool, device=tokens.device).tril()
+    pos = torch.arange(S, device=tokens.device)
+    causal = pos[None, :] <= pos[:, None]
+    windowed = causal & (pos[None, :] > pos[:, None] - cfg.window)
+
+    def mlp(ff, h):
+        if cfg.act == "swiglu":
+            f = F.silu(h @ ff.wg.to(dtype)) * (h @ ff.wi.to(dtype))
+        elif cfg.act == "geglu":
+            f = F.gelu(h @ ff.wg.to(dtype), approximate="tanh") \
+                * (h @ ff.wi.to(dtype))
+        else:
+            f = F.gelu(h @ ff.wi.to(dtype), approximate="tanh")
+        return f @ ff.wo.to(dtype)
+
+    def moe(ff, h):
+        mc = cfg.moe
+        E, K = mc.n_experts, mc.top_k
+        xt = h.reshape(B * S, -1)
+        tc = min(8192, B * S)
+        C = min(tc, max(1, int(tc * K / E * mc.capacity_factor)))
+        y = torch.zeros_like(xt)
+        choices = []
+        for c0 in range(0, B * S, tc):
+            xc = xt[c0:c0 + tc]
+            probs = torch.softmax(xc @ ff.router.to(dtype), dim=-1)
+            gate, idx = torch.topk(probs, K, dim=-1)
+            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            choices.append(idx)
+            onehot = F.one_hot(idx, E)  # (tc, K, E)
+            queue = (onehot.reshape(tc * K, E).cumsum(0).reshape(tc, K, E)
+                     * onehot - 1)
+            kept = (queue >= 0) & (queue < C)
+            for e in range(E):
+                t, k = kept[..., e].nonzero(as_tuple=True)
+                xe = xc[t]
+                he = xe @ ff.wi[e].to(dtype)
+                if hasattr(ff, "wg"):
+                    he = F.silu(xe @ ff.wg[e].to(dtype)) * he
+                else:
+                    he = F.gelu(he, approximate="tanh")
+                y[c0:c0 + tc].index_add_(
+                    0, t, (he @ ff.wo[e].to(dtype)) * gate[t, k, None])
+        if routes is not None:
+            routes.append(torch.cat(choices))
+        y = y.reshape(h.shape)
+        return y if ff.shared is None else y + mlp(ff.shared, h)
 
     def attn_block(blk, x):
         at, ff = blk.attn, blk.ffn
@@ -2117,16 +2239,29 @@ def prefill_wide(model, tokens, dtype):
         v = (h @ at.wv.to(dtype)).reshape(B, S, KVH, D)
         kk = k.repeat_interleave(H // KVH, dim=2)
         vv = v.repeat_interleave(H // KVH, dim=2)
-        s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / D ** 0.5
-        p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+        s = cap(torch.einsum("bqhd,bkhd->bhqk", q, kk) / D ** 0.5,
+                cfg.attn_softcap)
+        keep = windowed if blk.local and cfg.window else causal
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+        del s
         a = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(B, S, H * D)
-        x = x + a @ at.wo.to(dtype)
+        a = a @ at.wo.to(dtype)
+        if cfg.post_norm:
+            a = norm(a, blk.ln1_post)
+        x = x + a
         h = norm(x, blk.ln2)
-        if cfg.act == "swiglu":
-            f = F.silu(h @ ff.wg.to(dtype)) * (h @ ff.wi.to(dtype))
-        else:
-            f = F.gelu(h @ ff.wi.to(dtype), approximate="tanh")
-        return x + f @ ff.wo.to(dtype), {"k": k, "v": v}
+        f = moe(ff, h) if isinstance(ff, MoE) else mlp(ff, h)
+        if cfg.post_norm:
+            f = norm(f, blk.ln2_post)
+        if blk.local and cfg.window:  # the ring of the last W positions
+            W = min(cfg.window, S)
+            p = torch.arange(S - W, S, device=x.device)
+            ring = {n: t.new_zeros((B, W) + t.shape[2:])
+                    for n, t in (("k", k), ("v", v))}
+            ring["k"][:, p % W] = k[:, p]
+            ring["v"][:, p % W] = v[:, p]
+            return x + f, ring
+        return x + f, {"k": k, "v": v}
 
     def mamba_block(blk, x):
         mb, ssm = blk.mamba, cfg.ssm
@@ -2170,22 +2305,66 @@ def prefill_wide(model, tokens, dtype):
                                             "ssm": state}
 
     x = model.embed[tokens].to(dtype)
+    if cfg.tie_embeddings:
+        x = x * cfg.d_model ** 0.5
     caches = []
     for blk in model.stack():
         block = mamba_block if isinstance(blk, MambaBlock) else attn_block
         x, cache = block(blk, x)
         caches.append(cache)
     h = norm(x[:, -1:], model.final_norm)
-    return h @ model.unembed.to(dtype), caches
+    w = model.embed.T if cfg.tie_embeddings else model.unembed
+    return cap(h @ w.to(dtype), cfg.final_softcap), caches
 
 
-def stack_counts(model) -> tuple[int, int]:
-    """(attention block applications, Mamba-2 layers) of the model."""
+def stack_counts(model) -> tuple[int, int, int]:
+    """(attention block applications, local ones among them, Mamba-2
+    layers) of the model."""
     from repro_torch.models.transformer import MambaBlock
 
     blocks = model.stack()
     n_mamba = sum(isinstance(b, MambaBlock) for b in blocks)
-    return len(blocks) - n_mamba, n_mamba
+    n_local = sum(getattr(b, "local", False) for b in blocks)
+    return len(blocks) - n_mamba, n_local, n_mamba
+
+
+@contextlib.contextmanager
+def moe_routes(store: list):
+    """Within the block, every ``MoE.route`` call appends its chunk's top-k
+    expert choices (tc, K) to ``store``."""
+    from repro_torch.models.layers import MoE
+
+    route = MoE.route
+
+    def recording(self, xc):
+        out = route(self, xc)
+        store.append(out[0])
+        return out
+
+    MoE.route = recording
+    try:
+        yield store
+    finally:
+        MoE.route = route
+
+
+def routes_differ(paths: dict, n_layers: int) -> dict:
+    """For MoE prefills, {"a vs b": (token, layer) pairs whose set of top-k
+    experts differ} over each pair of ``paths`` (name: the chunks' choices
+    in call order, layer by layer), and the pairs in all (under "of")."""
+    import torch
+
+    def per_layer(chunks):
+        per = len(chunks) // n_layers
+        return torch.cat([torch.cat(chunks[i * per:(i + 1) * per])
+                          for i in range(n_layers)]).sort(-1).values
+
+    got = {k: per_layer(v) for k, v in paths.items()}
+    names = list(got)
+    out = {f"{a} vs {b}": int((got[a] != got[b]).any(-1).sum())
+           for i, a in enumerate(names) for b in names[i + 1:]}
+    out["of"] = got[names[0]].shape[0]
+    return out
 
 
 # device time of a traced prefill, by kernel name
@@ -2199,9 +2378,11 @@ PREFILL_GROUPS = (
 
 
 def serving_phase(device, arch: str) -> dict:
-    """``arch`` at full width and depth with seeded weights: float32 parity
-    of the kernel path against the plain path and a float64 prefill, then
-    the bfloat16 serving run (prefill, greedy decode)."""
+    """``arch`` at full width (and full depth, or :data:`DEPTH`'s layers)
+    with seeded weights: float32 parity of the kernel path against the
+    plain path and a float64 prefill, then the bfloat16 serving run
+    (prefill, greedy decode), with :data:`TRAFFIC`'s prompts where it names
+    the model, else :data:`PARITY` and :data:`SERVE`."""
     import torch
 
     from repro_torch import configs as TC
@@ -2209,28 +2390,55 @@ def serving_phase(device, arch: str) -> dict:
     from repro_torch.kernels import library as KL
 
     cfg = TC.get_config(arch)
+    full_layers = cfg.n_layers
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+    parity, serve = TRAFFIC.get(arch, (PARITY, SERVE))
     gen = torch.Generator(device=device).manual_seed(4)
     t = time.perf_counter()
     model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
                                           device=device), seed=0)
     torch.cuda.synchronize()
     n_params = TM.count_params(model)
-    n_attn, n_mamba = stack_counts(model)
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers of {cfg.pattern}, "
-          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_attn} "
-          f"attention applications, {n_mamba} Mamba-2 layers: "
-          f"{n_params / 1e9:.3f} G parameters; float32 weights initialised "
-          f"in {time.perf_counter() - t:.2f} s "
+    n_attn, n_local, n_mamba = stack_counts(model)
+    n_moe = n_attn if cfg.moe is not None else 0
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers of {cfg.pattern}"
+          + (f" (depth cut from {full_layers} to fit one card: the float32 "
+             f"parity weights)" if cfg.n_layers != full_layers else "")
+          + f", d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"of {cfg.d_head}, d_ff {cfg.d_ff}"
+          + (f" x {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}"
+             f"{' + a shared expert' if cfg.moe.shared_expert else ''}, "
+             f"capacity factor {cfg.moe.capacity_factor:g}"
+             if cfg.moe is not None else "")
+          + f", vocab {cfg.vocab}"
+          + (f", window {cfg.window}" if n_local else "")
+          + f"; {n_attn} attention applications ({n_local} local), "
+          f"{n_mamba} Mamba-2 layers: {n_params / 1e9:.3f} G parameters; "
+          f"float32 weights initialised in {time.perf_counter() - t:.2f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)
-    B, S, n = PARITY["B"], PARITY["S"], PARITY["decode"]
+    B, S, n = parity["B"], parity["S"], parity["decode"]
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    routes = {"kernel": [], "plain": [], "float64": []}
     KL.reset_launches()
-    got = greedy(model, tokens, n, S + n, "cuda")
+    with moe_routes(routes["kernel"]):
+        got = greedy(model, tokens, n, S + n, "cuda")
     launched = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
-    want = greedy(model, tokens, n, S + n, "ref")
-    exact = prefill_wide(model, tokens, torch.float64)
+    with moe_routes(routes["plain"]):
+        want = greedy(model, tokens, n, S + n, "ref")
+    exact = prefill_wide(model, tokens, torch.float64, routes["float64"])
     torch.cuda.synchronize()
+    if n_moe:
+        # the prefill's routes: each layer's chunks, before the decode's
+        chunks = -(-B * S // 8192) * n_moe
+        differ = routes_differ({"kernel": routes["kernel"][:chunks],
+                                "plain": routes["plain"][:chunks],
+                                "float64": routes["float64"]}, n_moe)
+        print(f"[serve] MoE routing, float32 parity prefill: (token, layer) "
+              f"top-{cfg.moe.top_k} expert choices that differ, of "
+              f"{differ.pop('of')}: "
+              + ", ".join(f"{k} {v}" for k, v in differ.items()),
+              flush=True)
     same = torch.equal(got[2], want[2])
     kinds = {"k": "KV caches", "v": "KV caches", "conv": "conv tails",
              "ssm": "SSM states"}
@@ -2271,10 +2479,13 @@ def serving_phase(device, arch: str) -> dict:
         raise RuntimeError(f"greedy tokens differ: {got[2].tolist()} vs "
                            f"{want[2].tolist()}")
     if launched["flash_attention"] != n_attn \
+            or launched["flash_attention_window"] != n_local \
             or launched["ssm_state_scan"] != n_mamba:
-        raise RuntimeError(f"K8/K10 launched {launched['flash_attention']}/"
+        raise RuntimeError(f"K8 (with a window)/K10 launched "
+                           f"{launched['flash_attention']} "
+                           f"({launched['flash_attention_window']})/"
                            f"{launched['ssm_state_scan']} times in the parity "
-                           f"run, expected {n_attn}/{n_mamba}")
+                           f"run, expected {n_attn} ({n_local})/{n_mamba}")
     del got, want, exact
     torch.cuda.empty_cache()
     # the float32 parity prefill (K8's float32 kernel), timed alone
@@ -2291,11 +2502,15 @@ def serving_phase(device, arch: str) -> dict:
                                           device=device), seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
-    B, S, n, cache = (SERVE[k] for k in ("B", "S", "decode", "cache"))
+    B, S, n, cache = (serve[k] for k in ("B", "S", "decode", "cache"))
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
     print(f"[serve] bfloat16 weights initialised in {init_s:.2f} s; B={B} "
-          f"prompts of {S} tokens, caches of {cache}", flush=True)
-    logits, caches = TM.prefill(model, tokens, cache_len=cache)  # warm-up
+          f"prompts of {S} tokens, caches of {cache}"
+          + (f" (local rings of {min(cfg.window, cache)})" if n_local
+             else ""), flush=True)
+    routes = {"kernel": [], "plain": [], "float32": []}
+    with moe_routes(routes["kernel"]):  # the warm-up
+        logits, caches = TM.prefill(model, tokens, cache_len=cache)
     del logits, caches
     # the peak over the timed prefills: the weights, one prefill's
     # transients and its caches (each prefill frees the last one's first)
@@ -2341,11 +2556,15 @@ def serving_phase(device, arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     decode_ms = 1e3 * statistics.median(steps)
     tok_s = B * n / sum(steps)
-    norms = n_attn + 2 * n_mamba + 1  # every ln1, the gated norms, final
-    want_prefill = {"flash_attention": n_attn, "rmsnorm": norms,
+    # every ln1 (and, with sandwich norms, ln1_post and ln2_post), the
+    # gated norms, the final norm
+    norms = n_attn * (3 if cfg.post_norm else 1) + 2 * n_mamba + 1
+    want_prefill = {"flash_attention": n_attn,
+                    "flash_attention_window": n_local, "rmsnorm": norms,
                     "rmsnorm_residual": n_attn, "ssm_state_scan": n_mamba}
-    want_step = {"flash_attention": 0, "rmsnorm": norms,
-                 "rmsnorm_residual": n_attn, "ssm_state_scan": 0}
+    want_step = {"flash_attention": 0, "flash_attention_window": 0,
+                 "rmsnorm": norms, "rmsnorm_residual": n_attn,
+                 "ssm_state_scan": 0}
     print(f"[serve] decode: {n} greedy steps, ms per step median "
           f"{decode_ms:.3f} (min {1e3 * min(steps):.3f}, max "
           f"{1e3 * max(steps):.3f}); {tok_s:.1f} generated tokens/s")
@@ -2361,11 +2580,20 @@ def serving_phase(device, arch: str) -> dict:
                       decode_ms, untraced="median decode step")
     del caches
     torch.cuda.empty_cache()
-    plain, _ = TM.prefill(model, tokens, backend="ref")
-    wide = prefill_wide(model, tokens, torch.float32)[0]
+    with moe_routes(routes["plain"]):
+        plain, _ = TM.prefill(model, tokens, backend="ref")
+    wide = prefill_wide(model, tokens, torch.float32, routes["float32"])[0]
     torch.cuda.synchronize()
     if not torch.isfinite(logits).all() or logits.shape != plain.shape:
         raise RuntimeError("serving logits non-finite or misshapen")
+    if n_moe:
+        differ = routes_differ(routes, n_moe)
+        print(f"[serve] MoE routing, bfloat16 prefill (the float32 prefill "
+              f"of the same weights as the reference): (token, layer) "
+              f"top-{cfg.moe.top_k} expert choices that differ, of "
+              f"{differ.pop('of')}: "
+              + ", ".join(f"{k} {v}" for k, v in differ.items()),
+              flush=True)
 
     def rel(a, b):
         return ((a.float() - b.float()).abs().max() / b.abs().max()).item()
@@ -2390,7 +2618,9 @@ def serving_phase(device, arch: str) -> dict:
                            f"{r_k:.3e}, plain {r_p:.3e}")
     del model, logits, plain, wide
     torch.cuda.empty_cache()
-    return {"launches": request, "per_prefill": per_prefill,
+    return {"name": cfg.name, "layers": cfg.n_layers,
+            "full_layers": full_layers, "n_params": n_params,
+            "launches": request, "per_prefill": per_prefill,
             "per_step": per_step, "parity_launches": launched,
             "parity_prefill_ms": parity_ms, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "tok_s": tok_s, "peak": peak,
@@ -2421,13 +2651,15 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     bound of its first case (fx_ppm, tridiag_solve, interface_interp;
     fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4).  K8's
     bf16 kernel, K9 and K10 count one bf16 serving request (a prefill and
-    its decode steps) of each served model, Granite-8B and Zamba2-7B, and
+    its decode steps) of each served model (:data:`SERVED_MODELS`), and
     take their times from the bf16 case (K8 at Granite's shape and softcap
     0, K9 at Zamba2's d_model over a prefill's rows with a float32 weight)
     and, for K10, Zamba2's serving shape; K8's float32 kernel counts the
-    float32 parity runs of
-    both models and takes its times from the float32 case at Granite's
-    shape, softcap 0.  K1-K4 also carry ``distributed_launches``: their
+    float32 parity runs of every model and takes its times from the
+    float32 case at Granite's shape, softcap 0.  K8's window has a record
+    of each dtype: the launches with a window (Gemma-2's local layers,
+    also counted in K8's record) and the times at Gemma-2's shape, window
+    4096, softcap 0.  K1-K4 also carry ``distributed_launches``: their
     launches in the 3 overlapped distributed steps."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
@@ -2470,7 +2702,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     f32 = next(r for r in lm["K8"] if r["dtype"] == "float32"
-               and r["softcap"] == 0.0 and r["D"] == 128)
+               and r["softcap"] == 0.0 and r["D"] == 128
+               and r["window"] == 0)
     kernels.append({
         "name": "flash_attention_fwd_kernel", "route": "cuda",
         "source": LM_SOURCE,
@@ -2497,12 +2730,31 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                     ("float32" if key == "K10" else "bfloat16")
                     and r.get("softcap", 0.0) == 0.0
                     and r.get("D", 128) == 128
+                    and r.get("window", 0) == 0
                     and (r.get("rows"), r.get("d")) in ((None, None),
                                                         NORM_HEAD))
         kernels.append({
             "name": name, "route": "cuda", "source": LM_SOURCE,
             "replaces": line,
             "launches": sum(run["launches"][count] for run in serve.values()),
+            "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+    # K8 with its window (Gemma-2's local layers): the windowed launches of
+    # the bf16 requests and of the f32 parity runs, the times of the window
+    # 4096 case at Gemma-2's shape without the softcap (beside SDPA with the
+    # window as a mask)
+    for dtype, name, count in (
+            ("bfloat16", "flash_attention_wgmma_kernel", "launches"),
+            ("float32", "flash_attention_fwd_kernel", "parity_launches")):
+        mine = [r for r in lm["K8"] if r["dtype"] == dtype and r["window"]]
+        head = next(r for r in mine if r["softcap"] == 0.0)
+        kernels.append({
+            "name": f"{name} (window {head['window']}, D {head['D']})",
+            "route": "cuda", "source": LM_SOURCE,
+            "replaces": "src/repro/kernels/flash_attention.py:21",
+            "launches": sum(run[count]["flash_attention_window"]
+                            for run in serve.values()),
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
@@ -2587,7 +2839,7 @@ def main() -> int:
     del path["s0"], path["plain1"]
     torch.cuda.empty_cache()
     lm = lm_kernel_phase(device)
-    serve = {arch: serving_phase(device, arch) for arch in SERVE_ARCHS}
+    serve = {arch: serving_phase(device, arch) for arch in SERVED_MODELS}
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
                              lm, serve, distributed)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")

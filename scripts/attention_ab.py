@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K8's float32 kernel and the float32 parity prefills of two source
-trees on one card, interleaved.
+"""Time K8's kernels and the float32 parity prefills of two source trees on
+one card, interleaved.
 
     python3 scripts/attention_ab.py BASE
 
@@ -8,10 +8,12 @@ BASE is the root of another checkout of this repository (for example the
 parent commit, unpacked with ``git archive``); "new" is the checkout that
 holds this script.  The runs go base, new, new, base, each a fresh process
 that puts its tree's ``src`` first on ``sys.path`` and builds its LM
-kernels.  Each run: ``flash_attention`` in float32 at
+kernels.  Each run: ``flash_attention`` in float32 and bfloat16 at
 ``chip_smoke.FA_SHAPES`` (Granite-8B's and Zamba2-7B's prefill shapes,
-softcap 0; CUDA events, 5 calls after a warm-up) beside
-``F.scaled_dot_product_attention`` on the same inputs, then for each of
+softcap 0 and 50, no window; CUDA events, 20 calls after a warm-up, and
+a digest of the output's bytes, which must be the same in every run), at
+softcap 0 beside ``F.scaled_dot_product_attention`` on the same inputs,
+then for each of
 ``chip_smoke.SERVE_ARCHS`` the float32 prefill of ``chip_smoke.PARITY``'s
 2 prompts of 512 tokens (full width and depth, weights from seed 0; CUDA
 events, mean of 3 after a warm-up) with its K8 launches.  Prints one
@@ -22,6 +24,7 @@ one card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -33,7 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def child(src: Path, label: str) -> None:
-    """One run: K8 float32 and the parity prefills of the tree whose
+    """One run: K8 in both dtypes and the parity prefills of the tree whose
     ``src`` is ``src``."""
     sys.path.insert(0, str(src))
     sys.path.insert(1, str(ROOT))
@@ -56,19 +59,27 @@ def child(src: Path, label: str) -> None:
           f"{time.perf_counter() - t:.1f} s", flush=True)
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(3)
-    out = {"run": label, "k8": {}, "sdpa": {}, "prefill": {}}
-    for shape in CS.FA_SHAPES:
-        B, S, H, KVH, D = (shape[k] for k in ("B", "S", "H", "KVH", "D"))
-        q = torch.randn((B, S, H, D), generator=gen, device=device)
-        k, v = (torch.randn((B, S, KVH, D), generator=gen, device=device)
-                for _ in range(2))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        out["k8"][D] = CS.cuda_ms(lambda: ops.flash_attention(q, k, v), 5)
-        out["sdpa"][D] = CS.cuda_ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 5)
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+    out = {"run": label, "k8": {}, "sdpa": {}, "digest": {}, "prefill": {}}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for shape in CS.FA_SHAPES:
+            B, S, H, KVH, D = (shape[k] for k in ("B", "S", "H", "KVH", "D"))
+            q = torch.randn((B, S, H, D), generator=gen,
+                            device=device).to(dtype)
+            k, v = (torch.randn((B, S, KVH, D), generator=gen,
+                                device=device).to(dtype) for _ in range(2))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            for cap in (0.0, 50.0):
+                key = f"{name} D={D} cap={cap:g}"
+                o = ops.flash_attention(q, k, v, softcap=cap)
+                out["digest"][key] = hashlib.sha1(
+                    o.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+                out["k8"][key] = CS.cuda_ms(
+                    lambda: ops.flash_attention(q, k, v, softcap=cap), 20)
+                out["sdpa"][key] = None if cap else CS.cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
     B, S = CS.PARITY["B"], CS.PARITY["S"]
     for arch in CS.SERVE_ARCHS:
         cfg = TC.get_config(arch)
@@ -106,18 +117,21 @@ def main() -> int:
     results = interleaved_runs(__file__, args.base)
     if results is None:
         return 1
-    dims = list(results[0]["k8"])
+    keys = list(results[0]["k8"])
     archs = list(results[0]["prefill"])
-    print(f"{'run':8} " + " ".join(f"{'K8 f32 D=' + d:>13} {'SDPA':>9}"
-                                   for d in dims)
-          + " " + " ".join(f"{a + ' ms':>16}" for a in archs))
-    for r in results:
-        print(f"{r['run']:8} "
-              + " ".join(f"{r['k8'][d]:13.4f} {r['sdpa'][d]:9.4f}"
-                         for d in dims)
-              + " " + " ".join(f"{r['prefill'][a]['ms']:16.3f}"
-                               for a in archs))
-    return 0
+    print(f"{'K8 ms':22} " + " ".join(f"{r['run']:>9}" for r in results))
+    for key in keys:
+        print(f"{key:22} " + " ".join(f"{r['k8'][key]:9.4f}"
+                                      for r in results))
+        if results[0]["sdpa"][key] is not None:
+            print(f"{'  SDPA':22} " + " ".join(f"{r['sdpa'][key]:9.4f}"
+                                              for r in results))
+    for a in archs:
+        print(f"{a + ' prefill ms':22} "
+              + " ".join(f"{r['prefill'][a]['ms']:9.3f}" for r in results))
+    same = all(r["digest"] == results[0]["digest"] for r in results)
+    print(f"K8's outputs bit for bit the same in every run: {same}")
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

@@ -11,12 +11,28 @@
 //   ssm_state_scan_kernel      <- src/repro/kernels/ssm_scan.py
 //                                 _kernel (:23-32)                      K10
 //
-// K8, causal attention over the whole prompt, forward, with GQA and an
-// optional tanh softcap.  q is (B, S, H, D) and k/v are (B, S, KVH, D),
-// contiguous, read in that layout (the reference transposes to (B*H, S, D)
-// first; here the kernels address (b, h) themselves).  Query head h reads
-// kv head h / (H / KVH), as the reference's _repeat_kv orders them; masked
-// scores are -1e30 (not -inf), l is clamped at 1e-20.  Two instances:
+// K8, causal attention over the whole prompt, forward, with GQA, an
+// optional tanh softcap and an optional sliding window.  q is (B, S, H, D)
+// and k/v are (B, S, KVH, D), contiguous, read in that layout (the
+// reference transposes to (B*H, S, D) first; here the kernels address
+// (b, h) themselves).  Query head h reads kv head h / (H / KVH), as the
+// reference's _repeat_kv orders them; masked scores are -1e30 (not -inf),
+// l is clamped at 1e-20.
+// The window (window > 0; Gemma-2's local layers, models/layers.py:157-159
+// of the reference, whose Pallas kernel has none): key k is visible to
+// query q iff q - window < k <= q.  A query tile of rows q0 .. q0 + BQ - 1
+// walks the key tiles from max(0, q0 - window + 1) / BK up to its causal
+// frontier, so tiles wholly below the window are neither loaded nor
+// computed, and masks, after the softcap, every tile that holds a key past
+// a row (the diagonal) or at or below a row's window edge.  A row can have
+// every key of its first tiles masked: the softmax then gives those keys
+// p = 0 (its running max is still -1e30) where the reference's online
+// softmax gives them p = 1 and wipes them with alpha = 0 at its first real
+// score; both end with exactly the keys of the window.  Each kernel is
+// instantiated with and without the window (kWindow): window 0, or one of
+// S keys or more, runs the causal instance, the code (and so the bits and
+// the time) of the kernel before the window.
+// Two instances:
 //
 // bfloat16, flash_attention_wgmma_kernel (the serving path).  Bound: at
 // Granite-8B's prefill (B=8, S=2048, H=32, KVH=8, D=128) the 2.75e11
@@ -27,9 +43,10 @@
 //    rows each (240 registers a thread after setmaxnreg) and one producer
 //    (24), one CTA per SM.  It is persistent: it walks query tiles of 128
 //    rows in pairs (nq - 1 - i, i) of one (b, h), which need the same
-//    number of key tiles whatever i, so a static stride over pairs balances
-//    the SMs (the f32 kernel's order, one CTA per query tile with the
-//    longest rows first, would idle each CTA at its start and end).
+//    number of key tiles whatever i (without a window), so a static
+//    stride over pairs balances the SMs (the f32 kernel's order, one CTA
+//    per query tile with the longest rows first, would idle each CTA at
+//    its start and end).
 //  - Loads: one producer thread issues TMA loads (cp.async.bulk.tensor),
 //    one per 64 columns, into the 128-byte swizzle that wgmma reads.  Q has
 //    two buffers (one at DP = 256), so the next query tile's Q loads a tile
@@ -46,8 +63,8 @@
 //    (layers.py:154-155; q is never rounded after scaling).  The scale is
 //    folded into the exponent: exp(s - m) = 2^(raw c - m c), c = scale
 //    log2 e, one FFMA and one MUFU.EX2 a score.  The softcap (tanh from
-//    ex2 and rcp), the mask (on the diagonal tiles only) and the online
-//    softmax (m, l) stay in f32 registers.
+//    ex2 and rcp), the mask (on the diagonal and window-edge tiles only)
+//    and the online softmax (m, l) stay in f32 registers.
 //  - O += P V: P is rounded to bf16 in registers, where the S accumulator's
 //    layout already is the A fragment; wgmma m64 nD k16 (n96 and n112 at
 //    those widths, not the padded 128) with V read from shared memory in
@@ -423,6 +440,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 #define FA_LOG2E 1.4426950408889634f
+// the exponent of a masked row's p (2^-inf = 0)
+#define FA_MINUS_INF __uint_as_float(0xff800000u)
 
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
@@ -467,15 +486,17 @@ __device__ __forceinline__ void turn_pass(int wg) {
 // with a softcap, s = softcap tanh(raw scale / softcap); without, s = raw
 // scale, folded into the exponent, exp(s - m) = 2^(raw c - m c) with
 // c = scale log2 e (one FFMA).  m is kept in the units of sc.  Masked
-// scores are -1e30 (keys past the row, only on a diagonal tile).  On
-// return sc holds the unrounded p = exp(s - m_new), ls the row sums of
-// this thread's p, alpha = exp(m_old - m_new).
-template <int BK>
+// scores are -1e30: keys past the row and, with kWindow, keys at or below
+// its window edge (key + window <= row), only on a tile that `edge` flags.
+// With kWindow a row whose scores are all masked so far (m still -1e30)
+// gets p = 0.  On return sc holds the unrounded p = exp(s - m_new), ls the
+// row sums of this thread's p, alpha = exp(m_old - m_new).
+template <int BK, bool kWindow>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
                                              float (&m)[2], float (&alpha)[2],
                                              float (&ls)[2], int k0, int r0,
-                                             int c2, bool diag, float scale,
-                                             float softcap) {
+                                             int c2, bool edge, int window,
+                                             float scale, float softcap) {
   float c = scale * FA_LOG2E;
   if (softcap > 0.f) {
     const float to_cap = scale / softcap;
@@ -484,12 +505,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
       sc[i] = softcap * tanh_fast(sc[i] * to_cap);
     c = FA_LOG2E;
   }
-  if (diag) {
+  if (edge) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int key = k0 + 8 * (i / 4) + c2 + (i % 2);
       const int row = r0 + 8 * ((i / 2) % 2);
-      if (key > row) sc[i] = -1e30f;
+      if (key > row || (kWindow && key + window <= row)) sc[i] = -1e30f;
     }
   }
   float mx[2] = {m[0], m[1]};
@@ -504,7 +525,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     alpha[r] = ex2_approx((m[r] - mx[r]) * c);
     m[r] = mx[r];
-    mc[r] = -mx[r] * c;
+    // every score so far masked (a row's first tiles under a window):
+    // 2^(-inf) = 0 for each, where -mx c would leave the rounding error of
+    // -1e30 c in the exponent
+    mc[r] = kWindow && mx[r] == -1e30f ? FA_MINUS_INF : -mx[r] * c;
     ls[r] = 0.f;
   }
 #pragma unroll
@@ -550,18 +574,22 @@ __device__ __forceinline__ bool fa_next_tile(int& j, int nq, int n_units,
 // producer and the consumers walk the same sequence, and the ring's stage
 // and phase count key tiles over all of a CTA's work: the next query
 // tile's Q and K load while the consumers finish the last one, whose last
-// P V is issued with the next tile's first Q K^T.  DN is D rounded up to
-// the products' width (D itself from 96 up; 64 below): Q K^T runs DN / 16
-// k16 steps and P V is m64 nDN, over the DP-wide (zero-padded) tiles in
-// shared memory.
-template <int DP, int DN>
+// P V is issued with the next tile's first Q K^T.  A query tile's key
+// tiles run from key_lo (the window's lower edge; 0 without kWindow) to
+// key_hi (the causal frontier).  Under a window the pairs (nq - 1 - i, i)
+// no longer need equal work: at Gemma-2's prefill (S 6144, window 4096,
+// B 4 x H 8 on 132 SMs) the busiest CTA walks 1.10x the mean of key tiles
+// (1.03x without the window).  DN is D rounded up to the products' width
+// (D itself from 96 up; 64 below): Q K^T runs DN / 16 k16 steps and P V is
+// m64 nDN, over the DP-wide (zero-padded) tiles in shared memory.
+template <int DP, int DN, bool kWindow>
 __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const __grid_constant__ CUtensorMap to,
                                  int B, int S, int H, int KVH, int D,
-                                 float scale, float softcap) {
+                                 float scale, float softcap, int window) {
   using T = FaHopper<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, NB = T::NB;
   constexpr int QB = T::QBUF;
@@ -581,8 +609,16 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
   const int nq = (S + BQ - 1) / BQ;  // query tiles of a head
   const int n_units = B * H * ((nq + 1) / 2);
   const int wg = threadIdx.x / 128;
-  auto key_tiles = [&](int qt) {  // up to the causal frontier
+  auto key_hi = [&](int qt) {  // up to the causal frontier
     return (min(qt * BQ + BQ, S) + BK - 1) / BK;
+  };
+  auto key_lo = [&](int qt) {  // from the window's lower edge
+    return kWindow ? max(0, qt * BQ - window + 1) / BK : 0;
+  };
+  // keys k0 .. k0 + BK - 1 against a warpgroup's rows wq0 .. wq0 + 63: a
+  // key past a row, or one at or below a row's window edge, to mask
+  auto edge = [&](int k0, int wq0) {
+    return k0 + BK - 1 > wq0 || (kWindow && k0 + window <= wq0 + 63);
   };
 
   if (threadIdx.x == 0) {
@@ -620,18 +656,18 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
     };
     int items = 0, tiles = 0, b, h, qt;
     for (int j = 0; fa_next_tile(j, nq, n_units, H, b, h, qt); ++j) {
-      const int kvh = h / (H / KVH), n_tiles = key_tiles(qt);
-      const int qb = items % QB;
-      load_kv(sk, k_full, k_empty, &tk, tiles, 0, kvh, b);
+      const int kvh = h / (H / KVH), lo = key_lo(qt);
+      const int n_tiles = key_hi(qt) - lo, qb = items % QB;
+      load_kv(sk, k_full, k_empty, &tk, tiles, lo, kvh, b);
       if (items >= QB) mbar_wait(q_empty + 8 * qb, ((items / QB) - 1) & 1);
       mbar_expect_tx(q_full + 8 * qb, T::Q_BYTES);
       for (int c = 0; c < NB; ++c)
         tma_load_4d(sq + qb * T::Q_BYTES + c * BQ * 128, &tq,
                     q_full + 8 * qb, 64 * c, h, qt * BQ, b);
-      load_kv(sv, v_full, v_empty, &tv, tiles, 0, kvh, b);
+      load_kv(sv, v_full, v_empty, &tv, tiles, lo, kvh, b);
       for (int t = 1; t < n_tiles; ++t) {
-        load_kv(sk, k_full, k_empty, &tk, tiles + t, t, kvh, b);
-        load_kv(sv, v_full, v_empty, &tv, tiles + t, t, kvh, b);
+        load_kv(sk, k_full, k_empty, &tk, tiles + t, lo + t, kvh, b);
+        load_kv(sv, v_full, v_empty, &tv, tiles + t, lo + t, kvh, b);
       }
       tiles += n_tiles;
       ++items;
@@ -738,7 +774,7 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
     int items = 0, tiles = 0;  // query tiles and key tiles walked before
     int qb = 0, wq0 = qt * BQ + 64 * wg;
     int r0 = wq0 + 16 * (tid / 32) + (tid % 32) / 4;
-    int n_tiles = key_tiles(qt);
+    int lo = key_lo(qt), n_tiles = key_hi(qt) - lo;
     // the first query tile's S_0 alone
     {
       float sc[BK / 2], alpha[2];
@@ -752,8 +788,8 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
       wgmma_pin(sc);
       mbar_arrive(k_empty);
       m[0] = m[1] = -1e30f;
-      softmax_tile<BK>(sc, m, alpha, l, 0, r0, c2, BK - 1 > wq0, scale,
-                       softcap);
+      softmax_tile<BK, kWindow>(sc, m, alpha, l, lo * BK, r0, c2,
+                                edge(lo * BK, wq0), window, scale, softcap);
 #pragma unroll
       for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
       pack_p<BK>(p, sc);
@@ -774,9 +810,9 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
         wgmma_wait<1>();  // S_{t+1} is done, P_t V_t may still run
         wgmma_pin(sc);
         mbar_arrive(k_empty + 8 * s1);
-        const int k1 = (t + 1) * BK;
-        softmax_tile<BK>(sc, m, alpha, ls, k1, r0, c2, k1 + BK - 1 > wq0,
-                         scale, softcap);
+        const int k1 = (lo + t + 1) * BK;
+        softmax_tile<BK, kWindow>(sc, m, alpha, ls, k1, r0, c2,
+                                  edge(k1, wq0), window, scale, softcap);
         wgmma_wait<0>();
         wgmma_pin(acc);
         mbar_arrive(v_empty + 8 * s);
@@ -803,7 +839,7 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
         break;
       }
       const int qbn = (items + 1) % QB, s1 = (g + 1) % ST;
-      const int wq0n = qtn * BQ + 64 * wg;
+      const int wq0n = qtn * BQ + 64 * wg, k0n = key_lo(qtn) * BK;
       const int r0n = wq0n + 16 * (tid / 32) + (tid % 32) / 4;
       float sc[BK / 2], alpha[2], mn[2] = {-1e30f, -1e30f}, ln[2];
       mbar_wait(q_full + 8 * qbn, ((items + 1) / QB) & 1);
@@ -817,8 +853,8 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
       wgmma_wait<1>();
       wgmma_pin(sc);
       mbar_arrive(k_empty + 8 * s1);
-      softmax_tile<BK>(sc, mn, alpha, ln, 0, r0n, c2, BK - 1 > wq0n, scale,
-                       softcap);
+      softmax_tile<BK, kWindow>(sc, mn, alpha, ln, k0n, r0n, c2,
+                                edge(k0n, wq0n), window, scale, softcap);
       wgmma_wait<0>();
       wgmma_pin(acc);
       mbar_arrive(v_empty + 8 * s);
@@ -838,7 +874,8 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
       wq0 = wq0n;
       r0 = r0n;
       tiles += n_tiles;
-      n_tiles = key_tiles(qt);
+      lo = key_lo(qt);
+      n_tiles = key_hi(qt) - lo;
       ++items;
     }
   }
@@ -903,7 +940,7 @@ static int encode_bhsd(EncodeTiledFn encode, CUtensorMap* map, const void* x,
 template <int DP, int DN>
 static int launch_fa_wgmma(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int KVH, int D,
-                           float softcap, cudaStream_t stream) {
+                           float softcap, int window, cudaStream_t stream) {
   using T = FaHopper<DP>;
   const EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return FA_NO_ENCODER;
@@ -913,7 +950,10 @@ static int launch_fa_wgmma(const void* q, const void* k, const void* v,
   if (rc == 0) rc = encode_bhsd(encode, &tv, v, B, S, KVH, D, T::BK);
   if (rc == 0) rc = encode_bhsd(encode, &to, o, B, S, H, D, 64);
   if (rc != 0) return rc;
-  auto kernel = flash_attention_wgmma_kernel<DP, DN>;
+  // a window of S keys or more is no window: the causal instance
+  auto kernel = window > 0 && window < S
+                    ? flash_attention_wgmma_kernel<DP, DN, true>
+                    : flash_attention_wgmma_kernel<DP, DN, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -931,31 +971,31 @@ static int launch_fa_wgmma(const void* q, const void* k, const void* v,
   const int grid = static_cast<int>(units < sms ? units : sms);
   kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
       tq, tk, tv, to, B, S, H, KVH, D, 1.0f / sqrtf(static_cast<float>(D)),
-      softcap);
+      softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 static int dispatch_fa_wgmma(const void* q, const void* k, const void* v,
                              void* o, int B, int S, int H, int KVH, int D,
-                             float softcap, cudaStream_t stream) {
+                             float softcap, int window, cudaStream_t stream) {
   switch (D) {
     case 16:
     case 32:
     case 64:
       return launch_fa_wgmma<64, 64>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                     stream);
+                                     window, stream);
     case 96:
       return launch_fa_wgmma<128, 96>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                      stream);
+                                      window, stream);
     case 112:
       return launch_fa_wgmma<128, 112>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                       stream);
+                                       window, stream);
     case 128:
       return launch_fa_wgmma<128, 128>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                       stream);
+                                       window, stream);
     case 256:
       return launch_fa_wgmma<256, 256>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                       stream);
+                                       window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1196,26 +1236,28 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
 // (even i / 2) and r0 + 8 (odd i / 2) at keys k0 + 8 (i / 4) + c2 + i % 2,
 // already scaled (q was scaled before the product).  With a softcap,
 // s = softcap tanh(s / softcap) (tanhf: the f32 bar leaves no room for an
-// approximate tanh); masked scores -1e30; exp(s - m) = 2^(s log2 e -
-// m log2 e) (one FFMA and one MUFU.EX2).  On return sc holds the unrounded
-// p, ls the row sums of this thread's p, alpha = exp(m_old - m_new).
-template <int BK>
+// approximate tanh); masked scores -1e30, on the tiles `edge` flags, as in
+// softmax_tile (with kWindow the window's edge too); exp(s - m) =
+// 2^(s log2 e - m log2 e) (one FFMA and one MUFU.EX2), with kWindow 0 for
+// a row masked so far.  On return sc holds the unrounded p, ls the row
+// sums of this thread's p, alpha = exp(m_old - m_new).
+template <int BK, bool kWindow>
 __device__ __forceinline__ void softmax_f32(float (&sc)[BK / 2],
                                             float (&m)[2], float (&alpha)[2],
                                             float (&ls)[2], int k0, int r0,
-                                            int c2, bool diag,
+                                            int c2, bool edge, int window,
                                             float softcap) {
   if (softcap > 0.f) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i)
       sc[i] = softcap * tanhf(sc[i] / softcap);
   }
-  if (diag) {
+  if (edge) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int key = k0 + 8 * (i / 4) + c2 + (i % 2);
       const int row = r0 + 8 * ((i / 2) % 2);
-      if (key > row) sc[i] = -1e30f;
+      if (key > row || (kWindow && key + window <= row)) sc[i] = -1e30f;
     }
   }
   float mx[2] = {m[0], m[1]};
@@ -1229,7 +1271,8 @@ __device__ __forceinline__ void softmax_f32(float (&sc)[BK / 2],
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     alpha[r] = ex2_approx((m[r] - mx[r]) * FA_LOG2E);
     m[r] = mx[r];
-    mc[r] = -mx[r] * FA_LOG2E;
+    mc[r] = kWindow && mx[r] == -1e30f ? FA_MINUS_INF  // as above
+                                       : -mx[r] * FA_LOG2E;
     ls[r] = 0.f;
   }
 #pragma unroll
@@ -1241,22 +1284,28 @@ __device__ __forceinline__ void softmax_f32(float (&sc)[BK / 2],
 }
 
 // One CTA per query tile of 64 rows of one (b, h), the longest rows first
-// (a 1-D grid of B * H * ceil(S / 64)).  Warpgroup 1 produces: it loads Q
-// once and then K_0, V_0, K_1, V_1, ... through a ring of SLOTS slots,
-// each tile split into TF32 hi and lo in its pass (V transposed), and
-// signals a full barrier; warpgroup 0 consumes: S = Q K^T over D / 8 k8
-// steps of three products each, the softmax, P split in registers (the S
-// accumulator's registers 4 kt .. 4 kt + 3 are the A fragment of the k8
-// step kt of P V, taken in the order 0 2 1 3 that put_v's key order
-// matches), then O += P V, releasing each slot on its empty barrier as
-// soon as its products are done.
-template <int DP, int D>
+// (a 1-D grid of B * H * ceil(S / 64)): a tile's key tiles run from the
+// window's lower edge (0 without a window) to the causal frontier, a count
+// that does not fall from one query tile to the next but at the ragged
+// last one (under a window it grows until the window is full and then
+// stays), so the last query tiles first are still the longest first.
+// Warpgroup 1 produces: it loads Q once and then the tile's K and V key
+// tiles in turn through a ring of SLOTS slots, each tile split into TF32
+// hi and lo in its pass (V transposed), and signals a full barrier;
+// warpgroup 0 consumes: S = Q K^T over D / 8 k8 steps of three products
+// each, the softmax, P split in registers (the S accumulator's registers
+// 4 kt .. 4 kt + 3 are the A fragment of the k8 step kt of P V, taken in
+// the order 0 2 1 3 that put_v's key order matches), then O += P V,
+// releasing each slot on its empty barrier as soon as its products are
+// done.
+template <int DP, int D, bool kWindow>
 __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
     flash_attention_fwd_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ o, int B, int S, int H,
-                               int KVH, float scale, float softcap) {
+                               int KVH, float scale, float softcap,
+                               int window) {
   using T = FaTf32<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, NS = T::SLOTS;
   constexpr int NC = D > 128 ? 128 : D;  // columns of one P V product
@@ -1272,7 +1321,10 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
   const int qt = nq - 1 - static_cast<int>(blockIdx.x / (B * H));
   const int b = bh / H, h = bh % H, kvh = h / (H / KVH);
   const int q0 = qt * BQ;
-  const int n_tiles = (min(q0 + BQ, S) + BK - 1) / BK;  // causal frontier
+  // the window's lower edge
+  const int lo = kWindow ? max(0, q0 - window + 1) / BK : 0;
+  // key tiles lo .. the causal frontier
+  const int n_tiles = (min(q0 + BQ, S) + BK - 1) / BK - lo;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 128);
@@ -1287,14 +1339,16 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
 
   if (threadIdx.x >= 128) {
     // producer: every thread stores its share of a tile, makes its writes
-    // visible to the tensor cores (the async proxy) and arrives.  K_0's
-    // loads are issued first, so they land while Q is split.
+    // visible to the tensor cores (the async proxy) and arrives.  The first
+    // K tile's loads are issued first, so they land while Q is split.
     const long long q_ld = static_cast<long long>(H) * D;
     const long long kv_ld = static_cast<long long>(KVH) * D;
     const long long kv0 = static_cast<long long>(b) * S * kv_ld +
-                          static_cast<long long>(kvh) * D;
+                          static_cast<long long>(kvh) * D +
+                          static_cast<long long>(lo) * BK * kv_ld;
+    const int S_kv = S - lo * BK;  // keys from the first tile on
     float4 kx[16], vx[16];
-    fetch_rows<BK, D>(kx, k + kv0, kv_ld, S, tid);
+    fetch_rows<BK, D>(kx, k + kv0, kv_ld, S_kv, tid);
     // Q, times 1/sqrt(D) in f32, 16 float4s a thread at a time (32 at D
     // 256); a K tile is 16 at most
     static_assert(RowItems<BK, D>::NT <= 16, "K tile");
@@ -1308,8 +1362,8 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
     }
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     mbar_arrive(q_full);
-    // item g of the ring: K_{g/2} (even g) or V_{g/2}; its slot is free
-    // once the consumer released the item NS before it
+    // item g of the ring: K_{lo+g/2} (even g) or V_{lo+g/2}; its slot is
+    // free once the consumer released the item NS before it
     auto slot_of = [&](int g) {
       const int s = g % NS;
       if (g >= NS) mbar_wait(empty + 8 * s, ((g / NS) - 1) & 1);
@@ -1322,13 +1376,13 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
     // each tile's loads are issued one item ahead of its stores (three
     // buffers, two items ahead, spill at D 112 and run slower)
     for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * BK;
-      fetch_v<BK, D>(vx, v + kv0 + k0 * kv_ld, kv_ld, S - k0, tid);
+      const int k0 = t * BK;  // from the first tile's key
+      fetch_v<BK, D>(vx, v + kv0 + k0 * kv_ld, kv_ld, S_kv - k0, tid);
       put_rows<BK, D>(kx, slot_of(2 * t), T::KV_BYTES, tid);
       done(2 * t);
       if (t + 1 < n_tiles)
         fetch_rows<BK, D>(kx, k + kv0 + (k0 + BK) * kv_ld, kv_ld,
-                          S - k0 - BK, tid);
+                          S_kv - k0 - BK, tid);
       put_v<BK, D, DP>(vx, slot_of(2 * t + 1), T::KV_BYTES, tid);
       done(2 * t + 1);
     }
@@ -1405,8 +1459,11 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
   auto release = [&](int g) { mbar_arrive(empty + 8 * (g % NS)); };
   auto softmax = [&](float (&sc)[BK / 2], int t, float (&alpha)[2],
                      float (&ls)[2]) {
-    const int k0 = t * BK;
-    softmax_f32<BK>(sc, m, alpha, ls, k0, r0, c2, k0 + BK - 1 > q0, softcap);
+    const int k0 = (lo + t) * BK;
+    softmax_f32<BK, kWindow>(
+        sc, m, alpha, ls, k0, r0, c2,
+        k0 + BK - 1 > q0 || (kWindow && k0 + window <= q0 + BQ - 1), window,
+        softcap);
   };
   // P into the A fragments of P V, and the rescaled l and O.  a0 .. a3 of
   // step kt: (row r0, key 2t), (r0 + 8, 2t), (r0, 2t + 1), (r0 + 8,
@@ -1466,9 +1523,12 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
 template <int DP, int D>
 static int launch_fa_tf32(const void* q, const void* k, const void* v,
                           void* o, int B, int S, int H, int KVH,
-                          float softcap, cudaStream_t stream) {
+                          float softcap, int window, cudaStream_t stream) {
   using T = FaTf32<DP>;
-  auto kernel = flash_attention_fwd_kernel<DP, D>;
+  // a window of S keys or more is no window: the causal instance
+  auto kernel = window > 0 && window < S
+                    ? flash_attention_fwd_kernel<DP, D, true>
+                    : flash_attention_fwd_kernel<DP, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1479,36 +1539,36 @@ static int launch_fa_tf32(const void* q, const void* k, const void* v,
   kernel<<<static_cast<unsigned>(blocks), T::THREADS, T::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), B, S, H, KVH,
-      1.0f / sqrtf(static_cast<float>(D)), softcap);
+      1.0f / sqrtf(static_cast<float>(D)), softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // float32 only: bf16 runs flash_attention_wgmma_kernel
 static int dispatch_fa_f32(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int KVH, int D,
-                           float softcap, cudaStream_t stream) {
+                           float softcap, int window, cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch_fa_tf32<32, 16>(q, k, v, o, B, S, H, KVH, softcap,
-                                    stream);
+                                    window, stream);
     case 32:
       return launch_fa_tf32<32, 32>(q, k, v, o, B, S, H, KVH, softcap,
-                                    stream);
+                                    window, stream);
     case 64:
       return launch_fa_tf32<64, 64>(q, k, v, o, B, S, H, KVH, softcap,
-                                    stream);
+                                    window, stream);
     case 96:
       return launch_fa_tf32<96, 96>(q, k, v, o, B, S, H, KVH, softcap,
-                                    stream);
+                                    window, stream);
     case 112:
       return launch_fa_tf32<128, 112>(q, k, v, o, B, S, H, KVH, softcap,
-                                      stream);
+                                      window, stream);
     case 128:
       return launch_fa_tf32<128, 128>(q, k, v, o, B, S, H, KVH, softcap,
-                                      stream);
+                                      window, stream);
     case 256:
       return launch_fa_tf32<256, 256>(q, k, v, o, B, S, H, KVH, softcap,
-                                      stream);
+                                      window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1895,16 +1955,20 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 extern "C" {
 
 // q (B, S, H, D), k/v (B, S, KVH, D), o like q; contiguous, 16-byte
-// aligned, D in {16, 32, 64, 96, 112, 128, 256}, H % KVH == 0.  float32
-// runs flash_attention_fwd_kernel, bfloat16 flash_attention_wgmma_kernel.
+// aligned, D in {16, 32, 64, 96, 112, 128, 256}, H % KVH == 0; window 0
+// (none) or the keys k > q - window of each query q.
+// float32 runs flash_attention_fwd_kernel, bfloat16
+// flash_attention_wgmma_kernel.
 int launch_flash_attention(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int S, int H, int KVH,
-                           int D, float softcap, void* stream) {
+                           int D, float softcap, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    return dispatch_fa_f32(q, k, v, o, B, S, H, KVH, D, softcap, st);
+    return dispatch_fa_f32(q, k, v, o, B, S, H, KVH, D, softcap, window, st);
   if (dtype == DT_BF16)
-    return dispatch_fa_wgmma(q, k, v, o, B, S, H, KVH, D, softcap, st);
+    return dispatch_fa_wgmma(q, k, v, o, B, S, H, KVH, D, softcap, window,
+                             st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

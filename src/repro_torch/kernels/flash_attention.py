@@ -25,9 +25,13 @@ Replaces the reference's Pallas kernel ``kernels/flash_attention.py``
 
 Both read q (B, S, H, D) and k/v (B, S, KVH, D) in place, with query head
 h on kv head ``h // (H / KVH)``, keep the online softmax in float32, mask
-with -1e30 and clamp l at 1e-20.  For tensors on the CPU the wrapper runs
-the plain version (:func:`..ref.flash_attention_ref`); for CUDA tensors it
-launches the kernel of their dtype or raises.
+with -1e30 and clamp l at 1e-20.  With a sliding window (``window > 0``,
+Gemma-2's local layers) a query tile walks only the key tiles from the
+window's lower edge to its causal frontier, and masks the tiles on both
+edges; ``window`` 0, or at least S, runs each kernel's causal instance,
+the code of the kernel before the window.  For tensors on the CPU the
+wrapper runs the plain version (:func:`..ref.flash_attention_ref`); for
+CUDA tensors it launches the kernel of their dtype or raises.
 """
 
 from __future__ import annotations
@@ -67,13 +71,17 @@ def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Causal attention of q (B, S, H, D) over k/v (B, S, KVH, D), H a
     multiple of KVH; ``softcap > 0`` caps the scores with
-    ``softcap * tanh(s / softcap)``.  Returns (B, S, H, D) in q's dtype."""
+    ``softcap * tanh(s / softcap)``; ``window > 0`` keeps only the keys
+    ``k > q - window`` of each query q.  Returns (B, S, H, D) in q's
+    dtype."""
     xs = (q, k, v)
     if not all(isinstance(x, torch.Tensor) for x in xs):
         raise TypeError("flash_attention takes torch tensors")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention takes q (B, S, H, D) and k/v "
                          f"(B, S, KVH, D), got {tuple(q.shape)}, "
@@ -87,7 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention's tensors disagree in device or "
                          "dtype")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, softcap=softcap)
+        return flash_attention_ref(q, k, v, softcap=softcap, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     check_card_inputs(q, k, v)
@@ -97,5 +105,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    lib.lm_error_string, q.get_device(), q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    library.LM_DTYPES[q.dtype], B, S, H, KVH, D,
-                   float(softcap))
+                   float(softcap), min(int(window), 2**30))
+    if 0 < window < S:  # the kernel's window instance
+        library.LAUNCHES["flash_attention_window"] += 1
     return o

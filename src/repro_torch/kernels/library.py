@@ -18,7 +18,10 @@ from ..core.backend.cuda import build_library
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-LAUNCHES = {"tridiag": 0, "fvt_flux": 0, "flash_attention": 0, "rmsnorm": 0,
+#: (``flash_attention_window``: those of K8's launches that run its window
+#: instance, 0 < window < S, also counted under ``flash_attention``)
+LAUNCHES = {"tridiag": 0, "fvt_flux": 0, "flash_attention": 0,
+            "flash_attention_window": 0, "rmsnorm": 0,
             "rmsnorm_residual": 0, "ssm_state_scan": 0}
 
 #: dtype codes of the LM kernels' C interface
@@ -66,7 +69,8 @@ def bind_lm_library(path) -> ctypes.CDLL:
     lib = ctypes.PyDLL(str(path))
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-    lib.launch_flash_attention.argtypes = [ptr] * 4 + [i32] * 6 + [f32, ptr]
+    lib.launch_flash_attention.argtypes = ([ptr] * 4 + [i32] * 6
+                                           + [f32, i32, ptr])
     lib.launch_flash_attention.restype = ctypes.c_int
     lib.launch_rmsnorm.argtypes = [ptr] * 3 + [i32, i32, i64, i32, f32, ptr]
     lib.launch_rmsnorm.restype = ctypes.c_int

@@ -48,14 +48,16 @@ def fvt_flux(q: torch.Tensor, cx: torch.Tensor, *, halo: int,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    softcap: float = 0.0,
+                    softcap: float = 0.0, window: int = 0,
                     backend: str = "cuda") -> torch.Tensor:
     """Causal GQA attention of q (B, S, H, D) over k/v (B, S, KVH, D), with
-    an optional tanh softcap (K8)."""
+    an optional tanh softcap and sliding window (``window > 0``: the last
+    ``window`` keys of each query) (K8)."""
     _check(backend)
     if backend == "ref":
-        return ref.flash_attention_ref(q, k, v, softcap=softcap)
-    return _flash_attention_kernel(q, k, v, softcap=softcap)
+        return ref.flash_attention_ref(q, k, v, softcap=softcap,
+                                       window=window)
+    return _flash_attention_kernel(q, k, v, softcap=softcap, window=window)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,

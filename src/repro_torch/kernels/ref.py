@@ -63,11 +63,26 @@ def fvt_flux_ref(q: torch.Tensor, cx: torch.Tensor, *,
     return out
 
 
+def attention_mask(S: int, window: int, device) -> torch.Tensor:
+    """(S, S) boolean: key k is visible to query q iff ``k <= q`` and, for
+    ``window > 0``, ``k > q - window`` (the reference model's sliding
+    window, ``models/layers.py:157-159``)."""
+    q = torch.arange(S, device=device)[:, None]
+    k = torch.arange(S, device=device)[None, :]
+    keep = k <= q
+    if window > 0:
+        keep &= k > q - window
+    return keep
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        softcap: float = 0.0) -> torch.Tensor:
+                        softcap: float = 0.0,
+                        window: int = 0) -> torch.Tensor:
     """Materialized causal attention; q (B, S, H, D), k/v (B, S, KVH, D).
-    Query head h reads kv head ``h // (H / KVH)``.  Scores and the softmax
-    in float32, masked with -1e30; the output in q's dtype."""
+    Query head h reads kv head ``h // (H / KVH)``; ``window > 0`` keeps
+    only the last ``window`` keys of each query (:func:`attention_mask`).
+    Scores and the softmax in float32, masked with -1e30 after the softcap;
+    the output in q's dtype."""
     S, H, D = q.shape[1], q.shape[2], q.shape[3]
     rep = H // k.shape[2]
     k = k.repeat_interleave(rep, dim=2)
@@ -75,8 +90,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    s = torch.where(mask, s, -1e30)
+    s = torch.where(attention_mask(S, window, q.device), s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 

@@ -1,5 +1,6 @@
 """Transformer layer primitives of the port: norms, RoPE, GQA attention
-(prefill and one-token decode against a KV cache) and the dense MLPs.
+(global or sliding-window, prefill and one-token decode against a KV cache
+or a ring), the dense MLPs and the GShard-style mixture of experts.
 
 Ported from the reference's ``repro/models/layers.py``, which computes all
 of it in jnp and names its Pallas kernels as drop-in replacements
@@ -18,9 +19,24 @@ here, Mamba-2's ``A_log``, ``D``, ``dt_bias`` and ``norm_w``) stays in
 float32 in a model of any dtype (:func:`norm_param`), since a bf16 copy
 would round it.
 
-Not ported: ``constrain`` and the sharding annotations (one card), ``moe``
-(ROADMAP queue 1 item 12c) and the sliding window of ``local`` layers
-(item 12b).
+A ``local`` (sliding-window) block attends to the last ``cfg.window``
+positions.  Its prefill runs K8 with the window; its decode cache is a ring
+of W = min(window, cache length) slots, position p in slot ``p % W``, and
+decode masks every slot whose position is not in ``(pos - window, pos]``.
+That is the reference's ``attention`` (its ``forward``), not its
+``attention_decode`` past the window: once a cache reaches ``window`` the
+reference's decode masks with the grown cache length and writes slot
+``pos % S_cache`` over a prefill that put the last ``window`` keys in slots
+``0 .. window - 1`` (ROADMAP queue 3).
+
+:class:`MoE` is the reference's ``moe``: the router's softmax in float32,
+top-k gates renormalised, a capacity of C slots per expert and chunk of
+``token_chunk`` tokens with the same tokens dropped; it dispatches by
+index (gather, ``index_add_``) where the reference multiplies one-hot
+``(tc, E, C)`` tensors, the same function.  It has no kernel of its own:
+the reference's is plain jnp, outside any Pallas kernel.
+
+Not ported: ``constrain`` and the sharding annotations (one card).
 """
 
 from __future__ import annotations
@@ -76,6 +92,16 @@ def _padded(t: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def _ring(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The last n positions of t (B, S, ...) in a ring of n slots along dim
+    1, position p in slot ``p % n``; zeros in slots no position reached."""
+    S = t.shape[1]
+    p = torch.arange(max(0, S - n), S, device=t.device)
+    out = t.new_zeros((t.shape[0], n) + t.shape[2:])
+    out[:, p % n] = t[:, p]
+    return out
+
+
 class Attention(nn.Module):
     """Causal GQA attention with RoPE: query head h reads kv head
     ``h // (n_heads / n_kv_heads)``, as the reference's ``_repeat_kv``."""
@@ -100,41 +126,68 @@ class Attention(nn.Module):
         return (rope(q, positions, cfg.rope_theta),
                 rope(k, positions, cfg.rope_theta), v)
 
+    def window(self, local: bool) -> int:
+        """The sliding window of a ``local`` block (0: none)."""
+        return self.cfg.window if local else 0
+
     def prefill(self, x: torch.Tensor, *, cache_len: int | None = None,
-                backend: str = "cuda"):
-        """Attention over the whole prompt x (B, S, d_model) through K8.
-        Returns (output, k, v); k/v (B, S, n_kv_heads, d_head) are the
-        prompt's cache, or, with ``cache_len``, a cache of that many slots
-        that holds the prompt's first and zeros past them."""
+                local: bool = False, backend: str = "cuda"):
+        """Attention over the whole prompt x (B, S, d_model) through K8, with
+        the window for a ``local`` block.  Returns (output, k, v); k/v
+        (B, S, n_kv_heads, d_head) are the prompt's cache, or, with
+        ``cache_len``, a cache of that many slots that holds the prompt's
+        first and zeros past them.  A local block's cache is a ring of
+        W = min(window, cache_len or S) slots holding the last W positions,
+        position p in slot ``p % W`` (the reference keeps them in order,
+        ``k[:, -window:]``: the same slots rotated)."""
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         q, k, v = self.qkv(x, positions)
+        window = self.window(local)
         out = ops.flash_attention(q, k, v, softcap=self.cfg.attn_softcap,
-                                  backend=backend)
-        if cache_len is not None:
+                                  window=window, backend=backend)
+        if window:
+            n = min(window, S if cache_len is None else cache_len)
+            k, v = (_ring(t, n) for t in (k, v))
+        elif cache_len is not None:
             k, v = (_padded(t, cache_len) for t in (k, v))
         return out.reshape(B, S, self.cfg.q_dim) @ self.wo, k, v
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+               cache_v: torch.Tensor, pos: int, *,
+               local: bool = False) -> torch.Tensor:
         """One token x (B, 1, d_model) at position ``pos`` against a
         (B, S_cache, n_kv_heads, d_head) cache.  Writes the token's k/v into
         slot ``pos`` of the caches in place (the reference returns updated
-        copies).  Scores in float32 over the whole cache, slots past
-        ``pos`` masked with -1e30; the probabilities cast to x's dtype before
-        P·V, as the reference does."""
+        copies); a ``local`` block's cache is a ring (:meth:`prefill`): slot
+        ``pos % S_cache``.  Scores in float32 over the whole cache, masked
+        with -1e30 where the slot's position is past ``pos`` (or not in the
+        window, ``(pos - window, pos]``, or not written yet); the
+        probabilities cast to x's dtype before P·V, as the reference
+        does."""
         cfg = self.cfg
-        B = x.shape[0]
+        B, n = x.shape[0], cache_k.shape[1]
         positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
         q, k, v = self.qkv(x, positions)
-        cache_k[:, pos] = k[:, 0]
-        cache_v[:, pos] = v[:, 0]
+        window = self.window(local)
+        slots = torch.arange(n, device=x.device)
+        if window:
+            if pos >= n and n < window:
+                raise ValueError(f"a ring of {n} slots cannot hold the "
+                                 f"window {window} at position {pos}")
+            held = pos - (pos - slots) % n  # each slot's position
+            valid = (held >= 0) & (held > pos - window)
+            slot = pos % n
+        else:
+            valid = slots <= pos
+            slot = pos
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
         rep = cfg.n_heads // cfg.n_kv_heads
         qg = q.reshape(B, cfg.n_kv_heads, rep, cfg.d_head)
         scores = torch.einsum("bgrd,bsgd->bgrs", qg.float(),
                               cache_k.float()) * (1.0 / math.sqrt(cfg.d_head))
         scores = softcap(scores, cfg.attn_softcap)
-        valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
         scores = torch.where(valid, scores, -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bgrs,bsgd->bgrd", probs, cache_v)
@@ -163,3 +216,93 @@ class MLP(nn.Module):
         else:
             h = F.gelu(h, approximate="tanh")
         return h @ self.wo
+
+
+class MoE(nn.Module):
+    """The reference's GShard-style mixture of experts (``moe_pdefs``,
+    ``moe``): E experts with the MLP's widths, top-k routing, and, where
+    the config says so, a shared expert (an :class:`MLP`) added after.
+    Gated experts (``wg``) use SiLU whatever ``cfg.act`` is, ungated ones
+    GeLU (tanh), as the reference computes them."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device):
+        super().__init__()
+        self.moe = mc = cfg.moe
+        d, f, E = cfg.d_model, cfg.d_ff, mc.n_experts
+        self.router = empty_param((d, E), dtype, device)
+        self.wi = empty_param((E, d, f), dtype, device)
+        if cfg.act != "gelu":
+            self.wg = empty_param((E, d, f), dtype, device)
+        self.wo = empty_param((E, f, d), dtype, device)
+        self.shared = (MLP(cfg, dtype=dtype, device=device)
+                       if mc.shared_expert else None)
+
+    def capacity(self, tc: int) -> int:
+        """Slots of each expert in a chunk of ``tc`` tokens."""
+        mc = self.moe
+        return min(tc, max(1, int(tc * mc.top_k / mc.n_experts
+                                  * mc.capacity_factor)))
+
+    def route(self, xc: torch.Tensor):
+        """The routing of a chunk xc (tc, d): each token's top-k experts
+        (tc, K), their gates (tc, K, float32), each choice's slot in its
+        expert's queue (tc, K) and whether it is kept (tc, K).  The router's
+        logits in xc's dtype, cast to float32 for the softmax; the top-k
+        gates over their sum (at least 1e-9); a choice's slot is its place
+        in its expert's queue, counted over the chunk's (token, choice)
+        pairs in order, and a choice at slot C or past is dropped."""
+        E, K = self.moe.n_experts, self.moe.top_k
+        probs = torch.softmax((xc @ self.router).float(), dim=-1)
+        gate, expert = torch.topk(probs, K, dim=-1)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        onehot = F.one_hot(expert.reshape(-1), E)
+        slot = ((onehot.cumsum(0) * onehot).sum(-1) - 1).view_as(expert)
+        return expert, gate, slot, slot < self.capacity(xc.shape[0])
+
+    def experts(self, xe: torch.Tensor) -> torch.Tensor:
+        """Every expert's MLP over its C slots: xe (E, C, d) -> (E, C, d)."""
+        h = torch.bmm(xe, self.wi)
+        if hasattr(self, "wg"):
+            h = F.silu(torch.bmm(xe, self.wg)) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return torch.bmm(h, self.wo)
+
+    def forward(self, x: torch.Tensor, *,
+                token_chunk: int = 8192) -> torch.Tensor:
+        """x (B, S, d) -> (B, S, d), the tokens taken in chunks of
+        ``token_chunk`` (B S must be a multiple of the chunk, as in the
+        reference).  Each kept choice's token is copied into its expert's
+        slot (empty slots hold zeros), the experts run on their slots, and
+        each token sums its kept choices' outputs times their gates (cast
+        to x's dtype) in float32 (with at most two choices a token, as the
+        configs have, the sum does not depend on the order of the adds); a
+        token whose every choice was dropped gets zeros (and the shared
+        expert)."""
+        B, S, d = x.shape
+        T = B * S
+        tc = min(token_chunk, T)
+        if T % tc:
+            raise ValueError(f"MoE: {T} tokens are not a multiple of the "
+                             f"chunk of {tc}")
+        E, C = self.moe.n_experts, self.capacity(tc)
+        xt = x.reshape(T, d)
+        y = torch.empty_like(xt)
+        for c0 in range(0, T, tc):
+            xc = xt[c0:c0 + tc]
+            expert, gate, slot, keep = self.route(xc)
+            token = torch.arange(tc, device=x.device)[:, None].expand_as(
+                expert)[keep]
+            expert, slot, gate = expert[keep], slot[keep], gate[keep]
+            where = expert * C + slot
+            xe = xc.new_zeros((E * C, d))
+            xe[where] = xc[token]
+            out = self.experts(xe.view(E, C, d)).view(E * C, d)
+            part = out[where].float() * gate.to(x.dtype).float()[:, None]
+            y[c0:c0 + tc] = torch.zeros((tc, d), dtype=torch.float32,
+                                        device=x.device).index_add_(
+                0, token, part).to(x.dtype)
+        y = y.view(B, S, d)
+        if self.shared is not None:
+            y = y + self.shared(x)
+        return y

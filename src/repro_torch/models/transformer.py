@@ -1,5 +1,6 @@
 """Model assembly and the serving entry points, for patterns of ``attn``,
-``mamba2`` and ``shared_attn`` blocks.
+``local`` (sliding-window attention), ``mamba2`` and ``shared_attn``
+blocks, with dense or mixture-of-experts feed-forwards.
 
 Ported from the reference's ``repro/models/transformer.py``.  A model is
 ``n_groups`` repetitions of its ``pattern``; the reference stacks each
@@ -19,7 +20,10 @@ Entry points, as the reference's:
 The caches are a list with one entry per block application, in the order
 the blocks run (:meth:`Transformer.stack`: group by group, in
 :func:`group_order`): ``{"k", "v"}`` for an attention block, ``{"conv",
-"ssm"}`` for a Mamba-2 block.
+"ssm"}`` for a Mamba-2 block.  A ``local`` block's ``{"k", "v"}`` is a
+ring of min(window, length) slots, position p in slot ``p % W``
+(:meth:`.layers.Attention.prefill`); its decode follows the reference's
+``forward`` past the window, not its ``decode_step`` (ROADMAP queue 3).
 
 Each entry point takes ``backend``: ``"cuda"`` (the default) runs the
 kernels (K8 flash attention in prefill, K9 RMSNorm and its fused residual
@@ -29,9 +33,8 @@ everywhere.  The model's device is the card unless the caller asks for
 another (``device="cpu"``, or ``"meta"`` to count parameters).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item
-(queue 1): ``local`` (sliding-window) blocks, 12b; MoE, 12c;
-``mlstm``/``slstm``, 12e; int8 weights (``quantized=True``), 12f;
-``loss_fn`` and training, 12g.
+(queue 1): ``mlstm``/``slstm``, 12e; int8 weights (``quantized=True``),
+12f; ``loss_fn`` and training, 12g.
 """
 
 from __future__ import annotations
@@ -50,11 +53,9 @@ from .config import ArchConfig
 #: block types of the reference not ported yet, and where the ROADMAP
 #: queues them
 UNPORTED = {
-    "local": "ROADMAP queue 1 item 12b (Gemma-2's sliding window)",
     "mlstm": "ROADMAP queue 1 item 12e (xLSTM)",
     "slstm": "ROADMAP queue 1 item 12e (xLSTM)",
 }
-MOE_ITEM = "ROADMAP queue 1 item 12c (MoE: Grok-1, Llama-4 Scout)"
 QUANTIZED_ITEM = "ROADMAP queue 1 item 12f (int8 serving)"
 
 
@@ -84,21 +85,22 @@ def check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: blocks of type {b!r} are not ported yet: "
                 f"{UNPORTED[b]}")
-        if b not in ("attn", "mamba2", "shared_attn"):
+        if b not in ("attn", "local", "shared_attn", "mamba2"):
             raise ValueError(f"{cfg.name}: unknown block type {b!r}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are "
-                                  f"not ported yet: {MOE_ITEM}")
 
 
 class Block(nn.Module):
-    """One ``attn`` (or ``shared_attn``) block: pre-norm attention and MLP,
-    with the reference's ``post_norm`` (sandwich) and ``parallel_block``
-    variants."""
+    """One ``attn``, ``local`` or ``shared_attn`` block: pre-norm attention
+    (with the sliding window in a ``local`` block) and the feed-forward (an
+    :class:`.layers.MLP`, or :class:`.layers.MoE` where the config has
+    experts), with the reference's ``post_norm`` (sandwich) and
+    ``parallel_block`` variants."""
 
-    def __init__(self, cfg: ArchConfig, with_ffn: bool, *, dtype, device):
+    def __init__(self, cfg: ArchConfig, with_ffn: bool, *, btype: str,
+                 dtype, device):
         super().__init__()
         self.cfg = cfg
+        self.local = btype == "local"
         d = cfg.d_model
         self.ln1 = L.norm_param(d, device)
         self.attn = L.Attention(cfg, dtype=dtype, device=device)
@@ -107,7 +109,8 @@ class Block(nn.Module):
         self.ffn = None
         if with_ffn:
             self.ln2 = L.norm_param(d, device)
-            self.ffn = L.MLP(cfg, dtype=dtype, device=device)
+            ffn = L.MoE if cfg.moe is not None else L.MLP
+            self.ffn = ffn(cfg, dtype=dtype, device=device)
             if cfg.post_norm:
                 self.ln2_post = L.norm_param(d, device)
 
@@ -119,10 +122,11 @@ class Block(nn.Module):
         cfg, eps = self.cfg, self.cfg.norm_eps
         h = ops.rmsnorm(x, self.ln1, eps=eps, backend=backend)
         if mode == "decode":
-            a = self.attn.decode(h, cache["k"], cache["v"], pos)
+            a = self.attn.decode(h, cache["k"], cache["v"], pos,
+                                 local=self.local)
         else:
             a, k, v = self.attn.prefill(h, cache_len=cache_len,
-                                        backend=backend)
+                                        local=self.local, backend=backend)
             cache = {"k": k, "v": v}
         if cfg.post_norm:
             a = ops.rmsnorm(a, self.ln1_post, eps=eps, backend=backend)
@@ -167,12 +171,12 @@ class MambaBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The reference's model for patterns of ``attn``, ``mamba2`` and
-    ``shared_attn`` blocks: token embedding, ``n_layers`` blocks (and the
-    shared block, where the pattern has one), final norm, unembedding (tied
-    or not).  Parameters are created uninitialised on ``device`` (the card
-    when None), in ``dtype`` but for the float32 ones (:mod:`.layers`);
-    fill them with :func:`..weights.init_params` or
+    """The reference's model for patterns of ``attn``, ``local``,
+    ``mamba2`` and ``shared_attn`` blocks: token embedding, ``n_layers``
+    blocks (and the shared block, where the pattern has one), final norm,
+    unembedding (tied or not).  Parameters are created uninitialised on
+    ``device`` (the card when None), in ``dtype`` but for the float32 ones
+    (:mod:`.layers`); fill them with :func:`..weights.init_params` or
     :func:`..weights.load_reference_params`."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16,
@@ -187,9 +191,11 @@ class Transformer(nn.Module):
         self.final_norm = L.norm_param(d, device)
         self.layers = nn.ModuleList(
             MambaBlock(cfg, dtype=dtype, device=device) if btype == "mamba2"
-            else Block(cfg, has_ffn(btype, cfg), dtype=dtype, device=device)
+            else Block(cfg, has_ffn(btype, cfg), btype=btype, dtype=dtype,
+                       device=device)
             for _ in range(cfg.n_groups) for _, btype in mixer_slots(cfg))
-        self.shared_attn = (Block(cfg, True, dtype=dtype, device=device)
+        self.shared_attn = (Block(cfg, True, btype="shared_attn",
+                                  dtype=dtype, device=device)
                             if "shared_attn" in cfg.pattern else None)
         if not cfg.tie_embeddings:
             self.unembed = L.empty_param((d, v), dtype, device)
@@ -233,15 +239,18 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int, *,
     """Zeroed caches, one per block application in the order the blocks run
     (:meth:`Transformer.stack`; the reference stacks them over groups):
     ``{"k", "v"}`` of (batch, seq_len, n_kv_heads, d_head) in ``dtype`` for
-    attention, :func:`.ssm.init_cache` (the conv tail in ``dtype``, the
-    state in float32) for Mamba-2."""
+    attention (a ``local`` block's ring min(window, seq_len) slots long, as
+    the reference sizes it), :func:`.ssm.init_cache` (the conv tail in
+    ``dtype``, the state in float32) for Mamba-2."""
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.d_head)
 
     def cache(btype):
         if btype == "mamba2":
             return SSM.init_cache(cfg, batch, dtype=dtype, device=device)
+        n = min(cfg.window or seq_len, seq_len) if btype == "local" \
+            else seq_len
+        shape = (batch, n, cfg.n_kv_heads, cfg.d_head)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -266,7 +275,10 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     if mode == "decode" and (caches is None or pos is None):
         raise ValueError("decode takes caches and pos")
     x = _embed(model, tokens, prefix_embeds)
-    if cache_len is not None and cache_len < x.shape[1]:
+    # a local block's ring keeps the last positions: only the global caches
+    # must hold the whole prompt
+    if cache_len is not None and cache_len < x.shape[1] and any(
+            b in ("attn", "shared_attn") for b in model.cfg.pattern):
         raise ValueError(f"cache_len {cache_len} < prompt length "
                          f"{x.shape[1]}")
     new_caches = []
@@ -288,8 +300,10 @@ def prefill(model: Transformer, tokens: torch.Tensor, *,
     for decode.  The KV caches hold the prompt's S positions; with
     ``cache_len`` (>= S) they are allocated that long, zero past the prompt,
     so that decode can write past it (the reference's caller grows them);
-    each attention block writes its prompt's k/v into them once.  The
-    Mamba-2 caches (``conv``, ``ssm``) pass through."""
+    each attention block writes its prompt's k/v into them once.  A
+    ``local`` block's ring is min(window, cache_len or S) slots long and
+    holds the last of the prompt's positions.  The Mamba-2 caches
+    (``conv``, ``ssm``) pass through."""
     h, caches = forward(model, tokens, prefix_embeds=prefix_embeds,
                         mode="prefill", cache_len=cache_len, backend=backend,
                         quantized=quantized)

@@ -12,9 +12,11 @@ each slot is read through the member stride of the launch arguments, as
 the kernels index it, so a broadcast field (stride 0) is checked too.
 
 Tests marked ``cuda`` need a card and skip without one; among them the LM
-kernels (K8 flash attention, K9 RMSNorm, K10 the SSM state scan) against
-their plain versions, a 2-layer Granite-width prefill and decode and one
-Zamba2-7B group at full width against the plain path.
+kernels (K8 flash attention, with and without a sliding window, K9
+RMSNorm, K10 the SSM state scan) against their plain versions, a 2-layer
+Granite-width prefill and decode, one Zamba2-7B group, two Gemma-2 layers
+and one layer each of Llama-4 Scout and Grok-1 at full width against the
+plain path.
 """
 
 import numpy as np
@@ -1148,6 +1150,70 @@ def test_flash_attention_f32_long_and_wide_on_card(card, B, S, H, KVH, D,
         assert kernel <= 2.0 * plain, (stat.__name__, kernel, plain)
 
 
+# a row's error over its norm that a float32 kernel may show where the
+# plain version is exact: 3xTF32 drops each operand's remainder below
+# 2^-21 of it (~4.8e-7)
+F32_ROW_FLOOR = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D", [
+    (1, 300, 4, 2, 128), (2, 257, 4, 1, 256), (1, 4500, 8, 4, 256),
+])
+@pytest.mark.parametrize("window", [1, 63, 64, 100, 4096, 5000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_flash_attention_window_on_card(card, B, S, H, KVH, D, window,
+                                        dtype, softcap):
+    """K8 with a sliding window (Gemma-2's local layers) against the plain
+    version with the window: windows of one key, below and at one key tile
+    (64), across tiles (100), Gemma-2's 4096 (binding at S 4500) and past S;
+    D 128 and 256, ragged S, GQA; the reference's tolerances, and against
+    float64 each (b, s, h) row's error over the row's norm, the kernel's
+    mean and max within 2x the plain version's, or within F32_ROW_FLOOR
+    where the plain version is exact (a window of one key: o = v, which
+    3xTF32 keeps to ~2^-21 of |v|)."""
+    gen = torch.Generator(device=card).manual_seed(S + D + window)
+    q, k, v = (torch.randn(s, generator=gen, device=card).to(dtype)
+               for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    KL.reset_launches()
+    got = KO.flash_attention(q, k, v, softcap=softcap, window=window)
+    want = KR.flash_attention_ref(q, k, v, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["flash_attention"] == 1
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2e-2, 1e-1)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    kk, vv = (x.double().repeat_interleave(H // KVH, dim=2) for x in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) / D ** 0.5
+    if softcap > 0.0:
+        sc = softcap * torch.tanh(sc / softcap)
+    keep = KR.attention_mask(S, window, card)
+    exact = torch.einsum("bhqk,bkhd->bqhd",
+                         torch.softmax(torch.where(keep, sc, -1e30), -1), vv)
+    rel = [(x.double() - exact).norm(dim=-1) / exact.norm(dim=-1)
+           for x in (got, want)]
+    for stat in (torch.mean, torch.amax):
+        kernel, plain = (stat(r).item() for r in rel)
+        assert kernel <= max(2.0 * plain, F32_ROW_FLOOR), (stat.__name__,
+                                                           kernel, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_without_window_keeps_its_bits_on_card(card, D,
+                                                               dtype):
+    """window 0, S and past S: the causal kernel's bits."""
+    gen = torch.Generator(device=card).manual_seed(D)
+    q, k, v = (torch.randn(s, generator=gen, device=card).to(dtype)
+               for s in ((2, 333, 8, D), (2, 333, 2, D), (2, 333, 2, D)))
+    for cap in (0.0, 50.0):
+        causal = KO.flash_attention(q, k, v, softcap=cap)
+        for window in (0, 333, 10**6):
+            assert torch.equal(KO.flash_attention(q, k, v, softcap=cap,
+                                                  window=window), causal)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_launches_its_dtypes_kernel_once(card, dtype):
@@ -1322,6 +1388,53 @@ def test_granite_width_prefill_and_decode_on_card_match_plain_path(card):
                                    atol=1e-4)
         torch.testing.assert_close(a["v"][:, :S], b["v"][:, :S], rtol=1e-4,
                                    atol=1e-4)
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,cut", [
+    ("gemma2_2b", dict(n_layers=2, window=64)),
+    ("llama4_scout_17b_a16e", dict(n_layers=1)),
+    ("grok1_314b", dict(n_layers=1)),
+])
+def test_gemma2_and_moe_layers_on_card_match_plain_path(card, arch, cut):
+    """Gemma-2 (a local and a global block, the window cut to 64 so that a
+    prompt of 96 runs past it and decode wraps the ring), and one layer of
+    Llama-4 Scout and of Grok-1, at full width in float32: prefill logits
+    and caches through K8 (with the window) and K9 within 1e-4 of the plain
+    path, and the same greedy tokens over 4 decode steps."""
+    import dataclasses
+
+    cfg = dataclasses.replace(TC.get_config(arch), **cut)
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=card), seed=0)
+    B, S, n = 2, 96, 4
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(2))
+    runs = {}
+    for backend in ("cuda", "ref"):
+        KL.reset_launches()
+        logits, caches = TM.prefill(model, tokens, cache_len=S + n,
+                                    backend=backend)
+        launched = dict(KL.LAUNCHES)
+        prefilled = [{k: v.clone() for k, v in c.items()} for c in caches]
+        toks = [logits.argmax(-1)]
+        for i in range(n):
+            step, caches = TM.decode_step(model, toks[-1], caches, S + i,
+                                          backend=backend)
+            toks.append(step.argmax(-1))
+        runs[backend] = (logits, prefilled, torch.cat(toks, 1), launched)
+    got, want = runs["cuda"], runs["ref"]
+    L = cfg.n_layers
+    assert got[3]["flash_attention"] == L
+    assert got[3]["rmsnorm"] == L * (3 if cfg.post_norm else 1) + 1
+    assert got[3]["rmsnorm_residual"] == L
+    assert sum(want[3].values()) == 0
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(got[1], want[1]):
+        torch.testing.assert_close(a["k"], b["k"], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a["v"], b["v"], rtol=1e-4, atol=1e-4)
     assert torch.equal(got[2], want[2])
 
 

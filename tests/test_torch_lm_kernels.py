@@ -74,16 +74,63 @@ def test_flash_attention_heads_read_their_kv_group():
                                    atol=1e-6)
 
 
-def _wgmma_kernel_emulation(q, k, v, softcap):
+def _key_walk(q0, BQ, BK, S, window):
+    """The key tiles a query tile of rows q0 .. q0 + BQ - 1 walks, as the
+    kernels compute them (``lm_kernels.cu``: ``key_lo``, ``key_hi``,
+    ``edge``): (k0, flags), one flag per 64-row group of the tile, True
+    where the group's softmax masks the tile (a key past a row, or at or
+    below a row's window edge).  A window of 0, or of S or more, runs the
+    kernels' causal instance."""
+    windowed = 0 < window < S
+    lo = max(0, q0 - window + 1) // BK if windowed else 0
+    hi = -(-min(q0 + BQ, S) // BK)
+    return [(k0, [k0 + BK - 1 > w0 or (windowed and k0 + window <= w0 + 63)
+                  for w0 in range(q0, q0 + BQ, 64)])
+            for k0 in range(lo * BK, hi * BK, BK)]
+
+
+@pytest.mark.parametrize("BQ,BK", [(128, 128), (128, 64), (64, 64),
+                                   (64, 32)])
+@pytest.mark.parametrize("S", [1, 63, 64, 100, 257, 1000])
+@pytest.mark.parametrize("window", [0, 1, 31, 63, 64, 65, 100, 128, 300,
+                                    1000, 4096])
+def test_key_walk_visits_and_masks_the_window(BQ, BK, S, window):
+    """Each kernel's tile walk (bf16: 128-row query tiles, 128 or 64 keys;
+    f32: 64 and 64 or 32) against every (query, key) pair: every visible
+    pair lies in a walked tile, every walked tile holds a visible pair of
+    the query tile's rows below S (tiles wholly below the window are not
+    walked), and a 64-row group that meets an invisible pair in a walked
+    tile masks it."""
+    win = window if window > 0 else S
+    for q0 in range(0, S, BQ):
+        walk = _key_walk(q0, BQ, BK, S, window)
+        tiles = {k0 for k0, _ in walk}
+        rows = range(q0, min(q0 + BQ, S))
+        for r in rows:
+            for key in range(max(0, r - win + 1), r + 1):
+                assert key // BK * BK in tiles, (q0, r, key)
+        for k0, flags in walk:
+            keys = range(k0, min(k0 + BK, S))
+            assert any(r - win < key <= r for r in rows for key in keys)
+            for g, flag in enumerate(flags):
+                group = range(q0 + 64 * g, min(q0 + 64 * g + 64, S))
+                hidden = any(not r - win < key <= r for r in group
+                             for key in range(k0, k0 + BK))
+                assert flag or not hidden, (q0, k0, g)
+
+
+def _wgmma_kernel_emulation(q, k, v, softcap, window=0):
     """What ``flash_attention_wgmma_kernel`` computes, blockwise, in torch:
-    128 query rows a CTA, tiles of BK keys up to the causal frontier (128,
-    or 64 at D = 256), D padded with zeros to DP (64, 128 or 256) and rows
-    past S zero-filled, as the kernel's TMA boxes fill them; S = Q K^T in
-    f32 from the bf16 inputs, the scale applied after the product (in the
-    exponent: exp(s - m) = 2^(raw c - m c), c = scale log2 e, or log2 e after
-    a softcap), masked scores -1e30, the online softmax in f32 with l summed
-    over the unrounded p, p rounded to bf16 before P V (f32 sums), and
-    O / max(l, 1e-20) rounded once to bf16."""
+    128 query rows a CTA, tiles of BK keys (128, or 64 at D = 256) from the
+    window's lower edge to the causal frontier (:func:`_key_walk`), D
+    padded with zeros to DP (64, 128 or 256) and rows past S zero-filled,
+    as the kernel's TMA boxes fill them; S = Q K^T in f32 from the bf16
+    inputs, the scale applied after the product (in the exponent:
+    exp(s - m) = 2^(raw c - m c), c = scale log2 e, or log2 e after a
+    softcap), masked scores -1e30 on the 64-row groups the walk flags, the
+    online softmax in f32 with l summed over the unrounded p (p = 0 in a
+    row whose scores are all masked so far), p rounded to bf16 before P V
+    (f32 sums), and O / max(l, 1e-20) rounded once to bf16."""
     B, S, H, D = q.shape
     rep = H // k.shape[2]
     DP = 64 if D <= 64 else 128 if D <= 128 else 256
@@ -106,15 +153,15 @@ def _wgmma_kernel_emulation(q, k, v, softcap):
         m = torch.full((B, H, BQ), -1e30)
         l = torch.zeros(B, H, BQ)
         acc = torch.zeros(B, H, BQ, DP)
-        for k0 in range(0, min(q0 + BQ, S), BK):
+        for k0, flags in _key_walk(q0, BQ, BK, S, window):
             s = qp[:, :, q0:q0 + BQ] @ kp[:, :, k0:k0 + BK].transpose(-1, -2)
             if softcap > 0:
                 s = softcap * torch.tanh(s * (scale / softcap))
-            keys = torch.arange(k0, k0 + BK)
-            s = torch.where(keys[None, :] > rows[:, None], -1e30, s)
+            s = _mask_tile(s, rows, k0, BK, flags, window)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp2((m - m_new) * c)
-            p = torch.exp2(s * c - (m_new * c)[..., None])
+            p = _masked_rows_zero(torch.exp2(s * c - (m_new * c)[..., None]),
+                                  m_new)
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + (p.to(torch.bfloat16).float()
                                             @ vp[:, :, k0:k0 + BK])
@@ -146,6 +193,67 @@ def test_wgmma_kernel_numerics_meet_reference_bar(B, S, H, KVH, D, softcap):
     torch.testing.assert_close(got, plain, rtol=2e-2, atol=1e-1)
 
 
+def _mask_tile(s, rows, k0, BK, flags, window):
+    """-1e30 where a key is past a row or at or below its window edge, in
+    the 64-row groups that ``flags`` marks (the kernels mask no other)."""
+    keys = torch.arange(k0, k0 + BK)
+    hidden = keys[None, :] > rows[:, None]
+    if window > 0:
+        hidden |= keys[None, :] + window <= rows[:, None]
+    hidden &= torch.tensor(flags).repeat_interleave(64)[:len(rows), None]
+    return torch.where(hidden, -1e30, s)
+
+
+def _masked_rows_zero(p, m_new):
+    """p = 0 in a row whose running max is still -1e30 (every score so far
+    masked), as the kernels compute it."""
+    return torch.where((m_new == -1e30)[..., None], 0.0, p)
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,window", [
+    (1, 256, 2, 2, 64, 1), (2, 300, 4, 2, 64, 63), (1, 256, 4, 2, 128, 100),
+    (1, 200, 4, 2, 256, 64), (1, 160, 4, 2, 256, 65), (2, 100, 4, 2, 32, 7),
+    (1, 256, 4, 2, 112, 256),
+])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_wgmma_kernel_window_meets_reference_bar(B, S, H, KVH, D, window,
+                                                 softcap):
+    """The bf16 kernel's walk and masks with a window (windows below one
+    tile, across tile edges, not a multiple of BK, and equal to S) against
+    the plain version with the window at the reference's bf16 bar; window
+    S gives the causal kernel's arithmetic exactly."""
+    rng = np.random.default_rng(B * S + window + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16)
+               for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    got = _wgmma_kernel_emulation(q, k, v, softcap, window)
+    plain = TR.flash_attention_ref(q, k, v, softcap=softcap, window=window)
+    torch.testing.assert_close(got, plain, rtol=2e-2, atol=1e-1)
+    if window >= S:
+        assert torch.equal(got, _wgmma_kernel_emulation(q, k, v, softcap))
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,window", [
+    (1, 256, 2, 2, 64, 1), (2, 300, 4, 2, 64, 63), (1, 256, 4, 2, 128, 100),
+    (1, 200, 4, 2, 256, 64), (1, 160, 4, 2, 256, 33), (2, 100, 4, 2, 32, 7),
+    (1, 130, 4, 2, 112, 130),
+])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_tf32x3_kernel_window_meets_f32_bar(B, S, H, KVH, D, window,
+                                            softcap):
+    """The f32 kernel's walk and masks with a window against the plain
+    version with the window at the card's f32 bar (2e-5); window S gives
+    the causal kernel's arithmetic exactly."""
+    rng = np.random.default_rng(B * S + window + D + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    got = _tf32x3_kernel_emulation(q, k, v, softcap, window=window)
+    plain = TR.flash_attention_ref(q, k, v, softcap=softcap, window=window)
+    torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
+    if window >= S:
+        assert torch.equal(got, _tf32x3_kernel_emulation(q, k, v, softcap))
+
+
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the 13 low
     mantissa bits dropped, to nearest with ties away from zero (the float's
@@ -167,16 +275,18 @@ def _tensor_core_product(a, b, products):
     return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
 
 
-def _tf32x3_kernel_emulation(q, k, v, softcap, products=3):
+def _tf32x3_kernel_emulation(q, k, v, softcap, products=3, window=0):
     """What ``flash_attention_fwd_kernel`` (float32) computes, blockwise, in
-    torch: 64 query rows a CTA, tiles of BK keys up to the causal frontier
-    (64, or 32 at D = 256), rows past S zero-filled as the producer fills
+    torch: 64 query rows a CTA, tiles of BK keys (64, or 32 at D = 256)
+    from the window's lower edge to the causal frontier
+    (:func:`_key_walk`), rows past S zero-filled as the producer fills
     them; q scaled by 1/sqrt(D) in f32 before the product, as the Pallas
     kernel scales it; S = Q K^T and O += P V each as three TF32 products of
     the split operands (:func:`_tensor_core_product`), P split from the
-    unrounded f32 probabilities; masked scores -1e30, the online softmax in
-    f32 (exp(s - m) = 2^(s log2 e - m log2 e)), l summed over the unrounded
-    p, and O times 1 / max(l, 1e-20).  Its sums round to nearest; the
+    unrounded f32 probabilities; masked scores -1e30 where the walk flags
+    the tile, the online softmax in f32 (exp(s - m) = 2^(s log2 e -
+    m log2 e); 0 in a row masked so far), l summed over the unrounded p,
+    and O times 1 / max(l, 1e-20).  Its sums round to nearest; the
     tensor cores' truncate, which the kernel's order of sums answers for
     (a float64 check on the card holds it there)."""
     B, S, H, D = q.shape
@@ -198,17 +308,17 @@ def _tf32x3_kernel_emulation(q, k, v, softcap, products=3):
         m = torch.full((B, H, BQ), -1e30)
         l = torch.zeros(B, H, BQ)
         acc = torch.zeros(B, H, BQ, D)
-        for k0 in range(0, min(q0 + BQ, S), BK):
+        for k0, flags in _key_walk(q0, BQ, BK, S, window):
             s = _tensor_core_product(qs[:, :, q0:q0 + BQ],
                                      kp[:, :, k0:k0 + BK].transpose(-1, -2),
                                      products)
             if softcap > 0:
                 s = softcap * torch.tanh(s / softcap)
-            keys = torch.arange(k0, k0 + BK)
-            s = torch.where(keys[None, :] > qrows[:, None], -1e30, s)
+            s = _mask_tile(s, qrows, k0, BK, flags, window)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp2((m - m_new) * log2e)
-            p = torch.exp2(s * log2e - (m_new * log2e)[..., None])
+            p = _masked_rows_zero(
+                torch.exp2(s * log2e - (m_new * log2e)[..., None]), m_new)
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + _tensor_core_product(
                 p, vp[:, :, k0:k0 + BK], products)

@@ -35,7 +35,11 @@ from repro_torch.models import (SHAPES, Transformer, count_params,
 TOL = 1e-5
 N_DECODE = 8
 SERVED = ("granite_8b", "deepseek_coder_33b", "command_r_plus_104b",
-          "musicgen_medium", "phi3_vision_4p2b", "zamba2_7b")
+          "musicgen_medium", "phi3_vision_4p2b", "zamba2_7b", "grok1_314b",
+          "llama4_scout_17b_a16e")
+# Gemma-2 is served too; its decode past the window is held against the
+# reference's forward, not its decode_step (tests/test_torch_gemma2.py)
+FULL_SIZE = SERVED + ("gemma2_2b",)
 # Granite's own head width (128) and GQA ratio (4), at two narrow layers
 NARROW_GRANITE = dict(name="granite-8b-narrow", n_layers=2, d_model=256,
                       n_heads=8, n_kv_heads=2, d_head=128, d_ff=512,
@@ -45,21 +49,33 @@ NARROW_GRANITE = dict(name="granite-8b-narrow", n_layers=2, d_model=256,
 NARROW_ZAMBA2 = dict(name="zamba2-7b-narrow", n_layers=3, d_model=256,
                      n_heads=4, n_kv_heads=4, d_head=112, d_ff=512,
                      vocab=256)
+# Llama-4 Scout's head width (128), GQA ratio (5) and routing (16 experts,
+# top-1, a shared expert, capacity factor 1.25: prefill and decode drop)
+NARROW_SCOUT = dict(name="llama4-scout-narrow", n_layers=2, d_model=256,
+                    n_heads=10, n_kv_heads=2, d_head=128, d_ff=512,
+                    vocab=256)
 NARROW = {"granite_8b_narrow": ("granite_8b", NARROW_GRANITE),
-          "zamba2_7b_narrow": ("zamba2_7b", NARROW_ZAMBA2)}
+          "zamba2_7b_narrow": ("zamba2_7b", NARROW_ZAMBA2),
+          "llama4_scout_narrow": ("llama4_scout_17b_a16e", NARROW_SCOUT)}
+# Gemma-2's head width (256), window 64 (a prompt of 256 runs past it),
+# sandwich norms and softcaps; bf16 logits only (its decode past the
+# window is not the reference's decode_step)
+NARROW_GEMMA2 = dict(name="gemma2-2b-narrow", n_layers=2, d_model=256,
+                     n_heads=4, n_kv_heads=2, d_head=256, d_ff=512,
+                     vocab=256, window=64)
+BF16_NARROW = dict(NARROW, gemma2_2b_narrow=("gemma2_2b", NARROW_GEMMA2))
 # Zamba2's smoke config with the shared block named mid-pattern, two
 # groups: the reference's group_body still applies it first in each group
 SHARED_MID = {"zamba2_7b_shared_mid": (
     "zamba2_7b", dict(name="zamba2-7b-shared-mid", n_layers=4,
                       pattern=("mamba2", "shared_attn", "mamba2")))}
-UNPORTED = {"gemma2_2b": "12b", "grok1_314b": "12c",
-            "llama4_scout_17b_a16e": "12c", "xlstm_1p3b": "12e"}
+UNPORTED = {"xlstm_1p3b": "12e"}
 
 
 def _served(name):
     """(reference config, the port's, prompt length)."""
-    if name in NARROW:
-        arch, narrow = NARROW[name]
+    if name in BF16_NARROW:
+        arch, narrow = BF16_NARROW[name]
         return (dataclasses.replace(RC.get_config(arch), **narrow),
                 dataclasses.replace(TC.get_config(arch), **narrow), 256)
     if name in SHARED_MID:
@@ -177,10 +193,11 @@ def test_forward_train_mode_matches_reference():
                                atol=TOL)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", FULL_SIZE)
 def test_count_params_of_the_full_model(arch):
     """Full width and depth on the meta device (no memory): the same
-    parameters as the reference's ``ParamDef`` tree (Granite-8B: 8.17 G)."""
+    parameters as the reference's ``ParamDef`` tree (Granite-8B: 8.17 G;
+    the MoE models' experts, routers and shared experts included)."""
     model = Transformer(TC.get_config(arch), device="meta")
     assert count_params(model) == RT.count_params(RC.get_config(arch))
     assert model.device.type == "meta"
@@ -260,7 +277,8 @@ def test_zamba2_forward_train_mode_matches_reference():
 
 # parameters the reference reads through .astype(float32): float32 in a
 # model of any dtype
-F32_PARAMS = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias", "norm_w")
+F32_PARAMS = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias", "norm_w",
+              "ln1_post", "ln2_post")
 
 
 def test_init_params_follows_the_reference_rule():
@@ -332,7 +350,8 @@ def _stressed(tree, seed):
         for k, v in node.items():
             if isinstance(v, dict):
                 out[k] = fill(v)
-            elif k in ("ln1", "ln2", "final_norm", "norm_w"):
+            elif k in ("ln1", "ln2", "final_norm", "norm_w", "ln1_post",
+                       "ln2_post"):
                 out[k] = -1.0 + 0.1 * rng.uniform(0.5, 1.5, v.shape)
             elif k == "A_log":
                 out[k] = np.log(rng.uniform(1.0, 16.0, v.shape))
@@ -348,7 +367,7 @@ def _stressed(tree, seed):
     return jax.tree.map(lambda a: np.asarray(a, np.float32), fill(tree))
 
 
-@pytest.mark.parametrize("name", tuple(NARROW))
+@pytest.mark.parametrize("name", tuple(BF16_NARROW))
 def test_bf16_logits_hold_to_the_reference(name):
     """The bf16 model against the reference's bf16 model (float32 masters,
     cast at use) on the same weights and prompts: the mean |difference| of
