@@ -119,19 +119,24 @@
    spill or local access in the float32 kernel, fails the run).
 9. Serving phases: Granite-8B (36 layers), then Zamba2-7B (81 Mamba-2
    layers and one shared attention block applied 27 times), Gemma-2-2B
-   (13 local and 13 global layers), Llama-4 Scout (4 of its 48 MoE layers)
-   and Grok-1 (2 of its 64), each at full width (and depth, but for the
-   MoE models, cut to fit their float32 weights on one card) with seeded
-   weights; Gemma-2 with traffic of its own (:data:`TRAFFIC`: parity at
-   one prompt of 4608 tokens, serving at 4 x 6144 into global caches of
-   6176 and local rings of 4096, decode from 6144, where the rings have
-   wrapped).  Parity: float32 weights, 2
+   (13 local and 13 global layers), Llama-4 Scout (4 of its 48 MoE layers),
+   Grok-1 (2 of its 64) and xLSTM-1.3B (42 mLSTM and 6 sLSTM layers), each
+   at full width (and depth, but for the MoE models, cut to fit their
+   float32 weights on one card) with seeded weights; Gemma-2 with traffic
+   of its own (:data:`TRAFFIC`: parity at one prompt of 4608 tokens,
+   serving at 4 x 6144 into global caches of 6176 and local rings of 4096,
+   decode from 6144, where the rings have wrapped).  Parity: float32
+   weights, 2
    prompts of 512 tokens, prefill and 8 greedy decode steps through the
    kernels and again through the plain versions on the card (the same
-   tokens), the prefill logits and every cache of both (KV, and Mamba-2's
-   conv tails and SSM states) held against an independent float64 prefill
-   (the kernel path within 1e-4 of the largest |value| and within 2x the
-   plain path's own float32 error), and the float32 prefill timed alone;
+   tokens), the prefill logits and every cache of both (KV, Mamba-2's
+   conv tails and SSM states, mLSTM's C and n, sLSTM's h, c, n, m) held
+   against an independent float64 prefill (mLSTM there the step-wise
+   recurrence, not the chunked form; the kernel path within 1e-4 of the
+   largest |value| and within 2x the plain path's own float32 error; an
+   sLSTM state past 1e-4 within 2x the error of an independent float32
+   prefill of the reference's equations instead), and the float32 prefill
+   timed alone;
    for the MoE models, how many (token, layer) top-k expert choices of the
    prefill differ between the kernel path, the plain path and the float64
    (or, for the bf16 run, float32) prefill.
@@ -140,9 +145,22 @@
    greedy decode steps into caches of 2080: prefill ms, decode ms per
    token, generated tokens/s, K8/K9/K10 launches per prefill and per
    decode step, peak memory, a traced prefill's device time by kernel
-   group (and Zamba2's intra-chunk work, timed alone), a traced decode
-   step's device idle share, and the last-position logits against the
-   plain path.
+   group (and Zamba2's intra-chunk work, timed alone; xLSTM's sLSTM scan:
+   its device time in the traced prefill and one layer's scan timed
+   alone), a traced decode step's device idle share (its trace read both by
+   ``device_rows`` and by ``key_averages``, which must agree), and the
+   last-position logits against the plain path.
+   int8 phase (``[int8]`` lines): Granite-8B's float32 model quantized to
+   int8 (``repro_torch.serve.quantize_params``) and freed; in float32
+   compute the int8 path equal to the model dequantized up front, within
+   the parity bars of a float64 prefill of those weights, its correlation
+   with the float32 logits printed (and held above 0.99 at 2 layers, the
+   depth of the reference's own test); in bf16 compute at the serving
+   traffic, prefill and decode times with int8 weights, then also with an
+   int8 KV cache calibrated from the prompt (its steps held against the
+   plain path's on the same caches and tokens), peak memory beside the bf16
+   model's and the bytes of weights and caches.  Each LM phase prints its
+   seconds (``[phase]``).
 10. Prints the total wall time, a ``kernels`` JSON line and, last, the
    ``ok`` JSON line.
 
@@ -218,9 +236,10 @@ FA_SHAPES = ({"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128},
 FA_GEMMA2 = {"B": 4, "S": 6144, "H": 8, "KVH": 4, "D": 256,
              "cases": ((4096, 50.0), (0, 50.0), (4096, 0.0))}
 # and the window at Granite's shape (D 128, the MoE models' head width):
-# 1000 keys, and 100 under Grok-1's softcap 30
+# 1000 keys, and 100 under Grok-1's softcap 30 and without a softcap (which
+# masked SDPA computes)
 FA_WINDOW_D128 = {"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128,
-                  "cases": ((1000, 0.0), (100, 30.0))}
+                  "cases": ((1000, 0.0), (100, 30.0), (100, 0.0))}
 FA_CASES = ((0, 0.0), (0, 50.0))  # the other shapes' (window, softcap)
 SCAN_SHAPES = ((16, 8, 112, 64, 64), (3, 2, 112, 64, 64))
 # K9 at the rows of a prefill of 8 prompts x 2048 tokens and the widths
@@ -252,9 +271,13 @@ PARITY = {"B": 2, "S": 512, "decode": 8}           # float32 weights
 # float32 parity at full depth is held against an independent float64
 # prefill: the kernel path's max abs error on the logits and on every KV
 # cache within PARITY_REL of the largest |value|, and within PARITY_FACTOR
-# of the plain path's own float32 error.  A fixed 1e-4 between the two
-# float32 paths is below float32's own error after 36 layers: the plain
-# path alone is ~1.4e-4 from float64 on logits of max |6|.
+# of the plain path's own float32 error (parity_fails).  A fixed 1e-4
+# between the two float32 paths is below float32's own error after 36
+# layers: the plain path alone is ~1.4e-4 from float64 on logits of max |6|.
+# An sLSTM state leaf past PARITY_REL is held instead within PARITY_FACTOR
+# of an independent float32 prefill of the reference's equations
+# (prefill_wide), no port code in it: that run's own error is past the bar
+# too where the recurrence of the gates grows float32's error.
 PARITY_REL = 1e-4
 PARITY_FACTOR = 2.0
 SERVE = {"B": 8, "S": 2048, "decode": 31, "cache": 2080}  # bfloat16
@@ -266,12 +289,26 @@ SERVE = {"B": 8, "S": 2048, "decode": 31, "cache": 2080}  # bfloat16
 # where the rings have wrapped (6144 % 4096 != 0); the MoE models at full
 # width with their depth cut to fit one card (float32 parity weights:
 # Scout's 4 layers 43.5 GB, Grok-1's 2 layers 32.9 GB) and Granite's
-# traffic
+# traffic; xLSTM-1.3B (42 mLSTM and 6 sLSTM layers) at full width and
+# depth on Granite's traffic
 SERVED_MODELS = SERVE_ARCHS + ("gemma2_2b", "llama4_scout_17b_a16e",
-                               "grok1_314b")
+                               "grok1_314b", "xlstm_1p3b")
 TRAFFIC = {"gemma2_2b": ({"B": 1, "S": 4608, "decode": 8},
                          {"B": 4, "S": 6144, "decode": 31, "cache": 6176})}
 DEPTH = {"llama4_scout_17b_a16e": 4, "grok1_314b": 2}  # of 48 and 64
+# int8 serving (weights quantized from the float32 parity model, then also
+# the KV cache) on Granite-8B at full width and depth; the int8 path (each
+# block dequantized at its use) against the model dequantized up front:
+# bit for bit, or within INT8_UPFRONT_REL of max |logit| should cuBLAS
+# pick another algorithm for one of them; against the unquantized float32
+# logits, the reference's own bar (tests/test_models.py, on its 2-layer
+# smoke model): correlation above INT8_CORR, held at INT8_CORR_LAYERS
+# layers of full width and printed at full depth, where the quantization
+# noise of seeded weights compounds (0.973 at 36 layers on an H100)
+INT8_ARCH = "granite_8b"
+INT8_UPFRONT_REL = 1e-6
+INT8_CORR = 0.99
+INT8_CORR_LAYERS = 2
 LM_LAUNCHES = ("flash_attention", "flash_attention_window", "rmsnorm",
                "rmsnorm_residual", "ssm_state_scan")
 # bf16 serving logits vs the plain path (both compute attention and norms in
@@ -865,10 +902,102 @@ def interior(x, cfg):
     return x[..., h:h + n, h:h + n]
 
 
+def device_rows(prof, ranges: tuple = ()) -> tuple[list, dict]:
+    """The device events of a finished ``torch.profiler`` run, read from
+    its raw events (``key_averages`` builds a Python object for each event
+    and links them, which is slow over the hundreds of thousands of events
+    of a host-bound prefill): rows of (ms, launches, name) summed by name
+    over kernels, copies and fills, and, for each of ``ranges``, (ms,
+    calls): the device time of the events that host ops inside the range
+    launched (linked by correlation id, as ``key_averages`` links them, on
+    any stream) and the range's host-side calls."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    by_name, spans, ops, linked = {}, {r: [] for r in ranges}, [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA:
+            if name in spans:
+                spans[name].append((e.start_ns(), e.end_ns()))
+            elif ranges:
+                ops.append((e.start_ns(), e.correlation_id()))
+            continue
+        if name in spans:
+            continue  # a range's device-side twin spans its kernels
+        ns = e.duration_ns()
+        row = by_name.setdefault(name, [0, 0])
+        row[0] += ns
+        row[1] += 1
+        if ranges:
+            linked.append((e.linked_correlation_id(), ns))
+    rows = [(ns / 1e6, n, name) for name, (ns, n) in by_name.items()
+            if ns > 0]
+    in_ranges = {}
+    for r, sp in spans.items():
+        sp.sort()
+        firsts = [lo for lo, _ in sp]
+
+        def inside(t, sp=sp, firsts=firsts):
+            i = bisect.bisect_right(firsts, t) - 1
+            return i >= 0 and t < sp[i][1]
+
+        ids = {corr for t, corr in ops if inside(t)}
+        in_ranges[r] = (sum(ns for corr, ns in linked if corr in ids) / 1e6,
+                        len(sp))
+    return rows, in_ranges
+
+
+def check_device_rows(prof, rows: list) -> None:
+    """Hold :func:`device_rows`' sums by name against the profiler's own
+    reader, ``key_averages``' self device time of each device event name
+    (both read the same raw events; ``key_averages`` keeps microseconds,
+    truncated to whole ones by some versions, so each launch may differ by
+    1 us).  Raises if a name is missing from either or its time differs."""
+    from torch.autograd import DeviceType
+    try:
+        from torch.autograd.profiler_util import _rewrite_name
+    except ImportError:
+        def _rewrite_name(name, with_wildcard=False):
+            return name
+
+    theirs = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        got = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if got is None else got
+        if us > 0:
+            theirs[e.key] = theirs.get(e.key, 0.0) + us / 1e3
+    ours = {}
+    for ms, n, name in rows:
+        key = _rewrite_name(name, with_wildcard=True)
+        got = ours.setdefault(key, [0.0, 0])
+        got[0] += ms
+        got[1] += n
+    bad = sorted(set(theirs) ^ set(ours)) + [
+        k for k, (ms, n) in ours.items()
+        if k in theirs and abs(ms - theirs[k]) > 1e-3 * n + 1e-6]
+    worst = max([abs(ms - theirs[k]) for k, (ms, _) in ours.items()
+                 if k in theirs] + [0.0])
+    print(f"[trace] reader check: {len(ours)} device event names; "
+          f"device_rows {sum(ms for ms, _ in ours.values()):.6f} ms, "
+          f"key_averages {sum(theirs.values()):.6f} ms; worst difference "
+          f"of a name {worst:.6f} ms: "
+          f"{'agree' if not bad else 'DISAGREE'}", flush=True)
+    if bad:
+        raise RuntimeError("the trace reader disagrees with key_averages on "
+                           + "; ".join(f"{k[:60]}: {ours.get(k, [None])[0]}"
+                                       f" vs {theirs.get(k)} ms"
+                                       for k in bad[:5]))
+
+
 def trace_step(step, state, step_ms: float,
                untraced: str = "median of steps 2-3",
                groups: tuple = (), split_out: dict | None = None,
-               ranges: tuple = ()) -> float | None:
+               ranges: tuple = (), check_reader: bool = False
+               ) -> float | None:
     """One more step under ``torch.profiler``: device time by kernel, and the
     device's idle share of an untraced step.  The profiler's host cost
     lengthens the traced step's wall time, so the share is taken against
@@ -879,40 +1008,29 @@ def trace_step(step, state, step_ms: float,
     that matches taking a kernel, the rest under "other"; ``split_out``
     receives them, label -> (ms, launches).  ``ranges`` names
     ``record_function`` ranges whose kernels' device time is printed (and
-    put in ``split_out``) too."""
+    put in ``split_out``) too.  ``check_reader`` holds the trace reader
+    against the profiler's own (:func:`check_device_rows`): a small
+    step's."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(state)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        on_device = getattr(e, "device_type", None) == DeviceType.CUDA
-        if e.key in ranges:
-            # the host-side range sums its kernels' device time; its
-            # device-side twin spans them and is no kernel of its own
-            if not on_device:
-                us = getattr(e, "device_time_total", None)
-                if us is None:
-                    us = getattr(e, "cuda_time_total", 0)
-                print(f"[trace] range {e.key}: {us / 1e3:.3f} ms of device "
-                      f"time in {e.count} calls")
-                if split_out is not None:
-                    split_out[e.key] = (us / 1e3, e.count)
-            continue
-        # device-side events only (kernels, copies, fills): the CPU op that
-        # launched a kernel carries the same device time again
-        if not on_device:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
+    t1 = time.perf_counter()
+    rows, in_ranges = device_rows(prof, ranges)
+    print(f"[trace] traced in {t1 - t0:.1f} s, read in "
+          f"{time.perf_counter() - t1:.1f} s")
+    if check_reader:
+        check_device_rows(prof, rows)
+    for name, (ms, calls) in in_ranges.items():
+        print(f"[trace] range {name}: {ms:.3f} ms of device time in "
+              f"{calls} calls")
+        if split_out is not None:
+            split_out[name] = (ms, calls)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print("[trace] device time: not measured (the profiler recorded no "
@@ -2113,24 +2231,41 @@ def k9_bars(out: dict) -> None:
               f"{bar:.4f} ms: {'met' if met else 'NOT MET'}", flush=True)
 
 
-def greedy(model, tokens, n_decode: int, cache_len: int, backend: str):
+def parity_fails(e_k: float, e_p: float, scale: float,
+                 e_w: float | None = None) -> bool:
+    """The float32 parity bar against a float64 prefill, for one leaf: the
+    kernel path's max abs error ``e_k`` within :data:`PARITY_FACTOR` of
+    the plain path's ``e_p``, and within :data:`PARITY_REL` of the largest
+    |value| ``scale``.  ``e_w``, given for an sLSTM state leaf only, is
+    the error of an independent float32 prefill of the reference's
+    equations (:func:`prefill_wide`); past :data:`PARITY_REL`, such a leaf
+    is held within :data:`PARITY_FACTOR` of it instead."""
+    if e_k > PARITY_FACTOR * e_p:
+        return True
+    if e_w is not None and e_k > PARITY_REL * scale:
+        return e_k > PARITY_FACTOR * e_w
+    return e_k > PARITY_REL * scale
+
+
+def greedy(model, tokens, n_decode: int, cache_len: int, backend: str,
+           quantized: bool = False):
     """Prefill then ``n_decode`` greedy decode steps: (prefill logits, the
     prefill's caches, the generated tokens (B, 1 + n_decode)).  Decode
     writes the caches in place (a local block's ring over the prompt's
-    positions, the Mamba-2 state over its own), so they are copied right
-    after the prefill."""
+    positions, the Mamba-2 and xLSTM states over their own), so they are
+    copied right after the prefill."""
     import torch
 
     from repro_torch import models as TM
 
     logits, caches = TM.prefill(model, tokens, cache_len=cache_len,
-                                backend=backend)
+                                backend=backend, quantized=quantized)
     prefilled = [{k: v.clone() for k, v in c.items()} for c in caches]
     toks = [logits.argmax(-1)]
     S = tokens.shape[1]
     for i in range(n_decode):
         step, caches = TM.decode_step(model, toks[-1], caches, S + i,
-                                      backend=backend)
+                                      backend=backend, quantized=quantized)
         toks.append(step.argmax(-1))
     return logits, prefilled, torch.cat(toks, dim=1)
 
@@ -2149,15 +2284,22 @@ def prefill_wide(model, tokens, dtype, routes: list | None = None):
     choice) order, an expert at a time, the shared expert after; each
     layer's top-k choices appended to ``routes``).  A Mamba-2 layer runs
     the reference's own form: a loop over chunks that carries the state
-    (no K10 regrouping).  Returns the last-position logits and the caches
-    in the model's order (``{"k", "v"}``, a local block's a ring of
-    min(window, S) slots with position p in slot p % W; ``{"conv",
-    "ssm"}``)."""
+    (no K10 regrouping).  An mLSTM layer runs, in float64, the one-token
+    recurrence of the reference's ``mlstm_decode`` over the prompt, step
+    by step (not the chunked form the model runs), and hands its final
+    ``(C, n)`` on as the cache; in float32 (the reference of a bfloat16
+    run) the whole prompt as one quadratic form and the final state as a
+    sum over the prompt.  An sLSTM layer runs the reference's cell, step
+    by step.  Returns
+    the last-position logits and the caches in the model's order (``{"k",
+    "v"}``, a local block's a ring of min(window, S) slots with position p
+    in slot p % W; ``{"conv", "ssm"}``; ``{"C", "n"}``; ``{"h", "c", "n",
+    "m"}``)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.models.layers import MoE
-    from repro_torch.models.transformer import MambaBlock
+    from repro_torch.models.transformer import MambaBlock, XLSTMBlock
 
     cfg = model.cfg
     if cfg.act not in ("swiglu", "geglu", "gelu") or cfg.parallel_block:
@@ -2304,12 +2446,82 @@ def prefill_wide(model, tokens, dtype, routes: list | None = None):
         return x + y @ mb.w_out.to(dtype), {"conv": full[:, S:].clone(),
                                             "ssm": state}
 
+    def mlstm_block(blk, x):
+        ml, dh = blk.mlstm, cfg.d_head
+        h = norm(x, blk.ln1)
+        q, k, v = ((h @ w.to(dtype)).reshape(B, S, H, dh)
+                   for w in (ml.wq, ml.wk, ml.wv))
+        k = k / dh ** 0.5
+        i_raw, f_raw = torch.split(h @ ml.wif.to(dtype), H, dim=-1)
+        log_f, i = F.logsigmoid(f_raw), torch.exp(F.logsigmoid(i_raw))
+        if dtype != torch.float64:
+            return mlstm_parallel(ml, h, x, q, k, v, log_f, i)
+        f = torch.exp(log_f)
+        C = x.new_zeros((B, H, dh, dh))
+        n = x.new_zeros((B, H, dh))
+        y = torch.empty_like(q)
+        for t in range(S):
+            C.mul_(f[:, t, :, None, None]).add_(
+                i[:, t, :, None, None] * k[:, t, :, :, None]
+                * v[:, t, :, None, :])
+            n.mul_(f[:, t, :, None]).add_(i[:, t, :, None] * k[:, t])
+            den = torch.einsum("bhd,bhd->bh", q[:, t], n).abs().clamp_min(1)
+            y[:, t] = torch.einsum("bhd,bhde->bhe", q[:, t], C) \
+                / den[..., None]
+        y = y.reshape(B, S, H * dh) * torch.sigmoid(h @ ml.ogate.to(dtype))
+        return x + y @ ml.wo.to(dtype), {"C": C, "n": n}
+
+    def mlstm_parallel(ml, h, x, q, k, v, log_f, i):
+        # the whole prompt as one quadratic form, y_t = sum_{s <= t}
+        # exp(cum_t - cum_s) i_s (q_t . k_s) v_s over max(|its weights'
+        # sum|, 1): the float32 reference of a bfloat16 run, where S
+        # steps of the recurrence would cost S x 42 launches of B H dh^2
+        cum = torch.cumsum(log_f, dim=1)                       # (B,S,H)
+        keep = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+        w = torch.einsum("bthd,bshd->bhts", q, k) * torch.where(
+            keep, torch.exp(torch.where(keep, cum.transpose(1, 2)[..., None]
+                                        - cum.transpose(1, 2)[:, :, None],
+                                        0.0)) * i.transpose(1, 2)[:, :, None],
+            0.0)
+        y = torch.einsum("bhts,bshd->bthd", w, v) / w.sum(-1).abs(
+            ).clamp_min(1).transpose(1, 2)[..., None]
+        del w
+        wgt = torch.exp(cum[:, -1:] - cum) * i
+        state = {"C": torch.einsum("bsh,bshd,bshe->bhde", wgt, k, v),
+                 "n": torch.einsum("bsh,bshd->bhd", wgt, k)}
+        y = y.reshape(B, S, -1) * torch.sigmoid(h @ ml.ogate.to(dtype))
+        return x + y @ ml.wo.to(dtype), state
+
+    def slstm_block(blk, x):
+        sl, d, dh = blk.slstm, cfg.d_model, cfg.d_head
+        h = norm(x, blk.ln1)
+        pre = h @ sl.w_in.to(dtype)
+        r = sl.r.to(dtype)
+        hh, c, n, m = (x.new_zeros((B, d)) for _ in range(4))
+        out = torch.empty_like(x)
+        for t in range(S):
+            rec = torch.einsum("bhd,ghde->bghe", hh.reshape(B, H, dh),
+                               r).reshape(B, 4 * d)
+            z, i_r, f_r, o = torch.chunk(pre[:, t] + rec, 4, dim=-1)
+            log_f = F.logsigmoid(f_r)
+            m_new = torch.maximum(log_f + m, i_r)
+            i_s, f_s = torch.exp(i_r - m_new), torch.exp(log_f + m - m_new)
+            c = f_s * c + i_s * torch.tanh(z)
+            n = f_s * n + i_s
+            m = m_new
+            hh = torch.sigmoid(o) * c / n.clamp_min(1)
+            out[:, t] = hh
+        return x + out @ sl.wo.to(dtype), {"h": hh, "c": c, "n": n, "m": m}
+
     x = model.embed[tokens].to(dtype)
     if cfg.tie_embeddings:
         x = x * cfg.d_model ** 0.5
     caches = []
     for blk in model.stack():
-        block = mamba_block if isinstance(blk, MambaBlock) else attn_block
+        if isinstance(blk, XLSTMBlock):
+            block = mlstm_block if blk.btype == "mlstm" else slstm_block
+        else:
+            block = mamba_block if isinstance(blk, MambaBlock) else attn_block
         x, cache = block(blk, x)
         caches.append(cache)
     h = norm(x[:, -1:], model.final_norm)
@@ -2317,15 +2529,22 @@ def prefill_wide(model, tokens, dtype, routes: list | None = None):
     return cap(h @ w.to(dtype), cfg.final_softcap), caches
 
 
-def stack_counts(model) -> tuple[int, int, int]:
-    """(attention block applications, local ones among them, Mamba-2
-    layers) of the model."""
-    from repro_torch.models.transformer import MambaBlock
+def block_type(blk) -> str:
+    """"attn" (any attention block, local and shared ones too), "mamba2",
+    "mlstm" or "slstm"."""
+    return getattr(blk, "btype", "mamba2" if hasattr(blk, "mamba")
+                   else "attn")
 
+
+def stack_counts(model) -> dict:
+    """Block applications of the model by :func:`block_type`, and the local
+    attention ones under "local"."""
     blocks = model.stack()
-    n_mamba = sum(isinstance(b, MambaBlock) for b in blocks)
-    n_local = sum(getattr(b, "local", False) for b in blocks)
-    return len(blocks) - n_mamba, n_local, n_mamba
+    counts = {k: 0 for k in ("attn", "mamba2", "mlstm", "slstm")}
+    for b in blocks:
+        counts[block_type(b)] += 1
+    counts["local"] = sum(getattr(b, "local", False) for b in blocks)
+    return counts
 
 
 @contextlib.contextmanager
@@ -2367,6 +2586,14 @@ def routes_differ(paths: dict, n_layers: int) -> dict:
     return out
 
 
+# what the serving phase calls each block type's cache leaves (None: any
+# other leaf)
+CACHE_KINDS = {"attn": {None: "KV caches"},
+               "mamba2": {"conv": "conv tails", None: "SSM states"},
+               "mlstm": {"C": "mLSTM C states", None: "mLSTM n states"},
+               "slstm": {None: "sLSTM states"}}
+
+
 # device time of a traced prefill, by kernel name
 PREFILL_GROUPS = (
     ("K8 flash_attention_wgmma_kernel", ("flash_attention",)),
@@ -2400,7 +2627,10 @@ def serving_phase(device, arch: str) -> dict:
                                           device=device), seed=0)
     torch.cuda.synchronize()
     n_params = TM.count_params(model)
-    n_attn, n_local, n_mamba = stack_counts(model)
+    counts = stack_counts(model)
+    n_attn, n_local, n_mamba = (counts[k] for k in ("attn", "local",
+                                                     "mamba2"))
+    n_xlstm = counts["mlstm"] + counts["slstm"]
     n_moe = n_attn if cfg.moe is not None else 0
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers of {cfg.pattern}"
           + (f" (depth cut from {full_layers} to fit one card: the float32 "
@@ -2414,7 +2644,9 @@ def serving_phase(device, arch: str) -> dict:
           + f", vocab {cfg.vocab}"
           + (f", window {cfg.window}" if n_local else "")
           + f"; {n_attn} attention applications ({n_local} local), "
-          f"{n_mamba} Mamba-2 layers: {n_params / 1e9:.3f} G parameters; "
+          f"{n_mamba} Mamba-2 layers, {counts['mlstm']} mLSTM and "
+          f"{counts['slstm']} sLSTM layers: {n_params / 1e9:.3f} G "
+          f"parameters; "
           f"float32 weights initialised in {time.perf_counter() - t:.2f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)
     B, S, n = parity["B"], parity["S"], parity["decode"]
@@ -2427,6 +2659,9 @@ def serving_phase(device, arch: str) -> dict:
     with moe_routes(routes["plain"]):
         want = greedy(model, tokens, n, S + n, "ref")
     exact = prefill_wide(model, tokens, torch.float64, routes["float64"])
+    # the sLSTM states' float32 baseline, independent of the port's code
+    wide32 = prefill_wide(model, tokens, torch.float32)[1] \
+        if counts["slstm"] else None
     torch.cuda.synchronize()
     if n_moe:
         # the prefill's routes: each layer's chunks, before the decode's
@@ -2440,38 +2675,61 @@ def serving_phase(device, arch: str) -> dict:
               + ", ".join(f"{k} {v}" for k, v in differ.items()),
               flush=True)
     same = torch.equal(got[2], want[2])
-    kinds = {"k": "KV caches", "v": "KV caches", "conv": "conv tails",
-             "ssm": "SSM states"}
-    # (name, kind, kernel path, plain path, float64) for the logits and
-    # every leaf of every cache; a KV cache over the prompt's slots
-    cases = [("logits", "logits", got[0], want[0], exact[0])]
-    for i, (a, b, x) in enumerate(zip(got[1], want[1], exact[1])):
-        cases += [(f"{leaf}{i}", kinds[leaf], a[leaf][:, :S], b[leaf][:, :S],
-                   x[leaf]) for leaf in x]
-    worst = {}
-    for name, kind, a, b, x in cases:
+    # (name, kind, kernel path, plain path, float64, the independent
+    # float32 prefill or None) for the logits and every leaf of every
+    # cache; a KV cache over the prompt's slots
+    cases = [("logits", "logits", got[0], want[0], exact[0], None)]
+    for i, (blk, a, b, x) in enumerate(zip(model.stack(), got[1], want[1],
+                                           exact[1])):
+        kind = CACHE_KINDS[block_type(blk)]
+        for leaf in x:
+            cut = slice(0, S) if leaf in ("k", "v") else slice(None)
+            cases.append((f"{leaf}{i}", kind.get(leaf, kind[None]),
+                          a[leaf][:, cut], b[leaf][:, cut], x[leaf],
+                          wide32[i][leaf] if block_type(blk) == "slstm"
+                          else None))
+    worst, failed = {}, []
+    for name, kind, a, b, x, w32 in cases:
         if not torch.isfinite(a).all():
             raise RuntimeError(f"serving parity: non-finite {name}")
         scale = x.abs().max().item()
         e_k = (a.double() - x).abs().max().item()
         e_p = (b.double() - x).abs().max().item()
         e_kp = (a - b).abs().max().item()
-        w = worst.setdefault(kind, [0.0, 0.0, 0.0, 0.0, 0.0])
+        e_w = None if w32 is None else (w32.double() - x).abs().max().item()
+        past = e_k > PARITY_REL * scale
+        w = worst.setdefault(kind, [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0.0,
+                                    0.0])
         w[:] = [max(w[0], e_k), max(w[1], e_p), max(w[2], e_kp),
-                max(w[3], e_k / scale), max(w[4], e_k / max(e_p, 1e-30))]
-        if e_k > PARITY_REL * scale or e_k > PARITY_FACTOR * e_p:
-            raise RuntimeError(
-                f"serving parity: {name} of the kernel path is {e_k:.3e} "
-                f"from float64 (max |value| {scale:.3f}), the plain path "
-                f"{e_p:.3e}: beyond {PARITY_REL:g} of the scale or "
-                f"{PARITY_FACTOR:g}x the plain path's error")
-    for kind, (e_k, e_p, e_kp, rel, ratio) in worst.items():
+                max(w[3], e_k / scale), max(w[4], e_k / max(e_p, 1e-30)),
+                max(w[5], e_p / scale), w[6] + past,
+                max(w[7], (e_w or 0.0) / scale),
+                max(w[8], e_k / max(e_w, 1e-30) if past and e_w else 0.0)]
+        if parity_fails(e_k, e_p, scale, e_w):
+            failed.append(f"{name} of the kernel path is {e_k:.3e} from "
+                          f"float64 (max |value| {scale:.3f}), the plain "
+                          f"path {e_p:.3e}"
+                          + ("" if e_w is None else
+                             f", the independent float32 prefill {e_w:.3e}"))
+    for kind, (e_k, e_p, e_kp, rel, ratio, rel_p, past, rel_w,
+               ratio_w) in worst.items():
         print(f"[serve] parity, float32, B={B} prompt {S}, {kind}: max abs "
               f"vs float64: kernel path {e_k:.3e}, plain path {e_p:.3e} "
               f"(worst kernel/plain ratio {ratio:.3f}, bar "
               f"{PARITY_FACTOR:g}; worst kernel error / max |value| "
-              f"{rel:.3e}, bar {PARITY_REL:g}); kernel vs plain path "
-              f"{e_kp:.3e}")
+              f"{rel:.3e}, plain {rel_p:.3e}, bar {PARITY_REL:g}"
+              + (f"; the independent float32 prefill {rel_w:.3e}; the "
+                 f"kernel path past the bar in {past} of them, where its "
+                 f"worst ratio to the independent float32 prefill's error "
+                 f"is {ratio_w:.3f}, bar {PARITY_FACTOR:g}"
+                 if kind == "sLSTM states" else "")
+              + f"); kernel vs plain path {e_kp:.3e}")
+    if failed:
+        raise RuntimeError("serving parity: " + "; ".join(failed)
+                           + f": beyond {PARITY_REL:g} of the scale (an "
+                           f"sLSTM state: and {PARITY_FACTOR:g}x the "
+                           f"independent float32 prefill's error) or "
+                           f"{PARITY_FACTOR:g}x the plain path's error")
     print(f"[serve] parity: greedy tokens (prefill + {n} decode steps) "
           f"identical on both paths: {same}; kernel launches {launched}",
           flush=True)
@@ -2486,7 +2744,7 @@ def serving_phase(device, arch: str) -> dict:
                            f"({launched['flash_attention_window']})/"
                            f"{launched['ssm_state_scan']} times in the parity "
                            f"run, expected {n_attn} ({n_local})/{n_mamba}")
-    del got, want, exact
+    del got, want, exact, wide32
     torch.cuda.empty_cache()
     # the float32 parity prefill (K8's float32 kernel), timed alone
     parity_ms = cuda_ms(lambda: TM.prefill(model, tokens, cache_len=S + n), 2)
@@ -2531,9 +2789,25 @@ def serving_phase(device, arch: str) -> dict:
           f"median {prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.1f} prompt "
           f"tokens/s); peak device memory over a prefill "
           f"{peak_prefill / 2**30:.3f} GiB", flush=True)
+    split = {}
     idle_prefill = trace_step(
         lambda _: TM.prefill(model, tokens, cache_len=cache), None,
-        prefill_ms, untraced="median prefill", groups=PREFILL_GROUPS)
+        prefill_ms, untraced="median prefill", groups=PREFILL_GROUPS,
+        split_out=split, ranges=("slstm_scan",) if counts["slstm"] else ())
+    if counts["slstm"]:
+        scan_ms = slstm_scan_ms(model, tokens)
+        busy = sum(split[label][0] for label, _ in PREFILL_GROUPS
+                   + (("other", ()),)) if split else 0.0
+        dev_ms = split.get("slstm_scan", (None,))[0]
+        print(f"[serve] sLSTM scan: device time in the traced prefill "
+              + ("not measured" if dev_ms is None or not busy else
+                 f"{dev_ms:.3f} ms of {busy:.3f} ms busy "
+                 f"({100 * dev_ms / busy:.1f} %)")
+              + f"; one layer's scan (x @ w_in, {S} steps of the cell, "
+              f"@ wo) at B={B}: {scan_ms:.3f} ms (CUDA events), x "
+              f"{counts['slstm']} layers = {counts['slstm'] * scan_ms:.3f} "
+              f"ms, {100 * counts['slstm'] * scan_ms / prefill_ms:.1f} % of "
+              f"the median prefill", flush=True)
     if n_mamba:
         chunk_ms = ssd_chunks_ms(model, tokens)
         print(f"[serve] intra-chunk work (Mamba2.ssd_chunks: decays, mask, "
@@ -2558,7 +2832,7 @@ def serving_phase(device, arch: str) -> dict:
     tok_s = B * n / sum(steps)
     # every ln1 (and, with sandwich norms, ln1_post and ln2_post), the
     # gated norms, the final norm
-    norms = n_attn * (3 if cfg.post_norm else 1) + 2 * n_mamba + 1
+    norms = n_attn * (3 if cfg.post_norm else 1) + 2 * n_mamba + n_xlstm + 1
     want_prefill = {"flash_attention": n_attn,
                     "flash_attention_window": n_local, "rmsnorm": norms,
                     "rmsnorm_residual": n_attn, "ssm_state_scan": n_mamba}
@@ -2577,7 +2851,8 @@ def serving_phase(device, arch: str) -> dict:
         raise RuntimeError("the serving path did not launch K8/K9/K10 as "
                            "expected")
     idle = trace_step(lambda c: TM.decode_step(model, tok, c, S + n), caches,
-                      decode_ms, untraced="median decode step")
+                      decode_ms, untraced="median decode step",
+                      check_reader=True)
     del caches
     torch.cuda.empty_cache()
     with moe_routes(routes["plain"]):
@@ -2627,6 +2902,276 @@ def serving_phase(device, arch: str) -> dict:
             "idle": idle, "idle_prefill": idle_prefill}
 
 
+def int8_phase(device, bf16: dict) -> dict:
+    """:data:`INT8_ARCH` at full width and depth with int8 weights,
+    quantized (``repro_torch.serve.quantize_params``) from its float32
+    parity model (seed 0), which is then freed.  In float32 compute, on
+    :data:`PARITY`'s prompts: the prefill and greedy decode steps of the
+    int8 path (each block dequantized at its use) equal to those of the
+    model dequantized up front, bit for bit (or within
+    :data:`INT8_UPFRONT_REL` of max |logit|, said so); the int8 path's
+    logits and KV caches within :data:`PARITY_REL` and
+    :data:`PARITY_FACTOR` of a float64 prefill of the dequantized weights
+    (the plain path's error the factor's base); its logits' correlation
+    with the unquantized float32 model's, printed, and held above
+    :data:`INT8_CORR` on a cut of :data:`INT8_CORR_LAYERS` layers at full
+    width (the depth of the reference's own test).  Then in
+    bf16 compute at :data:`SERVE`: prefill ms (median of 2 after a
+    warm-up), decode ms a step with the bf16 KV cache, and again with an
+    int8 KV cache calibrated from the prompt's keys and values (per prompt
+    and kv head, max |value| / 127), whose steps are held against the
+    plain path's from the same caches on the same tokens at
+    :data:`BF16_LOGIT_REL` and :data:`BF16_TOP1`; the peak device memory
+    beside
+    ``bf16``'s (the bf16 model's serving run), and the bytes of the
+    weights and of the caches."""
+    import torch
+
+    from repro_torch import configs as TC
+    from repro_torch import models as TM
+    from repro_torch.kernels import library as KL
+    from repro_torch.serve import (dequantize, quantization_error,
+                                   quantize_params)
+
+    cfg = TC.get_config(INT8_ARCH)
+    gen = torch.Generator(device=device).manual_seed(5)
+    t = time.perf_counter()
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=device), seed=0)
+    n_params = TM.count_params(model)
+    B, S, n = (PARITY[k] for k in ("B", "S", "decode"))
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    full, _ = TM.prefill(model, tokens)  # the unquantized float32 logits
+    q_err = quantization_error(model)
+    qm = quantize_params(model)
+    del model, _
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"[int8] {cfg.name}: {n_params / 1e9:.3f} G parameters quantized "
+          f"from the float32 model in {time.perf_counter() - t:.2f} s (its "
+          f"init, a prefill and quantization_error included): int8 values "
+          f"and scales {qm.nbytes() / 1e9:.3f} GB resident, against bf16 "
+          f"{2 * n_params / 1e9:.3f} GB and float32 {4 * n_params / 1e9:.3f}"
+          f" GB; quantization_error {q_err:.3e} (the reference's bar 0.02)",
+          flush=True)
+    upfront = dequantize(qm)
+    KL.reset_launches()
+    got = greedy(qm, tokens, n, S + n, "cuda", quantized=True)
+    parity_launches = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
+    ref = greedy(upfront, tokens, n, S + n, "cuda")
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], ref[0]) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(got[1], ref[1]) for k in a)
+    rel = ((got[0] - ref[0]).abs().max() / ref[0].abs().max()).item()
+    print(f"[int8] float32 compute, B={B} prompt {S} + {n} greedy steps: "
+          f"the int8 path (each block dequantized at its use) against the "
+          f"model dequantized up front: logits and caches bit for bit "
+          f"{same}; max |logit difference| / max |logit| {rel:.3e} (bar "
+          f"{INT8_UPFRONT_REL:g} where not bit for bit); greedy tokens "
+          f"identical {torch.equal(got[2], ref[2])}; kernel launches "
+          f"{parity_launches}", flush=True)
+    if not torch.equal(got[2], ref[2]) or (not same
+                                           and rel > INT8_UPFRONT_REL):
+        raise RuntimeError("the int8 path differs from the model "
+                           "dequantized up front")
+    if not same:
+        print("[int8] not bit for bit: cuBLAS picked another algorithm for "
+              "one of the paths' products", flush=True)
+    plain, plain_caches = TM.prefill(qm, tokens, cache_len=S + n,
+                                     backend="ref", quantized=True)
+    exact = prefill_wide(upfront, tokens, torch.float64)
+    del upfront, ref
+    torch.cuda.empty_cache()
+    cases = [("logits", got[0], plain, exact[0])] + [
+        (f"{leaf}{i}", a[leaf][:, :S], b[leaf][:, :S], x[leaf])
+        for i, (a, b, x) in enumerate(zip(got[1], plain_caches, exact[1]))
+        for leaf in x]
+    for name, a, b, x in cases:
+        scale = x.abs().max().item()
+        e_k = (a.double() - x).abs().max().item()
+        e_p = (b.double() - x).abs().max().item()
+        if not torch.isfinite(a).all() or parity_fails(e_k, e_p, scale):
+            raise RuntimeError(
+                f"int8 parity: {name} is {e_k:.3e} from float64 (max |value|"
+                f" {scale:.3f}), the plain path {e_p:.3e}")
+        if name in ("logits", "k0"):
+            print(f"[int8] {name}: max abs vs a float64 prefill of the "
+                  f"dequantized weights: int8 kernel path {e_k:.3e}, plain "
+                  f"path {e_p:.3e} (bars {PARITY_REL:g} x max |value| "
+                  f"{scale:.3f}, {PARITY_FACTOR:g}x plain); every cache "
+                  f"held alike", flush=True)
+    def correlation(a, b):
+        return torch.corrcoef(torch.stack([a.flatten(), b.flatten()])
+                              .double())[0, 1].item()
+
+    corr = correlation(got[0], full)
+    del got, plain, plain_caches, exact, cases
+    torch.cuda.empty_cache()
+    # the reference's bar at its own test's depth, at full width
+    cut = dataclasses.replace(cfg, n_layers=INT8_CORR_LAYERS)
+    small = TM.init_params(TM.Transformer(cut, dtype=torch.float32,
+                                          device=device), seed=0)
+    want, _ = TM.prefill(small, tokens)
+    corr_cut = correlation(TM.prefill(quantize_params(small), tokens,
+                                      quantized=True)[0], want)
+    del small, want
+    torch.cuda.empty_cache()
+    print(f"[int8] logits of the int8 path against the unquantized float32 "
+          f"model's: correlation at {cfg.n_layers} layers {corr:.6f}, at "
+          f"the reference's test depth ({INT8_CORR_LAYERS} layers, full "
+          f"width, the same prompts) {corr_cut:.6f} (the reference's bar "
+          f"> {INT8_CORR:g}, held there)", flush=True)
+    if not corr_cut > INT8_CORR:
+        raise RuntimeError(f"int8 logits correlate {corr_cut:.4f} with "
+                           f"float32 at {INT8_CORR_LAYERS} layers")
+
+    q16 = qm.with_dtype(torch.bfloat16)
+    B, S, n, size = (SERVE[k] for k in ("B", "S", "decode", "cache"))
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    logits, caches = TM.prefill(q16, tokens, cache_len=size, quantized=True)
+    del logits, caches
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        logits = caches = None
+        torch.cuda.synchronize()
+        KL.reset_launches()
+        t = time.perf_counter()
+        logits, caches = TM.prefill(q16, tokens, cache_len=size,
+                                    quantized=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        per_prefill = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
+    prefill_ms = 1e3 * statistics.median(times)
+    first = logits.argmax(-1)
+    runs, launches, held = {}, dict(per_prefill), None
+    for kv in ("bf16", "int8"):
+        if kv == "int8":
+            # the prompt's keys and values, quantized with per (prompt, kv
+            # head) scales calibrated from them
+            qcaches = TM.init_caches(cfg, B, size, dtype=torch.bfloat16,
+                                     device=device, quant_kv=True)
+            for c, f in zip(qcaches, caches):
+                for key in ("k", "v"):
+                    prompt = f[key][:, :S].float()
+                    sc = prompt.abs().amax(dim=(1, 3), keepdim=True)
+                    c[f"{key}_s"].copy_(sc.clamp_min(1e-6) / 127.0)
+                    c[key][:, :S] = torch.clamp(torch.round(
+                        prompt / c[f"{key}_s"]), -127, 127)
+            del caches
+            caches = qcaches
+            # for the plain path's decode from the same calibrated caches,
+            # held on the host so that the peak is the served run's
+            held = [{k: v.cpu() for k, v in c.items()} for c in caches]
+        tok, steps, toks, step_logits = first, [], [], []
+        KL.reset_launches()
+        for i in range(n):
+            t = time.perf_counter()
+            step, caches = TM.decode_step(q16, tok, caches, S + i,
+                                          quantized=True)
+            tok = step.argmax(-1)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t)
+            toks.append(tok)
+            step_logits.append(step)
+        first_logits = step_logits[0]
+        for k in LM_LAUNCHES:
+            launches[k] += KL.LAUNCHES[k]
+        kv_bytes = sum(t.numel() * t.element_size() for c in caches
+                       for t in c.values())
+        runs[kv] = (1e3 * statistics.median(steps), kv_bytes,
+                    first_logits, {k: KL.LAUNCHES[k] / n
+                                   for k in LM_LAUNCHES},
+                    torch.cat(toks, dim=1), step_logits)
+        print(f"[int8] a traced decode step, int8 weights, {kv} KV cache:",
+              flush=True)
+        trace_step(lambda c: TM.decode_step(q16, tok, c, S + n,
+                                            quantized=True), caches,
+                   runs[kv][0], untraced="median decode step")
+        if not torch.isfinite(step).all():
+            raise RuntimeError(f"int8 serving with a {kv} KV cache: "
+                               "non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+    del caches
+    # the int8 KV decode on the plain path, from the same calibrated caches
+    # on the same tokens (the kernel path's), held as bf16 serving is
+    caches = [{k: v.to(device) for k, v in c.items()} for c in held]
+    del held
+    inputs = [first] + [runs["int8"][4][:, i:i + 1] for i in range(n - 1)]
+    r_kv, agree = 0.0, 0.0
+    for i, tk in enumerate(inputs):
+        step, caches = TM.decode_step(q16, tk, caches, S + i,
+                                      quantized=True, backend="ref")
+        got = runs["int8"][5][i]
+        r_kv = max(r_kv, ((got.float() - step.float()).abs().max()
+                          / step.float().abs().max()).item())
+        agree += (got.argmax(-1) == step.argmax(-1)).float().mean().item()
+    agree /= n
+    del caches, step
+    print(f"[int8] int8 KV cache, {n} decode steps from the same calibrated "
+          f"caches on the same tokens, kernel path against the plain path: "
+          f"worst step's max |logit difference| / max |logit| {r_kv:.3e} "
+          f"(bar {BF16_LOGIT_REL:g}); top-1 agreement {agree:.3f} over "
+          f"{n} steps x {B} prompts (bar {BF16_TOP1:g})", flush=True)
+    if r_kv > BF16_LOGIT_REL or agree < BF16_TOP1:
+        raise RuntimeError(f"int8 KV decode: the kernel path is {r_kv:.3e} "
+                           f"of max |logit| from the plain path, top-1 "
+                           f"agreement {agree:.3f}")
+    print("[int8] a traced prefill, int8 weights:", flush=True)
+    trace_step(lambda _: TM.prefill(q16, tokens, cache_len=size,
+                                    quantized=True), None, prefill_ms,
+               untraced="median prefill", groups=PREFILL_GROUPS)
+    a, b = runs["int8"][2], runs["bf16"][2]
+    kv_rel = ((a - b).abs().max() / b.abs().max()).item()
+    kv_top1 = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    kv_greedy = (runs["int8"][4] == runs["bf16"][4]).float().mean().item()
+    want = {"flash_attention": cfg.n_layers, "flash_attention_window": 0,
+            "rmsnorm": cfg.n_layers + 1, "rmsnorm_residual": cfg.n_layers,
+            "ssm_state_scan": 0}
+    print(f"[int8] bf16 compute, B={B} prompts of {S} tokens, caches of "
+          f"{size}: prefill ms {[round(1e3 * x, 3) for x in times]} -> "
+          f"median {prefill_ms:.3f} ms (the bf16 model's "
+          f"{bf16['prefill_ms']:.3f});"
+          f" decode ms a step, median of {n}: bf16 KV cache "
+          f"{runs['bf16'][0]:.3f}, int8 KV cache {runs['int8'][0]:.3f} (the "
+          f"bf16 model's {bf16['decode_ms']:.3f}); the first decode step's "
+          f"logits with the int8 cache against the bf16 cache's: max "
+          f"|difference| / max |logit| {kv_rel:.3e}, top-1 agreement "
+          f"{kv_top1:.3f} over {B} prompts; the {n} greedy tokens of each "
+          f"prompt (each run its own) agree in {kv_greedy:.3f} of them",
+          flush=True)
+    print(f"[int8] bytes: weights {qm.nbytes() / 1e9:.3f} GB (bf16 "
+          f"{2 * n_params / 1e9:.3f}); KV caches bf16 "
+          f"{runs['bf16'][1] / 1e9:.3f} GB, int8 {runs['int8'][1] / 1e9:.3f} "
+          f"GB; peak device memory from the timed prefills through both "
+          f"decodes {peak / 2**30:.3f} GiB (the bf16 model's serving peak "
+          f"{bf16['peak'] / 2**30:.3f} GiB)")
+    print(f"[int8] launches per prefill {per_prefill}; per decode step "
+          f"{runs['bf16'][3]} (expected {want} and the same less K8)",
+          flush=True)
+    step_want = dict(want, flash_attention=0)
+    if per_prefill != want or any(r[3] != step_want for r in runs.values()):
+        raise RuntimeError("the int8 run did not launch K8/K9 as expected")
+    del q16, qm, logits
+    torch.cuda.empty_cache()
+    return {"name": f"{cfg.name} int8", "launches": launches,
+            "parity_launches": parity_launches, "prefill_ms": prefill_ms,
+            "decode_ms": runs["bf16"][0], "decode_kv8_ms": runs["int8"][0],
+            "peak": peak}
+
+
+def slstm_scan_ms(model, tokens) -> float:
+    """CUDA-event ms of one sLSTM layer's mixer (the hoisted ``x @ w_in``,
+    the scan over the prompt's steps, ``@ wo``) at the serving shape, on
+    the normed embeddings of ``tokens``: a call's host time included,
+    since the scan's launches are what it waits on."""
+    from repro_torch.kernels import ops
+
+    blk = next(b for b in model.layers if getattr(b, "btype", "") == "slstm")
+    h = ops.rmsnorm(model.embed[tokens], blk.ln1, eps=model.cfg.norm_eps)
+    return cuda_ms(lambda: blk.slstm(h), 1)
+
+
 def ssd_chunks_ms(model, tokens) -> float:
     """CUDA-event ms of one Mamba-2 layer's intra-chunk work
     (``Mamba2.ssd_chunks``) at the serving shape, on the inputs the first
@@ -2651,11 +3196,13 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     bound of its first case (fx_ppm, tridiag_solve, interface_interp;
     fx_ppm under "grid" for K5; precompute_pe at block_k 16 for K4).  K8's
     bf16 kernel, K9 and K10 count one bf16 serving request (a prefill and
-    its decode steps) of each served model (:data:`SERVED_MODELS`), and
+    its decode steps) of each served model (:data:`SERVED_MODELS`) and the
+    int8 run's (a prefill and the decode steps over both KV caches), and
     take their times from the bf16 case (K8 at Granite's shape and softcap
     0, K9 at Zamba2's d_model over a prefill's rows with a float32 weight)
     and, for K10, Zamba2's serving shape; K8's float32 kernel counts the
-    float32 parity runs of every model and takes its times from the
+    float32 parity runs of every model and the int8 run's float32 greedy
+    run, and takes its times from the
     float32 case at Granite's shape, softcap 0.  K8's window has a record
     of each dtype: the launches with a window (Gemma-2's local layers,
     also counted in K8's record) and the times at Gemma-2's shape, window
@@ -2838,8 +3385,20 @@ def main() -> int:
     distributed = distributed_phase(device, path["s0"], opt3.pop("s1"))
     del path["s0"], path["plain1"]
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     lm = lm_kernel_phase(device)
-    serve = {arch: serving_phase(device, arch) for arch in SERVED_MODELS}
+    print(f"[phase] LM kernels {time.perf_counter() - t0:.1f} s", flush=True)
+    serve = {}
+    for arch in SERVED_MODELS:
+        t0 = time.perf_counter()
+        serve[arch] = serving_phase(device, arch)
+        print(f"[phase] serving {arch} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    int8 = int8_phase(device, serve[INT8_ARCH])
+    serve[int8["name"]] = int8
+    print(f"[phase] int8 serving {INT8_ARCH} {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
                              lm, serve, distributed)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")

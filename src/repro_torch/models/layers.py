@@ -19,6 +19,10 @@ here, Mamba-2's ``A_log``, ``D``, ``dt_bias`` and ``norm_w``) stays in
 float32 in a model of any dtype (:func:`norm_param`), since a bf16 copy
 would round it.
 
+Decode reads a cache in the compute dtype or, as the reference's
+``attention_decode`` does for an int8 cache, int8 values with float32
+per-head scales (the reference's ``quant_kv``).
+
 A ``local`` (sliding-window) block attends to the last ``cfg.window``
 positions.  Its prefill runs K8 with the window; its decode cache is a ring
 of W = min(window, cache length) slots, position p in slot ``p % W``, and
@@ -154,8 +158,9 @@ class Attention(nn.Module):
         return out.reshape(B, S, self.cfg.q_dim) @ self.wo, k, v
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, pos: int, *,
-               local: bool = False) -> torch.Tensor:
+               cache_v: torch.Tensor, pos: int, *, local: bool = False,
+               k_scale: torch.Tensor | None = None,
+               v_scale: torch.Tensor | None = None) -> torch.Tensor:
         """One token x (B, 1, d_model) at position ``pos`` against a
         (B, S_cache, n_kv_heads, d_head) cache.  Writes the token's k/v into
         slot ``pos`` of the caches in place (the reference returns updated
@@ -164,7 +169,11 @@ class Attention(nn.Module):
         with -1e30 where the slot's position is past ``pos`` (or not in the
         window, ``(pos - window, pos]``, or not written yet); the
         probabilities cast to x's dtype before P·V, as the reference
-        does."""
+        does.  An int8 cache (the reference's ``quant_kv``) comes with
+        float32 per-head scales ``k_scale``/``v_scale`` (B, 1, n_kv_heads,
+        1): the token's post-RoPE k/v are written as ``clip(round(k /
+        k_scale), -127, 127)``, and the cache is read as ``q.to(x.dtype) *
+        scale.to(x.dtype)``."""
         cfg = self.cfg
         B, n = x.shape[0], cache_k.shape[1]
         positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
@@ -181,16 +190,25 @@ class Attention(nn.Module):
         else:
             valid = slots <= pos
             slot = pos
+        int8 = cache_k.dtype == torch.int8
+        if int8:
+            k = torch.clamp(torch.round(k / k_scale), -127, 127)
+            v = torch.clamp(torch.round(v / v_scale), -127, 127)
         cache_k[:, slot] = k[:, 0]
         cache_v[:, slot] = v[:, 0]
+        if int8:
+            keys = cache_k.to(x.dtype) * k_scale.to(x.dtype)
+            values = cache_v.to(x.dtype) * v_scale.to(x.dtype)
+        else:
+            keys, values = cache_k, cache_v
         rep = cfg.n_heads // cfg.n_kv_heads
         qg = q.reshape(B, cfg.n_kv_heads, rep, cfg.d_head)
         scores = torch.einsum("bgrd,bsgd->bgrs", qg.float(),
-                              cache_k.float()) * (1.0 / math.sqrt(cfg.d_head))
+                              keys.float()) * (1.0 / math.sqrt(cfg.d_head))
         scores = softcap(scores, cfg.attn_softcap)
         scores = torch.where(valid, scores, -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.einsum("bgrs,bsgd->bgrd", probs, cache_v)
+        out = torch.einsum("bgrs,bsgd->bgrd", probs, values)
         return out.reshape(B, 1, cfg.q_dim) @ self.wo
 
 

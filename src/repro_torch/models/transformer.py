@@ -1,6 +1,7 @@
 """Model assembly and the serving entry points, for patterns of ``attn``,
-``local`` (sliding-window attention), ``mamba2`` and ``shared_attn``
-blocks, with dense or mixture-of-experts feed-forwards.
+``local`` (sliding-window attention), ``mamba2``, ``shared_attn``,
+``mlstm`` and ``slstm`` blocks, with dense or mixture-of-experts
+feed-forwards, in float weights or int8 (``quantized=True``).
 
 Ported from the reference's ``repro/models/transformer.py``.  A model is
 ``n_groups`` repetitions of its ``pattern``; the reference stacks each
@@ -19,11 +20,21 @@ Entry points, as the reference's:
 
 The caches are a list with one entry per block application, in the order
 the blocks run (:meth:`Transformer.stack`: group by group, in
-:func:`group_order`): ``{"k", "v"}`` for an attention block, ``{"conv",
-"ssm"}`` for a Mamba-2 block.  A ``local`` block's ``{"k", "v"}`` is a
-ring of min(window, length) slots, position p in slot ``p % W``
-(:meth:`.layers.Attention.prefill`); its decode follows the reference's
-``forward`` past the window, not its ``decode_step`` (ROADMAP queue 3).
+:func:`group_order`): ``{"k", "v"}`` for an attention block (with
+``quant_kv``, int8 k/v and their float32 scales ``{"k_s", "v_s"}``),
+``{"conv", "ssm"}`` for a Mamba-2 block, ``{"C", "n"}`` for an mLSTM block
+and ``{"h", "c", "n", "m"}`` for an sLSTM block.  A ``local`` block's
+``{"k", "v"}`` is a ring of min(window, length) slots, position p in slot
+``p % W`` (:meth:`.layers.Attention.prefill`); its decode follows the
+reference's ``forward`` past the window, not its ``decode_step`` (ROADMAP
+queue 3).
+
+``quantized=True`` runs the int8 model of
+:func:`repro_torch.serve.quantize.quantize_params` as the reference's
+``forward(quantized=True)`` does: the embedding, the unembedding, the
+final norm and the shared block dequantized up front, each other block's
+weights dequantized at its use (``q.to(bf16) * s.to(bf16)``, cast to the
+dtype the block keeps them in) and dropped after it.
 
 Each entry point takes ``backend``: ``"cuda"`` (the default) runs the
 kernels (K8 flash attention in prefill, K9 RMSNorm and its fused residual
@@ -32,9 +43,7 @@ their plain versions on CPU tensors; ``"ref"`` runs the plain versions
 everywhere.  The model's device is the card unless the caller asks for
 another (``device="cpu"``, or ``"meta"`` to count parameters).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item
-(queue 1): ``mlstm``/``slstm``, 12e; int8 weights (``quantized=True``),
-12f; ``loss_fn`` and training, 12g.
+Not ported yet: ``loss_fn`` and training (ROADMAP queue 1 item 12g).
 """
 
 from __future__ import annotations
@@ -43,20 +52,16 @@ import math
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..core.backend.base import resolve_device
 from ..kernels import ops
 from . import layers as L
 from . import ssm as SSM
+from . import xlstm as XL
 from .config import ArchConfig
 
-#: block types of the reference not ported yet, and where the ROADMAP
-#: queues them
-UNPORTED = {
-    "mlstm": "ROADMAP queue 1 item 12e (xLSTM)",
-    "slstm": "ROADMAP queue 1 item 12e (xLSTM)",
-}
-QUANTIZED_ITEM = "ROADMAP queue 1 item 12f (int8 serving)"
+BLOCK_TYPES = ("attn", "local", "shared_attn", "mamba2", "mlstm", "slstm")
 
 
 def mixer_slots(cfg: ArchConfig) -> list[tuple[str, str]]:
@@ -79,13 +84,9 @@ def has_ffn(btype: str, cfg: ArchConfig) -> bool:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``ValueError`` for a block type the reference does not have."""
     for b in cfg.pattern:
-        if b in UNPORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: blocks of type {b!r} are not ported yet: "
-                f"{UNPORTED[b]}")
-        if b not in ("attn", "local", "shared_attn", "mamba2"):
+        if b not in BLOCK_TYPES:
             raise ValueError(f"{cfg.name}: unknown block type {b!r}")
 
 
@@ -123,7 +124,8 @@ class Block(nn.Module):
         h = ops.rmsnorm(x, self.ln1, eps=eps, backend=backend)
         if mode == "decode":
             a = self.attn.decode(h, cache["k"], cache["v"], pos,
-                                 local=self.local)
+                                 local=self.local, k_scale=cache.get("k_s"),
+                                 v_scale=cache.get("v_s"))
         else:
             a, k, v = self.attn.prefill(h, cache_len=cache_len,
                                         local=self.local, backend=backend)
@@ -170,9 +172,51 @@ class MambaBlock(nn.Module):
         return x + y, cache
 
 
+class XLSTMBlock(nn.Module):
+    """One ``mlstm`` or ``slstm`` block: pre-norm xLSTM mixer
+    (:class:`.xlstm.MLSTM`, :class:`.xlstm.SLSTM`, under the block type's
+    name, as the reference's parameters are) and the residual add; no
+    feed-forward."""
+
+    def __init__(self, cfg: ArchConfig, *, btype: str, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.btype = btype
+        self.ln1 = L.norm_param(cfg.d_model, device)
+        mixer = XL.MLSTM if btype == "mlstm" else XL.SLSTM
+        self.add_module(btype, mixer(cfg, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor, *, mode: str, cache=None, pos=None,
+                cache_len: int | None = None, backend: str = "cuda"):
+        """Returns (x, cache): the prompt's final state in mode "prefill"
+        (mLSTM's recomputed from its gates, the reference's
+        ``_mlstm_state_from_seq``), None in mode "train", ``cache`` itself,
+        updated in place, in mode "decode".  ``pos`` and ``cache_len`` are
+        the attention blocks' and have no effect here."""
+        h = ops.rmsnorm(x, self.ln1, eps=self.cfg.norm_eps, backend=backend)
+        mixer = getattr(self, self.btype)
+        if mode == "decode":
+            y, cache = mixer.decode(h, cache)
+        elif mode == "prefill":
+            y, cache = mixer(h, return_state=True)
+        else:
+            y = mixer(h)
+        return x + y, cache
+
+
+def _block(cfg: ArchConfig, btype: str, *, dtype, device) -> nn.Module:
+    if btype == "mamba2":
+        return MambaBlock(cfg, dtype=dtype, device=device)
+    if btype in ("mlstm", "slstm"):
+        return XLSTMBlock(cfg, btype=btype, dtype=dtype, device=device)
+    return Block(cfg, has_ffn(btype, cfg), btype=btype, dtype=dtype,
+                 device=device)
+
+
 class Transformer(nn.Module):
     """The reference's model for patterns of ``attn``, ``local``,
-    ``mamba2`` and ``shared_attn`` blocks: token embedding, ``n_layers``
+    ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm`` blocks: token
+    embedding, ``n_layers``
     blocks (and the shared block, where the pattern has one), final norm,
     unembedding (tied or not).  Parameters are created uninitialised on
     ``device`` (the card when None), in ``dtype`` but for the float32 ones
@@ -190,9 +234,7 @@ class Transformer(nn.Module):
         self.embed = L.empty_param((v, d), dtype, device)
         self.final_norm = L.norm_param(d, device)
         self.layers = nn.ModuleList(
-            MambaBlock(cfg, dtype=dtype, device=device) if btype == "mamba2"
-            else Block(cfg, has_ffn(btype, cfg), btype=btype, dtype=dtype,
-                       device=device)
+            _block(cfg, btype, dtype=dtype, device=device)
             for _ in range(cfg.n_groups) for _, btype in mixer_slots(cfg))
         self.shared_attn = (Block(cfg, True, btype="shared_attn",
                                   dtype=dtype, device=device)
@@ -219,9 +261,13 @@ def count_params(model: Transformer) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _embed(model: Transformer, tokens: torch.Tensor,
+def _embed(model, tokens: torch.Tensor, quantized: bool,
            prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    x = model.embed[tokens.long()]
+    """The prompt's embeddings in the model's dtype; an int8 model's rows
+    gathered before they are dequantized (the same bits as the
+    reference's whole dequantized table)."""
+    x = (model.embed_rows(tokens.long()) if quantized
+         else model.embed[tokens.long()]).to(model.dtype)
     if model.cfg.tie_embeddings:
         x = x * math.sqrt(model.cfg.d_model)
     if prefix_embeds is not None:
@@ -229,32 +275,60 @@ def _embed(model: Transformer, tokens: torch.Tensor,
     return x
 
 
-def _unembed(model: Transformer, h: torch.Tensor) -> torch.Tensor:
-    w = model.embed.T if model.cfg.tie_embeddings else model.unembed
-    return L.softcap((h @ w).float(), model.cfg.final_softcap)
+def _unembed(model, h: torch.Tensor, quantized: bool = False
+             ) -> torch.Tensor:
+    if quantized:
+        w = model.unembed_weight()
+    else:
+        w = model.embed.T if model.cfg.tie_embeddings else model.unembed
+    return L.softcap((h @ w.to(h.dtype)).float(), model.cfg.final_softcap)
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int, *,
-                dtype=torch.bfloat16, device=None) -> list[dict]:
+                dtype=torch.bfloat16, device=None,
+                quant_kv: bool = False) -> list[dict]:
     """Zeroed caches, one per block application in the order the blocks run
     (:meth:`Transformer.stack`; the reference stacks them over groups):
     ``{"k", "v"}`` of (batch, seq_len, n_kv_heads, d_head) in ``dtype`` for
     attention (a ``local`` block's ring min(window, seq_len) slots long, as
     the reference sizes it), :func:`.ssm.init_cache` (the conv tail in
-    ``dtype``, the state in float32) for Mamba-2."""
+    ``dtype``, the state in float32) for Mamba-2, :func:`.xlstm.init_cache`
+    (float32) for mLSTM and sLSTM.  With ``quant_kv``, the reference's int8
+    KV cache: k/v in int8 and per-head float32 scales ``{"k_s", "v_s"}`` of
+    (batch, 1, n_kv_heads, 1), each 0.05."""
     check_supported(cfg)
     device = resolve_device(device)
 
     def cache(btype):
         if btype == "mamba2":
             return SSM.init_cache(cfg, batch, dtype=dtype, device=device)
+        if btype in ("mlstm", "slstm"):
+            return XL.init_cache(btype, cfg, batch, device=device)
         n = min(cfg.window or seq_len, seq_len) if btype == "local" \
             else seq_len
         shape = (batch, n, cfg.n_kv_heads, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        kv_dtype = torch.int8 if quant_kv else dtype
+        out = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+               "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+        if quant_kv:
+            for key in ("k_s", "v_s"):
+                out[key] = torch.full((batch, 1, cfg.n_kv_heads, 1), 0.05,
+                                      dtype=torch.float32, device=device)
+        return out
 
     return [cache(b) for _ in range(cfg.n_groups) for b in group_order(cfg)]
+
+
+def _check_quantized(model, quantized: bool) -> Transformer:
+    """The model whose blocks run: the int8 model's meta skeleton (its
+    ``skeleton``) with ``quantized``, else the model itself."""
+    is_int8 = hasattr(model, "skeleton")
+    if quantized and not is_int8:
+        raise TypeError("quantized=True takes the int8 model of "
+                        "repro_torch.serve.quantize_params")
+    if is_int8 and not quantized:
+        raise TypeError("an int8 model runs with quantized=True")
+    return model.skeleton if quantized else model
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,
@@ -266,26 +340,35 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     ``"train"`` (no caches), ``"prefill"`` (the prompt's caches, one per
     block application; the KV caches ``cache_len`` slots long where given)
     and ``"decode"`` (one token at ``pos`` against ``caches``, written in
-    place)."""
-    if quantized:
-        raise NotImplementedError("int8-quantized weights are not ported "
-                                  f"yet: {QUANTIZED_ITEM}")
+    place).  With ``quantized``, ``model`` is the int8 model of
+    :func:`repro_torch.serve.quantize_params` and each block runs on its
+    weights dequantized just before it."""
+    net = _check_quantized(model, quantized)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and (caches is None or pos is None):
         raise ValueError("decode takes caches and pos")
-    x = _embed(model, tokens, prefix_embeds)
+    x = _embed(model, tokens, quantized, prefix_embeds)
     # a local block's ring keeps the last positions: only the global caches
     # must hold the whole prompt
     if cache_len is not None and cache_len < x.shape[1] and any(
             b in ("attn", "shared_attn") for b in model.cfg.pattern):
         raise ValueError(f"cache_len {cache_len} < prompt length "
                          f"{x.shape[1]}")
+    shared = (model.block_weights(net.shared_attn)
+              if quantized and net.shared_attn is not None else None)
     new_caches = []
-    for i, block in enumerate(model.stack()):
-        x, cache = block(x, mode=mode, pos=pos, cache_len=cache_len,
-                         backend=backend,
-                         cache=caches[i] if mode == "decode" else None)
+    for i, block in enumerate(net.stack()):
+        kwargs = dict(mode=mode, pos=pos, cache_len=cache_len,
+                      backend=backend,
+                      cache=caches[i] if mode == "decode" else None)
+        if quantized:
+            weights = (shared if block is net.shared_attn
+                       else model.block_weights(block))
+            x, cache = functional_call(block, weights, (x,), kwargs)
+            del weights
+        else:
+            x, cache = block(x, **kwargs)
         new_caches.append(cache)
     x = ops.rmsnorm(x, model.final_norm, eps=model.cfg.norm_eps,
                     backend=backend)
@@ -303,11 +386,11 @@ def prefill(model: Transformer, tokens: torch.Tensor, *,
     each attention block writes its prompt's k/v into them once.  A
     ``local`` block's ring is min(window, cache_len or S) slots long and
     holds the last of the prompt's positions.  The Mamba-2 caches
-    (``conv``, ``ssm``) pass through."""
+    (``conv``, ``ssm``) and the xLSTM states pass through."""
     h, caches = forward(model, tokens, prefix_embeds=prefix_embeds,
                         mode="prefill", cache_len=cache_len, backend=backend,
                         quantized=quantized)
-    return _unembed(model, h[:, -1:]), caches
+    return _unembed(model, h[:, -1:], quantized), caches
 
 
 def decode_step(model: Transformer, token: torch.Tensor, caches: list,
@@ -318,4 +401,4 @@ def decode_step(model: Transformer, token: torch.Tensor, caches: list,
     updated in place."""
     h, caches = forward(model, token, mode="decode", caches=caches, pos=pos,
                         backend=backend, quantized=quantized)
-    return _unembed(model, h), caches
+    return _unembed(model, h, quantized), caches

@@ -20,6 +20,7 @@ ZERO_INIT = frozenset({"ln1", "ln1_post", "ln2", "ln2_post", "final_norm",
                        "norm_w"})
 #: 1-D parameters the reference initialises to one (``init_scale == 1``):
 #: Mamba-2's per-head scalars; every other parameter is normal x 0.02
+#: (sLSTM's ``r`` among them: its ``ParamDef`` names 0.02)
 ONE_INIT = frozenset({"A_log", "D", "dt_bias"})
 INIT_SCALE = 0.02
 
@@ -56,41 +57,46 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def reference_paths(model: Transformer) -> list[tuple[str, tuple, int]]:
+    """Where each parameter of ``model`` lives in the reference's tree
+    (``model_pdefs``): (the parameter's name, the leaf's path, the group it
+    takes of a leaf stacked over groups, or -1 for an unstacked leaf).
+    Layer ``g * n_slots + s`` is group g of slot s (``blocks/<slot>/...``);
+    the embedding, final norm, unembedding and the ``shared_attn`` block
+    are unstacked."""
+    slots = mixer_slots(model.cfg)
+    out = []
+    for name, _ in model.named_parameters():
+        parts = tuple(name.split("."))
+        if parts[0] == "layers":
+            g, s = divmod(int(parts[1]), len(slots))
+            out.append((name, ("blocks", slots[s][0]) + parts[2:], g))
+        else:
+            out.append((name, parts, -1))
+    return out
+
+
 @torch.no_grad()
 def load_reference_params(model: Transformer, tree: dict) -> Transformer:
     """Copy the reference's parameter tree (nested dicts of numpy arrays,
     each slot's leaves stacked over groups, as ``model_pdefs`` lays them
     out, and the unstacked ``shared_attn`` block) into ``model``, each cast
-    to its parameter's dtype.  Layer ``g * n_slots + s`` takes group g of
-    slot s.  Raises on a leaf of either side that the other lacks."""
-    cfg = model.cfg
-    slots = mixer_slots(cfg)
+    to its parameter's dtype (:func:`reference_paths`).  Raises on a leaf
+    of either side that the other lacks."""
     leaves = dict(_leaves(tree))
+    params = dict(model.named_parameters())
     used = set()
-
-    def put(p: torch.Tensor, path: tuple, index=None):
+    for name, path, g in reference_paths(model):
         if path not in leaves:
             raise ValueError(f"the reference tree has no {'/'.join(path)}")
         used.add(path)
-        a = leaves[path] if index is None else leaves[path][index]
+        a = leaves[path] if g < 0 else leaves[path][g]
         a = torch.tensor(a)  # a copy: the reference's arrays are read-only
+        p = params[name]
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(a.shape)}, the "
                              f"model's is {tuple(p.shape)}")
         p.copy_(a.to(p.dtype))
-
-    put(model.embed, ("embed",))
-    put(model.final_norm, ("final_norm",))
-    if not cfg.tie_embeddings:
-        put(model.unembed, ("unembed",))
-    if model.shared_attn is not None:
-        for name, p in model.shared_attn.named_parameters():
-            put(p, ("shared_attn",) + tuple(name.split(".")))
-    for s, (slot, _) in enumerate(slots):
-        for g in range(cfg.n_groups):
-            layer = model.layers[g * len(slots) + s]
-            for name, p in layer.named_parameters():
-                put(p, ("blocks", slot) + tuple(name.split(".")), g)
     left = sorted("/".join(k) for k in leaves if k not in used)
     if left:
         raise ValueError(f"the model has no place for {left}")

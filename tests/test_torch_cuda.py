@@ -14,9 +14,10 @@ the kernels index it, so a broadcast field (stride 0) is checked too.
 Tests marked ``cuda`` need a card and skip without one; among them the LM
 kernels (K8 flash attention, with and without a sliding window, K9
 RMSNorm, K10 the SSM state scan) against their plain versions, a 2-layer
-Granite-width prefill and decode, one Zamba2-7B group, two Gemma-2 layers
-and one layer each of Llama-4 Scout and Grok-1 at full width against the
-plain path.
+Granite-width prefill and decode, one Zamba2-7B group, two Gemma-2 layers,
+one layer each of Llama-4 Scout and Grok-1, one xLSTM-1.3B group and two
+int8 Granite-8B layers (weights, then also the KV cache) at full width
+against the plain path.
 """
 
 import numpy as np
@@ -1502,3 +1503,121 @@ def test_zamba2_group_on_card_matches_plain_path(card):
             torch.testing.assert_close(a[leaf], b[leaf], rtol=1e-4,
                                        atol=1e-4)
     assert torch.equal(got[2], want[2])
+
+
+def _greedy_runs(model, tokens, n, backend_runs, **kw):
+    """Per run name: (prefill logits, the prefill's caches, the greedy
+    tokens, K8/K9/K10 launches of the prefill, of the decode steps)."""
+    S = tokens.shape[1]
+    runs = {}
+    for name, (net, backend, quantized) in backend_runs.items():
+        KL.reset_launches()
+        logits, caches = TM.prefill(net, tokens, cache_len=S + n,
+                                    backend=backend, quantized=quantized)
+        launched = dict(KL.LAUNCHES)
+        prefilled = [{k: v.clone() for k, v in c.items()} for c in caches]
+        KL.reset_launches()
+        toks = [logits.argmax(-1)]
+        for i in range(n):
+            step, caches = TM.decode_step(net, toks[-1], caches, S + i,
+                                          backend=backend,
+                                          quantized=quantized)
+            toks.append(step.argmax(-1))
+        runs[name] = (logits, prefilled, torch.cat(toks, 1), launched,
+                      dict(KL.LAUNCHES))
+    return runs
+
+
+@pytest.mark.cuda
+def test_xlstm_group_on_card_matches_plain_path(card):
+    """One xLSTM-1.3B group at full width in float32 (7 mLSTM layers and an
+    sLSTM layer, 4 heads of 512): prefill logits and every state through
+    K9 within 1e-4 of the plain path, the same greedy tokens over 4 decode
+    steps, and K9's launches (per prefill and step: 8 ln1 and the final
+    norm; no K8)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(TC.get_config("xlstm_1p3b"), n_layers=8)
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=card), seed=0)
+    B, S, n = 2, 300, 4   # S = 300: chunks of 100
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(3))
+    runs = _greedy_runs(model, tokens, n, {"cuda": (model, "cuda", False),
+                                           "ref": (model, "ref", False)})
+    got, want = runs["cuda"], runs["ref"]
+    assert got[3]["rmsnorm"] == 9 and got[3]["flash_attention"] == 0
+    assert got[4]["rmsnorm"] == 9 * n
+    assert sum(want[3].values()) == 0 == sum(want[4].values())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(got[1], want[1]):
+        assert sorted(a) == sorted(b)
+        for leaf in a:
+            assert a[leaf].dtype == torch.float32
+            torch.testing.assert_close(a[leaf], b[leaf], rtol=1e-4,
+                                       atol=1e-4)
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_int8_granite_on_card_matches_plain_and_upfront_paths(card):
+    """Two Granite-8B layers at full width, int8 weights in float32
+    compute: the kernel path equal to the model dequantized up front (bit
+    for bit, or within 1e-6 of max |logit| should cuBLAS pick another
+    algorithm), within 1e-4 of the plain path with the same greedy tokens;
+    then in bf16 compute with an int8 KV cache calibrated from the
+    prefill, the kernel path's decode logits within the bf16 bar of the
+    plain path's, both fed the kernel path's greedy tokens."""
+    import dataclasses
+
+    from repro_torch.serve import dequantize, quantize_params
+
+    cfg = dataclasses.replace(TC.get_config("granite_8b"), n_layers=2)
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=card), seed=0)
+    qm = quantize_params(model)
+    del model
+    assert all(t.dtype == torch.int8 for t in qm.q.values())
+    B, S, n = 2, 96, 4
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(4))
+    runs = _greedy_runs(qm, tokens, n, {
+        "int8": (qm, "cuda", True), "plain": (qm, "ref", True),
+        "upfront": (dequantize(qm), "cuda", False)})
+    got, want, up = runs["int8"], runs["plain"], runs["upfront"]
+    assert got[3]["flash_attention"] == 2 and got[3]["rmsnorm"] == 3
+    assert sum(want[3].values()) == 0
+    scale = up[0].abs().max()
+    assert (got[0] - up[0]).abs().max() <= 1e-6 * scale
+    assert torch.equal(got[2], up[2])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[2], want[2])
+
+    q16 = qm.with_dtype(torch.bfloat16)
+    steps, fed = {}, None
+    for backend in ("cuda", "ref"):
+        logits, caches = TM.prefill(q16, tokens, cache_len=S + n,
+                                    backend=backend, quantized=True)
+        qcaches = TM.init_caches(cfg, B, S + n, dtype=torch.bfloat16,
+                                 device=card, quant_kv=True)
+        for c, f in zip(qcaches, caches):
+            for key in ("k", "v"):
+                s = f[key].float().abs().amax(dim=(1, 3), keepdim=True)
+                c[f"{key}_s"].copy_(s.clamp_min(1e-6) / 127.0)
+                c[key].copy_(torch.clamp(torch.round(
+                    f[key].float() / c[f"{key}_s"]), -127, 127))
+        # the plain path is fed the kernel path's greedy tokens
+        toks, out = [logits.argmax(-1)] if fed is None else fed, []
+        for i in range(n):
+            step, qcaches = TM.decode_step(q16, toks[i], qcaches, S + i,
+                                           backend=backend, quantized=True)
+            if fed is None:
+                toks.append(step.argmax(-1))
+            out.append(step)
+        fed = toks
+        steps[backend] = torch.cat(out, 1)
+    a, b = steps["cuda"], steps["ref"]
+    assert torch.isfinite(a).all()
+    assert ((a - b).abs().max() / b.abs().max()).item() <= 0.1

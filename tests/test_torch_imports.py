@@ -23,8 +23,10 @@ from repro_torch import configs as TC
 from repro_torch import models as TM
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -6,8 +6,9 @@ into the port with ``load_reference_params``; prompts and prefix embeddings
 are drawn with numpy from a seed and handed to both.  In float32 the
 port's ``prefill`` (last-position logits and KV caches) and 8 greedy
 ``decode_step``s must agree with the reference's at rtol = atol = 1e-5,
-with identical tokens and every cache (KV, and Mamba-2's ``conv``/``ssm``)
-alike, for the dense ``attn`` configs and Zamba2; on the CPU the kernels'
+with identical tokens and every cache (KV, Mamba-2's ``conv``/``ssm``,
+mLSTM's ``C``/``n``, sLSTM's ``h``/``c``/``n``/``m``) alike, for the dense
+``attn`` configs, the MoE models, Zamba2 and xLSTM; on the CPU the kernels'
 plain versions run (the card runs K8/K9/K10, ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).  In bfloat16 the port's logits must sit as close to
 the reference's bf16 logits as those sit to its float32 ones."""
@@ -36,7 +37,7 @@ TOL = 1e-5
 N_DECODE = 8
 SERVED = ("granite_8b", "deepseek_coder_33b", "command_r_plus_104b",
           "musicgen_medium", "phi3_vision_4p2b", "zamba2_7b", "grok1_314b",
-          "llama4_scout_17b_a16e")
+          "llama4_scout_17b_a16e", "xlstm_1p3b")
 # Gemma-2 is served too; its decode past the window is held against the
 # reference's forward, not its decode_step (tests/test_torch_gemma2.py)
 FULL_SIZE = SERVED + ("gemma2_2b",)
@@ -69,7 +70,6 @@ BF16_NARROW = dict(NARROW, gemma2_2b_narrow=("gemma2_2b", NARROW_GEMMA2))
 SHARED_MID = {"zamba2_7b_shared_mid": (
     "zamba2_7b", dict(name="zamba2-7b-shared-mid", n_layers=4,
                       pattern=("mamba2", "shared_attn", "mamba2")))}
-UNPORTED = {"xlstm_1p3b": "12e"}
 
 
 def _served(name):
@@ -203,23 +203,13 @@ def test_count_params_of_the_full_model(arch):
     assert model.device.type == "meta"
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match=f"item {UNPORTED[arch]}"):
-        Transformer(TC.smoke_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {UNPORTED[arch]}"):
-        init_caches(TC.smoke_config(arch), 1, 8, device="cpu")
-
-
-def test_quantized_weights_raise():
-    model = init_params(Transformer(TC.smoke_config("granite_8b"),
-                                    dtype=torch.float32, device="cpu"))
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 12f"):
-        prefill(model, tokens, quantized=True)
-    caches = init_caches(model.cfg, 1, 8, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12f"):
-        decode_step(model, tokens[:, :1], caches, 0, quantized=True)
+def test_unknown_block_types_raise():
+    cfg = dataclasses.replace(TC.smoke_config("granite_8b"),
+                              pattern=("attn", "rwkv"))
+    with pytest.raises(ValueError, match="unknown block type 'rwkv'"):
+        Transformer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown block type 'rwkv'"):
+        init_caches(cfg, 1, 8, device="cpu")
 
 
 def test_init_params_is_seeded_normal_with_zero_norms():
@@ -278,7 +268,7 @@ def test_zamba2_forward_train_mode_matches_reference():
 # parameters the reference reads through .astype(float32): float32 in a
 # model of any dtype
 F32_PARAMS = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias", "norm_w",
-              "ln1_post", "ln2_post")
+              "ln1_post", "ln2_post", "r")
 
 
 def test_init_params_follows_the_reference_rule():
