@@ -161,12 +161,31 @@
    plain path's on the same caches and tokens), peak memory beside the bf16
    model's and the bytes of weights and caches.  Each LM phase prints its
    seconds (``[phase]``).
-10. Prints the total wall time, a ``kernels`` JSON line and, last, the
+10. Backward kernel phase (``[bwd]`` lines): K8's backward (delta, dK/dV,
+   dQ kernels) at Granite-8B's (8, 2048, 32/8, 128) and Gemma-2's (4,
+   6144, 8/4, 256; window 4096, softcap 50), K9's (plain and residual) at
+   (16384, 4096); float32 against a float64 plain run (each gradient within
+   1e-4 of its largest |value| and within 2x the float32 plain version's
+   error; K8's backward on the plain forward's o and lse, the forward
+   kernel's printed beside), bf16 against the plain version at K8's and
+   K9's bf16 tolerances; each timed beside the plain version, its bound and
+   the library (SDPA forward + backward, ``F.rms_norm``'s backward).
+   Training parity (``[train-parity]``): one loss and backward of a 2-layer
+   full-width Granite at 2 x 2048 through the kernels and through the
+   plain versions, float32 (loss 1e-5 relative, each gradient 1e-4 of its
+   max) and bf16 (within 2x the plain path's bf16-vs-float32 distance).
+   Training (``[train]``): Granite-8B at full width, 8 of its 36 layers,
+   float32 masters and AdamW, bf16 compute, batch 8 x 4096, grad_accum 2,
+   3 steps and a traced fourth: each step's loss and grad_norm (finite,
+   the loss falling), step ms, tokens/s, model FLOPs and their rate, peak
+   memory, K8's and K9's launches per step (forward and backward), device
+   time by kernel group and the idle share.
+11. Prints the total wall time, a ``kernels`` JSON line and, last, the
    ``ok`` JSON line.
 
 Each path (the sequential steps, the ensemble steps, the standalone ops,
-the serving run) is driven with the launch counts set to 0 just before it
-and read just after.
+the serving run, the training steps) is driven with the launch counts set
+to 0 just before it and read just after.
 
 Any failed check raises, and the script exits nonzero without the result
 lines; so does a machine without a CUDA card, or a directory that holds
@@ -266,6 +285,22 @@ FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1e-1)}
 # alone is as large as |o| in the late rows (|o| ~ sqrt(1/keys)); the row
 # norm lets every row count.
 FA_F64_FACTOR = 2.0
+# K8's backward in bf16 is held the same way on each gradient's rows, the
+# kernel and the plain version on the same o and lse (the forward
+# kernel's), leaving out rows whose float64 norm is at most ROW_FLOOR of
+# the largest row of the three gradients: dq's first row of each (b, h) is
+# 0 up to float64's rounding (its one key gives dS = P (dO.v - dO.o) with
+# o = v), so its own norm measures nothing; its error stays in the max
+# abs.  Training's chain (the forward kernel's o and lse into the backward
+# kernel) is held against the plain path's on the mean over the rows
+# alone: the max is set by rows whose gradient nearly cancels (dq's second
+# query: dS_0 + dS_1 = 0), where the error is the bf16 rounding of o in
+# delta = rowsum(dO o), and the two forwards round o differently.
+ROW_FLOOR = 1e-6
+# the log-sum-exp K8's forward writes for the backward, against the plain
+# forward's (f32 in both dtypes): an lse off by x scales each P of its row
+# by exp(x), so 1e-5 + 1e-5 |lse| keeps P within ~1e-4 at |lse| ~ 10
+LSE_TOL = (1e-5, 1e-5)
 NORM_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 PARITY = {"B": 2, "S": 512, "decode": 8}           # float32 weights
 # float32 parity at full depth is held against an independent float64
@@ -320,6 +355,43 @@ LM_LAUNCHES = ("flash_attention", "flash_attention_window", "rmsnorm",
 # the plain path's own distance to a float32 prefill of the same weights.
 BF16_LOGIT_REL = 0.1
 BF16_TOP1 = 0.75
+
+# the training path (Granite-8B at full width, 8 of its 36 layers: the
+# float32 masters, gradients and AdamW moments take 16 B a parameter, ~34
+# GB for 2.15 G; the reference's train_4k length, global batch 8 x 4096,
+# grad_accum 2, bf16 compute), and the backward kernels at the shapes it
+# and Gemma-2 give them
+TRAIN_ARCH = "granite_8b"
+TRAIN = {"layers": 8, "B": 8, "S": 4096, "accum": 2, "steps": 3}
+# AdamW at the reference's OptConfig defaults: lr 3e-4 reached after 100
+# warm-up steps, so steps 1-3 take 3e-6, 6e-6, 9e-6 (at lr 1e-3, 1e-4 or
+# 3e-5 from the first step the loss of the seeded 8-layer model rose at
+# step 2 on an H100: a first AdamW step moves each of its 2.15 G weights by
+# about lr)
+TRAIN_LR = 3e-4
+TRAIN_WARMUP = 100
+# one step of a 2-layer full-width Granite, kernel path against the plain
+# path (backend="ref") on the same weights and batch
+TRAIN_PARITY = {"layers": 2, "B": 2, "S": 2048}
+TRAIN_LOSS_REL = 1e-5        # float32: the loss, relative
+TRAIN_GRAD_REL = 1e-4        # float32: each gradient, of its max |value|
+# K8's backward at Granite's prefill shape and Gemma-2's (window 4096,
+# softcap 50); K9's at a prefill's rows of Granite's width
+BWD_FA = ({"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128, "window": 0,
+           "softcap": 0.0},
+          {"B": 4, "S": 6144, "H": 8, "KVH": 4, "D": 256, "window": 4096,
+           "softcap": 50.0})
+BWD_NORM = (16384, 4096)
+TRAIN_GROUPS = (
+    ("K8 backward (flash_attention_bwd_*)", ("flash_attention_bwd",)),
+    ("K8 forward flash_attention_wgmma_kernel", ("flash_attention",)),
+    ("K9 backward (rmsnorm_bwd_*)", ("rmsnorm_bwd",)),
+    ("K9 forward rmsnorm_kernel", ("rmsnorm_kernel",)),
+    ("GEMMs (cuBLAS: projections, MLP, unembed)",
+     ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+)
+TRAIN_LAUNCHES = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                  "rmsnorm_residual", "rmsnorm_bwd", "rmsnorm_residual_bwd")
 
 
 def card_line() -> str:
@@ -1833,28 +1905,52 @@ def attention_pairs(S: int, window: int) -> int:
     return sum(min(r + 1, w) for r in range(S))
 
 
+def row_stats(x, exact, floor: float = 0.0) -> list:
+    """[sum, count, max] over the rows (the last axis) of each row's error
+    norm over the row's float64 norm, rows whose float64 norm is at most
+    ``floor`` left out, and the max abs error: what :func:`hold_rows`
+    holds, summed over batch entries by :func:`merge_stats`."""
+    norm = exact.norm(dim=-1)
+    diff = x.double() - exact
+    rel = (diff.norm(dim=-1) / norm)[norm > floor]
+    out = [rel.sum().item(), rel.numel(),
+           rel.max().item() if rel.numel() else 0.0,
+           diff.abs().max().item()]
+    del diff, rel
+    return out
+
+
+def merge_stats(a, b) -> list:
+    """Two batch entries' :func:`row_stats` as one (``a`` may be None)."""
+    if a is None:
+        return b
+    return [a[0] + b[0], a[1] + b[1], max(a[2], b[2]), max(a[3], b[3])]
+
+
+def hold_rows(name: str, kernel: list, plain: list) -> dict:
+    """The kernel's and the plain version's :func:`row_stats` as (kernel,
+    plain) pairs: the max abs error, and the mean and max of the row
+    errors.  Raises unless the kernel's mean and max are within
+    :data:`FA_F64_FACTOR` of the plain version's, or when no row was
+    held."""
+    if not (kernel[1] and plain[1]):
+        raise RuntimeError(f"{name}: no row to hold against float64")
+    errs = {"abs": [kernel[3], plain[3]],
+            "mean": [kernel[0] / kernel[1], plain[0] / plain[1]],
+            "max": [kernel[2], plain[2]]}
+    for stat in ("mean", "max"):
+        k, p = errs[stat]
+        if not k <= FA_F64_FACTOR * p:
+            raise RuntimeError(
+                f"{name}: {stat} row error against float64 {k:.3e}, "
+                f"beyond {FA_F64_FACTOR:g}x the plain version's {p:.3e}")
+    return errs
+
+
 def f64_errors(name: str, got, want, exact) -> dict:
     """The kernel's (``got``) and the plain version's (``want``) distance to
-    ``exact``, as (kernel, plain) pairs: the max abs error, and the mean and
-    max over the (b, s, h) rows of each row's error norm over the row's
-    norm.  Raises unless the kernel's mean and max are within
-    :data:`FA_F64_FACTOR` of the plain version's."""
-    norm = exact.norm(dim=-1)
-    errs = {"abs": [], "mean": [], "max": []}
-    for x in (got, want):
-        diff = x.double() - exact
-        rel = diff.norm(dim=-1) / norm
-        errs["abs"].append(diff.abs().max().item())
-        errs["mean"].append(rel.mean().item())
-        errs["max"].append(rel.max().item())
-        del diff, rel
-    for stat in ("mean", "max"):
-        kernel, plain = errs[stat]
-        if not kernel <= FA_F64_FACTOR * plain:
-            raise RuntimeError(
-                f"{name}: {stat} row error against float64 {kernel:.3e}, "
-                f"beyond {FA_F64_FACTOR:g}x the plain version's {plain:.3e}")
-    return errs
+    ``exact`` over the (b, s, h) rows, held by :func:`hold_rows`."""
+    return hold_rows(name, row_stats(got, exact), row_stats(want, exact))
 
 
 def k8_build_report(log: str) -> list:
@@ -1863,6 +1959,8 @@ def k8_build_report(log: str) -> list:
     store bytes, spill load bytes, stack bytes)."""
     rows = []
     for name, regs, frame, st, ld in ptxas_report(log, "flash_attention"):
+        if "bwd" in name:  # the backward kernels: build_report
+            continue
         args = ", ".join(re.findall(r"Li(\d+)E", name)
                          + ["window" if "Lb1E" in name else "causal"])
         kind = (f"flash_attention_wgmma_kernel<{args}>" if "wgmma" in name
@@ -1871,10 +1969,12 @@ def k8_build_report(log: str) -> list:
     return rows
 
 
-def sass_counts(lib: Path, function: str, keys: tuple) -> dict:
-    """Instructions of each function whose name holds ``function`` in the
-    SASS of ``lib`` (``cuobjdump -sass``, beside ``nvcc``) that start with
-    each of ``keys``: {mangled name: {key: count}}."""
+def sass_counts(lib: Path, function: str | tuple, keys: tuple) -> dict:
+    """Instructions of each function whose name holds ``function`` (or one
+    of a tuple of names) in the SASS of ``lib`` (``cuobjdump -sass``,
+    beside ``nvcc``) that start with each of ``keys``: {mangled name: {key:
+    count}}."""
+    names = (function,) if isinstance(function, str) else function
     from repro_torch.core.backend.cuda import _nvcc
 
     sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
@@ -1883,7 +1983,7 @@ def sass_counts(lib: Path, function: str, keys: tuple) -> dict:
     out = {}
     for func in sass.split("Function : ")[1:]:
         name = func.split("\n", 1)[0].strip()
-        if function not in name:
+        if not any(f in name for f in names):
             continue
         counts = out.setdefault(name, dict.fromkeys(keys, 0))
         for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1939,21 +2039,22 @@ K9_TYPES = {"4bf16f": "bf16, float", "f4bf16": "float, bf16",
 
 def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
     """K1's, K2's and K4's instances (K3 is inlined into all three), K6's
-    and K9's: registers, stack frame and spills from ``ptxas``, local loads
-    and stores (LDL/STL) and indirect branches (BRX, the op dispatch) in
-    their SASS.  An instance with a spill or a local access fails the run:
-    K1's stack top, K2's and K4's carry bits, K6's carries and the rows K9
-    holds must live in registers."""
+    and K9's, and the backward kernels of K9 and K8: registers, stack frame
+    and spills from ``ptxas``, local loads and stores (LDL/STL) and
+    indirect branches (BRX, the op dispatch) in their SASS.  An instance
+    with a spill or a local access fails the run: K1's stack top, K2's and
+    K4's carry bits, K6's carries, the rows K9 holds and the backward's
+    register tiles must live in registers."""
     bad = []
     for path, fns in ((lib, ("stencil_parallel_kernel",
                              "stencil_column_kernel",
                              "stencil_kblocked_kernel")),
                       (fv3_lib, ("tridiag_kernel",)),
-                      (lm_lib, ("rmsnorm_kernel",))):
+                      (lm_lib, ("rmsnorm_kernel", "rmsnorm_bwd_kernel",
+                                "flash_attention_bwd_dkdv_kernel",
+                                "flash_attention_bwd_dq_kernel"))):
         log = (path.parent / "build.log").read_text()
-        sass = {}
-        for fn in fns:
-            sass.update(sass_counts(path, fn, ("LDL", "STL", "BRX")))
+        sass = sass_counts(path, fns, ("LDL", "STL", "BRX"))
         for fn in fns:
             found = ptxas_report(log, fn)
             if not found:
@@ -1963,10 +2064,13 @@ def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
                         for x in re.findall(r"L(b[01]|i\d+)E", name)]
                 if fn == "tridiag_kernel":  # tridiag_kernel<float|double>
                     args = ["double" if "IdE" in name else "float"]
-                elif fn == "rmsnorm_kernel":  # <T, W, residual, d or 0>
-                    types = re.search(r"rmsnorm_kernelI(\w+?)Lb", name)
+                elif fn in ("rmsnorm_kernel", "rmsnorm_bwd_kernel"):
+                    # <T, W, residual[, d or 0]>
+                    types = re.search(fn + r"I(\w+?)Lb", name)
                     args = [K9_TYPES.get(types.group(1), types.group(1))
                             ] + args
+                elif fn.startswith("flash_attention_bwd"):  # <T, D>
+                    args = ["bf16" if "I4bf16" in name else "float"] + args
                 counts = sass.get(name, {})
                 print(f"[build] {fn}<{', '.join(args)}>: {regs} registers, "
                       f"stack frame {frame} B, spill stores {st} B, spill "
@@ -3184,9 +3288,510 @@ def ssd_chunks_ms(model, tokens) -> float:
     return cuda_ms(lambda: blk.mamba.ssd_chunks(*args), 3)
 
 
+def grad_errors(name: str, got: tuple, plain: tuple, exact: tuple,
+                bar: float = PARITY_REL) -> list:
+    """Each gradient of the kernel (``got``) and of the plain version
+    (``plain``) against a float64 plain run (``exact``): (kernel, plain)
+    max abs errors and the bar, the largest |value| of the float64
+    gradient.  Raises unless the kernel's error is within ``bar`` of that
+    scale and within :data:`PARITY_FACTOR` of the plain version's."""
+    out = []
+    for i, (g, p, e) in enumerate(zip(got, plain, exact)):
+        scale = e.abs().max().item()
+        ek = (g.double() - e).abs().max().item()
+        ep = (p.double() - e).abs().max().item()
+        out.append((ek, ep, scale))
+        if not (ek <= bar * scale and ek <= PARITY_FACTOR * ep):
+            raise RuntimeError(
+                f"{name} gradient {i}: {ek:.3e} from float64, bar "
+                f"{bar:g} x {scale:.3e} and {PARITY_FACTOR:g}x the plain "
+                f"version's {ep:.3e}")
+    return out
+
+
+def backward_phase(device) -> dict:
+    """K8's and K9's backward kernels against their plain versions on the
+    card: float32 against a float64 plain run of the same inputs (within
+    :data:`PARITY_REL` of each gradient's largest |value|, and within
+    :data:`PARITY_FACTOR` of the float32 plain version's error; K8's on the
+    plain forward's o and lse, and on the forward kernel's within
+    :data:`PARITY_REL`), bf16 against the plain version at K8's and K9's
+    bf16 tolerances and, row by row against float64, within
+    :data:`FA_F64_FACTOR` of the plain version (K8: the forward kernel's o
+    and lse into the backward kernel against the plain forward's into the
+    plain backward); the lse K8's forward writes against the plain
+    forward's at :data:`LSE_TOL`; each timed beside the plain version, its
+    bound and one library call: SDPA's forward and backward through
+    autograd for K8, ``F.rms_norm``'s backward for K9."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as KR
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd,
+                                             rmsnorm_residual_bwd)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    out = {"K8": [], "K9": []}
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        size = torch.finfo(dtype).bits // 8
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        for shape in BWD_FA:
+            B, S, H, KVH, D, window, cap = (shape[k] for k in (
+                "B", "S", "H", "KVH", "D", "window", "softcap"))
+            q, do = normal((B, S, H, D), dtype), normal((B, S, H, D), dtype)
+            k, v = normal((B, S, KVH, D), dtype), normal((B, S, KVH, D),
+                                                          dtype)
+            lse = torch.empty((B, H, S), device=device)
+            o = flash_attention(q, k, v, softcap=cap, window=window, lse=lse)
+            got = flash_attention_bwd(q, k, v, o, lse, do, softcap=cap,
+                                      window=window)
+            torch.cuda.synchronize()
+            label = (f"K8 backward {name} B={B} S={S} H={H} KVH={KVH} D={D} "
+                     f"window={window} softcap={cap:g}")
+            if not all(torch.isfinite(g).all() for g in got):
+                raise RuntimeError(f"{label}: non-finite gradient")
+            # the lse the forward kernel writes against the plain
+            # forward's, and both against float64 (printed)
+            p_o, p_lse = KR.flash_attention_fwd_ref(
+                q, k, v, softcap=cap, window=window)
+            p_o = p_o.contiguous()
+            lse_err = check_close(f"{label} lse", lse, p_lse, *LSE_TOL)
+            lse64 = [0.0, 0.0]
+            chain = got
+            if dtype == torch.float32:
+                # the backward kernel and its plain version on the same o
+                # and lse, the plain forward's (the f32 forward kernel's are
+                # 3xTF32 products: K8's forward is held on its own), each
+                # against a float64 run, and the kernels' forward and
+                # backward together (training's chain) within PARITY_REL
+                got = flash_attention_bwd(q, k, v, p_o, p_lse, do,
+                                          softcap=cap, window=window)
+            # one batch entry at a time for the plain runs ((H, S, S)
+            # scores: 1.1 GB in float64 at Granite's shape)
+            errs, chained, err = None, [0.0, 0.0, 0.0], 0.0
+            kstats, pstats, cstats = [None] * 3, [None] * 3, [None] * 3
+            for b in range(B):
+                one = tuple(x[b:b + 1] for x in (q, k, v))
+                plain = KR.flash_attention_bwd_ref(
+                    *one, p_o[b:b + 1], p_lse[b:b + 1], do[b:b + 1],
+                    softcap=cap, window=window)
+                one64 = tuple(x.double() for x in one)
+                e_o, e_lse = KR.flash_attention_fwd_ref(
+                    *one64, softcap=cap, window=window)
+                exact = KR.flash_attention_bwd_ref(
+                    *one64, e_o, e_lse, do[b:b + 1].double(),
+                    softcap=cap, window=window)
+                lse64 = [max(m, (x[b:b + 1].double() - e_lse).abs().max()
+                             .item()) for m, x in zip(lse64, (lse, p_lse))]
+                if dtype == torch.float32:
+                    mine = tuple(g[b:b + 1] for g in got)
+                    rows = [((g.double() - e).abs().max().item(),
+                             (p.double() - e).abs().max().item(),
+                             e.abs().max().item())
+                            for g, p, e in zip(mine, plain, exact)]
+                    errs = rows if errs is None else [
+                        tuple(max(a, c) for a, c in zip(r0, r1))
+                        for r0, r1 in zip(errs, rows)]
+                    chained = [max(m, (g[b:b + 1].double() - e).abs().max()
+                                   .item())
+                               for m, g, e in zip(chained, chain, exact)]
+                else:
+                    # the backward kernel and its plain version on the
+                    # forward kernel's o and lse (what training gives it),
+                    # at FA_TOL and row by row against float64; and
+                    # training's chain against the plain path's (the plain
+                    # forward's o and lse into the plain backward), ``plain``
+                    floor = ROW_FLOOR * max(e.norm(dim=-1).max().item()
+                                            for e in exact)
+                    same = KR.flash_attention_bwd_ref(
+                        *one, o[b:b + 1], lse[b:b + 1], do[b:b + 1],
+                        softcap=cap, window=window)
+                    for i, e in enumerate(exact):
+                        mine = got[i][b:b + 1]
+                        err = max(err, check_close(
+                            f"{label} d{'qkv'[i]}", mine, same[i],
+                            *FA_TOL[name]))
+                        kstats[i] = merge_stats(kstats[i], row_stats(
+                            mine, e, floor))
+                        pstats[i] = merge_stats(pstats[i], row_stats(
+                            same[i], e, floor))
+                        cstats[i] = merge_stats(cstats[i], row_stats(
+                            plain[i], e, floor))
+                    del same
+                del plain, exact, e_o, e_lse
+            lse_detail = (f"lse {lse_err:.3e} from the plain forward's "
+                          f"(rtol {LSE_TOL[0]:g} + atol {LSE_TOL[1]:g}), "
+                          f"from float64 kernel {lse64[0]:.3e} plain "
+                          f"{lse64[1]:.3e}")
+            if dtype == torch.float32:
+                for i, (ek, ep, scale) in enumerate(errs):
+                    if not (ek <= PARITY_REL * scale
+                            and ek <= PARITY_FACTOR * ep):
+                        raise RuntimeError(
+                            f"{label} d{'qkv'[i]}: {ek:.3e} from float64, "
+                            f"bar {PARITY_REL:g} x {scale:.3e} and "
+                            f"{PARITY_FACTOR:g}x the plain version's "
+                            f"{ep:.3e}")
+                    if not chained[i] <= PARITY_REL * scale:
+                        raise RuntimeError(
+                            f"{label} d{'qkv'[i]} on the forward kernel's o "
+                            f"and lse: {chained[i]:.3e} from float64, bar "
+                            f"{PARITY_REL:g} x {scale:.3e}")
+                err = max(e[0] for e in errs)
+                detail = ", ".join(
+                    f"d{'qkv'[i]} kernel {ek:.3e} plain {ep:.3e} of "
+                    f"{scale:.3e}" for i, (ek, ep, scale) in enumerate(errs))
+                detail += (f"; on the forward kernel's o and lse "
+                           f"{', '.join(f'{c:.3e}' for c in chained)} (bar "
+                           f"{PARITY_REL:g} of each)")
+            else:
+                held = [hold_rows(f"{label} d{'qkv'[i]}", kstats[i],
+                                  pstats[i]) for i in range(3)]
+                chain_mean = [(kstats[i][0] / kstats[i][1],
+                               cstats[i][0] / cstats[i][1])
+                              for i in range(3)]
+                for i, (km, cm) in enumerate(chain_mean):
+                    if not km <= FA_F64_FACTOR * cm:
+                        raise RuntimeError(
+                            f"{label} d{'qkv'[i]}: training's chain mean "
+                            f"row error against float64 {km:.3e}, beyond "
+                            f"{FA_F64_FACTOR:g}x the plain path's {cm:.3e}")
+                rtol, atol = FA_TOL[name]
+                detail = f"tol rtol {rtol:g} + atol {atol:g}; " + ", ".join(
+                    f"d{'qkv'[i]} row/|row| against float64 mean kernel "
+                    f"{h['mean'][0]:.3e} plain {h['mean'][1]:.3e}, max "
+                    f"kernel {h['max'][0]:.3e} plain {h['max'][1]:.3e}"
+                    for i, h in enumerate(held))
+                detail += (f" (bar {FA_F64_FACTOR:g}x plain); the plain "
+                           f"path's chain mean " + ", ".join(
+                               f"{cm:.3e}" for _, cm in chain_mean)
+                           + f" (bar {FA_F64_FACTOR:g}x), max "
+                           + ", ".join(f"{c[2]:.3e}" for c in cstats))
+            detail += "; " + lse_detail
+            del p_o, p_lse, chain
+            del got
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, softcap=cap, window=window), 3)
+            fwd_bwd_ms = cuda_ms(lambda: (flash_attention(
+                q, k, v, softcap=cap, window=window, lse=lse),
+                flash_attention_bwd(q, k, v, o, lse, do, softcap=cap,
+                                    window=window)), 3)
+            # the forward with and without writing lse, in turns
+            fwd = in_turns({
+                "lse": lambda: flash_attention(q, k, v, softcap=cap,
+                                               window=window, lse=lse),
+                "none": lambda: flash_attention(q, k, v, softcap=cap,
+                                                window=window)},
+                lambda fn: cuda_ms(fn, 10), rounds=3)
+            plain_ms = cuda_ms(lambda: KR.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, softcap=cap, window=window), 1)
+            torch.cuda.empty_cache()
+            # SDPA forward + backward (autograd), the window as a boolean
+            # mask; it takes no softcap
+            leaves = [x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v)]
+            keep = (KR.attention_mask(S, window, device) if window else None)
+            dot = do.transpose(1, 2)
+
+            def sdpa():
+                y = (F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, enable_gqa=True) if keep is None
+                    else F.scaled_dot_product_attention(
+                        *leaves, attn_mask=keep, enable_gqa=True))
+                torch.autograd.grad(y, leaves, dot)
+
+            lib_ms = cuda_ms(sdpa, 3)
+            del leaves, keep, dot
+            # bytes: q, k, v, o, dO read once, dq, dk, dv written once;
+            # operations: the five products over the kept pairs (S and dP
+            # recomputed, dV, dK, dQ), 2 D flops each a pair
+            bwd_bytes = (4 * q.numel() + 4 * k.numel()) * size \
+                + 2 * lse.numel() * 4
+            bwd_ops = 10 * B * H * D * attention_pairs(S, window)
+            t_b, t_o = bwd_bytes / HBM_BYTES_PER_S, bwd_ops / rate
+            out["K8"].append(dict(
+                dtype=name, D=D, window=window, softcap=cap, err=err, ms=ms,
+                plain_ms=plain_ms, fwd_bwd_ms=fwd_bwd_ms,
+                fwd_ms=fwd["none"], fwd_lse_ms=fwd["lse"],
+                bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=lib_ms))
+            print(f"[bwd] {label}: max_abs_err={err:.3e} ({detail}) "
+                  f"ms={ms:.4f} (forward with lse + backward "
+                  f"{fwd_bwd_ms:.4f}; the forward {fwd['none']:.4f}, with "
+                  f"lse {fwd['lse']:.4f}) plain_ms={plain_ms:.4f} bound_ms="
+                  f"{1e3 * max(t_b, t_o):.4f} ({out['K8'][-1]['bound_by']}; "
+                  f"{bwd_ops:.3e} flops at {rate / 1e12:g} TFLOP/s, "
+                  f"{bwd_bytes / 1e6:.1f} MB) library_ms={lib_ms:.4f} "
+                  f"(F.scaled_dot_product_attention forward + backward"
+                  f"{', the window as a mask, no softcap' if window else ''})",
+                  flush=True)
+            del q, k, v, o, lse, do
+            torch.cuda.empty_cache()
+
+        rows_n, d = BWD_NORM
+        for residual in (False, True):
+            x, r = normal((rows_n, d), dtype), normal((rows_n, d), dtype)
+            g, gs = normal((rows_n, d), dtype), normal((rows_n, d), dtype)
+            w = 0.1 * torch.randn(d, generator=gen, device=device)  # f32
+            form = "rmsnorm_residual" if residual else "rmsnorm"
+            label = f"K9 {form} backward {name} ({rows_n}, {d})"
+
+            def kernel():
+                return (rmsnorm_residual_bwd(x, r, w, g, gs) if residual
+                        else rmsnorm_bwd(x, w, g))
+
+            def plain(*a):
+                return (KR.rmsnorm_residual_bwd_ref(*a) if residual
+                        else KR.rmsnorm_bwd_ref(*a))
+
+            args = (x, r, w, g, gs) if residual else (x, w, g)
+            got = kernel()
+            want = plain(*args)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                exact = plain(*(a.double() for a in args))
+                errs = grad_errors(label, got, want, exact)
+                err = max(e[0] for e in errs)
+                detail = ", ".join(
+                    f"d{n} kernel {ek:.3e} plain {ep:.3e} of {sc:.3e}"
+                    for n, (ek, ep, sc) in zip(("x", "w"), errs))
+                del exact
+            else:
+                tol = NORM_TOL[name]
+                err = max(check_close(f"{label} d{n}", a, b, tol, tol)
+                          for n, a, b in zip(("x", "w"), got, want))
+                # and as K8's bf16: each row (dw: one) against float64
+                exact = plain(*(a.double() for a in args))
+                held = [hold_rows(f"{label} d{n}", row_stats(a, e),
+                                  row_stats(b, e))
+                        for n, a, b, e in zip(("x", "w"), got, want, exact)]
+                detail = f"tol rtol = atol = {tol:g}; " + ", ".join(
+                    f"d{n} row/|row| against float64 mean kernel "
+                    f"{h['mean'][0]:.3e} plain {h['mean'][1]:.3e}, max "
+                    f"kernel {h['max'][0]:.3e} plain {h['max'][1]:.3e}"
+                    for n, h in zip(("x", "w"), held))
+                detail += f" (bar {FA_F64_FACTOR:g}x plain)"
+                del exact
+            del got, want
+            ms = cuda_ms(kernel, 20, warmup=3)
+            plain_ms = cuda_ms(lambda: plain(*args), 3)
+            lib_ms = None
+            if not residual:
+                # F.rms_norm's backward alone (its graph kept), weight 1 + w
+                xl = x.detach().requires_grad_()
+                w1 = (1.0 + w).to(dtype).requires_grad_()
+                y = F.rms_norm(xl, (d,), weight=w1, eps=1e-5)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    y, (xl, w1), g, retain_graph=True), 20, warmup=3)
+                del xl, w1, y
+            n_io = (5 if residual else 3) * x.numel() * size + 2 * d * 4
+            t_b = n_io / HBM_BYTES_PER_S
+            out["K9"].append(dict(
+                form=form, dtype=name, rows=rows_n, d=d, err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=1e3 * t_b, bound_by="bytes",
+                library_ms=lib_ms))
+            print(f"[bwd] {label}: max_abs_err={err:.3e} ({detail}) "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                  f"{1e3 * t_b:.4f} (bytes; {n_io / 1e6:.1f} MB) library_ms="
+                  + ("none (no one call)" if lib_ms is None else
+                     f"{lib_ms:.4f} (F.rms_norm backward)"), flush=True)
+            del x, r, g, gs, w
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_model(device, layers: int, seed: int = 0):
+    """Granite-8B at full width cut to ``layers`` layers, float32 masters
+    from ``init_params(seed)``, trainable."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, init_params
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    model = init_params(Transformer(cfg, dtype=torch.float32, device=device),
+                        seed=seed)
+    return cfg, model.requires_grad_(True)
+
+
+def train_parity_phase(device) -> dict:
+    """One step's loss and gradients of a 2-layer full-width Granite at
+    :data:`TRAIN_PARITY` through the kernels (K8 and K9 forward and
+    backward) and through the plain versions (``backend="ref"``, torch's
+    autograd), the same weights and batch: float32 within
+    :data:`TRAIN_LOSS_REL` and :data:`TRAIN_GRAD_REL`; in bf16 the kernel
+    path's distance to the plain path within :data:`PARITY_FACTOR` of the
+    plain path's own distance to its float32 run (the bar of
+    ``tests/test_torch_train_step.py``, where the port's bf16 step sits
+    within the reference's bf16-vs-float32 distance)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import library as KL
+    from repro_torch.models import loss_fn
+
+    B, S = TRAIN_PARITY["B"], TRAIN_PARITY["S"]
+    cfg, model = train_model(device, TRAIN_PARITY["layers"])
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B, seed=0), 0, device=device)
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for backend in ("cuda", "ref"):
+            model.zero_grad(set_to_none=True)
+            KL.reset_launches()
+            loss = loss_fn(model, batch["tokens"], batch["labels"],
+                           dtype=dtype, backend=backend)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = {k: KL.LAUNCHES[k] for k in TRAIN_LAUNCHES}
+            runs[(dtype, backend)] = (loss.item(), [
+                p.grad.detach().clone() for p in model.parameters()],
+                launches)
+            want = ({k: 0 for k in launches} if backend == "ref" else None)
+            if want is not None and launches != want:
+                raise RuntimeError(f"the plain path launched {launches}")
+            if backend == "cuda" and not all(launches.values()):
+                raise RuntimeError(f"the kernel path skipped a kernel: "
+                                   f"{launches}")
+            print(f"[train-parity] {str(dtype)[6:]} {backend}: loss "
+                  f"{loss.item():.6f}, launches {launches}", flush=True)
+            del loss
+    names = [n for n, _ in model.named_parameters()]
+    (lk, gk, launches), (lr, gr, _) = (runs[(torch.float32, b)]
+                                       for b in ("cuda", "ref"))
+    rel = abs(lk - lr) / abs(lr)
+    worst = max(((a - b).abs().max().item() / b.abs().max().item(), n)
+                for a, b, n in zip(gk, gr, names))
+    print(f"[train-parity] float32 kernel vs plain: loss rel {rel:.3e} "
+          f"(bar {TRAIN_LOSS_REL:g}), worst gradient {worst[0]:.3e} of its "
+          f"max |value| ({worst[1]}; bar {TRAIN_GRAD_REL:g})", flush=True)
+    if not (rel <= TRAIN_LOSS_REL and worst[0] <= TRAIN_GRAD_REL):
+        raise RuntimeError("float32 training step: kernel path disagrees "
+                           "with the plain path")
+    (l16k, g16k, _), (l16r, g16r, _) = (runs[(torch.bfloat16, b)]
+                                        for b in ("cuda", "ref"))
+
+    def dist(a, b):  # mean |difference| over every gradient element
+        return (sum((x - y).abs().sum().item() for x, y in zip(a, b))
+                / sum(x.numel() for x in a))
+
+    d_loss, bar_loss = abs(l16k - l16r), abs(l16r - lr)
+    d_grad, bar_grad = dist(g16k, g16r), dist(g16r, gr)
+    print(f"[train-parity] bfloat16 kernel vs plain: loss {d_loss:.3e} "
+          f"(plain bf16 vs float32 {bar_loss:.3e}), gradients mean |diff| "
+          f"{d_grad:.3e} (plain bf16 vs float32 {bar_grad:.3e}); bar "
+          f"{PARITY_FACTOR:g}x", flush=True)
+    if not (d_loss <= PARITY_FACTOR * bar_loss
+            and d_grad <= PARITY_FACTOR * bar_grad):
+        raise RuntimeError("bf16 training step: kernel path past the bar")
+    del runs, model
+    torch.cuda.empty_cache()
+    return {"loss_rel": rel, "grad_rel": worst[0], "launches_f32": launches}
+
+
+def train_phase(device) -> dict:
+    """Granite-8B at full width, :data:`TRAIN` ``layers`` layers, trained
+    for ``steps`` steps through ``repro_torch.train.make_train_step``
+    (AdamW at :data:`TRAIN_LR`, bf16 compute over float32 masters,
+    ``grad_accum`` microbatches) on the synthetic pipeline's batches: each
+    step's loss and grad_norm (the loss finite and falling from step 1 to
+    the last), step ms (median of steps 2 onward), tokens/s, model FLOPs
+    per step and the rate they imply, peak memory, K8's and K9's launches
+    per step (forward, recomputation included, and backward), and one more
+    step traced: device time by kernel group and the idle share."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.kernels import library as KL
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    B, S, A, steps = (TRAIN[k] for k in ("B", "S", "accum", "steps"))
+    cfg, model = train_model(device, TRAIN["layers"])
+    n_params = sum(p.numel() for p in model.parameters())
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, TrainConfig(
+        grad_accum=A, compute_dtype=torch.bfloat16,
+        opt=OptConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP)))
+    data = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B, seed=0), device=device)
+    # model FLOPs a step: 3 x the forward (the backward twice it; the
+    # recomputation under remat not counted): 2 flops a weight a token
+    # for every matrix (the embedding gather none), and the two attention
+    # products over the causal pairs
+    per_layer = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim
+                 * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    fwd = 2 * B * S * (cfg.n_layers * per_layer + cfg.d_model * cfg.vocab) \
+        + cfg.n_layers * 4 * B * cfg.n_heads * cfg.d_head \
+        * attention_pairs(S, 0)
+    flops = 3 * fwd
+    print(f"[train] {cfg.name} {cfg.n_layers} of 36 layers at full width: "
+          f"{n_params / 1e9:.3f} G parameters (float32 masters, AdamW), "
+          f"batch {B} x {S} tokens, grad_accum {A}, bf16 compute, lr "
+          f"{TRAIN_LR:g} (warmup {TRAIN_WARMUP}); model FLOPs a step "
+          f"{flops:.4e}", flush=True)
+    batches = [next(data) for _ in range(steps + 1)]
+    losses, norms, times = [], [], []
+    KL.reset_launches()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        norms.append(gn)
+        print(f"[train] step {i + 1}: loss {loss:.6f} grad_norm {gn:.6f} "
+              f"({times[-1]:.1f} ms)", flush=True)
+    launches = {k: KL.LAUNCHES[k] for k in TRAIN_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(times[1:])
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise RuntimeError(f"non-finite training metrics {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall: {losses}")
+    print(f"[train] step ms {step_ms:.3f} (median of steps 2-{steps}), "
+          f"{B * S / (step_ms / 1e3):.1f} tokens/s, "
+          f"{flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s of model FLOPs; "
+          f"peak {peak:.3f} GiB", flush=True)
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"[train] launches per step: K8 forward "
+          f"{per_step['flash_attention']:g} (recomputation included), K8 "
+          f"backward "
+          f"{per_step['flash_attention_bwd']:g}, K9 forward "
+          f"{per_step['rmsnorm']:g} + residual "
+          f"{per_step['rmsnorm_residual']:g}, K9 backward "
+          f"{per_step['rmsnorm_bwd']:g} + residual "
+          f"{per_step['rmsnorm_residual_bwd']:g}", flush=True)
+    if not all(launches.values()):
+        raise RuntimeError(f"the training path skipped a kernel: {launches}")
+    split = {}
+    idle = trace_step(lambda st: step(st, batches[steps]), state, step_ms,
+                      untraced=f"median of steps 2-{steps}",
+                      groups=TRAIN_GROUPS, split_out=split,
+                      ranges=("opt_update",))
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "peak_gib": peak, "launches": launches, "idle": idle,
+            "split": split}
+
+
 def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                    ensemble: dict, opt3: dict, lm: dict, serve: dict,
-                   distributed: dict) -> list:
+                   distributed: dict, bwd: dict, parity: dict,
+                   train: dict) -> list:
     """One record per kernel for the ``kernels`` line: the launches of its
     path (the opt-0 sequential step for K1-K3, the 3 opt-3 steps on the TPU
     preset's schedules for K4, the op calls for K6/K7; for K5 the member
@@ -3207,7 +3812,13 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     of each dtype: the launches with a window (Gemma-2's local layers,
     also counted in K8's record) and the times at Gemma-2's shape, window
     4096, softcap 0.  K1-K4 also carry ``distributed_launches``: their
-    launches in the 3 overlapped distributed steps."""
+    launches in the 3 overlapped distributed steps.  The backward kernels
+    (no TPU counterpart: ``replaces`` names the forward kernel they
+    differentiate) count the training run's steps (bf16) and the float32
+    parity step, and take their times from the backward phase at
+    Granite's shape (K8) and :data:`BWD_NORM` (K9); K8's bf16 forward and
+    K9's records also carry ``train_launches``, their launches in the
+    training run's steps (recomputation included)."""
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
                 "K5": f"{PALLAS}:207",
@@ -3305,6 +3916,44 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+    for rec in kernels:
+        count = {"flash_attention_wgmma_kernel": "flash_attention",
+                 "rmsnorm_kernel": "rmsnorm",
+                 "rmsnorm_residual_kernel": "rmsnorm_residual"}.get(
+                     rec["name"])
+        if count is not None:
+            rec["train_launches"] = train["launches"][count]
+    bwd_names = ("flash_attention_bwd_dkdv_kernel, flash_attention_bwd_dq_"
+                 "kernel, flash_attention_bwd_delta_kernel")
+    for dtype, launches in (
+            ("bfloat16", train["launches"]["flash_attention_bwd"]),
+            ("float32", parity["launches_f32"]["flash_attention_bwd"])):
+        mine = [r for r in bwd["K8"] if r["dtype"] == dtype]
+        head = mine[0]  # Granite's shape, BWD_FA's first
+        kernels.append({
+            "name": f"{bwd_names} ({dtype})", "route": "cuda",
+            "source": LM_SOURCE,
+            "replaces": "src/repro/kernels/flash_attention.py:21",
+            "note": "K8's backward; the reference differentiates its jnp "
+                    "attention, no TPU kernel",
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+    for form, line in (("rmsnorm", "src/repro/kernels/rmsnorm.py:17"),
+                       ("rmsnorm_residual",
+                        "src/repro/kernels/rmsnorm.py:25")):
+        mine = [r for r in bwd["K9"] if r["form"] == form]
+        head = next(r for r in mine if r["dtype"] == "bfloat16")
+        kernels.append({
+            "name": f"rmsnorm_bwd_kernel<{form}> + rmsnorm_bwd_dw_kernel",
+            "route": "cuda", "source": LM_SOURCE, "replaces": line,
+            "note": "K9's backward; the reference differentiates its jnp "
+                    "norm, no TPU kernel",
+            "launches": train["launches"][f"{form}_bwd"],
+            "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
     return kernels
 
 
@@ -3399,8 +4048,20 @@ def main() -> int:
     serve[int8["name"]] = int8
     print(f"[phase] int8 serving {INT8_ARCH} {time.perf_counter() - t0:.1f} "
           "s", flush=True)
+    t0 = time.perf_counter()
+    bwd = backward_phase(device)
+    print(f"[phase] backward kernels {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    parity = train_parity_phase(device)
+    print(f"[phase] training parity {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    train = train_phase(device)
+    print(f"[phase] training {TRAIN_ARCH} {time.perf_counter() - t0:.1f} s",
+          flush=True)
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
-                             lm, serve, distributed)
+                             lm, serve, distributed, bwd, parity, train)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -588,8 +588,9 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const __grid_constant__ CUtensorMap to,
-                                 int B, int S, int H, int KVH, int D,
-                                 float scale, float softcap, int window) {
+                                 float* __restrict__ lse, int B, int S,
+                                 int H, int KVH, int D, float scale,
+                                 float softcap, int window) {
   using T = FaHopper<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, NB = T::NB;
   constexpr int QB = T::QBUF;
@@ -734,6 +735,17 @@ __global__ void __launch_bounds__(FaHopper<DP>::THREADS, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / fmaxf(l[r], 1e-20f);
+    }
+    // the rows' log-sum-exp for the backward (training only): m is in
+    // the units of sc, so s = m (softcap) or m scale
+    if (lse != nullptr && tid % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wq0 + 16 * (tid / 32) + (tid % 32) / 4 + 8 * r;
+        if (row < S)
+          lse[(static_cast<long long>(b) * H + h) * S + row] =
+              m[r] * (softcap > 0.f ? 1.f : scale) + logf(l[r]);
+      }
     }
     constexpr int PASS = T::O_COLS / 8;  // n8 blocks a pass
 #pragma unroll
@@ -939,8 +951,9 @@ static int encode_bhsd(EncodeTiledFn encode, CUtensorMap* map, const void* x,
 
 template <int DP, int DN>
 static int launch_fa_wgmma(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int KVH, int D,
-                           float softcap, int window, cudaStream_t stream) {
+                           void* o, float* lse, int B, int S, int H,
+                           int KVH, int D, float softcap, int window,
+                           cudaStream_t stream) {
   using T = FaHopper<DP>;
   const EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return FA_NO_ENCODER;
@@ -970,32 +983,33 @@ static int launch_fa_wgmma(const void* q, const void* k, const void* v,
   if (units > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(units < sms ? units : sms);
   kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
-      tq, tk, tv, to, B, S, H, KVH, D, 1.0f / sqrtf(static_cast<float>(D)),
-      softcap, window);
+      tq, tk, tv, to, lse, B, S, H, KVH, D,
+      1.0f / sqrtf(static_cast<float>(D)), softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 static int dispatch_fa_wgmma(const void* q, const void* k, const void* v,
-                             void* o, int B, int S, int H, int KVH, int D,
-                             float softcap, int window, cudaStream_t stream) {
+                             void* o, float* lse, int B, int S, int H,
+                             int KVH, int D, float softcap, int window,
+                             cudaStream_t stream) {
   switch (D) {
     case 16:
     case 32:
     case 64:
-      return launch_fa_wgmma<64, 64>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                     window, stream);
+      return launch_fa_wgmma<64, 64>(q, k, v, o, lse, B, S, H, KVH, D, softcap,
+          window, stream);
     case 96:
-      return launch_fa_wgmma<128, 96>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                      window, stream);
+      return launch_fa_wgmma<128, 96>(q, k, v, o, lse, B, S, H, KVH, D,
+          softcap, window, stream);
     case 112:
-      return launch_fa_wgmma<128, 112>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                       window, stream);
+      return launch_fa_wgmma<128, 112>(q, k, v, o, lse, B, S, H, KVH, D,
+          softcap, window, stream);
     case 128:
-      return launch_fa_wgmma<128, 128>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                       window, stream);
+      return launch_fa_wgmma<128, 128>(q, k, v, o, lse, B, S, H, KVH, D,
+          softcap, window, stream);
     case 256:
-      return launch_fa_wgmma<256, 256>(q, k, v, o, B, S, H, KVH, D, softcap,
-                                       window, stream);
+      return launch_fa_wgmma<256, 256>(q, k, v, o, lse, B, S, H, KVH, D,
+          softcap, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1303,7 +1317,8 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
     flash_attention_fwd_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
-                               float* __restrict__ o, int B, int S, int H,
+                               float* __restrict__ o,
+                               float* __restrict__ lse, int B, int S, int H,
                                int KVH, float scale, float softcap,
                                int window) {
   using T = FaTf32<DP>;
@@ -1510,6 +1525,9 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = r0 + 8 * r;
     if (row >= S) continue;
+    // the row's log-sum-exp for the backward (training only)
+    if (lse != nullptr && tid % 4 == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + row] = m[r] + logf(l[r]);
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
     float* out = o + (static_cast<long long>(b) * S + row) * H * D +
                  static_cast<long long>(h) * D + c2;
@@ -1522,7 +1540,7 @@ __global__ void __launch_bounds__(FaTf32<DP>::THREADS, 1)
 
 template <int DP, int D>
 static int launch_fa_tf32(const void* q, const void* k, const void* v,
-                          void* o, int B, int S, int H, int KVH,
+                          void* o, float* lse, int B, int S, int H, int KVH,
                           float softcap, int window, cudaStream_t stream) {
   using T = FaTf32<DP>;
   // a window of S keys or more is no window: the causal instance
@@ -1538,37 +1556,38 @@ static int launch_fa_tf32(const void* q, const void* k, const void* v,
   if (blocks == 0) return 0;
   kernel<<<static_cast<unsigned>(blocks), T::THREADS, T::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), B, S, H, KVH,
-      1.0f / sqrtf(static_cast<float>(D)), softcap, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, B, S, H,
+      KVH, 1.0f / sqrtf(static_cast<float>(D)), softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // float32 only: bf16 runs flash_attention_wgmma_kernel
 static int dispatch_fa_f32(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int KVH, int D,
-                           float softcap, int window, cudaStream_t stream) {
+                           void* o, float* lse, int B, int S, int H, int KVH,
+                           int D, float softcap, int window,
+                           cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch_fa_tf32<32, 16>(q, k, v, o, B, S, H, KVH, softcap,
-                                    window, stream);
+      return launch_fa_tf32<32, 16>(q, k, v, o, lse, B, S, H, KVH, softcap,
+          window, stream);
     case 32:
-      return launch_fa_tf32<32, 32>(q, k, v, o, B, S, H, KVH, softcap,
-                                    window, stream);
+      return launch_fa_tf32<32, 32>(q, k, v, o, lse, B, S, H, KVH, softcap,
+          window, stream);
     case 64:
-      return launch_fa_tf32<64, 64>(q, k, v, o, B, S, H, KVH, softcap,
-                                    window, stream);
+      return launch_fa_tf32<64, 64>(q, k, v, o, lse, B, S, H, KVH, softcap,
+          window, stream);
     case 96:
-      return launch_fa_tf32<96, 96>(q, k, v, o, B, S, H, KVH, softcap,
-                                    window, stream);
+      return launch_fa_tf32<96, 96>(q, k, v, o, lse, B, S, H, KVH, softcap,
+          window, stream);
     case 112:
-      return launch_fa_tf32<128, 112>(q, k, v, o, B, S, H, KVH, softcap,
-                                      window, stream);
+      return launch_fa_tf32<128, 112>(q, k, v, o, lse, B, S, H, KVH, softcap,
+          window, stream);
     case 128:
-      return launch_fa_tf32<128, 128>(q, k, v, o, B, S, H, KVH, softcap,
-                                      window, stream);
+      return launch_fa_tf32<128, 128>(q, k, v, o, lse, B, S, H, KVH, softcap,
+          window, stream);
     case 256:
-      return launch_fa_tf32<256, 256>(q, k, v, o, B, S, H, KVH, softcap,
-                                      window, stream);
+      return launch_fa_tf32<256, 256>(q, k, v, o, lse, B, S, H, KVH, softcap,
+          window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1952,23 +1971,671 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8 backward (no TPU counterpart: the reference differentiates its jnp
+// attention with XLA)
+// ---------------------------------------------------------------------------
+
+// four consecutive elements as f32 (16 bytes of f32, 8 of bf16), and back
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v.x, v.y),
+                                            bf16_pair(v.z, v.w));
+}
+__device__ __forceinline__ float round_bf16(float x) {
+  return __uint_as_float(f32_to_bf16_bits(x) << 16);
+}
+
+// the backward's tiles: BQ query rows and BK keys, rows of Q, dO, K and V
+// held in shared memory as f32 with a stride of D + 4 floats (16-byte rows
+// apart in different banks), P and dS with a stride of BK + 4
+template <int D>
+struct FaBwd {
+  static constexpr int BQ = 64;
+  static constexpr int BK = D > 128 ? 32 : 64;
+  static constexpr int LD = D + 4;
+  static constexpr int LP = BK + 4;
+  static constexpr int THREADS = 256;
+  static constexpr int CS = BK / 16;           // score keys a thread
+  static constexpr int NCOL = (D + 127) / 128;  // column groups of 128
+  static constexpr int SMEM =
+      (2 * BQ * LD + 2 * BK * LD + 2 * BQ * LP + 2 * BQ) * 4;
+};
+
+// rows 0 .. ROWS - 1 of a (rows, D) slice at src, ld elements apart, into
+// shared memory as f32 (stride LD); rows at `valid` or past are zeros
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void fab_load(float* dst, const T* src,
+                                         long long ld, int valid) {
+  constexpr int LD = FaBwd<D>::LD;
+  for (int i = threadIdx.x; i < ROWS * (D / 4); i += FaBwd<D>::THREADS) {
+    const int r = i / (D / 4), c = 4 * (i % (D / 4));
+    const float4 x = r < valid ? load4(src + r * ld + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+  }
+}
+
+// One (BQ x BK) tile of the scores against query rows q0 .. and keys
+// k0 .., this thread's rows ty + 16 i and keys tx + 16 j: S = Q K^T and
+// dP = dO V^T in f32 FMAs (float4 reads along D), then s = S scale (with a
+// softcap, s = cap tanh(s / cap)), P = exp(s - lse) where the key is
+// visible (causal, and inside the window), else 0, and the gradient of the
+// raw score dS = P (dP - delta) (1 - (s / cap)^2); the factor `scale` of
+// dQ and dK is applied once at their end.  Writes dS and, with kStoreP,
+// P (rounded to bf16 with kRoundP: the forward rounds P before P V) to
+// shared memory.
+template <int D, bool kStoreP, bool kRoundP>
+__device__ __forceinline__ void fab_scores(
+    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
+    const float* lse_s, const float* delta_s, float* Ps, float* dSs, int q0,
+    int k0, int S, int window, float scale, float softcap) {
+  using C = FaBwd<D>;
+  constexpr int LD = C::LD, CS = C::CS;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[4][CS], dp[4][CS];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CS; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], b[CS];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < CS; ++j)
+      b[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CS; ++j) {
+        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(dOs + (ty + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < CS; ++j)
+      b[j] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CS; ++j) {
+        dp[i][j] = fmaf(a[i].x, b[j].x, dp[i][j]);
+        dp[i][j] = fmaf(a[i].y, b[j].y, dp[i][j]);
+        dp[i][j] = fmaf(a[i].z, b[j].z, dp[i][j]);
+        dp[i][j] = fmaf(a[i].w, b[j].w, dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, row = q0 + r;
+    const float lse_r = lse_s[r], delta_r = delta_s[r];
+#pragma unroll
+    for (int j = 0; j < CS; ++j) {
+      const int c = tx + 16 * j, key = k0 + c;
+      const bool keep =
+          key <= row && row < S && (window <= 0 || key > row - window);
+      float sv = s[i][j] * scale, dcap = 1.f;
+      if (softcap > 0.f) {
+        const float t = tanhf(sv / softcap);
+        sv = softcap * t;
+        dcap = 1.f - t * t;
+      }
+      const float p = keep ? expf(sv - lse_r) : 0.f;
+      dSs[r * C::LP + c] = p * (dp[i][j] - delta_r) * dcap;
+      if (kStoreP) Ps[r * C::LP + c] = kRoundP ? round_bf16(p) : p;
+    }
+  }
+}
+
+// delta = rowsum(dO O) of every (b, s, h) row: one warp a row, f32
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_attention_bwd_delta_kernel(const T* __restrict__ o,
+                                     const T* __restrict__ dout,
+                                     float* __restrict__ delta, int S, int H,
+                                     int D, long long rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 +
+                        threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 a = load4(o + row * D + c), g = load4(dout + row * D + c);
+    acc = fmaf(a.x, g.x, acc);
+    acc = fmaf(a.y, g.y, acc);
+    acc = fmaf(a.z, g.z, acc);
+    acc = fmaf(a.w, g.w, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const long long bs = row / H;  // b S + s
+    const int h = static_cast<int>(row % H);
+    const long long b = bs / S, s = bs % S;
+    delta[(b * H + h) * S + s] = acc;
+  }
+}
+
+// dK and dV of one key tile of one (b, kv head): the CTA walks every query
+// head of the kv head's group and, for each, the query tiles from the key
+// tile's causal start to the window's upper edge, summing dV += P^T dO and
+// dK += dS^T Q in registers (thread: keys ky + 8 i, columns 4 kx + 128 c),
+// so the group's heads sum in one fixed order, without atomics.  Each
+// query tile's 64 rows are summed apart and then added to the running
+// sums, so a sum's rounding error grows with 64 and the tile count, not
+// with every row of up to 4 heads x S
+template <typename T, int D>
+__global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
+    flash_attention_bwd_dkdv_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KVH,
+        float scale, float softcap, int window) {
+  using C = FaBwd<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
+  constexpr int NCOL = C::NCOL, KR = BK / 8;
+  extern __shared__ __align__(16) float fab_smem[];
+  float* Qs = fab_smem;
+  float* dOs = Qs + BQ * LD;
+  float* Ks = dOs + BQ * LD;
+  float* Vs = Ks + BK * LD;
+  float* Ps = Vs + BK * LD;
+  float* dSs = Ps + BQ * LP;
+  float* lse_s = dSs + BQ * LP;
+  float* delta_s = lse_s + BQ;
+  const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
+  const int rep = H / KVH;
+  const int tid = threadIdx.x, ky = tid / 32, kx = tid % 32;
+  const long long kv_ld = static_cast<long long>(KVH) * D;
+  const long long q_ld = static_cast<long long>(H) * D;
+  const long long kv0 = (static_cast<long long>(b) * S + k0) * kv_ld +
+                        static_cast<long long>(kvh) * D;
+  fab_load<D, BK>(Ks, k + kv0, kv_ld, S - k0);
+  fab_load<D, BK>(Vs, v + kv0, kv_ld, S - k0);
+  float dk_acc[KR][NCOL][4], dv_acc[KR][NCOL][4];
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[i][c][e] = dv_acc[i][c][e] = 0.f;
+  // query rows that see a key of the tile: k0 .. k0 + BK - 2 + window
+  const int q_end = window > 0 ? min(S, k0 + BK - 1 + window) : S;
+  for (int hr = 0; hr < rep; ++hr) {
+    const int h = kvh * rep + hr;
+    for (int q0 = (k0 / BQ) * BQ; q0 < q_end; q0 += BQ) {
+      __syncthreads();  // the last tile's readers are done
+      const long long qo = (static_cast<long long>(b) * S + q0) * q_ld +
+                           static_cast<long long>(h) * D;
+      fab_load<D, BQ>(Qs, q + qo, q_ld, S - q0);
+      fab_load<D, BQ>(dOs, dout + qo, q_ld, S - q0);
+      if (tid < BQ) {
+        const int row = q0 + tid;
+        const long long at = (static_cast<long long>(b) * H + h) * S + row;
+        lse_s[tid] = row < S ? lse[at] : 0.f;
+        delta_s[tid] = row < S ? delta[at] : 0.f;
+      }
+      __syncthreads();
+      fab_scores<D, true, sizeof(T) == 2>(Qs, dOs, Ks, Vs, lse_s, delta_s,
+                                          Ps, dSs, q0, k0, S, window, scale,
+                                          softcap);
+      __syncthreads();
+      float dk_t[KR][NCOL][4], dv_t[KR][NCOL][4];  // this tile's sums
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+#pragma unroll
+        for (int c = 0; c < NCOL; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dk_t[i][c][e] = dv_t[i][c][e] = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < BQ; ++r) {
+        float pv[KR], dsv[KR];
+#pragma unroll
+        for (int i = 0; i < KR; ++i) {
+          pv[i] = Ps[r * LP + ky + 8 * i];
+          dsv[i] = dSs[r * LP + ky + 8 * i];
+        }
+#pragma unroll
+        for (int c = 0; c < NCOL; ++c) {
+          const int col = 4 * kx + 128 * c;
+          if (col >= D) continue;
+          const float4 g = *reinterpret_cast<const float4*>(dOs + r * LD +
+                                                            col);
+          const float4 x = *reinterpret_cast<const float4*>(Qs + r * LD + col);
+#pragma unroll
+          for (int i = 0; i < KR; ++i) {
+            dv_t[i][c][0] = fmaf(pv[i], g.x, dv_t[i][c][0]);
+            dv_t[i][c][1] = fmaf(pv[i], g.y, dv_t[i][c][1]);
+            dv_t[i][c][2] = fmaf(pv[i], g.z, dv_t[i][c][2]);
+            dv_t[i][c][3] = fmaf(pv[i], g.w, dv_t[i][c][3]);
+            dk_t[i][c][0] = fmaf(dsv[i], x.x, dk_t[i][c][0]);
+            dk_t[i][c][1] = fmaf(dsv[i], x.y, dk_t[i][c][1]);
+            dk_t[i][c][2] = fmaf(dsv[i], x.z, dk_t[i][c][2]);
+            dk_t[i][c][3] = fmaf(dsv[i], x.w, dk_t[i][c][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+#pragma unroll
+        for (int c = 0; c < NCOL; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dk_acc[i][c][e] += dk_t[i][c][e];
+            dv_acc[i][c][e] += dv_t[i][c][e];
+          }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const int key = k0 + ky + 8 * i;
+    if (key >= S) continue;
+    const long long at = (static_cast<long long>(b) * S + key) * kv_ld +
+                         static_cast<long long>(kvh) * D;
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) {
+      const int col = 4 * kx + 128 * c;
+      if (col >= D) continue;
+      store4(dk + at + col,
+             make_float4(dk_acc[i][c][0] * scale, dk_acc[i][c][1] * scale,
+                         dk_acc[i][c][2] * scale, dk_acc[i][c][3] * scale));
+      store4(dv + at + col, make_float4(dv_acc[i][c][0], dv_acc[i][c][1],
+                                        dv_acc[i][c][2], dv_acc[i][c][3]));
+    }
+  }
+}
+
+// dQ of one query tile of one (b, h), the longest rows first: the key
+// tiles from the window's lower edge to the causal frontier, dQ += dS K
+// summed in registers (thread: rows qy + 8 i, columns 4 qx + 128 c), each
+// key tile's sum apart and then added (as dK and dV's query tiles)
+template <typename T, int D>
+__global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
+    flash_attention_bwd_dq_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        T* __restrict__ dq, int S, int H, int KVH, float scale,
+        float softcap, int window) {
+  using C = FaBwd<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
+  constexpr int NCOL = C::NCOL, QR = BQ / 8;
+  extern __shared__ __align__(16) float fab_smem[];
+  float* Qs = fab_smem;
+  float* dOs = Qs + BQ * LD;
+  float* Ks = dOs + BQ * LD;
+  float* Vs = Ks + BK * LD;
+  float* dSs = Vs + BK * LD + BQ * LP;  // (P's room unused)
+  float* lse_s = dSs + BQ * LP;
+  float* delta_s = lse_s + BQ;
+  const int nq = (S + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
+  const int tid = threadIdx.x, qy = tid / 32, qx = tid % 32;
+  const long long kv_ld = static_cast<long long>(KVH) * D;
+  const long long q_ld = static_cast<long long>(H) * D;
+  const long long qo = (static_cast<long long>(b) * S + q0) * q_ld +
+                       static_cast<long long>(h) * D;
+  fab_load<D, BQ>(Qs, q + qo, q_ld, S - q0);
+  fab_load<D, BQ>(dOs, dout + qo, q_ld, S - q0);
+  if (tid < BQ) {
+    const int row = q0 + tid;
+    const long long at = (static_cast<long long>(b) * H + h) * S + row;
+    lse_s[tid] = row < S ? lse[at] : 0.f;
+    delta_s[tid] = row < S ? delta[at] : 0.f;
+  }
+  float acc[QR][NCOL][4];
+#pragma unroll
+  for (int i = 0; i < QR; ++i)
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int k_end = min(q0 + BQ, S);  // keys past the tile's last row
+  for (int k0 = k_lo; k0 < k_end; k0 += BK) {
+    __syncthreads();
+    const long long kv0 = (static_cast<long long>(b) * S + k0) * kv_ld +
+                          static_cast<long long>(kvh) * D;
+    fab_load<D, BK>(Ks, k + kv0, kv_ld, S - k0);
+    fab_load<D, BK>(Vs, v + kv0, kv_ld, S - k0);
+    __syncthreads();
+    fab_scores<D, false, false>(Qs, dOs, Ks, Vs, lse_s, delta_s, nullptr,
+                                dSs, q0, k0, S, window, scale, softcap);
+    __syncthreads();
+    float part[QR][NCOL][4];  // this key tile's sums
+#pragma unroll
+    for (int i = 0; i < QR; ++i)
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][c][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsv[QR];
+#pragma unroll
+      for (int i = 0; i < QR; ++i) dsv[i] = dSs[(qy + 8 * i) * LP + kk];
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) {
+        const int col = 4 * qx + 128 * c;
+        if (col >= D) continue;
+        const float4 x = *reinterpret_cast<const float4*>(Ks + kk * LD + col);
+#pragma unroll
+        for (int i = 0; i < QR; ++i) {
+          part[i][c][0] = fmaf(dsv[i], x.x, part[i][c][0]);
+          part[i][c][1] = fmaf(dsv[i], x.y, part[i][c][1]);
+          part[i][c][2] = fmaf(dsv[i], x.z, part[i][c][2]);
+          part[i][c][3] = fmaf(dsv[i], x.w, part[i][c][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QR; ++i)
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][c][e] += part[i][c][e];
+  }
+#pragma unroll
+  for (int i = 0; i < QR; ++i) {
+    const int row = q0 + qy + 8 * i;
+    if (row >= S) continue;
+    const long long at = (static_cast<long long>(b) * S + row) * q_ld +
+                         static_cast<long long>(h) * D;
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) {
+      const int col = 4 * qx + 128 * c;
+      if (col >= D) continue;
+      store4(dq + at + col,
+             make_float4(acc[i][c][0] * scale, acc[i][c][1] * scale,
+                         acc[i][c][2] * scale, acc[i][c][3] * scale));
+    }
+  }
+}
+
+template <typename T, int D>
+static int launch_fa_bwd(const void* q, const void* k, const void* v,
+                         const void* o, const float* lse, const void* dout,
+                         void* dq, void* dk, void* dv, float* delta, int B,
+                         int S, int H, int KVH, float softcap, int window,
+                         cudaStream_t stream) {
+  using C = FaBwd<D>;
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* do_ = static_cast<const T*>(dout);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (B == 0 || S == 0) return 0;
+  const long long rows = static_cast<long long>(B) * S * H;
+  if ((rows + 7) / 8 > 2147483647LL || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8),
+                                        256, 0, stream>>>(
+      static_cast<const T*>(o), do_, delta, S, H, D, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto dkdv = flash_attention_bwd_dkdv_kernel<T, D>;
+  auto dqk = flash_attention_bwd_dq_kernel<T, D>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the heaviest tiles first: key tile 0 sees every query row, query tile
+  // nq - 1 every key
+  const dim3 kgrid((S + C::BK - 1) / C::BK, KVH, B);
+  dkdv<<<kgrid, C::THREADS, C::SMEM, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      S, H, KVH, scale, softcap, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 qgrid((S + C::BQ - 1) / C::BQ, H, B);
+  dqk<<<qgrid, C::THREADS, C::SMEM, stream>>>(q_, k_, v_, do_, lse, delta,
+                                              static_cast<T*>(dq), S, H, KVH,
+                                              scale, softcap, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int dispatch_fa_bwd(const void* q, const void* k, const void* v,
+                           const void* o, const float* lse, const void* dout,
+                           void* dq, void* dk, void* dv, float* delta, int B,
+                           int S, int H, int KVH, int D, float softcap,
+                           int window, cudaStream_t st) {
+#define FA_BWD(DD)                                                        \
+  case DD:                                                                \
+    return launch_fa_bwd<T, DD>(q, k, v, o, lse, dout, dq, dk, dv, delta, \
+                                B, S, H, KVH, softcap, window, st)
+  switch (D) {
+    FA_BWD(16);
+    FA_BWD(32);
+    FA_BWD(64);
+    FA_BWD(96);
+    FA_BWD(112);
+    FA_BWD(128);
+    FA_BWD(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FA_BWD
+}
+
+// ---------------------------------------------------------------------------
+// K9 backward (no TPU counterpart, as K8's)
+// ---------------------------------------------------------------------------
+
+#define RNB_THREADS 256
+
+// the sums of a CTA's 256 threads, two at once, in one fixed order
+__device__ __forceinline__ float2 rnb_sum2(float a, float b) {
+  __shared__ float part[2][RNB_THREADS / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+  if (threadIdx.x % 32 == 0) {
+    part[0][threadIdx.x / 32] = a;
+    part[1][threadIdx.x / 32] = b;
+  }
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < RNB_THREADS / 32; ++w) {
+    t.x += part[0][w];
+    t.y += part[1][w];
+  }
+  __syncthreads();  // the slots are free for the next row
+  return t;
+}
+
+// rows [blockIdx.x rpc, +rpc) of (rows, d): per row, in f32, s = x (+ r),
+// rstd = 1 / sqrt(mean(s^2) + eps), x^ = s rstd, gw = g (1 + w),
+// dx = rstd (gw - x^ mean(gw x^)) (+ gs, the gradient of the returned sum
+// in the residual form, the same for x and r); this CTA's sums of g x^ per
+// column stay in shared memory (each thread its own columns) and leave as
+// one row of `partial`, which rmsnorm_bwd_dw_kernel reduces in order
+template <typename T, typename W, bool kResidual>
+__global__ void __launch_bounds__(RNB_THREADS)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                       const W* __restrict__ w, const T* __restrict__ g,
+                       const T* __restrict__ gs, T* __restrict__ dx,
+                       float* __restrict__ partial, long long rows, int d,
+                       float eps, long long rpc) {
+  extern __shared__ __align__(16) float rnb_acc[];
+  const int c0 = 4 * threadIdx.x;
+  for (int j = c0; j < d; j += 4 * RNB_THREADS)
+    *reinterpret_cast<float4*>(rnb_acc + j) = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long r0 = blockIdx.x * rpc;
+  const long long r1 = min(rows, r0 + rpc);
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (long long row = r0; row < r1; ++row) {
+    const long long base = row * d;
+    float ss = 0.f, sg = 0.f;
+    for (int j = c0; j < d; j += 4 * RNB_THREADS) {
+      float4 s = load4(x + base + j);
+      if (kResidual) {
+        const float4 b = load4(r + base + j);
+        s = make_float4(s.x + b.x, s.y + b.y, s.z + b.z, s.w + b.w);
+      }
+      const float4 gg = load4(g + base + j), ww = load4(w + j);
+      ss += s.x * s.x + s.y * s.y + s.z * s.z + s.w * s.w;
+      sg += gg.x * (1.f + ww.x) * s.x + gg.y * (1.f + ww.y) * s.y +
+            gg.z * (1.f + ww.z) * s.z + gg.w * (1.f + ww.w) * s.w;
+    }
+    const float2 t = rnb_sum2(ss, sg);
+    const float rstd = rsqrtf(t.x * inv_d + eps);
+    const float mgx = t.y * rstd * inv_d;  // mean(gw x^)
+    for (int j = c0; j < d; j += 4 * RNB_THREADS) {
+      float4 s = load4(x + base + j);
+      if (kResidual) {
+        const float4 b = load4(r + base + j);
+        s = make_float4(s.x + b.x, s.y + b.y, s.z + b.z, s.w + b.w);
+      }
+      const float4 gg = load4(g + base + j), ww = load4(w + j);
+      const float h[4] = {s.x * rstd, s.y * rstd, s.z * rstd, s.w * rstd};
+      const float gv[4] = {gg.x, gg.y, gg.z, gg.w};
+      const float wv[4] = {ww.x, ww.y, ww.z, ww.w};
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[e] = rstd * (gv[e] * (1.f + wv[e]) - h[e] * mgx);
+        rnb_acc[j + e] += gv[e] * h[e];
+      }
+      if (kResidual) {
+        const float4 b = load4(gs + base + j);
+        o[0] += b.x;
+        o[1] += b.y;
+        o[2] += b.z;
+        o[3] += b.w;
+      }
+      store4(dx + base + j, make_float4(o[0], o[1], o[2], o[3]));
+    }
+  }
+  for (int j = c0; j < d; j += 4 * RNB_THREADS)
+    *reinterpret_cast<float4*>(partial + blockIdx.x * static_cast<long long>(d)
+                               + j) =
+        *reinterpret_cast<const float4*>(rnb_acc + j);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) {
+  p->bits = static_cast<uint16_t>(f32_to_bf16_bits(v));
+}
+
+// dw[j] = the sum of the CTAs' partial rows, in CTA order, 32 rows at a
+// time summed apart (one sequential sum over ~1000 rows grows its error
+// with their count)
+template <typename W>
+__global__ void __launch_bounds__(RNB_THREADS)
+    rmsnorm_bwd_dw_kernel(const float* __restrict__ partial,
+                          W* __restrict__ dw, int n_cta, int d) {
+  const int j = blockIdx.x * RNB_THREADS + threadIdx.x;
+  if (j >= d) return;
+  float s = 0.f;
+  for (int c0 = 0; c0 < n_cta; c0 += 32) {
+    float t = 0.f;
+    for (int c = c0; c < min(c0 + 32, n_cta); ++c)
+      t += partial[static_cast<long long>(c) * d + j];
+    s += t;
+  }
+  store1(dw + j, s);
+}
+
+template <typename T, typename W, bool kResidual>
+static int launch_rn_bwd(const void* x, const void* r, const void* w,
+                         const void* g, const void* gs, void* dx, void* dw,
+                         float* partial, long long rows, int d, float eps,
+                         int n_cta, cudaStream_t stream) {
+  if (rows == 0 || d == 0) return 0;
+  const long long rpc = (rows + n_cta - 1) / n_cta;
+  const int ctas = static_cast<int>((rows + rpc - 1) / rpc);
+  const int smem = d * 4;
+  auto kernel = rmsnorm_bwd_kernel<T, W, kResidual>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<ctas, RNB_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const W*>(w), static_cast<const T*>(g),
+      static_cast<const T*>(gs), static_cast<T*>(dx), partial, rows, d, eps,
+      rpc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_bwd_dw_kernel<W><<<(d + RNB_THREADS - 1) / RNB_THREADS, RNB_THREADS,
+                             0, stream>>>(partial, static_cast<W*>(dw), ctas,
+                                          d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kResidual>
+static int dispatch_rn_bwd(const void* x, const void* r, const void* w,
+                           const void* g, const void* gs, void* dx, void* dw,
+                           float* partial, int dtype, int w_dtype,
+                           long long rows, int d, float eps, int n_cta,
+                           cudaStream_t st) {
+  if (d % 4 || n_cta < 1 || d * 4 > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DT_F32 && w_dtype == DT_F32)
+    return launch_rn_bwd<float, float, kResidual>(x, r, w, g, gs, dx, dw,
+                                                  partial, rows, d, eps,
+                                                  n_cta, st);
+  if (dtype == DT_BF16 && w_dtype == DT_F32)
+    return launch_rn_bwd<bf16, float, kResidual>(x, r, w, g, gs, dx, dw,
+                                                 partial, rows, d, eps,
+                                                 n_cta, st);
+  if (dtype == DT_F32 && w_dtype == DT_BF16)
+    return launch_rn_bwd<float, bf16, kResidual>(x, r, w, g, gs, dx, dw,
+                                                 partial, rows, d, eps,
+                                                 n_cta, st);
+  if (dtype == DT_BF16 && w_dtype == DT_BF16)
+    return launch_rn_bwd<bf16, bf16, kResidual>(x, r, w, g, gs, dx, dw,
+                                                partial, rows, d, eps, n_cta,
+                                                st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" {
 
 // q (B, S, H, D), k/v (B, S, KVH, D), o like q; contiguous, 16-byte
 // aligned, D in {16, 32, 64, 96, 112, 128, 256}, H % KVH == 0; window 0
-// (none) or the keys k > q - window of each query q.
+// (none) or the keys k > q - window of each query q; lse (B, H, S) f32,
+// the rows' log-sum-exp for the backward, or null (serving).
 // float32 runs flash_attention_fwd_kernel, bfloat16
 // flash_attention_wgmma_kernel.
 int launch_flash_attention(const void* q, const void* k, const void* v,
-                           void* o, int dtype, int B, int S, int H, int KVH,
-                           int D, float softcap, int window, void* stream) {
+                           void* o, void* lse, int dtype, int B, int S,
+                           int H, int KVH, int D, float softcap, int window,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    return dispatch_fa_f32(q, k, v, o, B, S, H, KVH, D, softcap, window, st);
+    return dispatch_fa_f32(q, k, v, o, l, B, S, H, KVH, D, softcap, window,
+                           st);
   if (dtype == DT_BF16)
-    return dispatch_fa_wgmma(q, k, v, o, B, S, H, KVH, D, softcap, window,
-                             st);
+    return dispatch_fa_wgmma(q, k, v, o, l, B, S, H, KVH, D, softcap,
+                             window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -2001,6 +2668,45 @@ int launch_ssm_state_scan(const void* states, const void* decay, void* out,
       static_cast<const float*>(states), static_cast<const float*>(decay),
       static_cast<float*>(out), nc, n, bh, np);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the K8 backward: q, dq (B, S, H, D), k, v, dk, dv (B, S, KVH, D), o and
+// dout like q, lse and delta (B, H, S) f32 (lse from the forward, delta
+// scratch); the forward's shapes, window and softcap.  Three launches:
+// delta = rowsum(dO O), dK/dV, dQ.
+int launch_flash_attention_bwd(const void* q, const void* k, const void* v,
+                               const void* o, const void* lse,
+                               const void* dout, void* dq, void* dk, void* dv,
+                               void* delta, int dtype, int B, int S, int H,
+                               int KVH, int D, float softcap, int window,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (window < 0 || H % KVH) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DT_F32)
+    return dispatch_fa_bwd<float>(q, k, v, o, l, dout, dq, dk, dv, dl, B, S,
+                                  H, KVH, D, softcap, window, st);
+  if (dtype == DT_BF16)
+    return dispatch_fa_bwd<bf16>(q, k, v, o, l, dout, dq, dk, dv, dl, B, S,
+                                 H, KVH, D, softcap, window, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the K9 backward: x, g, dx (rows, d), w and dw (d,), partial (n_cta, d)
+// f32 scratch; r and gs (the residual and the gradient of the returned
+// sum) null for the plain norm
+int launch_rmsnorm_bwd(const void* x, const void* r, const void* w,
+                       const void* g, const void* gs, void* dx, void* dw,
+                       void* partial, int dtype, int w_dtype, long long rows,
+                       int d, float eps, int n_cta, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  if (r == nullptr)
+    return dispatch_rn_bwd<false>(x, r, w, g, gs, dx, dw, p, dtype, w_dtype,
+                                  rows, d, eps, n_cta, st);
+  return dispatch_rn_bwd<true>(x, r, w, g, gs, dx, dw, p, dtype, w_dtype,
+                               rows, d, eps, n_cta, st);
 }
 
 const char* lm_error_string(int code) {

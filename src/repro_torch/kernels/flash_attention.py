@@ -31,7 +31,27 @@ window's lower edge to its causal frontier, and masks the tiles on both
 edges; ``window`` 0, or at least S, runs each kernel's causal instance,
 the code of the kernel before the window.  For tensors on the CPU the
 wrapper runs the plain version (:func:`..ref.flash_attention_ref`); for
-CUDA tensors it launches the kernel of their dtype or raises.
+CUDA tensors it launches the kernel of their dtype or raises.  Given an
+``lse`` tensor (training), either kernel also writes each row's
+log-sum-exp; serving passes none, and the kernels keep their bits.
+
+The backward (:func:`flash_attention_bwd`; no TPU counterpart: the
+reference differentiates its jnp attention) is three kernels of
+``csrc/lm_kernels.cu``, both dtypes, every head width of the forward,
+products on plain f32 FMAs and no atomics:
+``flash_attention_bwd_delta_kernel`` (delta = rowsum(dO O)),
+``flash_attention_bwd_dkdv_kernel`` (one CTA per (b, kv head, key tile of
+64 keys, 32 at D 256) that walks the query tiles of every query head of
+its group, from the tile's causal start to the window's upper edge,
+recomputing P = exp(s - lse) and summing dV += P^T dO and dK += dS^T Q in
+registers) and ``flash_attention_bwd_dq_kernel`` (one CTA per query tile
+of 64 rows over the same key tiles as the forward, dQ += dS K).  The bf16
+instance rounds P to bf16 before P^T dO, as the forward does before P V.
+Bound: at Granite-8B's training shape the recomputed S and dP and the
+three products are 5 S^2 D / 2 FMAs a (b, h) for dK/dV and 3 for dQ, over
+the 67 TFLOP/s of the CUDA cores in f32 (the forward's bf16 tensor cores
+are a later PR's work).  :class:`FlashAttention` is the
+``torch.autograd.Function`` around the two.
 """
 
 from __future__ import annotations
@@ -39,7 +59,8 @@ from __future__ import annotations
 import torch
 
 from . import library
-from .ref import flash_attention_ref
+from .ref import (flash_attention_bwd_ref, flash_attention_fwd_ref,
+                  flash_attention_ref)
 
 #: head widths the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
@@ -70,42 +91,125 @@ def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
                          "tensors")
 
 
+def _check_qkv(name: str, q, k, v, window: int) -> None:
+    xs = (q, k, v)
+    if not all(isinstance(x, torch.Tensor) for x in xs):
+        raise TypeError(f"{name} takes torch tensors")
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name} takes q (B, S, H, D) and k/v "
+                         f"(B, S, KVH, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, D = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, D) or H % k.shape[2]:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (H must be a multiple of KVH)")
+    if any(x.device != q.device or x.dtype != q.dtype for x in xs):
+        raise ValueError(f"{name}'s tensors disagree in device or dtype")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+
+
+def _check_lse(name: str, lse, q) -> None:
+    B, S, H, _ = q.shape
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{name} takes a contiguous float32 lse of "
+                         f"{(B, H, S)} on q's device, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    softcap: float = 0.0, window: int = 0) -> torch.Tensor:
+                    softcap: float = 0.0, window: int = 0,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
     """Causal attention of q (B, S, H, D) over k/v (B, S, KVH, D), H a
     multiple of KVH; ``softcap > 0`` caps the scores with
     ``softcap * tanh(s / softcap)``; ``window > 0`` keeps only the keys
     ``k > q - window`` of each query q.  Returns (B, S, H, D) in q's
-    dtype."""
-    xs = (q, k, v)
-    if not all(isinstance(x, torch.Tensor) for x in xs):
-        raise TypeError("flash_attention takes torch tensors")
-    if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash_attention takes q (B, S, H, D) and k/v "
-                         f"(B, S, KVH, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, H, D = q.shape
-    KVH = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, D) or H % KVH:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
-                         f"q {tuple(q.shape)} (H must be a multiple of KVH)")
-    if any(x.device != q.device or x.dtype != q.dtype for x in xs):
-        raise ValueError("flash_attention's tensors disagree in device or "
-                         "dtype")
+    dtype.  ``lse`` (B, H, S) float32: filled with each row's log-sum-exp
+    of the scores, for the backward."""
+    _check_qkv("flash_attention", q, k, v, window)
+    if lse is not None:
+        _check_lse("flash_attention", lse, q)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, softcap=softcap, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+        if lse is None:
+            return flash_attention_ref(q, k, v, softcap=softcap,
+                                       window=window)
+        o, lse_ref = flash_attention_fwd_ref(q, k, v, softcap=softcap,
+                                             window=window)
+        lse.copy_(lse_ref)
+        return o
     check_card_inputs(q, k, v)
+    B, S, H, D = q.shape
     o = torch.empty_like(q)
     lib = library.LM or library.load_lm_library()
     library.launch("flash_attention", lib.launch_flash_attention,
                    lib.lm_error_string, q.get_device(), q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   library.LM_DTYPES[q.dtype], B, S, H, KVH, D,
+                   0 if lse is None else lse.data_ptr(),
+                   library.LM_DTYPES[q.dtype], B, S, H, k.shape[2], D,
                    float(softcap), min(int(window), 2**30))
     if 0 < window < S:  # the kernel's window instance
         library.LAUNCHES["flash_attention_window"] += 1
     return o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, softcap: float = 0.0, window: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`flash_attention` for the
+    output's gradient ``do``, from its output ``o`` and row log-sum-exp
+    ``lse`` (B, H, S) float32, in the inputs' dtypes.  The plain version
+    (:func:`..ref.flash_attention_bwd_ref`) for CPU tensors, the backward
+    kernels for CUDA tensors."""
+    _check_qkv("flash_attention_bwd", q, k, v, window)
+    _check_lse("flash_attention_bwd", lse, q)
+    if o.shape != q.shape or do.shape != q.shape or any(
+            x.dtype != q.dtype or x.device != q.device for x in (o, do)):
+        raise ValueError("flash_attention_bwd takes o and do of q's shape, "
+                         "dtype and device")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=softcap,
+                                       window=window)
+    check_card_inputs(q, k, v)
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+               for x in (o, do)):
+        raise ValueError("flash_attention_bwd takes contiguous, 16-byte "
+                         "aligned tensors")
+    B, S, H, D = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = library.LM or library.load_lm_library()
+    library.launch("flash_attention_bwd", lib.launch_flash_attention_bwd,
+                   lib.lm_error_string, q.get_device(), q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   delta.data_ptr(), library.LM_DTYPES[q.dtype], B, S, H,
+                   k.shape[2], D, float(softcap), min(int(window), 2**30))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its backward: the forward runs K8 (the
+    plain version on the CPU) and keeps each row's log-sum-exp; the
+    backward runs :func:`flash_attention_bwd` on q, k, v, o and lse, saved
+    from the forward (recomputed with it under ``torch.utils.checkpoint``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softcap: float, window: int):
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        o = flash_attention(q, k, v, softcap=softcap, window=window, lse=lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.softcap, ctx.window = softcap, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         softcap=ctx.softcap,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

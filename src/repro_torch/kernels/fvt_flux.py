@@ -35,6 +35,7 @@ def fvt_flux(q: torch.Tensor, cx: torch.Tensor, *, halo: int) -> torch.Tensor:
         return fvt_flux_ref(q, cx, halo=halo)
     if q.device.type != "cuda":
         raise ValueError(f"fvt_flux: no kernel for device {q.device}")
+    library.refuse_grad("fvt_flux", "item 11b", q, cx)
     if q.dtype != torch.float32:
         raise ValueError(f"fvt_flux takes float32, not {q.dtype}")
     if not (q.is_contiguous() and cx.is_contiguous()):

@@ -5,7 +5,8 @@ at first use, like the stencil kernels, into its own directory under
  * ``csrc/fv3_kernels.cu`` — K6 ``tridiag_kernel``, K7 ``fvt_flux_kernel``;
  * ``csrc/lm_kernels.cu`` — K8 ``flash_attention_wgmma_kernel`` (bf16) and
    ``flash_attention_fwd_kernel`` (f32), K9 ``rmsnorm_kernel`` (plain and
-   residual), K10 ``ssm_state_scan_kernel``.
+   residual), K10 ``ssm_state_scan_kernel``, and the backward kernels of
+   K8 (``flash_attention_bwd_*``) and K9 (``rmsnorm_bwd_*``).
 """
 
 from __future__ import annotations
@@ -19,10 +20,13 @@ from ..core.backend.cuda import build_library
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
 #: (``flash_attention_window``: those of K8's launches that run its window
-#: instance, 0 < window < S, also counted under ``flash_attention``)
+#: instance, 0 < window < S, also counted under ``flash_attention``; a
+#: backward wrapper's call, ``*_bwd``, is one count for the kernels it
+#: launches: K8's three, K9's two)
 LAUNCHES = {"tridiag": 0, "fvt_flux": 0, "flash_attention": 0,
-            "flash_attention_window": 0, "rmsnorm": 0,
-            "rmsnorm_residual": 0, "ssm_state_scan": 0}
+            "flash_attention_window": 0, "flash_attention_bwd": 0,
+            "rmsnorm": 0, "rmsnorm_residual": 0, "rmsnorm_bwd": 0,
+            "rmsnorm_residual_bwd": 0, "ssm_state_scan": 0}
 
 #: dtype codes of the LM kernels' C interface
 LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,9 +73,15 @@ def bind_lm_library(path) -> ctypes.CDLL:
     lib = ctypes.PyDLL(str(path))
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-    lib.launch_flash_attention.argtypes = ([ptr] * 4 + [i32] * 6
+    lib.launch_flash_attention.argtypes = ([ptr] * 5 + [i32] * 6
                                            + [f32, i32, ptr])
     lib.launch_flash_attention.restype = ctypes.c_int
+    lib.launch_flash_attention_bwd.argtypes = ([ptr] * 10 + [i32] * 6
+                                               + [f32, i32, ptr])
+    lib.launch_flash_attention_bwd.restype = ctypes.c_int
+    lib.launch_rmsnorm_bwd.argtypes = ([ptr] * 8
+                                       + [i32, i32, i64, i32, f32, i32, ptr])
+    lib.launch_rmsnorm_bwd.restype = ctypes.c_int
     lib.launch_rmsnorm.argtypes = [ptr] * 3 + [i32, i32, i64, i32, f32, ptr]
     lib.launch_rmsnorm.restype = ctypes.c_int
     lib.launch_rmsnorm_residual.argtypes = ([ptr] * 5
@@ -90,6 +100,18 @@ def load_lm_library() -> ctypes.CDLL:
     if LM is None:
         LM = bind_lm_library(build_library("lm_kernels"))
     return LM
+
+
+def refuse_grad(name: str, item: str, *tensors: torch.Tensor) -> None:
+    """Raise RuntimeError where a kernel without a backward would be
+    recorded for autograd (grad mode on and an input requiring grad): the
+    kernel's output would carry no gradient, so it must not run, and its
+    plain version must not stand in for it on the card.  ``item`` names
+    the ROADMAP item that gives it a backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel yet (ROADMAP "
+                           f"queue 1, {item}); call it under torch.no_grad() "
+                           "or on tensors that do not require grad")
 
 
 def launch(name: str | None, fn, describe, device: int, *args) -> None:

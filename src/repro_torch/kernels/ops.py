@@ -6,6 +6,14 @@ state scan).
 tensors and its plain version on CPU tensors; ``backend="ref"`` runs the
 plain version on any device, so callers can compare the two in place, as
 with the reference's ``repro.kernels.ops``.
+
+Under autograd (grad mode on and an input that requires grad),
+``backend="cuda"`` runs K8 and K9 through their ``autograd.Function``s
+(the forward kernel, then the backward kernels; on CPU tensors the plain
+forward and backward versions), and ``backend="ref"`` differentiates the
+plain version with torch's autograd.  K6, K7 and K10 have no backward
+kernel: on CUDA tensors under autograd they raise
+(:func:`.library.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -13,14 +21,23 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .fvt_flux import fvt_flux as _fvt_flux_kernel
+from .rmsnorm import RMSNorm, RMSNormResidual
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .rmsnorm import rmsnorm_residual as _rmsnorm_residual_kernel
 from .ssm_scan import ssm_state_scan as _ssm_state_scan_kernel
 from .tridiag import tridiag as _tridiag_kernel
 
 _BACKENDS = ("cuda", "ref")
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Autograd records the call: grad mode on and an input requiring
+    grad (what is not a tensor is left to the wrapper's checks)."""
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
 
 
 def _check(backend: str) -> None:
@@ -57,6 +74,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if backend == "ref":
         return ref.flash_attention_ref(q, k, v, softcap=softcap,
                                        window=window)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, softcap, window)
     return _flash_attention_kernel(q, k, v, softcap=softcap, window=window)
 
 
@@ -64,6 +83,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
             backend: str = "cuda") -> torch.Tensor:
     """``(1 + w)`` RMSNorm over the last axis, in float32 (K9)."""
     if backend == "cuda":  # first: a decode step makes hundreds of calls
+        if _needs_grad(x, w):
+            return RMSNorm.apply(x, w, eps)
         return _rmsnorm_kernel(x, w, eps=eps)
     _check(backend)
     return ref.rmsnorm_ref(x, w, eps=eps)
@@ -75,6 +96,8 @@ def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused ``x + residual`` then RMSNorm (K9): (normed, new residual)."""
     if backend == "cuda":
+        if _needs_grad(x, residual, w):
+            return RMSNormResidual.apply(x, residual, w, eps)
         return _rmsnorm_residual_kernel(x, residual, w, eps=eps)
     _check(backend)
     return ref.rmsnorm_residual_ref(x, residual, w, eps=eps)

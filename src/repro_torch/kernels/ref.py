@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the standalone kernels — what the CUDA kernels
 are held against in the tests and in ``chip_smoke.py``, and what their
 wrappers run for tensors on the CPU.  Ported from the reference's
-``kernels/ref.py``, with its casts."""
+``kernels/ref.py``, with its casts; the backward versions of K8 and K9
+(``*_bwd_ref``) have no counterpart there: the reference differentiates
+its jnp model with XLA."""
 
 from __future__ import annotations
 
@@ -75,6 +77,25 @@ def attention_mask(S: int, window: int, device) -> torch.Tensor:
     return keep
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, or float64 where it is (a float64 run of a plain
+    version is the exact reference of the kernel's float32 one)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, softcap: float,
+            window: int) -> torch.Tensor:
+    """The masked scores (B, H, S, S) in float32 (float64 for float64
+    inputs): q.k / sqrt(D), the softcap, then -1e30 where
+    :func:`attention_mask` hides the key."""
+    S, H, D = q.shape[1], q.shape[2], q.shape[3]
+    k = k.repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) / math.sqrt(D)
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    return torch.where(attention_mask(S, window, q.device), s, -1e30)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         softcap: float = 0.0,
                         window: int = 0) -> torch.Tensor:
@@ -83,16 +104,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     only the last ``window`` keys of each query (:func:`attention_mask`).
     Scores and the softmax in float32, masked with -1e30 after the softcap;
     the output in q's dtype."""
-    S, H, D = q.shape[1], q.shape[2], q.shape[3]
-    rep = H // k.shape[2]
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
-    if softcap > 0.0:
-        s = softcap * torch.tanh(s / softcap)
-    s = torch.where(attention_mask(S, window, q.device), s, -1e30)
+    return flash_attention_fwd_ref(q, k, v, softcap=softcap,
+                                   window=window)[0]
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, softcap: float = 0.0,
+                            window: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref` and each row's log-sum-exp of the scores
+    (B, H, S) in float32, which the backward reads."""
+    s = _scores(q, k, softcap, window)
+    v = v.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, _wide(v)).to(q.dtype)
+    return o, torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            softcap: float = 0.0, window: int = 0
+                            ) -> tuple[torch.Tensor, ...]:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_ref` for the
+    output's gradient ``do``, from the forward's output ``o`` and row
+    log-sum-exp ``lse`` (B, H, S), in float32 (float64 for float64 inputs)
+    and then the inputs' dtypes:
+    P = exp(s - lse) where the key is visible (0 elsewhere), dP = dO V^T,
+    delta = rowsum(dO O), dS = P (dP - delta), times 1 - tanh^2(s/cap)
+    under a softcap; dq = dS K / sqrt(D), dk = dS^T Q / sqrt(D) and
+    dv = P^T dO, each summed over the query heads of a kv head's group.
+    In bfloat16 P is rounded to bf16 before P^T dO, as K8 rounds it before
+    P V."""
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    rep = H // KVH
+    scale = 1.0 / math.sqrt(D)
+    kr = _wide(k.repeat_interleave(rep, dim=2))
+    vr = _wide(v.repeat_interleave(rep, dim=2))
+    q32, do32 = _wide(q), _wide(do)
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, kr) * scale
+    dcap = 1.0
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dcap = 1.0 - t * t
+    keep = attention_mask(S, window, q.device)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, vr)
+    delta = (do32 * _wide(o)).sum(-1).transpose(1, 2)         # (B, H, S)
+    ds = p * (dp - delta[..., None]) * dcap
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dk = dk.reshape(B, S, KVH, rep, D).sum(3)
+    dv = dv.reshape(B, S, KVH, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
@@ -111,6 +180,40 @@ def rmsnorm_residual_ref(x: torch.Tensor, residual: torch.Tensor,
     unrounded ``s``, ``s``), both in x's dtype."""
     s = x.float() + residual.float()
     return rmsnorm_ref(s, w, eps=eps).to(x.dtype), s.to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
+                    eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients (dx, dw) of :func:`rmsnorm_ref` for the output's
+    gradient ``g``, in float32 (float64 for float64 inputs) and then x's
+    and w's dtypes: with
+    rstd = rsqrt(mean(x^2) + eps), x^ = x rstd and gw = g (1 + w),
+    dx = rstd (gw - x^ mean(gw x^)) and dw = the sum over rows of g x^."""
+    return _rmsnorm_bwd(_wide(x), w, g, None, eps, x.dtype)
+
+
+def rmsnorm_residual_bwd_ref(x: torch.Tensor, residual: torch.Tensor,
+                             w: torch.Tensor, g: torch.Tensor,
+                             gs: torch.Tensor | None, *, eps: float = 1e-5
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients (dx, dw) of :func:`rmsnorm_residual_ref` for the
+    gradients ``g`` of the normed output and ``gs`` of the returned sum
+    (None: zero): :func:`rmsnorm_bwd_ref` of the unrounded
+    s = x + residual, plus ``gs``; dx is also the residual's gradient."""
+    return _rmsnorm_bwd(_wide(x) + _wide(residual), w, g, gs, eps, x.dtype)
+
+
+def _rmsnorm_bwd(s, w, g, gs, eps, dtype):
+    d = s.shape[-1]
+    rstd = torch.rsqrt((s * s).mean(dim=-1, keepdim=True) + eps)
+    xh = s * rstd
+    g32 = _wide(g)
+    gw = g32 * (1.0 + _wide(w))
+    dx = rstd * (gw - xh * (gw * xh).mean(dim=-1, keepdim=True))
+    if gs is not None:
+        dx = dx + _wide(gs)
+    dw = (g32 * xh).reshape(-1, d).sum(0)
+    return dx.to(dtype), dw.to(w.dtype)
 
 
 def ssm_state_scan_ref(states: torch.Tensor,

@@ -37,6 +37,7 @@ def ssm_state_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
     if states.device.type != "cuda":
         raise ValueError(f"ssm_state_scan: no kernel for device "
                          f"{states.device}")
+    library.refuse_grad("ssm_state_scan", "item 12i", states, decay)
     if not (states.is_contiguous() and decay.is_contiguous()):
         raise ValueError("ssm_state_scan takes contiguous tensors")
     nc, B, H, N, P = states.shape

@@ -49,6 +49,7 @@ def tridiag(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         return tridiag_ref(a, b, c, d)
     if a.device.type != "cuda":
         raise ValueError(f"tridiag: no kernel for device {a.device}")
+    library.refuse_grad("tridiag", "item 11b", a, b, c, d)
     if a.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"tridiag takes float32 or float64, not {a.dtype}")
     if not all(x.is_contiguous() for x in xs):

@@ -13,7 +13,9 @@ attention is plain tensor ops, as the reference computes it outside any
 kernel.  Weights have the reference's shapes (``x @ w``).  The reference
 keeps every parameter in float32 and casts at each use.  The port stores a
 weight that the reference casts to x's dtype (the matmul weights, the
-embedding) in the compute dtype, which gives the same bits; a parameter
+embedding) in the model's dtype and casts it at its use
+(``.to(x.dtype)``): a serving model stores the compute dtype (no copy, the
+same bits), a training model float32 masters; a parameter
 that the reference reads through ``.astype(float32)`` (the norms' ``w``
 here, Mamba-2's ``A_log``, ``D``, ``dt_bias`` and ``norm_w``) stays in
 float32 in a model of any dtype (:func:`norm_param`), since a bf16 copy
@@ -124,9 +126,10 @@ class Attention(nn.Module):
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
         B = x.shape[0]
-        q = (x @ self.wq).reshape(B, -1, cfg.n_heads, cfg.d_head)
-        k = (x @ self.wk).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
-        v = (x @ self.wv).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
+        dt = x.dtype
+        q = (x @ self.wq.to(dt)).reshape(B, -1, cfg.n_heads, cfg.d_head)
+        k = (x @ self.wk.to(dt)).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
+        v = (x @ self.wv.to(dt)).reshape(B, -1, cfg.n_kv_heads, cfg.d_head)
         return (rope(q, positions, cfg.rope_theta),
                 rope(k, positions, cfg.rope_theta), v)
 
@@ -155,7 +158,7 @@ class Attention(nn.Module):
             k, v = (_ring(t, n) for t in (k, v))
         elif cache_len is not None:
             k, v = (_padded(t, cache_len) for t in (k, v))
-        return out.reshape(B, S, self.cfg.q_dim) @ self.wo, k, v
+        return out.reshape(B, S, self.cfg.q_dim) @ self.wo.to(x.dtype), k, v
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: int, *, local: bool = False,
@@ -209,7 +212,7 @@ class Attention(nn.Module):
         scores = torch.where(valid, scores, -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bgrs,bsgd->bgrd", probs, values)
-        return out.reshape(B, 1, cfg.q_dim) @ self.wo
+        return out.reshape(B, 1, cfg.q_dim) @ self.wo.to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -226,14 +229,14 @@ class MLP(nn.Module):
         self.wo = empty_param((f, d), dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.wi
+        h = x @ self.wi.to(x.dtype)
         if self.act == "swiglu":
-            h = F.silu(x @ self.wg) * h
+            h = F.silu(x @ self.wg.to(x.dtype)) * h
         elif self.act == "geglu":
-            h = F.gelu(x @ self.wg, approximate="tanh") * h
+            h = F.gelu(x @ self.wg.to(x.dtype), approximate="tanh") * h
         else:
             h = F.gelu(h, approximate="tanh")
-        return h @ self.wo
+        return h @ self.wo.to(h.dtype)
 
 
 class MoE(nn.Module):
@@ -270,7 +273,8 @@ class MoE(nn.Module):
         in its expert's queue, counted over the chunk's (token, choice)
         pairs in order, and a choice at slot C or past is dropped."""
         E, K = self.moe.n_experts, self.moe.top_k
-        probs = torch.softmax((xc @ self.router).float(), dim=-1)
+        probs = torch.softmax((xc @ self.router.to(xc.dtype)).float(),
+                              dim=-1)
         gate, expert = torch.topk(probs, K, dim=-1)
         gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
         onehot = F.one_hot(expert.reshape(-1), E)
@@ -279,12 +283,12 @@ class MoE(nn.Module):
 
     def experts(self, xe: torch.Tensor) -> torch.Tensor:
         """Every expert's MLP over its C slots: xe (E, C, d) -> (E, C, d)."""
-        h = torch.bmm(xe, self.wi)
+        h = torch.bmm(xe, self.wi.to(xe.dtype))
         if hasattr(self, "wg"):
-            h = F.silu(torch.bmm(xe, self.wg)) * h
+            h = F.silu(torch.bmm(xe, self.wg.to(xe.dtype))) * h
         else:
             h = F.gelu(h, approximate="tanh")
-        return torch.bmm(h, self.wo)
+        return torch.bmm(h, self.wo.to(h.dtype))
 
     def forward(self, x: torch.Tensor, *,
                 token_chunk: int = 8192) -> torch.Tensor:

@@ -75,7 +75,7 @@ class Mamba2(nn.Module):
         """(z, x, B, C, dt) of the input projection; dt is
         ``softplus(dt + dt_bias)`` in float32."""
         di, N = self.di, self.N
-        z, xin, Bc, Cc, dt = torch.split(x @ self.w_in,
+        z, xin, Bc, Cc, dt = torch.split(x @ self.w_in.to(x.dtype),
                                          [di, di, N, N, self.H], dim=-1)
         return z, xin, Bc, Cc, softplus(dt.float() + self.dt_bias)
 
@@ -93,7 +93,8 @@ class Mamba2(nn.Module):
             pad = cache.to(seq.dtype)
         full = torch.cat([pad, seq], dim=1)
         S = seq.shape[1]
-        out = sum(full[:, i:i + S] * self.conv_w[i] for i in range(K))
+        conv_w = self.conv_w.to(seq.dtype)
+        out = sum(full[:, i:i + S] * conv_w[i] for i in range(K))
         return F.silu(out), full[:, S:].clone()
 
     def _gated_out(self, y: torch.Tensor, z: torch.Tensor,
@@ -101,7 +102,7 @@ class Mamba2(nn.Module):
         """``y * silu(z)``, the gated RMSNorm (K9) and ``w_out``."""
         y = ops.rmsnorm(y * F.silu(z), self.norm_w, eps=GATED_NORM_EPS,
                         backend=backend)
-        return y @ self.w_out
+        return y @ self.w_out.to(y.dtype)
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
                 backend: str = "cuda"):

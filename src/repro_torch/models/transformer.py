@@ -14,6 +14,7 @@ slots wherever the pattern names it (the reference's ``group_body``), each
 application with its own KV cache.
 
 Entry points, as the reference's:
+  * :func:`loss_fn`     — the causal LM loss of a batch (training);
   * :func:`prefill`     — last-position logits and the caches of a prompt;
   * :func:`decode_step` — one token against the caches;
   * :func:`forward`     — the hidden states of the whole stack.
@@ -43,7 +44,19 @@ their plain versions on CPU tensors; ``"ref"`` runs the plain versions
 everywhere.  The model's device is the card unless the caller asks for
 another (``device="cpu"``, or ``"meta"`` to count parameters).
 
-Not ported yet: ``loss_fn`` and training (ROADMAP queue 1 item 12g).
+Training (:func:`loss_fn`, ``mode="train"``): the model holds float32
+masters (``Transformer(cfg, dtype=torch.float32)``, parameters made
+trainable with ``requires_grad_()``) and computes in ``dtype`` (bf16 by
+default, the reference's ``loss_fn``): each weight is cast at its use,
+where the reference casts (``.astype(x.dtype)``), the embedding rows
+gathered from the float32 table and then cast (so its gradient adds the
+repeated tokens' rows in float32), the norm weights and Mamba-2's scalars
+read in float32.  With ``cfg.remat == "block"`` each group runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference's
+``jax.checkpoint`` of ``group_body``: its activations are recomputed in
+the backward.  On the card K8 and K9 run with their backward kernels
+(``kernels.ops``); K10 has none yet and raises under autograd, so Zamba2
+trains on the CPU only (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -51,8 +64,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..core.backend.base import resolve_device
 from ..kernels import ops
@@ -262,16 +277,20 @@ def count_params(model: Transformer) -> int:
 
 
 def _embed(model, tokens: torch.Tensor, quantized: bool,
-           prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    """The prompt's embeddings in the model's dtype; an int8 model's rows
-    gathered before they are dequantized (the same bits as the
-    reference's whole dequantized table)."""
+           prefix_embeds: torch.Tensor | None = None,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The prompt's embeddings in ``dtype`` (the model's by default): the
+    rows gathered from the table and then cast, as the reference's
+    ``emb[tokens].astype(dtype)``; an int8 model's rows gathered before
+    they are dequantized (the same bits as the reference's whole
+    dequantized table)."""
+    dtype = model.dtype if dtype is None else dtype
     x = (model.embed_rows(tokens.long()) if quantized
-         else model.embed[tokens.long()]).to(model.dtype)
+         else F.embedding(tokens.long(), model.embed)).to(dtype)
     if model.cfg.tie_embeddings:
         x = x * math.sqrt(model.cfg.d_model)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(model.dtype), x], dim=1)
+        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     return x
 
 
@@ -331,16 +350,39 @@ def _check_quantized(model, quantized: bool) -> Transformer:
     return model.skeleton if quantized else model
 
 
+def _train_stack(net: Transformer, x: torch.Tensor,
+                 backend: str) -> torch.Tensor:
+    """The blocks of a training forward, group by group (each group under
+    ``torch.utils.checkpoint`` with ``remat == "block"`` while autograd
+    records): no caches are kept."""
+    blocks = net.stack()
+    n = len(group_order(net.cfg))
+    remat = net.cfg.remat == "block" and torch.is_grad_enabled()
+
+    def group(x, g):
+        for block in blocks[g * n:(g + 1) * n]:
+            x, _ = block(x, mode="train", backend=backend)
+        return x
+
+    for g in range(net.cfg.n_groups):
+        x = (checkpoint(group, x, g, use_reentrant=False) if remat
+             else group(x, g))
+    return x
+
+
 def forward(model: Transformer, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None, mode: str = "train",
             caches: list | None = None, pos: int | None = None,
             cache_len: int | None = None, backend: str = "cuda",
-            quantized: bool = False):
+            quantized: bool = False, dtype: torch.dtype | None = None):
     """Hidden states through the full stack: returns (h, caches).  Modes
-    ``"train"`` (no caches), ``"prefill"`` (the prompt's caches, one per
+    ``"train"`` (no caches; each group under checkpoint where the config's
+    ``remat`` is ``"block"``), ``"prefill"`` (the prompt's caches, one per
     block application; the KV caches ``cache_len`` slots long where given)
     and ``"decode"`` (one token at ``pos`` against ``caches``, written in
-    place).  With ``quantized``, ``model`` is the int8 model of
+    place).  ``dtype`` is the compute dtype (the model's by default: a
+    float32 model trains in bf16 with ``dtype=torch.bfloat16``).  With
+    ``quantized``, ``model`` is the int8 model of
     :func:`repro_torch.serve.quantize_params` and each block runs on its
     weights dequantized just before it."""
     net = _check_quantized(model, quantized)
@@ -348,7 +390,11 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and (caches is None or pos is None):
         raise ValueError("decode takes caches and pos")
-    x = _embed(model, tokens, quantized, prefix_embeds)
+    x = _embed(model, tokens, quantized, prefix_embeds, dtype)
+    if mode == "train" and not quantized:
+        x = _train_stack(net, x, backend)
+        return ops.rmsnorm(x, model.final_norm, eps=model.cfg.norm_eps,
+                           backend=backend), None
     # a local block's ring keeps the last positions: only the global caches
     # must hold the whole prompt
     if cache_len is not None and cache_len < x.shape[1] and any(
@@ -373,6 +419,41 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     x = ops.rmsnorm(x, model.final_norm, eps=model.cfg.norm_eps,
                     backend=backend)
     return x, (None if mode == "train" else new_caches)
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            *, prefix_embeds: torch.Tensor | None = None,
+            vocab_chunk: int = 256, dtype: torch.dtype = torch.bfloat16,
+            backend: str = "cuda") -> torch.Tensor:
+    """The causal LM loss, as the reference's ``loss_fn``: the hidden
+    states of :func:`forward` in mode ``"train"`` computing in ``dtype``,
+    the prefix's positions trimmed, then the sequence in chunks of c
+    positions (the largest divisor of S at most ``vocab_chunk``), each
+    chunk's float32 logits (after ``final_softcap``) formed under
+    ``torch.utils.checkpoint`` while autograd records, so the (B, S, vocab)
+    logits never exist at once; ``logsumexp - gold`` summed over the
+    tokens, in chunk order, and divided by B S.  A float32 scalar."""
+    h, _ = forward(model, tokens, prefix_embeds=prefix_embeds, mode="train",
+                   backend=backend, dtype=dtype)
+    npre = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    h = h[:, npre:]
+    B, S, _ = h.shape
+    c = min(vocab_chunk, S)
+    while S % c:  # largest divisor <= vocab_chunk (prefix-trimmed lengths)
+        c -= 1
+    labels = labels.long()
+
+    def chunk(hc, lc):
+        logits = _unembed(model, hc)                       # (B, c, V) f32
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for hc, lc in zip(h.split(c, dim=1), labels.split(c, dim=1)):
+        total = total + (checkpoint(chunk, hc, lc, use_reentrant=False)
+                         if remat else chunk(hc, lc))
+    return total / (B * S)
 
 
 def prefill(model: Transformer, tokens: torch.Tensor, *,

@@ -6,10 +6,18 @@ No weights are downloaded: both packages initialise from a seed.  The two
 draw different numbers from the same seed (``torch.Generator`` against
 ``jax.random``), so a comparison between them carries the reference's
 parameters over with :func:`load_reference_params`.
+
+Training (:mod:`..train`): :func:`param_tree` lays the model's parameters
+out as the reference's tree with its stacked leaves split per layer (the
+optimizer's view); :func:`load_reference_state` carries a reference
+``TrainState`` (parameters, AdamW or Adafactor state, step) across, and
+:func:`reference_tree` maps the port's gradients and optimizer state back
+onto the reference's stacked tree.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .transformer import Transformer, mixer_slots
@@ -101,3 +109,76 @@ def load_reference_params(model: Transformer, tree: dict) -> Transformer:
     if left:
         raise ValueError(f"the model has no place for {left}")
     return model
+
+
+def param_tree(model: Transformer) -> dict:
+    """The model's parameters as the reference's tree, flat: the leaf's
+    path (``"blocks/s0_attn/attn/wq"``) to the parameter, or, for a leaf
+    the reference stacks over groups, to the list of the G per-layer
+    parameters in group order; in ``named_parameters`` order."""
+    params = dict(model.named_parameters())
+    G = model.cfg.n_groups
+    tree: dict = {}
+    for name, path, g in reference_paths(model):
+        key = "/".join(path)
+        if g < 0:
+            tree[key] = params[name]
+        else:
+            tree.setdefault(key, [None] * G)[g] = params[name]
+    return tree
+
+
+def reference_tree(tree: dict) -> dict:
+    """A flat tree of :func:`param_tree`'s layout (parameters, gradients or
+    an optimizer state's leaves) as the reference's nested dicts of numpy
+    arrays, each list stacked along a new first axis."""
+    out: dict = {}
+    for key, x in tree.items():
+        a = (np.stack([_numpy(t) for t in x]) if isinstance(x, list)
+             else _numpy(x))
+        node = out
+        *head, leaf = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32 if t.is_floating_point()
+                         else t.dtype).numpy()
+
+
+@torch.no_grad()
+def _fill(tree: dict, ref: dict) -> None:
+    """Copy the reference's nested tree ``ref`` into a flat tree of the
+    port's layout, a list's layers from the stacked leaf's rows."""
+    for key, x in tree.items():
+        a = ref
+        for k in key.split("/"):
+            a = a[k]
+        a = np.asarray(a)
+        for i, t in enumerate(x if isinstance(x, list) else [x]):
+            src = a[i] if isinstance(x, list) else a
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: shape {tuple(src.shape)}, the "
+                                 f"port's is {tuple(t.shape)}")
+            t.copy_(torch.tensor(np.array(src)).to(t.dtype))
+
+
+def load_reference_state(state, ref_state):
+    """Carry the reference's ``TrainState`` (params, AdamW ``m``/``v``/
+    ``count`` or Adafactor ``vr``/``vc``/``v``/``count``, ``step``; numpy
+    or jax arrays) into the port's ``TrainState`` of the same model and
+    optimizer (:func:`..train.train_step.init_state`), in place.  Returns
+    the port's state with the reference's step."""
+    to_np = lambda tree: {k: (to_np(v) if isinstance(v, dict)
+                              else np.asarray(v)) for k, v in tree.items()}
+    load_reference_params(state.params, to_np(ref_state.params))
+    opt = state.opt
+    for field in opt._fields:
+        if field == "count":
+            opt.count.fill_(int(np.asarray(ref_state.opt.count)))
+        else:
+            _fill(getattr(opt, field), to_np(getattr(ref_state.opt, field)))
+    return type(state)(state.params, opt, int(np.asarray(ref_state.step)))

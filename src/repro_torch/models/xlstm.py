@@ -90,17 +90,18 @@ class MLSTM(nn.Module):
         log1p(exp(-|x|))``)."""
         B, S, _ = x.shape
         H, dh, _ = _dims(self.cfg)
-        q = (x @ self.wq).reshape(B, S, H, dh)
-        k = (x @ self.wk).reshape(B, S, H, dh) / _rounded(math.sqrt(dh),
-                                                          x.dtype)
-        v = (x @ self.wv).reshape(B, S, H, dh)
-        i_raw, f_raw = torch.split((x @ self.wif).float(), H, dim=-1)
+        dt = x.dtype
+        q = (x @ self.wq.to(dt)).reshape(B, S, H, dh)
+        k = (x @ self.wk.to(dt)).reshape(B, S, H, dh) / _rounded(
+            math.sqrt(dh), dt)
+        v = (x @ self.wv.to(dt)).reshape(B, S, H, dh)
+        i_raw, f_raw = torch.split((x @ self.wif.to(dt)).float(), H, dim=-1)
         return q, k, v, F.logsigmoid(f_raw), torch.exp(F.logsigmoid(i_raw))
 
     def _out(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """The output gate ``sigmoid(x @ ogate)`` (x's dtype) and ``wo``."""
-        y = y.to(x.dtype) * torch.sigmoid(x @ self.ogate)
-        return y @ self.wo
+        y = y.to(x.dtype) * torch.sigmoid(x @ self.ogate.to(x.dtype))
+        return y @ self.wo.to(x.dtype)
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False):
         """Chunked-parallel mLSTM over x (B, S, d_model), chunks of the
@@ -219,7 +220,7 @@ class SLSTM(nn.Module):
         "m"}``)."""
         B, S, d = x.shape
         H, dh, _ = _dims(self.cfg)
-        pre = (x @ self.w_in).float().view(B, S, 4, H, dh)
+        pre = (x @ self.w_in.to(x.dtype)).float().view(B, S, 4, H, dh)
         r = self.recurrence()
         state = tuple(torch.zeros((B, H, dh), dtype=torch.float32,
                                   device=x.device) for _ in range(4))
@@ -229,7 +230,7 @@ class SLSTM(nn.Module):
             for t in range(S):
                 state = self.cell(pre[:, t], state, r)
                 held[:, t] = state[0]
-        out = hs @ self.wo
+        out = hs @ self.wo.to(hs.dtype)
         if return_state:
             return out, {k: t.reshape(B, d) for k, t in zip("hcnm", state)}
         return out
@@ -239,12 +240,13 @@ class SLSTM(nn.Module):
         "m"}``, updated in place.  Returns (output, cache)."""
         B, _, d = x.shape
         H, dh, _ = _dims(self.cfg)
-        pre = (x[:, 0] @ self.w_in).float().view(B, 4, H, dh)
+        pre = (x[:, 0] @ self.w_in.to(x.dtype)).float().view(B, 4, H, dh)
         new = self.cell(pre, tuple(cache[k].view(B, H, dh) for k in "hcnm"),
                         self.recurrence())
         for k, t in zip("hcnm", new):
             cache[k].view(B, H, dh).copy_(t)
-        return new[0].reshape(B, 1, d).to(x.dtype) @ self.wo, cache
+        return (new[0].reshape(B, 1, d).to(x.dtype) @ self.wo.to(x.dtype),
+                cache)
 
 
 def init_cache(btype: str, cfg: ArchConfig, batch: int, *,

@@ -17,7 +17,10 @@ RMSNorm, K10 the SSM state scan) against their plain versions, a 2-layer
 Granite-width prefill and decode, one Zamba2-7B group, two Gemma-2 layers,
 one layer each of Llama-4 Scout and Grok-1, one xLSTM-1.3B group and two
 int8 Granite-8B layers (weights, then also the KV cache) at full width
-against the plain path.
+against the plain path; and training: K8's and K9's backward kernels
+against their plain versions, K6, K7 and K10 raising under autograd, and a
+2-layer full-width Granite loss and backward through the kernels against
+the plain path.
 """
 
 import numpy as np
@@ -1621,3 +1624,185 @@ def test_int8_granite_on_card_matches_plain_and_upfront_paths(card):
     a, b = steps["cuda"], steps["ref"]
     assert torch.isfinite(a).all()
     assert ((a - b).abs().max() / b.abs().max()).item() <= 0.1
+
+
+# ---------------------------------------------------------------------------
+# Training: K8's and K9's backward kernels, the kernels without one, a step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,window,softcap", [
+    (1, 130, 4, 2, 16, 0, 0.0), (2, 300, 4, 1, 64, 100, 30.0),
+    (1, 200, 2, 1, 112, 0, 0.0), (1, 333, 2, 2, 256, 64, 50.0),
+    (2, 257, 8, 2, 128, 0, 0.0), (1, 190, 4, 4, 96, 1, 0.0),
+    (1, 100, 2, 2, 32, 7, 20.0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_plain_version_on_card(
+        card, B, S, H, KVH, D, window, softcap, dtype):
+    """K8's backward (delta, dK/dV, dQ kernels) against the plain version
+    on the forward kernel's output and log-sum-exp: ragged S, every head
+    width, GQA 1-4, windows (1: each query sees itself alone) and
+    softcaps; float32 at 1e-5 of each gradient's largest |value|, bf16 at
+    K8's bf16 tolerance and row by row against float64; the lse the
+    forward writes against the plain version's; the forward's output the
+    same with and without lse."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    gen = torch.Generator(device=card).manual_seed(S + D)
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=card).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KVH, D), generator=gen, device=card)
+            .to(dtype) for _ in range(2))
+    lse = torch.empty((B, H, S), device=card)
+    o = flash_attention(q, k, v, softcap=softcap, window=window, lse=lse)
+    assert torch.equal(o, flash_attention(q, k, v, softcap=softcap,
+                                          window=window))
+    _, want_lse = KR.flash_attention_fwd_ref(q, k, v, softcap=softcap,
+                                             window=window)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    KL.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, softcap=softcap,
+                              window=window)
+    want = KR.flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=softcap,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["flash_attention_bwd"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            scale = max(w.abs().max().item(), 1e-30)
+            assert (g - w).abs().max().item() <= 1e-5 * max(
+                scale, max(x.abs().max().item() for x in want))
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=1e-1)
+    if dtype == torch.bfloat16:
+        # and each row against float64 over the row's norm, the kernel's
+        # mean and max within 2x the plain version's, so that rows below
+        # the atol count too; rows whose float64 norm is at most 1e-6 of
+        # the largest are left out (dq's first row; dq and dk at window 1)
+        wide = [x.double() for x in (q, k, v)]
+        e_o, e_lse = KR.flash_attention_fwd_ref(*wide, softcap=softcap,
+                                                window=window)
+        exact = KR.flash_attention_bwd_ref(*wide, e_o, e_lse, do.double(),
+                                           softcap=softcap, window=window)
+        floor = 1e-6 * max(e.norm(dim=-1).max().item() for e in exact)
+        held = 0
+        for g, w, e in zip(got, want, exact):
+            norm = e.norm(dim=-1)
+            keep = norm > floor
+            if not keep.any():
+                continue
+            held += 1
+            rel = [((x.double() - e).norm(dim=-1) / norm)[keep]
+                   for x in (g, w)]
+            for stat in (torch.mean, torch.amax):
+                kernel, plain = (stat(r).item() for r in rel)
+                assert kernel <= 2.0 * plain, (stat.__name__, kernel, plain)
+        assert held == (1 if window == 1 else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(37, 64), (1024, 4096), (5, 1028),
+                                    (300, 3584)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["rmsnorm", "residual"])
+def test_rmsnorm_backward_matches_plain_version_on_card(card, rows, d, dtype,
+                                                        residual):
+    """K9's backward (rows in CTAs, dw reduced in CTA order) against the
+    plain version; float32 at 1e-5 of each gradient's largest |value|,
+    bf16 at K9's bf16 tolerance; run twice, the same bits."""
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd,
+                                             rmsnorm_residual_bwd)
+    gen = torch.Generator(device=card).manual_seed(rows + d)
+    x, r, g, gs = (torch.randn((rows, d), generator=gen, device=card)
+                   .to(dtype) for _ in range(4))
+    w = 0.1 * torch.randn(d, generator=gen, device=card)
+
+    def run():
+        return (rmsnorm_residual_bwd(x, r, w, g, gs) if residual
+                else rmsnorm_bwd(x, w, g))
+
+    got = run()
+    want = (KR.rmsnorm_residual_bwd_ref(x, r, w, g, gs) if residual
+            else KR.rmsnorm_bwd_ref(x, w, g))
+    again = run()
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, c)
+        if dtype == torch.float32:
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+        else:
+            torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                       atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad_on_card(card):
+    """K6, K7 and K10 raise under autograd on the card, and run without."""
+    a = torch.rand((4, 3, 5), device=card) + 2.0
+    leaf = a.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="item 11b"):
+        KO.tridiag(leaf, a, a, a)
+    q = torch.rand((2, 8, 12), device=card).requires_grad_()
+    with pytest.raises(RuntimeError, match="item 11b"):
+        KO.fvt_flux(q, q.detach(), halo=3)
+    states = torch.randn((3, 1, 2, 4, 4), device=card, requires_grad=True)
+    decay = torch.rand((3, 1, 2), device=card)
+    with pytest.raises(RuntimeError, match="item 12i"):
+        KO.ssm_state_scan(states, decay)
+    with torch.no_grad():
+        KO.ssm_state_scan(states, decay)
+        KO.tridiag(leaf, a, a, a)
+
+
+@pytest.mark.cuda
+def test_granite_training_step_on_card_matches_plain_path(card):
+    """One loss and backward of 2 Granite-8B layers at full width (float32
+    masters and compute, 2 x 256 tokens) through the kernels (K8 and K9
+    forward and backward) and through the plain versions: the loss within
+    1e-5 relative, every gradient within 1e-4 of its largest |value|; then
+    a train step (grad_accum 2) moves every parameter."""
+    import dataclasses
+
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step)
+
+    cfg = dataclasses.replace(TC.get_config("granite_8b"), n_layers=2)
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=card), seed=0)
+    model.requires_grad_(True)
+    gen = torch.Generator(device=card).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), generator=gen,
+                           device=card)
+    labels = torch.randint(0, cfg.vocab, (2, 256), generator=gen,
+                           device=card)
+    out = {}
+    for backend in ("cuda", "ref"):
+        model.zero_grad(set_to_none=True)
+        KL.reset_launches()
+        loss = TM.loss_fn(model, tokens, labels, dtype=torch.float32,
+                          backend=backend)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert (KL.LAUNCHES["flash_attention_bwd"] > 0) == (backend == "cuda")
+        assert (KL.LAUNCHES["rmsnorm_residual_bwd"] > 0) == (backend ==
+                                                             "cuda")
+        out[backend] = (loss.item(), [p.grad.clone()
+                                      for p in model.parameters()])
+    (lk, gk), (lr, gr) = out["cuda"], out["ref"]
+    assert abs(lk - lr) <= 1e-5 * abs(lr)
+    for a, b in zip(gk, gr):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    before = [p.detach().clone() for p in model.parameters()]
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, TrainConfig(
+        grad_accum=2, opt=OptConfig(lr=1e-3, warmup=1)))
+    state, m = step(state, {"tokens": tokens, "labels": labels})
+    assert torch.isfinite(m["loss"]) and m["step"] == 1
+    assert all(not torch.equal(a, p) for a, p in
+               zip(before, model.parameters()))

@@ -70,7 +70,11 @@ def test_port_import_loads_no_jax():
             "repro_torch.kernels.ssm_scan, repro_torch.models.ssm, "
             "repro_torch.fv3.overlap, repro_torch.fv3.mesh, "
             "repro_torch.fv3.halo, repro_torch.core.rewrite.distributed, "
-            "repro_torch.core.orchestration, repro_torch.lint; "
+            "repro_torch.core.orchestration, repro_torch.lint, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.train.checkpoint, repro_torch.train.elastic, "
+            "repro_torch.parallel.compression, repro_torch.data.pipeline, "
+            "repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,0 +1,235 @@
+"""The backward of K8 and K9 on the CPU: the plain versions
+(``flash_attention_bwd_ref``, ``rmsnorm_bwd_ref``,
+``rmsnorm_residual_bwd_ref``) against ``jax.grad`` of the reference's
+``repro.kernels.ref`` functions, and the ``autograd.Function``s around the
+kernels (which run those plain versions on CPU tensors) against torch's
+autograd of the plain forward.  Inputs are drawn with numpy from seeds.
+
+Bars: 1e-5 of each gradient's largest |value| in float32 (the two
+frameworks sum in other orders).  The sliding window has no counterpart
+in the reference's kernel, so a window is held against the port's plain
+forward differentiated by torch.  The card's kernels are held against
+these plain versions in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as RR
+
+from repro_torch.kernels import library, ops, ref
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.kernels.rmsnorm import (RMSNorm, RMSNormResidual,
+                                         rmsnorm_bwd, rmsnorm_residual_bwd)
+
+from _torch_train_ref import one_torch_thread  # noqa: F401 (autouse)
+
+TOL = 1e-5
+
+
+def _close(a, b, tol=TOL, scale=None):
+    """|a - b| within tol of b's largest |value| (or of ``scale``)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.abs(b).max() if scale is None else scale
+    assert np.abs(a - b).max() <= tol * scale, (np.abs(a - b).max(), scale)
+
+
+def _qkv(B, S, H, KVH, D, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in (
+        (B, S, H, D), (B, S, KVH, D), (B, S, KVH, D), (B, S, H, D)))
+    return q, k, v, do
+
+
+ATTN = [  # B, S, H, KVH, D, softcap
+    (2, 48, 4, 4, 16, 0.0),
+    (1, 64, 4, 2, 32, 0.0),
+    (2, 40, 6, 2, 16, 30.0),
+    (1, 33, 8, 1, 64, 50.0),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,cap", ATTN)
+def test_flash_attention_bwd_ref_matches_jax_grad(B, S, H, KVH, D, cap):
+    q, k, v, do = _qkv(B, S, H, KVH, D, seed=S + H)
+    f = lambda q, k, v: jnp.sum(RR.flash_attention_ref(q, k, v, softcap=cap)
+                                * do)
+    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = ref.flash_attention_fwd_ref(tq, tk, tv, softcap=cap)
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, softcap=cap)
+    for g, w in zip(got, want):
+        _close(g, w)
+    # the forward's output is the reference's, and lse its log-sum-exp
+    _close(o, RR.flash_attention_ref(q, k, v, softcap=cap))
+    s = np.einsum("bqhd,bkhd->bhqk", q, np.repeat(k, H // KVH, 2)) \
+        / math.sqrt(D)
+    if cap:
+        s = cap * np.tanh(s / cap)
+    s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    _close(lse, (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0])
+
+
+@pytest.mark.parametrize("window,cap", [(5, 0.0), (16, 30.0), (1, 0.0),
+                                        (100, 0.0)])
+def test_flash_attention_bwd_ref_window_matches_torch_autograd(window, cap):
+    q, k, v, do = map(torch.from_numpy, _qkv(2, 50, 4, 2, 16, seed=window))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = ref.flash_attention_ref(q, k, v, softcap=cap, window=window)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    o, lse = ref.flash_attention_fwd_ref(q.detach(), k.detach(), v.detach(),
+                                         softcap=cap, window=window)
+    got = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o,
+                                      lse, do, softcap=cap, window=window)
+    # window 1: each query sees itself alone, and dq = dk = 0; a gradient
+    # that is 0 is held at the bar of the largest of the three
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        _close(g, w, scale=float(w.abs().max()) or scale)
+
+
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["rmsnorm", "residual"])
+@pytest.mark.parametrize("rows,d", [(7, 32), (24, 96)])
+def test_rmsnorm_bwd_ref_matches_jax_grad(rows, d, residual):
+    rng = np.random.default_rng(rows * d)
+    x, r, g, gs = (rng.standard_normal((rows, d)).astype(np.float32)
+                   for _ in range(4))
+    w = (0.3 * rng.standard_normal(d)).astype(np.float32)
+    tx, tr, tw, tg, tgs = map(torch.from_numpy, (x, r, w, g, gs))
+    if residual:
+        def f(x, r, w):
+            o, s = RR.rmsnorm_residual_ref(x, r, w)
+            return jnp.sum(o * g) + jnp.sum(s * gs)
+        dx, dr, dw = jax.grad(f, argnums=(0, 1, 2))(x, r, w)
+        _close(dx, dr)
+        got = ref.rmsnorm_residual_bwd_ref(tx, tr, tw, tg, tgs)
+    else:
+        dx, dw = jax.grad(lambda x, w: jnp.sum(RR.rmsnorm_ref(x, w) * g),
+                          argnums=(0, 1))(x, w)
+        got = ref.rmsnorm_bwd_ref(tx, tw, tg)
+    _close(got[0], dx)
+    _close(got[1], dw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (0, 30.0), (9, 0.0)])
+def test_flash_attention_function_on_cpu(dtype, window, cap):
+    """The Function (the plain forward with lse, the plain backward) against
+    torch's autograd of the plain forward: equal in float32 to round-off;
+    in bf16 the backward rounds P to bf16 before P^T dO (as the card's K8
+    rounds P before P V) where autograd of the plain forward does not, so
+    dv is held at a bf16 bar."""
+    q, k, v, do = (torch.from_numpy(t).to(dtype)
+                   for t in _qkv(2, 40, 4, 2, 32, seed=window + 3))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = FlashAttention.apply(*leaves, cap, window)
+    got = torch.autograd.grad(o, leaves, do)
+    leaves2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    o2 = ref.flash_attention_ref(*leaves2, softcap=cap, window=window)
+    want = torch.autograd.grad(o2, leaves2, do)
+    assert torch.equal(o, o2)
+    tol = TOL if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        _close(g.float(), w.float(), tol)
+    # ops.flash_attention takes the Function under autograd only
+    assert ops.flash_attention(*leaves, softcap=cap, window=window).grad_fn \
+        is not None
+    with torch.no_grad():
+        assert ops.flash_attention(*leaves, softcap=cap,
+                                   window=window).grad_fn is None
+
+
+def test_flash_attention_lse_on_cpu():
+    q, k, v, do = map(torch.from_numpy, _qkv(1, 20, 2, 1, 16, seed=1))
+    lse = torch.empty(1, 2, 20)
+    o = flash_attention(q, k, v, softcap=20.0, window=6, lse=lse)
+    o2, lse2 = ref.flash_attention_fwd_ref(q, k, v, softcap=20.0, window=6)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    got = flash_attention_bwd(q, k, v, o, lse, do, softcap=20.0, window=6)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=20.0,
+                                       window=6)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention(q, k, v, lse=torch.empty(1, 20, 2))
+
+
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["rmsnorm", "residual"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rmsnorm_functions_on_cpu(dtype, residual):
+    rng = np.random.default_rng(5)
+    x, r, g, gs = (torch.from_numpy(rng.standard_normal((3, 6, 64))
+                                    .astype(np.float32)).to(dtype)
+                   for _ in range(4))
+    w = torch.from_numpy((0.2 * rng.standard_normal(64)).astype(np.float32))
+    mk = lambda: [t.clone().requires_grad_() for t in (x, r, w)]
+    a, b = mk(), mk()
+    if residual:
+        o, s = RMSNormResidual.apply(*a, 1e-5)
+        got = torch.autograd.grad((o.float() * g.float()).sum()
+                                  + (s.float() * gs.float()).sum(), a)
+        o2, s2 = ref.rmsnorm_residual_ref(*b)
+        want = torch.autograd.grad((o2.float() * g.float()).sum()
+                                   + (s2.float() * gs.float()).sum(), b)
+        assert torch.equal(o, o2) and torch.equal(s, s2)
+    else:
+        o = RMSNorm.apply(a[0], a[2], 1e-5)
+        got = torch.autograd.grad(o, (a[0], a[2]), g)
+        o2 = ref.rmsnorm_ref(b[0], b[2])
+        want = torch.autograd.grad(o2, (b[0], b[2]), g)
+        assert torch.equal(o, o2)
+    tol = TOL if dtype == torch.float32 else 1e-2
+    for gg, ww in zip(got, want):
+        assert gg.dtype == ww.dtype
+        _close(gg.float(), ww.float(), tol)
+    # the wrappers: the plain backward on CPU tensors
+    if residual:
+        dx, dw = rmsnorm_residual_bwd(x, r, w, g, gs)
+        want = ref.rmsnorm_residual_bwd_ref(x, r, w, g, gs)
+    else:
+        dx, dw = rmsnorm_bwd(x, w, g)
+        want = ref.rmsnorm_bwd_ref(x, w, g)
+    assert torch.equal(dx, want[0]) and torch.equal(dw, want[1])
+
+
+def test_rmsnorm_ops_take_the_function_under_autograd_only():
+    x = torch.randn(4, 32, requires_grad=True)
+    w = torch.zeros(32)
+    assert ops.rmsnorm(x, w).grad_fn is not None
+    assert ops.rmsnorm_residual(x, x.detach(), w)[0].grad_fn is not None
+    with torch.no_grad():
+        assert ops.rmsnorm(x, w).grad_fn is None
+    assert ops.rmsnorm(x.detach(), w).grad_fn is None
+
+
+def test_kernels_without_a_backward_refuse_grad():
+    """K6, K7 and K10 run on the card only without autograd: their wrappers
+    raise (naming the ROADMAP item) where an input requires grad under grad
+    mode, and pass otherwise; on the CPU the plain versions differentiate."""
+    a = torch.ones(3, requires_grad=True)
+    for name, item in (("tridiag", "11b"), ("fvt_flux", "11b"),
+                       ("ssm_state_scan", "12i")):
+        with pytest.raises(RuntimeError, match=f"{name}.*item {item}"):
+            library.refuse_grad(name, f"item {item}", a)
+        library.refuse_grad(name, f"item {item}", a.detach())
+        with torch.no_grad():
+            library.refuse_grad(name, f"item {item}", a)
+    states = torch.randn(3, 1, 2, 4, 4, requires_grad=True)
+    decay = torch.rand(3, 1, 2)
+    out = ops.ssm_state_scan(states, decay)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert states.grad is not None
