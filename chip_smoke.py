@@ -375,12 +375,17 @@ TRAIN_WARMUP = 100
 TRAIN_PARITY = {"layers": 2, "B": 2, "S": 2048}
 TRAIN_LOSS_REL = 1e-5        # float32: the loss, relative
 TRAIN_GRAD_REL = 1e-4        # float32: each gradient, of its max |value|
-# K8's backward at Granite's prefill shape and Gemma-2's (window 4096,
-# softcap 50); K9's at a prefill's rows of Granite's width
+# K8's backward at Granite's prefill shape, Gemma-2's (window 4096,
+# softcap 50) and the shape the Granite training step launches it at
+# (TRAIN's micro-batch: 4 x 4096, so dK and dV sum H / KVH x S = 16384
+# query rows in the accumulator); K9's at a prefill's rows of Granite's
+# width
 BWD_FA = ({"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128, "window": 0,
            "softcap": 0.0},
           {"B": 4, "S": 6144, "H": 8, "KVH": 4, "D": 256, "window": 4096,
-           "softcap": 50.0})
+           "softcap": 50.0},
+          {"B": TRAIN["B"] // TRAIN["accum"], "S": TRAIN["S"], "H": 32,
+           "KVH": 8, "D": 128, "window": 0, "softcap": 0.0})
 BWD_NORM = (16384, 4096)
 TRAIN_GROUPS = (
     ("K8 backward (flash_attention_bwd_*)", ("flash_attention_bwd",)),
@@ -1993,19 +1998,28 @@ def sass_counts(lib: Path, function: str | tuple, keys: tuple) -> dict:
     return out
 
 
+#: K8's tensor-core kernels whose SASS is counted: the forwards' and the
+#: bf16 backward's (by the substring of their mangled names)
+K8_SASS = (("bf16", "flash_attention_wgmma_kernel"),
+           ("f32", "flash_attention_fwd_kernel"),
+           ("bf16 backward dK/dV", "flash_attention_bwd_wgmma_dkdv_kernel"),
+           ("bf16 backward dQ", "flash_attention_bwd_wgmma_dq_kernel"))
+
+
 def k8_sass_report(lib: Path) -> dict:
     """HGMMA (``wgmma``), UTMA* (TMA loads and stores), SYNCS* (mbarrier
-    operations) and LDL/STL (local memory) in the SASS of each K8 kernel's
-    instances, summed: {"bf16": {...}, "f32": {...}}."""
+    operations) and LDL/STL (local memory) in the SASS of each kernel of
+    :data:`K8_SASS`: {kind: {"total": {...} over its instances,
+    "instances": {mangled name: {...}}}}."""
     keys = ("HGMMA", "UTMA", "SYNCS", "LDL", "STL")
     out = {}
-    for dtype, fn in (("bf16", "flash_attention_wgmma_kernel"),
-                      ("f32", "flash_attention_fwd_kernel")):
+    for kind, fn in K8_SASS:
+        found = sass_counts(lib, fn, keys)
         total = dict.fromkeys(keys, 0)
-        for counts in sass_counts(lib, fn, keys).values():
+        for counts in found.values():
             for key in keys:
                 total[key] += counts[key]
-        out[dtype] = total
+        out[kind] = {"total": total, "instances": found}
     return out
 
 
@@ -2052,7 +2066,9 @@ def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
                       (fv3_lib, ("tridiag_kernel",)),
                       (lm_lib, ("rmsnorm_kernel", "rmsnorm_bwd_kernel",
                                 "flash_attention_bwd_dkdv_kernel",
-                                "flash_attention_bwd_dq_kernel"))):
+                                "flash_attention_bwd_dq_kernel",
+                                "flash_attention_bwd_wgmma_dkdv_kernel",
+                                "flash_attention_bwd_wgmma_dq_kernel"))):
         log = (path.parent / "build.log").read_text()
         sass = sass_counts(path, fns, ("LDL", "STL", "BRX"))
         for fn in fns:
@@ -2069,8 +2085,9 @@ def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
                     types = re.search(fn + r"I(\w+?)Lb", name)
                     args = [K9_TYPES.get(types.group(1), types.group(1))
                             ] + args
-                elif fn.startswith("flash_attention_bwd"):  # <T, D>
-                    args = ["bf16" if "I4bf16" in name else "float"] + args
+                elif "wgmma" in fn:  # <DP, DN, window>
+                    args = args[:2] + ["window" if args[2] == "true"
+                                       else "causal"]
                 counts = sass.get(name, {})
                 print(f"[build] {fn}<{', '.join(args)}>: {regs} registers, "
                       f"stack frame {frame} B, spill stores {st} B, spill "
@@ -3319,10 +3336,13 @@ def backward_phase(device) -> dict:
     bf16 tolerances and, row by row against float64, within
     :data:`FA_F64_FACTOR` of the plain version (K8: the forward kernel's o
     and lse into the backward kernel against the plain forward's into the
-    plain backward); the lse K8's forward writes against the plain
-    forward's at :data:`LSE_TOL`; each timed beside the plain version, its
-    bound and one library call: SDPA's forward and backward through
-    autograd for K8, ``F.rms_norm``'s backward for K9."""
+    plain backward; K8's mean also within it of the same equations with dS
+    kept in float32, the plain version's ``round_ds=False``); the lse K8's
+    forward writes against the plain forward's at :data:`LSE_TOL`; each
+    timed beside the plain version, its bound and one library call: SDPA's
+    backward alone through autograd on a kept forward graph for K8 (its
+    forward and backward printed beside it), ``F.rms_norm``'s backward for
+    K9."""
     import torch
     import torch.nn.functional as F
 
@@ -3376,7 +3396,7 @@ def backward_phase(device) -> dict:
             # one batch entry at a time for the plain runs ((H, S, S)
             # scores: 1.1 GB in float64 at Granite's shape)
             errs, chained, err = None, [0.0, 0.0, 0.0], 0.0
-            kstats, pstats, cstats = [None] * 3, [None] * 3, [None] * 3
+            kstats, pstats, cstats, ustats = ([None] * 3 for _ in range(4))
             for b in range(B):
                 one = tuple(x[b:b + 1] for x in (q, k, v))
                 plain = KR.flash_attention_bwd_ref(
@@ -3413,6 +3433,11 @@ def backward_phase(device) -> dict:
                     same = KR.flash_attention_bwd_ref(
                         *one, o[b:b + 1], lse[b:b + 1], do[b:b + 1],
                         softcap=cap, window=window)
+                    # the same equations with dS kept in float32: what
+                    # rounding dS to enter the tensor cores costs
+                    unround = KR.flash_attention_bwd_ref(
+                        *one, o[b:b + 1], lse[b:b + 1], do[b:b + 1],
+                        softcap=cap, window=window, round_ds=False)
                     for i, e in enumerate(exact):
                         mine = got[i][b:b + 1]
                         err = max(err, check_close(
@@ -3424,7 +3449,9 @@ def backward_phase(device) -> dict:
                             same[i], e, floor))
                         cstats[i] = merge_stats(cstats[i], row_stats(
                             plain[i], e, floor))
-                    del same
+                        ustats[i] = merge_stats(ustats[i], row_stats(
+                            unround[i], e, floor))
+                    del same, unround
                 del plain, exact, e_o, e_lse
             lse_detail = (f"lse {lse_err:.3e} from the plain forward's "
                           f"(rtol {LSE_TOL[0]:g} + atol {LSE_TOL[1]:g}), "
@@ -3463,13 +3490,27 @@ def backward_phase(device) -> dict:
                             f"{label} d{'qkv'[i]}: training's chain mean "
                             f"row error against float64 {km:.3e}, beyond "
                             f"{FA_F64_FACTOR:g}x the plain path's {cm:.3e}")
+                # the bar that does not move with the plain version's own
+                # rounding of dS: the equations with dS in float32
+                unround_mean = [ustats[i][0] / ustats[i][1]
+                                for i in range(3)]
+                for i, um in enumerate(unround_mean):
+                    km = kstats[i][0] / kstats[i][1]
+                    if not km <= FA_F64_FACTOR * um:
+                        raise RuntimeError(
+                            f"{label} d{'qkv'[i]}: mean row error against "
+                            f"float64 {km:.3e}, beyond {FA_F64_FACTOR:g}x "
+                            f"the unrounded-dS equations' {um:.3e}")
                 rtol, atol = FA_TOL[name]
                 detail = f"tol rtol {rtol:g} + atol {atol:g}; " + ", ".join(
                     f"d{'qkv'[i]} row/|row| against float64 mean kernel "
                     f"{h['mean'][0]:.3e} plain {h['mean'][1]:.3e}, max "
                     f"kernel {h['max'][0]:.3e} plain {h['max'][1]:.3e}"
                     for i, h in enumerate(held))
-                detail += (f" (bar {FA_F64_FACTOR:g}x plain); the plain "
+                detail += (f" (bar {FA_F64_FACTOR:g}x plain); with dS "
+                           f"unrounded mean " + ", ".join(
+                               f"{um:.3e}" for um in unround_mean)
+                           + f" (bar {FA_F64_FACTOR:g}x); the plain "
                            f"path's chain mean " + ", ".join(
                                f"{cm:.3e}" for _, cm in chain_mean)
                            + f" (bar {FA_F64_FACTOR:g}x), max "
@@ -3501,15 +3542,19 @@ def backward_phase(device) -> dict:
             keep = (KR.attention_mask(S, window, device) if window else None)
             dot = do.transpose(1, 2)
 
-            def sdpa():
-                y = (F.scaled_dot_product_attention(
+            def sdpa_fwd():
+                return (F.scaled_dot_product_attention(
                     *leaves, is_causal=True, enable_gqa=True) if keep is None
                     else F.scaled_dot_product_attention(
                         *leaves, attn_mask=keep, enable_gqa=True))
-                torch.autograd.grad(y, leaves, dot)
 
-            lib_ms = cuda_ms(sdpa, 3)
-            del leaves, keep, dot
+            pair_ms = cuda_ms(lambda: torch.autograd.grad(
+                sdpa_fwd(), leaves, dot), 3)
+            # SDPA's backward alone: its graph kept from one forward
+            kept = sdpa_fwd()
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                kept, leaves, dot, retain_graph=True), 3)
+            del leaves, keep, dot, kept
             # bytes: q, k, v, o, dO read once, dq, dk, dv written once;
             # operations: the five products over the kept pairs (S and dP
             # recomputed, dV, dK, dQ), 2 D flops each a pair
@@ -3530,9 +3575,12 @@ def backward_phase(device) -> dict:
                   f"lse {fwd['lse']:.4f}) plain_ms={plain_ms:.4f} bound_ms="
                   f"{1e3 * max(t_b, t_o):.4f} ({out['K8'][-1]['bound_by']}; "
                   f"{bwd_ops:.3e} flops at {rate / 1e12:g} TFLOP/s, "
-                  f"{bwd_bytes / 1e6:.1f} MB) library_ms={lib_ms:.4f} "
-                  f"(F.scaled_dot_product_attention forward + backward"
-                  f"{', the window as a mask, no softcap' if window else ''})",
+                  f"{bwd_bytes / 1e6:.1f} MB; the backward runs "
+                  f"{bwd_ops / ms / 1e9:.1f} TFLOP/s of those 5 products) "
+                  f"library_ms={lib_ms:.4f} (F.scaled_dot_product_attention"
+                  f"'s backward alone, on a kept forward graph; its forward "
+                  f"+ backward {pair_ms:.4f}"
+                  f"{'; the window as a mask, no softcap' if window else ''})",
                   flush=True)
             del q, k, v, o, lse, do
             torch.cuda.empty_cache()
@@ -3923,15 +3971,18 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                      rec["name"])
         if count is not None:
             rec["train_launches"] = train["launches"][count]
-    bwd_names = ("flash_attention_bwd_dkdv_kernel, flash_attention_bwd_dq_"
-                 "kernel, flash_attention_bwd_delta_kernel")
+    bwd_names = {
+        "bfloat16": "flash_attention_bwd_wgmma_dkdv_kernel, flash_attention_"
+                    "bwd_wgmma_dq_kernel, flash_attention_bwd_rows_kernel",
+        "float32": "flash_attention_bwd_dkdv_kernel, flash_attention_bwd_dq_"
+                   "kernel, flash_attention_bwd_delta_kernel"}
     for dtype, launches in (
             ("bfloat16", train["launches"]["flash_attention_bwd"]),
             ("float32", parity["launches_f32"]["flash_attention_bwd"])):
         mine = [r for r in bwd["K8"] if r["dtype"] == dtype]
         head = mine[0]  # Granite's shape, BWD_FA's first
         kernels.append({
-            "name": f"{bwd_names} ({dtype})", "route": "cuda",
+            "name": f"{bwd_names[dtype]} ({dtype})", "route": "cuda",
             "source": LM_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:21",
             "note": "K8's backward; the reference differentiates its jnp "
@@ -3996,16 +4047,25 @@ def main() -> int:
                 print(f"[build] {lib.stem}: {line.strip()}")
     build_report(*libs)
     sass = k8_sass_report(libs[2])
-    for dtype, fn in (("bf16", "flash_attention_wgmma_kernel"),
-                      ("f32", "flash_attention_fwd_kernel")):
-        c = sass[dtype]
+    for kind, fn in K8_SASS:
+        c = sass[kind]["total"]
         print(f"[build] K8 {fn} SASS: {c['HGMMA']} HGMMA (wgmma), "
               f"{c['UTMA']} UTMA* (TMA), {c['SYNCS']} SYNCS* (mbarrier), "
               f"{c['LDL']} LDL, {c['STL']} STL instructions over its "
-              "instances")
+              f"{len(sass[kind]['instances'])} instances")
         if c["HGMMA"] == 0:
             raise RuntimeError(f"{fn} issues no wgmma")
-    if sass["f32"]["LDL"] or sass["f32"]["STL"]:
+    # the bf16 backward: wgmma in every instance, no local memory
+    for kind in ("bf16 backward dK/dV", "bf16 backward dQ"):
+        found = sass[kind]["instances"]
+        if len(found) != 10:
+            raise RuntimeError(f"K8 {kind}: {len(found)} instances in the "
+                               "SASS, not 5 widths x causal/window")
+        for name, c in found.items():
+            if c["HGMMA"] == 0 or c["LDL"] or c["STL"]:
+                raise RuntimeError(f"{name}: {c['HGMMA']} HGMMA, "
+                                   f"{c['LDL']} LDL, {c['STL']} STL")
+    if sass["f32"]["total"]["LDL"] or sass["f32"]["total"]["STL"]:
         raise RuntimeError("flash_attention_fwd_kernel uses local memory")
     for kind, regs, st, ld, stack in k8_build_report(
             (libs[2].parent / "build.log").read_text()):

@@ -1,5 +1,6 @@
-// Hand-written Hopper kernels of the LM serving path
-// (repro_torch/kernels/ops.py, called by repro_torch/models/):
+// Hand-written Hopper kernels of the LM serving and training paths
+// (repro_torch/kernels/ops.py, called by repro_torch/models/; under
+// autograd the Functions of kernels/flash_attention.py and rmsnorm.py):
 //
 //   flash_attention_wgmma_kernel (bf16),
 //   flash_attention_fwd_kernel (f32)
@@ -10,6 +11,9 @@
 //   rmsnorm_kernel<.., true>   <- same file, _kernel_residual (:25-32)  K9
 //   ssm_state_scan_kernel      <- src/repro/kernels/ssm_scan.py
 //                                 _kernel (:23-32)                      K10
+//   flash_attention_bwd_*, rmsnorm_bwd_*
+//                              <- none: the backward of K8 and K9 (the
+//                                 reference differentiates its jnp)
 //
 // K8, causal attention over the whole prompt, forward, with GQA, an
 // optional tanh softcap and an optional sliding window.  q is (B, S, H, D)
@@ -142,6 +146,86 @@
 // needs setmaxnreg, under which ptxas spills the consumer; three register
 // buffers spill at D 112.)
 
+// K8's backward: three launches, a memory-bound first one that reads O
+// and dO once for delta = rowsum(dO O), then dK/dV and dQ.  The first is
+// flash_attention_bwd_rows_kernel in bf16 (delta and the forward's lse laid
+// out in 64-row tiles, below) and flash_attention_bwd_delta_kernel in
+// float32 (delta (B, H, S) alone).
+// Bound: S and dP recomputed and dV, dK and dQ are 5 products, 10 B H D
+// flops a kept (query, key) pair: 6.875e11 at Granite-8B's training shape
+// (8, 2048, 32/8, 128), 0.695 ms at 989 TFLOP/s bf16.  The design runs 7:
+// dQ's kernel computes S and dP again rather than sum dQ over key tiles
+// with float atomics, whose order, and so the bits, would change from run
+// to run (a floor of 0.973 ms).  No atomics: the same inputs give the same
+// bits.
+//
+// bfloat16, flash_attention_bwd_wgmma_{dkdv,dq}_kernel<DP, DN, kWindow>:
+// every product on the tensor cores (wgmma, bf16 in, f32 sums), with the
+// forward's machinery: TMA tiles (encode_bhsd's rank-4 maps, which
+// zero-fill rows past S and columns past D, so every D of HEAD_DIMS runs
+// on tiles padded to DP) in the 128-byte swizzle, mbarrier rings with no
+// __syncthreads in the loops, two consumer warpgroups at 240 registers
+// and a producer warpgroup at 24 (setmaxnreg), persistent CTAs that walk
+// pairs of tiles of equal work (fa_next_tile), a causal and a window
+// instance each:
+//  - dK/dV, keys as the products' M: a CTA owns 128 keys of one (b, kv
+//    head) (64 at DP 256), loads K and V once, and walks every query head
+//    of the group in order, each from the key tile's causal start to the
+//    window's upper edge, so the heads sum in registers in one fixed order.
+//    Q and dO tiles of 64 rows come through a ring of 3 stages (2 at DP
+//    256), and beside them their rows' lse and delta: one 512-byte bulk
+//    copy (cp.async.bulk, issued by the producer's one thread on the same
+//    full mbarrier) of the 64-row tile that flash_attention_bwd_rows_kernel
+//    wrote.  That layout is why bf16 has a rows kernel of its own: lse
+//    rows of a (b, h) start at (b H + h) S floats, and a TMA box or bulk
+//    copy that starts off 16 bytes faults.  Per query tile:
+//    S^T = K Q^T and dP^T = V dO^T (SS, both K-major), P^T = exp(s - lse)
+//    (exp2 with log2 e folded in, after the softcap; 0 where hidden) and
+//    dS^T = P^T (dP^T - delta) (1 - t^2) in f32 registers, both rounded to
+//    bf16 where the accumulator's layout is the A fragment, then
+//    dV += P^T dO and dK += dS^T Q (RS, dO and Q read MN-major, as the
+//    forward reads V).  Registers at D 128: S^T 32, dP^T 32, dV 64 and dK
+//    64 a thread.  At D 256 dK and dV of 64 keys would take 256, so each
+//    warpgroup keeps 128 of the 256 columns of the same 64 keys and
+//    computes S^T and dP^T itself, over all 256 columns: 1.5x the products
+//    of the split, but the warpgroups never wait for each other.  Passing
+//    P^T and dS^T through shared memory instead would add a handshake in
+//    every tile, and their 16 KB: K, V, two ring stages and the dK/dV
+//    staging already take 226 KB of the 227 there.  Key tiles pair
+//    (nk - 1 - i, i): key tile 0 sees every query tile, the last one.
+//  - dQ: the forward's CTA, 128 query rows of one (b, h) in two warpgroups
+//    of 64, over key tiles of 64 keys (32 at DP 256, where Q and dO of 128
+//    rows take 128 KB) from the window's lower edge to the causal frontier
+//    through a ring of 4 stages (2 at DP 256); S = Q K^T and dP = dO V^T
+//    (SS), dS in registers rounded to bf16 as the A fragment, dQ += dS K
+//    (RS, K MN-major).  Registers at D 128: S 32, dP 32, dQ 64.  (Tiles of
+//    128 keys, 192 a thread, made ptxas serialize the wgmma and spill.)
+//    lse and delta of a thread's two rows, read once from the rows
+//    kernel's tiles, stay in registers.
+//  - Rows and keys past S: TMA zero-fills Q, dO, K and V there, but a row's
+//    lse and delta would read another row's (or 0, and exp(s - 0) can
+//    overflow into inf * 0): P is set to 0 for every row or key past S,
+//    not only on the diagonal.
+//  - Epilogue: dK and dQ scaled once by 1/sqrt(D), each gradient rounded
+//    once to bf16 into a swizzled staging buffer and written by TMA
+//    stores, which drop rows past S and columns past D.
+//  - Numerics: dS is rounded to bf16 to enter wgmma, as FlashAttention 2
+//    and 3 do; the plain version's bf16 branch rounds it too (after
+//    forming it from the unrounded P, which it rounds before P^T dO as the
+//    forward rounds it before P V).  dK and dV sum up to H / KVH x S rows
+//    straight in the accumulator, whose adds truncate (see the f32
+//    forward): some 2^-24 relative a k16 step, ~3e-5 over the 8192 rows
+//    of Granite-8B's (8, 2048, 32/8) and ~6e-5 over the 16384 of its
+//    training step's (4, 4096), far below the 2^-9 of their bf16
+//    rounding; the rows against float64 in chip_smoke.py, held at both
+//    shapes, land where the plain version's do.
+// float32, flash_attention_bwd_{delta,dkdv,dq}_kernel (dK/dV and dQ
+// instantiated by D; float only): the products on f32 FMAs (fab_scores).  .tf32 wgmma reads only K-major operands, so
+// P^T dO, dS^T Q and dS K would each need a transposed TF32 hi/lo copy in
+// shared memory; that instance runs twice a parity step and keeps its own
+// design until then.  The dispatch by dtype is explicit
+// (launch_flash_attention_bwd): a bf16 tensor never reaches it.
+//
 // K9, RMSNorm with a (1 + w) scale over the last axis of (rows, d), in f32:
 // o = x * (1 / sqrt(mean(x^2) + eps)) * (1 + w) in x's dtype; the residual
 // variant sums s = x + r in f32, writes s rounded to x's dtype as the new
@@ -354,15 +438,17 @@ __device__ __forceinline__ void wgmma_pin(uint32_t (&a)[N][4]) {
 #define WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define WG_F16(d, i) \
   WG_F4(d, i), WG_F4(d, i + 4), WG_F4(d, i + 8), WG_F4(d, i + 12)
+#define WG_D8(d) WG_F4(d, 0), WG_F4(d, 4)
+#define WG_D16(d) WG_F16(d, 0)
 #define WG_D32(d) WG_F16(d, 0), WG_F16(d, 16)
 #define WG_D48(d) WG_D32(d), WG_F16(d, 32)
 #define WG_D56(d) WG_D48(d), WG_F4(d, 48), WG_F4(d, 52)
 #define WG_D64(d) WG_D32(d), WG_F16(d, 32), WG_F16(d, 48)
 #define WG_D128(d) \
   WG_D64(d), WG_F16(d, 64), WG_F16(d, 80), WG_F16(d, 96), WG_F16(d, 112)
-#define WG_L32 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+#define WG_L8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_L16 WG_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_L32 WG_L16 ", " \
   "%16, %17, %18, %19, %20, %21, %22, %23, " \
   "%24, %25, %26, %27, %28, %29, %30, %31"
 #define WG_L48 WG_L32 ", " \
@@ -407,10 +493,12 @@ __device__ __forceinline__ void wgmma_pin(uint32_t (&a)[N][4]) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    WGMMA_SS(32, 16, 16, 17, 18);
+  } else if constexpr (N == 64) {
     WGMMA_SS(64, 32, 32, 33, 34);
   } else {
-    static_assert(N == 128, "S tiles are 64 or 128 keys");
+    static_assert(N == 128, "S tiles are 32, 64 or 128 keys");
     WGMMA_SS(128, 64, 64, 65, 66);
   }
 }
@@ -1186,11 +1274,6 @@ __device__ __forceinline__ void put_v(const float4 (&x)[16], uint32_t dst,
   }
 }
 
-// the m64nN f32 accumulators of 16 and 8 registers
-#define WG_D8(d) WG_F4(d, 0), WG_F4(d, 4)
-#define WG_D16(d) WG_F16(d, 0)
-#define WG_L8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define WG_L16 WG_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 
 // d += A B for one k8 step of .tf32 operands (f32 accumulation), m64nN with
 // NA = N/2 accumulator registers.  WGMMA_TF32_SS reads A and B through
@@ -1973,7 +2056,8 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 
 // ---------------------------------------------------------------------------
 // K8 backward (no TPU counterpart: the reference differentiates its jnp
-// attention with XLA)
+// attention with XLA), float32: delta, dK/dV and dQ on f32 FMAs (the bf16
+// kernels follow)
 // ---------------------------------------------------------------------------
 
 // four consecutive elements as f32 (16 bytes of f32, 8 of bf16), and back
@@ -1990,9 +2074,6 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 __device__ __forceinline__ void store4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v.x, v.y),
                                             bf16_pair(v.z, v.w));
-}
-__device__ __forceinline__ float round_bf16(float x) {
-  return __uint_as_float(f32_to_bf16_bits(x) << 16);
 }
 
 // the backward's tiles: BQ query rows and BK keys, rows of Q, dO, K and V
@@ -2013,8 +2094,8 @@ struct FaBwd {
 
 // rows 0 .. ROWS - 1 of a (rows, D) slice at src, ld elements apart, into
 // shared memory as f32 (stride LD); rows at `valid` or past are zeros
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void fab_load(float* dst, const T* src,
+template <int D, int ROWS>
+__device__ __forceinline__ void fab_load(float* dst, const float* src,
                                          long long ld, int valid) {
   constexpr int LD = FaBwd<D>::LD;
   for (int i = threadIdx.x; i < ROWS * (D / 4); i += FaBwd<D>::THREADS) {
@@ -2032,9 +2113,8 @@ __device__ __forceinline__ void fab_load(float* dst, const T* src,
 // visible (causal, and inside the window), else 0, and the gradient of the
 // raw score dS = P (dP - delta) (1 - (s / cap)^2); the factor `scale` of
 // dQ and dK is applied once at their end.  Writes dS and, with kStoreP,
-// P (rounded to bf16 with kRoundP: the forward rounds P before P V) to
-// shared memory.
-template <int D, bool kStoreP, bool kRoundP>
+// P to shared memory.
+template <int D, bool kStoreP>
 __device__ __forceinline__ void fab_scores(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* lse_s, const float* delta_s, float* Ps, float* dSs, int q0,
@@ -2098,16 +2178,15 @@ __device__ __forceinline__ void fab_scores(
       }
       const float p = keep ? expf(sv - lse_r) : 0.f;
       dSs[r * C::LP + c] = p * (dp[i][j] - delta_r) * dcap;
-      if (kStoreP) Ps[r * C::LP + c] = kRoundP ? round_bf16(p) : p;
+      if (kStoreP) Ps[r * C::LP + c] = p;
     }
   }
 }
 
-// delta = rowsum(dO O) of every (b, s, h) row: one warp a row, f32
-template <typename T>
+// delta = rowsum(dO O) of every (b, s, h) row: one warp a row
 __global__ void __launch_bounds__(256)
-    flash_attention_bwd_delta_kernel(const T* __restrict__ o,
-                                     const T* __restrict__ dout,
+    flash_attention_bwd_delta_kernel(const float* __restrict__ o,
+                                     const float* __restrict__ dout,
                                      float* __restrict__ delta, int S, int H,
                                      int D, long long rows) {
   const long long row = static_cast<long long>(blockIdx.x) * 8 +
@@ -2141,13 +2220,13 @@ __global__ void __launch_bounds__(256)
 // query tile's 64 rows are summed apart and then added to the running
 // sums, so a sum's rounding error grows with 64 and the tile count, not
 // with every row of up to 4 heads x S
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
     flash_attention_bwd_dkdv_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const T* __restrict__ dout,
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KVH,
+        float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KVH,
         float scale, float softcap, int window) {
   using C = FaBwd<D>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
@@ -2194,9 +2273,8 @@ __global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
         delta_s[tid] = row < S ? delta[at] : 0.f;
       }
       __syncthreads();
-      fab_scores<D, true, sizeof(T) == 2>(Qs, dOs, Ks, Vs, lse_s, delta_s,
-                                          Ps, dSs, q0, k0, S, window, scale,
-                                          softcap);
+      fab_scores<D, true>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0,
+                          S, window, scale, softcap);
       __syncthreads();
       float dk_t[KR][NCOL][4], dv_t[KR][NCOL][4];  // this tile's sums
 #pragma unroll
@@ -2267,13 +2345,13 @@ __global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
 // tiles from the window's lower edge to the causal frontier, dQ += dS K
 // summed in registers (thread: rows qy + 8 i, columns 4 qx + 128 c), each
 // key tile's sum apart and then added (as dK and dV's query tiles)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
     flash_attention_bwd_dq_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const T* __restrict__ dout,
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        T* __restrict__ dq, int S, int H, int KVH, float scale,
+        float* __restrict__ dq, int S, int H, int KVH, float scale,
         float softcap, int window) {
   using C = FaBwd<D>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
@@ -2318,8 +2396,8 @@ __global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
     fab_load<D, BK>(Ks, k + kv0, kv_ld, S - k0);
     fab_load<D, BK>(Vs, v + kv0, kv_ld, S - k0);
     __syncthreads();
-    fab_scores<D, false, false>(Qs, dOs, Ks, Vs, lse_s, delta_s, nullptr,
-                                dSs, q0, k0, S, window, scale, softcap);
+    fab_scores<D, false>(Qs, dOs, Ks, Vs, lse_s, delta_s, nullptr, dSs, q0,
+                         k0, S, window, scale, softcap);
     __syncthreads();
     float part[QR][NCOL][4];  // this key tile's sums
 #pragma unroll
@@ -2371,29 +2449,29 @@ __global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
   }
 }
 
-template <typename T, int D>
+template <int D>
 static int launch_fa_bwd(const void* q, const void* k, const void* v,
                          const void* o, const float* lse, const void* dout,
                          void* dq, void* dk, void* dv, float* delta, int B,
                          int S, int H, int KVH, float softcap, int window,
                          cudaStream_t stream) {
   using C = FaBwd<D>;
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   if (B == 0 || S == 0) return 0;
   const long long rows = static_cast<long long>(B) * S * H;
   if ((rows + 7) / 8 > 2147483647LL || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + 7) / 8),
-                                        256, 0, stream>>>(
-      static_cast<const T*>(o), do_, delta, S, H, D, rows);
+  flash_attention_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256,
+                                     0, stream>>>(
+      static_cast<const float*>(o), do_, delta, S, H, D, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto dkdv = flash_attention_bwd_dkdv_kernel<T, D>;
-  auto dqk = flash_attention_bwd_dq_kernel<T, D>;
+  auto dkdv = flash_attention_bwd_dkdv_kernel<D>;
+  auto dqk = flash_attention_bwd_dq_kernel<D>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::SMEM);
   if (err == cudaSuccess)
@@ -2404,18 +2482,17 @@ static int launch_fa_bwd(const void* q, const void* k, const void* v,
   // nq - 1 every key
   const dim3 kgrid((S + C::BK - 1) / C::BK, KVH, B);
   dkdv<<<kgrid, C::THREADS, C::SMEM, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, KVH, scale, softcap, window);
+      q_, k_, v_, do_, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, H, KVH, scale, softcap, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 qgrid((S + C::BQ - 1) / C::BQ, H, B);
-  dqk<<<qgrid, C::THREADS, C::SMEM, stream>>>(q_, k_, v_, do_, lse, delta,
-                                              static_cast<T*>(dq), S, H, KVH,
-                                              scale, softcap, window);
+  dqk<<<qgrid, C::THREADS, C::SMEM, stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<float*>(dq), S, H, KVH, scale,
+      softcap, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 static int dispatch_fa_bwd(const void* q, const void* k, const void* v,
                            const void* o, const float* lse, const void* dout,
                            void* dq, void* dk, void* dv, float* delta, int B,
@@ -2423,8 +2500,8 @@ static int dispatch_fa_bwd(const void* q, const void* k, const void* v,
                            int window, cudaStream_t st) {
 #define FA_BWD(DD)                                                        \
   case DD:                                                                \
-    return launch_fa_bwd<T, DD>(q, k, v, o, lse, dout, dq, dk, dv, delta, \
-                                B, S, H, KVH, softcap, window, st)
+    return launch_fa_bwd<DD>(q, k, v, o, lse, dout, dq, dk, dv, delta, \
+                             B, S, H, KVH, softcap, window, st)
   switch (D) {
     FA_BWD(16);
     FA_BWD(32);
@@ -2436,6 +2513,692 @@ static int dispatch_fa_bwd(const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FA_BWD
+}
+
+// ---------------------------------------------------------------------------
+// K8 backward, bfloat16: wgmma, TMA and an mbarrier ring
+// ---------------------------------------------------------------------------
+
+// lse and delta of every (b, h) in tiles of 64 rows, side by side: rows
+// s of (b, h) at rows[(b H + h) 2 S64 + 128 (s / 64) + s % 64] (lse) and 64
+// further (delta), S64 = S rounded up to 64, 0 past S; so a query tile's
+// 512 bytes are one aligned bulk copy.  delta = rowsum(dO O) in f32, one
+// warp a (b, s, h) row, s in S .. S64 - 1 written as 0 (a hidden row's
+// P = 0 there, and 0 (dP - 0) stays 0)
+__global__ void __launch_bounds__(256)
+    flash_attention_bwd_rows_kernel(const bf16* __restrict__ o,
+                                    const bf16* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    float* __restrict__ rows, int S, int S64,
+                                    int H, int D, long long n) {
+  const long long row = static_cast<long long>(blockIdx.x) * 8 +
+                        threadIdx.x / 32;  // (b S64 + s) H + h
+  const int lane = threadIdx.x % 32;
+  if (row >= n) return;
+  const long long bs = row / H;
+  const int h = static_cast<int>(row % H);
+  const long long b = bs / S64;
+  const int s = static_cast<int>(bs % S64);
+  float acc = 0.f, l = 0.f;
+  if (s < S) {
+    const long long at = ((b * S + s) * H + h) * D;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const float4 a = load4(o + at + c), g = load4(dout + at + c);
+      acc = fmaf(a.x, g.x, acc);
+      acc = fmaf(a.y, g.y, acc);
+      acc = fmaf(a.z, g.z, acc);
+      acc = fmaf(a.w, g.w, acc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    l = lse[(b * H + h) * S + s];
+  }
+  if (lane == 0) {
+    float* t = rows + (b * H + h) * 2 * S64 + 128 * (s / 64) + s % 64;
+    t[0] = l;
+    t[64] = acc;
+  }
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory into
+// shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the dK/dV kernel's tiles: a CTA owns BKV keys of one (b, kv head) and
+// walks query tiles of BQ rows; two consumer warpgroups own 64 keys each
+// (DP <= 128) or the same 64 keys and 128 columns each (DP = 256)
+template <int DP>
+struct FabDkdv {
+  static constexpr int BKV = DP > 128 ? 64 : 128;  // keys of a CTA
+  static constexpr int BQ = 64;                     // rows of a query tile
+  static constexpr int STAGES = DP > 128 ? 2 : 3;   // Q/dO ring depth
+  static constexpr int NB = DP / 64;                // 64-column blocks
+  static constexpr int KV_BYTES = BKV * DP * 2;     // the K or the V tile
+  static constexpr int QT_BYTES = BQ * DP * 2;      // a Q or a dO tile
+  static constexpr int ROW_BYTES = BQ * 4;          // a tile's lse or delta
+  static constexpr int O_COLS = DP > 128 ? 128 : DP;
+  static constexpr int O_BYTES = 64 * O_COLS * 2;   // one warpgroup's staging
+  static constexpr int THREADS = 3 * 128;
+  // 1 KB of slack to align the swizzled tiles, K, V, the Q and dO rings,
+  // the dK/dV staging, the lse/delta ring and the barriers
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * QT_BYTES +
+                              2 * O_BYTES + 2 * STAGES * ROW_BYTES + 256;
+};
+
+// the dQ kernel's tiles: a CTA owns BQ query rows of one (b, h), two
+// consumer warpgroups of 64, and walks key tiles of BK keys
+template <int DP>
+struct FabDq {
+  static constexpr int BQ = 128;
+  static constexpr int BK = DP > 128 ? 32 : 64;   // keys per tile
+  static constexpr int STAGES = DP > 128 ? 2 : 4;  // K/V ring depth
+  static constexpr int NB = DP / 64;
+  static constexpr int Q_BYTES = BQ * DP * 2;     // the Q or the dO tile
+  static constexpr int KV_BYTES = BK * DP * 2;    // one K or V tile
+  static constexpr int O_COLS = DP > 128 ? 128 : DP;
+  static constexpr int O_BYTES = 64 * O_COLS * 2;
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 2 * O_BYTES + 256;
+};
+
+// x, hidden from the compiler: what is formed from it is formed where it
+// is used, not held in registers across a loop
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// the probability of one score and the factor of its softcap: raw = q.k
+// unscaled, nl = -lse log2 e; P = exp(s - lse) = 2^(raw c + nl) with
+// c = scale log2 e, or with a softcap s = cap t, t = tanh(raw scale / cap),
+// P = 2^(s log2 e + nl) and dc = 1 - t^2 (else 1)
+__device__ __forceinline__ float fab_prob(float raw, float nl, float c,
+                                          float softcap, float to_cap,
+                                          float& dc) {
+  if (softcap > 0.f) {
+    const float t = tanh_fast(raw * to_cap);
+    dc = 1.f - t * t;
+    return ex2_approx(fmaf(softcap * t, FA_LOG2E, nl));
+  }
+  dc = 1.f;
+  return ex2_approx(fmaf(raw, c, nl));
+}
+
+// 64 rows of one warpgroup's f32 accumulator (N / 2 registers a thread,
+// rows rr and rr + 8, columns 8 j + c2 + {0, 1}) times `mul`, rounded once
+// to bf16 into the warpgroup's staging buffer (128-byte swizzle) and
+// written by TMA stores of 64 columns from column n0 of rows row0 .. of
+// (b, head), which drop rows >= S and columns >= D; up to 128 columns a
+// pass, each first waiting until the previous stores have read the buffer.
+// Named barrier 3 + wg syncs the warpgroup's 128 threads.
+template <int N>
+__device__ __forceinline__ void fab_store(const float (&acc)[N / 2],
+                                          float mul, uint32_t so_wg,
+                                          const CUtensorMap* map, int n0,
+                                          int head, int row0, int b, int D,
+                                          int wg, int tid) {
+  const int rr = 16 * (tid / 32) + (tid % 32) / 4, c2 = 2 * (tid % 4);
+#pragma unroll
+  for (int pass = 0; pass < N / 8; pass += 16) {
+    if (tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(3 + wg) : "memory");
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rr + 8 * r;
+#pragma unroll
+      for (int jj = 0; jj < 16 && pass + jj < N / 8; ++jj) {
+        const int j = pass + jj;
+        const uint32_t dst = so_wg + (jj / 8) * 64 * 128 + row * 128 +
+                             (((jj % 8) ^ (row % 8)) * 16) + c2 * 2;
+        const uint32_t val = pack_bf16x2(acc[4 * j + 2 * r] * mul,
+                                         acc[4 * j + 2 * r + 1] * mul);
+        asm volatile("st.shared.u32 [%0], %1;" ::"r"(dst), "r"(val)
+                     : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(3 + wg) : "memory");
+    if (tid == 0) {
+      for (int c = 0; c < 2 && 8 * pass + 64 * c < N; ++c)
+        if (n0 + 8 * pass + 64 * c < D)
+          tma_store_4d(map, so_wg + c * 64 * 128, n0 + 8 * pass + 64 * c,
+                       head, row0, b);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+}
+
+// dK and dV of BKV keys of one (b, kv head), the keys as the products' M:
+// the CTA walks every query head of the kv head's group in order and, for
+// each, the query tiles from the key tile's causal start to the window's
+// upper edge; for each, S^T = K Q^T and dP^T = V dO^T (both SS, K-major),
+// P^T = exp(s - lse) and dS^T = P^T (dP^T - delta) (1 - t^2) in f32
+// registers, both rounded to bf16 where the accumulator's layout is the A
+// fragment, then dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major).
+// The heads and tiles sum in one fixed order, without atomics.  Persistent:
+// a CTA walks units of two key tiles (nk - 1 - i, i) of one (b, kv head),
+// which see the same number of query tiles (fa_next_tile).  DN: the
+// products' width over D, as the forward's.
+template <int DP, int DN, bool kWindow>
+__global__ void __launch_bounds__(FabDkdv<DP>::THREADS, 1)
+    flash_attention_bwd_wgmma_dkdv_kernel(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo,
+        const __grid_constant__ CUtensorMap tdk,
+        const __grid_constant__ CUtensorMap tdv,
+        const float* __restrict__ rows, int B, int S, int H, int KVH, int D,
+        float scale, float softcap, int window) {
+  using T = FabDkdv<DP>;
+  constexpr int BKV = T::BKV, BQ = T::BQ, ST = T::STAGES, NB = T::NB;
+  // a warpgroup's keys start KR rows into the K tile; its dK/dV columns
+  // are NW wide (DN, or its half of 256)
+  constexpr int KR = DP > 128 ? 0 : 64;
+  constexpr int NW = DP > 128 ? 128 : DN;
+  extern __shared__ uint8_t fa_raw[];
+  const uint32_t sk = (smem_u32(fa_raw) + 1023) & ~1023u;  // K
+  const uint32_t sv = sk + T::KV_BYTES;                    // V
+  const uint32_t sq = sv + T::KV_BYTES;                    // Q ring
+  const uint32_t sdo = sq + ST * T::QT_BYTES;              // dO ring
+  const uint32_t so = sdo + ST * T::QT_BYTES;              // staging [2]
+  const uint32_t srow = so + 2 * T::O_BYTES;  // [ST] lse, then delta
+  const uint32_t kv_full = srow + 2 * ST * T::ROW_BYTES;
+  const uint32_t kv_empty = kv_full + 8;
+  const uint32_t full = kv_empty + 8;   // [ST] a query tile landed
+  const uint32_t empty = full + 8 * ST;  // [ST] consumers done with it
+
+  const int nk = (S + BKV - 1) / BKV;  // key tiles of a kv head
+  const int n_units = B * KVH * ((nk + 1) / 2);
+  const int rep = H / KVH;
+  const int wg = threadIdx.x / 128;
+  auto q_end = [&](int k0) {  // query rows that see a key of the tile
+    return kWindow ? min(S, k0 + BKV - 1 + window) : S;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 2 * 128);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread.  Per key tile: K and V once the consumers are
+    // done with the last ones, then every query tile's Q, dO and its rows'
+    // lse and delta (one bulk copy of their 64-row tile) through the ring,
+    // a stage refilled once both consumer warpgroups released it
+    regs_dealloc<24>();
+    if (threadIdx.x != 256) return;
+    const int S64 = (S + 63) / 64 * 64;
+    int items = 0, g = 0, b, kvh, kt;
+    for (int j = 0; fa_next_tile(j, nk, n_units, KVH, b, kvh, kt); ++j) {
+      const int k0 = kt * BKV, qe = q_end(k0);
+      if (items > 0) mbar_wait(kv_empty, (items - 1) & 1);
+      mbar_expect_tx(kv_full, 2 * T::KV_BYTES);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(sk + c * BKV * 128, &tk, kv_full, 64 * c, kvh, k0, b);
+        tma_load_4d(sv + c * BKV * 128, &tv, kv_full, 64 * c, kvh, k0, b);
+      }
+      for (int hr = 0; hr < rep; ++hr) {
+        const int h = kvh * rep + hr;
+        const float* hrows =
+            rows + (static_cast<long long>(b) * H + h) * 2 * S64;
+        for (int q0 = k0; q0 < qe; q0 += BQ, ++g) {
+          const int s = g % ST;
+          if (g >= ST) mbar_wait(empty + 8 * s, ((g / ST) - 1) & 1);
+          const uint32_t f = full + 8 * s;
+          mbar_expect_tx(f, 2 * T::QT_BYTES + 2 * T::ROW_BYTES);
+          for (int c = 0; c < NB; ++c) {
+            tma_load_4d(sq + s * T::QT_BYTES + c * BQ * 128, &tq, f, 64 * c,
+                        h, q0, b);
+            tma_load_4d(sdo + s * T::QT_BYTES + c * BQ * 128, &tdo, f,
+                        64 * c, h, q0, b);
+          }
+          bulk_load(srow + s * 2 * T::ROW_BYTES, hrows + 2 * q0,
+                    2 * T::ROW_BYTES, f);
+        }
+      }
+      ++items;
+    }
+    return;
+  }
+
+  // consumers: this thread holds keys key0 and key0 + 8 of its
+  // warpgroup's 64 and, of the query tile, columns 8 j + c2 + {0, 1}
+  regs_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int c2 = 2 * (tid % 4);
+  const int rr = 16 * (tid / 32) + (tid % 32) / 4;
+  const uint32_t ka0 = sk + wg * KR * 128, va0 = sv + wg * KR * 128;
+  const int n0 = DP > 128 ? 128 * wg : 0;  // first dK/dV column
+  const uint32_t nb = (n0 / 64) * BQ * 128;  // its offset in a Q/dO tile
+  const float c = scale * FA_LOG2E;
+  const float to_cap = softcap > 0.f ? scale / softcap : 0.f;
+  float dv[NW / 2], dk[NW / 2];
+  int items = 0, g = 0, b, kvh, kt;
+  for (int j = 0; fa_next_tile(j, nk, n_units, KVH, b, kvh, kt);
+       ++j, ++items) {
+    const int k0 = kt * BKV, wk0 = k0 + wg * KR, qe = q_end(k0);
+    const int key0 = wk0 + rr;
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) dv[i] = dk[i] = 0.f;
+    mbar_wait(kv_full, items & 1);
+    for (int hr = 0; hr < rep; ++hr) {
+      for (int q0 = k0; q0 < qe; q0 += BQ, ++g) {
+        const int s = g % ST;
+        mbar_wait(full + 8 * s, (g / ST) & 1);
+        // no key of this warpgroup visible to a row of the tile
+        const bool skip = wk0 >= S || q0 + BQ - 1 < wk0 ||
+                          (kWindow && wk0 + 63 + window <= q0);
+        if (!skip) {
+          const uint32_t ka = opaque(ka0), va = opaque(va0);
+          const uint32_t qb = sq + s * T::QT_BYTES;
+          const uint32_t dob = sdo + s * T::QT_BYTES;
+          const uint32_t ls = srow + s * 2 * T::ROW_BYTES;
+          float st[32], dpt[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DN / 16; ++kk) {
+            const uint32_t o = (kk % 4) * 32;
+            wgmma_ss<64>(st,
+                         wgmma_desc(ka + (kk / 4) * BKV * 128 + o, 16, 1024),
+                         wgmma_desc(qb + (kk / 4) * BQ * 128 + o, 16, 1024),
+                         kk > 0);
+          }
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < DN / 16; ++kk) {
+            const uint32_t o = (kk % 4) * 32;
+            wgmma_ss<64>(dpt,
+                         wgmma_desc(va + (kk / 4) * BKV * 128 + o, 16, 1024),
+                         wgmma_desc(dob + (kk / 4) * BQ * 128 + o, 16, 1024),
+                         kk > 0);
+          }
+          wgmma_commit();
+          // a key past a row, a key or a row past S, or (kWindow) a key at
+          // or below a row's window edge: P = 0
+          const bool edge = q0 < wk0 + 63 || q0 + BQ > S || wk0 + 64 > S ||
+                            (kWindow && wk0 + window <= q0 + BQ - 1);
+          uint32_t pa[4][4], da[4][4];
+          wgmma_wait<1>();  // S^T is done, dP^T may still run
+          wgmma_pin(st);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 L = lds_f2(ls + 4 * (8 * jj + c2));
+            const float nl[2] = {-L.x * FA_LOG2E, -L.y * FA_LOG2E};
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float p[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * jj + 2 * r + e;
+                float dc;
+                p[e] = fab_prob(st[i], nl[e], c, softcap, to_cap, dc);
+                if (edge) {
+                  const int key = key0 + 8 * r, row = q0 + 8 * jj + c2 + e;
+                  if (key > row || row >= S || key >= S ||
+                      (kWindow && key + window <= row))
+                    p[e] = 0.f;
+                }
+                st[i] = p[e] * dc;
+              }
+              pa[jj / 2][2 * (jj % 2) + r] = pack_bf16x2(p[0], p[1]);
+            }
+          }
+          wgmma_wait<0>();
+          wgmma_pin(dpt);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 dl = lds_f2(ls + T::ROW_BYTES + 4 * (8 * jj + c2));
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * jj + 2 * r;
+              da[jj / 2][2 * (jj % 2) + r] =
+                  pack_bf16x2(st[i] * (dpt[i] - dl.x),
+                              st[i + 1] * (dpt[i + 1] - dl.y));
+            }
+          }
+          // dV += P^T dO, dK += dS^T Q over the tile's 64 rows, 4 k16
+          // steps: dO and Q are the B operand in their MN-major form
+          wgmma_pin(dv);
+          wgmma_pin(dk);
+          wgmma_pin(pa);
+          wgmma_pin(da);
+          wgmma_fence();
+#pragma unroll
+          for (int kt4 = 0; kt4 < 4; ++kt4)
+            wgmma_rs<NW>(dv, pa[kt4],
+                         wgmma_desc(dob + nb + kt4 * 16 * 128, BQ * 128,
+                                    1024));
+#pragma unroll
+          for (int kt4 = 0; kt4 < 4; ++kt4)
+            wgmma_rs<NW>(dk, da[kt4],
+                         wgmma_desc(qb + nb + kt4 * 16 * 128, BQ * 128,
+                                    1024));
+          wgmma_commit();
+          wgmma_wait<0>();
+          wgmma_pin(dv);
+          wgmma_pin(dk);
+        }
+        mbar_arrive(empty + 8 * s);
+      }
+    }
+    // every product with this K and V is done: the next may load
+    mbar_arrive(kv_empty);
+    const uint32_t so_wg = so + wg * T::O_BYTES;
+    fab_store<NW>(dv, 1.f, so_wg, &tdv, n0, kvh, wk0, b, D, wg, tid);
+    fab_store<NW>(dk, scale, so_wg, &tdk, n0, kvh, wk0, b, D, wg, tid);
+  }
+  // the staging buffers stay until the last stores have read them
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// dQ of BQ query rows of one (b, h), the forward's tiles and walk: query
+// tiles in pairs (nq - 1 - i, i) (fa_next_tile), each over the key tiles
+// from the window's lower edge to its causal frontier; for each, S = Q K^T
+// and dP = dO V^T (SS), dS = P (dP - delta) (1 - t^2) in f32 registers,
+// rounded to bf16 as the A fragment, then dQ += dS K (RS, K MN-major).
+// lse and delta of the thread's two rows (from the rows kernel's tiles)
+// stay in registers (a row past S: lse +inf, so P = 0 before the mask).
+template <int DP, int DN, bool kWindow>
+__global__ void __launch_bounds__(FabDq<DP>::THREADS, 1)
+    flash_attention_bwd_wgmma_dq_kernel(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo,
+        const __grid_constant__ CUtensorMap tdq,
+        const float* __restrict__ rows, int B, int S, int H, int KVH, int D,
+        float scale, float softcap, int window) {
+  using T = FabDq<DP>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, NB = T::NB;
+  extern __shared__ uint8_t fa_raw[];
+  const uint32_t sq = (smem_u32(fa_raw) + 1023) & ~1023u;  // Q
+  const uint32_t sdo = sq + T::Q_BYTES;                    // dO
+  const uint32_t sk = sdo + T::Q_BYTES;                    // K ring
+  const uint32_t sv = sk + ST * T::KV_BYTES;               // V ring
+  const uint32_t so = sv + ST * T::KV_BYTES;               // staging [2]
+  const uint32_t q_full = so + 2 * T::O_BYTES;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t kv_full = q_empty + 8;     // [ST]
+  const uint32_t kv_empty = kv_full + 8 * ST;  // [ST]
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int n_units = B * H * ((nq + 1) / 2);
+  const int wg = threadIdx.x / 128;
+  auto key_hi = [&](int qt) { return (min(qt * BQ + BQ, S) + BK - 1) / BK; };
+  auto key_lo = [&](int qt) {
+    return kWindow ? max(0, qt * BQ - window + 1) / BK : 0;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2 * 128);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: per query tile its first K/V tile, then Q and dO once the
+    // consumers are done with the last ones, then the other K/V tiles
+    regs_dealloc<24>();
+    if (threadIdx.x != 256) return;
+    auto load_kv = [&](int g, int t, int kvh, int b) {
+      const int s = g % ST;
+      if (g >= ST) mbar_wait(kv_empty + 8 * s, ((g / ST) - 1) & 1);
+      mbar_expect_tx(kv_full + 8 * s, 2 * T::KV_BYTES);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(sk + s * T::KV_BYTES + c * BK * 128, &tk,
+                    kv_full + 8 * s, 64 * c, kvh, t * BK, b);
+        tma_load_4d(sv + s * T::KV_BYTES + c * BK * 128, &tv,
+                    kv_full + 8 * s, 64 * c, kvh, t * BK, b);
+      }
+    };
+    int items = 0, tiles = 0, b, h, qt;
+    for (int j = 0; fa_next_tile(j, nq, n_units, H, b, h, qt); ++j) {
+      const int kvh = h / (H / KVH), lo = key_lo(qt);
+      const int n_tiles = key_hi(qt) - lo;
+      load_kv(tiles, lo, kvh, b);
+      if (items > 0) mbar_wait(q_empty, (items - 1) & 1);
+      mbar_expect_tx(q_full, 2 * T::Q_BYTES);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(sq + c * BQ * 128, &tq, q_full, 64 * c, h, qt * BQ, b);
+        tma_load_4d(sdo + c * BQ * 128, &tdo, q_full, 64 * c, h, qt * BQ,
+                    b);
+      }
+      for (int t = 1; t < n_tiles; ++t) load_kv(tiles + t, lo + t, kvh, b);
+      tiles += n_tiles;
+      ++items;
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows wq0 .. wq0 + 63 of a query tile; this
+  // thread rows row0 and row0 + 8, at columns 8 j + c2 + {0, 1}
+  regs_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int c2 = 2 * (tid % 4);
+  const int rr = 16 * (tid / 32) + (tid % 32) / 4;
+  const uint32_t qa0 = sq + wg * 64 * 128, doa0 = sdo + wg * 64 * 128;
+  const float c = scale * FA_LOG2E;
+  const float to_cap = softcap > 0.f ? scale / softcap : 0.f;
+  float dq[DN / 2];
+  int items = 0, tiles = 0, b, h, qt;
+  for (int j = 0; fa_next_tile(j, nq, n_units, H, b, h, qt); ++j, ++items) {
+    const int wq0 = qt * BQ + 64 * wg, row0 = wq0 + rr;
+    const int lo = key_lo(qt), n_tiles = key_hi(qt) - lo;
+    float nl[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r, S64 = (S + 63) / 64 * 64;
+      const float* at = rows + (static_cast<long long>(b) * H + h) * 2 * S64 +
+                        128 * (row / 64) + row % 64;
+      nl[r] = row < S ? -at[0] * FA_LOG2E : FA_MINUS_INF;
+      dl[r] = row < S ? at[64] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) dq[i] = 0.f;
+    mbar_wait(q_full, items & 1);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int g = tiles + t, s = g % ST, k0 = (lo + t) * BK;
+      mbar_wait(kv_full + 8 * s, (g / ST) & 1);
+      const bool skip = wq0 >= S || k0 > wq0 + 63 ||
+                        (kWindow && k0 + BK - 1 + window <= wq0);
+      const uint32_t kb = sk + s * T::KV_BYTES, vb = sv + s * T::KV_BYTES;
+      float sc[BK / 2], dp[BK / 2];
+      if (!skip) {
+        const uint32_t qa = opaque(qa0), doa = opaque(doa0);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DN / 16; ++kk) {
+          const uint32_t o = (kk % 4) * 32;
+          wgmma_ss<BK>(sc, wgmma_desc(qa + (kk / 4) * BQ * 128 + o, 16, 1024),
+                       wgmma_desc(kb + (kk / 4) * BK * 128 + o, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DN / 16; ++kk) {
+          const uint32_t o = (kk % 4) * 32;
+          wgmma_ss<BK>(dp,
+                       wgmma_desc(doa + (kk / 4) * BQ * 128 + o, 16, 1024),
+                       wgmma_desc(vb + (kk / 4) * BK * 128 + o, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+        const bool edge = k0 + BK - 1 > wq0 || wq0 + 64 > S ||
+                          (kWindow && k0 + window <= wq0 + 63);
+        wgmma_wait<1>();
+        wgmma_pin(sc);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int r = (i / 2) % 2;
+          float dc;
+          float p = fab_prob(sc[i], nl[r], c, softcap, to_cap, dc);
+          if (edge) {
+            const int key = k0 + 8 * (i / 4) + c2 + (i % 2);
+            const int row = row0 + 8 * r;
+            if (key > row || row >= S || (kWindow && key + window <= row))
+              p = 0.f;
+          }
+          sc[i] = p * dc;
+        }
+        wgmma_wait<0>();
+        wgmma_pin(dp);
+      }
+      // the last products with Q and dO are done: the next may load
+      if (t == n_tiles - 1) mbar_arrive(q_empty);
+      if (!skip) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] *= dp[i] - dl[(i / 2) % 2];
+        uint32_t da[BK / 16][4];
+        pack_p<BK>(da, sc);
+        wgmma_pin(dq);
+        wgmma_pin(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < BK / 16; ++kt)
+          wgmma_rs<DN>(dq, da[kt],
+                       wgmma_desc(kb + kt * 16 * 128, BK * 128, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_pin(dq);
+      }
+      mbar_arrive(kv_empty + 8 * s);
+    }
+    tiles += n_tiles;
+    fab_store<DN>(dq, scale, so + wg * T::O_BYTES, &tdq, 0, h, wq0, b, D, wg,
+                  tid);
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// one persistent kernel's launch: its shared memory, and a grid of one CTA
+// per SM or one per unit of work, whichever is fewer
+template <typename K, typename... Args>
+static int launch_persistent(K kernel, int smem, long long units,
+                             cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (units > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  kernel<<<grid, 3 * 128, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 backward: the rows' lse and delta in tiles (into `rows`, 2 B H
+// S64 floats), then dK/dV, then dQ
+template <int DP, int DN>
+static int launch_fab_wgmma(const void* q, const void* k, const void* v,
+                            const void* o, const float* lse,
+                            const void* dout, void* dq, void* dk, void* dv,
+                            float* rows, int B, int S, int H, int KVH,
+                            int D, float softcap, int window,
+                            cudaStream_t stream) {
+  using TK = FabDkdv<DP>;
+  using TQ = FabDq<DP>;
+  if (B == 0 || S == 0) return 0;
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return FA_NO_ENCODER;
+  CUtensorMap mq, mdo, mk, mv, mdk, mdv, nq, ndo, nk, nv, mdq;
+  int rc = encode_bhsd(encode, &mq, q, B, S, H, D, TK::BQ);
+  if (rc == 0) rc = encode_bhsd(encode, &mdo, dout, B, S, H, D, TK::BQ);
+  if (rc == 0) rc = encode_bhsd(encode, &mk, k, B, S, KVH, D, TK::BKV);
+  if (rc == 0) rc = encode_bhsd(encode, &mv, v, B, S, KVH, D, TK::BKV);
+  if (rc == 0) rc = encode_bhsd(encode, &mdk, dk, B, S, KVH, D, 64);
+  if (rc == 0) rc = encode_bhsd(encode, &mdv, dv, B, S, KVH, D, 64);
+  if (rc == 0) rc = encode_bhsd(encode, &nq, q, B, S, H, D, TQ::BQ);
+  if (rc == 0) rc = encode_bhsd(encode, &ndo, dout, B, S, H, D, TQ::BQ);
+  if (rc == 0) rc = encode_bhsd(encode, &nk, k, B, S, KVH, D, TQ::BK);
+  if (rc == 0) rc = encode_bhsd(encode, &nv, v, B, S, KVH, D, TQ::BK);
+  if (rc == 0) rc = encode_bhsd(encode, &mdq, dq, B, S, H, D, 64);
+  if (rc != 0) return rc;
+  const int S64 = (S + 63) / 64 * 64;
+  const long long n = static_cast<long long>(B) * S64 * H;
+  if ((n + 7) / 8 > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_bwd_rows_kernel<<<static_cast<unsigned>((n + 7) / 8), 256,
+                                    0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, rows,
+      S, S64, H, D, n);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  // a window of S keys or more is no window: the causal instances
+  const bool win = window > 0 && window < S;
+  const long long kv_units = static_cast<long long>(B) * KVH *
+                             (((S + TK::BKV - 1) / TK::BKV + 1) / 2);
+  rc = launch_persistent(
+      win ? flash_attention_bwd_wgmma_dkdv_kernel<DP, DN, true>
+          : flash_attention_bwd_wgmma_dkdv_kernel<DP, DN, false>,
+      TK::SMEM, kv_units, stream, mq, mk, mv, mdo, mdk, mdv,
+      static_cast<const float*>(rows), B, S, H, KVH, D, scale, softcap,
+      window);
+  if (rc != 0) return rc;
+  const long long q_units = static_cast<long long>(B) * H *
+                            (((S + TQ::BQ - 1) / TQ::BQ + 1) / 2);
+  return launch_persistent(
+      win ? flash_attention_bwd_wgmma_dq_kernel<DP, DN, true>
+          : flash_attention_bwd_wgmma_dq_kernel<DP, DN, false>,
+      TQ::SMEM, q_units, stream, nq, nk, nv, ndo, mdq,
+      static_cast<const float*>(rows), B, S, H, KVH, D, scale, softcap,
+      window);
+}
+
+static int dispatch_fab_wgmma(const void* q, const void* k, const void* v,
+                              const void* o, const float* lse,
+                              const void* dout, void* dq, void* dk, void* dv,
+                              float* rows, int B, int S, int H, int KVH,
+                              int D, float softcap, int window,
+                              cudaStream_t st) {
+#define FAB_WGMMA(DP, DN)                                                  \
+  return launch_fab_wgmma<DP, DN>(q, k, v, o, lse, dout, dq, dk, dv, rows,  \
+                                  B, S, H, KVH, D, softcap, window, st)
+  switch (D) {
+    case 16:
+    case 32:
+    case 64: FAB_WGMMA(64, 64);
+    case 96: FAB_WGMMA(128, 96);
+    case 112: FAB_WGMMA(128, 112);
+    case 128: FAB_WGMMA(128, 128);
+    case 256: FAB_WGMMA(256, 256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FAB_WGMMA
 }
 
 // ---------------------------------------------------------------------------
@@ -2671,9 +3434,14 @@ int launch_ssm_state_scan(const void* states, const void* decay, void* out,
 }
 
 // the K8 backward: q, dq (B, S, H, D), k, v, dk, dv (B, S, KVH, D), o and
-// dout like q, lse and delta (B, H, S) f32 (lse from the forward, delta
-// scratch); the forward's shapes, window and softcap.  Three launches:
-// delta = rowsum(dO O), dK/dV, dQ.
+// dout like q, lse (B, H, S) f32 from the forward, delta f32 scratch of
+// 2 B H S64 values, S64 = S rounded up to 64 (float32: delta (B, H, S) in
+// its first B H S; bfloat16: each 64-row tile's lse and delta side by
+// side); the forward's shapes, window and softcap.  Three launches:
+// delta = rowsum(dO O), dK/dV, dQ.  The dtype picks the kernels: float32
+// flash_attention_bwd_{delta,dkdv,dq}_kernel (f32 FMAs), bfloat16
+// flash_attention_bwd_rows_kernel and
+// flash_attention_bwd_wgmma_{dkdv,dq}_kernel (tensor cores).
 int launch_flash_attention_bwd(const void* q, const void* k, const void* v,
                                const void* o, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
@@ -2685,11 +3453,11 @@ int launch_flash_attention_bwd(const void* q, const void* k, const void* v,
   float* dl = static_cast<float*>(delta);
   if (window < 0 || H % KVH) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    return dispatch_fa_bwd<float>(q, k, v, o, l, dout, dq, dk, dv, dl, B, S,
-                                  H, KVH, D, softcap, window, st);
+    return dispatch_fa_bwd(q, k, v, o, l, dout, dq, dk, dv, dl, B, S, H,
+                           KVH, D, softcap, window, st);
   if (dtype == DT_BF16)
-    return dispatch_fa_bwd<bf16>(q, k, v, o, l, dout, dq, dk, dv, dl, B, S,
-                                 H, KVH, D, softcap, window, st);
+    return dispatch_fab_wgmma(q, k, v, o, l, dout, dq, dk, dv, dl, B, S, H,
+                              KVH, D, softcap, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

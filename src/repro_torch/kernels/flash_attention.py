@@ -36,21 +36,41 @@ CUDA tensors it launches the kernel of their dtype or raises.  Given an
 log-sum-exp; serving passes none, and the kernels keep their bits.
 
 The backward (:func:`flash_attention_bwd`; no TPU counterpart: the
-reference differentiates its jnp attention) is three kernels of
-``csrc/lm_kernels.cu``, both dtypes, every head width of the forward,
-products on plain f32 FMAs and no atomics:
-``flash_attention_bwd_delta_kernel`` (delta = rowsum(dO O)),
-``flash_attention_bwd_dkdv_kernel`` (one CTA per (b, kv head, key tile of
-64 keys, 32 at D 256) that walks the query tiles of every query head of
-its group, from the tile's causal start to the window's upper edge,
-recomputing P = exp(s - lse) and summing dV += P^T dO and dK += dS^T Q in
-registers) and ``flash_attention_bwd_dq_kernel`` (one CTA per query tile
-of 64 rows over the same key tiles as the forward, dQ += dS K).  The bf16
-instance rounds P to bf16 before P^T dO, as the forward does before P V.
-Bound: at Granite-8B's training shape the recomputed S and dP and the
-three products are 5 S^2 D / 2 FMAs a (b, h) for dK/dV and 3 for dQ, over
-the 67 TFLOP/s of the CUDA cores in f32 (the forward's bf16 tensor cores
-are a later PR's work).  :class:`FlashAttention` is the
+reference differentiates its jnp attention) is three launches of
+``csrc/lm_kernels.cu``, every head width of the forward, no atomics, so
+the same inputs give the same bits: first delta = rowsum(dO O)
+(memory-bound, O and dO read once), then dK/dV and dQ, by dtype:
+
+ * bfloat16 (training): ``flash_attention_bwd_rows_kernel`` writes delta
+   and the forward's lse in 64-row tiles side by side, so a query tile's
+   are one aligned 512-byte bulk copy (an lse row of a (b, h) starts at
+   (b H + h) S floats, and a copy that starts off 16 bytes faults); then
+   ``flash_attention_bwd_wgmma_dkdv_kernel`` and
+   ``flash_attention_bwd_wgmma_dq_kernel``, every product on the tensor
+   cores (``wgmma``, bf16 in, f32 sums) with the forward's machinery (TMA
+   tiles in its swizzle, an mbarrier ring, a producer and two consumer
+   warpgroups, persistent CTAs over pairs of tiles of equal work).  dK/dV:
+   one CTA per 128 keys (64 at D 256) of a (b, kv head), the keys as the
+   products' M, walking every query head of the group, so the heads sum
+   in registers in one order, each query tile's Q and dO by TMA and its
+   lse and delta by one bulk copy of their tile through the ring;
+   S^T = K Q^T, dP^T = V dO^T, then
+   dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 in
+   registers.  dQ: the forward's CTA of 128 query rows, S and dP again
+   (7 products where 5 would do, for no atomics), dQ += dS K.  dS is
+   rounded to bf16 to enter the tensor cores, as FlashAttention 2 and 3
+   do, and the plain version's bf16 branch rounds it too (with P, as the
+   forward rounds P before P V);
+ * float32 (the parity step): ``flash_attention_bwd_delta_kernel``
+   (delta (B, H, S)), ``flash_attention_bwd_dkdv_kernel`` and
+   ``flash_attention_bwd_dq_kernel``, float only, the products on f32
+   FMAs: ``.tf32`` ``wgmma`` reads only K-major operands, so P^T dO, dS^T Q
+   and dS K would need transposed TF32 copies in shared memory, a design
+   of its own for a path that runs twice a parity step.
+
+Bound: S and dP recomputed and dV, dK, dQ are 5 products, 10 B H D flops a
+kept (query, key) pair: 0.695 ms at Granite-8B's (8, 2048, 32/8, 128) over
+the 989 TFLOP/s of bf16.  :class:`FlashAttention` is the
 ``torch.autograd.Function`` around the two.
 """
 
@@ -180,7 +200,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "aligned tensors")
     B, S, H, D = q.shape
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # scratch: each row's delta = rowsum(dO O) (float32), or in bfloat16
+    # each 64-row tile's lse and delta side by side
+    delta = torch.empty(2 * B * H * (-(-S // 64) * 64), dtype=torch.float32,
+                        device=q.device)
     lib = library.LM or library.load_lm_library()
     library.launch("flash_attention_bwd", lib.launch_flash_attention_bwd,
                    lib.lm_error_string, q.get_device(), q.data_ptr(),

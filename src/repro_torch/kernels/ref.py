@@ -124,7 +124,8 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,
-                            softcap: float = 0.0, window: int = 0
+                            softcap: float = 0.0, window: int = 0,
+                            round_ds: bool = True
                             ) -> tuple[torch.Tensor, ...]:
     """The gradients (dq, dk, dv) of :func:`flash_attention_ref` for the
     output's gradient ``do``, from the forward's output ``o`` and row
@@ -135,7 +136,10 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     under a softcap; dq = dS K / sqrt(D), dk = dS^T Q / sqrt(D) and
     dv = P^T dO, each summed over the query heads of a kv head's group.
     In bfloat16 P is rounded to bf16 before P^T dO, as K8 rounds it before
-    P V."""
+    P V, and dS (from the unrounded P) to bf16 before dS K and dS^T Q, as
+    the backward kernels round it to enter the tensor cores;
+    ``round_ds=False`` keeps dS in float32 (the equations without that
+    rounding, which the holds of that choice compare against)."""
     B, S, H, D = q.shape
     KVH = k.shape[2]
     rep = H // KVH
@@ -156,6 +160,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     ds = p * (dp - delta[..., None]) * dcap
     if q.dtype == torch.bfloat16:
         p = p.to(torch.bfloat16).float()
+        if round_ds:
+            ds = ds.to(torch.bfloat16).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)

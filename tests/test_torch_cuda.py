@@ -1637,6 +1637,11 @@ def test_int8_granite_on_card_matches_plain_and_upfront_paths(card):
     (1, 200, 2, 1, 112, 0, 0.0), (1, 333, 2, 2, 256, 64, 50.0),
     (2, 257, 8, 2, 128, 0, 0.0), (1, 190, 4, 4, 96, 1, 0.0),
     (1, 100, 2, 2, 32, 7, 20.0),
+    # the bf16 kernels' tile edges: one row, one short of a 64-row tile,
+    # one key past a 128-key tile, GQA 8, D 256 without a window
+    (1, 1, 4, 2, 128, 0, 0.0), (2, 63, 4, 2, 128, 0, 0.0),
+    (1, 129, 4, 2, 128, 0, 0.0), (1, 300, 32, 4, 128, 0, 0.0),
+    (1, 257, 4, 1, 256, 0, 0.0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain_version_on_card(
@@ -1689,6 +1694,8 @@ def test_flash_attention_backward_matches_plain_version_on_card(
         exact = KR.flash_attention_bwd_ref(*wide, e_o, e_lse, do.double(),
                                            softcap=softcap, window=window)
         floor = 1e-6 * max(e.norm(dim=-1).max().item() for e in exact)
+        # (at S 1 the one key gives dS = P (dO.v - dO.o) with o = v: dq and
+        # dk are 0 up to rounding, as at window 1)
         held = 0
         for g, w, e in zip(got, want, exact):
             norm = e.norm(dim=-1)
@@ -1701,7 +1708,30 @@ def test_flash_attention_backward_matches_plain_version_on_card(
             for stat in (torch.mean, torch.amax):
                 kernel, plain = (stat(r).item() for r in rel)
                 assert kernel <= 2.0 * plain, (stat.__name__, kernel, plain)
-        assert held == (1 if window == 1 else 3)
+        assert held == (1 if window == 1 or S == 1 else 3)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_bf16_same_bits_on_card(card):
+    """The bf16 backward sums every gradient in one fixed order, without
+    atomics: two runs at Granite-8B's head layout (H 32, KVH 8, D 128) give
+    the same bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    B, S, H, KVH, D = 2, 1000, 32, 8, 128
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=card)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, KVH, D), generator=gen, device=card)
+            .to(torch.bfloat16) for _ in range(2))
+    lse = torch.empty((B, H, S), device=card)
+    o = flash_attention(q, k, v, lse=lse)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -127,8 +127,10 @@ def test_flash_attention_function_on_cpu(dtype, window, cap):
     """The Function (the plain forward with lse, the plain backward) against
     torch's autograd of the plain forward: equal in float32 to round-off;
     in bf16 the backward rounds P to bf16 before P^T dO (as the card's K8
-    rounds P before P V) where autograd of the plain forward does not, so
-    dv is held at a bf16 bar."""
+    rounds P before P V) and dS to bf16 before dS K and dS^T Q (as the
+    card's backward kernels round it to run those products on the tensor
+    cores) where autograd of the plain forward rounds neither, so the
+    gradients are held at a bf16 bar."""
     q, k, v, do = (torch.from_numpy(t).to(dtype)
                    for t in _qkv(2, 40, 4, 2, 32, seed=window + 3))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -148,6 +150,81 @@ def test_flash_attention_function_on_cpu(dtype, window, cap):
     with torch.no_grad():
         assert ops.flash_attention(*leaves, softcap=cap,
                                    window=window).grad_fn is None
+
+
+def _bwd_f32_ds(q, k, v, o, lse, do, cap, window):
+    """The plain bf16 backward's equations with dS kept in float32 (P still
+    rounded to bf16 before P^T dO), written out here apart from
+    ``ref.flash_attention_bwd_ref``: what the backward computed before it
+    rounded dS to enter the tensor cores."""
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    rep = H // KVH
+    scale = 1.0 / math.sqrt(D)
+    q32, do32, o32 = q.float(), do.float(), o.float()
+    k32, v32 = (t.repeat_interleave(rep, dim=2).float() for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    dcap = 1.0
+    if cap:
+        t = torch.tanh(s / cap)
+        s, dcap = cap * t, 1.0 - t * t
+    keep = ref.attention_mask(S, window, q.device)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    delta = (do32 * o32).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None]) * dcap
+    p = p.to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dk, dv = (x.reshape(B, S, KVH, rep, D).sum(3) for x in (dk, dv))
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,window,cap", [
+    (2, 64, 8, 2, 32, 0, 0.0),     # GQA 4
+    (1, 80, 4, 1, 64, 24, 0.0),    # GQA 4, a window
+    (2, 48, 4, 2, 16, 0, 30.0),    # a softcap
+    (1, 96, 6, 2, 32, 40, 50.0),   # GQA 3, a window and a softcap
+])
+def test_flash_attention_bwd_bf16_ds_rounding_within_2x(B, S, H, KVH, D,
+                                                         window, cap):
+    """The plain bf16 backward rounds dS to bf16 before dS K and dS^T Q, as
+    the card's backward kernels must to run those products on the tensor
+    cores.  Each gradient's rows against float64 of the same bf16 inputs
+    (error norm over the row's norm, rows above 1e-6 of the largest): the
+    mean and the max within 2x of the same equations with dS kept in
+    float32.  Holds the choice on the CPU before the card sees it."""
+    q, k, v, do = (torch.from_numpy(t).to(torch.bfloat16)
+                   for t in _qkv(B, S, H, KVH, D, seed=S + H + window))
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, softcap=cap, window=window)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=cap,
+                                      window=window)
+    kept = _bwd_f32_ds(q, k, v, o, lse, do, cap, window)
+    wide = [t.double() for t in (q, k, v)]
+    e_o, e_lse = ref.flash_attention_fwd_ref(*wide, softcap=cap,
+                                             window=window)
+    exact = ref.flash_attention_bwd_ref(*wide, e_o, e_lse, do.double(),
+                                        softcap=cap, window=window)
+    floor = 1e-6 * max(e.norm(dim=-1).max().item() for e in exact)
+    # dS is rounded: dq and dk move, dv (P^T dO) does not
+    assert not torch.equal(got[0], kept[0])
+    assert not torch.equal(got[1], kept[1])
+    assert torch.equal(got[2], kept[2])
+    for g, f, e in zip(got, kept, exact):
+        norm = e.norm(dim=-1)
+        rel = [((x.double() - e).norm(dim=-1) / norm)[norm > floor]
+               for x in (g, f)]
+        assert rel[0].numel() > 0
+        for stat in (torch.mean, torch.amax):
+            rounded, unrounded = (stat(r).item() for r in rel)
+            assert rounded <= 2.0 * unrounded, (stat.__name__, rounded,
+                                                unrounded)
+    # and the plain version's own switch computes those equations
+    off = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=cap,
+                                      window=window, round_ds=False)
+    for a, b in zip(off, kept):
+        _close(a.float(), b.float(), 1e-2)
 
 
 def test_flash_attention_lse_on_cpu():
