@@ -1999,11 +1999,15 @@ def sass_counts(lib: Path, function: str | tuple, keys: tuple) -> dict:
 
 
 #: K8's tensor-core kernels whose SASS is counted: the forwards' and the
-#: bf16 backward's (by the substring of their mangled names)
+#: backwards' (by the substring of their mangled names)
 K8_SASS = (("bf16", "flash_attention_wgmma_kernel"),
            ("f32", "flash_attention_fwd_kernel"),
            ("bf16 backward dK/dV", "flash_attention_bwd_wgmma_dkdv_kernel"),
-           ("bf16 backward dQ", "flash_attention_bwd_wgmma_dq_kernel"))
+           ("bf16 backward dQ", "flash_attention_bwd_wgmma_dq_kernel"),
+           ("f32 backward dK/dV", "flash_attention_bwd_tf32_dkdv_kernel"),
+           ("f32 backward dQ", "flash_attention_bwd_tf32_dq_kernel"))
+#: instances of each backward kind: (widths, with and without the window)
+K8_BWD_INSTANCES = {"bf16": 10, "f32": 14}
 
 
 def k8_sass_report(lib: Path) -> dict:
@@ -2065,8 +2069,8 @@ def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
                              "stencil_kblocked_kernel")),
                       (fv3_lib, ("tridiag_kernel",)),
                       (lm_lib, ("rmsnorm_kernel", "rmsnorm_bwd_kernel",
-                                "flash_attention_bwd_dkdv_kernel",
-                                "flash_attention_bwd_dq_kernel",
+                                "flash_attention_bwd_tf32_dkdv_kernel",
+                                "flash_attention_bwd_tf32_dq_kernel",
                                 "flash_attention_bwd_wgmma_dkdv_kernel",
                                 "flash_attention_bwd_wgmma_dq_kernel"))):
         log = (path.parent / "build.log").read_text()
@@ -2087,6 +2091,9 @@ def build_report(lib: Path, fv3_lib: Path, lm_lib: Path) -> None:
                             ] + args
                 elif "wgmma" in fn:  # <DP, DN, window>
                     args = args[:2] + ["window" if args[2] == "true"
+                                       else "causal"]
+                elif "tf32" in fn:  # <D, window>
+                    args = args[:1] + ["window" if args[1] == "true"
                                        else "causal"]
                 counts = sass.get(name, {})
                 print(f"[build] {fn}<{', '.join(args)}>: {regs} registers, "
@@ -3361,7 +3368,6 @@ def backward_phase(device) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         size = torch.finfo(dtype).bits // 8
-        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
         for shape in BWD_FA:
             B, S, H, KVH, D, window, cap = (shape[k] for k in (
                 "B", "S", "H", "KVH", "D", "window", "softcap"))
@@ -3560,8 +3566,20 @@ def backward_phase(device) -> dict:
             # recomputed, dV, dK, dQ), 2 D flops each a pair
             bwd_bytes = (4 * q.numel() + 4 * k.numel()) * size \
                 + 2 * lse.numel() * 4
+            # (bf16 once at 989 TFLOP/s; f32 as three TF32 products, 3x
+            # over 495, its CUDA-core figure, once over 67, printed beside)
             bwd_ops = 10 * B * H * D * attention_pairs(S, window)
-            t_b, t_o = bwd_bytes / HBM_BYTES_PER_S, bwd_ops / rate
+            if dtype == torch.bfloat16:
+                t_o = bwd_ops / BF16_OPS_PER_S
+                ops_note = (f"{bwd_ops:.3e} flops at "
+                            f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s")
+            else:
+                t_o = 3 * bwd_ops / TF32_OPS_PER_S
+                ops_note = (f"3 x {bwd_ops:.3e} flops (3xTF32) at "
+                            f"{TF32_OPS_PER_S / 1e12:g} TFLOP/s; on f32 FMAs "
+                            f"at {F32_OPS_PER_S / 1e12:g} "
+                            f"{1e3 * bwd_ops / F32_OPS_PER_S:.4f} ms")
+            t_b = bwd_bytes / HBM_BYTES_PER_S
             out["K8"].append(dict(
                 dtype=name, D=D, window=window, softcap=cap, err=err, ms=ms,
                 plain_ms=plain_ms, fwd_bwd_ms=fwd_bwd_ms,
@@ -3574,9 +3592,10 @@ def backward_phase(device) -> dict:
                   f"{fwd_bwd_ms:.4f}; the forward {fwd['none']:.4f}, with "
                   f"lse {fwd['lse']:.4f}) plain_ms={plain_ms:.4f} bound_ms="
                   f"{1e3 * max(t_b, t_o):.4f} ({out['K8'][-1]['bound_by']}; "
-                  f"{bwd_ops:.3e} flops at {rate / 1e12:g} TFLOP/s, "
+                  f"{ops_note}, "
                   f"{bwd_bytes / 1e6:.1f} MB; the backward runs "
-                  f"{bwd_ops / ms / 1e9:.1f} TFLOP/s of those 5 products) "
+                  f"{bwd_ops / ms / 1e9:.1f} TFLOP/s of those 5 products, "
+                  f"{1.4 * bwd_ops / ms / 1e9:.1f} of the 7 it runs) "
                   f"library_ms={lib_ms:.4f} (F.scaled_dot_product_attention"
                   f"'s backward alone, on a kept forward graph; its forward "
                   f"+ backward {pair_ms:.4f}"
@@ -3974,8 +3993,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     bwd_names = {
         "bfloat16": "flash_attention_bwd_wgmma_dkdv_kernel, flash_attention_"
                     "bwd_wgmma_dq_kernel, flash_attention_bwd_rows_kernel",
-        "float32": "flash_attention_bwd_dkdv_kernel, flash_attention_bwd_dq_"
-                   "kernel, flash_attention_bwd_delta_kernel"}
+        "float32": "flash_attention_bwd_tf32_dkdv_kernel, flash_attention_"
+                   "bwd_tf32_dq_kernel, flash_attention_bwd_rows_kernel"}
     for dtype, launches in (
             ("bfloat16", train["launches"]["flash_attention_bwd"]),
             ("float32", parity["launches_f32"]["flash_attention_bwd"])):
@@ -4055,15 +4074,21 @@ def main() -> int:
               f"{len(sass[kind]['instances'])} instances")
         if c["HGMMA"] == 0:
             raise RuntimeError(f"{fn} issues no wgmma")
-    # the bf16 backward: wgmma in every instance, no local memory
-    for kind in ("bf16 backward dK/dV", "bf16 backward dQ"):
+    # the backwards: wgmma in every instance, no local memory; the bf16
+    # instances load by TMA, the f32 ones store by it, both on mbarriers
+    for kind in ("bf16 backward dK/dV", "bf16 backward dQ",
+                 "f32 backward dK/dV", "f32 backward dQ"):
         found = sass[kind]["instances"]
-        if len(found) != 10:
+        want = K8_BWD_INSTANCES[kind.split()[0]]
+        if len(found) != want:
             raise RuntimeError(f"K8 {kind}: {len(found)} instances in the "
-                               "SASS, not 5 widths x causal/window")
+                               f"SASS, not {want // 2} widths x "
+                               "causal/window")
         for name, c in found.items():
-            if c["HGMMA"] == 0 or c["LDL"] or c["STL"]:
+            if (c["HGMMA"] == 0 or c["UTMA"] == 0 or c["SYNCS"] == 0
+                    or c["LDL"] or c["STL"]):
                 raise RuntimeError(f"{name}: {c['HGMMA']} HGMMA, "
+                                   f"{c['UTMA']} UTMA, {c['SYNCS']} SYNCS, "
                                    f"{c['LDL']} LDL, {c['STL']} STL")
     if sass["f32"]["total"]["LDL"] or sass["f32"]["total"]["STL"]:
         raise RuntimeError("flash_attention_fwd_kernel uses local memory")

@@ -148,9 +148,8 @@
 
 // K8's backward: three launches, a memory-bound first one that reads O
 // and dO once for delta = rowsum(dO O), then dK/dV and dQ.  The first is
-// flash_attention_bwd_rows_kernel in bf16 (delta and the forward's lse laid
-// out in 64-row tiles, below) and flash_attention_bwd_delta_kernel in
-// float32 (delta (B, H, S) alone).
+// flash_attention_bwd_rows_kernel<T> in both dtypes (delta and the
+// forward's lse laid out in 64-row tiles, below).
 // Bound: S and dP recomputed and dV, dK and dQ are 5 products, 10 B H D
 // flops a kept (query, key) pair: 6.875e11 at Granite-8B's training shape
 // (8, 2048, 32/8, 128), 0.695 ms at 989 TFLOP/s bf16.  The design runs 7:
@@ -219,12 +218,63 @@
 //    training step's (4, 4096), far below the 2^-9 of their bf16
 //    rounding; the rows against float64 in chip_smoke.py, held at both
 //    shapes, land where the plain version's do.
-// float32, flash_attention_bwd_{delta,dkdv,dq}_kernel (dK/dV and dQ
-// instantiated by D; float only): the products on f32 FMAs (fab_scores).  .tf32 wgmma reads only K-major operands, so
-// P^T dO, dS^T Q and dS K would each need a transposed TF32 hi/lo copy in
-// shared memory; that instance runs twice a parity step and keeps its own
-// design until then.  The dispatch by dtype is explicit
-// (launch_flash_attention_bwd): a bf16 tensor never reaches it.
+// float32, flash_attention_bwd_tf32_{dkdv,dq}_kernel<D, kWindow> (the
+// parity step, float32 training): every product on the tensor cores in
+// 3xTF32, as the f32 forward (a_hi b_hi + a_hi b_lo + a_lo b_hi, f32
+// sums).  Bound: 3 x the 5 products' flops over 495 TFLOP/s TF32, 4.167
+// ms at Granite-8B's (8, 2048, 32/8, 128); the design runs 7 (dQ's
+// kernel computes S and dP again), 5.834 ms.  .tf32 wgmma reads only
+// K-major operands, so the B operands of the products that sum over the
+// tile's rows or keys (dV += P^T dO, dK += dS^T Q, dQ += dS K) are
+// transposed copies; an f32 tile in hi and lo is 4x a bf16 one (64 KB at
+// 64 x 128), so K, V, Q, dO and the copies cannot all stay resident, and
+// every tile splits its operands again.  What the design does about it:
+//  - Loads: one producer thread (its warpgroup at 24 registers,
+//    setmaxnreg) brings every operand raw by TMA into a ring of FB_DEPTH
+//    stages: a pair item (one D chunk of 32 columns of both operands of an
+//    SS product, 64 rows each; the A operand in the 128-byte swizzle), or
+//    a transposed item (32 rows of the columns of an RS product's B), in
+//    the order the products take them; with dK/dV's last pairs of a tile,
+//    its 64 lse or delta (one bulk copy).  The maps zero-fill rows past S
+//    and columns past D.
+//  - Split: each consumer warpgroup (240 registers) splits its own items
+//    into TF32 hi and lo: an SS product's A straight from the swizzled
+//    stage into its A fragments in registers (wgmma RS), its B and the
+//    transposed items into the 128-byte swizzle wgmma reads, in two slots
+//    of the warpgroup's own in turn, the next item's split running under
+//    the last one's products; transposed items with their rows of each
+//    group of 8 in put_v's order 0 2 4 6 1 3 5 7, so an accumulator's
+//    registers are the next product's A fragment.  The split rounds by
+//    integer arithmetic (split_tf32_alu: the bits of cvt.rna, on pipes
+//    four times its rate).  The split moves the data through shared
+//    memory twice over, and that traffic, not the tensor cores, bounds
+//    the kernels: A in registers skips its share.
+//  - Work: two consumer warpgroups share each 64 x 64 tile: dK/dV (keys
+//    as M): 0 runs S^T = K Q^T, P^T and dV += P^T dO, 1 runs dP^T = V dO^T,
+//    dS^T and dK += dS^T Q; dQ: 0 runs S = Q K^T and P, 1 dP and dS, each
+//    dQ += dS K over half of dQ's columns.  P dc and dS pass through 16 KB
+//    exchange buffers in the accumulator's own layout (thread t reads what
+//    thread t wrote), on mbarriers.
+//  - Sums: the tensor cores truncate every sum they add to (see the f32
+//    forward), so no sum on them spans more than 4 k8 steps: each chunk of
+//    an SS product (cross terms first) and each 32-row half of an RS
+//    product (and each half of its output columns past 64, to stay within
+//    the registers) is a fresh sum, added to the running one in f32
+//    registers, rounded to nearest.  Every sum runs in one fixed order,
+//    without atomics: the same inputs give the same bits.
+//  - Walks: dK/dV a CTA per 64 keys of a (b, kv head) (and per half of the
+//    columns at D 256, where dK and dV of 64 keys x 256 would take 256
+//    registers: both halves compute S^T and dP^T), every query head of
+//    the group in order, from the key tile's causal start to the window's
+//    upper edge, key tile 0 first; dQ a CTA per 64 query rows of a (b, h),
+//    the last query tile first, key tiles from the window's lower edge.
+//  - Epilogue: both consumer warpgroups done, their slots are free: each
+//    stages its 64 rows (dK and dQ times 1/sqrt(D)) and writes them by
+//    TMA stores (boxes that tile its columns).
+// Shared memory: 4 slots of 32 KB, FB_DEPTH (4) stages of 16 KB and their
+// 256-byte side buffers, 2 exchange buffers of 16 KB, barriers: 231,680
+// bytes of the 232,448.  No instance spills (ptxas -v).
+// The dispatch by dtype is explicit (launch_flash_attention_bwd).
 //
 // K9, RMSNorm with a (1 + w) scale over the last axis of (rows, d), in f32:
 // o = x * (1 / sqrt(mean(x^2) + eps)) * (1 + w) in x's dtype; the residual
@@ -438,16 +488,22 @@ __device__ __forceinline__ void wgmma_pin(uint32_t (&a)[N][4]) {
 #define WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define WG_F16(d, i) \
   WG_F4(d, i), WG_F4(d, i + 4), WG_F4(d, i + 8), WG_F4(d, i + 12)
+#define WG_D4(d) WG_F4(d, 0)
 #define WG_D8(d) WG_F4(d, 0), WG_F4(d, 4)
 #define WG_D16(d) WG_F16(d, 0)
+#define WG_D24(d) WG_F16(d, 0), WG_F4(d, 16), WG_F4(d, 20)
+#define WG_D28(d) WG_D24(d), WG_F4(d, 24)
 #define WG_D32(d) WG_F16(d, 0), WG_F16(d, 16)
 #define WG_D48(d) WG_D32(d), WG_F16(d, 32)
 #define WG_D56(d) WG_D48(d), WG_F4(d, 48), WG_F4(d, 52)
 #define WG_D64(d) WG_D32(d), WG_F16(d, 32), WG_F16(d, 48)
 #define WG_D128(d) \
   WG_D64(d), WG_F16(d, 64), WG_F16(d, 80), WG_F16(d, 96), WG_F16(d, 112)
-#define WG_L8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_L4 "%0, %1, %2, %3"
+#define WG_L8 WG_L4 ", %4, %5, %6, %7"
 #define WG_L16 WG_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_L24 WG_L16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define WG_L28 WG_L24 ", %24, %25, %26, %27"
 #define WG_L32 WG_L16 ", " \
   "%16, %17, %18, %19, %20, %21, %22, %23, " \
   "%24, %25, %26, %27, %28, %29, %30, %31"
@@ -1278,7 +1334,7 @@ __device__ __forceinline__ void put_v(const float4 (&x)[16], uint32_t dst,
 // d += A B for one k8 step of .tf32 operands (f32 accumulation), m64nN with
 // NA = N/2 accumulator registers.  WGMMA_TF32_SS reads A and B through
 // descriptors (both K-major: .tf32 takes no transpose), WGMMA_TF32_RS takes
-// A from registers (4 tf32 a thread) and always accumulates.
+// A from registers (4 tf32 a thread) and accumulates unless scale_d is 0.
 #define WGMMA_TF32_SS(N, NA, IA, IB, IS)                                  \
   asm volatile("{\n.reg .pred p;\n"                                      \
                "setp.ne.b32 p, %" #IS ", 0;\n"                           \
@@ -1294,7 +1350,8 @@ __device__ __forceinline__ void put_v(const float4 (&x)[16], uint32_t dst,
                "k8.f32.tf32.tf32 {" WG_L##NA "}, {%" #I0 ", %" #I1       \
                ", %" #I2 ", %" #I3 "}, %" #IB ", p, 1, 1;\n}\n"          \
                : WG_D##NA(d)                                              \
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
+                 "r"(scale_d))
 
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
@@ -1310,11 +1367,17 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
-                                              uint64_t b) {
-  if constexpr (N == 16) {
+                                              uint64_t b, int scale_d = 1) {
+  if constexpr (N == 8) {
+    WGMMA_TF32_RS(8, 4, 4, 5, 6, 7, 8, 9);
+  } else if constexpr (N == 16) {
     WGMMA_TF32_RS(16, 8, 8, 9, 10, 11, 12, 13);
   } else if constexpr (N == 32) {
     WGMMA_TF32_RS(32, 16, 16, 17, 18, 19, 20, 21);
+  } else if constexpr (N == 48) {
+    WGMMA_TF32_RS(48, 24, 24, 25, 26, 27, 28, 29);
+  } else if constexpr (N == 56) {
+    WGMMA_TF32_RS(56, 28, 28, 29, 30, 31, 32, 33);
   } else if constexpr (N == 64) {
     WGMMA_TF32_RS(64, 32, 32, 33, 34, 35, 36, 37);
   } else if constexpr (N == 96) {
@@ -1324,7 +1387,7 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
   } else if constexpr (N == 128) {
     WGMMA_TF32_RS(128, 64, 64, 65, 66, 67, 68, 69);
   } else {
-    static_assert(N == 256, "head widths are 16 to 256");
+    static_assert(N == 256, "widths 8 to 256");
     WGMMA_TF32_RS(256, 128, 128, 129, 130, 131, 132, 133);
   }
 }
@@ -2056,8 +2119,8 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 
 // ---------------------------------------------------------------------------
 // K8 backward (no TPU counterpart: the reference differentiates its jnp
-// attention with XLA), float32: delta, dK/dV and dQ on f32 FMAs (the bf16
-// kernels follow)
+// attention with XLA): the rows kernel of both dtypes, then float32 on
+// 3xTF32 wgmma (the bf16 kernels follow)
 // ---------------------------------------------------------------------------
 
 // four consecutive elements as f32 (16 bytes of f32, 8 of bf16), and back
@@ -2076,458 +2139,16 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
                                             bf16_pair(v.z, v.w));
 }
 
-// the backward's tiles: BQ query rows and BK keys, rows of Q, dO, K and V
-// held in shared memory as f32 with a stride of D + 4 floats (16-byte rows
-// apart in different banks), P and dS with a stride of BK + 4
-template <int D>
-struct FaBwd {
-  static constexpr int BQ = 64;
-  static constexpr int BK = D > 128 ? 32 : 64;
-  static constexpr int LD = D + 4;
-  static constexpr int LP = BK + 4;
-  static constexpr int THREADS = 256;
-  static constexpr int CS = BK / 16;           // score keys a thread
-  static constexpr int NCOL = (D + 127) / 128;  // column groups of 128
-  static constexpr int SMEM =
-      (2 * BQ * LD + 2 * BK * LD + 2 * BQ * LP + 2 * BQ) * 4;
-};
-
-// rows 0 .. ROWS - 1 of a (rows, D) slice at src, ld elements apart, into
-// shared memory as f32 (stride LD); rows at `valid` or past are zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void fab_load(float* dst, const float* src,
-                                         long long ld, int valid) {
-  constexpr int LD = FaBwd<D>::LD;
-  for (int i = threadIdx.x; i < ROWS * (D / 4); i += FaBwd<D>::THREADS) {
-    const int r = i / (D / 4), c = 4 * (i % (D / 4));
-    const float4 x = r < valid ? load4(src + r * ld + c)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
-  }
-}
-
-// One (BQ x BK) tile of the scores against query rows q0 .. and keys
-// k0 .., this thread's rows ty + 16 i and keys tx + 16 j: S = Q K^T and
-// dP = dO V^T in f32 FMAs (float4 reads along D), then s = S scale (with a
-// softcap, s = cap tanh(s / cap)), P = exp(s - lse) where the key is
-// visible (causal, and inside the window), else 0, and the gradient of the
-// raw score dS = P (dP - delta) (1 - (s / cap)^2); the factor `scale` of
-// dQ and dK is applied once at their end.  Writes dS and, with kStoreP,
-// P to shared memory.
-template <int D, bool kStoreP>
-__device__ __forceinline__ void fab_scores(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* lse_s, const float* delta_s, float* Ps, float* dSs, int q0,
-    int k0, int S, int window, float scale, float softcap) {
-  using C = FaBwd<D>;
-  constexpr int LD = C::LD, CS = C::CS;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[4][CS], dp[4][CS];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CS; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[CS];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < CS; ++j)
-      b[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(dOs + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < CS; ++j)
-      b[j] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        dp[i][j] = fmaf(a[i].x, b[j].x, dp[i][j]);
-        dp[i][j] = fmaf(a[i].y, b[j].y, dp[i][j]);
-        dp[i][j] = fmaf(a[i].z, b[j].z, dp[i][j]);
-        dp[i][j] = fmaf(a[i].w, b[j].w, dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q0 + r;
-    const float lse_r = lse_s[r], delta_r = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < CS; ++j) {
-      const int c = tx + 16 * j, key = k0 + c;
-      const bool keep =
-          key <= row && row < S && (window <= 0 || key > row - window);
-      float sv = s[i][j] * scale, dcap = 1.f;
-      if (softcap > 0.f) {
-        const float t = tanhf(sv / softcap);
-        sv = softcap * t;
-        dcap = 1.f - t * t;
-      }
-      const float p = keep ? expf(sv - lse_r) : 0.f;
-      dSs[r * C::LP + c] = p * (dp[i][j] - delta_r) * dcap;
-      if (kStoreP) Ps[r * C::LP + c] = p;
-    }
-  }
-}
-
-// delta = rowsum(dO O) of every (b, s, h) row: one warp a row
-__global__ void __launch_bounds__(256)
-    flash_attention_bwd_delta_kernel(const float* __restrict__ o,
-                                     const float* __restrict__ dout,
-                                     float* __restrict__ delta, int S, int H,
-                                     int D, long long rows) {
-  const long long row = static_cast<long long>(blockIdx.x) * 8 +
-                        threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float acc = 0.f;
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 a = load4(o + row * D + c), g = load4(dout + row * D + c);
-    acc = fmaf(a.x, g.x, acc);
-    acc = fmaf(a.y, g.y, acc);
-    acc = fmaf(a.z, g.z, acc);
-    acc = fmaf(a.w, g.w, acc);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const long long bs = row / H;  // b S + s
-    const int h = static_cast<int>(row % H);
-    const long long b = bs / S, s = bs % S;
-    delta[(b * H + h) * S + s] = acc;
-  }
-}
-
-// dK and dV of one key tile of one (b, kv head): the CTA walks every query
-// head of the kv head's group and, for each, the query tiles from the key
-// tile's causal start to the window's upper edge, summing dV += P^T dO and
-// dK += dS^T Q in registers (thread: keys ky + 8 i, columns 4 kx + 128 c),
-// so the group's heads sum in one fixed order, without atomics.  Each
-// query tile's 64 rows are summed apart and then added to the running
-// sums, so a sum's rounding error grows with 64 and the tile count, not
-// with every row of up to 4 heads x S
-template <int D>
-__global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
-    flash_attention_bwd_dkdv_kernel(
-        const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KVH,
-        float scale, float softcap, int window) {
-  using C = FaBwd<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
-  constexpr int NCOL = C::NCOL, KR = BK / 8;
-  extern __shared__ __align__(16) float fab_smem[];
-  float* Qs = fab_smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-  float* dSs = Ps + BQ * LP;
-  float* lse_s = dSs + BQ * LP;
-  float* delta_s = lse_s + BQ;
-  const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
-  const int rep = H / KVH;
-  const int tid = threadIdx.x, ky = tid / 32, kx = tid % 32;
-  const long long kv_ld = static_cast<long long>(KVH) * D;
-  const long long q_ld = static_cast<long long>(H) * D;
-  const long long kv0 = (static_cast<long long>(b) * S + k0) * kv_ld +
-                        static_cast<long long>(kvh) * D;
-  fab_load<D, BK>(Ks, k + kv0, kv_ld, S - k0);
-  fab_load<D, BK>(Vs, v + kv0, kv_ld, S - k0);
-  float dk_acc[KR][NCOL][4], dv_acc[KR][NCOL][4];
-#pragma unroll
-  for (int i = 0; i < KR; ++i)
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[i][c][e] = dv_acc[i][c][e] = 0.f;
-  // query rows that see a key of the tile: k0 .. k0 + BK - 2 + window
-  const int q_end = window > 0 ? min(S, k0 + BK - 1 + window) : S;
-  for (int hr = 0; hr < rep; ++hr) {
-    const int h = kvh * rep + hr;
-    for (int q0 = (k0 / BQ) * BQ; q0 < q_end; q0 += BQ) {
-      __syncthreads();  // the last tile's readers are done
-      const long long qo = (static_cast<long long>(b) * S + q0) * q_ld +
-                           static_cast<long long>(h) * D;
-      fab_load<D, BQ>(Qs, q + qo, q_ld, S - q0);
-      fab_load<D, BQ>(dOs, dout + qo, q_ld, S - q0);
-      if (tid < BQ) {
-        const int row = q0 + tid;
-        const long long at = (static_cast<long long>(b) * H + h) * S + row;
-        lse_s[tid] = row < S ? lse[at] : 0.f;
-        delta_s[tid] = row < S ? delta[at] : 0.f;
-      }
-      __syncthreads();
-      fab_scores<D, true>(Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0,
-                          S, window, scale, softcap);
-      __syncthreads();
-      float dk_t[KR][NCOL][4], dv_t[KR][NCOL][4];  // this tile's sums
-#pragma unroll
-      for (int i = 0; i < KR; ++i)
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dk_t[i][c][e] = dv_t[i][c][e] = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pv[KR], dsv[KR];
-#pragma unroll
-        for (int i = 0; i < KR; ++i) {
-          pv[i] = Ps[r * LP + ky + 8 * i];
-          dsv[i] = dSs[r * LP + ky + 8 * i];
-        }
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c) {
-          const int col = 4 * kx + 128 * c;
-          if (col >= D) continue;
-          const float4 g = *reinterpret_cast<const float4*>(dOs + r * LD +
-                                                            col);
-          const float4 x = *reinterpret_cast<const float4*>(Qs + r * LD + col);
-#pragma unroll
-          for (int i = 0; i < KR; ++i) {
-            dv_t[i][c][0] = fmaf(pv[i], g.x, dv_t[i][c][0]);
-            dv_t[i][c][1] = fmaf(pv[i], g.y, dv_t[i][c][1]);
-            dv_t[i][c][2] = fmaf(pv[i], g.z, dv_t[i][c][2]);
-            dv_t[i][c][3] = fmaf(pv[i], g.w, dv_t[i][c][3]);
-            dk_t[i][c][0] = fmaf(dsv[i], x.x, dk_t[i][c][0]);
-            dk_t[i][c][1] = fmaf(dsv[i], x.y, dk_t[i][c][1]);
-            dk_t[i][c][2] = fmaf(dsv[i], x.z, dk_t[i][c][2]);
-            dk_t[i][c][3] = fmaf(dsv[i], x.w, dk_t[i][c][3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < KR; ++i)
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dk_acc[i][c][e] += dk_t[i][c][e];
-            dv_acc[i][c][e] += dv_t[i][c][e];
-          }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < KR; ++i) {
-    const int key = k0 + ky + 8 * i;
-    if (key >= S) continue;
-    const long long at = (static_cast<long long>(b) * S + key) * kv_ld +
-                         static_cast<long long>(kvh) * D;
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) {
-      const int col = 4 * kx + 128 * c;
-      if (col >= D) continue;
-      store4(dk + at + col,
-             make_float4(dk_acc[i][c][0] * scale, dk_acc[i][c][1] * scale,
-                         dk_acc[i][c][2] * scale, dk_acc[i][c][3] * scale));
-      store4(dv + at + col, make_float4(dv_acc[i][c][0], dv_acc[i][c][1],
-                                        dv_acc[i][c][2], dv_acc[i][c][3]));
-    }
-  }
-}
-
-// dQ of one query tile of one (b, h), the longest rows first: the key
-// tiles from the window's lower edge to the causal frontier, dQ += dS K
-// summed in registers (thread: rows qy + 8 i, columns 4 qx + 128 c), each
-// key tile's sum apart and then added (as dK and dV's query tiles)
-template <int D>
-__global__ void __launch_bounds__(FaBwd<D>::THREADS, 1)
-    flash_attention_bwd_dq_kernel(
-        const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dq, int S, int H, int KVH, float scale,
-        float softcap, int window) {
-  using C = FaBwd<D>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LP = C::LP;
-  constexpr int NCOL = C::NCOL, QR = BQ / 8;
-  extern __shared__ __align__(16) float fab_smem[];
-  float* Qs = fab_smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD + BQ * LP;  // (P's room unused)
-  float* lse_s = dSs + BQ * LP;
-  float* delta_s = lse_s + BQ;
-  const int nq = (S + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
-  const int tid = threadIdx.x, qy = tid / 32, qx = tid % 32;
-  const long long kv_ld = static_cast<long long>(KVH) * D;
-  const long long q_ld = static_cast<long long>(H) * D;
-  const long long qo = (static_cast<long long>(b) * S + q0) * q_ld +
-                       static_cast<long long>(h) * D;
-  fab_load<D, BQ>(Qs, q + qo, q_ld, S - q0);
-  fab_load<D, BQ>(dOs, dout + qo, q_ld, S - q0);
-  if (tid < BQ) {
-    const int row = q0 + tid;
-    const long long at = (static_cast<long long>(b) * H + h) * S + row;
-    lse_s[tid] = row < S ? lse[at] : 0.f;
-    delta_s[tid] = row < S ? delta[at] : 0.f;
-  }
-  float acc[QR][NCOL][4];
-#pragma unroll
-  for (int i = 0; i < QR; ++i)
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
-  const int k_end = min(q0 + BQ, S);  // keys past the tile's last row
-  for (int k0 = k_lo; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    const long long kv0 = (static_cast<long long>(b) * S + k0) * kv_ld +
-                          static_cast<long long>(kvh) * D;
-    fab_load<D, BK>(Ks, k + kv0, kv_ld, S - k0);
-    fab_load<D, BK>(Vs, v + kv0, kv_ld, S - k0);
-    __syncthreads();
-    fab_scores<D, false>(Qs, dOs, Ks, Vs, lse_s, delta_s, nullptr, dSs, q0,
-                         k0, S, window, scale, softcap);
-    __syncthreads();
-    float part[QR][NCOL][4];  // this key tile's sums
-#pragma unroll
-    for (int i = 0; i < QR; ++i)
-#pragma unroll
-      for (int c = 0; c < NCOL; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][c][e] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[QR];
-#pragma unroll
-      for (int i = 0; i < QR; ++i) dsv[i] = dSs[(qy + 8 * i) * LP + kk];
-#pragma unroll
-      for (int c = 0; c < NCOL; ++c) {
-        const int col = 4 * qx + 128 * c;
-        if (col >= D) continue;
-        const float4 x = *reinterpret_cast<const float4*>(Ks + kk * LD + col);
-#pragma unroll
-        for (int i = 0; i < QR; ++i) {
-          part[i][c][0] = fmaf(dsv[i], x.x, part[i][c][0]);
-          part[i][c][1] = fmaf(dsv[i], x.y, part[i][c][1]);
-          part[i][c][2] = fmaf(dsv[i], x.z, part[i][c][2]);
-          part[i][c][3] = fmaf(dsv[i], x.w, part[i][c][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < QR; ++i)
-#pragma unroll
-      for (int c = 0; c < NCOL; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] += part[i][c][e];
-  }
-#pragma unroll
-  for (int i = 0; i < QR; ++i) {
-    const int row = q0 + qy + 8 * i;
-    if (row >= S) continue;
-    const long long at = (static_cast<long long>(b) * S + row) * q_ld +
-                         static_cast<long long>(h) * D;
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) {
-      const int col = 4 * qx + 128 * c;
-      if (col >= D) continue;
-      store4(dq + at + col,
-             make_float4(acc[i][c][0] * scale, acc[i][c][1] * scale,
-                         acc[i][c][2] * scale, acc[i][c][3] * scale));
-    }
-  }
-}
-
-template <int D>
-static int launch_fa_bwd(const void* q, const void* k, const void* v,
-                         const void* o, const float* lse, const void* dout,
-                         void* dq, void* dk, void* dv, float* delta, int B,
-                         int S, int H, int KVH, float softcap, int window,
-                         cudaStream_t stream) {
-  using C = FaBwd<D>;
-  const float* q_ = static_cast<const float*>(q);
-  const float* k_ = static_cast<const float*>(k);
-  const float* v_ = static_cast<const float*>(v);
-  const float* do_ = static_cast<const float*>(dout);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  if (B == 0 || S == 0) return 0;
-  const long long rows = static_cast<long long>(B) * S * H;
-  if ((rows + 7) / 8 > 2147483647LL || B > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256,
-                                     0, stream>>>(
-      static_cast<const float*>(o), do_, delta, S, H, D, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto dkdv = flash_attention_bwd_dkdv_kernel<D>;
-  auto dqk = flash_attention_bwd_dq_kernel<D>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the heaviest tiles first: key tile 0 sees every query row, query tile
-  // nq - 1 every key
-  const dim3 kgrid((S + C::BK - 1) / C::BK, KVH, B);
-  dkdv<<<kgrid, C::THREADS, C::SMEM, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, H, KVH, scale, softcap, window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 qgrid((S + C::BQ - 1) / C::BQ, H, B);
-  dqk<<<qgrid, C::THREADS, C::SMEM, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<float*>(dq), S, H, KVH, scale,
-      softcap, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-static int dispatch_fa_bwd(const void* q, const void* k, const void* v,
-                           const void* o, const float* lse, const void* dout,
-                           void* dq, void* dk, void* dv, float* delta, int B,
-                           int S, int H, int KVH, int D, float softcap,
-                           int window, cudaStream_t st) {
-#define FA_BWD(DD)                                                        \
-  case DD:                                                                \
-    return launch_fa_bwd<DD>(q, k, v, o, lse, dout, dq, dk, dv, delta, \
-                             B, S, H, KVH, softcap, window, st)
-  switch (D) {
-    FA_BWD(16);
-    FA_BWD(32);
-    FA_BWD(64);
-    FA_BWD(96);
-    FA_BWD(112);
-    FA_BWD(128);
-    FA_BWD(256);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef FA_BWD
-}
-
-// ---------------------------------------------------------------------------
-// K8 backward, bfloat16: wgmma, TMA and an mbarrier ring
-// ---------------------------------------------------------------------------
-
 // lse and delta of every (b, h) in tiles of 64 rows, side by side: rows
 // s of (b, h) at rows[(b H + h) 2 S64 + 128 (s / 64) + s % 64] (lse) and 64
 // further (delta), S64 = S rounded up to 64, 0 past S; so a query tile's
 // 512 bytes are one aligned bulk copy.  delta = rowsum(dO O) in f32, one
 // warp a (b, s, h) row, s in S .. S64 - 1 written as 0 (a hidden row's
 // P = 0 there, and 0 (dP - 0) stays 0)
+template <typename T>
 __global__ void __launch_bounds__(256)
-    flash_attention_bwd_rows_kernel(const bf16* __restrict__ o,
-                                    const bf16* __restrict__ dout,
+    flash_attention_bwd_rows_kernel(const T* __restrict__ o,
+                                    const T* __restrict__ dout,
                                     const float* __restrict__ lse,
                                     float* __restrict__ rows, int S, int S64,
                                     int H, int D, long long n) {
@@ -2561,6 +2182,98 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// register budgets: the producer warpgroup (one thread issuing TMA) gives
+// what the two consumer warpgroups take, within the launch's 168 x 384
+// (24 x 128 + 240 x 256 = 64512; a budget past it leaves setmaxnreg.inc
+// waiting forever); FB_DEPTH raw stages in flight
+#define FB_PRODUCER_REGS 24
+#define FB_CONSUMER_REGS 240
+#define FB_DEPTH 4
+
+// The float32 backward's tiles, both kernels: M is 64 rows (dK/dV: keys;
+// dQ: query rows) against tiles of 64 on N (query rows; keys), D in
+// chunks of 32 columns (one 128-byte swizzle row).  A tile's items, in the
+// order the producer loads them into its stages: for each chunk c, the
+// pair (A_c, B_c) of the first SS product (dK/dV: K_c, Q_c for S^T; dQ:
+// Q_c, K_c for S) and the pair of the second (V_c, dO_c for dP^T; dO_c,
+// V_c for dP), then for each half of N's 64 (32 rows, the K of the RS
+// products) the two transposed B operands (dK/dV: dO^T, Q^T; dQ: K^T's
+// two column halves).  Consumer warpgroup w takes the items of parity w
+// and splits them into its own two 32 KB slots in turn.
+template <int D>
+struct FbT {
+  static constexpr int DP = (D + 31) / 32 * 32;  // D padded to chunks
+  static constexpr int NCH = DP / 32;            // chunks
+  static constexpr int NI = 2 * NCH + 4;         // ring items a tile
+  static constexpr int NKV = D > 128 ? 128 : D;  // dK/dV columns a CTA
+  static constexpr int NHV = D / NKV;            // CTAs of a key tile
+  static constexpr int NQ = D / 2;               // dQ columns a warpgroup
+  static constexpr int SLOT = 32768;       // a split item
+  static constexpr int STAGE = 16384;      // an item raw
+  static constexpr int SIDE = 64 * 4;      // a stage's 64 lse or delta
+  static constexpr int XBUF = 64 * 64 * 4;  // an exchange buffer
+  static constexpr int THREADS = 3 * 128;
+  // 1 KB of slack to align the swizzled tiles, two slots a consumer
+  // warpgroup, FB_DEPTH raw stages and their side buffers, two exchange
+  // buffers and the barriers: 231,680 bytes of the 232,448
+  static constexpr int SMEM = 1024 + 4 * SLOT + FB_DEPTH * (STAGE + SIDE) +
+                              2 * XBUF + 256;
+};
+
+// the width of an RS product over C output columns: C, or its two halves
+// past 64 (a fresh sum of up to 32 registers beside the running 64)
+template <int C>
+struct FbRs {
+  static constexpr int N = C > 64 ? C / 2 : C;
+  static constexpr int H = C / N;
+};
+
+// the TMA box width of C output columns: boxes that tile C exactly
+__host__ __device__ constexpr int fb_box(int c) {
+  return c % 32 == 0 ? 32 : c % 16 == 0 ? 16 : 8;
+}
+
+
+// split_tf32's hi and lo by integer arithmetic, the same bits as
+// cvt.rna.tf32.f32 (half of the dropped unit added to the magnitude's
+// bits, the low 13 cleared: to nearest, ties away from zero), on the
+// integer pipes: cvt runs on the conversion unit at a quarter of their
+// rate, and the backward splits every operand of every tile
+__device__ __forceinline__ void split_tf32_alu(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void st_split(uint32_t hi, uint32_t lo,
+                                         float4 v) {
+  uint4 h, l;
+  split_tf32_alu(v.x, h.x, l.x);
+  split_tf32_alu(v.y, h.y, l.y);
+  split_tf32_alu(v.z, h.z, l.z);
+  split_tf32_alu(v.w, h.w, l.w);
+  st_shared4(hi, h);
+  st_shared4(lo, l);
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_shared4f(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // `bytes` (a multiple of 16) from 16-byte aligned global memory into
 // shared memory, counted on `bar`
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -2571,6 +2284,761 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
+
+// An item's loads go raw into a stage of FB_DEPTH by TMA (f32 maps, zeros
+// past S and D), issued by one producer thread.
+
+// A pair item: columns 32 c .. 32 c + 31 of 64 rows of a (the SS
+// product's A, M's rows) and of 64 rows of b (its B), two boxes of 64 rows
+// of 128 bytes: a's in the 128-byte swizzle at the stage, whence each
+// thread takes its A fragments straight into registers (fb_load_a: 8 rows
+// x 4 columns a load, in distinct banks), and b's as it is 8 KB further,
+// where float4 u of thread tid sits at 8192 + 2048 u + 16 tid: row i / 8,
+// float4 i % 8, i = tid + 128 u, split K-major (fb_put_b: hi at the slot,
+// lo 8 KB further; 8 lanes take a row's 8 chunks, so reads and swizzled
+// writes are free of bank conflicts).
+__device__ __forceinline__ void fb_put_b(uint32_t stage, uint32_t slot,
+                                         int tid) {
+  // two float4s at a time: the split runs beside an accumulator in flight
+#pragma unroll 2
+  for (int u = 0; u < 4; ++u) {
+    const int i = tid + 128 * u;
+    const uint32_t hi = slot + swz128(64, i / 8, i % 8);
+    st_split(hi, hi + 8192, ld_shared4f(stage + 8192 + u * 2048 + tid * 16));
+  }
+}
+
+__device__ __forceinline__ float lds_f1(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// the A fragments of KS k8 steps of a's swizzled box at the stage, split
+// into TF32 hi and lo: a[e] of step kk is row rr + 8 (e % 2), column 8 kk
+// + t + 4 (e / 2), t = lane % 4
+template <int KS>
+__device__ __forceinline__ void fb_load_a(uint32_t stage, int tid,
+                                          uint32_t (&ah)[4][4],
+                                          uint32_t (&al)[4][4]) {
+  const int rr = 16 * (tid / 32) + (tid % 32) / 4, t = tid % 4;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rr + 8 * (e % 2), col = 8 * kk + t + 4 * (e / 2);
+      const uint32_t o = r * 128 + ((((col >> 2) ^ (r & 7)) << 4) |
+                                    ((col & 3) << 2));
+      split_tf32_alu(lds_f1(stage + o), ah[kk][e], al[kk][e]);
+    }
+}
+
+// A transposed item: 32 rows of NC columns (one box, row-major at the
+// stage) become NC rows of 32, the rows K-major (the B operand of an RS
+// product summing over them), hi at the slot and lo NC x 128 bytes
+// further.  The rows of each group of 8 are stored in the order 0 2 4 6 1
+// 3 5 7, as put_v stores V^T's keys: the A fragment of a k8 step holds
+// positions t and t + 4 where the accumulator it comes from holds columns
+// 2t and 2t + 1.  A thread's item is chunk j (16 bytes: 4 source rows) of
+// float4 c (4 destination rows): item t = tid + 128 u is lane l = t % 8 of
+// step s = (t / 8) % 4 of block t / 32, whose chunks 4 (block % 2) .. and
+// float4s 8 (block / 2) ..: c = 8 (block / 2) + l and j = 4 (block % 2) +
+// (l / 2 + s) % 4.  So the 8 lanes of a phase read 8 float4s of distinct
+// banks from their rows and write 8 distinct chunks of the swizzled rows.
+template <int NC>
+struct FbTItems {
+  static constexpr int C4 = NC / 4;
+  static_assert(NC % 4 == 0 && (C4 + 7) / 8 <= 4, "two items a thread");
+  __device__ static __forceinline__ void at(int tid, int u, int& j,
+                                            int& c) {
+    const int t = tid + 128 * u, blk = t / 32, l = t % 8;
+    c = 8 * (blk / 2) + l;
+    j = 4 * (blk % 2) + (l / 2 + (t / 8) % 4) % 4;
+  }
+};
+
+template <int NC>
+__device__ __forceinline__ void fb_put_t(uint32_t stage, uint32_t slot,
+                                         int tid) {
+  using I = FbTItems<NC>;
+#pragma unroll 1
+  for (int u = 0; u < 2; ++u) {
+    int j, c;
+    I::at(tid, u, j, c);
+    if (c >= I::C4) continue;
+    float4 y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      y[i] = ld_shared4f(stage + (8 * (j / 2) + 2 * i + j % 2) * (NC * 4) +
+                         c * 16);
+    const float4 col[4] = {make_float4(y[0].x, y[1].x, y[2].x, y[3].x),
+                           make_float4(y[0].y, y[1].y, y[2].y, y[3].y),
+                           make_float4(y[0].z, y[1].z, y[2].z, y[3].z),
+                           make_float4(y[0].w, y[1].w, y[2].w, y[3].w)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t a = slot + swz128(NC, 4 * c + e, j);
+      st_split(a, a + NC * 128, col[e]);
+    }
+  }
+}
+
+// descriptor d moved o bytes further into its tile (o a multiple of 16),
+// formed where it is used: formed ahead, the descriptors of an item's 12
+// products hold 24 registers, and ptxas spilled
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t o) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;"
+               : "=l"(r)
+               : "l"(d), "l"(static_cast<uint64_t>(o >> 4)));
+  return r;
+}
+
+// acc = A B^T of one pair item, A in registers (hi ah, lo al), B's 64
+// rows of hi at the slot and lo 8 KB further: m64n64 over KS k8 steps, 3
+// products each: a_hi b_lo and a_lo b_hi first into the fresh sum, where a
+// truncation is small, then a_hi b_hi
+template <int KS>
+__device__ __forceinline__ void fb_issue_pair(float (&acc)[32],
+                                              uint32_t (&ah)[4][4],
+                                              uint32_t (&al)[4][4],
+                                              uint32_t slot) {
+  const uint64_t d = wgmma_desc(slot, 16, 1024);
+  wgmma_pin(ah);
+  wgmma_pin(al);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_tf32_rs<64>(acc, ah[kk], desc_at(d, 8192 + 32 * kk), kk > 0);
+    wgmma_tf32_rs<64>(acc, al[kk], desc_at(d, 32 * kk));
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_tf32_rs<64>(acc, ah[kk], desc_at(d, 32 * kk));
+  wgmma_commit();
+}
+
+// part = A B over one chunk of 32 of K (4 k8 steps), A in registers (hi
+// ah, lo al), B's N rows of hi at b and lo at b + lo: m64nN, 3 products a
+// step, the cross terms first, into a fresh sum
+template <int N>
+__device__ __forceinline__ void fb_issue_rs(float (&part)[N / 2],
+                                            uint32_t (&ah)[4][4],
+                                            uint32_t (&al)[4][4],
+                                            uint32_t b, uint32_t lo) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) part[i] = 0.f;
+  wgmma_pin(part);
+  wgmma_pin(ah);
+  wgmma_pin(al);
+  const uint64_t d = wgmma_desc(b, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt) {
+    wgmma_tf32_rs<N>(part, ah[kt], desc_at(d, lo + kt * 32));
+    wgmma_tf32_rs<N>(part, al[kt], desc_at(d, kt * 32));
+  }
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+    wgmma_tf32_rs<N>(part, ah[kt], desc_at(d, kt * 32));
+  wgmma_commit();
+}
+
+// the A fragments of the k8 steps over columns 32 Q .. 32 Q + 31 of an
+// m64n64 accumulator's values (n8 blocks 4 Q ..), split into TF32 hi and
+// lo in take_p's order
+template <int Q>
+__device__ __forceinline__ void fb_frags(const float (&v)[32],
+                                         uint32_t (&ah)[4][4],
+                                         uint32_t (&al)[4][4]) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_tf32_alu(v[4 * (4 * Q + kt) + (e % 2) * 2 + e / 2], ah[kt][e],
+                     al[kt][e]);
+}
+
+// A warpgroup's 32 values of an m64n64 tile into an exchange buffer: the
+// two consumer warpgroups hold the same elements in the same registers, so
+// thread t reads what thread t wrote (float4 u at u 2048 + 16 t)
+__device__ __forceinline__ void fb_put_x(uint32_t buf, const float (&v)[32],
+                                         int tid) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    st_shared4(buf + u * 2048 + tid * 16,
+               make_uint4(__float_as_uint(v[4 * u]),
+                          __float_as_uint(v[4 * u + 1]),
+                          __float_as_uint(v[4 * u + 2]),
+                          __float_as_uint(v[4 * u + 3])));
+}
+
+// 64 rows of a warpgroup's NC output columns (an m64nNC accumulator's
+// values times mul) into its staging buffer, blocks of W columns of 64
+// rows of W floats (the TMA boxes), and out by TMA stores from column n0
+// of rows row0 .. of (b, head), which drop rows past S.  Named barrier
+// 2 + wg syncs the warpgroup's 128 threads.
+template <int NC>
+__device__ __forceinline__ void fb_store(const float (&acc)[NC / 2],
+                                         float mul, uint32_t stage,
+                                         const CUtensorMap* map, int n0,
+                                         int head, int row0, int b, int wg,
+                                         int tid) {
+  constexpr int W = fb_box(NC);
+  const int rr = 16 * (tid / 32) + (tid % 32) / 4, c2 = 2 * (tid % 4);
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rr + 8 * r, col = 8 * j + c2;
+      const uint32_t a = stage + (col / W) * 64 * W * 4 +
+                         (row * W + col % W) * 4;
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(a),
+                   "f"(acc[4 * j + 2 * r] * mul),
+                   "f"(acc[4 * j + 2 * r + 1] * mul)
+                   : "memory");
+    }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+  if (tid == 0) {
+    for (int c = 0; c < NC / W; ++c)
+      tma_store_4d(map, stage + c * 64 * W * 4, n0 + c * W, head, row0, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+// The float32 backward, one CTA (kDQ false: dK/dV; true: dQ).  dK/dV: the
+// CTA owns 64 keys of one (b, kv head) (and, at D 256, one half of dK and
+// dV's columns) and walks every query head of the group in order, each
+// from the key tile's causal start to the window's upper edge; dQ: 64
+// query rows of one (b, h), the key tiles from the window's lower edge to
+// the causal frontier.  Per tile (64 x 64), the producer thread loads the
+// items raw by TMA into FB_DEPTH stages; consumer warpgroup 0 runs the
+// first SS product chunk by chunk (dK/dV: S^T = K Q^T; dQ: S = Q K^T), A
+// from the stage into registers and B split into its slot, each chunk
+// into a fresh sum added to the tile's in f32, then P = exp(s - lse) with
+// its softcap factor dc (tanhf), masked, and passes P dc to warpgroup 1
+// through an exchange buffer; warpgroup 1 runs the second (dP^T = V dO^T;
+// dP = dO V^T) and forms dS = P dc (dP - delta).  Then each runs its RS
+// products over the tile's two halves of 32 (dK/dV: warpgroup 0 dV +=
+// P^T dO, 1 dK += dS^T Q; dQ: each dQ += dS K over its half of the
+// columns, warpgroup 1 passing dS back), each half (and each piece of
+// columns) into a fresh sum added to the running one in f32: every long
+// sum rounds to nearest, and the tensor cores' truncating adds stay inside
+// 4 k8 steps.  Every sum runs in one fixed order: the same inputs give the
+// same bits.
+template <int D, bool kDQ, bool kWindow>
+__device__ __forceinline__ void fb_body(
+    const CUtensorMap* ta0, const CUtensorMap* ta1, const CUtensorMap* tb0,
+    const CUtensorMap* tb1, const CUtensorMap* tt0, const CUtensorMap* tt1,
+    const float* __restrict__ rows, const CUtensorMap* m0,
+    const CUtensorMap* m1, int B, int S, int H, int KVH, float scale,
+    float softcap, int window) {
+  using T = FbT<D>;
+  constexpr int NCH = T::NCH, NI = T::NI, ND = FB_DEPTH;
+  constexpr int NC = kDQ ? T::NQ : T::NKV;  // a warpgroup's output columns
+  constexpr int NXB = kDQ ? 1 : 2;          // P dc buffers
+  using R = FbRs<NC>;
+  extern __shared__ uint8_t fa_raw[];
+  const uint32_t slots = (smem_u32(fa_raw) + 1023) & ~1023u;  // [2][2]
+  const uint32_t stage0 = slots + 4 * T::SLOT;                 // [ND]
+  const uint32_t side0 = stage0 + ND * T::STAGE;               // [ND]
+  const uint32_t xbuf = side0 + ND * T::SIDE;                  // [2]
+  const uint32_t raw_full = xbuf + 2 * T::XBUF;  // [ND] 8-byte barriers
+  const uint32_t raw_empty = raw_full + 8 * ND;  // [ND]
+  const uint32_t xfull = raw_empty + 8 * ND;     // [2]
+  const uint32_t xempty = xfull + 16;            // [2]
+  const int rep = H / KVH, S64 = (S + 63) / 64 * 64;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ND; ++s) {
+      mbar_init(raw_full + 8 * s, 1);
+      mbar_init(raw_empty + 8 * s, 128);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(xfull + 8 * s, 128);
+      mbar_init(xempty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the CTA's M tile and walk (tile n: head h, query rows q0 .., keys
+  // kk0 ..), formed in each warpgroup after its setmaxnreg from its own
+  // read of the CTA index: formed before, its values live across the
+  // producer's 24 registers and ptxas spills them
+  int b, kvh, half = 0, m_h = 0, m_q0 = 0, k0 = 0, nqt = 0, lo = 0;
+  int n_tiles;
+  auto walk = [&]() {
+    uint32_t cta;
+    asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(cta));
+    if constexpr (kDQ) {
+      const int nq = (S + 63) / 64;
+      const int bh = static_cast<int>(cta % (B * H));
+      b = bh / H;
+      m_h = bh % H;
+      kvh = m_h / rep;
+      m_q0 = (nq - 1 - static_cast<int>(cta / (B * H))) * 64;
+      lo = kWindow ? max(0, m_q0 - window + 1) / 64 : 0;
+      n_tiles = (min(m_q0 + 64, S) + 63) / 64 - lo;
+    } else {
+      const int per = B * KVH * T::NHV;
+      const int rem = static_cast<int>(cta % per);
+      k0 = static_cast<int>(cta / per) * 64;
+      half = rem % T::NHV;
+      kvh = rem / T::NHV % KVH;
+      b = rem / T::NHV / KVH;
+      const int q_end = kWindow ? min(S, k0 + 63 + window) : S;
+      nqt = (q_end - k0 + 63) / 64;
+      n_tiles = rep * nqt;
+    }
+  };
+  auto tile = [&](int n, int& h, int& q0, int& kk0) {
+    if constexpr (kDQ) {
+      h = m_h;
+      q0 = m_q0;
+      kk0 = (lo + n) * 64;
+    } else {
+      h = kvh * rep + n / nqt;
+      q0 = k0 + (n % nqt) * 64;
+      kk0 = k0;
+    }
+  };
+
+  if (threadIdx.x >= 256) {
+    // producer, one thread: item g of the walk (g / NI its tile) loaded raw
+    // into stage g % ND by TMA once the warpgroup that split the item ND
+    // before it released the stage; the stage's full barrier completes
+    // when the bytes land.  A pair: two 64-row boxes of 32 columns (and
+    // for dK/dV each warpgroup's last pair of a tile its 64 lse (warpgroup
+    // 0) or delta (1), one bulk copy); a transposed item: one 32-row box of
+    // the warpgroup's NC columns
+    regs_dealloc<FB_PRODUCER_REGS>();
+    if (threadIdx.x != 256) return;
+    walk();
+    const int total = n_tiles * NI;
+#pragma unroll 1
+    for (int g = 0; g < total; ++g) {
+      const int i = g % NI, s = g % ND;
+      const uint32_t st = stage0 + s * T::STAGE;
+      const uint32_t bar = raw_full + 8 * s;
+      int h, q0, kk0;
+      tile(g / NI, h, q0, kk0);
+      if (g >= ND) mbar_wait(raw_empty + 8 * s, ((g / ND) - 1) & 1);
+      if (i < 2 * NCH) {
+        const bool two = i % 2;  // the second product's pair
+        const bool with_rows = !kDQ && i >= 2 * NCH - 2;
+        const int col = 32 * (i / 2);
+        mbar_expect_tx(bar, 16384 + (with_rows ? 256 : 0));
+        tma_load_4d(st, two ? ta1 : ta0, bar, col, kDQ ? h : kvh,
+                    kDQ ? q0 : kk0, b);
+        tma_load_4d(st + 8192, two ? tb1 : tb0, bar, col, kDQ ? kvh : h,
+                    kDQ ? kk0 : q0, b);
+        if (with_rows)
+          bulk_load(side0 + s * T::SIDE,
+                    rows + (static_cast<long long>(b) * H + h) * 2 * S64 +
+                        2 * q0 + 64 * (i % 2),
+                    256, bar);
+      } else {
+        const int j = i - 2 * NCH, r = 32 * (j / 2);
+        mbar_expect_tx(bar, 32 * NC * 4);
+        if constexpr (kDQ)
+          tma_load_4d(st, tt0, bar, (j % 2) * NC, kvh, kk0 + r, b);
+        else
+          tma_load_4d(st, j % 2 ? tt1 : tt0, bar, half * 128, h, q0 + r, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread holds M rows rr and rr + 8 of a 64 x N tile, at
+  // columns 8 j + c2 + {0, 1} of each n8 block j (wgmma's f32 layout).
+  // Each warpgroup splits its own items from their stages into its two
+  // slots in turn (m counts its items), the next item's split running
+  // under the last one's products
+  regs_alloc<FB_CONSUMER_REGS>();
+  walk();
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int c2 = 2 * (tid % 4), rr = 16 * (tid / 32) + (tid % 32) / 4;
+  const float cs = scale * FA_LOG2E;
+  const float to_cap = softcap > 0.f ? scale / softcap : 0.f;
+  float out[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) out[i] = 0.f;
+  int m = 0;
+  auto slot_of = [&](int mm) {
+    return slots + (2 * wg + (mm & 1)) * T::SLOT;
+  };
+  // item g's split into the slot: its B (a pair's b; a transposed item
+  // whole) stored in hi and lo and visible to the tensor cores (the
+  // warpgroup's 128 threads' stores fenced and synced); a transposed
+  // item's stage is released, a pair's once its A is loaded (done_a)
+  auto split = [&](int g, uint32_t slot, bool pair) {
+    const int s = g % ND;
+    const uint32_t st = stage0 + s * T::STAGE;
+    mbar_wait(raw_full + 8 * s, (g / ND) & 1);
+    if (pair) {
+      fb_put_b(st, slot, tid);
+    } else {
+      fb_put_t<NC>(st, slot, tid);
+      mbar_arrive(raw_empty + 8 * s);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+  };
+  // once pair item g's A fragments are in registers (fb_load_a), its stage
+  // released; with want_cv (dK/dV's last pair item of a tile) first the lse
+  // (warpgroup 0, as -lse log2 e) or delta (1) of the thread's 16 query
+  // columns, from the stage's side buffer
+  auto done_a = [&](int g, bool want_cv, float (&cv)[16]) {
+    const int s = g % ND;
+    if (want_cv) {
+      const uint32_t sd = side0 + s * T::SIDE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = lds_f2(sd + 4 * (8 * j + c2));
+        cv[2 * j] = wg == 0 ? -l2.x * FA_LOG2E : l2.x;
+        cv[2 * j + 1] = wg == 0 ? -l2.y * FA_LOG2E : l2.y;
+      }
+    }
+    mbar_arrive(raw_empty + 8 * s);
+  };
+  // dQ: the lse (warpgroup 0, as -lse log2 e) or delta (1) of the
+  // thread's two rows, from the rows kernel's tiles
+  float rv[2] = {0.f, 0.f};
+  if constexpr (kDQ) {
+    const float* t = rows + (static_cast<long long>(b) * H + m_h) * 2 * S64 +
+                     2 * m_q0 + 64 * wg;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rv[r] = wg == 0 ? -t[rr + 8 * r] * FA_LOG2E : t[rr + 8 * r];
+  }
+
+  for (int n = 0; n < n_tiles; ++n) {
+    int h, q0, kk0;
+    tile(n, h, q0, kk0);
+    const int gb = n * NI + wg;  // this warpgroup's items: gb + 2 i
+    float run[32], cv[16];
+    // the SS product over the chunks, each chunk's sum apart in acc (the
+    // cross terms first) and added to run in f32; chunk c + 1 is split
+    // while chunk c's products run
+    {
+      float acc[32];
+      uint32_t ah[4][4], al[4][4];  // read by the products in flight
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const uint32_t slot = slot_of(m + c);
+        const int g = gb + 2 * c;
+        split(g, slot, true);
+        if (c > 0) {
+          wgmma_wait<0>();
+          wgmma_pin(acc);
+          wgmma_pin(ah);
+          wgmma_pin(al);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            run[i] = c == 1 ? acc[i] : run[i] + acc[i];
+        }
+        const uint32_t st = stage0 + (g % ND) * T::STAGE;
+        if (32 * c + 32 <= D) {
+          fb_load_a<4>(st, tid, ah, al);
+          done_a(g, !kDQ && c == NCH - 1, cv);
+          fb_issue_pair<4>(acc, ah, al, slot);
+        } else {
+          constexpr int KS = (D % 32) / 8;
+          fb_load_a<KS>(st, tid, ah, al);
+          done_a(g, !kDQ && c == NCH - 1, cv);
+          fb_issue_pair<KS>(acc, ah, al, slot);
+        }
+      }
+      // the first transposed item split under the last chunk's products
+      split(gb + 2 * NCH, slot_of(m + NCH), false);
+      wgmma_wait<0>();
+      wgmma_pin(acc);
+      wgmma_pin(ah);
+      wgmma_pin(al);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) run[i] = NCH == 1 ? acc[i] : run[i] + acc[i];
+    }
+    split(gb + 2 * NCH + 2, slot_of(m + NCH + 1), false);
+    // tiles with a key past a row, a row past S or a key at or below a
+    // row's window edge are masked (P = 0)
+    const bool edge =
+        kDQ ? (kk0 + 63 > q0 || q0 + 64 > S ||
+               (kWindow && kk0 + window <= q0 + 63))
+            : (q0 < kk0 + 63 || q0 + 64 > S ||
+               (kWindow && kk0 + window <= q0 + 63));
+    const int xb = n % NXB, xu = n / NXB;
+    const uint32_t px = xbuf + xb * T::XBUF;
+    if (wg == 0) {
+      // P = exp(s - lse) and its softcap factor, s = raw scale (with a
+      // softcap, cap tanh(raw scale / cap)); P dc to warpgroup 1
+      if (xu > 0) mbar_wait(xempty + 8 * xb, (xu - 1) & 1);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        float pd[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * u + e;
+          const int mrow = rr + 8 * ((i / 2) % 2);
+          const int ncol = 8 * (i / 4) + c2 + i % 2;
+          const int row = kDQ ? q0 + mrow : q0 + ncol;
+          const int key = kDQ ? kk0 + ncol : kk0 + mrow;
+          const float nl = kDQ ? rv[(i / 2) % 2] : cv[2 * (i / 4) + i % 2];
+          float p, dc = 1.f;
+          if (softcap > 0.f) {
+            const float t = tanhf(run[i] * to_cap);
+            dc = 1.f - t * t;
+            p = ex2_approx(fmaf(softcap * t, FA_LOG2E, nl));
+          } else {
+            p = ex2_approx(fmaf(run[i], cs, nl));
+          }
+          if (edge && (key > row || row >= S ||
+                       (kWindow && key + window <= row)))
+            p = 0.f;
+          run[i] = p;
+          pd[e] = p * dc;
+        }
+        st_shared4(px + u * 2048 + tid * 16,
+                   make_uint4(__float_as_uint(pd[0]), __float_as_uint(pd[1]),
+                              __float_as_uint(pd[2]), __float_as_uint(pd[3])));
+      }
+      mbar_arrive(xfull + 8 * xb);
+      if constexpr (kDQ) {
+        // dS back from warpgroup 1
+        const uint32_t dx = xbuf + T::XBUF;
+        mbar_wait(xfull + 8, n & 1);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float4 t = ld_shared4f(dx + u * 2048 + tid * 16);
+          run[4 * u] = t.x;
+          run[4 * u + 1] = t.y;
+          run[4 * u + 2] = t.z;
+          run[4 * u + 3] = t.w;
+        }
+        mbar_arrive(xempty + 8);
+      }
+    } else {
+      // dS = P dc (dP - delta)
+      mbar_wait(xfull + 8 * xb, xu & 1);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float4 t = ld_shared4f(px + u * 2048 + tid * 16);
+        const float pd[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * u + e;
+          const float dl = kDQ ? rv[(i / 2) % 2] : cv[2 * (i / 4) + i % 2];
+          run[i] = pd[e] * (run[i] - dl);
+        }
+      }
+      mbar_arrive(xempty + 8 * xb);
+      if constexpr (kDQ) {
+        const uint32_t dx = xbuf + T::XBUF;
+        if (n > 0) mbar_wait(xempty + 8, (n - 1) & 1);
+        fb_put_x(dx, run, tid);
+        mbar_arrive(xfull + 8);
+      }
+    }
+    // the RS products over the tile's two halves of 32 (N's), each piece
+    // of output columns into a fresh sum added to out
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      uint32_t ah[4][4], al[4][4];
+      if (hq == 0)
+        fb_frags<0>(run, ah, al);
+      else
+        fb_frags<1>(run, ah, al);
+      const uint32_t slot = slot_of(m + NCH + hq);
+#pragma unroll
+      for (int hh = 0; hh < R::H; ++hh) {
+        float part[R::N / 2];
+        fb_issue_rs<R::N>(part, ah, al, slot + hh * R::N * 128, NC * 128);
+        wgmma_wait<0>();
+        wgmma_pin(part);
+#pragma unroll
+        for (int i = 0; i < R::N / 2; ++i) out[hh * R::N / 2 + i] += part[i];
+      }
+    }
+    m += NCH + 2;
+  }
+
+  // epilogue: both warpgroups' products are done, so their slots are
+  // free: each stages its 64 rows of NC columns in its own 64 KB (dK and
+  // dQ times 1/sqrt(D))
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+  const uint32_t stage = slots + 2 * wg * T::SLOT;
+  if constexpr (kDQ)
+    fb_store<NC>(out, scale, stage, m0, wg * NC, m_h, m_q0, b, wg, tid);
+  else
+    fb_store<NC>(out, wg ? scale : 1.f, stage, wg ? m1 : m0, half * 128,
+                 kvh, k0, b, wg, tid);
+}
+
+// ta0, ta1: the A operands of the two SS products (dK/dV: K, V; dQ: Q,
+// dO), 64-row boxes of 32 columns in the 128-byte swizzle; tb0, tb1 their
+// B operands (dK/dV: Q, dO; dQ: K, V), the same boxes as they are; tt0,
+// tt1: 32-row boxes of a warpgroup's columns, the transposed items'
+// sources (dK/dV: dO, Q; dQ: K)
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(FbT<D>::THREADS, 1)
+    flash_attention_bwd_tf32_dkdv_kernel(
+        const __grid_constant__ CUtensorMap ta0,
+        const __grid_constant__ CUtensorMap ta1,
+        const __grid_constant__ CUtensorMap tb0,
+        const __grid_constant__ CUtensorMap tb1,
+        const __grid_constant__ CUtensorMap tt0,
+        const __grid_constant__ CUtensorMap tt1,
+        const float* __restrict__ rows,
+        const __grid_constant__ CUtensorMap tdv,
+        const __grid_constant__ CUtensorMap tdk, int B, int S, int H,
+        int KVH, float scale, float softcap, int window) {
+  fb_body<D, false, kWindow>(&ta0, &ta1, &tb0, &tb1, &tt0, &tt1, rows, &tdv,
+                             &tdk, B, S, H, KVH, scale, softcap, window);
+}
+
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(FbT<D>::THREADS, 1)
+    flash_attention_bwd_tf32_dq_kernel(
+        const __grid_constant__ CUtensorMap ta0,
+        const __grid_constant__ CUtensorMap ta1,
+        const __grid_constant__ CUtensorMap tb0,
+        const __grid_constant__ CUtensorMap tb1,
+        const __grid_constant__ CUtensorMap tt0,
+        const float* __restrict__ rows,
+        const __grid_constant__ CUtensorMap tdq, int B, int S, int H,
+        int KVH, float scale, float softcap, int window) {
+  fb_body<D, true, kWindow>(&ta0, &ta1, &tb0, &tb1, &tt0, &tt0, rows, &tdq,
+                            &tdq, B, S, H, KVH, scale, softcap, window);
+}
+
+// a float32 (B, S, heads, D) tensor as a rank-4 map over (D, heads, S, B),
+// boxes of `cols` columns x 1 head x `rows` rows, with or without the
+// 128-byte swizzle (32 columns): loads read zeros outside the tensor,
+// stores drop what falls outside it
+static int encode_bhsd_f32(EncodeTiledFn encode, CUtensorMap* map,
+                           const void* x, int B, int S, int heads, int D,
+                           int cols, int rows = 64, bool swizzle = false) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {4ull * D, 4ull * D * heads,
+                                 4ull * D * heads * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : FA_ENCODE_FAILED;
+}
+
+// the float32 backward: the rows' lse and delta in tiles (into `rows`,
+// 2 B H S64 floats), then dK/dV (a CTA per 64 keys of a (b, kv head), and
+// per half of the columns at D 256; key tile 0, which sees every query
+// tile, first), then dQ (a CTA per 64 query rows of a (b, h), the last
+// query tile, which sees every key tile, first)
+template <int D>
+static int launch_fb_tf32(const void* q, const void* k, const void* v,
+                          const void* o, const float* lse, const void* dout,
+                          void* dq, void* dk, void* dv, float* rows, int B,
+                          int S, int H, int KVH, float softcap, int window,
+                          cudaStream_t stream) {
+  using T = FbT<D>;
+  if (B == 0 || S == 0) return 0;
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return FA_NO_ENCODER;
+  // each of q, k, v and dout as an SS product's swizzled A (s) and as its
+  // B, and as the transposed items' source (t)
+  CUtensorMap qs, ks, vs, dos, qb, kb, vb, dob, qt, dot, kt, mdq, mdk, mdv;
+  const void* src4[4] = {q, k, v, dout};
+  CUtensorMap* as4[4] = {&qs, &ks, &vs, &dos};
+  CUtensorMap* bs4[4] = {&qb, &kb, &vb, &dob};
+  int rc = 0;
+  for (int x = 0; x < 4 && rc == 0; ++x) {
+    const int heads = x == 1 || x == 2 ? KVH : H;
+    rc = encode_bhsd_f32(encode, as4[x], src4[x], B, S, heads, D, 32, 64,
+                         true);
+    if (rc == 0)
+      rc = encode_bhsd_f32(encode, bs4[x], src4[x], B, S, heads, D, 32);
+  }
+  if (rc == 0) rc = encode_bhsd_f32(encode, &qt, q, B, S, H, D, T::NKV, 32);
+  if (rc == 0)
+    rc = encode_bhsd_f32(encode, &dot, dout, B, S, H, D, T::NKV, 32);
+  if (rc == 0) rc = encode_bhsd_f32(encode, &kt, k, B, S, KVH, D, T::NQ, 32);
+  if (rc == 0)
+    rc = encode_bhsd_f32(encode, &mdq, dq, B, S, H, D, fb_box(T::NQ));
+  if (rc == 0)
+    rc = encode_bhsd_f32(encode, &mdk, dk, B, S, KVH, D, fb_box(T::NKV));
+  if (rc == 0)
+    rc = encode_bhsd_f32(encode, &mdv, dv, B, S, KVH, D, fb_box(T::NKV));
+  if (rc != 0) return rc;
+  const int S64 = (S + 63) / 64 * 64;
+  const long long n = static_cast<long long>(B) * S64 * H;
+  const long long tiles = (S + 63) / 64;
+  const long long kv_ctas = static_cast<long long>(B) * KVH * T::NHV * tiles;
+  const long long q_ctas = static_cast<long long>(B) * H * tiles;
+  if ((n + 7) / 8 > 2147483647LL || kv_ctas > 2147483647LL ||
+      q_ctas > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_bwd_rows_kernel<float>
+      <<<static_cast<unsigned>((n + 7) / 8), 256, 0, stream>>>(
+          static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+          rows, S, S64, H, D, n);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  // a window of S keys or more is no window: the causal instances
+  const bool win = window > 0 && window < S;
+  auto dkdv = win ? flash_attention_bwd_tf32_dkdv_kernel<D, true>
+                  : flash_attention_bwd_tf32_dkdv_kernel<D, false>;
+  auto dqk = win ? flash_attention_bwd_tf32_dq_kernel<D, true>
+                 : flash_attention_bwd_tf32_dq_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv<<<static_cast<unsigned>(kv_ctas), T::THREADS, T::SMEM, stream>>>(
+      ks, vs, qb, dob, dot, qt, rows, mdv, mdk, B, S, H, KVH, scale, softcap,
+      window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dqk<<<static_cast<unsigned>(q_ctas), T::THREADS, T::SMEM, stream>>>(
+      qs, dos, kb, vb, kt, rows, mdq, B, S, H, KVH, scale, softcap, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+static int dispatch_fb_tf32(const void* q, const void* k, const void* v,
+                            const void* o, const float* lse,
+                            const void* dout, void* dq, void* dk, void* dv,
+                            float* rows, int B, int S, int H, int KVH, int D,
+                            float softcap, int window, cudaStream_t st) {
+#define FB_TF32(DD)                                                        \
+  case DD:                                                                 \
+    return launch_fb_tf32<DD>(q, k, v, o, lse, dout, dq, dk, dv, rows, B, \
+                              S, H, KVH, softcap, window, st)
+  switch (D) {
+    FB_TF32(16);
+    FB_TF32(32);
+    FB_TF32(64);
+    FB_TF32(96);
+    FB_TF32(112);
+    FB_TF32(128);
+    FB_TF32(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FB_TF32
+}
+
+// ---------------------------------------------------------------------------
+// K8 backward, bfloat16: wgmma, TMA and an mbarrier ring
+// ---------------------------------------------------------------------------
 
 // the dK/dV kernel's tiles: a CTA owns BKV keys of one (b, kv head) and
 // walks query tiles of BQ rows; two consumer warpgroups own 64 keys each
@@ -2615,15 +3083,6 @@ struct FabDq {
 __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   asm volatile("" : "+r"(x));
   return x;
-}
-
-__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
-               : "=f"(v.x), "=f"(v.y)
-               : "r"(addr)
-               : "memory");
-  return v;
 }
 
 // the probability of one score and the factor of its softcap: raw = q.k
@@ -3151,8 +3610,8 @@ static int launch_fab_wgmma(const void* q, const void* k, const void* v,
   const int S64 = (S + 63) / 64 * 64;
   const long long n = static_cast<long long>(B) * S64 * H;
   if ((n + 7) / 8 > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_bwd_rows_kernel<<<static_cast<unsigned>((n + 7) / 8), 256,
-                                    0, stream>>>(
+  flash_attention_bwd_rows_kernel<bf16>
+      <<<static_cast<unsigned>((n + 7) / 8), 256, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, rows,
       S, S64, H, D, n);
   rc = static_cast<int>(cudaGetLastError());
@@ -3435,13 +3894,12 @@ int launch_ssm_state_scan(const void* states, const void* decay, void* out,
 
 // the K8 backward: q, dq (B, S, H, D), k, v, dk, dv (B, S, KVH, D), o and
 // dout like q, lse (B, H, S) f32 from the forward, delta f32 scratch of
-// 2 B H S64 values, S64 = S rounded up to 64 (float32: delta (B, H, S) in
-// its first B H S; bfloat16: each 64-row tile's lse and delta side by
-// side); the forward's shapes, window and softcap.  Three launches:
-// delta = rowsum(dO O), dK/dV, dQ.  The dtype picks the kernels: float32
-// flash_attention_bwd_{delta,dkdv,dq}_kernel (f32 FMAs), bfloat16
-// flash_attention_bwd_rows_kernel and
-// flash_attention_bwd_wgmma_{dkdv,dq}_kernel (tensor cores).
+// 2 B H S64 values, S64 = S rounded up to 64 (each 64-row tile's lse and
+// delta side by side); the forward's shapes, window and softcap.  Three
+// launches: flash_attention_bwd_rows_kernel (delta = rowsum(dO O)), dK/dV,
+// dQ; the dtype picks the last two, all on the tensor cores: float32
+// flash_attention_bwd_tf32_{dkdv,dq}_kernel (3xTF32), bfloat16
+// flash_attention_bwd_wgmma_{dkdv,dq}_kernel.
 int launch_flash_attention_bwd(const void* q, const void* k, const void* v,
                                const void* o, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
@@ -3453,8 +3911,8 @@ int launch_flash_attention_bwd(const void* q, const void* k, const void* v,
   float* dl = static_cast<float*>(delta);
   if (window < 0 || H % KVH) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32)
-    return dispatch_fa_bwd(q, k, v, o, l, dout, dq, dk, dv, dl, B, S, H,
-                           KVH, D, softcap, window, st);
+    return dispatch_fb_tf32(q, k, v, o, l, dout, dq, dk, dv, dl, B, S, H,
+                            KVH, D, softcap, window, st);
   if (dtype == DT_BF16)
     return dispatch_fab_wgmma(q, k, v, o, l, dout, dq, dk, dv, dl, B, S, H,
                               KVH, D, softcap, window, st);

@@ -38,40 +38,51 @@ log-sum-exp; serving passes none, and the kernels keep their bits.
 The backward (:func:`flash_attention_bwd`; no TPU counterpart: the
 reference differentiates its jnp attention) is three launches of
 ``csrc/lm_kernels.cu``, every head width of the forward, no atomics, so
-the same inputs give the same bits: first delta = rowsum(dO O)
-(memory-bound, O and dO read once), then dK/dV and dQ, by dtype:
+the same inputs give the same bits: first
+``flash_attention_bwd_rows_kernel`` (memory-bound, O and dO read once)
+writes delta = rowsum(dO O) in float32 and the forward's lse in 64-row
+tiles side by side (an lse row of a (b, h) starts at (b H + h) S floats,
+and a copy that starts off 16 bytes faults), then dK/dV and dQ, every
+product on the tensor cores (``wgmma``, f32 sums), by dtype:
 
- * bfloat16 (training): ``flash_attention_bwd_rows_kernel`` writes delta
-   and the forward's lse in 64-row tiles side by side, so a query tile's
-   are one aligned 512-byte bulk copy (an lse row of a (b, h) starts at
-   (b H + h) S floats, and a copy that starts off 16 bytes faults); then
-   ``flash_attention_bwd_wgmma_dkdv_kernel`` and
-   ``flash_attention_bwd_wgmma_dq_kernel``, every product on the tensor
-   cores (``wgmma``, bf16 in, f32 sums) with the forward's machinery (TMA
-   tiles in its swizzle, an mbarrier ring, a producer and two consumer
-   warpgroups, persistent CTAs over pairs of tiles of equal work).  dK/dV:
-   one CTA per 128 keys (64 at D 256) of a (b, kv head), the keys as the
-   products' M, walking every query head of the group, so the heads sum
-   in registers in one order, each query tile's Q and dO by TMA and its
-   lse and delta by one bulk copy of their tile through the ring;
-   S^T = K Q^T, dP^T = V dO^T, then
-   dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 in
-   registers.  dQ: the forward's CTA of 128 query rows, S and dP again
-   (7 products where 5 would do, for no atomics), dQ += dS K.  dS is
-   rounded to bf16 to enter the tensor cores, as FlashAttention 2 and 3
-   do, and the plain version's bf16 branch rounds it too (with P, as the
-   forward rounds P before P V);
- * float32 (the parity step): ``flash_attention_bwd_delta_kernel``
-   (delta (B, H, S)), ``flash_attention_bwd_dkdv_kernel`` and
-   ``flash_attention_bwd_dq_kernel``, float only, the products on f32
-   FMAs: ``.tf32`` ``wgmma`` reads only K-major operands, so P^T dO, dS^T Q
-   and dS K would need transposed TF32 copies in shared memory, a design
-   of its own for a path that runs twice a parity step.
+ * bfloat16 (training): ``flash_attention_bwd_wgmma_dkdv_kernel`` and
+   ``flash_attention_bwd_wgmma_dq_kernel``, bf16 in, with the forward's
+   machinery (TMA tiles in its swizzle, an mbarrier ring, a producer and
+   two consumer warpgroups, persistent CTAs over pairs of tiles of equal
+   work).  dK/dV: one CTA per 128 keys (64 at D 256) of a (b, kv head),
+   the keys as the products' M, walking every query head of the group, so
+   the heads sum in registers in one order, each query tile's Q and dO by
+   TMA and its lse and delta by one bulk copy of their tile through the
+   ring; S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q
+   with P^T and dS^T rounded to bf16 in registers.  dQ: the forward's CTA
+   of 128 query rows, S and dP again (7 products where 5 would do, for no
+   atomics), dQ += dS K.  dS is rounded to bf16 to enter the tensor cores,
+   as FlashAttention 2 and 3 do, and the plain version's bf16 branch
+   rounds it too (with P, as the forward rounds P before P V);
+ * float32 (the parity step and float32 training):
+   ``flash_attention_bwd_tf32_dkdv_kernel`` and
+   ``flash_attention_bwd_tf32_dq_kernel``, 3xTF32 as the float32 forward:
+   each operand split into a TF32 hi and lo, a product a_hi b_hi + a_hi
+   b_lo + a_lo b_hi.  ``.tf32`` ``wgmma`` reads only K-major operands, so
+   the B operands of dV += P^T dO, dK += dS^T Q and dQ += dS K are
+   transposed copies.  One producer thread loads every operand raw by TMA
+   (D in chunks of 32 columns); two consumer warpgroups split them into
+   TF32 hi and lo in the form each product reads (an SS product's A
+   straight into registers) and share each 64 x 64 tile (dK/dV: one S^T,
+   P and dV, the other dP^T, dS and dK; dQ: one S and P, the other dP and
+   dS, each half of dQ's columns), passing P and dS through shared memory;
+   every product's sum spans at most 4 k8 steps on the tensor cores and is
+   added to the running sums in f32 registers, so the tensor cores'
+   truncating adds never build up.  dK, dV and dQ leave by TMA stores.
+   dK/dV: a CTA per 64 keys of a (b, kv head) (per half
+   of the columns at D 256), every query head of the group in order; dQ:
+   a CTA per 64 query rows of a (b, h), S and dP again.
 
 Bound: S and dP recomputed and dV, dK, dQ are 5 products, 10 B H D flops a
 kept (query, key) pair: 0.695 ms at Granite-8B's (8, 2048, 32/8, 128) over
-the 989 TFLOP/s of bf16.  :class:`FlashAttention` is the
-``torch.autograd.Function`` around the two.
+the 989 TFLOP/s of bf16, 4.167 ms in float32 (3 x over the 495 of TF32).
+:class:`FlashAttention` is the ``torch.autograd.Function`` around the
+two.
 """
 
 from __future__ import annotations
@@ -200,8 +211,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "aligned tensors")
     B, S, H, D = q.shape
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    # scratch: each row's delta = rowsum(dO O) (float32), or in bfloat16
-    # each 64-row tile's lse and delta side by side
+    # scratch: each 64-row tile's lse and delta = rowsum(dO O) side by side
     delta = torch.empty(2 * B * H * (-(-S // 64) * 64), dtype=torch.float32,
                         device=q.device)
     lib = library.LM or library.load_lm_library()

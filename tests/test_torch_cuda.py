@@ -1642,6 +1642,12 @@ def test_int8_granite_on_card_matches_plain_and_upfront_paths(card):
     (1, 1, 4, 2, 128, 0, 0.0), (2, 63, 4, 2, 128, 0, 0.0),
     (1, 129, 4, 2, 128, 0, 0.0), (1, 300, 32, 4, 128, 0, 0.0),
     (1, 257, 4, 1, 256, 0, 0.0),
+    # the f32 kernels' tile edges (64 x 64 tiles, halves of 32 rows, D in
+    # chunks of 32): one row short of a tile, one key past a tile and past
+    # a half, GQA 8, D 112's last chunk of 16, D 256 with a window and a
+    # softcap
+    (1, 63, 4, 2, 64, 0, 0.0), (1, 65, 8, 1, 128, 0, 0.0),
+    (2, 33, 4, 4, 112, 0, 0.0), (1, 161, 2, 1, 256, 40, 50.0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain_version_on_card(
@@ -1732,6 +1738,34 @@ def test_flash_attention_backward_bf16_same_bits_on_card(card):
     for a, b in zip(first, second):
         assert torch.isfinite(a.float()).all()
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_f32_same_bits_on_card(card):
+    """The float32 backward sums every gradient in one fixed order, without
+    atomics (each chunk's and each half's sum apart, then in order in f32
+    registers): two runs at Granite-8B's head layout (H 32, KVH 8, D 128)
+    and at Gemma-2's (H 8, KVH 4, D 256, window and softcap) give the same
+    bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    for B, S, H, KVH, D, window, cap in ((2, 1000, 32, 8, 128, 0, 0.0),
+                                         (1, 700, 8, 4, 256, 300, 50.0)):
+        gen = torch.Generator(device=card).manual_seed(12)
+        q, do = (torch.randn((B, S, H, D), generator=gen, device=card)
+                 for _ in range(2))
+        k, v = (torch.randn((B, S, KVH, D), generator=gen, device=card)
+                for _ in range(2))
+        lse = torch.empty((B, H, S), device=card)
+        o = flash_attention(q, k, v, softcap=cap, window=window, lse=lse)
+        first = flash_attention_bwd(q, k, v, o, lse, do, softcap=cap,
+                                    window=window)
+        second = flash_attention_bwd(q, k, v, o, lse, do, softcap=cap,
+                                     window=window)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.isfinite(a).all()
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -227,6 +227,175 @@ def test_flash_attention_bwd_bf16_ds_rounding_within_2x(B, S, H, KVH, D,
         _close(a.float(), b.float(), 1e-2)
 
 
+def _bwd_tf32_kernels(q, k, v, o, lse, do, cap=0.0, window=0, products=3):
+    """What K8's float32 backward kernels (``flash_attention_bwd_rows_kernel``
+    then ``flash_attention_bwd_tf32_{dkdv,dq}_kernel``) compute, blockwise,
+    in torch: tiles of 64 query rows x 64 keys, rows past S zero-filled;
+    delta = rowsum(dO O) and lse from the rows kernel in f32; S and dP over
+    D in chunks of 32 columns, each chunk's sum apart (3 TF32 products of
+    the split operands, :func:`_tensor_core_product`) and added in f32 in
+    chunk order; s = raw / sqrt(D) (with a softcap cap tanh(s / cap), dc =
+    1 - t^2), P = 2^(raw scale log2 e - lse log2 e) where the key is
+    visible, else 0, dS = (P dc) (dP - delta); then dV += P^T dO and dK +=
+    dS^T Q (the dK/dV kernel's walk: each key tile, every query head of its
+    group in order, query tiles from the key tile's causal start to the
+    window's upper edge) and dQ += dS K (the dQ kernel's: key tiles from
+    the window's lower edge to the causal frontier), each over a half of 32
+    of the tile (the K of those products) into a sum of its own (3 TF32
+    products of P or dS split in registers and of the transposed copy)
+    added to the running sum in f32; dK and dQ times 1/sqrt(D) at the end.
+    The sums round to nearest, where the tensor cores truncate: each sum
+    on them spans 4 k8 steps, the long ones are in f32 (the float64 hold
+    on the card answers for that)."""
+    from test_torch_lm_kernels import _tensor_core_product
+
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    rep = H // KVH
+    T = 64
+    nt = -(-S // T)
+    Sp = nt * T
+    f32 = torch.float32
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=f32)
+    log2e = torch.tensor(1.4426950408889634, dtype=f32)
+    cs = scale * log2e
+    to_cap = scale / torch.tensor(cap, dtype=f32) if cap else None
+
+    def rows(x):  # (B, S, h, D) -> (B, h, Sp, D), zero rows past S
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, Sp - S)).permute(
+            0, 2, 1, 3)
+
+    qp, dop = rows(q), rows(do)
+    kp = rows(k).repeat_interleave(rep, dim=1)
+    vp = rows(v).repeat_interleave(rep, dim=1)
+    delta = torch.nn.functional.pad((do * o).sum(-1).transpose(1, 2),
+                                    (0, Sp - S))              # (B, H, Sp)
+    nl = -torch.nn.functional.pad(lse, (0, Sp - S)) * log2e
+
+    def chunked(a, b):  # a (.., 64, D) against b (.., 64, D) over D
+        run = None
+        for c0 in range(0, D, 32):
+            part = _tensor_core_product(a[..., c0:c0 + 32],
+                                        b[..., c0:c0 + 32].transpose(-1, -2),
+                                        products)
+            run = part if run is None else run + part
+        return run
+
+    blocks = {}  # (query tile, key tile) -> (P, dS), (B, H, 64, 64)
+    for qt in range(nt):
+        for kt in range(qt + 1):
+            rq, rk = slice(qt * T, qt * T + T), slice(kt * T, kt * T + T)
+            raw = chunked(qp[:, :, rq], kp[:, :, rk])
+            dp = chunked(dop[:, :, rq], vp[:, :, rk])
+            if cap:
+                t = torch.tanh(raw * to_cap)
+                dc = 1.0 - t * t
+                p = torch.exp2((cap * t) * log2e + nl[:, :, rq, None])
+            else:
+                dc = 1.0
+                p = torch.exp2(raw * cs + nl[:, :, rq, None])
+            row = torch.arange(qt * T, qt * T + T)[:, None]
+            key = torch.arange(kt * T, kt * T + T)[None, :]
+            keep = (key <= row) & (row < S)
+            if 0 < window < S:
+                keep &= key + window > row
+            p = torch.where(keep, p, 0.0)
+            ds = (p * dc) * (dp - delta[:, :, rq, None])
+            blocks[qt, kt] = p, ds
+
+    def halves(a, b):  # a (.., 64, 64) @ b (.., 64, n): two sums of 32
+        return [_tensor_core_product(a[..., i:i + 32], b[..., i:i + 32, :],
+                                     products) for i in (0, 32)]
+
+    dq = torch.zeros(B, H, Sp, D)
+    dk = torch.zeros(B, KVH, Sp, D)
+    dv = torch.zeros(B, KVH, Sp, D)
+    win = 0 < window < S
+    for qt in range(nt):  # the dQ kernel's walk
+        lo = max(0, qt * T - window + 1) // T if win else 0
+        run = torch.zeros(B, H, T, D)
+        for kt in range(lo, qt + 1):
+            for part in halves(blocks[qt, kt][1], kp[:, :, kt * T:kt * T + T]):
+                run = run + part
+        dq[:, :, qt * T:qt * T + T] = run * scale
+    for kt in range(nt):  # the dK/dV kernel's walk
+        q_end = min(S, kt * T + T - 1 + window) if win else S
+        rk, kvh = slice(kt * T, kt * T + T), torch.arange(KVH)
+        run_k, run_v = torch.zeros(B, KVH, T, D), torch.zeros(B, KVH, T, D)
+        for hr in range(rep):
+            h = kvh * rep + hr
+            for qt in range(kt, -(-q_end // T)):
+                p, ds = (x[:, h].transpose(-1, -2) for x in blocks[qt, kt])
+                rq = slice(qt * T, qt * T + T)
+                for part in halves(p, dop[:, h, rq]):
+                    run_v = run_v + part
+                for part in halves(ds, qp[:, h, rq]):
+                    run_k = run_k + part
+        dk[:, :, rk] = run_k * scale
+        dv[:, :, rk] = run_v
+    return tuple(x[:, :, :S].permute(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("B,S,H,KVH,D,window,cap", [
+    (1, 80, 2, 1, 16, 0, 0.0),       # D 16: one chunk, half of it zeros
+    (2, 70, 4, 2, 32, 0, 30.0),
+    (1, 130, 4, 1, 64, 0, 0.0),      # GQA 4, a ragged last tile
+    (1, 96, 2, 2, 96, 0, 50.0),
+    (1, 100, 2, 1, 112, 0, 0.0),     # D 112: a last chunk of 16 columns
+    (1, 128, 8, 1, 128, 0, 0.0),     # GQA 8
+    (1, 90, 2, 1, 256, 0, 50.0),     # D 256: two CTAs a key tile
+    (1, 150, 4, 2, 64, 40, 0.0),     # windows
+    (1, 140, 2, 1, 256, 70, 50.0),
+    (1, 130, 8, 1, 32, 3, 0.0),      # GQA 8, three keys a row
+])
+def test_flash_attention_bwd_tf32_design_meets_f32_bar(B, S, H, KVH, D,
+                                                        window, cap):
+    """K8's float32 backward design (3xTF32 products on 64 x 64 tiles,
+    :func:`_bwd_tf32_kernels`) on the plain forward's o and lse: against
+    ``jax.grad`` of the reference's attention at 1e-5 of each gradient's
+    largest |value| (a window against torch's autograd of the plain
+    forward, which the reference's kernel has none of), and against
+    float64 within 1e-4 of each max and 2x the plain version's error, the
+    card's bars (``chip_smoke.py``'s backward phase).  With one TF32
+    product the same design misses them, so the bars tell the two apart."""
+    q, k, v, do = _qkv(B, S, H, KVH, D, seed=S + D + window)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = ref.flash_attention_fwd_ref(tq, tk, tv, softcap=cap,
+                                         window=window)
+    o = o.contiguous()
+    got = _bwd_tf32_kernels(tq, tk, tv, o, lse, tdo, cap, window)
+    if window:
+        leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+        want = torch.autograd.grad(ref.flash_attention_ref(
+            *leaves, softcap=cap, window=window), leaves, tdo)
+    else:
+        f = lambda q, k, v: jnp.sum(RR.flash_attention_ref(q, k, v,
+                                                           softcap=cap) * do)
+        want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close(g, w)
+    plain = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, softcap=cap,
+                                        window=window)
+    wide = [t.double() for t in (tq, tk, tv)]
+    e_o, e_lse = ref.flash_attention_fwd_ref(*wide, softcap=cap,
+                                             window=window)
+    exact = ref.flash_attention_bwd_ref(*wide, e_o, e_lse, tdo.double(),
+                                        softcap=cap, window=window)
+
+    def held(mine):
+        ok = True
+        for g, p, e in zip(mine, plain, exact):
+            err, plain_err = ((x.double() - e).abs().max().item()
+                              for x in (g, p))
+            ok &= err <= 1e-4 * e.abs().max().item() and err <= 2 * plain_err
+        return ok
+
+    assert held(got)
+    one = _bwd_tf32_kernels(tq, tk, tv, o, lse, tdo, cap, window, products=1)
+    assert not held(one)
+
+
 def test_flash_attention_lse_on_cpu():
     q, k, v, do = map(torch.from_numpy, _qkv(1, 20, 2, 1, 16, seed=1))
     lse = torch.empty(1, 2, 20)
