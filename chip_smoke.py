@@ -164,22 +164,33 @@
 10. Backward kernel phase (``[bwd]`` lines): K8's backward (delta, dK/dV,
    dQ kernels) at Granite-8B's (8, 2048, 32/8, 128) and Gemma-2's (4,
    6144, 8/4, 256; window 4096, softcap 50), K9's (plain and residual) at
-   (16384, 4096); float32 against a float64 plain run (each gradient within
+   (16384, 4096), K10's at the Zamba2 training micro-batch (32, 4, 112,
+   64, 64), the serving shape (16, 8, 112, 64, 64) and a ragged (3, 1, 3,
+   5, 7); float32 against a float64 plain run (each gradient within
    1e-4 of its largest |value| and within 2x the float32 plain version's
    error; K8's backward on the plain forward's o and lse, the forward
-   kernel's printed beside), bf16 against the plain version at K8's and
-   K9's bf16 tolerances; each timed beside the plain version, its bound and
-   the library (SDPA forward + backward, ``F.rms_norm``'s backward).
-   Training parity (``[train-parity]``): one loss and backward of a 2-layer
-   full-width Granite at 2 x 2048 through the kernels and through the
-   plain versions, float32 (loss 1e-5 relative, each gradient 1e-4 of its
-   max) and bf16 (within 2x the plain path's bf16-vs-float32 distance).
-   Training (``[train]``): Granite-8B at full width, 8 of its 36 layers,
-   float32 masters and AdamW, bf16 compute, batch 8 x 4096, grad_accum 2,
-   3 steps and a traced fourth: each step's loss and grad_norm (finite,
-   the loss falling), step ms, tokens/s, model FLOPs and their rate, peak
-   memory, K8's and K9's launches per step (forward and backward), device
-   time by kernel group and the idle share.
+   kernel's printed beside; K10's the same bits in two runs), bf16 against
+   the plain version at K8's and K9's bf16 tolerances; each timed beside
+   the plain version, its bound and the library (SDPA forward + backward,
+   ``F.rms_norm``'s backward; none for K10).
+   Training parity (``[train-parity]``): one loss and backward through
+   the kernels and through the plain versions, float32 (loss 1e-5
+   relative, each gradient 1e-4 of its max) and bf16 (within 2x the plain
+   path's bf16-vs-float32 distance), of a 2-layer full-width Granite at 2
+   x 2048, one full-width Zamba2 group (the shared block and 3 Mamba-2
+   layers: K10 forward and backward) at 2 x 2048, and a local and a
+   global full-width Gemma-2 layer at 1 x 6144 (past the window: K8's
+   window instance forward and backward).
+   Training (``[train]``, :data:`TRAIN`): float32 masters and AdamW, bf16
+   compute, grad_accum 2, 3 steps and a traced fourth, at full width:
+   Granite-8B (8 of its 36 layers) and Zamba2-7B (24 of its 81 Mamba-2
+   layers) at 8 x 4096, Gemma-2-2B uncut at 4 x 8192; each step's loss and
+   grad_norm (finite, the loss falling), step ms, tokens/s, model FLOPs
+   and their rate, peak memory, K8's (and its window instance's), K9's
+   and K10's launches per step (forward and backward; Gemma-2 must launch
+   K8's window backward once a local layer a microbatch), device time by
+   kernel group, the ``opt_update`` and ``ssd_chunks`` ranges and the idle
+   share.
 11. Prints the total wall time, a ``kernels`` JSON line and, last, the
    ``ok`` JSON line.
 
@@ -356,13 +367,27 @@ LM_LAUNCHES = ("flash_attention", "flash_attention_window", "rmsnorm",
 BF16_LOGIT_REL = 0.1
 BF16_TOP1 = 0.75
 
-# the training path (Granite-8B at full width, 8 of its 36 layers: the
-# float32 masters, gradients and AdamW moments take 16 B a parameter, ~34
-# GB for 2.15 G; the reference's train_4k length, global batch 8 x 4096,
-# grad_accum 2, bf16 compute), and the backward kernels at the shapes it
-# and Gemma-2 give them
-TRAIN_ARCH = "granite_8b"
-TRAIN = {"layers": 8, "B": 8, "S": 4096, "accum": 2, "steps": 3}
+# the training cells, each at full width through
+# repro_torch.train.make_train_step (float32 masters, AdamW, bf16 compute,
+# global batch B x S in grad_accum microbatches, 3 steps and a traced
+# fourth): Granite-8B cut to 8 of its 36 layers (the float32 masters,
+# gradients and AdamW moments take 16 B a parameter: 34.4 GB for 2.148 G;
+# the reference's train_4k length); Zamba2-7B cut to 24 of its 81 Mamba-2
+# layers (8 of its 27 groups, the shared block applied 8 times: 2.255 G,
+# 36.1 GB; at 81 layers 6.699 G would need 107 GB), the same 8 x 4096
+# tokens; Gemma-2-2B uncut (26 layers, 2.614 G, 41.8 GB) at its published
+# 8192-token context (arXiv 2408.00118), 4 x 8192, the same 32,768 tokens
+# a step: at 4096 tokens its 4096-key window would cover every key and
+# its local layers would run only K8's causal instance.  ``of``: the
+# config's depth, for the printed cut.
+TRAIN = {
+    "granite_8b": {"layers": 8, "of": 36, "B": 8, "S": 4096, "accum": 2,
+                   "steps": 3},
+    "zamba2_7b": {"layers": 24, "of": 81, "B": 8, "S": 4096, "accum": 2,
+                  "steps": 3},
+    "gemma2_2b": {"layers": None, "of": 26, "B": 4, "S": 8192, "accum": 2,
+                  "steps": 3},
+}
 # AdamW at the reference's OptConfig defaults: lr 3e-4 reached after 100
 # warm-up steps, so steps 1-3 take 3e-6, 6e-6, 9e-6 (at lr 1e-3, 1e-4 or
 # 3e-5 from the first step the loss of the seeded 8-layer model rose at
@@ -370,33 +395,52 @@ TRAIN = {"layers": 8, "B": 8, "S": 4096, "accum": 2, "steps": 3}
 # about lr)
 TRAIN_LR = 3e-4
 TRAIN_WARMUP = 100
-# one step of a 2-layer full-width Granite, kernel path against the plain
-# path (backend="ref") on the same weights and batch
-TRAIN_PARITY = {"layers": 2, "B": 2, "S": 2048}
+# one step of each model at full width and a cut depth, kernel path
+# against the plain path (backend="ref") on the same weights and batch:
+# 2 Granite layers at 2 x 2048; one Zamba2 group (the shared block and 3
+# Mamba-2 layers) at 2 x 2048; a local and a global Gemma-2 layer at 1 x
+# 6144, past the window, so the local layer runs K8's window instance
+# forward and backward
+TRAIN_PARITY = {"granite_8b": {"layers": 2, "B": 2, "S": 2048},
+                "zamba2_7b": {"layers": 3, "B": 2, "S": 2048},
+                "gemma2_2b": {"layers": 2, "B": 1, "S": 6144}}
 TRAIN_LOSS_REL = 1e-5        # float32: the loss, relative
 TRAIN_GRAD_REL = 1e-4        # float32: each gradient, of its max |value|
 # K8's backward at Granite's prefill shape, Gemma-2's (window 4096,
 # softcap 50) and the shape the Granite training step launches it at
-# (TRAIN's micro-batch: 4 x 4096, so dK and dV sum H / KVH x S = 16384
+# (its micro-batch: 4 x 4096, so dK and dV sum H / KVH x S = 16384
 # query rows in the accumulator); K9's at a prefill's rows of Granite's
-# width
+# width; K10's at the Zamba2 training step's micro-batch (32 chunks of
+# 128 for 4 x 4096 tokens, 112 heads, N = P = 64), at the serving
+# prefill's (16, 8, 112, 64, 64) and at a ragged shape (N P = 35, neither a
+# multiple of 4 nor of the CTA's 256 threads)
 BWD_FA = ({"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128, "window": 0,
            "softcap": 0.0},
           {"B": 4, "S": 6144, "H": 8, "KVH": 4, "D": 256, "window": 4096,
            "softcap": 50.0},
-          {"B": TRAIN["B"] // TRAIN["accum"], "S": TRAIN["S"], "H": 32,
-           "KVH": 8, "D": 128, "window": 0, "softcap": 0.0})
+          {"B": 4, "S": 4096, "H": 32, "KVH": 8, "D": 128, "window": 0,
+           "softcap": 0.0})
 BWD_NORM = (16384, 4096)
+BWD_SCAN = ((32, 4, 112, 64, 64), (16, 8, 112, 64, 64), (3, 1, 3, 5, 7))
 TRAIN_GROUPS = (
     ("K8 backward (flash_attention_bwd_*)", ("flash_attention_bwd",)),
     ("K8 forward flash_attention_wgmma_kernel", ("flash_attention",)),
     ("K9 backward (rmsnorm_bwd_*)", ("rmsnorm_bwd",)),
     ("K9 forward rmsnorm_kernel", ("rmsnorm_kernel",)),
-    ("GEMMs (cuBLAS: projections, MLP, unembed)",
+    ("K10 backward ssm_state_scan_bwd_kernel", ("ssm_state_scan_bwd",)),
+    ("K10 forward ssm_state_scan_kernel", ("ssm_state_scan",)),
+    ("GEMMs (cuBLAS: projections, MLP, unembed, SSD's chunk einsums)",
      ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    # torch's elementwise and reduction kernels: Mamba-2's ssd_chunks
+    # (its forward device time also by its record_function range), casts,
+    # the loss's softmax, the optimizer (its own range)
+    ("elementwise and reductions (torch)", ("elementwise", "reduce_kernel")),
 )
+# the kernels every training path launches, and those of some models
 TRAIN_LAUNCHES = ("flash_attention", "flash_attention_bwd", "rmsnorm",
                   "rmsnorm_residual", "rmsnorm_bwd", "rmsnorm_residual_bwd")
+TRAIN_WINDOW = ("flash_attention_window", "flash_attention_bwd_window")
+TRAIN_SCAN = ("ssm_state_scan", "ssm_state_scan_bwd")
 
 
 def card_line() -> str:
@@ -1001,7 +1045,7 @@ def device_rows(prof, ranges: tuple = ()) -> tuple[list, dict]:
             elif ranges:
                 ops.append((e.start_ns(), e.correlation_id()))
             continue
-        if name in spans:
+        if name in spans or name in MODEL_RANGES:
             continue  # a range's device-side twin spans its kernels
         ns = e.duration_ns()
         row = by_name.setdefault(name, [0, 0])
@@ -2722,6 +2766,9 @@ CACHE_KINDS = {"attn": {None: "KV caches"},
                "slstm": {None: "sLSTM states"}}
 
 
+# the profiler ranges the models open (record_function): a trace reads each
+# range's device-side twin apart, since it spans kernels and is no kernel
+MODEL_RANGES = ("slstm_scan", "ssd_chunks")
 # device time of a traced prefill, by kernel name
 PREFILL_GROUPS = (
     ("K8 flash_attention_wgmma_kernel", ("flash_attention",)),
@@ -2918,10 +2965,12 @@ def serving_phase(device, arch: str) -> dict:
           f"tokens/s); peak device memory over a prefill "
           f"{peak_prefill / 2**30:.3f} GiB", flush=True)
     split = {}
+    ranges = (("slstm_scan",) if counts["slstm"] else ()) + (
+        ("ssd_chunks",) if counts["mamba2"] else ())
     idle_prefill = trace_step(
         lambda _: TM.prefill(model, tokens, cache_len=cache), None,
         prefill_ms, untraced="median prefill", groups=PREFILL_GROUPS,
-        split_out=split, ranges=("slstm_scan",) if counts["slstm"] else ())
+        split_out=split, ranges=ranges)
     if counts["slstm"]:
         scan_ms = slstm_scan_ms(model, tokens)
         busy = sum(split[label][0] for label, _ in PREFILL_GROUPS
@@ -3673,43 +3722,153 @@ def backward_phase(device) -> dict:
                      f"{lib_ms:.4f} (F.rms_norm backward)"), flush=True)
             del x, r, g, gs, w
             torch.cuda.empty_cache()
+    out["K10"] = scan_backward(device, gen)
     return out
 
 
-def train_model(device, layers: int, seed: int = 0):
-    """Granite-8B at full width cut to ``layers`` layers, float32 masters
-    from ``init_params(seed)``, trainable."""
+def scan_backward(device, gen) -> list:
+    """K10's backward (float32) at :data:`BWD_SCAN` against its plain
+    version and a float64 plain run on seeded states, decay in (0, 1] and a
+    seeded output gradient, on the forward kernel's output: each gradient
+    within :data:`PARITY_REL` of its largest |value| and
+    :data:`PARITY_FACTOR` of the plain version's error (:func:`grad_errors`),
+    the same bits in two runs, timed beside the plain version and its
+    bound (g and out read once, d states written once, decay read and d
+    decay written once); no one PyTorch call computes it."""
+    import torch
+
+    from repro_torch.kernels import ref as KR
+    from repro_torch.kernels.ssm_scan import (ssm_state_scan,
+                                              ssm_state_scan_bwd)
+
+    rows = []
+    for shape in BWD_SCAN:
+        states = torch.randn(shape, generator=gen, device=device)
+        decay = 1.0 - torch.rand(shape[:3], generator=gen, device=device)
+        g = torch.randn(shape, generator=gen, device=device)
+        out = ssm_state_scan(states, decay)
+        got = ssm_state_scan_bwd(g, out, decay)
+        again = ssm_state_scan_bwd(g, out, decay)
+        plain = KR.ssm_state_scan_bwd_ref(g, out, decay)
+        torch.cuda.synchronize()
+        label = f"K10 backward float32 {shape}"
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{label}: two runs differ")
+        exact = KR.ssm_state_scan_bwd_ref(
+            g.double(), KR.ssm_state_scan_ref(states.double(),
+                                              decay.double()),
+            decay.double())
+        errs = grad_errors(label, got, plain, exact)
+        same_ds = torch.equal(got[0], plain[0])
+        del exact, again, plain
+        ms = cuda_ms(lambda: ssm_state_scan_bwd(g, out, decay), 20,
+                     warmup=3)
+        plain_ms = cuda_ms(lambda: KR.ssm_state_scan_bwd_ref(g, out, decay),
+                           3)
+        n_io = 3 * g.numel() * 4 + 2 * decay.numel() * 4
+        t_b = n_io / HBM_BYTES_PER_S
+        rows.append(dict(shape=shape, err=max(e[0] for e in errs), ms=ms,
+                         plain_ms=plain_ms, bound_ms=1e3 * t_b,
+                         bound_by="bytes", library_ms=None))
+        print(f"[bwd] {label}: max_abs_err={rows[-1]['err']:.3e} ("
+              + ", ".join(f"d{n} kernel {ek:.3e} plain {ep:.3e} of {sc:.3e}"
+                          for n, (ek, ep, sc) in zip(("states", "decay"),
+                                                     errs))
+              + f"; d states {'equal to' if same_ds else 'not'} the plain "
+              f"version's bits; two runs the same bits) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={1e3 * t_b:.4f} (bytes; "
+              f"{n_io / 1e6:.1f} MB) library_ms=none (no one call)",
+              flush=True)
+        del states, decay, g, out, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_model(device, arch: str, layers: int | None, seed: int = 0):
+    """``arch`` at full width, cut to ``layers`` layers (None: its
+    config's depth), float32 masters from ``init_params(seed)``,
+    trainable."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer, init_params
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = init_params(Transformer(cfg, dtype=torch.float32, device=device),
                         seed=seed)
     return cfg, model.requires_grad_(True)
 
 
-def train_parity_phase(device) -> dict:
-    """One step's loss and gradients of a 2-layer full-width Granite at
-    :data:`TRAIN_PARITY` through the kernels (K8 and K9 forward and
-    backward) and through the plain versions (``backend="ref"``, torch's
-    autograd), the same weights and batch: float32 within
-    :data:`TRAIN_LOSS_REL` and :data:`TRAIN_GRAD_REL`; in bf16 the kernel
-    path's distance to the plain path within :data:`PARITY_FACTOR` of the
-    plain path's own distance to its float32 run (the bar of
-    ``tests/test_torch_train_step.py``, where the port's bf16 step sits
-    within the reference's bf16-vs-float32 distance)."""
+def train_kernels(cfg, S: int) -> tuple:
+    """The :data:`library.LAUNCHES` keys a training step of ``cfg`` over
+    S tokens must count: :data:`TRAIN_LAUNCHES`, with K10's where the
+    pattern has Mamba-2 layers and K8's window instances where it has
+    local layers whose window S passes."""
+    keys = TRAIN_LAUNCHES
+    if "mamba2" in cfg.pattern:
+        keys += TRAIN_SCAN
+    if "local" in cfg.pattern and 0 < cfg.window < S:
+        keys += TRAIN_WINDOW
+    return keys
+
+
+def train_flops(model, B: int, S: int) -> float:
+    """Model FLOPs of a training step over B x S tokens: 3 x the forward's
+    (the backward twice it; the recomputation under remat not counted).
+    The forward: 2 a matrix weight a token (every 2-D weight of each block
+    application, the shared block at each of its applications, and the
+    unembedding; not the embedding's gather nor Mamba-2's depthwise conv),
+    the two attention products over the (query, key) pairs the causal mask
+    and the window keep, 4 D flops a pair a head, and Mamba-2's four chunk
+    einsums as ``Mamba2.forward`` computes them (C B^T and its product with
+    x over whole L x L chunks, the chunk states and the inter-chunk
+    term)."""
+    from repro_torch.models.ssm import chunk_len
+
+    cfg = model.cfg
+    fwd = 2 * B * S * cfg.d_model * cfg.vocab
+    for blk in model.stack():
+        fwd += 2 * B * S * sum(p.numel() for n, p in blk.named_parameters()
+                               if p.dim() == 2 and "conv" not in n)
+        if block_type(blk) == "attn":
+            window = cfg.window if getattr(blk, "local", False) else 0
+            fwd += 4 * B * cfg.n_heads * cfg.d_head * attention_pairs(
+                S, window)
+        elif block_type(blk) == "mamba2":
+            m = blk.mamba
+            L = chunk_len(S, m.chunk)
+            fwd += (2 * B * S * L * (m.N + m.H * m.P)
+                    + 4 * B * S * m.N * m.H * m.P)
+    return 3 * fwd
+
+
+def train_parity_phase(device, arch: str) -> dict:
+    """One step's loss and gradients of ``arch`` at full width and
+    :data:`TRAIN_PARITY`'s depth and batch through the kernels (K8, K9 and,
+    by the model, K10 and K8's window instance, forward and backward) and
+    through the plain versions (``backend="ref"``, torch's autograd), the
+    same weights and batch: float32 within :data:`TRAIN_LOSS_REL` and
+    :data:`TRAIN_GRAD_REL`; in bf16 the kernel path's distance to the plain
+    path within :data:`PARITY_FACTOR` of the plain path's own distance to
+    its float32 run (the bar of ``tests/test_torch_train_step.py``, where
+    the port's bf16 step sits within the reference's bf16-vs-float32
+    distance)."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import library as KL
     from repro_torch.models import loss_fn
 
-    B, S = TRAIN_PARITY["B"], TRAIN_PARITY["S"]
-    cfg, model = train_model(device, TRAIN_PARITY["layers"])
+    B, S, layers = (TRAIN_PARITY[arch][k] for k in ("B", "S", "layers"))
+    cfg, model = train_model(device, arch, layers)
     batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=S,
                                   global_batch=B, seed=0), 0, device=device)
+    keys = train_kernels(cfg, S)
+    print(f"[train-parity] {arch}: {cfg.n_layers} layers "
+          f"({'/'.join(cfg.pattern)}) at full width, {B} x {S} tokens",
+          flush=True)
     runs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for backend in ("cuda", "ref"):
@@ -3719,17 +3878,16 @@ def train_parity_phase(device) -> dict:
                            dtype=dtype, backend=backend)
             loss.backward()
             torch.cuda.synchronize()
-            launches = {k: KL.LAUNCHES[k] for k in TRAIN_LAUNCHES}
+            launches = {k: KL.LAUNCHES[k] for k in keys}
             runs[(dtype, backend)] = (loss.item(), [
                 p.grad.detach().clone() for p in model.parameters()],
                 launches)
-            want = ({k: 0 for k in launches} if backend == "ref" else None)
-            if want is not None and launches != want:
-                raise RuntimeError(f"the plain path launched {launches}")
+            if backend == "ref" and any(KL.LAUNCHES.values()):
+                raise RuntimeError(f"the plain path launched {KL.LAUNCHES}")
             if backend == "cuda" and not all(launches.values()):
                 raise RuntimeError(f"the kernel path skipped a kernel: "
                                    f"{launches}")
-            print(f"[train-parity] {str(dtype)[6:]} {backend}: loss "
+            print(f"[train-parity] {arch} {str(dtype)[6:]} {backend}: loss "
                   f"{loss.item():.6f}, launches {launches}", flush=True)
             del loss
     names = [n for n, _ in model.named_parameters()]
@@ -3738,12 +3896,13 @@ def train_parity_phase(device) -> dict:
     rel = abs(lk - lr) / abs(lr)
     worst = max(((a - b).abs().max().item() / b.abs().max().item(), n)
                 for a, b, n in zip(gk, gr, names))
-    print(f"[train-parity] float32 kernel vs plain: loss rel {rel:.3e} "
-          f"(bar {TRAIN_LOSS_REL:g}), worst gradient {worst[0]:.3e} of its "
-          f"max |value| ({worst[1]}; bar {TRAIN_GRAD_REL:g})", flush=True)
+    print(f"[train-parity] {arch} float32 kernel vs plain: loss rel "
+          f"{rel:.3e} (bar {TRAIN_LOSS_REL:g}), worst gradient "
+          f"{worst[0]:.3e} of its max |value| ({worst[1]}; bar "
+          f"{TRAIN_GRAD_REL:g})", flush=True)
     if not (rel <= TRAIN_LOSS_REL and worst[0] <= TRAIN_GRAD_REL):
-        raise RuntimeError("float32 training step: kernel path disagrees "
-                           "with the plain path")
+        raise RuntimeError(f"{arch} float32 training step: kernel path "
+                           "disagrees with the plain path")
     (l16k, g16k, _), (l16r, g16r, _) = (runs[(torch.bfloat16, b)]
                                         for b in ("cuda", "ref"))
 
@@ -3753,28 +3912,33 @@ def train_parity_phase(device) -> dict:
 
     d_loss, bar_loss = abs(l16k - l16r), abs(l16r - lr)
     d_grad, bar_grad = dist(g16k, g16r), dist(g16r, gr)
-    print(f"[train-parity] bfloat16 kernel vs plain: loss {d_loss:.3e} "
-          f"(plain bf16 vs float32 {bar_loss:.3e}), gradients mean |diff| "
-          f"{d_grad:.3e} (plain bf16 vs float32 {bar_grad:.3e}); bar "
-          f"{PARITY_FACTOR:g}x", flush=True)
+    print(f"[train-parity] {arch} bfloat16 kernel vs plain: loss "
+          f"{d_loss:.3e} (plain bf16 vs float32 {bar_loss:.3e}), gradients "
+          f"mean |diff| {d_grad:.3e} (plain bf16 vs float32 {bar_grad:.3e}); "
+          f"bar {PARITY_FACTOR:g}x", flush=True)
     if not (d_loss <= PARITY_FACTOR * bar_loss
             and d_grad <= PARITY_FACTOR * bar_grad):
-        raise RuntimeError("bf16 training step: kernel path past the bar")
+        raise RuntimeError(f"{arch} bf16 training step: kernel path past "
+                           "the bar")
     del runs, model
     torch.cuda.empty_cache()
     return {"loss_rel": rel, "grad_rel": worst[0], "launches_f32": launches}
 
 
-def train_phase(device) -> dict:
-    """Granite-8B at full width, :data:`TRAIN` ``layers`` layers, trained
-    for ``steps`` steps through ``repro_torch.train.make_train_step``
-    (AdamW at :data:`TRAIN_LR`, bf16 compute over float32 masters,
-    ``grad_accum`` microbatches) on the synthetic pipeline's batches: each
-    step's loss and grad_norm (the loss finite and falling from step 1 to
-    the last), step ms (median of steps 2 onward), tokens/s, model FLOPs
-    per step and the rate they imply, peak memory, K8's and K9's launches
-    per step (forward, recomputation included, and backward), and one more
-    step traced: device time by kernel group and the idle share."""
+def train_phase(device, arch: str) -> dict:
+    """``arch``'s training cell (:data:`TRAIN`): full width, the cell's
+    depth, trained for ``steps`` steps through
+    ``repro_torch.train.make_train_step`` (AdamW at :data:`TRAIN_LR`, bf16
+    compute over float32 masters, ``grad_accum`` microbatches) on the
+    synthetic pipeline's batches: each step's loss and grad_norm (the loss
+    finite and falling from step 1 to the last), step ms (median of steps
+    2 onward), tokens/s, model FLOPs per step (:func:`train_flops`) and
+    the rate they imply, peak memory, the launches per step of K8 (and its
+    window instance), K9 and K10, forward (recomputation included) and
+    backward (a model with local layers must launch K8's window backward
+    once a local layer a microbatch), and one more step traced: device time
+    by kernel group, the optimizer's and ``ssd_chunks``' ranges, and the
+    idle share."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig, DataIterator
@@ -3783,9 +3947,10 @@ def train_phase(device) -> dict:
     from repro_torch.train.train_step import (TrainConfig, init_state,
                                               make_train_step)
 
+    cell = TRAIN[arch]
     torch.cuda.reset_peak_memory_stats()
-    B, S, A, steps = (TRAIN[k] for k in ("B", "S", "accum", "steps"))
-    cfg, model = train_model(device, TRAIN["layers"])
+    B, S, A, steps = (cell[k] for k in ("B", "S", "accum", "steps"))
+    cfg, model = train_model(device, arch, cell["layers"])
     n_params = sum(p.numel() for p in model.parameters())
     state = init_state(cfg, model)
     step = make_train_step(cfg, TrainConfig(
@@ -3793,19 +3958,11 @@ def train_phase(device) -> dict:
         opt=OptConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP)))
     data = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=S,
                                    global_batch=B, seed=0), device=device)
-    # model FLOPs a step: 3 x the forward (the backward twice it; the
-    # recomputation under remat not counted): 2 flops a weight a token
-    # for every matrix (the embedding gather none), and the two attention
-    # products over the causal pairs
-    per_layer = (cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim
-                 * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
-    fwd = 2 * B * S * (cfg.n_layers * per_layer + cfg.d_model * cfg.vocab) \
-        + cfg.n_layers * 4 * B * cfg.n_heads * cfg.d_head \
-        * attention_pairs(S, 0)
-    flops = 3 * fwd
-    print(f"[train] {cfg.name} {cfg.n_layers} of 36 layers at full width: "
-          f"{n_params / 1e9:.3f} G parameters (float32 masters, AdamW), "
-          f"batch {B} x {S} tokens, grad_accum {A}, bf16 compute, lr "
+    flops = train_flops(model, B, S)
+    n_local = sum(getattr(b, "local", False) for b in model.stack())
+    print(f"[train] {cfg.name} {cfg.n_layers} of {cell['of']} layers at full "
+          f"width: {n_params / 1e9:.3f} G parameters (float32 masters, "
+          f"AdamW), batch {B} x {S} tokens, grad_accum {A}, bf16 compute, lr "
           f"{TRAIN_LR:g} (warmup {TRAIN_WARMUP}); model FLOPs a step "
           f"{flops:.4e}", flush=True)
     batches = [next(data) for _ in range(steps + 1)]
@@ -3819,38 +3976,40 @@ def train_phase(device) -> dict:
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(loss)
         norms.append(gn)
-        print(f"[train] step {i + 1}: loss {loss:.6f} grad_norm {gn:.6f} "
-              f"({times[-1]:.1f} ms)", flush=True)
-    launches = {k: KL.LAUNCHES[k] for k in TRAIN_LAUNCHES}
+        print(f"[train] {arch} step {i + 1}: loss {loss:.6f} grad_norm "
+              f"{gn:.6f} ({times[-1]:.1f} ms)", flush=True)
+    keys = train_kernels(cfg, S)
+    launches = {k: KL.LAUNCHES[k] for k in keys}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = statistics.median(times[1:])
     if not all(math.isfinite(x) for x in losses + norms):
         raise RuntimeError(f"non-finite training metrics {losses} {norms}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"the loss did not fall: {losses}")
-    print(f"[train] step ms {step_ms:.3f} (median of steps 2-{steps}), "
-          f"{B * S / (step_ms / 1e3):.1f} tokens/s, "
+    print(f"[train] {arch} step ms {step_ms:.3f} (median of steps "
+          f"2-{steps}), {B * S / (step_ms / 1e3):.1f} tokens/s, "
           f"{flops / (step_ms / 1e3) / 1e12:.2f} TFLOP/s of model FLOPs; "
           f"peak {peak:.3f} GiB", flush=True)
     per_step = {k: v / steps for k, v in launches.items()}
-    print(f"[train] launches per step: K8 forward "
-          f"{per_step['flash_attention']:g} (recomputation included), K8 "
-          f"backward "
-          f"{per_step['flash_attention_bwd']:g}, K9 forward "
-          f"{per_step['rmsnorm']:g} + residual "
-          f"{per_step['rmsnorm_residual']:g}, K9 backward "
-          f"{per_step['rmsnorm_bwd']:g} + residual "
-          f"{per_step['rmsnorm_residual_bwd']:g}", flush=True)
+    print(f"[train] {arch} launches per step: "
+          + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+          + " (forwards with the recomputation)", flush=True)
     if not all(launches.values()):
         raise RuntimeError(f"the training path skipped a kernel: {launches}")
+    if n_local and per_step["flash_attention_bwd_window"] != n_local * A:
+        raise RuntimeError(
+            f"{arch}: {per_step['flash_attention_bwd_window']:g} window "
+            f"backward launches a step, not {n_local} local layers x {A}")
     split = {}
     idle = trace_step(lambda st: step(st, batches[steps]), state, step_ms,
                       untraced=f"median of steps 2-{steps}",
                       groups=TRAIN_GROUPS, split_out=split,
-                      ranges=("opt_update",))
+                      ranges=("opt_update",) + (
+                          ("ssd_chunks",) if "mamba2" in cfg.pattern else ()))
     del state, model, step, batches
     torch.cuda.empty_cache()
     return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "tokens_per_s": B * S / (step_ms / 1e3), "flops": flops,
             "peak_gib": peak, "launches": launches, "idle": idle,
             "split": split}
 
@@ -3881,11 +4040,19 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     4096, softcap 0.  K1-K4 also carry ``distributed_launches``: their
     launches in the 3 overlapped distributed steps.  The backward kernels
     (no TPU counterpart: ``replaces`` names the forward kernel they
-    differentiate) count the training run's steps (bf16) and the float32
-    parity step, and take their times from the backward phase at
-    Granite's shape (K8) and :data:`BWD_NORM` (K9); K8's bf16 forward and
-    K9's records also carry ``train_launches``, their launches in the
-    training run's steps (recomputation included)."""
+    differentiate) count the training cells' steps (bf16; K10's in
+    float32) and the float32 parity steps (K8), and take their times from
+    the backward phase at Granite's shape (K8), :data:`BWD_NORM` (K9) and
+    the Zamba2 training step's micro-batch, :data:`BWD_SCAN`'s first (K10);
+    K8's bf16 backward also carries ``window_launches`` (Gemma-2's local
+    layers); K8's bf16 forward, K9's and K10's records also carry
+    ``train_launches``, their launches in the training cells' steps
+    (recomputation included).  ``parity`` and ``train`` map each
+    architecture to its phase's result."""
+
+    def trained(count):
+        return sum(run["launches"].get(count, 0) for run in train.values())
+
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
                 "K5": f"{PALLAS}:207",
@@ -3986,18 +4153,19 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     for rec in kernels:
         count = {"flash_attention_wgmma_kernel": "flash_attention",
                  "rmsnorm_kernel": "rmsnorm",
-                 "rmsnorm_residual_kernel": "rmsnorm_residual"}.get(
-                     rec["name"])
+                 "rmsnorm_residual_kernel": "rmsnorm_residual",
+                 "ssm_state_scan_kernel": "ssm_state_scan"}.get(rec["name"])
         if count is not None:
-            rec["train_launches"] = train["launches"][count]
+            rec["train_launches"] = trained(count)
     bwd_names = {
         "bfloat16": "flash_attention_bwd_wgmma_dkdv_kernel, flash_attention_"
                     "bwd_wgmma_dq_kernel, flash_attention_bwd_rows_kernel",
         "float32": "flash_attention_bwd_tf32_dkdv_kernel, flash_attention_"
                    "bwd_tf32_dq_kernel, flash_attention_bwd_rows_kernel"}
     for dtype, launches in (
-            ("bfloat16", train["launches"]["flash_attention_bwd"]),
-            ("float32", parity["launches_f32"]["flash_attention_bwd"])):
+            ("bfloat16", trained("flash_attention_bwd")),
+            ("float32", sum(run["launches_f32"]["flash_attention_bwd"]
+                            for run in parity.values()))):
         mine = [r for r in bwd["K8"] if r["dtype"] == dtype]
         head = mine[0]  # Granite's shape, BWD_FA's first
         kernels.append({
@@ -4010,6 +4178,9 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+        if dtype == "bfloat16":
+            kernels[-1]["window_launches"] = trained(
+                "flash_attention_bwd_window")
     for form, line in (("rmsnorm", "src/repro/kernels/rmsnorm.py:17"),
                        ("rmsnorm_residual",
                         "src/repro/kernels/rmsnorm.py:25")):
@@ -4020,10 +4191,20 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "route": "cuda", "source": LM_SOURCE, "replaces": line,
             "note": "K9's backward; the reference differentiates its jnp "
                     "norm, no TPU kernel",
-            "launches": train["launches"][f"{form}_bwd"],
+            "launches": trained(f"{form}_bwd"),
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+    head = bwd["K10"][0]  # the Zamba2 training step's micro-batch
+    kernels.append({
+        "name": "ssm_state_scan_bwd_kernel", "route": "cuda",
+        "source": LM_SOURCE, "replaces": "src/repro/kernels/ssm_scan.py:23",
+        "note": "K10's backward; the reference differentiates its lax.scan, "
+                "no TPU kernel",
+        "launches": trained("ssm_state_scan_bwd"),
+        "max_abs_err": max(r["err"] for r in bwd["K10"]), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
     return kernels
 
 
@@ -4137,14 +4318,17 @@ def main() -> int:
     bwd = backward_phase(device)
     print(f"[phase] backward kernels {time.perf_counter() - t0:.1f} s",
           flush=True)
-    t0 = time.perf_counter()
-    parity = train_parity_phase(device)
-    print(f"[phase] training parity {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    train = train_phase(device)
-    print(f"[phase] training {TRAIN_ARCH} {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    parity, train = {}, {}
+    for arch in TRAIN_PARITY:
+        t0 = time.perf_counter()
+        parity[arch] = train_parity_phase(device, arch)
+        print(f"[phase] training parity {arch} "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for arch in TRAIN:
+        t0 = time.perf_counter()
+        train[arch] = train_phase(device, arch)
+        print(f"[phase] training {arch} {time.perf_counter() - t0:.1f} s",
+              flush=True)
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
                              lm, serve, distributed, bwd, parity, train)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")

@@ -45,6 +45,8 @@ def device_ms(fn, groups) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    import chip_smoke as CS
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -54,7 +56,8 @@ def device_ms(fn, groups) -> dict:
     split["other"] = split["busy"] = 0.0
     kernels = {label: [] for label in split}
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        if getattr(e, "device_type", None) != DeviceType.CUDA or (
+                e.key in CS.MODEL_RANGES):  # a range's device-side twin
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:

@@ -11,9 +11,10 @@
 //   rmsnorm_kernel<.., true>   <- same file, _kernel_residual (:25-32)  K9
 //   ssm_state_scan_kernel      <- src/repro/kernels/ssm_scan.py
 //                                 _kernel (:23-32)                      K10
-//   flash_attention_bwd_*, rmsnorm_bwd_*
-//                              <- none: the backward of K8 and K9 (the
-//                                 reference differentiates its jnp)
+//   flash_attention_bwd_*, rmsnorm_bwd_*, ssm_state_scan_bwd_kernel
+//                              <- none: the backward of K8, K9 and K10
+//                                 (the reference differentiates its jnp
+//                                 and its lax.scan)
 //
 // K8, causal attention over the whole prompt, forward, with GQA, an
 // optional tanh softcap and an optional sliding window.  q is (B, S, H, D)
@@ -2117,6 +2118,131 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   }
 }
 
+// K10's backward (no TPU counterpart: the reference differentiates its
+// lax.scan with XLA).  With out_c the state before chunk c (out_{c+1} =
+// decay_c out_c + s_c) and g_c the gradient arriving at out_c, the adjoint
+// walks the chunks backwards from a_nc = 0:
+//   d s_c = a_{c+1},  d decay_c = sum over (N, P) of a_{c+1} out_c,
+//   a_c = g_c + decay_c a_{c+1}
+// (the last chunk's d s and d decay are 0).  Bound by device memory: g
+// and out read once, d s written once (3 x 234.9 MB at the training
+// microbatch (32, 4, 112, 64, 64): 0.2103 ms at 3.35 TB/s).  One CTA per
+// (b, h) of 256 threads holds that head's N P chains in registers, 16 a
+// thread, and walks c downward; N P past 4096 runs in passes of 4096
+// chains.  Each step issues the loads of chunk c - 1 (float4 where N P %
+// 4 == 0 and the pointers are 16-byte aligned; N P is contiguous for each
+// (c, b, h)) before it reduces chunk c, so the serial walk waits on one
+// load latency a step, not two.  d decay_c is summed in float64 (each
+// product exact) in one fixed order: a thread's 16, then warp shuffles,
+// then the 8 warps in order by thread 0; no atomics, so the same inputs
+// give the same bits, and its one rounding to float32 is the only error
+// the sum adds (a pass past the first adds its float64 sum to the float32
+// of the passes before).  a_c is formed as g + decay * a, rounded twice
+// (--fmad=false), as the plain version does, so d s equals the plain
+// version's bits.
+#define SCAN_BWD_THREADS 256
+#define SCAN_BWD_ITEMS 16  // chains a thread holds in a pass
+
+template <bool kVec>
+__device__ __forceinline__ long long scan_bwd_elem(int base, int i, int t) {
+  return kVec ? base + ((i >> 2) * SCAN_BWD_THREADS + t) * 4 + (i & 3)
+              : base + i * SCAN_BWD_THREADS + t;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void scan_bwd_load(const float* __restrict__ p,
+                                              int base, int t, int np,
+                                              float* v) {
+#pragma unroll
+  for (int i = 0; i < SCAN_BWD_ITEMS; i += kVec ? 4 : 1) {
+    const long long e = scan_bwd_elem<kVec>(base, i, t);
+    if constexpr (kVec) {
+      float4 x = e < np ? *reinterpret_cast<const float4*>(p + e)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[i] = x.x;
+      v[i + 1] = x.y;
+      v[i + 2] = x.z;
+      v[i + 3] = x.w;
+    } else {
+      v[i] = e < np ? p[e] : 0.f;
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(SCAN_BWD_THREADS)
+    ssm_state_scan_bwd_kernel(const float* __restrict__ g,
+                              const float* __restrict__ out,
+                              const float* __restrict__ decay,
+                              float* __restrict__ ds, float* __restrict__ dd,
+                              int nc, long long bh, int np) {
+  __shared__ double red[2][SCAN_BWD_THREADS / 32];
+  const long long head = blockIdx.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long chunk = bh * np;  // elements of one chunk
+  constexpr int kPass = SCAN_BWD_THREADS * SCAN_BWD_ITEMS;
+  int step = 0;  // parity of red: consecutive steps use other buffers
+  for (int base = 0; base < np; base += kPass) {
+    float a[SCAN_BWD_ITEMS], gc[SCAN_BWD_ITEMS], oc[SCAN_BWD_ITEMS];
+#pragma unroll
+    for (int i = 0; i < SCAN_BWD_ITEMS; ++i) a[i] = 0.f;
+    long long off = (nc - 1) * chunk + head * np;
+    scan_bwd_load<kVec>(g + off, base, t, np, gc);
+    scan_bwd_load<kVec>(out + off, base, t, np, oc);
+    float dc = decay[(nc - 1) * bh + head];
+    for (int c = nc - 1; c >= 0; --c, ++step) {
+      // chunk c - 1's loads, in flight while chunk c is reduced
+      float gn[SCAN_BWD_ITEMS], on[SCAN_BWD_ITEMS];
+      float dn = 0.f;
+      if (c > 0) {  // (off - chunk: chunk c - 1 of this head)
+        scan_bwd_load<kVec>(g + off - chunk, base, t, np, gn);
+        scan_bwd_load<kVec>(out + off - chunk, base, t, np, on);
+        dn = decay[(c - 1) * bh + head];
+      }
+      // d s_c = a_{c+1}, and this thread's part of d decay_c
+      double s = 0.0;
+#pragma unroll
+      for (int i = 0; i < SCAN_BWD_ITEMS; i += kVec ? 4 : 1) {
+        const long long e = scan_bwd_elem<kVec>(base, i, t);
+        if (e < np) {
+          if constexpr (kVec)
+            *reinterpret_cast<float4*>(ds + off + e) =
+                make_float4(a[i], a[i + 1], a[i + 2], a[i + 3]);
+          else
+            ds[off + e] = a[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SCAN_BWD_ITEMS; ++i)
+        s += static_cast<double>(a[i]) * static_cast<double>(oc[i]);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+      if (lane == 0) red[step & 1][warp] = s;
+      // a_c = g_c + decay_c a_{c+1}
+#pragma unroll
+      for (int i = 0; i < SCAN_BWD_ITEMS; ++i) a[i] = gc[i] + dc * a[i];
+      __syncthreads();
+      if (t == 0) {
+        double tot = 0.0;
+#pragma unroll
+        for (int w = 0; w < SCAN_BWD_THREADS / 32; ++w) tot += red[step & 1][w];
+        float* d = dd + c * bh + head;
+        *d = base == 0 ? static_cast<float>(tot)
+                       : static_cast<float>(static_cast<double>(*d) + tot);
+      }
+      if (c > 0) {
+#pragma unroll
+        for (int i = 0; i < SCAN_BWD_ITEMS; ++i) {
+          gc[i] = gn[i];
+          oc[i] = on[i];
+        }
+        dc = dn;
+        off -= chunk;
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K8 backward (no TPU counterpart: the reference differentiates its jnp
 // attention with XLA): the rows kernel of both dtypes, then float32 on
@@ -3889,6 +4015,35 @@ int launch_ssm_state_scan(const void* states, const void* decay, void* out,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(states), static_cast<const float*>(decay),
       static_cast<float*>(out), nc, n, bh, np);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the K10 backward: g, out, ds (nc, B, H, N, P) and decay, dd (nc, B, H),
+// f32 and contiguous; bh = B*H, np = N*P; one CTA per (b, h)
+int launch_ssm_state_scan_bwd(const void* g, const void* out,
+                              const void* decay, void* ds, void* dd, int nc,
+                              long long bh, int np, void* stream) {
+  if (nc == 0 || bh == 0) return 0;
+  if (np <= 0 || bh > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec =
+      np % 4 == 0 && ((reinterpret_cast<uintptr_t>(g) |
+                       reinterpret_cast<uintptr_t>(out) |
+                       reinterpret_cast<uintptr_t>(ds)) & 15) == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* gp = static_cast<const float*>(g);
+  const float* op = static_cast<const float*>(out);
+  const float* dp = static_cast<const float*>(decay);
+  if (vec)
+    ssm_state_scan_bwd_kernel<true>
+        <<<static_cast<unsigned>(bh), SCAN_BWD_THREADS, 0, st>>>(
+            gp, op, dp, static_cast<float*>(ds), static_cast<float*>(dd), nc,
+            bh, np);
+  else
+    ssm_state_scan_bwd_kernel<false>
+        <<<static_cast<unsigned>(bh), SCAN_BWD_THREADS, 0, st>>>(
+            gp, op, dp, static_cast<float*>(ds), static_cast<float*>(dd), nc,
+            bh, np);
   return static_cast<int>(cudaGetLastError());
 }
 

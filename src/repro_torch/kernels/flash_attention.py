@@ -221,6 +221,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                    delta.data_ptr(), library.LM_DTYPES[q.dtype], B, S, H,
                    k.shape[2], D, float(softcap), min(int(window), 2**30))
+    if 0 < window < S:  # the kernels' window instances
+        library.LAUNCHES["flash_attention_bwd_window"] += 1
     return dq, dk, dv
 
 

@@ -6,7 +6,8 @@ at first use, like the stencil kernels, into its own directory under
  * ``csrc/lm_kernels.cu`` — K8 ``flash_attention_wgmma_kernel`` (bf16) and
    ``flash_attention_fwd_kernel`` (f32), K9 ``rmsnorm_kernel`` (plain and
    residual), K10 ``ssm_state_scan_kernel``, and the backward kernels of
-   K8 (``flash_attention_bwd_*``) and K9 (``rmsnorm_bwd_*``).
+   K8 (``flash_attention_bwd_*``), K9 (``rmsnorm_bwd_*``) and K10
+   (``ssm_state_scan_bwd_kernel``).
 """
 
 from __future__ import annotations
@@ -19,14 +20,17 @@ from ..core.backend.cuda import build_library
 
 #: launches of each kernel since the last :func:`reset_launches`; a wrapper
 #: adds one where it launches its kernel and nowhere else
-#: (``flash_attention_window``: those of K8's launches that run its window
-#: instance, 0 < window < S, also counted under ``flash_attention``; a
+#: (``flash_attention_window``, ``flash_attention_bwd_window``: those of
+#: K8's launches that run its window instance, 0 < window < S, also
+#: counted under ``flash_attention`` and ``flash_attention_bwd``; a
 #: backward wrapper's call, ``*_bwd``, is one count for the kernels it
-#: launches: K8's three, K9's two)
+#: launches: K8's three, K9's two, K10's one)
 LAUNCHES = {"tridiag": 0, "fvt_flux": 0, "flash_attention": 0,
             "flash_attention_window": 0, "flash_attention_bwd": 0,
-            "rmsnorm": 0, "rmsnorm_residual": 0, "rmsnorm_bwd": 0,
-            "rmsnorm_residual_bwd": 0, "ssm_state_scan": 0}
+            "flash_attention_bwd_window": 0, "rmsnorm": 0,
+            "rmsnorm_residual": 0, "rmsnorm_bwd": 0,
+            "rmsnorm_residual_bwd": 0, "ssm_state_scan": 0,
+            "ssm_state_scan_bwd": 0}
 
 #: dtype codes of the LM kernels' C interface
 LM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,6 +93,9 @@ def bind_lm_library(path) -> ctypes.CDLL:
     lib.launch_rmsnorm_residual.restype = ctypes.c_int
     lib.launch_ssm_state_scan.argtypes = [ptr] * 3 + [i32, i64, i64, i32, ptr]
     lib.launch_ssm_state_scan.restype = ctypes.c_int
+    lib.launch_ssm_state_scan_bwd.argtypes = ([ptr] * 5
+                                              + [i32, i64, i32, ptr])
+    lib.launch_ssm_state_scan_bwd.restype = ctypes.c_int
     lib.lm_error_string.argtypes = [ctypes.c_int]
     lib.lm_error_string.restype = ctypes.c_char_p
     return lib

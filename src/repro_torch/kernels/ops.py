@@ -8,12 +8,12 @@ plain version on any device, so callers can compare the two in place, as
 with the reference's ``repro.kernels.ops``.
 
 Under autograd (grad mode on and an input that requires grad),
-``backend="cuda"`` runs K8 and K9 through their ``autograd.Function``s
-(the forward kernel, then the backward kernels; on CPU tensors the plain
-forward and backward versions), and ``backend="ref"`` differentiates the
-plain version with torch's autograd.  K6, K7 and K10 have no backward
-kernel: on CUDA tensors under autograd they raise
-(:func:`.library.refuse_grad`).
+``backend="cuda"`` runs K8, K9 and K10 through their
+``autograd.Function``s (the forward kernel, then the backward kernels; on
+CPU tensors the plain forward and backward versions), and
+``backend="ref"`` differentiates the plain version with torch's autograd.
+K6 and K7 have no backward kernel: on CUDA tensors under autograd they
+raise (:func:`.library.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from .fvt_flux import fvt_flux as _fvt_flux_kernel
 from .rmsnorm import RMSNorm, RMSNormResidual
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .rmsnorm import rmsnorm_residual as _rmsnorm_residual_kernel
+from .ssm_scan import SSMStateScan
 from .ssm_scan import ssm_state_scan as _ssm_state_scan_kernel
 from .tridiag import tridiag as _tridiag_kernel
 
@@ -110,4 +111,6 @@ def ssm_state_scan(states: torch.Tensor, decay: torch.Tensor, *,
     _check(backend)
     if backend == "ref":
         return ref.ssm_state_scan_ref(states, decay)
+    if _needs_grad(states, decay):
+        return SSMStateScan.apply(states, decay)
     return _ssm_state_scan_kernel(states, decay)

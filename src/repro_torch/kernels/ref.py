@@ -233,3 +233,23 @@ def ssm_state_scan_ref(states: torch.Tensor,
         out[c] = h
         h = h * decay[c][..., None, None] + states[c]
     return out
+
+
+def ssm_state_scan_bwd_ref(g: torch.Tensor, out: torch.Tensor,
+                           decay: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients (d states, d decay) of :func:`ssm_state_scan_ref` for
+    the gradient ``g`` of its output ``out`` (nc, B, H, N, P), with decay
+    (nc, B, H).  out_{c+1} = decay_c out_c + states_c, so the adjoint a_c of
+    out_c walks the chunks backwards from a_nc = 0:
+    a_c = g_c + decay_c a_{c+1}, d states_c = a_{c+1} and
+    d decay_c = the sum over (N, P) of a_{c+1} out_c.  The last chunk's
+    are 0: the exclusive scan never reads its state or its decay."""
+    ds = torch.empty_like(g)
+    dd = torch.empty_like(decay)
+    a = torch.zeros_like(g[0])
+    for c in range(g.shape[0] - 1, -1, -1):
+        ds[c] = a
+        dd[c] = (a * out[c]).sum(dim=(-2, -1))
+        a = g[c] + decay[c][..., None, None] * a
+    return ds, dd

@@ -113,8 +113,10 @@ class Mamba2(nn.Module):
         f32 = torch.float32
         z, conv_tail, (xc, dtc, Bv, Cv) = self.chunk_inputs(x)
         # (a) every chunk at once: the intra-chunk term, the chunk's state
-        # contribution st and its decay exp(cum[-1])
-        y, st, chunk_decay, cum = self.ssd_chunks(xc, dtc, Bv, Cv)
+        # contribution st and its decay exp(cum[-1]) (a profiler range, so
+        # a trace reads its forward's device time)
+        with torch.profiler.record_function("ssd_chunks"):
+            y, st, chunk_decay, cum = self.ssd_chunks(xc, dtc, Bv, Cv)
         # (b) the inter-chunk recurrence: the state before each chunk (K10)
         prev = ops.ssm_state_scan(st, chunk_decay, backend=backend)
         # (c) C_t . exp(cum_t) . h, then the skip term
@@ -160,8 +162,14 @@ class Mamba2(nn.Module):
         A = -torch.exp(self.A_log)                             # (H,) f32
         cum = torch.cumsum(dtc * A, dim=2)
         tri = torch.ones((L, L), dtype=torch.bool, device=xc.device).tril()
-        decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
-        decay = torch.where(tri[:, :, None], decay, 0.0)       # (B,nc,L,L,H)
+        # masked before the exponent: above the diagonal cum_l - cum_s > 0
+        # can pass float32's range (|dt A| ~ 3.6 a step at the reference's
+        # init, 128 steps a chunk), and the reference's exp-then-where gives
+        # 0 x inf = NaN in the backward there; the forward's bits are the
+        # reference's (exp(-inf) = 0)
+        decay = torch.exp(torch.where(
+            tri[:, :, None], cum[:, :, :, None, :] - cum[:, :, None, :, :],
+            -torch.inf))                                       # (B,nc,L,L,H)
         cb = torch.einsum("bcln,bcsn->bcls", Cv, Bv)           # x's dtype
         att = cb[..., None] * decay                            # f32
         del decay

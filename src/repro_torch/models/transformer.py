@@ -54,9 +54,10 @@ repeated tokens' rows in float32), the norm weights and Mamba-2's scalars
 read in float32.  With ``cfg.remat == "block"`` each group runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference's
 ``jax.checkpoint`` of ``group_body``: its activations are recomputed in
-the backward.  On the card K8 and K9 run with their backward kernels
-(``kernels.ops``); K10 has none yet and raises under autograd, so Zamba2
-trains on the CPU only (ROADMAP queue 1).
+the backward.  On the card K8 (its window instance in Gemma-2's local
+layers), K9 and K10 (Mamba-2's inter-chunk scan) run with their backward
+kernels (``kernels.ops``); the xLSTM and MoE blocks differentiate through
+plain tensor ops.
 """
 
 from __future__ import annotations

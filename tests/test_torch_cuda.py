@@ -17,10 +17,11 @@ RMSNorm, K10 the SSM state scan) against their plain versions, a 2-layer
 Granite-width prefill and decode, one Zamba2-7B group, two Gemma-2 layers,
 one layer each of Llama-4 Scout and Grok-1, one xLSTM-1.3B group and two
 int8 Granite-8B layers (weights, then also the KV cache) at full width
-against the plain path; and training: K8's and K9's backward kernels
-against their plain versions, K6, K7 and K10 raising under autograd, and a
-2-layer full-width Granite loss and backward through the kernels against
-the plain path.
+against the plain path; and training: K8's, K9's and K10's backward
+kernels against their plain versions, K6 and K7 raising under autograd
+(K10 running through its ``autograd.Function``), a 2-layer full-width
+Granite loss and backward through the kernels against the plain path, and
+a Zamba2 smoke-width training step through K10 forward and backward.
 """
 
 import numpy as np
@@ -1806,7 +1807,9 @@ def test_rmsnorm_backward_matches_plain_version_on_card(card, rows, d, dtype,
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_raise_under_grad_on_card(card):
-    """K6, K7 and K10 raise under autograd on the card, and run without."""
+    """K6 and K7 raise under autograd on the card, and run without; K10,
+    which has its backward kernel now, runs under autograd through its
+    ``autograd.Function``, forward and backward kernel."""
     a = torch.rand((4, 3, 5), device=card) + 2.0
     leaf = a.clone().requires_grad_()
     with pytest.raises(RuntimeError, match="item 11b"):
@@ -1816,11 +1819,93 @@ def test_kernels_without_a_backward_raise_under_grad_on_card(card):
         KO.fvt_flux(q, q.detach(), halo=3)
     states = torch.randn((3, 1, 2, 4, 4), device=card, requires_grad=True)
     decay = torch.rand((3, 1, 2), device=card)
-    with pytest.raises(RuntimeError, match="item 12i"):
-        KO.ssm_state_scan(states, decay)
+    KL.reset_launches()
+    KO.ssm_state_scan(states, decay).sum().backward()
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["ssm_state_scan"] == 1
+    assert KL.LAUNCHES["ssm_state_scan_bwd"] == 1
+    assert states.grad is not None
     with torch.no_grad():
         KO.ssm_state_scan(states, decay)
         KO.tridiag(leaf, a, a, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,B,H,N,P", [(16, 2, 8, 64, 64), (3, 1, 3, 5, 7),
+                                        (1, 2, 4, 8, 8), (4, 1, 2, 65, 70)])
+def test_ssm_state_scan_backward_matches_plain_version_on_card(card, nc, B,
+                                                               H, N, P):
+    """K10's backward against its plain version: d states bit for bit (a
+    rounded twice, ``--fmad=false``, as the plain version), d decay within
+    1e-5 of its largest |value| (summed in float64 in another order); two
+    runs give the same bits.  The shapes: Zamba2's heads, a ragged N P (35:
+    no float4 loads, a CTA's last threads idle), one chunk, and N P past a
+    CTA's 4096 chains (two passes)."""
+    from repro_torch.kernels.ssm_scan import ssm_state_scan_bwd
+    gen = torch.Generator(device=card).manual_seed(nc + N * P)
+    states = torch.randn((nc, B, H, N, P), generator=gen, device=card)
+    decay = 1.0 - torch.rand((nc, B, H), generator=gen, device=card)
+    g = torch.randn((nc, B, H, N, P), generator=gen, device=card)
+    out = KO.ssm_state_scan(states, decay)
+    KL.reset_launches()
+    got = ssm_state_scan_bwd(g, out, decay)
+    again = ssm_state_scan_bwd(g, out, decay)
+    want = KR.ssm_state_scan_bwd_ref(g, out, decay)
+    torch.cuda.synchronize()
+    assert KL.LAUNCHES["ssm_state_scan_bwd"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], want[0])
+    scale = max(want[1].abs().max().item(), 1e-30)
+    assert (got[1] - want[1]).abs().max().item() <= 1e-5 * scale
+    if nc == 1:
+        assert not got[0].any() and not got[1].any()
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_state_scan_bwd(g.transpose(3, 4).contiguous().transpose(3, 4),
+                           out, decay)
+
+
+@pytest.mark.cuda
+def test_zamba2_training_step_on_card_launches_k10(card):
+    """A Zamba2 smoke-width training step (float32 masters, bf16 compute,
+    grad_accum 2) on the card: K10 launched forward (with the
+    recomputation) and backward once a Mamba-2 layer a microbatch, the
+    loss finite; one float32 loss and backward through the kernels within
+    1e-5 (loss) and 1e-4 of each gradient's max of the plain path."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step)
+
+    cfg = TC.smoke_config("zamba2_7b")
+    model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                          device=card), seed=0)
+    model.requires_grad_(True)
+    gen = torch.Generator(device=card).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 256), generator=gen,
+                           device=card)
+    labels = torch.randint(0, cfg.vocab, (4, 256), generator=gen,
+                           device=card)
+    out = {}
+    for backend in ("cuda", "ref"):
+        model.zero_grad(set_to_none=True)
+        loss = TM.loss_fn(model, tokens, labels, dtype=torch.float32,
+                          backend=backend)
+        loss.backward()
+        out[backend] = (loss.item(), [p.grad.clone()
+                                      for p in model.parameters()])
+    (lk, gk), (lr, gr) = out["cuda"], out["ref"]
+    assert abs(lk - lr) <= 1e-5 * abs(lr)
+    for a, b in zip(gk, gr):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, TrainConfig(
+        grad_accum=2, opt=OptConfig(lr=1e-3, warmup=1)))
+    KL.reset_launches()
+    state, m = step(state, {"tokens": tokens, "labels": labels})
+    torch.cuda.synchronize()
+    n_mamba = sum(b == "mamba2" for b in cfg.pattern) * cfg.n_groups
+    assert KL.LAUNCHES["ssm_state_scan_bwd"] == 2 * n_mamba
+    assert KL.LAUNCHES["ssm_state_scan"] >= 2 * n_mamba
+    assert torch.isfinite(m["loss"]) and m["step"] == 1
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
-"""The backward of K8 and K9 on the CPU: the plain versions
+"""The backward of K8, K9 and K10 on the CPU: the plain versions
 (``flash_attention_bwd_ref``, ``rmsnorm_bwd_ref``,
-``rmsnorm_residual_bwd_ref``) against ``jax.grad`` of the reference's
-``repro.kernels.ref`` functions, and the ``autograd.Function``s around the
-kernels (which run those plain versions on CPU tensors) against torch's
-autograd of the plain forward.  Inputs are drawn with numpy from seeds.
+``rmsnorm_residual_bwd_ref``, ``ssm_state_scan_bwd_ref``) against
+``jax.grad``/``jax.vjp`` of the reference's ``repro.kernels.ref``
+functions, and the ``autograd.Function``s around the kernels (which run
+those plain versions on CPU tensors) against torch's autograd of the plain
+forward.  Inputs are drawn with numpy from seeds.
 
 Bars: 1e-5 of each gradient's largest |value| in float32 (the two
 frameworks sum in other orders).  The sliding window has no counterpart
@@ -28,6 +29,7 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.rmsnorm import (RMSNorm, RMSNormResidual,
                                          rmsnorm_bwd, rmsnorm_residual_bwd)
+from repro_torch.kernels.ssm_scan import ssm_state_scan_bwd
 
 from _torch_train_ref import one_torch_thread  # noqa: F401 (autouse)
 
@@ -462,20 +464,90 @@ def test_rmsnorm_ops_take_the_function_under_autograd_only():
 
 
 def test_kernels_without_a_backward_refuse_grad():
-    """K6, K7 and K10 run on the card only without autograd: their wrappers
+    """K6 and K7 run on the card only without autograd: their wrappers
     raise (naming the ROADMAP item) where an input requires grad under grad
-    mode, and pass otherwise; on the CPU the plain versions differentiate."""
+    mode, and pass otherwise."""
     a = torch.ones(3, requires_grad=True)
-    for name, item in (("tridiag", "11b"), ("fvt_flux", "11b"),
-                       ("ssm_state_scan", "12i")):
+    for name, item in (("tridiag", "11b"), ("fvt_flux", "11b")):
         with pytest.raises(RuntimeError, match=f"{name}.*item {item}"):
             library.refuse_grad(name, f"item {item}", a)
         library.refuse_grad(name, f"item {item}", a.detach())
         with torch.no_grad():
             library.refuse_grad(name, f"item {item}", a)
-    states = torch.randn(3, 1, 2, 4, 4, requires_grad=True)
-    decay = torch.rand(3, 1, 2)
-    out = ops.ssm_state_scan(states, decay)
-    assert out.grad_fn is not None
-    out.sum().backward()
-    assert states.grad is not None
+
+
+def _scan_inputs(nc, B, H, N, P, seed, edges=False):
+    """states, decay in [0, 1) (with ``edges``, some decays exactly 0 and
+    1) and g, float32 from numpy."""
+    rng = np.random.default_rng(seed)
+    states = rng.standard_normal((nc, B, H, N, P)).astype(np.float32)
+    decay = rng.random((nc, B, H)).astype(np.float32)
+    if edges:
+        flat = decay.reshape(-1)
+        flat[::3] = 0.0
+        flat[1::3] = 1.0
+    g = rng.standard_normal((nc, B, H, N, P)).astype(np.float32)
+    return states, decay, g
+
+
+SCAN = [  # nc, B, H, N, P, edges
+    (1, 2, 3, 4, 5, False),
+    (5, 2, 3, 4, 4, False),
+    (7, 1, 4, 8, 6, True),
+    (3, 3, 2, 5, 7, True),
+    (16, 1, 2, 16, 16, False),
+]
+
+
+@pytest.mark.parametrize("nc,B,H,N,P,edges", SCAN)
+def test_ssm_state_scan_bwd_ref_matches_jax_vjp(nc, B, H, N, P, edges):
+    """K10's plain backward against ``jax.vjp`` of the reference's
+    ``ssm_state_scan_ref``: d states at rtol = atol = 1e-6; d decay, a sum
+    over N P products, within 1e-5 of its largest |value|."""
+    states, decay, g = _scan_inputs(nc, B, H, N, P, nc * B + H, edges)
+    out, vjp = jax.vjp(RR.ssm_state_scan_ref, states, decay)
+    want_ds, want_dd = vjp(jnp.asarray(g))
+    got_ds, got_dd = ref.ssm_state_scan_bwd_ref(
+        torch.from_numpy(g), torch.from_numpy(np.asarray(out)),
+        torch.from_numpy(decay))
+    np.testing.assert_allclose(got_ds.numpy(), np.asarray(want_ds),
+                               rtol=1e-6, atol=1e-6)
+    _close(got_dd, want_dd, tol=1e-5,
+           scale=max(np.abs(np.asarray(want_dd)).max(), 1e-30))
+    # the last chunk's gradients are 0: the exclusive scan never reads them
+    assert not got_ds[-1].any() and not got_dd[-1].any()
+
+
+@pytest.mark.parametrize("nc,B,H,N,P,edges", SCAN[:3])
+def test_ssm_state_scan_function_on_cpu(nc, B, H, N, P, edges):
+    """``ops.ssm_state_scan`` under autograd is :class:`SSMStateScan` (the
+    plain forward and backward on CPU tensors): its gradients equal torch's
+    autograd of ``ssm_state_scan_ref`` at 1e-6; without grad it builds no
+    graph; the backward wrapper is the plain version on the CPU."""
+    states, decay, g = (torch.from_numpy(x) for x in _scan_inputs(
+        nc, B, H, N, P, 2 * nc + H, edges))
+    got_leaves = [states.clone().requires_grad_(),
+                  decay.clone().requires_grad_()]
+    want_leaves = [states.clone().requires_grad_(),
+                   decay.clone().requires_grad_()]
+    out = ops.ssm_state_scan(*got_leaves)
+    assert type(out.grad_fn).__name__ == "SSMStateScanBackward"
+    want = ref.ssm_state_scan_ref(*want_leaves)
+    assert torch.equal(out, want)
+    out.backward(g)
+    if want.requires_grad:
+        want.backward(g)
+        expected = [x.grad for x in want_leaves]
+    else:  # one chunk: the plain scan's output is 0, with no graph
+        expected = [torch.zeros_like(x) for x in want_leaves]
+    for a, b in zip(got_leaves, expected):
+        np.testing.assert_allclose(a.grad.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    with torch.no_grad():
+        assert ops.ssm_state_scan(*got_leaves).grad_fn is None
+    assert ops.ssm_state_scan(states, decay).grad_fn is None
+    ds, dd = ssm_state_scan_bwd(g, out.detach(), decay)
+    wds, wdd = ref.ssm_state_scan_bwd_ref(g, out.detach(), decay)
+    assert torch.equal(ds, wds) and torch.equal(dd, wdd)
+    with pytest.raises(ValueError, match="gradient of out's shape"):
+        ssm_state_scan_bwd(g[..., :1], out.detach(), decay)

@@ -109,11 +109,16 @@ def _assert_state_close(tstate, rstate, rtol, atol, lr=None):
     assert tstate.step == int(rstate.step)
 
 
-@pytest.mark.parametrize("arch,compression", [
-    ("granite_8b", False), ("zamba2_7b", False), ("grok1_314b", True)],
-    ids=["granite-adamw", "zamba2-adamw", "grok1-adafactor-compressed"])
-def test_f32_train_step_matches_the_reference_composition(arch, compression):
-    rcfg, cfg = configs(arch)
+@pytest.mark.parametrize("arch,changes,compression", [
+    ("granite_8b", {}, False), ("zamba2_7b", {}, False),
+    ("grok1_314b", {}, True),
+    # a window shorter than the batch's S tokens, so the local mask cuts
+    ("gemma2_2b", {"window": 8}, False)],
+    ids=["granite-adamw", "zamba2-adamw", "grok1-adafactor-compressed",
+         "gemma2-adamw"])
+def test_f32_train_step_matches_the_reference_composition(arch, changes,
+                                                         compression):
+    rcfg, cfg = configs(arch, **changes)
     params = ref_params(rcfg)
     ocfg = RO.OptConfig(lr=1e-3, warmup=2)
     rstate = RTS.init_state(rcfg, params)
