@@ -191,6 +191,18 @@
    K8's window backward once a local layer a microbatch), device time by
    kernel group, the ``opt_update`` and ``ssd_chunks`` ranges and the idle
    share.
+   Training across ranks (``[train-dist]``, :data:`TRAIN_DIST`): 2
+   full-width Granite-8B layers and one Zamba2-7B group, float32, 2 x
+   2048, grad_accum 2, 3 steps, laid out by ``parallel.sharding`` on a
+   (1, 1) mesh over NCCL in a process group of this one process (every
+   weight gathered at its use, every gradient reduce-scattered), in turns
+   with the unsharded step: losses and grad_norm at 1e-5 relative, the
+   masters at 1e-4 of each one's max (and whether bit-equal), the kernels
+   launched, step ms of both, peaks; a traced sharded Granite step (the
+   NCCL kernels' device ms); Zamba2's state saved and restored through
+   ``elastic.reshard_state``, bit for bit.  Then (:data:`TRAIN_DIST_GLOO`)
+   two gloo processes on the one card, a (2, 1) mesh: each rank's peak
+   beside the unsharded run's, held to it at the train-step tests' bars.
 11. Prints the total wall time, a ``kernels`` JSON line and, last, the
    ``ok`` JSON line.
 
@@ -4014,6 +4026,426 @@ def train_phase(device, arch: str) -> dict:
             "split": split}
 
 
+# training across ranks (``[train-dist]``): Granite-8B at full width in
+# TRAIN_PARITY's cut (2 layers) at 2 x 2048, grad_accum 2, and one
+# Zamba2-7B group (the shared block and 3 Mamba-2 layers), float32 masters
+# and compute, AdamW, 3 steps, through ``parallel.sharding`` on a (1, 1)
+# mesh over NCCL (one rank: every gather and reduce-scatter issued) in
+# turns with the unsharded step; then Granite on two gloo ranks of the
+# one card, a (2, 1) mesh, 2 x 2048 (a row a rank), one step (gloo stages
+# every collective of CUDA tensors through the host: 11-15 s a step on an
+# H100 80GB HBM3 at 700 W, PR 29)
+TRAIN_DIST = {"granite_8b": {"layers": 2, "B": 2, "S": 2048, "accum": 2,
+                             "steps": 3, "trace": True},
+              "zamba2_7b": {"layers": 3, "B": 2, "S": 2048, "accum": 2,
+                            "steps": 3, "reshard": True}}
+# warmup 1: the one step applies the whole TRAIN_LR, so the masters' hold
+# reads a material update
+TRAIN_DIST_GLOO = {"arch": "granite_8b", "layers": 2, "B": 2, "S": 2048,
+                   "accum": 1, "steps": 1, "warmup": 1, "mesh": (2, 1)}
+DIST_GROUPS = (("NCCL collectives", ("nccl",)),) + TRAIN_GROUPS
+
+
+def masters_rel(got: dict, want: dict) -> tuple[float, str, bool]:
+    """The worst master's max |difference| over its max |value|, its name,
+    and whether every master is bit-equal."""
+    import torch
+
+    worst, name, equal = 0.0, "", True
+    for n, b in want.items():
+        a = got[n]
+        equal = equal and bool(torch.equal(a, b))
+        r = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if r >= worst:
+            worst, name = r, n
+    return worst, name, equal
+
+
+def train_dist_one_rank(device, arch: str) -> dict:
+    """``arch``'s :data:`TRAIN_DIST` run over NCCL in a one-rank group: a
+    (1, 1) mesh, the masters laid out by ``sharding.init_params`` (every
+    parameter a ``DTensor``), each step through
+    ``make_train_step(dp_axes=, param_specs=)`` on ``shard_batch``'s rows,
+    in turns with the unsharded step on the same batches; losses and
+    grad_norm at :data:`TRAIN_LOSS_REL`, the masters after the last step
+    at :data:`TRAIN_GRAD_REL` of each one's max (and whether bit-equal);
+    K8/K9 (K10) launched by the sharded steps; step ms of both (median of
+    steps 2 onward) and each step's peak; where the run says ``trace``, a
+    traced sharded step (the NCCL kernels' device ms); where it says
+    ``reshard``, the state saved and restored through
+    ``elastic.reshard_state`` onto the mesh, equal bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, DataIterator,
+                                           shard_batch)
+    from repro_torch.kernels import library as KL
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step)
+
+    c = TRAIN_DIST[arch]
+    B, S, A, steps = (c[k] for k in ("B", "S", "accum", "steps"))
+    cfg = dataclasses.replace(get_config(arch), n_layers=c["layers"])
+    tc = TrainConfig(grad_accum=A, compute_dtype=torch.float32,
+                     opt=OptConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP))
+    torch.cuda.set_device(torch.cuda.current_device())
+    mesh = device_mesh((1, 1), ("data", "model"), device_type="cuda")
+    plain = init_state(cfg, init_params(
+        Transformer(cfg, dtype=torch.float32, device=device), seed=0))
+    sharded = init_state(cfg, SH.init_params(
+        Transformer(cfg, dtype=torch.float32, device="meta"), seed=0,
+        mesh=mesh))
+    specs = SH.param_shardings(sharded.params, mesh)
+    step = make_train_step(cfg, tc)
+    sstep = make_train_step(cfg, tc, dp_axes=SH.dp_axes(mesh),
+                            param_specs=specs)
+    n_params = sum(p.numel() for p in plain.params.parameters())
+    data = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B, seed=0), device=device)
+    batches = [next(data) for _ in range(steps + 1)]
+    print(f"[train-dist] {arch}: {cfg.n_layers} layers at full width, "
+          f"{n_params / 1e9:.3f} G parameters, float32 masters and compute, "
+          f"{B} x {S} tokens, grad_accum {A}; NCCL, one rank, mesh (1, 1) "
+          f"({len(specs)} parameters as DTensor shards)", flush=True)
+    times = {"unsharded": [], "sharded": []}
+    peaks = {"unsharded": 0.0, "sharded": 0.0}
+    launches = {}
+    for i in range(steps):
+        for kind in ("unsharded", "sharded"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "sharded":
+                KL.reset_launches()
+            t0 = time.perf_counter()
+            if kind == "unsharded":
+                plain, m = step(plain, batches[i])
+            else:
+                sharded, ms = sstep(sharded, shard_batch(batches[i], mesh, A))
+            torch.cuda.synchronize()
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+            peaks[kind] = max(peaks[kind],
+                              torch.cuda.max_memory_allocated() / 2**30)
+            if kind == "sharded":
+                for k, v in KL.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+        lp, gp = m["loss"].item(), m["grad_norm"].item()
+        ls, gs = ms["loss"].item(), ms["grad_norm"].item()
+        print(f"[train-dist] {arch} step {i + 1}: loss {ls:.6f} (unsharded "
+              f"{lp:.6f}, rel {abs(ls - lp) / abs(lp):.3e}), grad_norm "
+              f"{gs:.6f} (unsharded {gp:.6f}); "
+              f"{times['sharded'][-1]:.1f} ms (unsharded "
+              f"{times['unsharded'][-1]:.1f} ms)", flush=True)
+        if not (abs(ls - lp) <= TRAIN_LOSS_REL * abs(lp)
+                and abs(gs - gp) <= TRAIN_LOSS_REL * abs(gp)):
+            raise RuntimeError(f"{arch}: the sharded step's metrics "
+                               "disagree with the unsharded step's")
+    worst, name, equal = masters_rel(
+        {n: SH.full_tensor(p.detach())
+         for n, p in sharded.params.named_parameters()},
+        {n: p.detach() for n, p in plain.params.named_parameters()})
+    keys = train_kernels(cfg, S)
+    used = {k: launches.get(k, 0) for k in keys}
+    med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    print(f"[train-dist] {arch} masters after {steps} steps: worst "
+          f"{worst:.3e} of its max ({name}; bar {TRAIN_GRAD_REL:g}); "
+          f"bit-equal to the unsharded masters: {'yes' if equal else 'no'}",
+          flush=True)
+    print(f"[train-dist] {arch} step ms {med['sharded']:.3f} sharded, "
+          f"{med['unsharded']:.3f} unsharded (median of steps 2-{steps}, "
+          f"in turns); peak {peaks['sharded']:.3f} GiB during a sharded "
+          f"step, {peaks['unsharded']:.3f} GiB during an unsharded one "
+          f"(both states resident); sharded launches "
+          + ", ".join(f"{k} {v}" for k, v in used.items()), flush=True)
+    if worst > TRAIN_GRAD_REL:
+        raise RuntimeError(f"{arch}: sharded masters past the bar")
+    if not all(used.values()):
+        raise RuntimeError(f"the sharded training path skipped a kernel: "
+                           f"{used}")
+    out = {"loss_rel": abs(ls - lp) / abs(lp), "masters_rel": worst,
+           "bit_equal": equal, "step_ms": med["sharded"],
+           "plain_step_ms": med["unsharded"], "peak_gib": peaks["sharded"],
+           "plain_peak_gib": peaks["unsharded"], "launches": used}
+    del plain, step
+    torch.cuda.empty_cache()
+    if c.get("trace"):
+        split = {}
+        out["idle"] = trace_step(
+            lambda st: sstep(st, shard_batch(batches[steps], mesh, A)),
+            sharded, med["sharded"],
+            untraced=f"median of sharded steps 2-{steps}",
+            groups=DIST_GROUPS, split_out=split, ranges=("opt_update",))
+        nccl = split.get("NCCL collectives", (0.0, 0))
+        print(f"[train-dist] {arch} NCCL kernels' device ms in the traced "
+              f"sharded step: {nccl[0]:.3f} in {nccl[1]} launches",
+              flush=True)
+        out["nccl_ms"], out["nccl_launches"] = nccl
+    if not c.get("reshard"):
+        del sharded
+        torch.cuda.empty_cache()
+        return out
+    ckpt = ROOT / "build" / "repro_torch" / "chip_smoke_dist_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    saved_step = sharded.step
+    save_checkpoint(ckpt, saved_step, sharded,
+                    meta={"mesh": tuple(mesh.mesh.shape)})
+    t1 = time.perf_counter()
+    saved = {n: SH.full_tensor(p.detach())
+             for n, p in sharded.params.named_parameters()}
+    opt = [SH.full_tensor(t) for t in sharded.opt.m.values()
+           for t in (t if isinstance(t, list) else [t])]
+    del sharded
+    torch.cuda.empty_cache()
+    like = init_state(cfg, SH.init_params(
+        Transformer(cfg, dtype=torch.float32, device="meta"), seed=1,
+        mesh=mesh))
+    back, manifest = reshard_state(ckpt, like, mesh)
+    t2 = time.perf_counter()
+    same = all(torch.equal(SH.full_tensor(p.detach()), saved[n])
+               for n, p in back.params.named_parameters()) and all(
+        torch.equal(SH.full_tensor(t), o) for t, o in zip(
+            (t for v in back.opt.m.values()
+             for t in (v if isinstance(v, list) else [v])), opt))
+    print(f"[train-dist] {arch} checkpoint of step {manifest['step']} "
+          f"(mesh {manifest['mesh']}) saved in {t1 - t0:.1f} s, restored "
+          f"through reshard_state onto the (1, 1) mesh in {t2 - t1:.1f} s: "
+          f"masters and moments {'bit-equal' if same else 'DIFFER'}",
+          flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not same or back.step != saved_step:
+        raise RuntimeError("reshard_state did not restore the state")
+    del back, like, saved, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+GLOO_WORKER = r"""
+import dataclasses, datetime, json, sys, time
+import torch, torch.distributed as dist
+rank, world, init, out, spec = sys.argv[1:6]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=init, rank=rank,
+                        world_size=world,
+                        timeout=datetime.timedelta(seconds=600))
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.kernels import library as KL
+from repro_torch.launch.mesh import device_mesh
+from repro_torch.models import Transformer, init_params
+from repro_torch.models.weights import param_tree
+from repro_torch.parallel import sharding as SH
+from repro_torch.train.optimizer import OptConfig, leaves
+from repro_torch.train.train_step import (TrainConfig, init_state,
+                                          make_train_step)
+dev = torch.device("cuda", 0)
+cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["layers"])
+tc = TrainConfig(grad_accum=spec["accum"], compute_dtype=torch.float32,
+                 opt=OptConfig(lr=spec["lr"], warmup=spec["warmup"]))
+mesh = device_mesh(tuple(spec["mesh"]), ("data", "model"),
+                   device_type="cuda")
+dc = DataConfig(vocab=cfg.vocab, seq_len=spec["S"], global_batch=spec["B"],
+                seed=0)
+torch.cuda.reset_peak_memory_stats()
+state = init_state(cfg, SH.init_params(
+    Transformer(cfg, dtype=torch.float32, device="meta"), seed=0,
+    mesh=mesh))
+resident = torch.cuda.memory_allocated() / 2**30
+step = make_train_step(cfg, tc, dp_axes=SH.dp_axes(mesh),
+                       param_specs=SH.param_shardings(state.params, mesh))
+it = DataIterator(dc, device=dev, mesh=mesh, grad_accum=spec["accum"])
+metrics, times = [], []
+KL.reset_launches()
+for i in range(spec["steps"]):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, next(it))
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.perf_counter() - t0))
+    metrics.append((m["loss"].item(), m["grad_norm"].item()))
+launches = dict(KL.LAUNCHES)
+peak = torch.cuda.max_memory_allocated() / 2**30
+# every rank joins each gather; rank 0 keeps the masters and the first
+# moments, on the host while the unsharded run's peak is read
+full, first = {}, []
+for n, p in state.params.named_parameters():
+    whole = SH.full_tensor(p.detach())
+    if rank == 0:
+        full[n] = whole.cpu()
+    del whole
+for m in leaves(state.opt.m):
+    whole = SH.full_tensor(m)
+    if rank == 0:
+        first.append(whole.cpu())
+    del whole
+del p, m, state, step  # the loops' last shards, else held on the card
+torch.cuda.empty_cache()
+res = {"rank": rank, "metrics": metrics, "times": times, "peak": peak,
+       "resident": resident, "launches": launches}
+if rank == 0:  # the unsharded run on the same batches
+    torch.cuda.reset_peak_memory_stats()
+    plain = init_state(cfg, init_params(
+        Transformer(cfg, dtype=torch.float32, device=dev), seed=0))
+    res["plain_resident"] = torch.cuda.memory_allocated() / 2**30
+    step = make_train_step(cfg, tc)
+    it = DataIterator(dc, device=dev)
+    pm = []
+    for i in range(spec["steps"]):
+        plain, m = step(plain, next(it))
+        pm.append((m["loss"].item(), m["grad_norm"].item()))
+    res["plain_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    res["plain_metrics"] = pm
+    worst, name, near, n_all, top = 0.0, "", 0, 0, 0.0
+    for n, p in plain.params.named_parameters():
+        b = p.detach()
+        d = (full[n].to(dev) - b).abs()
+        r = d.max().item() / max(b.abs().max().item(), 1e-30)
+        if r >= worst:
+            worst, name = r, n
+        near += int((d <= 1e-6 + 1e-4 * b.abs()).sum())
+        n_all += d.numel()
+        top = max(top, d.max().item())
+    res["masters_rel"], res["masters_worst"] = worst, name
+    res["masters_near"], res["masters_max"] = near / n_all, top
+    # the first moments, (1 - b1) x each clipped gradient after one step
+    worst, name = 0.0, ""
+    names = [k if not isinstance(x, list) else f"{k}[{j}]"
+             for k, x in param_tree(plain.params).items()
+             for j in (range(len(x)) if isinstance(x, list) else [0])]
+    for k, a, b in zip(names, first, leaves(plain.opt.m)):
+        r = ((a.to(dev) - b).abs().max().item()
+             / max(b.abs().max().item(), 1e-30))
+        if r >= worst:
+            worst, name = r, k
+    res["grads_rel"], res["grads_worst"] = worst, name
+with open(out, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def train_dist_gloo(device) -> dict:
+    """:data:`TRAIN_DIST_GLOO`: two processes, each a gloo rank on the one
+    card (``cuda:0``), a (2, 1) mesh: the masters, gradients and moments
+    split over the data axis, each step's rows split between the ranks;
+    each rank's peak beside the unsharded run's (rank 0, after); against
+    the unsharded run on the same batches, the metrics at
+    :data:`TRAIN_LOSS_REL`, the first moments at :data:`TRAIN_GRAD_REL`
+    and the masters as a share of the step applied."""
+    import os
+    import shutil
+    import tempfile
+
+    g = TRAIN_DIST_GLOO
+    world = g["mesh"][0] * g["mesh"][1]
+    spec = dict(g, lr=TRAIN_LR)
+    applied = TRAIN_LR * min(1.0, g["steps"] / g["warmup"])  # the last step's
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="4")
+    print(f"[train-dist] {g['arch']}: {g['layers']} layers at full width, "
+          f"{g['B']} x {g['S']} tokens, grad_accum {g['accum']}, "
+          f"{g['steps']} steps; gloo, {world} ranks on the one card, mesh "
+          f"{g['mesh']}", flush=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_WORKER, str(r), str(world),
+         f"file://{tmp}/rdv", str(tmp / f"rank{r}.json"), json.dumps(spec)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError("a gloo rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    res = [json.loads((tmp / f"rank{r}.json").read_text())
+           for r in range(world)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    r0 = res[0]
+    for i, ((l, gn), (pl, pg)) in enumerate(zip(r0["metrics"],
+                                                r0["plain_metrics"])):
+        print(f"[train-dist] gloo step {i + 1}: loss {l:.6f} (unsharded "
+              f"{pl:.6f}, rel {abs(l - pl) / abs(pl):.3e}), grad_norm "
+              f"{gn:.6f} (unsharded {pg:.6f}); "
+              + ", ".join(f"rank {r['rank']} {r['times'][i]:.1f} ms"
+                          for r in res), flush=True)
+        if not (abs(l - pl) <= TRAIN_LOSS_REL * abs(pl)
+                and abs(gn - pg) <= TRAIN_LOSS_REL * abs(pg)):
+            raise RuntimeError("gloo ranks' metrics disagree with the "
+                               "unsharded run's")
+    for r in res:
+        print(f"[train-dist] gloo rank {r['rank']}: peak {r['peak']:.3f} "
+              f"GiB (state at start {r['resident']:.3f} GiB); launches "
+              + ", ".join(f"{k} {v}" for k, v in r["launches"].items()
+                          if k in TRAIN_LAUNCHES), flush=True)
+        if not all(r["launches"].get(k) for k in TRAIN_LAUNCHES):
+            raise RuntimeError(f"gloo rank {r['rank']} skipped a kernel")
+    # two ranks sum each gradient in two halves, a reordering at float32's
+    # round-off: the first moments ((1 - b1) x the clipped gradient) are
+    # held at TRAIN_GRAD_REL of each one's max.  AdamW's normalised step
+    # g / (|g| + eps) turns the round-off of an element whose |g| is near
+    # eps into a share of the step, so the masters are held to 99.9 %
+    # within rtol 1e-4 / atol 1e-6 (the train-step tests' bar) and every
+    # element within half the applied step, which a missing, doubled or
+    # sign-flipped update of an element with |g| >> eps passes by a step
+    share = r0["masters_max"] / applied
+    print(f"[train-dist] gloo unsharded run (rank 0 alone, after): peak "
+          f"{r0['plain_peak']:.3f} GiB (state at start "
+          f"{r0['plain_resident']:.3f} GiB); first moments: worst "
+          f"{r0['grads_rel']:.3e} of its max ({r0['grads_worst']}; bar "
+          f"{TRAIN_GRAD_REL:g}); masters: "
+          f"{100 * r0['masters_near']:.4f} % within 1e-4 / 1e-6, max "
+          f"|difference| {r0['masters_max']:.3e} = {share:.4f} of the "
+          f"applied step {applied:g} (bar 0.5), worst "
+          f"{r0['masters_rel']:.3e} of its max ({r0['masters_worst']}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if r0["grads_rel"] > TRAIN_GRAD_REL:
+        raise RuntimeError("gloo ranks' gradients past the bar")
+    if r0["masters_near"] < 0.999 or share > 0.5:
+        raise RuntimeError("gloo ranks' masters past the bar")
+    return {"peaks": [r["peak"] for r in res],
+            "plain_peak": r0["plain_peak"], "masters_max": r0["masters_max"],
+            "step_ms": [statistics.median(r["times"]) for r in res]}
+
+
+def train_dist_phase(device) -> dict:
+    """The ``[train-dist]`` phase: :func:`train_dist_one_rank` for each of
+    :data:`TRAIN_DIST` over NCCL (the process group made here, of this
+    one process, and destroyed after), then :func:`train_dist_gloo`."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                            rank=0, world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        out = {arch: train_dist_one_rank(device, arch) for arch in TRAIN_DIST}
+    finally:
+        dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["gloo"] = train_dist_gloo(device)
+    return out
+
+
 def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                    ensemble: dict, opt3: dict, lm: dict, serve: dict,
                    distributed: dict, bwd: dict, parity: dict,
@@ -4329,6 +4761,10 @@ def main() -> int:
         train[arch] = train_phase(device, arch)
         print(f"[phase] training {arch} {time.perf_counter() - t0:.1f} s",
               flush=True)
+    t0 = time.perf_counter()
+    train_dist_phase(device)
+    print(f"[phase] training across ranks {time.perf_counter() - t0:.1f} s",
+          flush=True)
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
                              lm, serve, distributed, bwd, parity, train)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")

@@ -8,6 +8,12 @@ position repeats the previous token with probability 0.3.  A prefix of
 ``n_prefix_embeds`` embeddings (normal x 0.02, drawn in float64) is
 rounded to bf16 as ``jnp.asarray(x, jnp.bfloat16)`` rounds it: through
 float32 (:func:`bf16_from_f64`).
+
+Across ranks each rank takes its rows of the global batch
+(:func:`shard_batch`): the rows are split over the mesh's dp axes
+(``parallel.sharding.batch_sharding``) inside each microbatch, as the
+reference's ``reshape(A, mb, -1)`` keeps the split on its second axis,
+so microbatch i of every rank is its part of the global microbatch i.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.backend.base import resolve_device
+from ..parallel.sharding import batch_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,20 +71,54 @@ def make_batch(cfg: DataConfig, step: int, *, device=None) -> dict:
     return {k: v.to(device) for k, v in batch.items()}
 
 
+def local_rows(mesh, batch: int, grad_accum: int = 1) -> torch.Tensor:
+    """The rows of a global batch of ``batch`` rows that this rank takes on
+    ``mesh``: in each of the ``grad_accum`` microbatches of mb rows, part
+    r of mb / D, where D is the product of the dp axes' sizes and r this
+    rank's index over them (the first axis major)."""
+    mb, A = batch // grad_accum, grad_accum
+    if batch % A:
+        raise ValueError(f"batch {batch} is not a multiple of grad_accum {A}")
+    names, coord = mesh.mesh_dim_names, mesh.get_coordinate()
+    D, r = 1, 0
+    for i, p in enumerate(batch_sharding(mesh).placements):
+        if p.is_shard():
+            D, r = D * mesh.size(i), r * mesh.size(i) + coord[i]
+    if mb % D:
+        raise ValueError(f"microbatch of {mb} rows does not split over "
+                         f"{D} data-parallel ranks ({names})")
+    n = mb // D
+    return torch.cat([torch.arange(i * mb + r * n, i * mb + (r + 1) * n)
+                      for i in range(A)])
+
+
+def shard_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
+    """This rank's rows of a global batch (:func:`local_rows`); the batch
+    itself without a mesh."""
+    if mesh is None:
+        return batch
+    rows = local_rows(mesh, batch["tokens"].shape[0], grad_accum)
+    return {k: v[rows.to(v.device)] for k, v in batch.items()}
+
+
 class DataIterator:
-    """Stateful wrapper; ``skip_to(step)`` is O(1) by construction."""
+    """Stateful wrapper; ``skip_to(step)`` is O(1) by construction.  With
+    a ``mesh``, each batch is this rank's rows (:func:`shard_batch`)."""
 
     def __init__(self, cfg: DataConfig, start_step: int = 0, *,
-                 device=None):
+                 device=None, mesh=None, grad_accum: int = 1):
         self.cfg = cfg
         self.step = start_step
         self.device = device
+        self.mesh = mesh
+        self.grad_accum = grad_accum
 
     def skip_to(self, step: int) -> None:
         self.step = step
 
     def __next__(self) -> dict:
-        b = make_batch(self.cfg, self.step, device=self.device)
+        b = shard_batch(make_batch(self.cfg, self.step, device=self.device),
+                        self.mesh, self.grad_accum)
         self.step += 1
         return b
 

@@ -116,7 +116,7 @@ def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
     if q.dtype == torch.float32 and tiles > 2**31 - 1:
         raise ValueError(f"flash_attention: {tiles} query tiles of 64 rows "
                          "exceed the float32 kernel's launch grid (2^31 - 1)")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+    if not all(x.is_contiguous() and library.pointer(x) % 16 == 0
                for x in (q, k, v)):
         raise ValueError("flash_attention takes contiguous, 16-byte aligned "
                          "tensors")
@@ -176,8 +176,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     lib = library.LM or library.load_lm_library()
     library.launch("flash_attention", lib.launch_flash_attention,
-                   lib.lm_error_string, q.get_device(), q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   lib.lm_error_string, q.get_device(), library.pointer(q),
+                   library.pointer(k), library.pointer(v), o.data_ptr(),
                    0 if lse is None else lse.data_ptr(),
                    library.LM_DTYPES[q.dtype], B, S, H, k.shape[2], D,
                    float(softcap), min(int(window), 2**30))
@@ -205,7 +205,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=softcap,
                                        window=window)
     check_card_inputs(q, k, v)
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+    if not all(x.is_contiguous() and library.pointer(x) % 16 == 0
                for x in (o, do)):
         raise ValueError("flash_attention_bwd takes contiguous, 16-byte "
                          "aligned tensors")
@@ -216,9 +216,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         device=q.device)
     lib = library.LM or library.load_lm_library()
     library.launch("flash_attention_bwd", lib.launch_flash_attention_bwd,
-                   lib.lm_error_string, q.get_device(), q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   lib.lm_error_string, q.get_device(), library.pointer(q),
+                   library.pointer(k), library.pointer(v), library.pointer(o), library.pointer(lse),
+                   library.pointer(do), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                    delta.data_ptr(), library.LM_DTYPES[q.dtype], B, S, H,
                    k.shape[2], D, float(softcap), min(int(window), 2**30))
     if 0 < window < S:  # the kernels' window instances

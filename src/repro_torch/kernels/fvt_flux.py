@@ -44,6 +44,6 @@ def fvt_flux(q: torch.Tensor, cx: torch.Tensor, *, halo: int) -> torch.Tensor:
     fx = torch.empty_like(q)
     lib = library.FV3 or library.load_library()
     library.launch("fvt_flux", lib.launch_fvt_flux, lib.fv3_error_string,
-                   q.get_device(), q.data_ptr(), cx.data_ptr(), fx.data_ptr(),
+                   q.get_device(), library.pointer(q), library.pointer(cx), fx.data_ptr(),
                    nk, jp, ip, halo)
     return fx

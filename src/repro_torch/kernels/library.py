@@ -13,6 +13,7 @@ at first use, like the stencil kernels, into its own directory under
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -121,6 +122,24 @@ def refuse_grad(name: str, item: str, *tensors: torch.Tensor) -> None:
                            "or on tensors that do not require grad")
 
 
+def pointer(t: torch.Tensor) -> int:
+    """The device address of a kernel's input, for :func:`launch`.  A
+    ``DTensor`` (a shard of a parameter laid out on a mesh) is refused: its
+    ``data_ptr()`` is not its shard's, and a kernel takes whole tensors
+    (``parallel.sharding.Gathered`` gathers them)."""
+    if type(t) is not torch.Tensor and is_dtensor(t):
+        raise TypeError("a kernel takes whole plain tensors, not a DTensor "
+                        "(gather it with parallel.sharding first)")
+    return t.data_ptr()
+
+
+def is_dtensor(t) -> bool:
+    """A ``DTensor`` (none exists before its module is imported, so a plain
+    run never pays for importing it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
 def launch(name: str | None, fn, describe, device: int, *args) -> None:
     """Call a C launch entry, ``fn(*args, stream)``: ``stream`` is the
     caller's current stream of CUDA device ``device`` as a raw pointer, and
@@ -129,7 +148,9 @@ def launch(name: str | None, fn, describe, device: int, *args) -> None:
     function returns ``cudaGetLastError()``; ``describe`` is its library's
     error-string function) and raises; else ``LAUNCHES[name]`` counts the
     launch.  ``name`` None: ``fn`` makes several launches and checks and
-    counts them itself (a stencil's, ``CudaStencil.launch``).
+    counts them itself (a stencil's, ``CudaStencil.launch``).  The
+    wrappers take their inputs' addresses through :func:`pointer`, so no
+    ``DTensor`` reaches a launch.
 
     Both reads go through torch's private entries, the ones that
     ``torch.cuda.current_device`` and ``torch.cuda.current_stream`` call

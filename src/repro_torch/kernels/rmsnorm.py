@@ -75,8 +75,8 @@ def _check(name: str, x, r, w) -> tuple | None:
         rows = x.numel() // d
         if rows >= 2**31:
             raise ValueError(f"{name}: too many rows for the launch grid")
-        xp, wp = x.data_ptr(), w.data_ptr()
-        rp = 0 if r is None else r.data_ptr()
+        xp, wp = library.pointer(x), library.pointer(w)
+        rp = 0 if r is None else library.pointer(r)
         if (xp | rp | wp) % 16 or not (x.is_contiguous() and w.is_contiguous()
                                        and (r is None or r.is_contiguous())):
             raise ValueError(f"{name} takes contiguous, 16-byte aligned "
@@ -142,8 +142,8 @@ def _bwd(name: str, x, r, w, g, gs, eps: float):
             return rmsnorm_bwd_ref(x, w, g, eps=eps)
         return rmsnorm_residual_bwd_ref(x, r, w, g, gs, eps=eps)
     dev, xp, rp, wp, code, w_code, rows, d = card
-    gp = g.data_ptr()
-    gsp = 0 if gs is None else gs.data_ptr()
+    gp = library.pointer(g)
+    gsp = 0 if gs is None else library.pointer(gs)
     if (gp | gsp) % 16 or not (g.is_contiguous()
                                and (gs is None or gs.is_contiguous())):
         raise ValueError(f"{name} takes contiguous, 16-byte aligned "

@@ -64,7 +64,7 @@ def ssm_state_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
     lib = library.LM or library.load_lm_library()
     library.launch("ssm_state_scan", lib.launch_ssm_state_scan,
                    lib.lm_error_string, states.get_device(),
-                   states.data_ptr(), decay.data_ptr(), out.data_ptr(), nc,
+                   library.pointer(states), library.pointer(decay), out.data_ptr(), nc,
                    B * H * N * P, B * H, N * P)
     return out
 
@@ -91,8 +91,8 @@ def ssm_state_scan_bwd(g: torch.Tensor, out: torch.Tensor,
         return ds, dd.zero_()
     lib = library.LM or library.load_lm_library()
     library.launch("ssm_state_scan_bwd", lib.launch_ssm_state_scan_bwd,
-                   lib.lm_error_string, out.get_device(), g.data_ptr(),
-                   out.data_ptr(), decay.data_ptr(), ds.data_ptr(),
+                   lib.lm_error_string, out.get_device(), library.pointer(g),
+                   library.pointer(out), library.pointer(decay), ds.data_ptr(),
                    dd.data_ptr(), nc, B * H, N * P)
     return ds, dd
 

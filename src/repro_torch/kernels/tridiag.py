@@ -64,7 +64,7 @@ def tridiag(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     fn = (lib.launch_tridiag_f32 if a.dtype == torch.float32
           else lib.launch_tridiag_f64)
     library.launch("tridiag", fn, lib.fv3_error_string, a.get_device(),
-                   a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                   library.pointer(a), library.pointer(b), library.pointer(c), library.pointer(d),
                    x.data_ptr(), None if cpg is None else cpg.data_ptr(), nk,
                    nj * ni, levels)
     return x

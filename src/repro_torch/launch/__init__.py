@@ -1,1 +1,2 @@
-"""Launchers of the port: one-card training (:mod:`.train`)."""
+"""Launchers of the port: training on one card or across ranks
+(:mod:`.train`) and the production meshes (:mod:`.mesh`)."""

@@ -40,13 +40,17 @@ top-k gates renormalised, a capacity of C slots per expert and chunk of
 ``token_chunk`` tokens with the same tokens dropped; it dispatches by
 index (gather, ``index_add_``) where the reference multiplies one-hot
 ``(tc, E, C)`` tensors, the same function.  It has no kernel of its own:
-the reference's is plain jnp, outside any Pallas kernel.
+the reference's is plain jnp, outside any Pallas kernel.  On rows split
+over data-parallel ranks (:data:`TOKEN_SPLIT`) it routes the chunks of
+the global micro-batch, as one process routes them.
 
-Not ported: ``constrain`` and the sharding annotations (one card).
+Not ported: ``constrain`` and the sharding annotations (a sharded model's
+blocks run on whole weights, ``parallel.sharding.Gathered``).
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
@@ -55,6 +59,14 @@ from torch import nn
 
 from ..kernels import ops
 from .config import ArchConfig
+
+
+#: the data-parallel ranks that split the rows of the micro-batch a block
+#: runs on (``parallel.sharding.TokenSplit``: their number ``ranks``, this
+#: rank's ``index`` among them in the rows' order, and ``gather``: every
+#: rank's per-token tensor in the global token order), None on one process
+TOKEN_SPLIT: contextvars.ContextVar = contextvars.ContextVar(
+    "TOKEN_SPLIT", default=None)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -300,20 +312,40 @@ class MoE(nn.Module):
         to x's dtype) in float32 (with at most two choices a token, as the
         configs have, the sum does not depend on the order of the adds); a
         token whose every choice was dropped gets zeros (and the shared
-        expert)."""
+        expert).  On rows split over ranks (:data:`TOKEN_SPLIT`) the
+        chunks and C are those of the global micro-batch: a rank routes
+        its part of each chunk, and a choice's slot also counts the
+        chunk's choices of the same expert on the ranks before it (every
+        token's experts gathered), so the same choices are dropped."""
         B, S, d = x.shape
         T = B * S
-        tc = min(token_chunk, T)
-        if T % tc:
-            raise ValueError(f"MoE: {T} tokens are not a multiple of the "
-                             f"chunk of {tc}")
+        split = TOKEN_SPLIT.get()
+        ranks, first = (1, 0) if split is None else (split.ranks,
+                                                     split.index * T)
+        tc = min(token_chunk, ranks * T)
+        if ranks * T % tc:
+            raise ValueError(f"MoE: {ranks * T} tokens are not a multiple "
+                             f"of the chunk of {tc}")
         E, C = self.moe.n_experts, self.capacity(tc)
         xt = x.reshape(T, d)
+        # this rank's part [a, b) of each chunk it holds tokens of
+        cuts = [0] + [c - first for c in range(tc, ranks * T, tc)
+                      if first < c < first + T] + [T]
+        parts = list(zip(cuts[:-1], cuts[1:]))
+        routes = [self.route(xt[a:b])[:3] for a, b in parts]
+        if split is not None:
+            every = split.gather(torch.cat([r[0] for r in routes]))
+            for i, (a, b) in enumerate(parts):
+                start = (first + a) // tc * tc
+                before = torch.bincount(every[start:first + a].reshape(-1),
+                                        minlength=E)
+                expert, gate, slot = routes[i]
+                routes[i] = (expert, gate, slot + before[expert])
         y = torch.empty_like(xt)
-        for c0 in range(0, T, tc):
-            xc = xt[c0:c0 + tc]
-            expert, gate, slot, keep = self.route(xc)
-            token = torch.arange(tc, device=x.device)[:, None].expand_as(
+        for (a, b), (expert, gate, slot) in zip(parts, routes):
+            xc, n = xt[a:b], b - a
+            keep = slot < C
+            token = torch.arange(n, device=x.device)[:, None].expand_as(
                 expert)[keep]
             expert, slot, gate = expert[keep], slot[keep], gate[keep]
             where = expert * C + slot
@@ -321,8 +353,8 @@ class MoE(nn.Module):
             xe[where] = xc[token]
             out = self.experts(xe.view(E, C, d)).view(E * C, d)
             part = out[where].float() * gate.to(x.dtype).float()[:, None]
-            y[c0:c0 + tc] = torch.zeros((tc, d), dtype=torch.float32,
-                                        device=x.device).index_add_(
+            y[a:b] = torch.zeros((n, d), dtype=torch.float32,
+                                 device=x.device).index_add_(
                 0, token, part).to(x.dtype)
         y = y.view(B, S, d)
         if self.shared is not None:

@@ -44,17 +44,28 @@ def init_params(model: Transformer, seed: int = 0) -> Transformer:
     device = model.device
     if device.type == "meta":
         raise ValueError("a model on the meta device holds no values")
+    params = dict(model.named_parameters())
+    for name, value in init_values(model, seed, device=device):
+        params[name].copy_(value)
+    return model
+
+
+@torch.no_grad()
+def init_values(model: Transformer, seed: int = 0, *, device=None):
+    """(name, float32 value) of each parameter in ``named_parameters``
+    order, drawn as :func:`init_params` draws them on ``device`` (the
+    model's by default; the model itself may be on the meta device)."""
+    device = model.device if device is None else torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ZERO_INIT:
-            p.zero_()
+            yield name, torch.zeros(p.shape, device=device)
         elif leaf in ONE_INIT:
-            p.fill_(1.0)
+            yield name, torch.ones(p.shape, device=device)
         else:
-            p.copy_(torch.randn(p.shape, generator=gen, device=device,
-                                dtype=torch.float32) * INIT_SCALE)
-    return model
+            yield name, torch.randn(p.shape, generator=gen, device=device,
+                                    dtype=torch.float32) * INIT_SCALE
 
 
 def _leaves(tree, prefix=()):

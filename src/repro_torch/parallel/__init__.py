@@ -1,3 +1,3 @@
-"""Parallel helpers of the port: gradient compression
-(:mod:`.compression`).  Sharding over a device mesh waits for a multi-card
-cell (ROADMAP queue 1)."""
+"""Parallel helpers of the port: the reference's sharding rules over a
+device mesh and training on them (:mod:`.sharding`), gradient compression
+(:mod:`.compression`)."""

@@ -19,6 +19,14 @@ float is a leaf.  So a port ``TrainState`` is the model's parameters,
 then the optimizer state's trees (each in sorted path order) and its
 ``count``, then the step.  bfloat16 tensors are stored as their uint16
 bits.
+
+Across ranks (a state laid out by :mod:`..parallel.sharding`): every rank
+calls :func:`save_checkpoint`, which gathers each shard whole on the
+calling thread (a collective: in the async writer thread one would hang),
+and rank 0 writes; the checkpoint holds whole tensors, whatever the mesh.
+:func:`restore_checkpoint` reads them into ``like``'s layout, each rank
+keeping its block; with ``shardings`` it first lays ``like`` out on them
+(:func:`..train.elastic.reshard_state`).
 """
 
 from __future__ import annotations
@@ -32,7 +40,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel import sharding
+
 
 def _leaves(tree: Any) -> list:
     if isinstance(tree, (torch.Tensor, int, float)):
@@ -48,7 +60,7 @@ def _leaves(tree: Any) -> list:
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        t = x.detach().to("cpu", copy=True)
+        t = sharding.full_tensor(x.detach()).to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
@@ -57,11 +69,17 @@ def _host(x) -> np.ndarray:
 
 def save_checkpoint(ckpt_dir: str | Path, step: int, state: Any,
                     meta: dict | None = None, *, async_mode: bool = False):
-    """Save ``state``.  Returns the writing thread if async, else None."""
+    """Save ``state``.  Returns the writing thread if async, else None
+    (and None on every rank but 0, which writes)."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     # the host copies are taken now, whatever the train loop does next
     host = [_host(x) for x in _leaves(state)]
+    distributed = dist.is_available() and dist.is_initialized()
+    if distributed and dist.get_rank() != 0:
+        if not async_mode:
+            dist.barrier()
+        return None
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
 
     def write():
         tmp = ckpt_dir / f"step_{step:010d}.tmp"
@@ -89,6 +107,8 @@ def save_checkpoint(ckpt_dir: str | Path, step: int, state: Any,
         t.start()
         return t
     write()
+    if distributed:
+        dist.barrier()
     return None
 
 
@@ -112,11 +132,14 @@ def _rebuild(like: Any, arrays):
         if tuple(a.shape) != tuple(like.shape):
             raise ValueError(f"leaf shape {a.shape}, expected "
                              f"{tuple(like.shape)}")
+        if sharding.is_dtensor(like):  # this rank's block
+            a = a[sharding.local_block(a.shape, like.placements,
+                                       like.device_mesh)]
         t = torch.from_numpy(np.array(a))
         if like.dtype == torch.bfloat16:
             t = t.view(torch.int16).view(torch.bfloat16)
         with torch.no_grad():
-            like.copy_(t.to(like.dtype))
+            sharding.local(like).copy_(t.to(like.dtype))
         return like
     if isinstance(like, (int, float)):
         return type(like)(next(arrays))
@@ -136,12 +159,33 @@ def _rebuild(like: Any, arrays):
     raise TypeError(f"cannot restore into a {type(like).__name__}")
 
 
+def _laid_out(like: Any, shardings: dict) -> Any:
+    """``like`` (a model, or a ``TrainState`` of one) with the model's
+    parameters laid out by ``shardings`` (name -> NamedSharding) and the
+    optimizer state made anew on them; values are left to the restore."""
+    from ..models.weights import param_tree
+    from .optimizer import AdamWState, opt_init
+
+    model = like if isinstance(like, nn.Module) else like.params
+    sharding.shard_model(model, shardings, keep_values=False)
+    if model is like:
+        return like
+    kind = "adamw" if isinstance(like.opt, AdamWState) else "adafactor"
+    return like._replace(opt=opt_init(kind, param_tree(model)))
+
+
 def restore_checkpoint(ckpt_dir: str | Path, like: Any, *,
-                       step: int | None = None) -> tuple[Any, dict]:
+                       step: int | None = None,
+                       shardings: dict | None = None) -> tuple[Any, dict]:
     """Restore into the structure of ``like``: its tensors (a model's
-    parameters among them) are overwritten in place, its numbers replaced.
-    Returns (the restored state, the manifest).  ``step`` defaults to the
-    latest."""
+    parameters among them) are overwritten in place, its numbers replaced;
+    a shard takes its block of the whole leaf.  ``shardings`` (name ->
+    :class:`..parallel.sharding.NamedSharding`, as ``param_shardings``
+    gives): lay the model's parameters out on them first (its optimizer
+    state follows).  Returns (the restored state, the manifest).  ``step``
+    defaults to the latest."""
+    if shardings is not None:
+        like = _laid_out(like, shardings)
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:

@@ -3,15 +3,16 @@
 grid with fixed tensor parallelism that fits the surviving devices, and
 :class:`HeartbeatMonitor` is the wall-clock watchdog around the
 synchronous train step (a step past the timeout is a strike, and the
-launcher checkpoints).  The reference's ``reshard_state`` (restore onto a
-new device mesh) waits for the port's mesh over ``torch.distributed``
-(ROADMAP queue 1)."""
+launcher checkpoints), and :func:`reshard_state` restores a checkpoint onto
+any mesh: fewer or more ranks than wrote it, or one process."""
 
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Callable
+
+from ..parallel.sharding import param_shardings
 
 
 def plan_mesh(n_devices: int, *, model_parallel: int = 16
@@ -21,6 +22,18 @@ def plan_mesh(n_devices: int, *, model_parallel: int = 16
     if data < 1:
         raise ValueError(f"need ≥{model_parallel} devices, got {n_devices}")
     return data, model_parallel
+
+
+def reshard_state(ckpt_dir, like, new_mesh, *, step=None):
+    """Elastic restore: the checkpoint laid out on ``new_mesh`` (None: whole
+    tensors on one process), into a state of ``like``'s structure (a
+    ``TrainState`` of this process's model; its values are not read).
+    Returns (the state, the manifest)."""
+    from .checkpoint import restore_checkpoint
+
+    shardings = (None if new_mesh is None
+                 else param_shardings(like.params, new_mesh))
+    return restore_checkpoint(ckpt_dir, like, step=step, shardings=shardings)
 
 
 @dataclasses.dataclass
