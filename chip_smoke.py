@@ -178,19 +178,27 @@
    relative, each gradient 1e-4 of its max) and bf16 (within 2x the plain
    path's bf16-vs-float32 distance), of a 2-layer full-width Granite at 2
    x 2048, one full-width Zamba2 group (the shared block and 3 Mamba-2
-   layers: K10 forward and backward) at 2 x 2048, and a local and a
-   global full-width Gemma-2 layer at 1 x 6144 (past the window: K8's
-   window instance forward and backward).
-   Training (``[train]``, :data:`TRAIN`): float32 masters and AdamW, bf16
-   compute, grad_accum 2, 3 steps and a traced fourth, at full width:
-   Granite-8B (8 of its 36 layers) and Zamba2-7B (24 of its 81 Mamba-2
-   layers) at 8 x 4096, Gemma-2-2B uncut at 4 x 8192; each step's loss and
-   grad_norm (finite, the loss falling), step ms, tokens/s, model FLOPs
-   and their rate, peak memory, K8's (and its window instance's), K9's
-   and K10's launches per step (forward and backward; Gemma-2 must launch
-   K8's window backward once a local layer a microbatch), device time by
-   kernel group, the ``opt_update`` and ``ssd_chunks`` ranges and the idle
-   share.
+   layers: K10 forward and backward) at 2 x 2048, a local and a global
+   full-width Gemma-2 layer at 1 x 6144 (past the window: K8's window
+   instance forward and backward), one xLSTM-1.3B group (7 mLSTM layers
+   and the sLSTM scan, no K8), and one Llama-4 Scout and one Grok-1 layer
+   (MoE; Grok-1's softcap 30 through K8) at 2 x 2048; the gradients kept
+   on the host one set at a time; the MoE models' bf16 runs print the
+   (token, layer) expert choices that differ between the paths.
+   Training (``[train]``, :data:`TRAIN`): float32 masters and the config's
+   optimizer (AdamW; Adafactor for Grok-1), bf16 compute, grad_accum 2, 3
+   steps and a traced fourth, at full width: Granite-8B (8 of its 36
+   layers), Zamba2-7B (24 of its 81 Mamba-2 layers), xLSTM-1.3B (8 of 48
+   layers: one pattern group) and Grok-1 (1 of 64) at 8 x 4096,
+   Gemma-2-2B uncut at 4 x 8192; each step's loss and grad_norm (finite,
+   the loss falling), step ms, tokens/s, model FLOPs and their rate, peak
+   memory, the optimizer state's bytes, the launches per step of each
+   kernel the pattern holds (:func:`train_kernels`; forward and backward;
+   none of the others; Gemma-2 must launch K8's window backward once a
+   local layer a microbatch), device time by kernel group (the MoE
+   routing's own), the ``opt_update``, ``ssd_chunks`` and ``slstm_scan``
+   ranges (device and host ms), the host's wall time inside the sLSTM
+   mixers in each step (:func:`slstm_clock`), and the idle share.
    Training across ranks (``[train-dist]``, :data:`TRAIN_DIST`): 2
    full-width Granite-8B layers and one Zamba2-7B group, float32, 2 x
    2048, grad_accum 2, 3 steps, laid out by ``parallel.sharding`` on a
@@ -380,17 +388,35 @@ BF16_LOGIT_REL = 0.1
 BF16_TOP1 = 0.75
 
 # the training cells, each at full width through
-# repro_torch.train.make_train_step (float32 masters, AdamW, bf16 compute,
-# global batch B x S in grad_accum microbatches, 3 steps and a traced
-# fourth): Granite-8B cut to 8 of its 36 layers (the float32 masters,
-# gradients and AdamW moments take 16 B a parameter: 34.4 GB for 2.148 G;
-# the reference's train_4k length); Zamba2-7B cut to 24 of its 81 Mamba-2
-# layers (8 of its 27 groups, the shared block applied 8 times: 2.255 G,
-# 36.1 GB; at 81 layers 6.699 G would need 107 GB), the same 8 x 4096
-# tokens; Gemma-2-2B uncut (26 layers, 2.614 G, 41.8 GB) at its published
-# 8192-token context (arXiv 2408.00118), 4 x 8192, the same 32,768 tokens
-# a step: at 4096 tokens its 4096-key window would cover every key and
-# its local layers would run only K8's causal instance.  ``of``: the
+# repro_torch.train.make_train_step (float32 masters, the config's
+# optimizer, bf16 compute, global batch B x S in grad_accum microbatches,
+# 3 steps and a traced fourth): Granite-8B cut to 8 of its 36 layers (the
+# float32 masters, gradients and AdamW moments take 16 B a parameter:
+# 34.4 GB for 2.148 G; the reference's train_4k length); Zamba2-7B cut to
+# 24 of its 81 Mamba-2 layers (8 of its 27 groups, the shared block
+# applied 8 times: 2.255 G, 36.1 GB; at 81 layers 6.699 G would need 107
+# GB), the same 8 x 4096 tokens; Gemma-2-2B uncut (26 layers, 2.614 G,
+# 41.8 GB) at its published 8192-token context (arXiv 2408.00118), 4 x
+# 8192, the same 32,768 tokens a step: at 4096 tokens its 4096-key window
+# would cover every key and its local layers would run only K8's causal
+# instance; xLSTM-1.3B cut to one of its 6 pattern groups (7 mLSTM
+# layers and 1 sLSTM: 0.378 G; no attention, so no K8), 8 x 4096, and
+# untraced (``"trace": False``; the host's time inside the sLSTM mixers
+# is clocked in the timed steps themselves, :func:`slstm_clock`): uncut
+# (48 layers, 1.239 G, 19.8 GB) a step took 138.8 s and 188.6 s in two
+# calls on an H100 80GB HBM3 at 700 W, host-bound (~4.8 M launches a
+# step, the sLSTM scan's 4096 steps a layer and micro-batch), and the
+# cell with its traced step 1243-1480 s, past this script's time (at this
+# cut the traced step took ~95 s under the profiler and ~30 s to read,
+# for a step of ~27 s): ``scripts/train_xlstm_uncut.py`` runs the uncut
+# cell, traced.  Grok-1 cut to 1 of its 64
+# layers, Adafactor as its config says (4.920 G; masters and gradients
+# 39.4 GB, the factored moments 0.004 GB: 2 layers, 8.229 G, would leave
+# no room for Adafactor's temporaries on a (8, 6144, 32768) float32
+# expert tensor), 8 x 4096.  Llama-4 Scout has no cell: one of its 48
+# layers (4.271 G, 68.3 GB of AdamW state, its untied 202,048 x 5120
+# tables half of it) ran out of the card's memory in its first backward
+# at 8 x 4096 (75.972 GiB at the peak; ROADMAP 12k-a).  ``of``: the
 # config's depth, for the printed cut.
 TRAIN = {
     "granite_8b": {"layers": 8, "of": 36, "B": 8, "S": 4096, "accum": 2,
@@ -399,6 +425,10 @@ TRAIN = {
                   "steps": 3},
     "gemma2_2b": {"layers": None, "of": 26, "B": 4, "S": 8192, "accum": 2,
                   "steps": 3},
+    "xlstm_1p3b": {"layers": 8, "of": 48, "B": 8, "S": 4096, "accum": 2,
+                   "steps": 3, "trace": False},
+    "grok1_314b": {"layers": 1, "of": 64, "B": 8, "S": 4096, "accum": 2,
+                   "steps": 3},
 }
 # AdamW at the reference's OptConfig defaults: lr 3e-4 reached after 100
 # warm-up steps, so steps 1-3 take 3e-6, 6e-6, 9e-6 (at lr 1e-3, 1e-4 or
@@ -412,12 +442,30 @@ TRAIN_WARMUP = 100
 # 2 Granite layers at 2 x 2048; one Zamba2 group (the shared block and 3
 # Mamba-2 layers) at 2 x 2048; a local and a global Gemma-2 layer at 1 x
 # 6144, past the window, so the local layer runs K8's window instance
-# forward and backward
+# forward and backward; one xLSTM-1.3B group (7 mLSTM layers and the sLSTM
+# scan, differentiated on the card) at 2 x 2048; one Llama-4 Scout layer
+# (top-1 and the shared expert) and one Grok-1 layer (top-2, K8 with the
+# softcap 30 in f32's 3xTF32 and bf16's backward) at 2 x 2048
 TRAIN_PARITY = {"granite_8b": {"layers": 2, "B": 2, "S": 2048},
                 "zamba2_7b": {"layers": 3, "B": 2, "S": 2048},
-                "gemma2_2b": {"layers": 2, "B": 1, "S": 6144}}
+                "gemma2_2b": {"layers": 2, "B": 1, "S": 6144},
+                "xlstm_1p3b": {"layers": 8, "B": 2, "S": 2048},
+                "llama4_scout_17b_a16e": {"layers": 1, "B": 2, "S": 2048},
+                "grok1_314b": {"layers": 1, "B": 2, "S": 2048}}
 TRAIN_LOSS_REL = 1e-5        # float32: the loss, relative
 TRAIN_GRAD_REL = 1e-4        # float32: each gradient, of its max |value|
+# a gradient whose max |value| is at most TRAIN_GRAD_FLOOR of the model's
+# largest is the round-off of a gradient that is zero in exact arithmetic
+# (Llama-4 Scout's router: a top-1 gate normalised over itself is 1, so
+# the loss does not depend on the router's logits; its float32 gradient
+# is ~6e-11 against a largest of ~0.1 on the smoke model, and two paths'
+# round-off differ by all of it): it is held at TRAIN_GRAD_REL of the
+# model's largest gradient max instead of its own.  TRAIN_GRAD_ZERO names,
+# by model, the leaves that must fall under the floor (by the end of their
+# names), and no other leaf may: a leaf that crosses it either way fails
+# the step
+TRAIN_GRAD_FLOOR = 1e-6
+TRAIN_GRAD_ZERO = {"llama4_scout_17b_a16e": ("ffn.router",)}
 # K8's backward at Granite's prefill shape, Gemma-2's (window 4096,
 # softcap 50) and the shape the Granite training step launches it at
 # (its micro-batch: 4 x 4096, so dK and dV sum H / KVH x S = 16384
@@ -434,6 +482,8 @@ BWD_FA = ({"B": 8, "S": 2048, "H": 32, "KVH": 8, "D": 128, "window": 0,
            "softcap": 0.0})
 BWD_NORM = (16384, 4096)
 BWD_SCAN = ((32, 4, 112, 64, 64), (16, 8, 112, 64, 64), (3, 1, 3, 5, 7))
+MOE_GROUP = ("MoE routing (topk, one-hot cumsum, gathers into slots, "
+             "index_add_)")
 TRAIN_GROUPS = (
     ("K8 backward (flash_attention_bwd_*)", ("flash_attention_bwd",)),
     ("K8 forward flash_attention_wgmma_kernel", ("flash_attention",)),
@@ -443,14 +493,32 @@ TRAIN_GROUPS = (
     ("K10 forward ssm_state_scan_kernel", ("ssm_state_scan",)),
     ("GEMMs (cuBLAS: projections, MLP, unembed, SSD's chunk einsums)",
      ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    # MoE's routing and token movement, forward and backward: topk and its
+    # sort, the one-hot's scatter and its cumsum (the queue slots), the
+    # gathers into and out of the capacity slots (index, index_put and its
+    # accumulating backward) and index_add_ (its backward an index_select);
+    # the loss's label gather shares the scatter/gather kernel and the
+    # embedding's forward the index_select one (both a few MB).  Only the
+    # MoE models' traces take this group: Mamba-2's and mLSTM's cumsums
+    # run the same scan kernels
+    (MOE_GROUP, ("topk", "bitonicsort", "scatter_gather", "scan",
+                 "index_elementwise", "indexing_backward", "indexfunc",
+                 "indexselect")),
     # torch's elementwise and reduction kernels: Mamba-2's ssd_chunks
     # (its forward device time also by its record_function range), casts,
     # the loss's softmax, the optimizer (its own range)
     ("elementwise and reductions (torch)", ("elementwise", "reduce_kernel")),
 )
-# the kernels every training path launches, and those of some models
-TRAIN_LAUNCHES = ("flash_attention", "flash_attention_bwd", "rmsnorm",
-                  "rmsnorm_residual", "rmsnorm_bwd", "rmsnorm_residual_bwd")
+# the kernels a training step launches, by what its pattern holds: K9 for
+# every block's pre-norm and the final norm; K8 where it has attention
+# blocks, and K9's residual instance where one of them has a feed-forward
+# after it (x + a and ln2 in one launch); K10 where it has Mamba-2 layers;
+# K8's window instance where a local layer's window is shorter than the
+# sequence (:func:`train_kernels`).  TRAIN_LAUNCHES: a dense model's
+TRAIN_NORM = ("rmsnorm", "rmsnorm_bwd")
+TRAIN_ATTN = ("flash_attention", "flash_attention_bwd")
+TRAIN_RESIDUAL = ("rmsnorm_residual", "rmsnorm_residual_bwd")
+TRAIN_LAUNCHES = TRAIN_ATTN + TRAIN_NORM + TRAIN_RESIDUAL
 TRAIN_WINDOW = ("flash_attention_window", "flash_attention_bwd_window")
 TRAIN_SCAN = ("ssm_state_scan", "ssm_state_scan_bwd")
 
@@ -1041,9 +1109,10 @@ def device_rows(prof, ranges: tuple = ()) -> tuple[list, dict]:
     and links them, which is slow over the hundreds of thousands of events
     of a host-bound prefill): rows of (ms, launches, name) summed by name
     over kernels, copies and fills, and, for each of ``ranges``, (ms,
-    calls): the device time of the events that host ops inside the range
-    launched (linked by correlation id, as ``key_averages`` links them, on
-    any stream) and the range's host-side calls."""
+    calls, host ms): the device time of the events that host ops inside the
+    range launched (linked by correlation id, as ``key_averages`` links
+    them, on any stream), the range's host-side calls and their wall time
+    on the host."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -1078,7 +1147,7 @@ def device_rows(prof, ranges: tuple = ()) -> tuple[list, dict]:
 
         ids = {corr for t, corr in ops if inside(t)}
         in_ranges[r] = (sum(ns for corr, ns in linked if corr in ids) / 1e6,
-                        len(sp))
+                        len(sp), sum(hi - lo for lo, hi in sp) / 1e6)
     return rows, in_ranges
 
 
@@ -1129,8 +1198,8 @@ def check_device_rows(prof, rows: list) -> None:
 def trace_step(step, state, step_ms: float,
                untraced: str = "median of steps 2-3",
                groups: tuple = (), split_out: dict | None = None,
-               ranges: tuple = (), check_reader: bool = False
-               ) -> float | None:
+               ranges: tuple = (), check_reader: bool = False,
+               list_group: str | None = None) -> float | None:
     """One more step under ``torch.profiler``: device time by kernel, and the
     device's idle share of an untraced step.  The profiler's host cost
     lengthens the traced step's wall time, so the share is taken against
@@ -1141,9 +1210,10 @@ def trace_step(step, state, step_ms: float,
     that matches taking a kernel, the rest under "other"; ``split_out``
     receives them, label -> (ms, launches).  ``ranges`` names
     ``record_function`` ranges whose kernels' device time is printed (and
-    put in ``split_out``) too.  ``check_reader`` holds the trace reader
-    against the profiler's own (:func:`check_device_rows`): a small
-    step's."""
+    put in ``split_out``) too, beside the host's wall time inside them.
+    ``check_reader`` holds the trace reader against the profiler's own
+    (:func:`check_device_rows`): a small step's.  ``list_group``: the label
+    of a group whose kernels are printed one by one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1159,9 +1229,9 @@ def trace_step(step, state, step_ms: float,
           f"{time.perf_counter() - t1:.1f} s")
     if check_reader:
         check_device_rows(prof, rows)
-    for name, (ms, calls) in in_ranges.items():
+    for name, (ms, calls, wall) in in_ranges.items():
         print(f"[trace] range {name}: {ms:.3f} ms of device time in "
-              f"{calls} calls")
+              f"{calls} calls, {wall:.3f} ms of host wall time in them")
         if split_out is not None:
             split_out[name] = (ms, calls)
     busy = sum(r[0] for r in rows)
@@ -1178,14 +1248,20 @@ def trace_step(step, state, step_ms: float,
               f"{key[:70]}")
     if groups:
         split = {label: [0.0, 0] for label, _ in groups + (("other", ()),)}
+        listed = []
         for ms, n, key in rows:
             label = next((g for g, frags in groups
                           if any(f in key.lower() for f in frags)), "other")
             split[label][0] += ms
             split[label][1] += n
+            if label == list_group:
+                listed.append((ms, n, key))
         for label, (ms, n) in split.items():
             print(f"[trace] split {ms:10.3f} ms {100 * ms / busy:5.1f}% "
                   f"x{n:5d} {label}")
+        for ms, n, key in listed:
+            print(f"[trace]   {list_group.split(' (')[0]}: {ms:10.3f} ms "
+                  f"x{n:5d} {key[:90]}")
         if split_out is not None:
             split_out.update(split)
     return 1 - busy / step_ms
@@ -3815,10 +3891,20 @@ def train_model(device, arch: str, layers: int | None, seed: int = 0):
 
 def train_kernels(cfg, S: int) -> tuple:
     """The :data:`library.LAUNCHES` keys a training step of ``cfg`` over
-    S tokens must count: :data:`TRAIN_LAUNCHES`, with K10's where the
-    pattern has Mamba-2 layers and K8's window instances where it has
-    local layers whose window S passes."""
-    keys = TRAIN_LAUNCHES
+    S tokens must count, from its pattern: K9's (:data:`TRAIN_NORM`)
+    always; K8's (:data:`TRAIN_ATTN`) where it has attention blocks, and
+    K9's residual instance where one of them has a feed-forward after it
+    (not in a ``parallel_block`` model); K10's where it has Mamba-2 layers;
+    K8's window instances where it has local layers whose window S
+    passes.  Every other key must stay at 0."""
+    from repro_torch.models.transformer import has_ffn
+
+    keys = TRAIN_NORM
+    attn = [b for b in cfg.pattern if b in ("attn", "local", "shared_attn")]
+    if attn:
+        keys += TRAIN_ATTN
+        if not cfg.parallel_block and any(has_ffn(b, cfg) for b in attn):
+            keys += TRAIN_RESIDUAL
     if "mamba2" in cfg.pattern:
         keys += TRAIN_SCAN
     if "local" in cfg.pattern and 0 < cfg.window < S:
@@ -3836,18 +3922,34 @@ def train_flops(model, B: int, S: int) -> float:
     and the window keep, 4 D flops a pair a head, and Mamba-2's four chunk
     einsums as ``Mamba2.forward`` computes them (C B^T and its product with
     x over whole L x L chunks, the chunk states and the inter-chunk
-    term)."""
+    term).  An MoE block's experts (3-D weights): top_k experts' weights a
+    token (its router and shared expert are 2-D).  An mLSTM's chunk
+    products as ``MLSTM.forward`` computes them, a head a token: q k^T and
+    its product with v over whole L x L chunks (4 L dh), the state terms
+    q C and the chunk's C (4 dh^2), q n and n (4 dh).  An sLSTM's
+    recurrence ``h @ r``: 2 x 4 dh^2 a head a token."""
+    from repro_torch.models.layers import MoE
     from repro_torch.models.ssm import chunk_len
 
     cfg = model.cfg
+    H, dh = cfg.n_heads, cfg.d_head
     fwd = 2 * B * S * cfg.d_model * cfg.vocab
     for blk in model.stack():
         fwd += 2 * B * S * sum(p.numel() for n, p in blk.named_parameters()
                                if p.dim() == 2 and "conv" not in n)
+        moe = getattr(blk, "ffn", None)
+        if isinstance(moe, MoE):
+            fwd += 2 * B * S * moe.moe.top_k * sum(
+                p.numel() for p in moe.parameters()
+                if p.dim() == 3) // moe.moe.n_experts
         if block_type(blk) == "attn":
             window = cfg.window if getattr(blk, "local", False) else 0
-            fwd += 4 * B * cfg.n_heads * cfg.d_head * attention_pairs(
-                S, window)
+            fwd += 4 * B * H * dh * attention_pairs(S, window)
+        elif block_type(blk) == "mlstm":
+            L = chunk_len(S, blk.mlstm.chunk)
+            fwd += B * S * H * (4 * L * dh + 4 * dh * dh + 4 * dh)
+        elif block_type(blk) == "slstm":
+            fwd += B * S * H * 8 * dh * dh
         elif block_type(blk) == "mamba2":
             m = blk.mamba
             L = chunk_len(S, m.chunk)
@@ -3859,19 +3961,26 @@ def train_flops(model, B: int, S: int) -> float:
 def train_parity_phase(device, arch: str) -> dict:
     """One step's loss and gradients of ``arch`` at full width and
     :data:`TRAIN_PARITY`'s depth and batch through the kernels (K8, K9 and,
-    by the model, K10 and K8's window instance, forward and backward) and
-    through the plain versions (``backend="ref"``, torch's autograd), the
-    same weights and batch: float32 within :data:`TRAIN_LOSS_REL` and
-    :data:`TRAIN_GRAD_REL`; in bf16 the kernel path's distance to the plain
-    path within :data:`PARITY_FACTOR` of the plain path's own distance to
-    its float32 run (the bar of ``tests/test_torch_train_step.py``, where
-    the port's bf16 step sits within the reference's bf16-vs-float32
-    distance)."""
+    by the model, K10 and K8's window instance, forward and backward;
+    :func:`train_kernels`, and no other) and through the plain versions
+    (``backend="ref"``, torch's autograd), the same weights and batch:
+    float32 within :data:`TRAIN_LOSS_REL` and :data:`TRAIN_GRAD_REL`; in
+    bf16 the kernel path's distance to the plain path within
+    :data:`PARITY_FACTOR` of the plain path's own distance to its float32
+    run (the bar of ``tests/test_torch_train_step.py``, where the port's
+    bf16 step sits within the reference's bf16-vs-float32 distance).  Each
+    dtype runs the plain path first; one gradient set at a time is kept, on
+    the host (an MoE layer's is ~20 GB), and each of its tensors is brought
+    back to the card to be compared with the next run's.  An MoE model's
+    bf16 runs print the (token, layer) expert choices that differ between
+    the paths (:func:`moe_routes`, the forward's, not the
+    recomputation's)."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import library as KL
     from repro_torch.models import loss_fn
+    from repro_torch.models.layers import MoE
 
     B, S, layers = (TRAIN_PARITY[arch][k] for k in ("B", "S", "layers"))
     cfg, model = train_model(device, arch, layers)
@@ -3881,90 +3990,216 @@ def train_parity_phase(device, arch: str) -> dict:
     print(f"[train-parity] {arch}: {cfg.n_layers} layers "
           f"({'/'.join(cfg.pattern)}) at full width, {B} x {S} tokens",
           flush=True)
-    runs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for backend in ("cuda", "ref"):
-            model.zero_grad(set_to_none=True)
-            KL.reset_launches()
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    n_moe = sum(isinstance(getattr(b, "ffn", None), MoE)
+                for b in model.stack()) if cfg.moe else 0
+    routes = {}
+
+    def run(dtype, backend):
+        model.zero_grad(set_to_none=True)
+        KL.reset_launches()
+        with moe_routes(routes.setdefault((dtype, backend), [])):
             loss = loss_fn(model, batch["tokens"], batch["labels"],
                            dtype=dtype, backend=backend)
             loss.backward()
-            torch.cuda.synchronize()
-            launches = {k: KL.LAUNCHES[k] for k in keys}
-            runs[(dtype, backend)] = (loss.item(), [
-                p.grad.detach().clone() for p in model.parameters()],
-                launches)
-            if backend == "ref" and any(KL.LAUNCHES.values()):
-                raise RuntimeError(f"the plain path launched {KL.LAUNCHES}")
-            if backend == "cuda" and not all(launches.values()):
-                raise RuntimeError(f"the kernel path skipped a kernel: "
-                                   f"{launches}")
-            print(f"[train-parity] {arch} {str(dtype)[6:]} {backend}: loss "
-                  f"{loss.item():.6f}, launches {launches}", flush=True)
-            del loss
-    names = [n for n, _ in model.named_parameters()]
-    (lk, gk, launches), (lr, gr, _) = (runs[(torch.float32, b)]
-                                       for b in ("cuda", "ref"))
+        torch.cuda.synchronize()
+        launches = {k: KL.LAUNCHES[k] for k in keys}
+        if backend == "ref" and any(KL.LAUNCHES.values()):
+            raise RuntimeError(f"the plain path launched {KL.LAUNCHES}")
+        if backend == "cuda" and not all(launches.values()):
+            raise RuntimeError(f"the kernel path skipped a kernel: "
+                               f"{launches}")
+        stray = {k: v for k, v in KL.LAUNCHES.items() if v and k not in keys}
+        if stray:
+            raise RuntimeError(f"the kernel path launched kernels outside "
+                               f"{arch}'s path: {stray}")
+        print(f"[train-parity] {arch} {str(dtype)[6:]} {backend}: loss "
+              f"{loss.item():.6f}, launches {launches}", flush=True)
+        return loss.item(), launches
+
+    def on_host():  # the gradients of the last run, kept on the host
+        return [q.grad.to("cpu") for q in params]
+
+    def pairs(held):  # (this run's gradient, the held one on the card)
+        for q, h in zip(params, held):
+            yield q.grad, h.to(device)
+
+    lr, _ = run(torch.float32, "ref")
+    scales = [q.grad.abs().max().item() for q in params]
+    top = max(scales)
+    zero = [n for n, sc in zip(names, scales) if sc <= TRAIN_GRAD_FLOOR * top]
+    expected = [n for n in names
+                if n.endswith(TRAIN_GRAD_ZERO.get(arch, ()))]
+    if zero != expected:
+        raise RuntimeError(f"{arch}: the float32 gradients at most "
+                           f"{TRAIN_GRAD_FLOOR:g} of the largest are {zero}, "
+                           f"not {expected} (TRAIN_GRAD_ZERO)")
+    gr = on_host()
+    lk, launches = run(torch.float32, "cuda")
     rel = abs(lk - lr) / abs(lr)
-    worst = max(((a - b).abs().max().item() / b.abs().max().item(), n)
-                for a, b, n in zip(gk, gr, names))
+    worst = max(((a - b).abs().max().item() / (
+        top if n in zero else sc), n)
+        for (a, b), n, sc in zip(pairs(gr), names, scales))
+    spurious = {n: q.grad.abs().max().item() / top
+                for n, q in zip(names, params) if n in zero}
+    if any(v > TRAIN_GRAD_FLOOR for v in spurious.values()):
+        raise RuntimeError(f"{arch}: the kernel path's gradient of a leaf "
+                           f"that is zero in exact arithmetic passes "
+                           f"{TRAIN_GRAD_FLOOR:g} of the largest: {spurious}")
     print(f"[train-parity] {arch} float32 kernel vs plain: loss rel "
           f"{rel:.3e} (bar {TRAIN_LOSS_REL:g}), worst gradient "
           f"{worst[0]:.3e} of its max |value| ({worst[1]}; bar "
-          f"{TRAIN_GRAD_REL:g})", flush=True)
+          f"{TRAIN_GRAD_REL:g})"
+          + (f"; {', '.join(zero)}: at most {TRAIN_GRAD_FLOOR:g} of the "
+             f"largest gradient max {top:.3e} (zero in exact arithmetic), "
+             "held against that; through the kernels "
+             + ", ".join(f"{v:.3e}" for v in spurious.values())
+             + " of it" if zero else ""), flush=True)
     if not (rel <= TRAIN_LOSS_REL and worst[0] <= TRAIN_GRAD_REL):
         raise RuntimeError(f"{arch} float32 training step: kernel path "
                            "disagrees with the plain path")
-    (l16k, g16k, _), (l16r, g16r, _) = (runs[(torch.bfloat16, b)]
-                                        for b in ("cuda", "ref"))
 
-    def dist(a, b):  # mean |difference| over every gradient element
-        return (sum((x - y).abs().sum().item() for x, y in zip(a, b))
-                / sum(x.numel() for x in a))
+    def dist(held):  # mean |difference| over every gradient element
+        return (sum((x - y).abs().sum().item() for x, y in pairs(held))
+                / sum(q.numel() for q in params))
 
+    l16r, _ = run(torch.bfloat16, "ref")
+    bar_grad = dist(gr)
+    del gr
+    g16r = on_host()
+    l16k, _ = run(torch.bfloat16, "cuda")
+    d_grad = dist(g16r)
+    del g16r
     d_loss, bar_loss = abs(l16k - l16r), abs(l16r - lr)
-    d_grad, bar_grad = dist(g16k, g16r), dist(g16r, gr)
     print(f"[train-parity] {arch} bfloat16 kernel vs plain: loss "
           f"{d_loss:.3e} (plain bf16 vs float32 {bar_loss:.3e}), gradients "
           f"mean |diff| {d_grad:.3e} (plain bf16 vs float32 {bar_grad:.3e}); "
           f"bar {PARITY_FACTOR:g}x", flush=True)
+    if n_moe:
+        # the forward's chunks of every MoE layer, before the recomputation
+        chunks = -(-B * S // 8192) * n_moe
+        differ = routes_differ(
+            {"kernel": routes[(torch.bfloat16, "cuda")][:chunks],
+             "plain": routes[(torch.bfloat16, "ref")][:chunks],
+             "plain float32": routes[(torch.float32, "ref")][:chunks]},
+            n_moe)
+        print(f"[train-parity] {arch} MoE routing, bfloat16 step: (token, "
+              f"layer) top-{cfg.moe.top_k} expert choices that differ, of "
+              f"{differ.pop('of')}: "
+              + ", ".join(f"{k} {v}" for k, v in differ.items()),
+              flush=True)
     if not (d_loss <= PARITY_FACTOR * bar_loss
             and d_grad <= PARITY_FACTOR * bar_grad):
         raise RuntimeError(f"{arch} bf16 training step: kernel path past "
                            "the bar")
-    del runs, model
+    del model, params, routes
     torch.cuda.empty_cache()
     return {"loss_rel": rel, "grad_rel": worst[0], "launches_f32": launches}
 
 
-def train_phase(device, arch: str) -> dict:
+SLSTM_SPANS = ("forward", "recomputation", "backward")
+
+
+@contextlib.contextmanager
+def slstm_clock(model, ms: dict):
+    """Within the block, the host's wall time inside ``model``'s sLSTM
+    mixers (``x @ w_in``, the scan over S steps, ``@ wo``), added up in
+    ``ms`` (ms, and the spans counted under ``"n_<key>"``) by module and
+    tensor hooks: ``"forward"``, the first pass; ``"recomputation"``, the
+    mixer's forward again when checkpoint recomputes its group in the
+    backward; ``"backward"``, from the hook on the mixer output's gradient
+    to the hook on its input's, less every block's forward that the
+    group's recomputation runs inside that span.  The scan's launches are
+    what the host spends that time on.  Checkpoint's early stop is off
+    inside the block, so that a recomputed block's forward returns (its
+    hook sees its end; after the mixer only the residual add is left)."""
+    import torch
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from repro_torch.models import SLSTM
+
+    clock = time.perf_counter
+    starts, span = {}, {}   # forwards running; the open backward span
+
+    def add(key, seconds):
+        ms[key] = ms.get(key, 0.0) + 1e3 * seconds
+        ms[f"n_{key}"] = ms.get(f"n_{key}", 0) + 1
+
+    def pre(mod, args):
+        starts[mod] = clock()
+
+    def block_end(mod, args, out):
+        took = clock() - starts.pop(mod)
+        if span:
+            span["nested"] += took
+
+    def mixer_end(mod, args, out):
+        took = clock() - starts.pop(mod)
+        if span:
+            add("recomputation", took)
+            return
+        add("forward", took)
+        if out.requires_grad:
+            out.register_hook(lambda g: span.update(start=clock(),
+                                                    nested=0.0))
+            args[0].register_hook(close)
+
+    def close(grad):
+        add("backward", clock() - span.pop("start") - span.pop("nested"))
+
+    handles = []
+    for blk in model.stack():
+        mixer = getattr(blk, "slstm", None)
+        handles += [blk.register_forward_pre_hook(pre),
+                    blk.register_forward_hook(block_end)]
+        if isinstance(mixer, SLSTM):
+            handles += [mixer.register_forward_pre_hook(pre),
+                        mixer.register_forward_hook(mixer_end)]
+    try:
+        with set_checkpoint_early_stop(False):
+            yield ms
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def train_phase(device, arch: str, cell: dict | None = None) -> dict:
     """``arch``'s training cell (:data:`TRAIN`): full width, the cell's
     depth, trained for ``steps`` steps through
-    ``repro_torch.train.make_train_step`` (AdamW at :data:`TRAIN_LR`, bf16
-    compute over float32 masters, ``grad_accum`` microbatches) on the
-    synthetic pipeline's batches: each step's loss and grad_norm (the loss
+    ``repro_torch.train.make_train_step`` (the config's optimizer, AdamW or
+    Adafactor, at :data:`TRAIN_LR`, bf16 compute over float32 masters,
+    ``grad_accum`` microbatches) on the synthetic pipeline's batches: the
+    optimizer state's bytes, each step's loss and grad_norm (the loss
     finite and falling from step 1 to the last), step ms (median of steps
     2 onward), tokens/s, model FLOPs per step (:func:`train_flops`) and
-    the rate they imply, peak memory, the launches per step of K8 (and its
-    window instance), K9 and K10, forward (recomputation included) and
-    backward (a model with local layers must launch K8's window backward
-    once a local layer a microbatch), and one more step traced: device time
-    by kernel group, the optimizer's and ``ssd_chunks``' ranges, and the
-    idle share."""
+    the rate they imply, peak memory, the launches per step of each kernel
+    of :func:`train_kernels` (forward, recomputation included, and
+    backward; none of any other; a model with local layers must launch K8's
+    window backward once a local layer a microbatch), and one more step
+    traced (unless the cell says ``"trace": False``): device time by
+    kernel group (an MoE model's routing in its own, :data:`MOE_GROUP`,
+    with its kernels listed), the optimizer's, ``ssd_chunks``' and
+    ``slstm_scan``'s ranges (device and host ms), and the idle share; for
+    a model with sLSTM layers, the host's wall time inside its sLSTM
+    mixers in each untraced step (:func:`slstm_clock`) and its share of
+    the step.  ``cell`` stands in for ``TRAIN[arch]`` where given."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig, DataIterator
     from repro_torch.kernels import library as KL
-    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.optimizer import OptConfig, leaves
     from repro_torch.train.train_step import (TrainConfig, init_state,
                                               make_train_step)
 
-    cell = TRAIN[arch]
+    cell = cell or TRAIN[arch]
     torch.cuda.reset_peak_memory_stats()
     B, S, A, steps = (cell[k] for k in ("B", "S", "accum", "steps"))
     cfg, model = train_model(device, arch, cell["layers"])
     n_params = sum(p.numel() for p in model.parameters())
     state = init_state(cfg, model)
+    opt_bytes = sum(t.numel() * t.element_size() for f in state.opt
+                    if isinstance(f, dict) for t in leaves(f))
     step = make_train_step(cfg, TrainConfig(
         grad_accum=A, compute_dtype=torch.bfloat16,
         opt=OptConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP)))
@@ -3972,26 +4207,46 @@ def train_phase(device, arch: str) -> dict:
                                    global_batch=B, seed=0), device=device)
     flops = train_flops(model, B, S)
     n_local = sum(getattr(b, "local", False) for b in model.stack())
+    n_slstm = stack_counts(model)["slstm"]
     print(f"[train] {cfg.name} {cfg.n_layers} of {cell['of']} layers at full "
           f"width: {n_params / 1e9:.3f} G parameters (float32 masters, "
-          f"AdamW), batch {B} x {S} tokens, grad_accum {A}, bf16 compute, lr "
-          f"{TRAIN_LR:g} (warmup {TRAIN_WARMUP}); model FLOPs a step "
-          f"{flops:.4e}", flush=True)
+          f"{cfg.optimizer}), batch {B} x {S} tokens, grad_accum {A}, bf16 "
+          f"compute, lr {TRAIN_LR:g} (warmup {TRAIN_WARMUP}); model FLOPs a "
+          f"step {flops:.4e}", flush=True)
+    print(f"[train] {arch} {cfg.optimizer} state {opt_bytes / 1e9:.3f} GB "
+          f"({opt_bytes / n_params:.3f} B a parameter); with the float32 "
+          f"masters and gradients {(opt_bytes + 8 * n_params) / 1e9:.3f} GB, "
+          f"{8 + opt_bytes / n_params:.3f} B a parameter (AdamW's: 16)",
+          flush=True)
     batches = [next(data) for _ in range(steps + 1)]
-    losses, norms, times = [], [], []
+    losses, norms, times, scans = [], [], [], []
     KL.reset_launches()
     for i in range(steps):
+        scans.append({})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, batches[i])
-        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        with (slstm_clock(model, scans[-1]) if n_slstm
+              else contextlib.nullcontext()):
+            state, m = step(state, batches[i])
+            loss, gn = m["loss"].item(), m["grad_norm"].item()
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(loss)
         norms.append(gn)
         print(f"[train] {arch} step {i + 1}: loss {loss:.6f} grad_norm "
               f"{gn:.6f} ({times[-1]:.1f} ms)", flush=True)
+        if n_slstm:
+            sc = scans[-1]
+            inside = sum(sc.get(k, 0.0) for k in SLSTM_SPANS)
+            print(f"[train] {arch} step {i + 1}: host wall time inside the "
+                  f"sLSTM mixers ({n_slstm} layers) "
+                  + ", ".join(f"{k} {sc.get(k, 0.0):.3f} ms "
+                              f"({sc.get('n_' + k, 0)} spans)"
+                              for k in SLSTM_SPANS)
+                  + f": {inside:.3f} ms, {100 * inside / times[-1]:.1f} % "
+                  f"of the step", flush=True)
     keys = train_kernels(cfg, S)
     launches = {k: KL.LAUNCHES[k] for k in keys}
+    stray = {k: v for k, v in KL.LAUNCHES.items() if v and k not in keys}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = statistics.median(times[1:])
     if not all(math.isfinite(x) for x in losses + norms):
@@ -4005,25 +4260,46 @@ def train_phase(device, arch: str) -> dict:
     per_step = {k: v / steps for k, v in launches.items()}
     print(f"[train] {arch} launches per step: "
           + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
-          + " (forwards with the recomputation)", flush=True)
+          + " (forwards with the recomputation); none of "
+          + ", ".join(k for k in KL.LAUNCHES if k not in keys), flush=True)
     if not all(launches.values()):
         raise RuntimeError(f"the training path skipped a kernel: {launches}")
+    if stray:
+        raise RuntimeError(f"the training path launched kernels outside "
+                           f"{arch}'s path: {stray}")
     if n_local and per_step["flash_attention_bwd_window"] != n_local * A:
         raise RuntimeError(
             f"{arch}: {per_step['flash_attention_bwd_window']:g} window "
             f"backward launches a step, not {n_local} local layers x {A}")
-    split = {}
-    idle = trace_step(lambda st: step(st, batches[steps]), state, step_ms,
-                      untraced=f"median of steps 2-{steps}",
-                      groups=TRAIN_GROUPS, split_out=split,
-                      ranges=("opt_update",) + (
-                          ("ssd_chunks",) if "mamba2" in cfg.pattern else ()))
+    split, idle = {}, None
+    groups = tuple(g for g in TRAIN_GROUPS
+                   if cfg.moe is not None or g[0] != MOE_GROUP)
+    if cell.get("trace", True):
+        idle = trace_step(
+            lambda st: step(st, batches[steps]), state, step_ms,
+            untraced=f"median of steps 2-{steps}", groups=groups,
+            split_out=split,
+            list_group=MOE_GROUP if cfg.moe is not None else None,
+            ranges=("opt_update",) + tuple(
+                r for r, b in (("ssd_chunks", "mamba2"),
+                               ("slstm_scan", "slstm"))
+                if b in cfg.pattern))
+    if n_slstm:
+        inside = sum(sc.get(k, 0.0) for sc in scans[1:] for k in SLSTM_SPANS)
+        print(f"[train] {arch} host wall time inside the sLSTM mixers, "
+              f"steps 2-{steps}: {inside:.3f} ms of {sum(times[1:]):.3f}, "
+              f"{100 * inside / sum(times[1:]):.1f} % of the steps",
+              flush=True)
+        if not all(sc.get("n_" + k) == n_slstm * A
+                   for sc in scans for k in SLSTM_SPANS):
+            raise RuntimeError(f"{arch}: the sLSTM clock missed a span: "
+                               f"{scans}")
     del state, model, step, batches
     torch.cuda.empty_cache()
     return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
             "tokens_per_s": B * S / (step_ms / 1e3), "flops": flops,
             "peak_gib": peak, "launches": launches, "idle": idle,
-            "split": split}
+            "split": split, "opt_bytes": opt_bytes, "slstm_host": scans}
 
 
 # training across ranks (``[train-dist]``): Granite-8B at full width in
@@ -4043,7 +4319,8 @@ TRAIN_DIST = {"granite_8b": {"layers": 2, "B": 2, "S": 2048, "accum": 2,
 # reads a material update
 TRAIN_DIST_GLOO = {"arch": "granite_8b", "layers": 2, "B": 2, "S": 2048,
                    "accum": 1, "steps": 1, "warmup": 1, "mesh": (2, 1)}
-DIST_GROUPS = (("NCCL collectives", ("nccl",)),) + TRAIN_GROUPS
+DIST_GROUPS = (("NCCL collectives", ("nccl",)),) + tuple(
+    g for g in TRAIN_GROUPS if g[0] != MOE_GROUP)
 
 
 def masters_rel(got: dict, want: dict) -> tuple[float, str, bool]:
@@ -4596,7 +4873,7 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                    "bwd_tf32_dq_kernel, flash_attention_bwd_rows_kernel"}
     for dtype, launches in (
             ("bfloat16", trained("flash_attention_bwd")),
-            ("float32", sum(run["launches_f32"]["flash_attention_bwd"]
+            ("float32", sum(run["launches_f32"].get("flash_attention_bwd", 0)
                             for run in parity.values()))):
         mine = [r for r in bwd["K8"] if r["dtype"] == dtype]
         head = mine[0]  # Granite's shape, BWD_FA's first

@@ -9,18 +9,24 @@ their products to ``torch.matmul``/``torch.einsum``.
 
 mLSTM's prefill is the reference's chunk loop: within a chunk of L steps
 the gated scores ``D_ts (q_t . k_s)``, across chunks the carried float32
-state ``(C, n)``.  Above the diagonal ``exp(cum_t - cum_s)`` overflows to
-inf once the forget gates sum past ~88; the reference masks it with
-``where``, and so does the port (a product with a 0/1 mask would give
-``inf * 0 = NaN``).  :meth:`MLSTM.state_from_seq` is the reference's
-``_mlstm_state_from_seq`` (``transformer.py:194-208``): the final state
-recomputed from the gates, the weights rounded to h's dtype, the products
-accumulated in float32.
+state ``(C, n)``.  Above the diagonal (t < s) ``cum_t - cum_s`` is minus
+the sum of the log forget gates over (t, s], and its ``exp`` overflows
+once that sum passes -88.  The reference masks after the exponent with
+``where``: a finite forward, but ``0 x inf = NaN`` in the backward.  The
+port masks before it, ``exp(where(tri, cum_t - cum_s, -inf))``: the same
+forward values and a finite gradient.  :meth:`MLSTM.state_from_seq` is
+the reference's ``_mlstm_state_from_seq`` (``transformer.py:194-208``):
+the final state recomputed from the gates, the weights rounded to h's
+dtype, the products accumulated in float32.
 
 sLSTM's input projection ``x @ w_in`` is one product over the whole
 prompt (the reference takes it a step at a time: the same rows); the scan
 itself is a loop over the steps, each emitting ``h`` in x's dtype, its
-four gates' recurrences one ``bmm`` over the heads.  ``r``
+four gates' recurrences one ``bmm`` over the heads.  The steps of the
+pre-activations are taken with one ``unbind`` and the emitted ``h`` are
+stacked once: per-step indexing and slice writes would make autograd
+zero-fill a gradient of the whole sequence at every step (a backward
+quadratic in S), where the reference's ``lax.scan`` is linear.  ``r``
 is float32 in a model of any dtype, since the reference reads it through
 ``.astype(float32)``.
 """
@@ -121,8 +127,14 @@ class MLSTM(nn.Module):
             qi, ki, vi = q[:, t].to(f32), k[:, t].to(f32), v[:, t].to(f32)
             fi, ii = log_f[:, t], i_g[:, t]
             cum = torch.cumsum(fi, dim=1)                       # (B,L,H)
-            decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
-            decay = torch.where(tri[None, :, :, None], decay, 0.0)
+            # masked before the exponent: above the diagonal cum_l - cum_s
+            # >= 0 passes float32's range within a chunk of 128 at full
+            # width, and the reference's exp-then-where gives 0 x inf = NaN
+            # in the backward there; the forward's values are the
+            # reference's (exp(-inf) = 0)
+            decay = torch.exp(torch.where(
+                tri[None, :, :, None],
+                cum[:, :, None, :] - cum[:, None, :, :], -torch.inf))
             w = torch.einsum("blhd,bshd->blsh", qi, ki) * decay \
                 * ii[:, None]
             del decay
@@ -224,12 +236,12 @@ class SLSTM(nn.Module):
         r = self.recurrence()
         state = tuple(torch.zeros((B, H, dh), dtype=torch.float32,
                                   device=x.device) for _ in range(4))
-        hs = torch.empty_like(x)
-        held = hs.view(B, S, H, dh)
+        hs = []
         with torch.profiler.record_function("slstm_scan"):
-            for t in range(S):
-                state = self.cell(pre[:, t], state, r)
-                held[:, t] = state[0]
+            for pre_t in pre.unbind(1):
+                state = self.cell(pre_t, state, r)
+                hs.append(state[0].to(x.dtype))
+            hs = torch.stack(hs, dim=1).view(B, S, d)
         out = hs @ self.wo.to(hs.dtype)
         if return_state:
             return out, {k: t.reshape(B, d) for k, t in zip("hcnm", state)}
