@@ -4321,6 +4321,8 @@ TRAIN_DIST_GLOO = {"arch": "granite_8b", "layers": 2, "B": 2, "S": 2048,
                    "accum": 1, "steps": 1, "warmup": 1, "mesh": (2, 1)}
 DIST_GROUPS = (("NCCL collectives", ("nccl",)),) + tuple(
     g for g in TRAIN_GROUPS if g[0] != MOE_GROUP)
+# the dry run's argument bytes a rank against the allocator's growth
+DRYRUN_REL = 0.01
 
 
 def masters_rel(got: dict, want: dict) -> tuple[float, str, bool]:
@@ -4377,9 +4379,14 @@ def train_dist_one_rank(device, arch: str) -> dict:
     mesh = device_mesh((1, 1), ("data", "model"), device_type="cuda")
     plain = init_state(cfg, init_params(
         Transformer(cfg, dtype=torch.float32, device=device), seed=0))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     sharded = init_state(cfg, SH.init_params(
         Transformer(cfg, dtype=torch.float32, device="meta"), seed=0,
         mesh=mesh))
+    torch.cuda.synchronize()
+    dryrun_check(arch, cfg, mesh,
+                 torch.cuda.memory_allocated() - before)
     specs = SH.param_shardings(sharded.params, mesh)
     step = make_train_step(cfg, tc)
     sstep = make_train_step(cfg, tc, dp_axes=SH.dp_axes(mesh),
@@ -4502,6 +4509,180 @@ def train_dist_one_rank(device, arch: str) -> dict:
     del back, like, saved, opt
     torch.cuda.empty_cache()
     return out
+
+
+def dryrun_check(arch: str, cfg, mesh, grown: int) -> None:
+    """The dry run's argument bytes a rank (``launch.dryrun.state_specs``
+    on ``mesh``: the masters' and optimizer state's shards, from their
+    shapes, nothing allocated) against ``grown``, what
+    ``torch.cuda.memory_allocated()`` grew by while the same state was
+    built on the card, within :data:`DRYRUN_REL`.  The dry run makes no
+    estimate of temporaries: it prints none."""
+    from repro_torch.launch import dryrun
+
+    want = dryrun.local_bytes(dryrun.state_specs(cfg, mesh))
+    rel = abs(grown - want) / want
+    print(f"[dryrun] {arch}: state_specs on the {tuple(mesh.mesh.shape)} "
+          f"mesh: {want} argument bytes a rank (masters and optimizer "
+          f"state); memory_allocated grew {grown} B building them on the "
+          f"card: rel {rel:.3e} (bar {DRYRUN_REL:g}); temporaries: no "
+          f"estimate (the dry run makes none)", flush=True)
+    if rel > DRYRUN_REL:
+        raise RuntimeError(f"{arch}: the dry run's argument bytes miss the "
+                           "allocated state")
+
+
+# serving on a mesh (``[serve-dist]``): Granite-8B at full width cut as
+# TRAIN_DIST cuts it (2 layers), bfloat16, an 8 x 2048 prompt into caches of
+# 2080, then 31 greedy decode steps, through ``prefill``/``decode_step`` on
+# the model laid out on the (1, 1) NCCL mesh of ``[train-dist]`` (every
+# weight gathered whole at each use), in turns with the unsharded model
+SERVE_DIST = {"arch": "granite_8b", "layers": 2, "B": 8, "S": 2048,
+              "decode": 31, "cache": 2080, "rounds": 2}
+
+
+def serve_dist_one_rank(device) -> dict:
+    """:data:`SERVE_DIST` over NCCL in the one-rank group of
+    :func:`train_dist_phase`: the sharded and the unsharded model (the
+    same seeded values) serve the same prompt in turns, ``rounds`` times;
+    the first round's logits (prefill and every step), its caches after
+    the prefill and after the last step, and the tokens must be equal bit
+    for bit.  Prints each path's prefill ms and decode ms a step (medians
+    over the rounds and steps), the peak over each path's serving, K8/K9's
+    launches in a sharded request, and a traced sharded prefill's and
+    decode step's NCCL launches and device ms."""
+    import torch
+
+    from repro_torch import models as TM
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import local_rows
+    from repro_torch.kernels import library as KL
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.parallel import sharding as SH
+
+    c = SERVE_DIST
+    B, S, n, cache = (c[k] for k in ("B", "S", "decode", "cache"))
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])
+    mesh = device_mesh((1, 1), ("data", "model"), device_type="cuda")
+    models = {
+        "unsharded": TM.init_params(TM.Transformer(
+            cfg, dtype=torch.bfloat16, device=device), seed=0),
+        "sharded": SH.init_params(TM.Transformer(
+            cfg, dtype=torch.bfloat16, device="meta"), seed=0, mesh=mesh)}
+    gen = torch.Generator(device=device).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    rows = local_rows(mesh, B).to(device)
+    print(f"[serve-dist] {cfg.name}: {cfg.n_layers} layers at full width, "
+          f"bfloat16, B={B} prompts of {S} tokens, caches of {cache}, {n} "
+          f"greedy steps; NCCL, one rank, mesh (1, 1) (every weight a "
+          f"DTensor shard, gathered whole at each use)", flush=True)
+
+    def serve(kind, keep):
+        model = models[kind]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = TM.prefill(model, tokens[rows], cache_len=cache)
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t)
+        out = {"logits": [logits], "prefill_caches": [
+            {k: v.clone() for k, v in cc.items()} for cc in caches]
+            if keep else None}
+        tok, steps = logits.argmax(-1), []
+        for i in range(n):
+            t = time.perf_counter()
+            step, caches = TM.decode_step(model, tok, caches, S + i)
+            tok = step.argmax(-1)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t))
+            out["logits"].append(step)
+            out.setdefault("tokens", []).append(tok)
+        out["caches"] = caches
+        return pre_ms, steps, out
+
+    for kind in models:  # warm-up
+        serve(kind, False)
+    pre = {k: [] for k in models}
+    dec = {k: [] for k in models}
+    peaks = {k: 0.0 for k in models}
+    first, launches = {}, {}
+    for r in range(c["rounds"]):
+        for kind in models:
+            torch.cuda.reset_peak_memory_stats()
+            KL.reset_launches()
+            p_ms, steps, out = serve(kind, r == 0)
+            peaks[kind] = max(peaks[kind],
+                              torch.cuda.max_memory_allocated() / 2**30)
+            pre[kind].append(p_ms)
+            dec[kind] += steps
+            if r == 0:
+                first[kind] = out
+                if kind == "sharded":
+                    launches = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
+            del out
+    a, b = first["sharded"], first["unsharded"]
+    equal = {
+        "logits": all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                        b["logits"])),
+        "prefill caches": all(torch.equal(x[k], y[k]) for x, y in zip(
+            a["prefill_caches"], b["prefill_caches"]) for k in x),
+        "caches": all(torch.equal(x[k], y[k]) for x, y in zip(
+            a["caches"], b["caches"]) for k in x),
+        "tokens": all(torch.equal(x, y) for x, y in zip(a["tokens"],
+                                                        b["tokens"]))}
+    med = {k: (statistics.median(pre[k]), statistics.median(dec[k]))
+           for k in models}
+    norms = cfg.n_layers + 1
+    want = {"flash_attention": cfg.n_layers, "flash_attention_window": 0,
+            "rmsnorm": norms * (1 + n), "rmsnorm_residual": cfg.n_layers
+            * (1 + n), "ssm_state_scan": 0}
+    print(f"[serve-dist] sharded vs unsharded, bit for bit: "
+          + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                      for k, v in equal.items()), flush=True)
+    for kind in models:
+        print(f"[serve-dist] {kind}: prefill ms {med[kind][0]:.3f} (median "
+              f"of {c['rounds']}), decode ms a step {med[kind][1]:.3f} "
+              f"(median of {c['rounds']} x {n}), peak {peaks[kind]:.3f} GiB "
+              f"(both models resident)", flush=True)
+    print(f"[serve-dist] sharded launches in a request (a prefill and {n} "
+          f"steps): {launches} (expected {want})", flush=True)
+    if not all(equal.values()):
+        raise RuntimeError(f"serving on the mesh differs from the unsharded "
+                           f"model: {equal}")
+    if launches != want:
+        raise RuntimeError("the sharded serving path did not launch K8/K9 "
+                           "as expected")
+    caches = a["caches"]
+    tok = a["tokens"][-1]
+    del first, a, b
+    split = {}
+    idle_prefill = trace_step(
+        lambda _: TM.prefill(models["sharded"], tokens[rows],
+                             cache_len=cache), None, med["sharded"][0],
+        untraced="median sharded prefill", groups=DIST_GROUPS,
+        split_out=split)
+    nccl_prefill = split.get("NCCL collectives", (0.0, 0))
+    print(f"[serve-dist] NCCL kernels in the traced sharded prefill: "
+          f"{nccl_prefill[0]:.3f} ms of device time in {nccl_prefill[1]} "
+          f"launches", flush=True)
+    split = {}
+    idle = trace_step(
+        lambda cc: TM.decode_step(models["sharded"], tok, cc, S + n - 1),
+        caches, med["sharded"][1], untraced="median sharded decode step",
+        groups=DIST_GROUPS, split_out=split)
+    nccl = split.get("NCCL collectives", (0.0, 0))
+    print(f"[serve-dist] NCCL kernels in the traced sharded decode step: "
+          f"{nccl[0]:.3f} ms of device time in {nccl[1]} launches",
+          flush=True)
+    del models, caches
+    torch.cuda.empty_cache()
+    return {"name": f"{cfg.name} serve-dist", "launches": launches,
+            "parity_launches": {k: 0 for k in LM_LAUNCHES},
+            "prefill_ms": med["sharded"][0], "decode_ms": med["sharded"][1],
+            "plain_prefill_ms": med["unsharded"][0],
+            "plain_decode_ms": med["unsharded"][1], "peak_gib": peaks,
+            "nccl_ms": nccl[0], "nccl_launches": nccl[1], "idle": idle,
+            "idle_prefill": idle_prefill}
 
 
 GLOO_WORKER = r"""
@@ -4701,8 +4882,9 @@ def train_dist_gloo(device) -> dict:
 
 def train_dist_phase(device) -> dict:
     """The ``[train-dist]`` phase: :func:`train_dist_one_rank` for each of
-    :data:`TRAIN_DIST` over NCCL (the process group made here, of this
-    one process, and destroyed after), then :func:`train_dist_gloo`."""
+    :data:`TRAIN_DIST` and ``[serve-dist]`` (:func:`serve_dist_one_rank`)
+    over NCCL (the process group made here, of this one process, and
+    destroyed after), then :func:`train_dist_gloo`."""
     import tempfile
 
     import torch
@@ -4715,11 +4897,74 @@ def train_dist_phase(device) -> dict:
                                 "cuda", torch.cuda.current_device()))
     try:
         out = {arch: train_dist_one_rank(device, arch) for arch in TRAIN_DIST}
+        t0 = time.perf_counter()
+        out["serve"] = serve_dist_one_rank(device)
+        print(f"[phase] serving on a mesh {time.perf_counter() - t0:.1f} s",
+              flush=True)
     finally:
         dist.destroy_process_group()
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
     out["gloo"] = train_dist_gloo(device)
+    return out
+
+
+def roofline_phase(serve: dict, train: dict) -> list:
+    """``[roofline]``: for each training cell of :data:`TRAIN` and each
+    served model's prefill and decode step, the cost model
+    (``launch.roofline.analyze_cell`` on one card, ``chips=1``) at the
+    cell's own config (depth cut as run), batch, length and ``grad_accum``
+    (a decode step over the whole cache, which it reads): its FLOPs and
+    HBM bytes, the compute and memory terms at the H100 data sheet's
+    rates, the measured ms (a training step's median, a prefill's median,
+    a decode step's median) and the bound over the measurement as a
+    share.  A share above 100 % fails the run: no step beats its bound, so
+    it would say the cost model undercounts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models.config import ShapeSpec
+
+    out = []
+
+    def line(name, cfg, shape, accum, ms, extra=""):
+        rec = RL.analyze_cell(cfg, shape, chips=1, grad_accum=accum)
+        share = 1e3 * rec["bound_s"] / ms
+        print(f"[roofline] {name}: cost model {rec['hlo_flops_corrected']:.4e}"
+              f" FLOPs, {rec['hbm_bytes']:.4e} HBM bytes; compute "
+              f"{1e3 * rec['compute_s']:.3f} ms, memory "
+              f"{1e3 * rec['memory_s']:.3f} ms ({rec['dominant']}); "
+              f"measured {ms:.3f} ms; bound / measured {100 * share:.1f} %"
+              + extra, flush=True)
+        out.append({"cell": name, "bound_ms": 1e3 * rec["bound_s"],
+                    "ms": ms, "share": share, "dominant": rec["dominant"]})
+
+    print(f"[roofline] one H100 priced from its data sheet: "
+          f"{RL.PEAK_FLOPS:.4g} FLOP/s bf16 dense, {RL.HBM_BW:.4g} B/s HBM",
+          flush=True)
+    for arch, cell in TRAIN.items():
+        cfg = get_config(arch)
+        if cell["layers"] is not None:
+            cfg = dataclasses.replace(cfg, n_layers=cell["layers"])
+        B, S, run = cell["B"], cell["S"], train[arch]
+        line(f"train {arch} ({cfg.n_layers} layers, {B} x {S}, grad_accum "
+             f"{cell['accum']})", cfg, ShapeSpec(f"train_{S}", S, B, "train"),
+             cell["accum"], run["step_ms"],
+             f"; train_flops {run['flops'] / 1e12:.2f} TFLOP a step, "
+             f"{run['flops'] / run['step_ms'] / 1e9:.1f} model TFLOP/s")
+    for arch in SERVED_MODELS:
+        run = serve[arch]
+        cfg = dataclasses.replace(get_config(arch), n_layers=run["layers"])
+        t = TRAFFIC.get(arch, (PARITY, SERVE))[1]
+        B, S, cache = t["B"], t["S"], t["cache"]
+        line(f"prefill {arch} ({cfg.n_layers} layers, {B} x {S})", cfg,
+             ShapeSpec(f"prefill_{S}", S, B, "prefill"), None,
+             run["prefill_ms"])
+        line(f"decode {arch} ({cfg.n_layers} layers, {B} rows, cache "
+             f"{cache})", cfg, ShapeSpec(f"decode_{cache}", cache, B,
+                                         "decode"), None, run["decode_ms"])
+    past = [r["cell"] for r in out if r["share"] > 1.0]
+    if past:
+        raise RuntimeError(f"a step beat its bound: {past}")
     return out
 
 
@@ -5039,9 +5284,11 @@ def main() -> int:
         print(f"[phase] training {arch} {time.perf_counter() - t0:.1f} s",
               flush=True)
     t0 = time.perf_counter()
-    train_dist_phase(device)
+    dist_out = train_dist_phase(device)
     print(f"[phase] training across ranks {time.perf_counter() - t0:.1f} s",
           flush=True)
+    serve[dist_out["serve"]["name"]] = dist_out["serve"]
+    roofline_phase(serve, train)
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
                              lm, serve, distributed, bwd, parity, train)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")

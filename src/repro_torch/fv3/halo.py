@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel import collectives
 from .mesh import Mesh
 from .topology import LINKS, Decomposition, build_rounds
 
@@ -248,6 +249,9 @@ def make_halo_exchanger(dec: Decomposition, mesh: Mesh | None = None):
     ``torch.distributed.batch_isend_irecv``, one contiguous buffer per round
     and peer, every send and receive of a phase posted before any is
     waited on.  ``exchange.rounds`` lists the tile decomposition's rounds.
+    Every strip a rank receives from another counts as a
+    collective-permute in :mod:`..parallel.collectives`, at the receiving
+    end, whether it came as a copy inside the process or by ``irecv``.
     """
     rounds = build_rounds(dec)
     if mesh is None:
@@ -329,9 +333,13 @@ def make_halo_exchanger(dec: Decomposition, mesh: Mesh | None = None):
                 dst = indices(some.device, plan.local_dst)
                 for n, s in got:
                     _place(out[n], s, dst, plan.recv_edge, h, nl, full)
+                    collectives.record("collective-permute", s,
+                                       calls=len(plan.local_dst))
             for w in works:
                 w.wait()
             for plan, dsts, shapes, buf in received:
+                collectives.record("collective-permute", buf,
+                                   calls=len(dsts) * len(shapes))
                 dst = indices(some.device, dsts)
                 at = 0
                 for n, shape in shapes:

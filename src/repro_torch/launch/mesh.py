@@ -43,10 +43,11 @@ def device_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
                             mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return device_mesh(shape, axes)
+    return device_mesh(shape, axes, device_type=device_type)
 
 
 def make_fv3_mesh(*, layout: tuple[int, int] = (8, 8), ensemble: int = 1):

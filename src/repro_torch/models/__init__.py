@@ -6,8 +6,8 @@ reference's ``repro/models`` for every block type it has: ``attn``,
 from .config import SHAPES, ArchConfig, MoEConfig, ShapeSpec, SSMConfig
 from .ssm import Mamba2
 from .transformer import (Block, MambaBlock, Transformer, XLSTMBlock,
-                          count_params, decode_step, forward, init_caches,
-                          loss_fn, prefill)
+                          count_active_params, count_params, decode_step,
+                          forward, init_caches, loss_fn, prefill)
 from .xlstm import MLSTM, SLSTM
 from .weights import (init_params, load_reference_params,
                       load_reference_state, param_tree, reference_tree)
@@ -15,7 +15,8 @@ from .weights import (init_params, load_reference_params,
 __all__ = [
     "ArchConfig", "MoEConfig", "SSMConfig", "ShapeSpec", "SHAPES", "Block",
     "MambaBlock", "Mamba2", "MLSTM", "SLSTM", "Transformer", "XLSTMBlock",
-    "count_params", "decode_step", "forward", "init_caches", "loss_fn",
-    "prefill", "init_params", "load_reference_params",
-    "load_reference_state", "param_tree", "reference_tree",
+    "count_active_params", "count_params", "decode_step", "forward",
+    "init_caches", "loss_fn", "prefill", "init_params",
+    "load_reference_params", "load_reference_state", "param_tree",
+    "reference_tree",
 ]

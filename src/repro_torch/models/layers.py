@@ -337,22 +337,28 @@ class MoE(nn.Module):
             every = split.gather(torch.cat([r[0] for r in routes]))
             for i, (a, b) in enumerate(parts):
                 start = (first + a) // tc * tc
-                before = torch.bincount(every[start:first + a].reshape(-1),
-                                        minlength=E)
+                seen = every[start:first + a].reshape(-1)
+                before = torch.zeros(E, dtype=seen.dtype,
+                                     device=x.device).scatter_add_(
+                    0, seen, torch.ones_like(seen))
                 expert, gate, slot = routes[i]
                 routes[i] = (expert, gate, slot + before[expert])
         y = torch.empty_like(xt)
         for (a, b), (expert, gate, slot) in zip(parts, routes):
             xc, n = xt[a:b], b - a
-            keep = slot < C
-            token = torch.arange(n, device=x.device)[:, None].expand_as(
-                expert)[keep]
-            expert, slot, gate = expert[keep], slot[keep], gate[keep]
-            where = expert * C + slot
-            xe = xc.new_zeros((E * C, d))
-            xe[where] = xc[token]
-            out = self.experts(xe.view(E, C, d)).view(E * C, d)
-            part = out[where].float() * gate.to(x.dtype).float()[:, None]
+            # every choice in (token, choice) order, so no shape depends
+            # on the routing (a dry run routes meta tensors): a dropped
+            # one fills a spare input slot E C and reads any output slot
+            # with a gate of 0
+            token = torch.arange(n, device=x.device).repeat_interleave(
+                expert.shape[1])
+            keep = (slot < C).reshape(-1)
+            where = (expert * C + slot).reshape(-1)
+            xe = xc.new_zeros((E * C + 1, d))
+            xe[torch.where(keep, where, E * C)] = xc[token]
+            out = self.experts(xe[:E * C].view(E, C, d)).view(E * C, d)
+            gate = torch.where(keep, gate.to(x.dtype).float().reshape(-1), 0)
+            part = out[where.clamp_max(E * C - 1)].float() * gate[:, None]
             y[a:b] = torch.zeros((n, d), dtype=torch.float32,
                                  device=x.device).index_add_(
                 0, token, part).to(x.dtype)

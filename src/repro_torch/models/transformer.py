@@ -72,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.backend.base import resolve_device
 from ..kernels import ops
+from ..kernels.library import is_dtensor
 from . import layers as L
 from . import ssm as SSM
 from . import xlstm as XL
@@ -271,10 +272,26 @@ class Transformer(nn.Module):
                 for _ in range(self.cfg.n_groups) for b in order]
 
 
-def count_params(model: Transformer) -> int:
-    """Exact parameter count (the reference's ``count_params`` of its
-    ``ParamDef`` tree; the shared block counts once)."""
+def count_params(model: Transformer | ArchConfig) -> int:
+    """Exact parameter count of a model, or of a config's model built on
+    the meta device (the reference's ``count_params`` of its ``ParamDef``
+    tree; the shared block counts once)."""
+    if isinstance(model, ArchConfig):
+        model = Transformer(model, device="meta")
     return sum(p.numel() for p in model.parameters())
+
+
+def count_active_params(cfg: ArchConfig) -> int:
+    """Parameters a token runs through, as the reference's
+    ``count_active_params``: a mixture of experts' (n_experts - top_k)
+    unchosen expert MLPs a layer left out."""
+    total = count_params(cfg)
+    if not cfg.moe:
+        return total
+    d, f = cfg.d_model, cfg.d_ff
+    n_mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+    inactive = n_mats * d * f * (cfg.moe.n_experts - cfg.moe.top_k)
+    return total - cfg.n_layers * inactive
 
 
 def _embed(model, tokens: torch.Tensor, quantized: bool,
@@ -457,6 +474,21 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     return total / (B * S)
 
 
+def _served(model, quantized: bool):
+    """The model a serving call runs: a model laid out on a mesh
+    (``parallel.sharding.shard_model``) seen through
+    ``parallel.sharding.Gathered``, as training runs it (each block's
+    weights gathered whole at each call, the embedding, final norm and
+    unembedding once a call, MoE routing over the rows of every data
+    rank), else the model itself."""
+    if quantized or not is_dtensor(getattr(model, "embed", None)):
+        return model
+    from ..parallel import sharding
+
+    return sharding.Gathered(model,
+                             sharding.dp_axes(sharding.model_mesh(model)))
+
+
 def prefill(model: Transformer, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None,
             cache_len: int | None = None, backend: str = "cuda",
@@ -468,7 +500,15 @@ def prefill(model: Transformer, tokens: torch.Tensor, *,
     each attention block writes its prompt's k/v into them once.  A
     ``local`` block's ring is min(window, cache_len or S) slots long and
     holds the last of the prompt's positions.  The Mamba-2 caches
-    (``conv``, ``ssm``) and the xLSTM states pass through."""
+    (``conv``, ``ssm``) and the xLSTM states pass through.
+
+    A model laid out on a mesh serves this rank's rows: ``tokens`` are its
+    rows of the batch (split over the data-parallel axes as
+    ``data.pipeline.shard_batch`` splits them), and the logits and caches
+    are theirs.  Every rank of the "model" axis computes whole heads, so
+    the caches are replicated over it (the reference shards the KV heads
+    over "model").  Every rank of the mesh calls it together."""
+    model = _served(model, quantized)
     h, caches = forward(model, tokens, prefix_embeds=prefix_embeds,
                         mode="prefill", cache_len=cache_len, backend=backend,
                         quantized=quantized)
@@ -480,7 +520,9 @@ def decode_step(model: Transformer, token: torch.Tensor, caches: list,
                 quantized: bool = False):
     """One decode step: token (B, 1) against the caches at position
     ``pos``.  Returns (logits (B, 1, vocab) float32, caches); the caches are
-    updated in place."""
+    updated in place.  On a mesh, this rank's rows and caches
+    (:func:`prefill`)."""
+    model = _served(model, quantized)
     h, caches = forward(model, token, mode="decode", caches=caches, pos=pos,
                         backend=backend, quantized=quantized)
     return _unembed(model, h, quantized), caches

@@ -28,11 +28,14 @@ stacked once: per-step indexing and slice writes would make autograd
 zero-fill a gradient of the whole sequence at every step (a backward
 quadratic in S), where the reference's ``lax.scan`` is linear.  ``r``
 is float32 in a model of any dtype, since the reference reads it through
-``.astype(float32)``.
+``.astype(float32)``.  The loop is :func:`scan`, read through
+:data:`SCAN`, so a caller that runs the model on meta tensors can set a
+stand-in of the same shapes there.
 """
 
 from __future__ import annotations
 
+import contextvars
 import functools
 import math
 
@@ -43,6 +46,22 @@ from torch import nn
 from .config import ArchConfig
 from .layers import empty_param
 from .ssm import chunk_len
+
+
+def scan(cell, pre: torch.Tensor, state: tuple, r: torch.Tensor,
+         dtype: torch.dtype) -> tuple:
+    """sLSTM's loop: ``cell`` over the steps of ``pre`` (B, S, 4, H, dh)
+    from ``state``.  Returns (every step's ``h`` in ``dtype``, stacked
+    (B, S, H, dh); the final state)."""
+    hs = []
+    for pre_t in pre.unbind(1):
+        state = cell(pre_t, state, r)
+        hs.append(state[0].to(dtype))
+    return torch.stack(hs, dim=1), state
+
+
+#: the scan :meth:`SLSTM.forward` runs, with :func:`scan`'s signature
+SCAN: contextvars.ContextVar = contextvars.ContextVar("SCAN", default=scan)
 
 
 def _dims(cfg: ArchConfig) -> tuple[int, int, int]:
@@ -236,12 +255,9 @@ class SLSTM(nn.Module):
         r = self.recurrence()
         state = tuple(torch.zeros((B, H, dh), dtype=torch.float32,
                                   device=x.device) for _ in range(4))
-        hs = []
         with torch.profiler.record_function("slstm_scan"):
-            for pre_t in pre.unbind(1):
-                state = self.cell(pre_t, state, r)
-                hs.append(state[0].to(x.dtype))
-            hs = torch.stack(hs, dim=1).view(B, S, d)
+            hs, state = SCAN.get()(self.cell, pre, state, r, x.dtype)
+            hs = hs.reshape(B, S, d)
         out = hs @ self.wo.to(hs.dtype)
         if return_state:
             return out, {k: t.reshape(B, d) for k, t in zip("hcnm", state)}

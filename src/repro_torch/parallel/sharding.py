@@ -33,7 +33,10 @@ sees whole plain tensors.  A gathered weight's gradient, summed over all
 of its uses in the micro-batch, is summed over the data-parallel axes
 (reduce-scatter where the weight is split over one, all-reduce where it is
 replicated) and only sliced over the model axis: every model-axis rank
-computed the same gradient for its rows.
+computed the same gradient for its rows.  Serving
+(``models.prefill``/``decode_step`` on a sharded model) runs the blocks
+through :class:`Gathered` the same way, with no gradient.  Every
+collective issued here is counted in :mod:`.collectives`.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from torch.func import functional_call
 
 from ..kernels.library import is_dtensor
 from ..models.layers import TOKEN_SPLIT
+from . import collectives
 
 RULES = {
     "fsdp": "data",
@@ -173,15 +177,17 @@ def _chunk(n: int, parts: int, i: int) -> tuple[int, int]:
 
 
 def local_block(shape, place: tuple, mesh) -> tuple[slice, ...]:
-    """This rank's index of a tensor of ``shape`` laid out by ``place``."""
+    """This rank's index of a tensor of ``shape`` laid out by ``place``
+    (a dimension split over several mesh axes is split by each in the
+    mesh's order, as ``DTensor`` splits it: the rows of the multi-pod
+    mesh's ("pod", "data"))."""
     coord = mesh.get_coordinate()
-    index = [slice(None)] * len(shape)
+    index = [slice(0, n) for n in shape]
     for i, p in enumerate(place):
         if p.is_shard():
-            if index[p.dim] != slice(None):
-                raise ValueError("one mesh axis a tensor dimension")
-            start, n = _chunk(shape[p.dim], mesh.size(i), coord[i])
-            index[p.dim] = slice(start, start + n)
+            s = index[p.dim]
+            start, n = _chunk(s.stop - s.start, mesh.size(i), coord[i])
+            index[p.dim] = slice(s.start + start, s.start + start + n)
     return tuple(index)
 
 
@@ -236,14 +242,23 @@ def zeros_without(t: torch.Tensor, dim: int | None = None) -> torch.Tensor:
 
 def _gather_dim(x: torch.Tensor, dim: int, n: int, group, parts: int
                 ) -> torch.Tensor:
-    """The whole of dimension ``dim`` (n long) from every rank's part."""
+    """The whole of dimension ``dim`` (n long) from every rank's part.
+    The parts are gathered stacked, (parts, ...), and moved into place by
+    one reshape: a view where a single rank holds the dimension or every
+    dimension before it is 1 long, else one copy of the whole."""
     c = -(-n // parts)
-    x = x.movedim(dim, 0)
-    if x.shape[0] < c:
-        x = torch.cat([x, x.new_zeros((c - x.shape[0],) + x.shape[1:])])
-    out = x.new_empty((parts * c,) + x.shape[1:])
+    dim %= x.ndim
+    if x.shape[dim] < c:
+        pad = list(x.shape)
+        pad[dim] = c - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    out = x.new_empty((parts * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out[:n].movedim(0, dim)
+    collectives.record("all-gather", out)
+    whole = list(x.shape)
+    whole[dim] = parts * c
+    return out.view((parts,) + tuple(x.shape)).movedim(0, dim).reshape(
+        whole).narrow(dim, 0, n)
 
 
 def _reduce_scatter_dim(x: torch.Tensor, dim: int, group, parts: int,
@@ -256,6 +271,7 @@ def _reduce_scatter_dim(x: torch.Tensor, dim: int, group, parts: int,
         x = torch.cat([x, x.new_zeros((parts * c - n,) + x.shape[1:])])
     out = x.new_empty((c,) + x.shape[1:])
     dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    collectives.record("reduce-scatter", out)
     return out[:_chunk(n, parts, i)[1]].movedim(0, dim)
 
 
@@ -288,6 +304,7 @@ def reduce_to_shard(g: torch.Tensor, t, dp: tuple[str, ...]) -> torch.Tensor:
             else:
                 g = g.contiguous()
                 dist.all_reduce(g, group=group)
+                collectives.record("all-reduce", g)
         elif p.is_shard():
             start, n = _chunk(g.shape[p.dim], parts, coord[i])
             g = g.narrow(p.dim, start, n)
@@ -299,6 +316,7 @@ def all_reduce_over(x: torch.Tensor, mesh, axes: tuple[str, ...]
     """``x`` summed over the mesh axes ``axes``, in place."""
     for a in axes:
         dist.all_reduce(x, group=mesh.get_group(a))
+        collectives.record("all-reduce", x)
     return x
 
 
@@ -366,15 +384,32 @@ def abstract_params(model, mesh, dtype=torch.float32) -> dict:
     """Parameter name -> a ``DTensor`` on the meta device with the
     parameter's global shape and placements: dry-run inputs, no
     allocation."""
-    out = {}
     shapes = {n: p.shape for n, p in model.named_parameters()}
+    return {name: abstract_tensor(shapes[name], dtype, sh)
+            for name, sh in param_shardings(model, mesh).items()}
+
+
+def abstract_tensor(shape, dtype, sharding: NamedSharding):
+    """A ``DTensor`` of global ``shape`` laid out by ``sharding`` whose
+    local shard lies on the meta device: no allocation."""
+    place = sharding.placements
+    index = local_block(shape, place, sharding.mesh)
+    lshape = [len(range(*s.indices(n))) for s, n in zip(index, shape)]
+    return _dtensor(torch.empty(lshape, dtype=dtype, device="meta"),
+                    sharding.mesh, place, shape)
+
+
+def abstract_model(model, mesh):
+    """``model`` (on the meta device) with each parameter replaced, in
+    place, by an abstract ``DTensor`` of its shape, dtype and placements:
+    a sharded model that holds no values, for a dry run."""
+    params = dict(model.named_parameters())
     for name, sh in param_shardings(model, mesh).items():
-        shape = shapes[name]
-        index = local_block(shape, sh.placements, mesh)
-        lshape = [len(range(*s.indices(n))) for s, n in zip(index, shape)]
-        out[name] = _dtensor(torch.empty(lshape, dtype=dtype, device="meta"),
-                             mesh, sh.placements, shape)
-    return out
+        p = params[name]
+        mod, leaf = _owner(model, name)
+        mod._parameters[leaf] = nn.Parameter(
+            abstract_tensor(p.shape, p.dtype, sh), requires_grad=False)
+    return model
 
 
 def init_params(model, seed: int = 0, mesh=None):

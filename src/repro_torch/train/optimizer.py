@@ -48,6 +48,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..parallel import collectives
 from ..parallel.sharding import local, shard_groups, zeros_without
 
 Tree = dict  # path -> tensor, or list of per-layer tensors (stacked leaf)
@@ -107,6 +108,7 @@ def _summed(x: torch.Tensor, groups: list) -> torch.Tensor:
     """A local partial sum completed over the ranks of ``groups``."""
     for g in groups:
         dist.all_reduce(x, group=g)
+        collectives.record("all-reduce", x)
     return x
 
 
