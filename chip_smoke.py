@@ -211,6 +211,19 @@
    ``elastic.reshard_state``, bit for bit.  Then (:data:`TRAIN_DIST_GLOO`)
    two gloo processes on the one card, a (2, 1) mesh: each rank's peak
    beside the unsharded run's, held to it at the train-step tests' bars.
+   The hillclimb's paths: ``[remat]`` (:data:`REMAT`: Granite-8B's
+   training cell under remat "dots" in turns with "block", step ms, peak,
+   the bytes a micro-batch keeps for its backward against the meta
+   device's count and the allocator's growth; the 2-layer float32 parity
+   step under "dots" against "block"), ``[int8-dist]``
+   (:data:`INT8_DIST`, in the NCCL group: int8 Granite-8B layers on the
+   (1, 1) mesh, bit-equal to the unsharded int8 model), and on two gloo
+   processes ``[long-ctx]`` (:data:`LONG_CTX`: Gemma-2-2B's decode at a
+   32,768-token prompt against caches split along the sequence, within
+   1e-5 of the largest |logit| of the whole-cache decode, the same tokens)
+   and ``[seq-shard]`` (:data:`SEQ_SHARD`: a prefill and a training
+   micro-batch with the stream split over "model", bit-equal to the
+   unsharded model's).
 11. Prints the total wall time, a ``kernels`` JSON line and, last, the
    ``ok`` JSON line.
 
@@ -4882,9 +4895,10 @@ def train_dist_gloo(device) -> dict:
 
 def train_dist_phase(device) -> dict:
     """The ``[train-dist]`` phase: :func:`train_dist_one_rank` for each of
-    :data:`TRAIN_DIST` and ``[serve-dist]`` (:func:`serve_dist_one_rank`)
-    over NCCL (the process group made here, of this one process, and
-    destroyed after), then :func:`train_dist_gloo`."""
+    :data:`TRAIN_DIST`, ``[serve-dist]`` (:func:`serve_dist_one_rank`) and
+    ``[int8-dist]`` (:func:`int8_dist_one_rank`) over NCCL (the process
+    group made here, of this one process, and destroyed after), then
+    :func:`train_dist_gloo`."""
     import tempfile
 
     import torch
@@ -4901,12 +4915,638 @@ def train_dist_phase(device) -> dict:
         out["serve"] = serve_dist_one_rank(device)
         print(f"[phase] serving on a mesh {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        out["int8"] = int8_dist_one_rank(device)
+        print(f"[phase] int8 serving on a mesh "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
     out["gloo"] = train_dist_gloo(device)
     return out
+
+
+# the hillclimb's paths on the card.  ``[remat]``: Granite-8B's training
+# cell (TRAIN's cut: 8 of 36 layers, 8 x 4096, grad_accum 2) under remat
+# "dots" in turns with "block" on one model and optimizer state, ``rounds``
+# timed rounds after a warm-up round; the bytes one micro-batch's forward
+# keeps for its backward (``models.remat.SavedBytes``) held against the
+# same count on the meta device and against the allocator's growth over
+# that forward, at REMAT_BYTES_REL; then the 2-layer float32 parity step
+# (TRAIN_PARITY's Granite cut) under "dots" against "block"
+REMAT = {"arch": "granite_8b", "rounds": 2}
+REMAT_BYTES_REL = 0.01
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """While open, K8's and K9's wrappers, which refuse meta tensors, run
+    their plain versions on them: a forward on the meta device through
+    their ``autograd.Function``s then saves what the card's forward saves
+    (the meta count of ``[remat]``)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+
+    def attention(q, k, v, *, softcap=0.0, window=0, lse=None):
+        o, rows = ref.flash_attention_fwd_ref(q, k, v, softcap=softcap,
+                                              window=window)
+        if lse is not None:
+            lse.copy_(rows)
+        return o
+
+    plain = {(FA, "flash_attention"): attention,
+             (RN, "rmsnorm"): ref.rmsnorm_ref,
+             (RN, "rmsnorm_residual"): ref.rmsnorm_residual_ref}
+    kernels = {key: getattr(*key) for key in plain}
+
+    def routed(key):
+        def call(x, *args, **kw):
+            fn = plain[key] if x.device.type == "meta" else kernels[key]
+            return fn(x, *args, **kw)
+        return call
+
+    for key in plain:
+        setattr(*key, routed(key))
+    try:
+        yield
+    finally:
+        for key, fn in kernels.items():
+            setattr(*key, fn)
+
+
+def saved_for_backward(model, tokens, labels) -> tuple[int, int, int]:
+    """(bytes, tensors) a bf16 loss forward of ``model`` keeps for its
+    backward (:class:`repro_torch.models.remat.SavedBytes`), and the
+    allocator's growth over that forward on the card (None elsewhere)."""
+    import torch
+
+    from repro_torch.models import loss_fn
+    from repro_torch.models.remat import SavedBytes
+
+    card = tokens.is_cuda
+    if card:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+    with SavedBytes() as saved:
+        loss = loss_fn(model, tokens, labels, dtype=torch.bfloat16)
+    grown = None
+    if card:
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+    del loss
+    return saved.bytes, saved.tensors, grown
+
+
+def remat_phase(device) -> dict:
+    """``[remat]`` (:data:`REMAT`): step ms (median of the timed rounds)
+    and peak GiB of each policy; launches per step of each kernel of
+    :func:`train_kernels` under each, which must be equal (K8's and K9's
+    forwards are recomputed under both) and none of another kernel; the
+    saved-for-backward bytes of a micro-batch under each policy on the
+    card, on the meta device and by the allocator; the float32 parity
+    step's loss and gradients under "dots" against "block" (bit-equality
+    printed, held at :data:`TRAIN_LOSS_REL` / :data:`TRAIN_GRAD_REL`)."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.kernels import library as KL
+    from repro_torch.models import Transformer, loss_fn
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              make_train_step)
+
+    arch = REMAT["arch"]
+    cell = TRAIN[arch]
+    B, S, A = (cell[k] for k in ("B", "S", "accum"))
+    cfg, model = train_model(device, arch, cell["layers"])
+    policies = {r: dataclasses.replace(cfg, remat=r)
+                for r in ("block", "dots")}
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, TrainConfig(
+        grad_accum=A, compute_dtype=torch.bfloat16,
+        opt=OptConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP)))
+    data = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B, seed=0), device=device)
+    print(f"[remat] {cfg.name} {cfg.n_layers} of {cell['of']} layers at "
+          f"full width, batch {B} x {S}, grad_accum {A}, bf16 compute: "
+          f"remat \"dots\" (aten.mm/addmm outputs kept) in turns with "
+          f"\"block\", {REMAT['rounds']} timed rounds after a warm-up",
+          flush=True)
+    keys = train_kernels(cfg, S)
+    times = {r: [] for r in policies}
+    peaks = {r: 0.0 for r in policies}
+    launches = {}
+    for i in range(1 + REMAT["rounds"]):
+        batch = next(data)
+        for r, c in policies.items():
+            model.cfg = c
+            torch.cuda.reset_peak_memory_stats()
+            KL.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            if not math.isfinite(loss):
+                raise RuntimeError(f"[remat] {r}: loss {loss}")
+            if i == 0:
+                launches[r] = dict(KL.LAUNCHES)
+                continue
+            times[r].append(ms)
+            peaks[r] = max(peaks[r],
+                           torch.cuda.max_memory_allocated() / 2**30)
+    med = {r: statistics.median(t) for r, t in times.items()}
+    for r in policies:
+        print(f"[remat] {r}: step ms {med[r]:.3f} (median of "
+              f"{REMAT['rounds']}: " + ", ".join(f"{t:.1f}" for t in times[r])
+              + f"), {B * S / (med[r] / 1e3):.1f} tokens/s, peak "
+              f"{peaks[r]:.3f} GiB; launches a step: "
+              + ", ".join(f"{k} {launches[r][k]}" for k in keys), flush=True)
+        stray = {k: v for k, v in launches[r].items() if v and k not in keys}
+        if not all(launches[r][k] for k in keys) or stray:
+            raise RuntimeError(f"[remat] {r}: launches {launches[r]}")
+    if launches["dots"] != launches["block"]:
+        raise RuntimeError(f"[remat] \"dots\" launched otherwise than "
+                           f"\"block\": {launches}")
+    print(f"[remat] dots / block step time {med['dots'] / med['block']:.4f}",
+          flush=True)
+    # what one micro-batch's forward keeps for its backward
+    mb = B // A
+    batch = next(data)
+    tok, lab = batch["tokens"][:mb], batch["labels"][:mb]
+    saved = {}
+    for r, c in policies.items():
+        model.cfg = c
+        model.zero_grad(set_to_none=True)
+        got = saved_for_backward(model, tok, lab)
+        meta = Transformer(c, dtype=torch.float32, device="meta")
+        with plain_on_meta():
+            want = saved_for_backward(meta.requires_grad_(True),
+                                      tok.to("meta"), lab.to("meta"))
+        saved[r] = {"bytes": got[0], "tensors": got[1], "grown": got[2],
+                    "meta": want[0]}
+        rel = (None if got[2] is None
+               else abs(got[2] - want[0]) / want[0])
+        print(f"[remat] {r}: a micro-batch ({mb} x {S}) keeps "
+              f"{got[0] / 1e9:.4f} GB in {got[1]} tensors for its backward "
+              f"({got[0] / (mb * S * cfg.n_layers * 2):.1f} bf16 values a "
+              f"token a layer); the meta count {want[0] / 1e9:.4f} GB in "
+              f"{want[1]} tensors"
+              + ("" if rel is None else
+                 f"; the allocator grew by {got[2] / 1e9:.4f} GB over the "
+                 f"forward (rel {rel:.3e} of the meta count, bar "
+                 f"{REMAT_BYTES_REL:g})"), flush=True)
+        if (got[0], got[1]) != want[:2] or (rel is not None
+                                            and rel > REMAT_BYTES_REL):
+            raise RuntimeError(f"[remat] {r}: saved bytes {got} against "
+                               f"the meta count {want}")
+    model.cfg = cfg
+    del state, model, step, batch, tok, lab
+    torch.cuda.empty_cache()
+    # the float32 parity step under "dots" against "block"
+    pc = TRAIN_PARITY[arch]
+    cfg2, model = train_model(device, arch, pc["layers"])
+    gen = torch.Generator(device=device).manual_seed(3)
+    tok = torch.randint(0, cfg2.vocab, (pc["B"], pc["S"]), generator=gen,
+                        device=device)
+    lab = torch.randint(0, cfg2.vocab, (pc["B"], pc["S"]), generator=gen,
+                        device=device)
+    runs, parity_launches = {}, {}
+    for r in ("block", "dots"):
+        model.cfg = dataclasses.replace(cfg2, remat=r)
+        model.zero_grad(set_to_none=True)
+        KL.reset_launches()
+        loss = loss_fn(model, tok, lab, dtype=torch.float32)
+        loss.backward()
+        parity_launches[r] = dict(KL.LAUNCHES)
+        runs[r] = (loss.detach(), [p.grad.detach().clone()
+                                   for p in model.parameters()])
+    (la, ga), (lb, gb) = runs["block"], runs["dots"]
+    equal = torch.equal(la, lb) and all(torch.equal(x, y)
+                                        for x, y in zip(ga, gb))
+    loss_rel = abs(lb.item() - la.item()) / abs(la.item())
+    grad_rel = max((x - y).abs().max().item()
+                   / max(y.abs().max().item(), 1e-30)
+                   for x, y in zip(gb, ga))
+    print(f"[remat] float32 parity step, {cfg2.n_layers} layers at "
+          f"{pc['B']} x {pc['S']}: \"dots\" against \"block\" "
+          f"{'bit-equal' if equal else 'NOT bit-equal'}; loss rel "
+          f"{loss_rel:.3e} (bar {TRAIN_LOSS_REL:g}), worst gradient "
+          f"{grad_rel:.3e} of its max (bar {TRAIN_GRAD_REL:g}); launches "
+          + ", ".join(f"{k} {v}" for k, v in parity_launches["dots"].items()
+                      if v), flush=True)
+    if loss_rel > TRAIN_LOSS_REL or grad_rel > TRAIN_GRAD_REL:
+        raise RuntimeError("[remat] the float32 parity step under \"dots\" "
+                           "is past the bars")
+    if not all(parity_launches["dots"].get(k) for k in keys):
+        raise RuntimeError(f"[remat] the parity step skipped a kernel: "
+                           f"{parity_launches['dots']}")
+    del runs, model, ga, gb
+    torch.cuda.empty_cache()
+    return {"step_ms": med, "peak_gib": peaks, "saved": saved,
+            "launches": launches["dots"],
+            "parity_launches": parity_launches["dots"],
+            "parity_equal": equal}
+
+
+# ``[int8-dist]``: int8 Granite-8B (quantized from the float32 masters of
+# 2 full-width layers) laid out on the (1, 1) NCCL mesh
+# (``serve.quantize.shard_quantized``: every q and s a DTensor shard,
+# gathered at use) in turns with the unsharded int8 model: bf16 compute,
+# 8 x 2048 prompts, 8 greedy steps
+INT8_DIST = {"arch": "granite_8b", "layers": 2, "B": 8, "S": 2048,
+             "decode": 8, "cache": 2056, "rounds": 2}
+
+
+def int8_dist_one_rank(device) -> dict:
+    """``[int8-dist]`` (:data:`INT8_DIST`), in :func:`train_dist_phase`'s
+    one-rank NCCL group: the logits (prefill and every step), the caches
+    and the tokens of the sharded int8 model must equal the unsharded int8
+    model's bit for bit; prints each one's prefill ms and decode ms a step
+    (medians) and the sharded request's launches."""
+    import torch
+
+    from repro_torch import models as TM
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import library as KL
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.serve import quantize_params, shard_quantized
+
+    c = INT8_DIST
+    B, S, n, cache = (c[k] for k in ("B", "S", "decode", "cache"))
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])
+    f32 = TM.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                        device=device), seed=0)
+    qm = quantize_params(f32).with_dtype(torch.bfloat16)
+    del f32
+    torch.cuda.empty_cache()
+    mesh = device_mesh((1, 1), ("data", "model"), device_type="cuda")
+    models = {"unsharded": qm, "sharded": shard_quantized(qm, mesh)}
+    gen = torch.Generator(device=device).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    print(f"[int8-dist] {cfg.name}: {cfg.n_layers} layers at full width, "
+          f"int8 weights ({qm.nbytes() / 1e9:.3f} GB), bf16 compute, B={B} "
+          f"prompts of {S} tokens, {n} greedy steps; NCCL, one rank, mesh "
+          f"(1, 1) (each q and s a DTensor shard, gathered at use)",
+          flush=True)
+
+    def serve(kind):
+        model = models[kind]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = TM.prefill(model, tokens, cache_len=cache,
+                                    quantized=True)
+        torch.cuda.synchronize()
+        out = {"pre_ms": 1e3 * (time.perf_counter() - t),
+               "logits": [logits], "tokens": [], "steps": []}
+        tok = logits.argmax(-1)
+        for i in range(n):
+            t = time.perf_counter()
+            step, caches = TM.decode_step(model, tok, caches, S + i,
+                                          quantized=True)
+            tok = step.argmax(-1)
+            torch.cuda.synchronize()
+            out["steps"].append(1e3 * (time.perf_counter() - t))
+            out["logits"].append(step)
+            out["tokens"].append(tok)
+        out["caches"] = caches
+        return out
+
+    for kind in models:  # warm-up
+        serve(kind)
+    pre = {k: [] for k in models}
+    dec = {k: [] for k in models}
+    first, launches = {}, {}
+    for r in range(c["rounds"]):
+        for kind in models:
+            KL.reset_launches()
+            out = serve(kind)
+            pre[kind].append(out["pre_ms"])
+            dec[kind] += out["steps"]
+            if r == 0:
+                first[kind] = out
+                launches[kind] = {k: KL.LAUNCHES[k] for k in LM_LAUNCHES}
+    a, b = first["sharded"], first["unsharded"]
+    equal = {
+        "logits": all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                        b["logits"])),
+        "caches": all(torch.equal(x[k], y[k]) for x, y in zip(
+            a["caches"], b["caches"]) for k in x),
+        "tokens": all(torch.equal(x, y) for x, y in zip(a["tokens"],
+                                                        b["tokens"]))}
+    med = {k: (statistics.median(pre[k]), statistics.median(dec[k]))
+           for k in models}
+    norms = cfg.n_layers + 1
+    want = {"flash_attention": cfg.n_layers, "flash_attention_window": 0,
+            "rmsnorm": norms * (1 + n), "rmsnorm_residual": cfg.n_layers
+            * (1 + n), "ssm_state_scan": 0}
+    print(f"[int8-dist] sharded vs unsharded int8, bit for bit: "
+          + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                      for k, v in equal.items()), flush=True)
+    for kind in models:
+        print(f"[int8-dist] {kind}: prefill ms {med[kind][0]:.3f} (median "
+              f"of {c['rounds']}), decode ms a step {med[kind][1]:.3f} "
+              f"(median of {c['rounds']} x {n})", flush=True)
+    print(f"[int8-dist] sharded launches in a request: "
+          f"{launches['sharded']} (expected {want})", flush=True)
+    if not all(equal.values()):
+        raise RuntimeError(f"int8 serving on the mesh differs from the "
+                           f"unsharded int8 model: {equal}")
+    if launches["sharded"] != want or launches["unsharded"] != want:
+        raise RuntimeError("the int8 mesh path did not launch K8/K9 as "
+                           "expected")
+    del models, qm, first, a, b
+    torch.cuda.empty_cache()
+    return {"launches": launches["sharded"], "prefill_ms": med["sharded"][0],
+            "decode_ms": med["sharded"][1],
+            "plain_prefill_ms": med["unsharded"][0],
+            "plain_decode_ms": med["unsharded"][1]}
+
+
+# two gloo processes on the one card (NCCL refuses two ranks on one GPU).
+# ``[long-ctx]``: Gemma-2-2B at full depth, float32, one row, a 32,768-token
+# prompt (past the 4096 window: the local rings are split too) into caches
+# of 32,776; each rank prefills the row, ``parallel.sharding.split_caches``
+# keeps its slots of every KV cache on a (2, 1) mesh, then 8 greedy steps,
+# against rank 0's decode of its whole caches.  ``[seq-shard]``: Granite-8B
+# cut to 2 layers, bf16, 8 x 2048 prompts, laid out on a (1, 2) mesh, its
+# prefill with ``seq_shard`` against the unsharded model's; and one bf16
+# loss and backward of 2 x 2048 on the float32 masters, with ``seq_shard``
+# through ``Gathered``, against the unsharded one (each rank its shard of
+# each gradient)
+LONG_CTX = {"arch": "gemma2_2b", "S": 32768, "decode": 8, "mesh": (2, 1)}
+SEQ_SHARD = {"arch": "granite_8b", "layers": 2, "B": 8, "S": 2048,
+             "mesh": (1, 2), "train": (2, 2048), "rounds": 2}
+LONG_CTX_REL = 1e-5
+#: the hillclimb's paths that compute in float32 (K8's f32 kernels)
+HILL_F32 = ("remat-parity", "long-ctx prefill", "long-ctx decode")
+
+PAIR_WORKER = r"""
+import dataclasses, datetime, json, sys, time
+import torch, torch.distributed as dist
+rank, world, init, dest, spec = sys.argv[1:6]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=init, rank=rank,
+                        world_size=world,
+                        timeout=datetime.timedelta(seconds=600))
+from repro_torch import models as TM
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import local_rows
+from repro_torch.kernels import library as KL
+from repro_torch.launch.mesh import device_mesh
+from repro_torch.parallel import sharding as SH
+dev = torch.device("cuda", 0)
+res = {"rank": rank}
+
+def ms_since(t):
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t)
+
+def greedy(model, caches, logits, S, n):
+    out, times, tok = [logits[:, -1]], [], logits.argmax(-1)
+    for i in range(n):
+        t = time.perf_counter()
+        logits, caches = TM.decode_step(model, tok, caches, S + i)
+        times.append(ms_since(t))
+        out.append(logits[:, -1])
+        tok = logits.argmax(-1)
+    return torch.stack(out, 1), times
+
+# [long-ctx]
+lc = spec["long"]
+cfg = get_config(lc["arch"])
+S, n = lc["S"], lc["decode"]
+model = TM.init_params(TM.Transformer(cfg, dtype=torch.float32, device=dev),
+                       seed=0)
+gen = torch.Generator(device=dev).manual_seed(5)
+tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=dev)
+mesh = device_mesh(tuple(lc["mesh"]), ("data", "model"), device_type="cuda")
+KL.reset_launches()
+torch.cuda.synchronize()
+t = time.perf_counter()
+with torch.no_grad():
+    logits, caches = TM.prefill(model, tokens, cache_len=S + n)
+res["long_prefill_ms"] = ms_since(t)
+res["long_prefill_launches"] = dict(KL.LAUNCHES)
+whole = ([{k: v.clone() for k, v in c.items()} for c in caches]
+         if rank == 0 else None)
+split = SH.split_caches(caches, mesh)
+del caches
+res["long_slots"] = sorted({SH.local(c["k"]).shape[1] for c in split
+                            if "k" in c})
+KL.reset_launches()
+with torch.no_grad():
+    got, times = greedy(model, split, logits, S, n)
+res["long_decode_launches"] = dict(KL.LAUNCHES)
+res["long_split_ms"] = times
+if rank == 0:
+    with torch.no_grad():
+        want, times = greedy(model, whole, logits, S, n)
+    res["long_whole_ms"] = times
+    scale = want.abs().max().item()
+    res["long_err"] = (got - want).abs().max().item() / scale
+    res["long_tokens_equal"] = bool(torch.equal(got.argmax(-1),
+                                                want.argmax(-1)))
+    res["long_tokens"] = got.argmax(-1)[0].tolist()
+del model, split, whole, logits, got
+torch.cuda.empty_cache()
+# [seq-shard]
+ss = spec["seq"]
+cfg = dataclasses.replace(get_config(ss["arch"]), n_layers=ss["layers"])
+B, S = ss["B"], ss["S"]
+mesh = device_mesh(tuple(ss["mesh"]), ("data", "model"), device_type="cuda")
+sharded = SH.init_params(TM.Transformer(cfg, dtype=torch.bfloat16,
+                                        device="meta"), seed=0, mesh=mesh)
+plain = TM.init_params(TM.Transformer(cfg, dtype=torch.bfloat16, device=dev),
+                       seed=0)
+gen = torch.Generator(device=dev).manual_seed(5)
+tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+rows = local_rows(mesh, B).to(dev)
+runs = {"seq_shard": lambda: TM.prefill(sharded, tokens[rows],
+                                        seq_shard=True),
+        "sharded": lambda: TM.prefill(sharded, tokens[rows]),
+        "unsharded": lambda: TM.prefill(plain, tokens[rows])}
+times, first = {k: [] for k in runs}, {}
+with torch.no_grad():
+    for r in range(1 + ss["rounds"]):
+        for k, run in runs.items():
+            KL.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run()
+            ms = ms_since(t)
+            if r == 0:
+                res.setdefault("seq_launches", {})[k] = dict(KL.LAUNCHES)
+                first[k] = out
+            else:
+                times[k].append(ms)
+            del out
+a, b = first["seq_shard"], first["unsharded"]
+res["seq_times"] = times
+res["seq_equal"] = {
+    "logits": bool(torch.equal(a[0], b[0])),
+    "caches": all(torch.equal(x[k], y[k]) for x, y in zip(a[1], b[1])
+                  for k in x)}
+del sharded, plain, a, b, first
+torch.cuda.empty_cache()
+# one training micro-batch with seq_shard on the float32 masters
+tb, ts = ss["train"]
+masters = SH.init_params(TM.Transformer(cfg, dtype=torch.float32,
+                                        device="meta"), seed=0, mesh=mesh)
+masters.requires_grad_(True)
+plain = TM.init_params(TM.Transformer(cfg, dtype=torch.float32, device=dev),
+                       seed=0).requires_grad_(True)
+tok = torch.randint(0, cfg.vocab, (tb, ts), generator=gen, device=dev)
+lab = torch.randint(0, cfg.vocab, (tb, ts), generator=gen, device=dev)
+KL.reset_launches()
+torch.cuda.synchronize()
+t = time.perf_counter()
+net = SH.Gathered(masters, SH.dp_axes(mesh))
+loss = TM.loss_fn(net, tok, lab, seq_shard=True)
+net.backward(loss)
+res["seq_train_ms"] = ms_since(t)
+res["seq_train_launches"] = dict(KL.LAUNCHES)
+t = time.perf_counter()
+want = TM.loss_fn(plain, tok, lab)
+want.backward()
+res["plain_train_ms"] = ms_since(t)
+equal = bool(torch.equal(loss.detach(), want.detach()))
+for p, q in zip(masters.parameters(), plain.parameters()):
+    index = SH.local_block(q.shape, p.placements, p.device_mesh)
+    equal = equal and bool(torch.equal(SH.local(p.grad), q.grad[index]))
+res["seq_train_equal"] = equal
+res["seq_train_loss"] = (loss.item(), want.item())
+with open(dest, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def pair_phase(device) -> dict:
+    """``[long-ctx]`` (:data:`LONG_CTX`) and ``[seq-shard]``
+    (:data:`SEQ_SHARD`) on two gloo processes of the card.  Holds: the
+    split decode's logits within :data:`LONG_CTX_REL` of the largest
+    |logit| of rank 0's whole-cache decode, with the same greedy tokens;
+    the ``seq_shard`` prefill's logits and caches and the training
+    micro-batch's loss and each rank's gradient shards bit-equal to the
+    unsharded model's; each path's kernels launched (K8 f32's causal and
+    window instances and K9 in the long prefill, K9 in every decode step,
+    K8 bf16 and K9 in the ``seq_shard`` prefill, their backwards in its
+    training micro-batch)."""
+    import os
+    import shutil
+    import tempfile
+
+    world = 2
+    spec = {"long": LONG_CTX, "seq": SEQ_SHARD}
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="4")
+    lc, ss = LONG_CTX, SEQ_SHARD
+    print(f"[long-ctx] {lc['arch']} at full depth, float32, 1 row of "
+          f"{lc['S']} prompt tokens, {lc['decode']} greedy steps; gloo, "
+          f"{world} ranks on the one card, mesh {lc['mesh']}: each KV cache "
+          f"split along its slots, the one-process decode of the same "
+          f"caches on rank 0", flush=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PAIR_WORKER, str(r), str(world),
+         f"file://{tmp}/rdv", str(tmp / f"rank{r}.json"), json.dumps(spec)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError("a gloo rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    res = [json.loads((tmp / f"rank{r}.json").read_text())
+           for r in range(world)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    r0 = res[0]
+    n = lc["decode"]
+    norms = {k: v for k, v in r0["long_decode_launches"].items() if v}
+    print(f"[long-ctx] prefill ms {r0['long_prefill_ms']:.3f} (rank 0; "
+          f"rank 1 {res[1]['long_prefill_ms']:.3f}), launches "
+          + ", ".join(f"{k} {v}" for k, v in
+                      r0["long_prefill_launches"].items() if v)
+          + f"; slots a rank {r0['long_slots']}", flush=True)
+    print(f"[long-ctx] split decode ms a step "
+          f"{statistics.median(r0['long_split_ms']):.3f} "
+          f"(median of {n}), whole-cache decode "
+          f"{statistics.median(r0['long_whole_ms']):.3f}; launches in the "
+          f"{n} split steps: " + ", ".join(f"{k} {v}" for k, v in
+                                           norms.items()), flush=True)
+    print(f"[long-ctx] logits against the whole-cache decode: max "
+          f"{r0['long_err']:.3e} of the largest |logit| (bar "
+          f"{LONG_CTX_REL:g}); greedy tokens "
+          f"{'equal' if r0['long_tokens_equal'] else 'DIFFER'} "
+          f"{r0['long_tokens']}", flush=True)
+    from repro_torch.configs import get_config
+
+    pl = r0["long_prefill_launches"]
+    cfg = get_config(lc["arch"])
+    n_local = cfg.n_groups * cfg.pattern.count("local")
+    if not (pl.get("flash_attention") == cfg.n_layers
+            and pl.get("flash_attention_window") == n_local
+            and pl.get("rmsnorm") and pl.get("rmsnorm_residual")):
+        raise RuntimeError(f"[long-ctx] the prefill's launches {pl}")
+    if not (norms.get("rmsnorm") and norms.get("rmsnorm_residual")
+            and not norms.get("flash_attention")):
+        raise RuntimeError(f"[long-ctx] the decode's launches {norms}")
+    if r0["long_err"] > LONG_CTX_REL or not r0["long_tokens_equal"]:
+        raise RuntimeError("[long-ctx] the split decode differs from the "
+                           "whole-cache decode")
+    print(f"[seq-shard] {ss['arch']}: {ss['layers']} layers at full width, "
+          f"bf16, {ss['B']} x {ss['S']} prompts, mesh {ss['mesh']} (gloo, "
+          f"the stream split over \"model\" between blocks)", flush=True)
+    for r in res:
+        med = {k: statistics.median(v) for k, v in r["seq_times"].items()}
+        print(f"[seq-shard] rank {r['rank']}: prefill ms seq_shard "
+              f"{med['seq_shard']:.3f}, sharded without it "
+              f"{med['sharded']:.3f}, unsharded {med['unsharded']:.3f} "
+              f"(medians of {ss['rounds']}); seq_shard against unsharded: "
+              + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                          for k, v in r["seq_equal"].items())
+              + f"; training micro-batch {ss['train']} ms "
+              f"{r['seq_train_ms']:.3f} (unsharded "
+              f"{r['plain_train_ms']:.3f}), loss {r['seq_train_loss'][0]:.6f}"
+              f" and gradient shards "
+              f"{'bit-equal' if r['seq_train_equal'] else 'DIFFER'}",
+              flush=True)
+        got = r["seq_launches"]["seq_shard"]
+        tl = r["seq_train_launches"]
+        print(f"[seq-shard] rank {r['rank']} launches: prefill "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+              + "; training micro-batch "
+              + ", ".join(f"{k} {v}" for k, v in tl.items() if v),
+              flush=True)
+        if not all(r["seq_equal"].values()) or not r["seq_train_equal"]:
+            raise RuntimeError(f"[seq-shard] rank {r['rank']} differs from "
+                               "the unsharded model")
+        if got != r["seq_launches"]["unsharded"] or not all(
+                got.get(k) for k in ("flash_attention", "rmsnorm",
+                                     "rmsnorm_residual")):
+            raise RuntimeError(f"[seq-shard] prefill launches {got}")
+        if not all(tl.get(k) for k in TRAIN_LAUNCHES):
+            raise RuntimeError(f"[seq-shard] training launches {tl}")
+    print(f"[phase] long-ctx and seq-shard (gloo pair) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"long_prefill": pl, "long_decode": norms,
+            "seq_prefill": {k: sum(r["seq_launches"]["seq_shard"].get(k, 0)
+                                   for r in res) for k in LM_LAUNCHES},
+            "seq_train": {k: sum(r["seq_train_launches"].get(k, 0)
+                                 for r in res) for k in TRAIN_LAUNCHES}}
 
 
 def roofline_phase(serve: dict, train: dict) -> list:
@@ -4971,7 +5611,7 @@ def roofline_phase(serve: dict, train: dict) -> list:
 def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                    ensemble: dict, opt3: dict, lm: dict, serve: dict,
                    distributed: dict, bwd: dict, parity: dict,
-                   train: dict) -> list:
+                   train: dict, hill: dict) -> list:
     """One record per kernel for the ``kernels`` line: the launches of its
     path (the opt-0 sequential step for K1-K3, the 3 opt-3 steps on the TPU
     preset's schedules for K4, the op calls for K6/K7; for K5 the member
@@ -5002,10 +5642,17 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
     layers); K8's bf16 forward, K9's and K10's records also carry
     ``train_launches``, their launches in the training cells' steps
     (recomputation included).  ``parity`` and ``train`` map each
-    architecture to its phase's result."""
+    architecture to its phase's result.  ``hill`` maps each path of the
+    hillclimb (``[remat]``, ``[long-ctx]``, ``[seq-shard]``,
+    ``[int8-dist]``) to its launches; the records of the kernels they run
+    carry them as ``hillclimb_launches`` (K8's by the path's dtype)."""
 
     def trained(count):
         return sum(run["launches"].get(count, 0) for run in train.values())
+
+    def hillclimbed(count, dtype=None):
+        return {p: run.get(count, 0) for p, run in hill.items()
+                if dtype is None or (p in HILL_F32) == (dtype == "float32")}
 
     replaces = {"K1": f"{PALLAS}:350", "K2": f"{PALLAS}:486",
                 "K3": f"{PALLAS}:99", "K4": f"{PALLAS}:635",
@@ -5060,7 +5707,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                            if r["dtype"] == "float32"),
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"]})
+        "library_ms": f32["library_ms"],
+        "hillclimb_launches": hillclimbed("flash_attention", "float32")})
     for key, name, line, count in (
             ("K8", "flash_attention_wgmma_kernel",
              "src/repro/kernels/flash_attention.py:21", "flash_attention"),
@@ -5085,7 +5733,9 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "launches": sum(run["launches"][count] for run in serve.values()),
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "hillclimb_launches": hillclimbed(
+                count, "bfloat16" if key == "K8" else None)})
     # K8 with its window (Gemma-2's local layers): the windowed launches of
     # the bf16 requests and of the f32 parity runs, the times of the window
     # 4096 case at Gemma-2's shape without the softcap (beside SDPA with the
@@ -5103,7 +5753,9 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
                             for run in serve.values()),
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "hillclimb_launches": hillclimbed("flash_attention_window",
+                                              dtype)})
     for rec in kernels:
         count = {"flash_attention_wgmma_kernel": "flash_attention",
                  "rmsnorm_kernel": "rmsnorm",
@@ -5131,7 +5783,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "launches": launches,
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "hillclimb_launches": hillclimbed("flash_attention_bwd", dtype)})
         if dtype == "bfloat16":
             kernels[-1]["window_launches"] = trained(
                 "flash_attention_bwd_window")
@@ -5148,7 +5801,8 @@ def kernel_records(rows: list, members: list, standalone: dict, path: dict,
             "launches": trained(f"{form}_bwd"),
             "max_abs_err": max(r["err"] for r in mine), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"]})
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "hillclimb_launches": hillclimbed(f"{form}_bwd")})
     head = bwd["K10"][0]  # the Zamba2 training step's micro-batch
     kernels.append({
         "name": "ssm_state_scan_bwd_kernel", "route": "cuda",
@@ -5284,13 +5938,25 @@ def main() -> int:
         print(f"[phase] training {arch} {time.perf_counter() - t0:.1f} s",
               flush=True)
     t0 = time.perf_counter()
+    remat = remat_phase(device)
+    print(f"[phase] remat {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     dist_out = train_dist_phase(device)
     print(f"[phase] training across ranks {time.perf_counter() - t0:.1f} s",
           flush=True)
     serve[dist_out["serve"]["name"]] = dist_out["serve"]
+    pair = pair_phase(device)
+    # each path of the hillclimb, its launches counted from 0 just before
+    hill = {"remat": remat["launches"],
+            "remat-parity": remat["parity_launches"],
+            "long-ctx prefill": pair["long_prefill"],
+            "long-ctx decode": pair["long_decode"],
+            "seq-shard prefill": pair["seq_prefill"],
+            "seq-shard train": pair["seq_train"],
+            "int8-dist": dist_out["int8"]["launches"]}
     roofline_phase(serve, train)
     kernels = kernel_records(rows, members, standalone, path, ensemble, opt3,
-                             lm, serve, distributed, bwd, parity, train)
+                             lm, serve, distributed, bwd, parity, train, hill)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -29,10 +29,12 @@ Where the port's cells differ from the reference's:
   * a training cell whose micro-batch has fewer rows than there are data
     ranks (the multi-pod mesh at ``grad_accum`` 16) gives one row of each
     micro-batch to each of the first ranks, as ``torch.chunk`` splits it,
-    and none to the others: rank 0 runs one row a micro-batch;
-  * the ``long_500k`` decode cells (one row against 16 or 32 data ranks),
-    whose caches the reference splits along the sequence, raise
-    ``NotImplementedError`` (ROADMAP item 10b) and count as failed.
+    and none to the others: rank 0 runs one row a micro-batch.
+
+The ``long_500k`` decode cells (one row against 16 or 32 data ranks) split
+their KV caches along the sequence over the data axes, then "model", as
+the reference's ``long_ctx`` does (``parallel.sharding.split_caches``);
+their recurrent states are replicated and every rank decodes the same row.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch granite_8b --shape train_4k
@@ -64,8 +66,6 @@ from ..train.train_step import TrainConfig, TrainState, make_train_step
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "torch_dryrun"
 SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
-LONG_CONTEXT = ("decode caches split along the sequence (one row against "
-                "{n} data ranks) wait for ROADMAP item 10b")
 
 
 def fake_group(world: int) -> None:
@@ -122,9 +122,10 @@ def input_specs(arch: ArchConfig, shape: ShapeSpec, mesh) -> dict:
     and placements, the reference's): the token ids int32 split over the
     data axes; a decode cell's caches (:func:`..models.init_caches`' list,
     one per block application) split over them along their rows and
-    replicated over "model", its token and position.  Raises
-    ``NotImplementedError`` for a decode cell with fewer rows than data
-    ranks (ROADMAP item 10b)."""
+    replicated over "model", its token and position.  A decode cell with
+    fewer rows than data ranks (the reference's ``long_ctx``): the KV
+    caches split along their slots (``sharding.cache_spec``), every other
+    state and the token replicated."""
     dps = SH.dp_axes(mesh)
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
@@ -143,15 +144,28 @@ def input_specs(arch: ArchConfig, shape: ShapeSpec, mesh) -> dict:
                                    dps, None, None)
         return specs
     n_dp = _n_dp(mesh)
-    if B < n_dp:
-        raise NotImplementedError(LONG_CONTEXT.format(n=n_dp))
-    caches = T.init_caches(arch, B, S, device="meta")
-    caches = [{k: spec(tuple(t.shape), t.dtype, dps,
-                       *([None] * (t.ndim - 1)))
-               for k, t in c.items()} for c in caches]
+    caches = abstract_caches(T.init_caches(arch, B, S, device="meta"), mesh)
     return {"token": spec((B, 1), i32, *((dps, None) if B % n_dp == 0
                                          else (None, None))),
             "caches": caches, "pos": spec((), i32)}
+
+
+def abstract_caches(caches: list, mesh) -> list:
+    """Meta ``DTensor`` stand-ins of ``init_caches``' list (on the meta
+    device): split over the data axes along their rows, or, for a batch of
+    fewer rows than data ranks, each KV cache along its slots
+    (``sharding.cache_spec``) and every other leaf replicated."""
+    dps = SH.dp_axes(mesh)
+    long_ctx = next(iter(caches[0].values())).shape[0] < _n_dp(mesh)
+
+    def layout(k, t):
+        if not long_ctx:
+            return (dps,) + (None,) * (t.ndim - 1)
+        return SH.cache_spec(mesh) if k in ("k", "v") else (None,) * t.ndim
+
+    return [{k: SH.abstract_tensor(tuple(t.shape), t.dtype,
+                                   SH.NamedSharding(mesh, layout(k, t)))
+             for k, t in c.items()} for c in caches]
 
 
 def abstract_model(arch: ArchConfig, mesh, dtype) -> T.Transformer:
@@ -233,13 +247,21 @@ def build_cell(arch_id: str, shape_name: str, mesh):
                                                 else SH.local(prefix)),
                                  backend="ref")
         return run, (model, ins)
-    caches = [{k: SH.local(t) for k, t in c.items()} for c in ins["caches"]]
+    caches = decode_caches(ins["caches"])
 
     def run():
         with torch.no_grad():
             return T.decode_step(model, SH.local(ins["token"]), caches,
                                  shape.seq_len - 1, backend="ref")
     return run, (model, ins)
+
+
+def decode_caches(caches: list) -> list:
+    """Rank 0's caches of a decode cell as ``decode_step`` takes them: a
+    cache split along its slots stays a ``DTensor`` (the decode reads its
+    split), every other leaf is this rank's shard."""
+    return [{k: t if SH.cache_split(t) else SH.local(t)
+             for k, t in c.items()} for c in caches]
 
 
 def cell_active(arch: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:

@@ -31,6 +31,7 @@ from .costmodel import cell_cost
 # NVIDIA H100 SXM5 80GB data sheet (700 W):
 PEAK_FLOPS = 989e12          # bf16 tensor core, dense, per card
 HBM_BW = 3.35e12             # HBM3, bytes/s per card
+HBM_BYTES = 80e9             # HBM3 a card
 # NVLink 4: 900 GB/s a card both ways together, 450e9 each way
 NVLINK_BW = 450e9
 # one 400 Gb/s NDR InfiniBand port a card, as in a DGX H100: 50e9 each way

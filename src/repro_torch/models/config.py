@@ -60,7 +60,8 @@ class ArchConfig:
     frontend: Literal["none", "audio_stub", "vision_stub"] = "none"
     n_prefix_embeds: int = 0           # stub frontend tokens (vlm patches …)
     optimizer: Literal["adamw", "adafactor"] = "adamw"
-    remat: Literal["none", "block"] = "block"
+    # "dots": the reference's hillclimb sets it (dataclasses.replace)
+    remat: Literal["none", "block", "dots"] = "block"
     # which shapes support serve_step at 500k ("sub-quadratic" per brief)
     long_context_ok: bool = False
 

@@ -175,7 +175,8 @@ class Attention(nn.Module):
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: int, *, local: bool = False,
                k_scale: torch.Tensor | None = None,
-               v_scale: torch.Tensor | None = None) -> torch.Tensor:
+               v_scale: torch.Tensor | None = None,
+               split=None) -> torch.Tensor:
         """One token x (B, 1, d_model) at position ``pos`` against a
         (B, S_cache, n_kv_heads, d_head) cache.  Writes the token's k/v into
         slot ``pos`` of the caches in place (the reference returns updated
@@ -188,20 +189,31 @@ class Attention(nn.Module):
         float32 per-head scales ``k_scale``/``v_scale`` (B, 1, n_kv_heads,
         1): the token's post-RoPE k/v are written as ``clip(round(k /
         k_scale), -127, 127)``, and the cache is read as ``q.to(x.dtype) *
-        scale.to(x.dtype)``."""
+        scale.to(x.dtype)``.
+
+        ``split`` (``parallel.sharding.CacheSplit``): the caches are this
+        rank's slots ``[split.start, split.start + S_cache)`` of a cache of
+        ``split.total`` slots split over ranks that all run the same token.
+        Each slot's position is reckoned from its global index (a ring's on
+        the global ring length), only the rank that holds slot ``pos``
+        writes it, and the softmax is global: the scores' maximum and the
+        sum of their exponents all-reduced, the probabilities cast to x's
+        dtype, P·V of the rank's slots in float32, all-reduced, then cast
+        to x's dtype."""
         cfg = self.cfg
         B, n = x.shape[0], cache_k.shape[1]
+        start, total = (0, n) if split is None else (split.start, split.total)
         positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
         q, k, v = self.qkv(x, positions)
         window = self.window(local)
-        slots = torch.arange(n, device=x.device)
+        slots = torch.arange(start, start + n, device=x.device)
         if window:
-            if pos >= n and n < window:
-                raise ValueError(f"a ring of {n} slots cannot hold the "
+            if pos >= total and total < window:
+                raise ValueError(f"a ring of {total} slots cannot hold the "
                                  f"window {window} at position {pos}")
-            held = pos - (pos - slots) % n  # each slot's position
+            held = pos - (pos - slots) % total  # each slot's position
             valid = (held >= 0) & (held > pos - window)
-            slot = pos % n
+            slot = pos % total
         else:
             valid = slots <= pos
             slot = pos
@@ -209,8 +221,9 @@ class Attention(nn.Module):
         if int8:
             k = torch.clamp(torch.round(k / k_scale), -127, 127)
             v = torch.clamp(torch.round(v / v_scale), -127, 127)
-        cache_k[:, slot] = k[:, 0]
-        cache_v[:, slot] = v[:, 0]
+        if start <= slot < start + n:
+            cache_k[:, slot - start] = k[:, 0]
+            cache_v[:, slot - start] = v[:, 0]
         if int8:
             keys = cache_k.to(x.dtype) * k_scale.to(x.dtype)
             values = cache_v.to(x.dtype) * v_scale.to(x.dtype)
@@ -222,8 +235,19 @@ class Attention(nn.Module):
                               keys.float()) * (1.0 / math.sqrt(cfg.d_head))
         scores = softcap(scores, cfg.attn_softcap)
         scores = torch.where(valid, scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.einsum("bgrs,bsgd->bgrd", probs, values)
+        if split is None:
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            out = torch.einsum("bgrs,bsgd->bgrd", probs, values)
+        else:
+            top = split.all_reduce(
+                scores.amax(dim=-1, keepdim=True) if n
+                else scores.new_full(scores.shape[:-1] + (1,), -1e30), "max")
+            e = torch.exp(scores - top)
+            probs = (e / split.all_reduce(e.sum(dim=-1, keepdim=True),
+                                          "sum")).to(x.dtype)
+            out = split.all_reduce(torch.einsum(
+                "bgrs,bsgd->bgrd", probs.float(), values.float()), "sum")
+            out = out.to(x.dtype)
         return out.reshape(B, 1, cfg.q_dim) @ self.wo.to(x.dtype)
 
 

@@ -54,10 +54,20 @@ repeated tokens' rows in float32), the norm weights and Mamba-2's scalars
 read in float32.  With ``cfg.remat == "block"`` each group runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference's
 ``jax.checkpoint`` of ``group_body``: its activations are recomputed in
-the backward.  On the card K8 (its window instance in Gemma-2's local
-layers), K9 and K10 (Mamba-2's inter-chunk scan) run with their backward
-kernels (``kernels.ops``); the xLSTM and MoE blocks differentiate through
-plain tensor ops.
+the backward; with ``"dots"`` the outputs of its products without a batch
+dimension are kept and the rest recomputed (:mod:`.remat`).  On the card
+K8 (its window instance in Gemma-2's local layers), K9 and K10 (Mamba-2's
+inter-chunk scan) run with their backward kernels (``kernels.ops``); the
+xLSTM and MoE blocks differentiate through plain tensor ops.
+
+``seq_shard`` (the reference's keyword; :func:`forward`, :func:`loss_fn`,
+:func:`prefill` in modes "train" and "prefill", on a model laid out on a
+mesh with a "model" axis of several ranks): between blocks the residual
+stream is this rank's part of the sequence over "model"; each block
+gathers it whole at its entry and keeps its part at its exit
+(``parallel.sharding.StreamSplit``), so a checkpoint keeps 1/tp of its
+group's input.  Every block runs whole, as every model rank runs it
+without the split: the results are the same bits.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ from ..core.backend.base import resolve_device
 from ..kernels import ops
 from ..kernels.library import is_dtensor
 from . import layers as L
+from . import remat as R
 from . import ssm as SSM
 from . import xlstm as XL
 from .config import ArchConfig
@@ -140,9 +151,15 @@ class Block(nn.Module):
         cfg, eps = self.cfg, self.cfg.norm_eps
         h = ops.rmsnorm(x, self.ln1, eps=eps, backend=backend)
         if mode == "decode":
-            a = self.attn.decode(h, cache["k"], cache["v"], pos,
-                                 local=self.local, k_scale=cache.get("k_s"),
-                                 v_scale=cache.get("v_s"))
+            k, v, split = cache["k"], cache["v"], None
+            if is_dtensor(k):  # this rank's slots of a cache split along S
+                from ..parallel import sharding
+
+                split = sharding.cache_split(k)
+                k, v = k.to_local(), v.to_local()
+            a = self.attn.decode(h, k, v, pos, local=self.local,
+                                 k_scale=cache.get("k_s"),
+                                 v_scale=cache.get("v_s"), split=split)
         else:
             a, k, v = self.attn.prefill(h, cache_len=cache_len,
                                         local=self.local, backend=backend)
@@ -368,22 +385,34 @@ def _check_quantized(model, quantized: bool) -> Transformer:
     return model.skeleton if quantized else model
 
 
-def _train_stack(net: Transformer, x: torch.Tensor,
-                 backend: str) -> torch.Tensor:
+def _run(block, x, seq, **kwargs):
+    """A block on the whole stream: with ``seq`` (a ``StreamSplit``), x is
+    this rank's part, gathered at the entry and split again at the exit."""
+    if seq is None:
+        return block(x, **kwargs)
+    x, cache = block(seq.gather(x), **kwargs)
+    return seq.scatter(x), cache
+
+
+def _train_stack(net: Transformer, x: torch.Tensor, backend: str,
+                 seq=None) -> torch.Tensor:
     """The blocks of a training forward, group by group (each group under
-    ``torch.utils.checkpoint`` with ``remat == "block"`` while autograd
-    records): no caches are kept."""
+    ``torch.utils.checkpoint`` with ``remat`` "block" or "dots", the
+    latter's policy :func:`.remat.dots_policy`, while autograd records): no
+    caches are kept."""
     blocks = net.stack()
     n = len(group_order(net.cfg))
-    remat = net.cfg.remat == "block" and torch.is_grad_enabled()
+    remat = net.cfg.remat != "none" and torch.is_grad_enabled()
+    ctx = R.context_fn(net.cfg.remat)
+    kw = {} if ctx is None else {"context_fn": ctx}
 
     def group(x, g):
         for block in blocks[g * n:(g + 1) * n]:
-            x, _ = block(x, mode="train", backend=backend)
+            x, _ = _run(block, x, seq, mode="train", backend=backend)
         return x
 
     for g in range(net.cfg.n_groups):
-        x = (checkpoint(group, x, g, use_reentrant=False) if remat
+        x = (checkpoint(group, x, g, use_reentrant=False, **kw) if remat
              else group(x, g))
     return x
 
@@ -392,25 +421,40 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None, mode: str = "train",
             caches: list | None = None, pos: int | None = None,
             cache_len: int | None = None, backend: str = "cuda",
-            quantized: bool = False, dtype: torch.dtype | None = None):
+            quantized: bool = False, dtype: torch.dtype | None = None,
+            seq_shard: bool = False):
     """Hidden states through the full stack: returns (h, caches).  Modes
     ``"train"`` (no caches; each group under checkpoint where the config's
-    ``remat`` is ``"block"``), ``"prefill"`` (the prompt's caches, one per
-    block application; the KV caches ``cache_len`` slots long where given)
+    ``remat`` is ``"block"`` or ``"dots"``), ``"prefill"`` (the prompt's
+    caches, one per block application; the KV caches ``cache_len`` slots
+    long where given)
     and ``"decode"`` (one token at ``pos`` against ``caches``, written in
     place).  ``dtype`` is the compute dtype (the model's by default: a
     float32 model trains in bf16 with ``dtype=torch.bfloat16``).  With
     ``quantized``, ``model`` is the int8 model of
     :func:`repro_torch.serve.quantize_params` and each block runs on its
-    weights dequantized just before it."""
+    weights dequantized just before it.  ``seq_shard``: the residual
+    stream split along the sequence over "model" between blocks (modes
+    "train" and "prefill"; see the module's doc); h is whole."""
     net = _check_quantized(model, quantized)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and (caches is None or pos is None):
         raise ValueError("decode takes caches and pos")
     x = _embed(model, tokens, quantized, prefix_embeds, dtype)
+    seq = None
+    if seq_shard and mode != "decode":
+        from ..parallel import sharding
+
+        seq = sharding.stream_split(
+            model.mesh if quantized else sharding.model_mesh(model),
+            x.shape[1])
+        if seq is not None:
+            x = seq.scatter(x)
     if mode == "train" and not quantized:
-        x = _train_stack(net, x, backend)
+        x = _train_stack(net, x, backend, seq)
+        if seq is not None:
+            x = seq.gather(x)
         return ops.rmsnorm(x, model.final_norm, eps=model.cfg.norm_eps,
                            backend=backend), None
     # a local block's ring keeps the last positions: only the global caches
@@ -421,19 +465,28 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
                          f"{x.shape[1]}")
     shared = (model.block_weights(net.shared_attn)
               if quantized and net.shared_attn is not None else None)
+    # an int8 model on a mesh routes MoE rows as Gathered's blocks do
+    token = L.TOKEN_SPLIT.set(getattr(model, "split", None))
     new_caches = []
-    for i, block in enumerate(net.stack()):
-        kwargs = dict(mode=mode, pos=pos, cache_len=cache_len,
-                      backend=backend,
-                      cache=caches[i] if mode == "decode" else None)
-        if quantized:
-            weights = (shared if block is net.shared_attn
-                       else model.block_weights(block))
-            x, cache = functional_call(block, weights, (x,), kwargs)
-            del weights
-        else:
-            x, cache = block(x, **kwargs)
-        new_caches.append(cache)
+    try:
+        for i, block in enumerate(net.stack()):
+            kwargs = dict(mode=mode, pos=pos, cache_len=cache_len,
+                          backend=backend,
+                          cache=caches[i] if mode == "decode" else None)
+            if quantized:
+                weights = (shared if block is net.shared_attn
+                           else model.block_weights(block))
+                x, cache = _run(
+                    lambda x, **kw: functional_call(block, weights, (x,), kw),
+                    x, seq, **kwargs)
+                del weights
+            else:
+                x, cache = _run(block, x, seq, **kwargs)
+            new_caches.append(cache)
+    finally:
+        L.TOKEN_SPLIT.reset(token)
+    if seq is not None:
+        x = seq.gather(x)
     x = ops.rmsnorm(x, model.final_norm, eps=model.cfg.norm_eps,
                     backend=backend)
     return x, (None if mode == "train" else new_caches)
@@ -442,7 +495,7 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
 def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
             *, prefix_embeds: torch.Tensor | None = None,
             vocab_chunk: int = 256, dtype: torch.dtype = torch.bfloat16,
-            backend: str = "cuda") -> torch.Tensor:
+            backend: str = "cuda", seq_shard: bool = False) -> torch.Tensor:
     """The causal LM loss, as the reference's ``loss_fn``: the hidden
     states of :func:`forward` in mode ``"train"`` computing in ``dtype``,
     the prefix's positions trimmed, then the sequence in chunks of c
@@ -450,9 +503,10 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     chunk's float32 logits (after ``final_softcap``) formed under
     ``torch.utils.checkpoint`` while autograd records, so the (B, S, vocab)
     logits never exist at once; ``logsumexp - gold`` summed over the
-    tokens, in chunk order, and divided by B S.  A float32 scalar."""
+    tokens, in chunk order, and divided by B S.  A float32 scalar.
+    ``seq_shard``: :func:`forward`'s."""
     h, _ = forward(model, tokens, prefix_embeds=prefix_embeds, mode="train",
-                   backend=backend, dtype=dtype)
+                   backend=backend, dtype=dtype, seq_shard=seq_shard)
     npre = 0 if prefix_embeds is None else prefix_embeds.shape[1]
     h = h[:, npre:]
     B, S, _ = h.shape
@@ -474,25 +528,30 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     return total / (B * S)
 
 
-def _served(model, quantized: bool):
+def _served(model, quantized: bool, rows_split: bool = True):
     """The model a serving call runs: a model laid out on a mesh
     (``parallel.sharding.shard_model``) seen through
     ``parallel.sharding.Gathered``, as training runs it (each block's
     weights gathered whole at each call, the embedding, final norm and
     unembedding once a call, MoE routing over the rows of every data
-    rank), else the model itself."""
-    if quantized or not is_dtensor(getattr(model, "embed", None)):
+    rank, or over this rank's where ``rows_split`` is false), an int8
+    model on a mesh with the same routing (its weights gathered at use by
+    ``serve.quantize``), else the model itself."""
+    if quantized and hasattr(model, "on_rows"):
+        return model.on_rows(rows_split)
+    if not is_dtensor(getattr(model, "embed", None)):
         return model
     from ..parallel import sharding
 
     return sharding.Gathered(model,
-                             sharding.dp_axes(sharding.model_mesh(model)))
+                             sharding.dp_axes(sharding.model_mesh(model)),
+                             rows_split=rows_split)
 
 
 def prefill(model: Transformer, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None,
             cache_len: int | None = None, backend: str = "cuda",
-            quantized: bool = False):
+            quantized: bool = False, seq_shard: bool = False):
     """Prefill: last-position logits (B, 1, vocab) in float32 and the caches
     for decode.  The KV caches hold the prompt's S positions; with
     ``cache_len`` (>= S) they are allocated that long, zero past the prompt,
@@ -507,11 +566,14 @@ def prefill(model: Transformer, tokens: torch.Tensor, *,
     ``data.pipeline.shard_batch`` splits them), and the logits and caches
     are theirs.  Every rank of the "model" axis computes whole heads, so
     the caches are replicated over it (the reference shards the KV heads
-    over "model").  Every rank of the mesh calls it together."""
+    over "model").  Every rank of the mesh calls it together.
+    ``seq_shard``: :func:`forward`'s; the caches are whole.  For decode
+    against caches split along the sequence, every rank prefills the
+    same rows and ``parallel.sharding.split_caches`` splits the caches."""
     model = _served(model, quantized)
     h, caches = forward(model, tokens, prefix_embeds=prefix_embeds,
                         mode="prefill", cache_len=cache_len, backend=backend,
-                        quantized=quantized)
+                        quantized=quantized, seq_shard=seq_shard)
     return _unembed(model, h[:, -1:], quantized), caches
 
 
@@ -521,8 +583,11 @@ def decode_step(model: Transformer, token: torch.Tensor, caches: list,
     """One decode step: token (B, 1) against the caches at position
     ``pos``.  Returns (logits (B, 1, vocab) float32, caches); the caches are
     updated in place.  On a mesh, this rank's rows and caches
-    (:func:`prefill`)."""
-    model = _served(model, quantized)
+    (:func:`prefill`), or, where the KV caches are split along the sequence
+    (``parallel.sharding.split_caches``: ``DTensor`` k/v), the same rows on
+    every rank against this rank's slots (``layers.Attention.decode``)."""
+    model = _served(model, quantized, rows_split=not any(
+        is_dtensor(c.get("k")) for c in caches))
     h, caches = forward(model, token, mode="decode", caches=caches, pos=pos,
                         backend=backend, quantized=quantized)
     return _unembed(model, h, quantized), caches

@@ -35,8 +35,22 @@ of its uses in the micro-batch, is summed over the data-parallel axes
 replicated) and only sliced over the model axis: every model-axis rank
 computed the same gradient for its rows.  Serving
 (``models.prefill``/``decode_step`` on a sharded model) runs the blocks
-through :class:`Gathered` the same way, with no gradient.  Every
-collective issued here is counted in :mod:`.collectives`.
+through :class:`Gathered` the same way, with no gradient.
+
+Two layouts of activations, as the reference's hillclimb sets them:
+
+  * ``seq_shard`` (:class:`StreamSplit`): between blocks the residual
+    stream is this rank's part of the sequence over "model"; each block
+    gathers it whole at its entry (:class:`_StreamGather`) and keeps its
+    part at its exit (:class:`_StreamPart`), each the other's backward, so
+    every model rank computes the same forward and backward and a
+    checkpoint keeps 1/tp of its group's input;
+  * decode caches split along the sequence (:func:`split_caches`, the
+    reference's ``long_ctx``: a batch of fewer rows than data ranks): the
+    KV caches split over the data axes, then "model", along their slots
+    (:class:`CacheSplit`), every other state replicated.
+
+Every collective issued here is counted in :mod:`.collectives`.
 """
 
 from __future__ import annotations
@@ -198,6 +212,14 @@ def _dtensor(local: torch.Tensor, mesh, place: tuple, shape) -> Any:
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local, mesh, place, run_check=False,
                               shape=shape, stride=stride)
+
+
+def shard_tensor(whole: torch.Tensor, sharding: NamedSharding):
+    """A ``DTensor`` laid out by ``sharding`` holding a copy of this rank's
+    block of ``whole``."""
+    place = sharding.placements
+    index = local_block(whole.shape, place, sharding.mesh)
+    return _dtensor(whole[index].clone(), sharding.mesh, place, whole.shape)
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -462,6 +484,14 @@ class TokenSplit:
         return t
 
 
+def token_split(mesh, dp: tuple[str, ...]) -> TokenSplit | None:
+    """The :class:`TokenSplit` of the dp axes of more than one rank, None
+    where one rank holds every row."""
+    axes = tuple(a for i, a in enumerate(mesh.mesh_dim_names)
+                 if a in dp and mesh.size(i) > 1)
+    return TokenSplit(mesh, axes) if axes else None
+
+
 class _Gather(torch.autograd.Function):
     """A parameter's shard -> the whole parameter; its backward hands the
     whole gradient to the :class:`Gathered` view that made it."""
@@ -503,18 +533,19 @@ class Gathered:
     the gradients of all its uses once (:func:`reduce_to_shard`) and
     hands it to the parameter's ``.grad``.  A block runs with
     :data:`..models.layers.TOKEN_SPLIT` set to the ranks that split the
-    rows (:class:`TokenSplit`, None where one rank holds them all).  Call
+    rows (:class:`TokenSplit`, None where one rank holds them all, or
+    with ``rows_split=False``, where every rank runs the same rows, as a
+    decode against caches split along the sequence does).  Call
     :meth:`backward` on the loss."""
 
     _TOP = ("embed", "final_norm", "unembed")
 
-    def __init__(self, model: nn.Module, dp: tuple[str, ...] = ("data",)):
+    def __init__(self, model: nn.Module, dp: tuple[str, ...] = ("data",),
+                 *, rows_split: bool = True):
         self.model = model
         self.dp = tuple(dp)
-        mesh = model_mesh(model)
-        axes = tuple(a for i, a in enumerate(mesh.mesh_dim_names)
-                     if a in self.dp and mesh.size(i) > 1)
-        self.split = TokenSplit(mesh, axes) if axes else None
+        self.split = (token_split(model_mesh(model), self.dp)
+                      if rows_split else None)
         self._top: dict[str, torch.Tensor] = {}
         self._uses: dict[int, int] = {}
         self._pending: dict[int, torch.Tensor] = {}
@@ -557,3 +588,130 @@ class Gathered:
             raise RuntimeError(f"{len(self._pending)} gathered weights lack "
                                "the gradients of some of their uses")
         self._top.clear()
+
+
+# -- the residual stream split along the sequence (seq_shard) ------------------
+
+@dataclasses.dataclass(frozen=True)
+class StreamSplit:
+    """The sequence (dimension 1, n long) of (B, n, d) activations split
+    over the mesh's "model" axis as torch.chunk splits it: :meth:`part` is
+    this rank's, :meth:`whole` gathers every rank's (an all-gather)."""
+
+    mesh: Any
+    n: int
+
+    @property
+    def _dim(self) -> int:
+        return self.mesh.mesh_dim_names.index("model")
+
+    def part(self, x: torch.Tensor) -> torch.Tensor:
+        i = self._dim
+        start, n = _chunk(self.n, self.mesh.size(i),
+                          self.mesh.get_coordinate()[i])
+        return x.narrow(1, start, n).contiguous()
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        i = self._dim
+        return _gather_dim(x, 1, self.n, self.mesh.get_group(i),
+                           self.mesh.size(i)).contiguous()
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole stream at a block's entry (autograd: its part)."""
+        return _StreamGather.apply(x, self)
+
+    def scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part at a block's exit (autograd: the whole)."""
+        return _StreamPart.apply(x, self)
+
+
+class _StreamGather(torch.autograd.Function):
+    """Part -> whole; the backward keeps this rank's part of the gradient,
+    which every model rank computed whole and alike."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.whole(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.part(g), None
+
+
+class _StreamPart(torch.autograd.Function):
+    """Whole -> part; the backward gathers the parts of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return split.part(x).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.split.whole(g.contiguous()), None
+
+
+def stream_split(mesh, n: int) -> StreamSplit | None:
+    """The split of an n-long sequence over the "model" axis of ``mesh``,
+    None where there is no mesh or the axis has one rank."""
+    names = () if mesh is None else mesh.mesh_dim_names
+    if "model" not in names or mesh.size(names.index("model")) == 1:
+        return None
+    return StreamSplit(mesh, n)
+
+
+# -- decode caches split along the sequence (the reference's long_ctx) ---------
+
+def cache_spec(mesh) -> tuple:
+    """A KV cache's (B, S, n_kv_heads, d_head) spec: the slots over the dp
+    axes, then "model" (the reference's ``P(None, None, dps + ("model",),
+    None, None)`` of its stacked caches)."""
+    axes = dp_axes(mesh) + tuple(a for a in ("model",)
+                                 if a in axis_names(mesh))
+    return (None, axes, None, None)
+
+
+def split_caches(caches: list, mesh) -> list:
+    """A whole prefill's caches (``models.prefill``'s, of a batch every rank
+    runs whole) with each KV cache's ``k`` and ``v`` a ``DTensor`` holding
+    this rank's slots (:func:`cache_spec`); the int8 scales and every
+    other state (Mamba-2's, the xLSTM's) stay whole on every rank."""
+    sh = NamedSharding(mesh, cache_spec(mesh))
+    return [{k: shard_tensor(t, sh) if k in ("k", "v") else t
+             for k, t in c.items()} for c in caches]
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """This rank's slots ``[start, start + n)`` of a cache of ``total``
+    slots split over the mesh dimensions ``dims``, and the sums and maxima
+    over those ranks that a decode's softmax and P·V take."""
+
+    mesh: Any
+    dims: tuple[int, ...]
+    start: int
+    total: int
+
+    def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """``x`` reduced (``"sum"`` or ``"max"``) over the ranks, in
+        place."""
+        red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        for i in self.dims:
+            if self.mesh.size(i) > 1:
+                dist.all_reduce(x, op=red, group=self.mesh.get_group(i))
+                collectives.record("all-reduce", x)
+        return x
+
+
+def cache_split(t) -> CacheSplit | None:
+    """The :class:`CacheSplit` of a cache split along its slots (dimension
+    1), None for any other tensor."""
+    if not is_dtensor(t):
+        return None
+    dims = tuple(i for i, p in enumerate(t.placements)
+                 if p.is_shard() and p.dim == 1)
+    if not dims:
+        return None
+    s = local_block(t.shape, t.placements, t.device_mesh)[1]
+    return CacheSplit(t.device_mesh, dims, s.start, t.shape[1])

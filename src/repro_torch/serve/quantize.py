@@ -31,15 +31,27 @@ int8 bytes stay resident, and at most one block's dequantized weights (and
 the shared block's, dequantized up front as the reference does) exist at
 a time.  On a ``meta`` model :func:`quantize_params` gives the shapes only
 (the reference's ``quantized_pdefs``).
+
+On a mesh (:func:`shard_quantized`; :func:`abstract_quantized` for the dry
+run, on the meta device): each ``q`` is laid out as its parameter is
+(``parallel.sharding.param_shardings``), each ``s`` the same with its last
+axis whole (the reference's ``quantized_pdefs``: ``d.axes[:-1] +
+(None,)``), each float parameter as itself.  Every rank keeps its blocks;
+a block's ``q`` and ``s`` are gathered whole at its use and dequantized as
+on one process, so a sharded int8 model computes the unsharded one's bits.
 """
 
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch import nn
 
+from ..kernels.library import is_dtensor
 from ..models.transformer import Transformer
 from ..models.weights import reference_paths
+from ..parallel import sharding as SH
 
 
 def _quantize(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,8 +62,10 @@ def _quantize(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """The reference's ``dequantize`` of one leaf: a bf16 product."""
-    return q.to(torch.bfloat16) * s.to(torch.bfloat16)
+    """The reference's ``dequantize`` of one leaf (each gathered whole where
+    it is a shard): a bf16 product."""
+    return (SH.full_tensor(q).to(torch.bfloat16)
+            * SH.full_tensor(s).to(torch.bfloat16))
 
 
 def _quantizes(name: str, p: torch.Tensor) -> bool:
@@ -65,11 +79,15 @@ class QuantizedModel:
     ``q``/``s`` (parameter name -> int8 values, float32 scales) for the
     parameters that quantize, ``plain`` (name -> float tensor) for the
     rest, and ``skeleton``, the model on the ``meta`` device in the compute
-    dtype ``dtype``, whose blocks run on the dequantized weights."""
+    dtype ``dtype``, whose blocks run on the dequantized weights.  On a
+    mesh the tensors are ``DTensor`` shards (:func:`shard_quantized`), and
+    ``split`` is the ``parallel.sharding.TokenSplit`` a serving call's MoE
+    routes over (:meth:`on_rows`)."""
 
     def __init__(self, skeleton: Transformer, q: dict, s: dict,
                  plain: dict):
         self.skeleton, self.q, self.s, self.plain = skeleton, q, s, plain
+        self.split = None
         self._prefix = {id(m): name for name, m in skeleton.named_modules()}
 
     @property
@@ -82,11 +100,17 @@ class QuantizedModel:
 
     @property
     def device(self) -> torch.device:
-        return self.q["embed"].device
+        return SH.local(self.q["embed"]).device
+
+    @property
+    def mesh(self):
+        """The mesh the int8 weights lie on, or None."""
+        q = self.q["embed"]
+        return q.device_mesh if is_dtensor(q) else None
 
     @property
     def final_norm(self) -> torch.Tensor:
-        return self.plain["final_norm"]
+        return SH.full_tensor(self.plain["final_norm"])
 
     def with_dtype(self, dtype: torch.dtype) -> QuantizedModel:
         """The same int8 weights computing in ``dtype``."""
@@ -94,14 +118,29 @@ class QuantizedModel:
                                           device="meta"),
                               self.q, self.s, self.plain)
 
+    def on_rows(self, rows_split: bool = True) -> QuantizedModel:
+        """The model a serving call runs: on a mesh, this model with its
+        MoE routing over the rows of every data rank (over this rank's
+        own where ``rows_split`` is false, as ``sharding.Gathered``);
+        off a mesh, the model itself."""
+        mesh = self.mesh
+        if mesh is None:
+            return self
+        out = copy.copy(self)
+        out.split = (SH.token_split(mesh, SH.dp_axes(mesh)) if rows_split
+                     else None)
+        return out
+
     def nbytes(self) -> int:
-        """Bytes of every resident tensor: q, s and the float parameters."""
-        return sum(t.numel() * t.element_size()
+        """Bytes of every resident tensor (this rank's shards): q, s and
+        the float parameters."""
+        return sum(SH.local(t).numel() * t.element_size()
                    for d in (self.q, self.s, self.plain) for t in d.values())
 
     def embed_rows(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding's rows of ``tokens``, dequantized (bf16)."""
-        return _dequantize(self.q["embed"][tokens], self.s["embed"][tokens])
+        return _dequantize(SH.full_tensor(self.q["embed"])[tokens],
+                           SH.full_tensor(self.s["embed"])[tokens])
 
     def unembed_weight(self) -> torch.Tensor:
         """The (d_model, vocab) unembedding, dequantized (bf16)."""
@@ -118,7 +157,7 @@ class QuantizedModel:
         for name, p in block.named_parameters():
             full = f"{prefix}.{name}"
             w = (_dequantize(self.q[full], self.s[full]) if full in self.q
-                 else self.plain[full])
+                 else SH.full_tensor(self.plain[full]))
             out[name] = w.to(p.dtype)
         return out
 
@@ -136,6 +175,43 @@ def quantize_params(model: Transformer) -> QuantizedModel:
             q[name], s[name] = _quantize(p)
         else:
             plain[name] = p.detach().clone()
+    return QuantizedModel(skeleton, q, s, plain)
+
+
+def scale_sharding(sh: SH.NamedSharding) -> SH.NamedSharding:
+    """An ``s``'s layout: its ``q``'s with the last axis whole."""
+    return SH.NamedSharding(sh.mesh, sh.spec[:-1] + (None,))
+
+
+@torch.no_grad()
+def shard_quantized(qmodel: QuantizedModel, mesh) -> QuantizedModel:
+    """``qmodel`` (whole, on this rank's device) laid out on ``mesh``: this
+    rank's blocks of each ``q`` (its parameter's layout), ``s`` (the same,
+    the last axis whole) and float parameter, copied."""
+    specs = SH.param_shardings(qmodel.skeleton, mesh)
+    return QuantizedModel(
+        qmodel.skeleton,
+        {n: SH.shard_tensor(t, specs[n]) for n, t in qmodel.q.items()},
+        {n: SH.shard_tensor(t, scale_sharding(specs[n]))
+         for n, t in qmodel.s.items()},
+        {n: SH.shard_tensor(t, specs[n]) for n, t in qmodel.plain.items()})
+
+
+def abstract_quantized(cfg, mesh, dtype=torch.bfloat16) -> QuantizedModel:
+    """The int8 model of ``cfg`` computing in ``dtype`` laid out on
+    ``mesh`` as :func:`shard_quantized` lays it out, its shards on the meta
+    device (no allocation): the dry run's int8 model."""
+    skeleton = Transformer(cfg, dtype=dtype, device="meta")
+    specs = SH.param_shardings(skeleton, mesh)
+    q, s, plain = {}, {}, {}
+    for name, p in skeleton.named_parameters():
+        shape, sh = tuple(p.shape), specs[name]
+        if _quantizes(name, p):
+            q[name] = SH.abstract_tensor(shape, torch.int8, sh)
+            s[name] = SH.abstract_tensor(shape[:-1] + (1,), torch.float32,
+                                         scale_sharding(sh))
+        else:
+            plain[name] = SH.abstract_tensor(shape, p.dtype, sh)
     return QuantizedModel(skeleton, q, s, plain)
 
 

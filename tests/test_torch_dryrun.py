@@ -10,8 +10,11 @@ reference's ``repro.launch.dryrun``.
   layout (the reference's takes that of the first parameter of its
   shape, and replicates Adafactor's factored statistics), and Mamba-2's
   conv cache is in the model's dtype (the reference's ``init_caches`` makes
-  it float32).  The ``long_500k`` decode cells raise ``NotImplementedError``
-  naming ROADMAP item 10b.
+  it float32).  The ``long_500k`` decode cells (one row against the data
+  ranks, the reference's ``long_ctx``) split their KV caches along the
+  sequence over the data axes, then "model", as the reference's; their
+  other states are replicated (the reference's with "model" dropped, as
+  the row-split cells' are).
 * Smoke configs on a fake (2, 2) mesh: the argument bytes are the sum of
   the local shards, and the collectives counted in a step are those
   ``parallel.sharding.Gathered``'s rules give.
@@ -121,6 +124,7 @@ def _dtype(t) -> str:
 
 def _same(t, want, *, stacked=False, drop=(), dtype=True):
     shape, wdtype, spec = want
+    spec = spec + [None] * (len(shape) - len(spec))  # P(): all replicated
     if stacked:  # the reference's leading layer axis
         shape, spec = shape[1:], spec[1:]
     assert list(t.shape) == shape
@@ -176,10 +180,7 @@ def test_specs_equal_the_reference_s(reference, fake, arch, mesh_name):
     for s in D.SHAPE_NAMES:
         shape = SHAPE_BY_NAME[s]
         want = reference[f"{mp}/{arch}/{s}"]
-        if shape.kind == "decode" and shape.global_batch < n_dp:
-            with pytest.raises(NotImplementedError, match="10b"):
-                D.input_specs(cfg, shape, mesh)
-            continue
+        long_ctx = shape.kind == "decode" and shape.global_batch < n_dp
         got = D.input_specs(cfg, shape, mesh)
         caches = got.pop("caches", [])
         for k, t in got.items():
@@ -192,7 +193,10 @@ def test_specs_equal_the_reference_s(reference, fake, arch, mesh_name):
             g = i // (len(keys) // cfg.n_groups)
             for leaf, t in c.items():
                 w = want[f"caches/{key}/{leaf}"]
-                _same(t, w, stacked=True, drop=("model",),
+                split = long_ctx and leaf in ("k", "v")
+                if split:  # the slots over the data axes, then "model"
+                    assert w[2][2] == list(SH.dp_axes(mesh)) + ["model"]
+                _same(t, w, stacked=True, drop=() if split else ("model",),
                       dtype=not (leaf == "conv"))
                 assert g < w[0][0]
         assert {f"caches/{k}/{leaf}" for k, c in zip(keys, caches)
@@ -388,7 +392,8 @@ def test_one_step_scan_keeps_the_scan_s_shapes():
 
 def test_the_fake_backend_is_imported_only_by_the_dry_run_s_entry():
     code = ("import sys, repro_torch.launch.dryrun, "
-            "repro_torch.launch.roofline, repro_torch.launch.costmodel; "
+            "repro_torch.launch.roofline, repro_torch.launch.costmodel, "
+            "repro_torch.launch.hillclimb; "
             "bad = [m for m in sys.modules if 'fake_pg' in m or "
             "m.split('.')[0] in ('jax', 'repro')]; assert not bad, bad")
     r = subprocess.run([sys.executable, "-c", code],

@@ -75,7 +75,8 @@ def test_port_import_loads_no_jax():
             "repro_torch.train.checkpoint, repro_torch.train.elastic, "
             "repro_torch.parallel.compression, repro_torch.data.pipeline, "
             "repro_torch.launch.train, repro_torch.launch.mesh, "
-            "repro_torch.parallel.sharding; "
+            "repro_torch.parallel.sharding, repro_torch.models.remat, "
+            "repro_torch.serve, repro_torch.launch.hillclimb; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -13,6 +13,14 @@ the ring wraps in the decode).  Meshes (2, 1), (1, 2) and (2, 2).  Every
 step's logits are within 1e-5 of the largest |logit| of the one-process
 run, the greedy tokens are the same, and so are the final caches (1e-5 of
 each cache's largest |value|).
+
+int8 weights on a mesh (``serve.quantize.shard_quantized``: each ``q``
+laid out as its weight, each ``s`` the same with its last axis whole,
+gathered at use): Granite-8B, Zamba2-7B (the shared block, dequantized up
+front) and Gemma-2-2B (the tied table), quantized from the float32
+masters of ``init_params(seed=0)``, serve the same rows as above with
+``quantized=True``: logits and caches bit-equal to the unsharded int8
+model serving the same rows.
 """
 
 import json
@@ -37,6 +45,8 @@ FAMILIES = {
     "gemma2": ("gemma2_2b", {"window": 8}),
 }
 MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
+INT8 = {"granite-int8": "granite_8b", "zamba2-int8": "zamba2_7b",
+        "gemma2-int8": "gemma2_2b"}
 
 COMMON = r"""
 import dataclasses
@@ -55,24 +65,30 @@ def prompt(cfg, B, S):
     rng = np.random.default_rng(7)
     return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
 
-def serve(model, tokens, S, steps, prefill, decode_step):
+def serve(model, tokens, S, steps, prefill, decode_step, **kw):
     with torch.no_grad():
         logits, caches = prefill(model, tokens, cache_len=S + steps,
-                                 backend="ref")
+                                 backend="ref", **kw)
         out = [logits[:, -1]]
         for i in range(steps):
             tok = out[-1].argmax(-1, keepdim=True)
             logits, caches = decode_step(model, tok, caches, S + i,
-                                         backend="ref")
+                                         backend="ref", **kw)
             out.append(logits[:, -1])
     return torch.stack(out, 1), caches
+
+def int8_model(arch):
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.serve import quantize_params
+    return quantize_params(init_params(Transformer(
+        config(arch, {}), dtype=torch.float32, device="cpu"), seed=0))
 """
 
 WORKER = COMMON + r"""
 import datetime, json, sys
 from pathlib import Path
 import torch.distributed as dist
-rank, world, init, out, shape, fams = sys.argv[1:7]
+rank, world, init, out, shape, fams, int8 = sys.argv[1:8]
 rank, world, shape = int(rank), int(world), tuple(json.loads(shape))
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=init, rank=rank,
@@ -93,6 +109,14 @@ for fam, (arch, changes) in json.loads(fams).items():
                            prefill, decode_step)
     torch.save({"rows": rows, "logits": logits, "caches": caches},
                Path(out) / f"{fam}-{rank}.pt")
+from repro_torch.serve import shard_quantized
+for fam, arch in json.loads(int8).items():
+    cfg = config(arch, {})
+    model = shard_quantized(int8_model(arch), mesh)
+    logits, caches = serve(model, prompt(cfg, B, S)[rows], S, STEPS,
+                           prefill, decode_step, quantized=True)
+    torch.save({"rows": rows, "logits": logits, "caches": caches},
+               Path(out) / f"{fam}-{rank}.pt")
 dist.destroy_process_group()
 """
 
@@ -111,7 +135,7 @@ def runs(tmp_path_factory):
         procs += [subprocess.Popen(
             [sys.executable, "-c", WORKER, str(r), str(world),
              f"file://{tmp}/rdv-{name}", str(out), json.dumps(shape),
-             json.dumps(FAMILIES)],
+             json.dumps(FAMILIES), json.dumps(INT8)],
             env=_env(tmp), cwd=tmp, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for r in range(world)]
     _wait(procs, "serving on (2, 1), (1, 2) and (2, 2)")
@@ -157,6 +181,23 @@ def test_sharded_serving_equals_one_process(runs, mesh, fam):
             assert (t - w).abs().max().item() <= 1e-5 * max(
                 w.abs().max().item(), 1e-30), (r, i, k)
     assert seen.all()
+
+
+@pytest.mark.parametrize("fam", list(INT8))
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_int8_serving_on_a_mesh_equals_the_unsharded_int8_model(runs, mesh,
+                                                                fam):
+    cfg = config(INT8[fam], {})
+    model = int8_model(INT8[fam])
+    world = MESHES[mesh][0] * MESHES[mesh][1]
+    for r in range(world):
+        got = torch.load(runs / mesh / f"{fam}-{r}.pt")
+        logits, caches = serve(model, prompt(cfg, B, S)[got["rows"]], S,
+                               STEPS, prefill, decode_step, quantized=True)
+        assert torch.equal(got["logits"], logits), r
+        for (i, k, t), (_, _, w) in zip(_leaves(got["caches"]),
+                                        _leaves(caches)):
+            assert torch.equal(t, w), (r, i, k)
 
 
 def test_capacity_family_drops_in_decode_and_prefill(monkeypatch):
